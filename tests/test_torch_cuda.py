@@ -1,0 +1,100 @@
+"""Kernels K1 and K2 on a CUDA card against their plain PyTorch
+versions, and TorchStateMachine on the card against the CPU run.  They
+skip without a card; on one, run them with
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
+
+(`--noconftest`: the suite's conftest imports the JAX package, which a
+machine with the card need not have.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tigerbeetle_tpu_torch import kernels, workload
+from tigerbeetle_tpu_torch.state_machine import commitment as cm
+from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
+from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _tables(rng, A):
+    lo = rng.integers(-(1 << 63), (1 << 63) - 1, (A, 4), dtype=np.int64)
+    hi = rng.integers(0, 1 << 40, (A, 4), dtype=np.int64)
+    meta = np.ones((A, 2), np.int32)
+    return (torch.from_numpy(np.stack([lo, hi], -1).reshape(A, 8)),
+            torch.from_numpy(meta))
+
+
+@pytest.mark.parametrize("mode", [dk.MODE_FULL, dk.MODE_LO, dk.MODE_TIGHT])
+def test_orderfree_kernel_matches_plain(card, mode):
+    rng = np.random.default_rng(mode)
+    A, B = 4096, dk.B
+    table, meta = _tables(rng, A)
+    dr = rng.integers(0, A, B)
+    cr = (dr + 1) % A
+    if mode == dk.MODE_TIGHT:
+        pk = np.zeros((B, dk.N_COLS_TIGHT), np.uint32)
+        pk[:, 0] = dk.TIGHT_CODE_BIT
+        pk[:, 1], pk[:, 2], pk[:, 3], pk[:, 4] = dr + 1, cr + 1, rng.integers(1, 100, B), 1
+        pk[:70, 1] = 0
+        pk_t = torch.from_numpy(pk.view(np.int32))
+    else:
+        pk = np.zeros((B, dk.N_COLS), np.uint64)
+        pk[:, dk.COL_SLOTS] = (dr + 1).astype(np.uint64) | (
+            (cr + 1).astype(np.uint64) << np.uint64(32)
+        )
+        pk[:, dk.COL_AMT_LO] = rng.integers(1, 1 << 63, B).astype(np.uint64)
+        pk[:, dk.COL_AMT_HI] = rng.integers(0, 1 << 20, B).astype(np.uint64)
+        pk[:, dk.COL_MISC] = np.uint64(1 << 16) | np.uint64(1 << 32)
+        pk_t = torch.from_numpy(pk.view(np.int64))
+    ring = torch.zeros((8, dk.SUMMARY_WORDS), dtype=torch.int64)
+    t_p, r_p = table.clone(), ring.clone()
+    dk.orderfree_plain(t_p, meta, r_p, 3, pk_t, B - 5, 1 << 40, mode=mode)
+    t_k, r_k = table.to(card), ring.to(card)
+    before = kernels.launches["orderfree"]
+    dk.orderfree(t_k, meta.to(card), r_k, 3, pk_t.to(card), B - 5, 1 << 40, mode=mode)
+    torch.cuda.synchronize()
+    assert kernels.launches["orderfree"] == before + 1
+    assert torch.equal(t_k.cpu(), t_p) and torch.equal(r_k.cpu(), r_p)
+
+
+def test_commitment_kernels_match_plain(card):
+    rng = np.random.default_rng(5)
+    table, meta = _tables(rng, 5000)
+    rows = torch.arange(5000)
+    rh_p, dg_p = cm.rebuild_plain(table, meta, rows)
+    rh_k, dg_k = cm.rebuild(table.to(card), meta.to(card), rows.to(card))
+    assert torch.equal(rh_k.cpu(), rh_p) and torch.equal(dg_k.cpu(), dg_p)
+    slots = torch.from_numpy(cm.pad_slots(np.sort(rng.choice(5000, 300, replace=False))))
+    table[slots[:300], 5] += 3
+    cm.update_plain(table, meta, rh_p, dg_p, slots, slots)
+    cm.update(table.to(card), meta.to(card), rh_k, dg_k, slots.to(card), slots.to(card))
+    assert torch.equal(rh_k.cpu(), rh_p) and torch.equal(dg_k.cpu(), dg_p)
+    got = cm.probe(table.to(card), meta.to(card), dg_k, rows.to(card))
+    assert torch.equal(got.cpu(), cm.probe_plain(table, meta, dg_p, rows))
+
+
+def test_state_machine_on_card_matches_cpu(card):
+    setup, timed, sizing = workload.gen_simple(20_000, batch=2000)
+    ops = setup + timed
+    roots, replies = [], []
+    for device in (None, "cpu"):
+        sm = TorchStateMachine(account_capacity=sizing[0], transfer_capacity=sizing[1],
+                               device=device)
+        h = SingleNodeHarness(sm)
+        futs = [h.submit_async(op, body) for op, body in ops]
+        replies.append([f.result() for f in futs])
+        sm.verify_device_mirror()
+        roots.append(sm.state_root())
+    assert replies[0] == replies[1] and roots[0] == roots[1]

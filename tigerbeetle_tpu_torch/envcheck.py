@@ -1,0 +1,82 @@
+"""Validated environment-variable parsing (the knobs this port reads).
+
+A bad value fails fast with an error naming the variable, the value
+and the constraint — the same contract as the reference package's
+``envcheck.py``.
+"""
+
+from __future__ import annotations
+
+import os
+
+
+class EnvVarError(ValueError):
+    """An environment variable holds an unusable value."""
+
+
+def _fail(name: str, raw: str, why: str):
+    raise EnvVarError(f"{name}={raw!r} invalid: {why}")
+
+
+def env_int(
+    name: str,
+    default: int,
+    *,
+    minimum: int | None = None,
+    maximum: int | None = None,
+) -> int:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        value = int(raw)
+    except ValueError:
+        _fail(name, raw, "expected an integer")
+    if minimum is not None and value < minimum:
+        _fail(name, raw, f"must be >= {minimum}")
+    if maximum is not None and value > maximum:
+        _fail(name, raw, f"must be <= {maximum}")
+    return value
+
+
+def env_str(name: str, default: str | None = None) -> str | None:
+    """String-valued knob; empty counts as unset."""
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    return raw
+
+
+def dev_b() -> int:
+    """TB_DEV_B: the device batch bucket (events per kernel launch), a
+    power of two <= 8192 (8190 is the wire batch maximum)."""
+    b = env_int("TB_DEV_B", 8192, minimum=1, maximum=8192)
+    if b & (b - 1) != 0:
+        raise EnvVarError(f"TB_DEV_B={b} invalid: must be a power of 2 <= 8192")
+    return b
+
+
+def dev_window() -> int:
+    """TB_DEV_WINDOW: batches per execution window (one ring fetch)."""
+    return env_int("TB_DEV_WINDOW", 96, minimum=1)
+
+
+def dev_ring() -> int:
+    """TB_DEV_RING: rows of the device summary ring."""
+    return env_int("TB_DEV_RING", 256, minimum=2)
+
+
+def validate_window_ring(window: int, ring: int) -> None:
+    if 2 * window > ring:
+        raise EnvVarError(
+            f"TB_DEV_WINDOW={window} / TB_DEV_RING={ring} invalid: the "
+            "summary ring must hold two windows (2*TB_DEV_WINDOW <= "
+            "TB_DEV_RING)"
+        )
+
+
+def state_commit() -> int:
+    """TB_STATE_COMMIT: 1 (default) maintains the incremental state
+    commitment on the host mirror and on the device; 0 disables it
+    (roots are then computed from scratch on demand)."""
+    return env_int("TB_STATE_COMMIT", 1, minimum=0, maximum=1)

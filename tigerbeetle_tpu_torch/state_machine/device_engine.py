@@ -1,0 +1,628 @@
+"""Device-authoritative execution pipeline for create_transfers.
+
+Counterpart of ``tigerbeetle_tpu/state_machine/device_engine.py``,
+reduced to the order-free slice.  The engine owns the authoritative
+device tables — balances (A, 8) int64 (u64 lanes), account meta (A, 2)
+int32 (flags, ledger) — and a stream of semantic batches.  The host
+submits packed batches and gets back reply futures; result codes are
+computed on the device (kernel K1), ride the failure-sparse summary
+ring, and materialize once per execution window:
+
+  submit()  appends the packed batch to a host-side window; nothing
+            is launched until the window fills (TB_DEV_WINDOW).
+  rotate    at the window boundary: (1) fetch the summary ring of the
+            PREVIOUS window (the one synchronisation per window); (2)
+            upload the new window's batches in one copy per input
+            layout; (3) launch every batch of the new window back to
+            back on one stream, then one commitment update (K2) over
+            the window's touched rows; (4) only then run the previous
+            window's host bookkeeping, overlapped with the device.
+
+A batch whose summary carries a flag (balance overflow in play, or more
+failures than the summary holds) triggers exact recovery before the
+next window launches: the batch is re-executed on the host against the
+mirror, the table is re-uploaded from the mirror (K2 rebuild), and
+every later batch of the window is launched again.
+
+The window, ring and recovery structure and the knob defaults are the
+reference's, which a high-latency TPU link shaped; they are to be
+retuned once the H100 is measured.  Not ported yet (ROADMAP): the link
+seam and chaos shim, the degraded lifecycle and scrubs, the
+write-behind flush of host-resolved batches, hot/cold tiering, wave and
+speculative dispatch, row sharding.
+"""
+
+from __future__ import annotations
+
+import time as _time
+
+import numpy as np
+import torch
+
+from tigerbeetle_tpu_torch import envcheck
+from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
+from tigerbeetle_tpu_torch.state_machine import commitment as cm
+from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
+
+_WINDOW = envcheck.dev_window()
+_RING = envcheck.dev_ring()
+envcheck.validate_window_ring(_WINDOW, _RING)
+
+_SEMANTIC_KINDS = tuple(dk.KIND_MODE)
+_MASK32_NP = np.uint64(0xFFFFFFFF)
+
+
+class ReplyFuture:
+    """Reply bytes that materialize at the batch's window rotation;
+    ``result()`` drains the engine if they have not yet."""
+
+    __slots__ = ("_value", "_engine")
+
+    def __init__(self, engine=None, value: bytes | None = None) -> None:
+        self._value = value
+        self._engine = engine
+
+    def done(self) -> bool:
+        return self._value is not None
+
+    def resolve(self, value: bytes) -> None:
+        self._value = value
+
+    def result(self) -> bytes:
+        if self._value is None and self._engine is not None:
+            self._engine.drain()
+        if self._value is None:
+            raise RuntimeError("reply never materialized")
+        return self._value
+
+
+class _InFlight:
+    """One stream entry, in submission order: a semantic batch, a
+    lookup gather, or an account-meta update."""
+
+    __slots__ = (
+        "kind", "pk", "n", "ts_base", "finish", "fallback", "future",
+        "ring_at", "id_keys", "handle", "slots", "rows", "meta_args",
+    )
+
+    def __init__(self, kind, future, finish, *, pk=None, n=0, ts_base=0,
+                 fallback=None, id_keys=None, slots=None, meta_args=None):
+        self.kind = kind
+        self.pk = pk
+        self.n = n
+        self.ts_base = ts_base
+        self.finish = finish
+        self.fallback = fallback
+        self.future = future
+        self.ring_at = -1
+        self.id_keys = id_keys  # sorted u128-packed ids (hazard probes)
+        self.handle = None      # lookup gather, fetched at rotation
+        self.slots = slots      # lookup slots
+        self.rows = None        # fetched lookup rows
+        self.meta_args = meta_args  # (slots, flags, ledger) for "meta"
+
+
+def _touched_of_pk(kind: str, pk, n: int) -> np.ndarray:
+    """Balance rows a packed order-free batch can modify, read from the
+    host copy of the packed columns (a superset is fine — refreshing
+    an unmodified row is a no-op)."""
+    pk = np.asarray(pk)
+    if kind == "orderfree_tight":
+        s = np.concatenate(
+            [pk[:n, 1].astype(np.int64), pk[:n, 2].astype(np.int64)]
+        ) - 1
+        return s[s >= 0]
+    w = pk[:n, dk.COL_SLOTS]
+    s = np.concatenate(
+        [
+            (w & _MASK32_NP).astype(np.int64) - 1,
+            (w >> np.uint64(32)).astype(np.int64) - 1,
+        ]
+    )
+    return s[s >= 0]
+
+
+def _host_tensor(array: np.ndarray, device) -> torch.Tensor:
+    """numpy u64/u32 array -> int64/int32 tensor with the same bits."""
+    a = np.ascontiguousarray(array)
+    if a.dtype.itemsize == 8:
+        return from_u64(a, device)
+    return torch.from_numpy(a.view(np.int32)).to(device)
+
+
+class DeviceEngine:
+    """Authoritative device tables + windowed semantic dispatch.
+
+    `plain=True` runs the plain PyTorch versions of the kernels on the
+    engine's device instead of K1/K2 — the reference run the chip smoke
+    test compares the kernels' end-to-end results against."""
+
+    def __init__(self, capacity: int, mirror, device, plain: bool = False) -> None:
+        self.capacity = capacity
+        self.mirror = mirror  # host bookkeeping copy (recovery + parity)
+        self.device = device
+        self.window = _WINDOW
+        if plain:
+            self._orderfree = dk.orderfree_plain
+            self._cm = cm.PLAIN_FNS
+        else:
+            self._orderfree = dk.orderfree
+            self._cm = cm.device_fns()
+        self._commit_enabled = envcheck.state_commit() == 1
+        # Stat counters (the reference's names).
+        self.stat_semantic_events = 0
+        self.stat_fallback_batches = 0
+        self.stat_fetches = 0
+        self.stat_commit_updates = 0
+        self.stat_t_h2d = 0.0
+        self.stat_t_dispatch = 0.0
+        self.stat_t_fetch = 0.0
+        self.stat_t_finish = 0.0
+        self._meta_host = np.zeros((capacity, 2), np.uint32)
+        self.ring = torch.zeros(
+            (_RING, dk.SUMMARY_WORDS), dtype=torch.int64, device=device
+        )
+        self._ring_at = 0
+        # Incremental state commitment: device per-row hashes + fold,
+        # with the bit-identical host twin on mirror.commitment.
+        self.dev_row_hash = None
+        self.dev_digest = None
+        if self._commit_enabled and mirror.commitment is None:
+            mirror.commitment = cm.HostCommitment(capacity, meta_fn=self._twin_meta)
+        self.balances = torch.zeros((capacity, 8), dtype=torch.int64, device=device)
+        self.meta = torch.zeros((capacity, 2), dtype=torch.int32, device=device)
+        self._scratch = self._new_scratch()
+        self._commit_rebuild()
+        # Window pipeline: _pending accumulates host-side; _launched is
+        # the window executing on the device; _recovering holds a
+        # window mid-recovery, detached so a re-entrant drain cannot
+        # rotate it.
+        self._pending: list[_InFlight] = []
+        self._pending_semantic = 0
+        self._launched: list[_InFlight] = []
+        self._recovering: list[_InFlight] = []
+        # Re-execution of a flagged batch updates the mirror only; the
+        # device receives the result through the re-upload after it.
+        self._suppress_enqueue = False
+
+    def _new_scratch(self):
+        if self.device.type == "cpu":
+            return None
+        return dk.OrderfreeScratch(self.capacity, dk.B, self.device)
+
+    # ------------------------------------------------------------------
+    # Moving state in and out (bit for bit, numpy u64/u32 layouts).
+
+    def from_numpy_tables(self, balances_u64, meta_u32, row_hash_u64=None,
+                          digest_u64=None) -> None:
+        """Replace the device tables from numpy (A, 8) u64 balances and
+        (A, 2) u32 meta.  Row hashes + digest are taken as given when
+        supplied, else rebuilt on the device.  The engine must hold no
+        in-flight work."""
+        if self.has_inflight():
+            raise RuntimeError("from_numpy_tables with batches in flight")
+        balances_u64 = np.asarray(balances_u64, np.uint64)
+        meta_u32 = np.asarray(meta_u32, np.uint32)
+        if balances_u64.shape != (self.capacity, 8) or meta_u32.shape != (self.capacity, 2):
+            raise ValueError(
+                f"tables must be ({self.capacity}, 8) and ({self.capacity}, 2), "
+                f"got {balances_u64.shape} and {meta_u32.shape}"
+            )
+        self.balances = _host_tensor(balances_u64, self.device)
+        self.meta = _host_tensor(meta_u32, self.device)
+        self._meta_host = meta_u32.copy()
+        if row_hash_u64 is None or not self._commit_enabled:
+            self._commit_rebuild()
+        else:
+            self.dev_row_hash = _host_tensor(np.asarray(row_hash_u64, np.uint64), self.device)
+            self.dev_digest = _host_tensor(np.asarray(digest_u64, np.uint64), self.device)
+
+    def to_numpy_tables(self):
+        """(balances (A, 8) u64, meta (A, 2) u32, row_hash (A, 2) u64 or
+        None, digest (2,) u64 or None) — drains first."""
+        self.drain()
+        meta = self.meta.cpu().numpy().view(np.uint32)
+        if self.dev_row_hash is None:
+            return to_u64(self.balances), meta, None, None
+        return (
+            to_u64(self.balances), meta, to_u64(self.dev_row_hash),
+            to_u64(self.dev_digest),
+        )
+
+    # ------------------------------------------------------------------
+    # Account meta maintenance (create_accounts path).  Rides the
+    # record stream so updates sequence between the batches around
+    # them without forcing a drain.
+
+    def add_accounts(self, slots, acct_flags, acct_ledger) -> None:
+        slots = np.asarray(slots, np.int64)
+        self._meta_host[slots, 0] = acct_flags
+        self._meta_host[slots, 1] = acct_ledger
+        if self.mirror.commitment is not None:
+            self.mirror.commitment.refresh(slots, self.mirror)
+        self._queue_meta(
+            slots,
+            np.broadcast_to(np.asarray(acct_flags, np.uint32), slots.shape).copy(),
+            np.broadcast_to(np.asarray(acct_ledger, np.uint32), slots.shape).copy(),
+        )
+
+    def _queue_meta(self, slots, flags_u32, ledger_u32) -> None:
+        self._pending.append(
+            _InFlight("meta", None, None, meta_args=(slots, flags_u32, ledger_u32))
+        )
+
+    def grow(self, capacity: int) -> None:
+        if capacity <= self.capacity:
+            return
+        self.drain()
+        extra = capacity - self.capacity
+        grown = np.zeros((capacity, 2), np.uint32)
+        grown[: self.capacity] = self._meta_host
+        self._meta_host = grown
+        self.capacity = capacity
+        self.balances = torch.cat(
+            [self.balances, self.balances.new_zeros((extra, 8))]
+        )
+        self.meta = torch.cat([self.meta, self.meta.new_zeros((extra, 2))])
+        self._scratch = self._new_scratch()
+        # Zero rows hash to 0, so the digest VALUE is unchanged, but the
+        # per-row hash array must match the new geometry.
+        self._commit_rebuild()
+
+    # ------------------------------------------------------------------
+    # Semantic dispatch.
+
+    def submit(self, kind, pk, n, ts_base, finish, fallback,
+               id_keys=None) -> ReplyFuture:
+        """Queue one semantic batch; returns its reply future.
+        `finish(summary) -> bytes` runs at materialization; `fallback()
+        -> bytes` re-executes the batch exactly on the host."""
+        fut = ReplyFuture(self)
+        self._pending.append(
+            _InFlight(kind, fut, finish, pk=pk, n=n, ts_base=ts_base,
+                      fallback=fallback, id_keys=id_keys)
+        )
+        self._pending_semantic += 1
+        if self._pending_semantic >= self.window:
+            self._rotate()
+        return fut
+
+    def lookup(self, slots, finish) -> ReplyFuture:
+        """Device-side balance gather for lookup_accounts: rides the
+        record stream, so it sees every earlier batch's effects."""
+        fut = ReplyFuture(self)
+        self._pending.append(
+            _InFlight("lookup", fut, finish, slots=np.asarray(slots, np.int64))
+        )
+        return fut
+
+    def _gather(self, slots):
+        pad = ((len(slots) + 255) & ~255) or 256
+        sl = np.full(pad, -1, np.int64)
+        sl[: len(slots)] = slots
+        return dk.lookup(self.balances, torch.from_numpy(sl).to(self.device))
+
+    def _meta_update(self, rec: _InFlight) -> None:
+        slots, flags, ledger = rec.meta_args
+        dk.meta_update(
+            self.meta, torch.from_numpy(slots).to(self.device),
+            _host_tensor(flags, self.device), _host_tensor(ledger, self.device),
+        )
+
+    # ------------------------------------------------------------------
+    # Window launch: one upload per input layout, then back-to-back
+    # launches with no host synchronisation.
+
+    def _plan_chunks(self, recs):
+        """Group records into dispatch units: maximal same-kind
+        semantic runs, with meta/lookup records as unit boundaries.  A
+        run is one unit: its batches launch back to back from one
+        upload buffer, so the reference's split into compiled scan
+        sizes (TB_DEV_SCAN_SIZES) has no counterpart here."""
+        units = []
+        run = []
+        for rec in recs:
+            if rec.kind in _SEMANTIC_KINDS and (not run or run[-1].kind == rec.kind):
+                run.append(rec)
+                continue
+            if run:
+                units.append(("scan", run))
+                run = []
+            if rec.kind in _SEMANTIC_KINDS:
+                run.append(rec)
+            else:
+                units.append((rec.kind, [rec]))
+        if run:
+            units.append(("scan", run))
+        return units
+
+    def _launch(self, recs: list[_InFlight]) -> None:
+        if not recs:
+            return
+        t0 = _time.perf_counter()
+        units = self._plan_chunks(recs)
+        # One (rows, B, C) buffer per input layout; launch groups claim
+        # contiguous row ranges in plan order.
+        rows_of: dict[tuple, int] = {}
+        for ukind, urecs in units:
+            if ukind == "scan":
+                spec = dk.PK_SPEC[urecs[0].kind]
+                rows_of[spec] = rows_of.get(spec, 0) + len(urecs)
+        bufs: dict[tuple, list] = {}  # spec -> [big, ns, tsb, cursor]
+        offsets: dict[int, int] = {}
+        for i, (ukind, urecs) in enumerate(units):
+            if ukind != "scan":
+                continue
+            spec = dk.PK_SPEC[urecs[0].kind]
+            if spec not in bufs:
+                ncols, dtype = spec
+                bufs[spec] = [
+                    np.zeros((rows_of[spec], dk.B, ncols), dtype),
+                    np.zeros(rows_of[spec], np.int64),
+                    np.zeros(rows_of[spec], np.uint64),
+                    0,
+                ]
+            big, ns, tsb, cur = bufs[spec]
+            for g, rec in enumerate(urecs):
+                big[cur + g] = rec.pk
+                ns[cur + g] = rec.n
+                tsb[cur + g] = rec.ts_base
+            offsets[i] = cur
+            bufs[spec][3] = cur + len(urecs)
+        dev_bufs = {
+            spec: (_host_tensor(big, self.device), ns, tsb)
+            for spec, (big, ns, tsb, _cur) in bufs.items()
+        }
+        t1 = _time.perf_counter()
+        self.stat_t_h2d += t1 - t0
+        for i, (ukind, urecs) in enumerate(units):
+            if ukind == "meta":
+                self._meta_update(urecs[0])
+            elif ukind == "lookup":
+                urecs[0].handle = self._gather(urecs[0].slots)
+            else:
+                big, ns, tsb = dev_bufs[dk.PK_SPEC[urecs[0].kind]]
+                dk.run_window(
+                    urecs[0].kind, self.balances, self.meta, self.ring,
+                    self._ring_at, big, offsets[i], len(urecs), ns, tsb,
+                    scratch=self._scratch, fn=self._orderfree,
+                )
+                for g, rec in enumerate(urecs):
+                    rec.ring_at = (self._ring_at + g) % _RING
+                self._ring_at = (self._ring_at + len(urecs)) % _RING
+        self.stat_t_dispatch += _time.perf_counter() - t1
+        # Absorb the whole window's touched rows into the device
+        # commitment: one extra launch per window.
+        if self._commit_enabled:
+            touched = self._collect_touched(recs)
+            if touched is not None:
+                self._commit_update(touched)
+
+    def _dispatch(self, rec: _InFlight) -> None:
+        """Immediate single-batch launch (recovery re-dispatch path)."""
+        pk = _host_tensor(rec.pk, self.device)
+        self._orderfree(
+            self.balances, self.meta, self.ring, self._ring_at, pk, rec.n,
+            rec.ts_base, mode=dk.KIND_MODE[rec.kind], scratch=self._scratch,
+        )
+        rec.ring_at = self._ring_at
+        self._ring_at = (self._ring_at + 1) % _RING
+
+    # ------------------------------------------------------------------
+    # Hazard probe: does any probe id match an in-flight batch's ids?
+
+    def inflight_ids_hit(self, keys: np.ndarray) -> bool:
+        """keys: u128-packed (V16) id probes, any order."""
+        stream = self._launched + self._pending
+        if not stream or len(keys) == 0:
+            return False
+        keys = np.sort(keys)
+        lo = keys[0].tobytes()
+        hi = keys[-1].tobytes()
+        for rec in stream:
+            ik = rec.id_keys
+            if ik is None or len(ik) == 0:
+                continue
+            if hi < ik[0].tobytes() or lo > ik[-1].tobytes():
+                continue
+            pos = np.searchsorted(ik, keys)
+            pos = np.minimum(pos, len(ik) - 1)
+            if (ik[pos] == keys).any():
+                return True
+        return False
+
+    def has_inflight(self) -> bool:
+        return bool(self._launched or self._pending)
+
+    # ------------------------------------------------------------------
+    # Rotation + materialization.
+
+    def _fetch_ring(self, recs):
+        """Ring snapshot + lookup-row pulls for a launched window; the
+        copy synchronises the stream."""
+        ring_np = None
+        t0 = _time.perf_counter()
+        if any(r.kind in _SEMANTIC_KINDS for r in recs):
+            self.stat_fetches += 1
+            ring_np = to_u64(self.ring)
+        for rec in recs:
+            if rec.kind == "lookup" and rec.handle is not None:
+                rec.rows = to_u64(rec.handle)
+                rec.handle = None
+        self.stat_t_fetch += _time.perf_counter() - t0
+        return ring_np
+
+    def _window_clean(self, recs, ring_np) -> bool:
+        for rec in recs:
+            if rec.kind not in _SEMANTIC_KINDS:
+                continue
+            if int(ring_np[rec.ring_at][1]) & (dk.FLAG_OVERFLOW | dk.FLAG_CAP | dk.FLAG_PRECOND):
+                return False
+        return True
+
+    def _resolve_clean(self, recs, ring_np) -> None:
+        t0 = _time.perf_counter()
+        for rec in recs:
+            if rec.kind == "meta":
+                continue
+            if rec.kind == "lookup":
+                rec.future.resolve(rec.finish(rec.rows))
+                continue
+            s = dk.unpack_summary(ring_np[rec.ring_at])
+            self.stat_semantic_events += rec.n
+            rec.future.resolve(rec.finish(s))
+        self.stat_t_finish += _time.perf_counter() - t0
+
+    def _rotate(self) -> None:
+        """Window boundary: fetch the launched window's ring; when it is
+        clean, launch the pending window while the host holds the
+        results, then finish the old window's bookkeeping overlapped
+        with the device's work on the new one."""
+        prev = self._launched
+        ring_np = self._fetch_ring(prev) if prev else None
+        if prev and (ring_np is None or self._window_clean(prev, ring_np)):
+            nxt = self._pending
+            self._launch(nxt)
+            self._launched = nxt
+            self._pending = []
+            self._pending_semantic = 0
+            self._resolve_clean(prev, ring_np)
+            return
+        if prev:
+            # A flagged batch in the window: serial exact recovery
+            # first, with the window detached from _launched.
+            self._launched = []
+            self._recovering = prev
+            self._resolve_recovery(prev, ring_np)
+            self._recovering = []
+        self._launched = []
+        nxt = self._pending
+        self._launch(nxt)
+        self._launched = nxt
+        self._pending = []
+        self._pending_semantic = 0
+
+    def _resolve_recovery(self, covered, ring_np) -> None:
+        """Exact recovery: resolve in order until the flagged batch,
+        re-execute it on the host (the mirror becomes current), rebuild
+        the device table from the mirror, re-dispatch everything after
+        it, repeat until done."""
+        while covered:
+            if ring_np is None:
+                ring_np = self._fetch_ring(covered)
+            failed_at = None
+            for i, rec in enumerate(covered):
+                if rec.kind == "meta":
+                    continue
+                if rec.kind == "lookup":
+                    rec.future.resolve(rec.finish(rec.rows))
+                    continue
+                s = dk.unpack_summary(ring_np[rec.ring_at])
+                if s["overflow"] or s["cap_exceeded"] or s["precond"]:
+                    failed_at = i
+                    self.stat_fallback_batches += 1
+                    rec.future.resolve(rec.fallback())
+                    break
+                self.stat_semantic_events += rec.n
+                rec.future.resolve(rec.finish(s))
+            if failed_at is None:
+                return
+            self._upload_from_mirror()
+            covered = covered[failed_at + 1 :]
+            for rec in covered:
+                if rec.kind == "meta":
+                    self._meta_update(rec)
+                elif rec.kind == "lookup":
+                    rec.handle = self._gather(rec.slots)
+                else:
+                    self._dispatch(rec)
+            # The re-dispatched suffix mutated the rebuilt table: fold
+            # its touched rows back into the commitment.
+            if self._commit_enabled and covered:
+                touched = self._collect_touched(covered)
+                if touched is not None:
+                    self._commit_update(touched)
+            ring_np = None
+
+    def _upload_from_mirror(self) -> None:
+        """Re-upload the balance table from the mirror and re-derive the
+        device commitment from scratch (reads the current device meta,
+        which the stream keeps in step with the host)."""
+        self.balances = _host_tensor(self.mirror.table8(self.capacity), self.device)
+        self._commit_rebuild()
+
+    # ------------------------------------------------------------------
+    # Incremental state commitment (kernel K2).
+
+    def _twin_meta(self, slots: np.ndarray) -> np.ndarray:
+        """Meta columns for a standalone engine's host twin."""
+        out = np.zeros((len(slots), 2), np.uint32)
+        m = slots < len(self._meta_host)
+        out[m] = self._meta_host[slots[m]]
+        return out
+
+    def _commit_rows(self) -> torch.Tensor:
+        """Logical-row binding for the commitment kernels: identity."""
+        return torch.arange(self.balances.shape[0], dtype=torch.int64, device=self.device)
+
+    def _commit_rebuild(self) -> None:
+        if not self._commit_enabled:
+            return
+        self.dev_row_hash, self.dev_digest = self._cm["rebuild"](
+            self.balances, self.meta, self._commit_rows()
+        )
+
+    def _commit_update(self, slots) -> None:
+        """Absorb the touched rows of one window into the device digest:
+        one launch, O(touched)."""
+        if not self._commit_enabled or self.dev_row_hash is None:
+            return
+        slots = np.unique(np.asarray(slots, np.int64))
+        slots = slots[(slots >= 0) & (slots < self.balances.shape[0])]
+        if len(slots) == 0:
+            return
+        padded = torch.from_numpy(cm.pad_slots(slots)).to(self.device)
+        self.stat_commit_updates += 1
+        self._cm["update"](
+            self.balances, self.meta, self.dev_row_hash, self.dev_digest,
+            padded, padded,
+        )
+
+    def _collect_touched(self, recs) -> np.ndarray | None:
+        """Union of balance rows a record list can have modified."""
+        touched = []
+        for rec in recs:
+            if rec.kind == "meta":
+                touched.append(rec.meta_args[0])
+            elif rec.kind in _SEMANTIC_KINDS:
+                touched.append(_touched_of_pk(rec.kind, rec.pk, rec.n))
+        if not touched:
+            return None
+        return np.concatenate(touched)
+
+    def commit_probe(self) -> np.ndarray:
+        """(2, 2) u64 [maintained digest, from-scratch digest]; the
+        caller holds the engine drained."""
+        return to_u64(
+            self._cm["probe"](
+                self.balances, self.meta, self.dev_digest, self._commit_rows()
+            )
+        )
+
+    def drain(self) -> None:
+        # A drain nested inside exact recovery (the host re-execution
+        # may read state) must not touch the stream: the outer
+        # recovery finishes it.
+        while (self._launched or self._pending) and not self._recovering:
+            self._rotate()
+
+    def enqueue(self, slots, cols, add_lo, add_hi, refresh_twin: bool = True) -> None:
+        """Host-resolved balance deltas.  In this slice they arrive only
+        from the exact re-execution of a flagged batch, which the
+        re-upload that follows carries to the device; the reference's
+        write-behind flush (apply_deltas) is not ported (ROADMAP)."""
+        if not self._suppress_enqueue:
+            raise RuntimeError("write-behind deltas outside exact recovery")
+        self.mirror.version += 1
+        if refresh_twin and self.mirror.commitment is not None:
+            self.mirror.commitment.refresh(np.asarray(slots, np.int64), self.mirror)
