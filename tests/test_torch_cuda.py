@@ -1,5 +1,5 @@
-"""Kernels K1 and K2 on a CUDA card against their plain PyTorch
-versions, and TorchStateMachine on the card against the CPU run.  They
+"""Kernels K1-K4 on a CUDA card against their plain PyTorch versions,
+and TorchStateMachine on the card against the CPU run.  They
 skip without a card; on one, run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -15,7 +15,9 @@ import torch
 from tigerbeetle_tpu_torch import kernels, workload
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
+from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+from tigerbeetle_tpu_torch.testing import scan_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
 pytestmark = pytest.mark.cuda
@@ -85,16 +87,76 @@ def test_commitment_kernels_match_plain(card):
     assert torch.equal(got.cpu(), cm.probe_plain(table, meta, dg_p, rows))
 
 
-def test_state_machine_on_card_matches_cpu(card):
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_state_machine_on_card_matches_cpu(card, engine):
     setup, timed, sizing = workload.gen_simple(20_000, batch=2000)
     ops = setup + timed
     roots, replies = [], []
     for device in (None, "cpu"):
         sm = TorchStateMachine(account_capacity=sizing[0], transfer_capacity=sizing[1],
-                               device=device)
+                               device=device, engine=engine)
         h = SingleNodeHarness(sm)
         futs = [h.submit_async(op, body) for op, body in ops]
         replies.append([f.result() for f in futs])
         sm.verify_device_mirror()
         roots.append(sm.state_root())
     assert replies[0] == replies[1] and roots[0] == roots[1]
+
+
+@pytest.mark.parametrize("B,cls", [(256, c) for c in scan_cases.CLASSES] + [(8192, "mixed")])
+def test_exact_scan_kernel_matches_plain(card, B, cls):
+    table, ev, dstat, n, ts_base = scan_cases.make_case(
+        B + scan_cases.CLASSES.index(cls), B, cls, A=4096,
+        rows=np.arange(0, 4096, 97), n=min(B, 8190),
+    )
+    t = torch.from_numpy(table.view(np.int64))
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64))
+    ds = torch.from_numpy(dstat.view(np.int32))
+    t_p = t.clone()
+    _, out_p = k3.run_create_transfers(t_p, pk, ds, n, ts_base)
+    t_k = t.to(card)
+    before = kernels.launches["exact_scan"]
+    _, out_k = k3.run_create_transfers(t_k, pk.to(card), ds.to(card), n, ts_base)
+    torch.cuda.synchronize()
+    assert kernels.launches["exact_scan"] == before + 1
+    assert torch.equal(out_k.cpu(), out_p) and torch.equal(t_k.cpu(), t_p)
+
+
+@pytest.mark.parametrize("padded", [False, True])
+def test_apply_deltas_kernel_matches_plain(card, padded):
+    rng = np.random.default_rng(9)
+    A, K = 1 << 16, 32_768
+    table, _ = _tables(rng, A)
+    keys = rng.choice(A * 4, size=K // 2 if padded else K, replace=False)
+    packed = np.zeros((4, K), np.int64)
+    packed[0, : len(keys)] = keys // 4
+    packed[1, : len(keys)] = keys % 4
+    packed[2, : len(keys)] = rng.integers(-(1 << 63), (1 << 63) - 1, len(keys))
+    packed[3, : len(keys)] = rng.integers(-(1 << 63), (1 << 63) - 1, len(keys))
+    packed[0, len(keys):] = A + np.arange(K - len(keys))
+    pk = torch.from_numpy(packed)
+    t_p = dk.apply_deltas(table.clone(), pk)
+    before = kernels.launches["apply_deltas"]
+    t_k = dk.apply_deltas(table.to(card), pk.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_deltas"] == before + 1
+    assert torch.equal(t_k.cpu(), t_p)
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_exact_streams_on_card_match_cpu(card, engine):
+    """The bench's linked and two_phase shapes at 2000 events per batch:
+    K3 (and K2 updates, K4 flushes) on the card against the plain run."""
+    for gen in (workload.gen_linked, workload.gen_two_phase):
+        setup, timed, sizing = gen(6000, batch=2000)
+        ops = setup + timed
+        out = []
+        for device in (None, "cpu"):
+            sm = TorchStateMachine(account_capacity=sizing[0], transfer_capacity=sizing[1],
+                                   device=device, engine=engine)
+            h = SingleNodeHarness(sm)
+            futs = [h.submit_async(op, body) for op, body in ops]
+            replies = [f.result() for f in futs]
+            sm.verify_device_mirror()
+            out.append((replies, sm.state_root(), sm.stat_exact_batches))
+        assert out[0] == out[1] and out[0][2] > 0

@@ -58,3 +58,38 @@ def test_limb_sums_dense_and_sparse_agree(rows):
     sparse = port.limb_sums(idx_dr, idx_cr, lo, hi, rows * 4, True)
     assert np.array_equal(dense[0], sparse[0])
     assert np.array_equal(dense[1], sparse[1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_set_rows8_matches_reference(seed):
+    """Duplicate slots resolve to the last snapshot, as the reference's."""
+    rng = np.random.default_rng(seed)
+    mirrors = (ref.BalanceMirror(64), port.BalanceMirror(64))
+    slots = rng.integers(0, 64, 300)
+    rows = rng.integers(0, 1 << 63, (300, 8), dtype=np.uint64)
+    for m in mirrors:
+        m.set_rows8(slots, rows)
+    assert np.array_equal(mirrors[0].lo, mirrors[1].lo)
+    assert np.array_equal(mirrors[0].hi, mirrors[1].hi)
+    assert mirrors[1].version == 1
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_apply_subs_matches_reference(seed):
+    """Pending releases, borrow across the limbs included."""
+    rng = np.random.default_rng(seed)
+    mirrors = (ref.BalanceMirror(32), port.BalanceMirror(32))
+    for m in mirrors:
+        m.lo[:] = np.uint64(5)
+        m.hi[:] = np.uint64(3)
+    slots = rng.integers(0, 32, 200)
+    cols = rng.integers(0, 4, 200)
+    lo = rng.integers(0, 1 << 62, 200, dtype=np.uint64) // np.uint64(64)
+    hi = np.zeros(200, np.uint64)
+    for m in mirrors:
+        m.apply_subs(slots, cols, lo, hi)
+    assert np.array_equal(mirrors[0].lo, mirrors[1].lo)
+    assert np.array_equal(mirrors[0].hi, mirrors[1].hi)
+    with pytest.raises(AssertionError):
+        mirrors[1].apply_subs(np.array([0]), np.array([0]), np.array([0], np.uint64),
+                              np.array([9], np.uint64))

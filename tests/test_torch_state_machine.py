@@ -1,8 +1,11 @@
 """TorchStateMachine (the port's device-authoritative engine, here on
 the CPU through the kernels' plain versions) against TpuStateMachine
-(engine="device") and CpuStateMachine: replies and state_root bit for
-bit on the bench streams, exact recovery, the tight/wide input formats,
-and the classes this slice refuses with ResidualNotPorted."""
+and CpuStateMachine: replies and state_root bit for bit on the bench
+streams, exact recovery, the tight/wide input formats, and the classes
+outside K1's (linked, post/void, duplicate or existing ids, a flagged
+batch whose re-execution must rank overflow codes), which the exact
+scan resolves: against TpuStateMachine with TB_WAVES=scan and
+TB_DEV_WAVES=0, so the JAX scan runs there too."""
 
 import importlib
 import os
@@ -18,7 +21,7 @@ from tigerbeetle_tpu.testing import harness as ref_hz
 from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.state_machine import device_engine as de
 from tigerbeetle_tpu_torch.state_machine import gpu
-from tigerbeetle_tpu_torch.state_machine.gpu import ResidualNotPorted, TorchStateMachine
+from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import harness as hz
 from tigerbeetle_tpu_torch.types import AccountFlags, Operation, TransferFlags
 
@@ -30,8 +33,15 @@ AF = AccountFlags
 def torch_sm(account_capacity=1 << 12, transfer_capacity=1 << 16):
     return TorchStateMachine(
         account_capacity=account_capacity, transfer_capacity=transfer_capacity,
-        device="cpu",
+        device="cpu", engine="device",
     )
+
+
+def jax_scan_sm(monkeypatch, account_capacity=1 << 12):
+    """The reference with its JAX exact scan on every host-path batch."""
+    monkeypatch.setenv("TB_WAVES", "scan")
+    monkeypatch.setenv("TB_DEV_WAVES", "0")
+    return TpuStateMachine(account_capacity=account_capacity, engine="device")
 
 
 def replay(sm, ops, harness=hz):
@@ -193,19 +203,11 @@ def test_wide_amounts_match_jax():
     assert sm_t.state_root() == sm_d.state_root()
 
 
-def _refused(ops_before, batch):
-    sm = torch_sm()
-    h = hz.SingleNodeHarness(sm)
-    for op, body in ops_before:
-        h.submit(op, body)
-    with pytest.raises(ResidualNotPorted) as exc:
-        h.submit(Operation.create_transfers, batch)
-    assert "ROADMAP slice 2" in str(exc.value)
-    return exc.value
-
-
 @pytest.mark.parametrize("case", ["linked", "post_void", "duplicate_ids", "exists"])
-def test_residual_classes_raise(case):
+def test_residual_classes_raise(case, monkeypatch):
+    """The classes slice 1 refused now take the exact host path: drain,
+    then the exact scan K3.  Replies and root equal the JAX scan's and
+    the oracle's, and the batch raises nothing."""
     setup = [(Operation.create_accounts, accounts([1, 2, 3]))]
     t = dict(debit_account_id=1, credit_account_id=2, amount=5)
     if case == "linked":
@@ -219,42 +221,58 @@ def test_residual_classes_raise(case):
     else:
         setup.append((Operation.create_transfers, transfers([dict(t, id=10)])))
         batch = transfers([dict(t, id=10)])
-    err = _refused(setup, batch)
-    assert err.batch_class in ("linked", "post/void", "duplicate ids in batch",
-                               "id already exists")
+    ops = setup + [(Operation.create_transfers, batch),
+                   (Operation.lookup_accounts, hz.ids_bytes([1, 2, 3])),
+                   (Operation.lookup_transfers, hz.ids_bytes([10, 11]))]
+    sm = torch_sm()
+    got = replay(sm, ops)
+    sm_j = jax_scan_sm(monkeypatch)
+    assert got == replay(sm_j, ops, ref_hz) == oracle(ops)
+    assert sm.state_root() == sm_j.state_root()
+    assert sm.stat_exact_batches == 1
+    sm.verify_device_mirror()
 
 
-def test_inflight_duplicate_drains_then_raises():
+def test_inflight_duplicate_drains_then_raises(monkeypatch):
     """A batch reusing the id of a batch still in flight drains the
-    window first (hazard probe), then sees the id as existing."""
+    window first (hazard probe), then sees the id as existing: the exact
+    scan answers `exists`, as the JAX scan and the oracle do."""
     sm = torch_sm()
     h = hz.SingleNodeHarness(sm)
     h.submit(Operation.create_accounts, accounts([1, 2]))
     t = dict(debit_account_id=1, credit_account_id=2, amount=5)
     first = h.submit_async(Operation.create_transfers, transfers([dict(t, id=10), dict(t, id=11)]))
     assert sm._dev.has_inflight()
-    with pytest.raises(ResidualNotPorted) as exc:
-        h.submit_async(Operation.create_transfers, transfers([dict(t, id=11)]))
-    assert exc.value.batch_class == "id already exists"
+    second = h.submit_async(Operation.create_transfers, transfers([dict(t, id=11)]))
     assert first.done() and first.result() == b""
+    ops = [(Operation.create_accounts, accounts([1, 2])),
+           (Operation.create_transfers, transfers([dict(t, id=10), dict(t, id=11)])),
+           (Operation.create_transfers, transfers([dict(t, id=11)]))]
+    assert [b"", b"", second.result()] == replay(jax_scan_sm(monkeypatch), ops, ref_hz)
+    assert second.result() == oracle(ops)[2] != b""
+    assert sm.stat_exact_batches == 1
 
 
-def test_overflow_admission_raises_after_device_flag():
-    """The overflow case of the reference's test_fallback_overflow_
-    orderfree: K1 flags the batch, and the exact re-execution cannot
-    rank overflow codes without the sequential residual."""
+def test_overflow_admission_raises_after_device_flag(monkeypatch):
+    """The reference's test_fallback_overflow_orderfree: K1 flags the
+    batch (two ~2^127 debits on one account), and its exact
+    re-execution ranks the overflow codes through K3 while the mirror
+    holds the truth; a later clean batch is exact after the recovery."""
     big = (1 << 127) + 5
-    sm = torch_sm()
-    h = hz.SingleNodeHarness(sm)
-    h.submit(Operation.create_accounts, accounts([1, 2, 3]))
-    fut = h.submit_async(Operation.create_transfers, transfers([
+    ops = [(Operation.create_accounts, accounts([1, 2, 3]))]
+    ops.append((Operation.create_transfers, transfers([
         dict(id=10, debit_account_id=1, credit_account_id=2, amount=big),
         dict(id=11, debit_account_id=1, credit_account_id=3, amount=big),
-    ]))
-    with pytest.raises(ResidualNotPorted) as exc:
-        fut.result()
-    assert exc.value.batch_class == "possible balance overflow"
-    assert sm._dev.stat_fallback_batches == 1
+    ])))
+    ops.append((Operation.create_transfers, transfers(
+        [dict(id=12, debit_account_id=1, credit_account_id=3, amount=7)])))
+    ops.append((Operation.lookup_accounts, hz.ids_bytes([1, 2, 3])))
+    sm = torch_sm()
+    got = replay(sm, ops)
+    assert got == replay(jax_scan_sm(monkeypatch), ops, ref_hz) == oracle(ops)
+    assert np.frombuffer(got[1], "<u4")[1::2].tolist() == [int(gpu.CTR.overflows_debits_posted)]
+    assert sm._dev.stat_fallback_batches == 1 and sm.stat_exact_batches == 1
+    sm.verify_device_mirror()
 
 
 def test_numpy_tables_round_trip_from_jax_layout():

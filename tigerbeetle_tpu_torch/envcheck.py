@@ -47,6 +47,23 @@ def env_str(name: str, default: str | None = None) -> str | None:
     return raw
 
 
+def env_choice(name: str, default: str, choices: tuple[str, ...]) -> str:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    if raw not in choices:
+        _fail(name, raw, "expected one of " + "/".join(choices))
+    return raw
+
+
+def engine() -> str:
+    """TB_ENGINE: the create_transfers execution authority, "host"
+    (default: host resolvers compute the codes, the device table is a
+    write-behind replica) or "device" (the device engine's kernels
+    compute them)."""
+    return env_choice("TB_ENGINE", "host", ("host", "device"))
+
+
 def dev_b() -> int:
     """TB_DEV_B: the device batch bucket (events per kernel launch), a
     power of two <= 8192 (8190 is the wire batch maximum)."""

@@ -21,6 +21,8 @@ launches = {
     "commit_update": 0,
     "commit_rebuild": 0,
     "commit_probe": 0,
+    "exact_scan": 0,
+    "apply_deltas": 0,
 }
 
 _P = ctypes.c_void_p
@@ -42,6 +44,16 @@ _SIGNATURES = {
         "tb_commit_hash_all": [_P, _P, _P, _I64, _P, _P, _P],
         # balances, meta, row_hash, digest, slots, rows, k, stream
         "tb_commit_update": [_P, _P, _P, _P, _P, _P, _I64, _P],
+    },
+    "exact_scan": {
+        # table, A, ev, B, dstat_init, n, ts_base, scratch, out, stream
+        "tb_exact_scan": [_P, _I64, _P, _I, _P, _I, _U64, _P, _P, _P],
+        # next, steps, sink, stream
+        "tb_l2_chase": [_P, _I64, _P, _P],
+    },
+    "apply_deltas": {
+        # table, A, packed, k, stride, stream
+        "tb_apply_deltas": [_P, _I64, _P, _I64, _I64, _P],
     },
 }
 
@@ -70,13 +82,14 @@ def _fn(lib: str, symbol: str):
     return fn
 
 
-def _launch(lib: str, symbol: str, count_as: str, *args) -> None:
+def _launch(lib: str, symbol: str, count_as: str | None, *args) -> None:
     stream = torch.cuda.current_stream().cuda_stream
     rc = _fn(lib, symbol)(*args, stream)
     if rc != 0:
         msg = _FNS[lib + ".err"](rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
-    launches[count_as] += 1
+    if count_as is not None:
+        launches[count_as] += 1
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -107,3 +120,28 @@ def commit_update(balances, meta, row_hash, digest, slots, rows):
         _ptr(balances), _ptr(meta), _ptr(row_hash), _ptr(digest),
         _ptr(slots), _ptr(rows), slots.shape[0],
     )
+
+
+def exact_scan(table, events, dstat_init, n, ts_base_u64, scratch_words, out):
+    _launch(
+        "exact_scan", "tb_exact_scan", "exact_scan",
+        _ptr(table), table.shape[0], _ptr(events), events.shape[0],
+        _ptr(dstat_init), n, ts_base_u64, _ptr(scratch_words), _ptr(out),
+    )
+
+
+def apply_deltas(table, packed):
+    _launch(
+        "apply_deltas", "tb_apply_deltas", "apply_deltas",
+        _ptr(table), table.shape[0], _ptr(packed), packed.shape[1],
+        packed.shape[1],
+    )
+
+
+def l2_chase(next_idx, steps, sink):
+    """The dependent-load chase that measures K3's serial floor (a
+    measurement, not a kernel of the port: not counted).  `next_idx` is
+    a CUDA int32 permutation of its own indices."""
+    if next_idx.dtype != torch.int32 or not next_idx.is_cuda or not next_idx.is_contiguous():
+        raise ValueError("next_idx must be a contiguous CUDA int32 tensor")
+    _launch("exact_scan", "tb_l2_chase", None, _ptr(next_idx), steps, _ptr(sink))

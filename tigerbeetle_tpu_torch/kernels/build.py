@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("orderfree", "commitment")
+SOURCES = ("orderfree", "commitment", "exact_scan", "apply_deltas")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

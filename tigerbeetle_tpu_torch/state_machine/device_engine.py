@@ -20,16 +20,26 @@ ring, and materialize once per execution window:
 
 A batch whose summary carries a flag (balance overflow in play, or more
 failures than the summary holds) triggers exact recovery before the
-next window launches: the batch is re-executed on the host against the
-mirror, the table is re-uploaded from the mirror (K2 rebuild), and
-every later batch of the window is launched again.
+next window launches: the batch is re-executed exactly against the
+mirror's image (the exact scan K3 runs on a card tensor built from it),
+the table is re-uploaded from the mirror (K2 rebuild), and every later
+batch of the window is launched again.
+
+Batches outside the semantic kernels' class take the host path: the
+machine drains the stream, then resolves the batch exactly against the
+table read through ``read()`` (a drain and flush barrier).  Order-free
+ones apply through the write-behind lane (``enqueue`` / ``flush``: K4
+modular adds, then one K2 update over the written rows); the rest run
+the exact scan K3 on the table in place, after which the machine
+refreshes the device digest over every row K3 could have written
+(``exact_written``).  Pending expiry's releases ride the write-behind
+lane too.
 
 The window, ring and recovery structure and the knob defaults are the
 reference's, which a high-latency TPU link shaped; they are to be
 retuned once the H100 is measured.  Not ported yet (ROADMAP): the link
-seam and chaos shim, the degraded lifecycle and scrubs, the
-write-behind flush of host-resolved batches, hot/cold tiering, wave and
-speculative dispatch, row sharding.
+seam and chaos shim, the degraded lifecycle and scrubs, hot/cold
+tiering, wave and speculative dispatch, row sharding.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from tigerbeetle_tpu_torch import envcheck
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
+from tigerbeetle_tpu_torch.state_machine.kernel_fast import flush_entries
 
 _WINDOW = envcheck.dev_window()
 _RING = envcheck.dev_ring()
@@ -134,8 +145,8 @@ class DeviceEngine:
     """Authoritative device tables + windowed semantic dispatch.
 
     `plain=True` runs the plain PyTorch versions of the kernels on the
-    engine's device instead of K1/K2 — the reference run the chip smoke
-    test compares the kernels' end-to-end results against."""
+    engine's device instead of K1/K2/K4 — the reference run the chip
+    smoke test compares the kernels' end-to-end results against."""
 
     def __init__(self, capacity: int, mirror, device, plain: bool = False) -> None:
         self.capacity = capacity
@@ -145,9 +156,11 @@ class DeviceEngine:
         if plain:
             self._orderfree = dk.orderfree_plain
             self._cm = cm.PLAIN_FNS
+            self._apply = dk.apply_deltas_plain
         else:
             self._orderfree = dk.orderfree
             self._cm = cm.device_fns()
+            self._apply = dk.apply_deltas
         self._commit_enabled = envcheck.state_commit() == 1
         # Stat counters (the reference's names).
         self.stat_semantic_events = 0
@@ -184,6 +197,10 @@ class DeviceEngine:
         # Re-execution of a flagged batch updates the mirror only; the
         # device receives the result through the re-upload after it.
         self._suppress_enqueue = False
+        # Write-behind lane (host-resolved batches, pending expiry).
+        self._q: list[tuple] = []
+        self._queued = 0
+        self.stat_flushes = 0
 
     def _new_scratch(self):
         if self.device.type == "cpu":
@@ -219,8 +236,9 @@ class DeviceEngine:
 
     def to_numpy_tables(self):
         """(balances (A, 8) u64, meta (A, 2) u32, row_hash (A, 2) u64 or
-        None, digest (2,) u64 or None) — drains first."""
+        None, digest (2,) u64 or None) — drains and flushes first."""
         self.drain()
+        self.flush()
         meta = self.meta.cpu().numpy().view(np.uint32)
         if self.dev_row_hash is None:
             return to_u64(self.balances), meta, None, None
@@ -255,6 +273,7 @@ class DeviceEngine:
         if capacity <= self.capacity:
             return
         self.drain()
+        self.flush()
         extra = capacity - self.capacity
         grown = np.zeros((capacity, 2), np.uint32)
         grown[: self.capacity] = self._meta_host
@@ -277,6 +296,8 @@ class DeviceEngine:
         """Queue one semantic batch; returns its reply future.
         `finish(summary) -> bytes` runs at materialization; `fallback()
         -> bytes` re-executes the batch exactly on the host."""
+        # Earlier host-resolved batches' deltas land before this batch.
+        self.flush()
         fut = ReplyFuture(self)
         self._pending.append(
             _InFlight(kind, fut, finish, pk=pk, n=n, ts_base=ts_base,
@@ -290,6 +311,7 @@ class DeviceEngine:
     def lookup(self, slots, finish) -> ReplyFuture:
         """Device-side balance gather for lookup_accounts: rides the
         record stream, so it sees every earlier batch's effects."""
+        self.flush()
         fut = ReplyFuture(self)
         self._pending.append(
             _InFlight("lookup", fut, finish, slots=np.asarray(slots, np.int64))
@@ -616,13 +638,63 @@ class DeviceEngine:
         while (self._launched or self._pending) and not self._recovering:
             self._rotate()
 
-    def enqueue(self, slots, cols, add_lo, add_hi, refresh_twin: bool = True) -> None:
-        """Host-resolved balance deltas.  In this slice they arrive only
-        from the exact re-execution of a flagged batch, which the
-        re-upload that follows carries to the device; the reference's
-        write-behind flush (apply_deltas) is not ported (ROADMAP)."""
-        if not self._suppress_enqueue:
-            raise RuntimeError("write-behind deltas outside exact recovery")
-        self.mirror.version += 1
-        if refresh_twin and self.mirror.commitment is not None:
-            self.mirror.commitment.refresh(np.asarray(slots, np.int64), self.mirror)
+    # ------------------------------------------------------------------
+    # Write-behind lane and the host path's table access.
+
+    def enqueue(self, slots, cols, add_lo, add_hi) -> None:
+        """Queue host-resolved (slot, col, u128 delta) modular adds.  They
+        come from the mirror's own methods, which already refreshed the
+        commitment twin.  During exact recovery they are dropped: the
+        re-upload from the mirror that follows carries them."""
+        if len(slots) == 0:
+            return
+        if self._suppress_enqueue:
+            return
+        # Host-path deltas only arrive after a drain, so they never
+        # overtake queued semantic batches.
+        assert self._pending_semantic == 0 and not self._launched, (
+            "write-behind enqueue with in-flight semantic batches"
+        )
+        self._q.append((
+            np.asarray(slots, np.int64), np.asarray(cols, np.int64),
+            np.asarray(add_lo, np.uint64), np.asarray(add_hi, np.uint64),
+        ))
+        self._queued += len(slots)
+
+    def flush(self) -> None:
+        """Apply the queued deltas with K4, then absorb the written rows
+        into the device digest (one K2 update)."""
+        if not self._queued:
+            return
+        slots, cols, a_lo, a_hi = (np.concatenate([e[k] for e in self._q]) for k in range(4))
+        self._q.clear()
+        self._queued = 0
+        self.stat_flushes += 1
+        written = flush_entries(self.balances, slots, cols, a_lo, a_hi, self._apply)
+        self._commit_update(written)
+
+    def read(self) -> torch.Tensor:
+        """The table the host path resolves against.  During exact
+        recovery the mirror is the truth (it holds exactly the stream
+        prefix before the re-executed batch, while the device table holds
+        the whole window's effects), so a card tensor is built from it;
+        otherwise a drain and flush barrier and the device table."""
+        if self._recovering:
+            return self._degraded_table()
+        self.drain()
+        self.flush()
+        return self.balances
+
+    def write_back(self, value: torch.Tensor) -> None:
+        """Replace the table from a full table image (the host path's
+        exact result): a handle swap, which does not move the digest."""
+        self.balances = value
+
+    def exact_written(self, slots) -> None:
+        """Fold the rows an exact scan wrote into the device digest.  In
+        recovery the re-upload and rebuild that follow cover them."""
+        if not self._recovering:
+            self._commit_update(slots)
+
+    def _degraded_table(self) -> torch.Tensor:
+        return _host_tensor(self.mirror.table8(self.capacity), self.device)

@@ -16,7 +16,10 @@ hold u64 lanes as int64 and u32 columns as int32.  Unlike the
 reference, which returns new arrays, K1 and its plain version update
 the table and the ring IN PLACE (and return them).
 
-Linked-chain and two-phase kernels are not ported yet (ROADMAP).
+``apply_deltas`` is kernel K4 (``csrc/apply_deltas.cu``), the
+write-behind lane's modular adds, with its plain version
+``apply_deltas_plain``.  Linked-chain and two-phase kernels are not
+ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -365,6 +368,45 @@ def run_window(kind, table, meta, ring, ring_at0, big, off, G, ns, tsb,
             int(ns[off + g]), int(tsb[off + g]), mode=mode, scratch=scratch,
         )
     return table, ring
+
+
+# ---------------------------------------------------------------------------
+# K4: the write-behind delta apply.
+
+
+def apply_deltas_plain(table, packed):
+    """Plain version of K4: table[slot, 2col:2col+2] += (lo, hi) mod
+    2^128 for the unique (slot, col) entries of `packed` (4, K) int64
+    rows [slot, col, delta_lo, delta_hi]; an entry with slot >= A (the
+    reference's padding) or col >= 4 is dropped.  In place."""
+    A = table.shape[0]
+    slots, cols, d_lo, d_hi = packed
+    keep = (slots >= 0) & (slots < A) & (cols >= 0) & (cols < 4)
+    s, c = slots[keep], cols[keep] * 2
+    old_lo, old_hi = table[s, c], table[s, c + 1]
+    new_lo = old_lo + d_lo[keep]
+    table[s, c] = new_lo
+    table[s, c + 1] = old_hi + d_hi[keep] + u128.ult(new_lo, old_lo).to(torch.int64)
+    return table
+
+
+def apply_deltas(table, packed):
+    """Apply one flush chunk in place.  CUDA tensors launch K4 (raising
+    on any CUDA error); CPU tensors run apply_deltas_plain."""
+    A = table.shape[0]
+    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != 8 or A < 1:
+        raise ValueError(f"table must be (A, 8) int64, got {tuple(table.shape)}")
+    if packed.dtype != torch.int64 or packed.dim() != 2 or packed.shape[0] != 4:
+        raise ValueError(f"packed must be (4, K) int64, got {tuple(packed.shape)}")
+    if packed.device != table.device:
+        raise ValueError("tensors must share one device")
+    if not (table.is_contiguous() and packed.is_contiguous()):
+        raise ValueError("tensors must be contiguous")
+    if table.device.type == "cpu":
+        return apply_deltas_plain(table, packed)
+    if packed.shape[1]:
+        kernels.apply_deltas(table, packed)
+    return table
 
 
 # ---------------------------------------------------------------------------

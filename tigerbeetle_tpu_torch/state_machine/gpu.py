@@ -1,43 +1,54 @@
 """GPU-backed state machine: host orchestration around the CUDA kernels.
 
-Counterpart of ``tigerbeetle_tpu/state_machine/tpu.py:TpuStateMachine``
-with the device-authoritative engine (``engine="device"``) only.  Same
-external interface (``input_valid`` / ``prepare`` / ``pulse_needed`` /
-``prefetch`` / ``commit`` / ``commit_async`` over wire bytes), so the
-two are interchangeable under the test harness and diffable bit for
-bit; method names follow the reference.
+Counterpart of ``tigerbeetle_tpu/state_machine/tpu.py:TpuStateMachine``.
+Same external interface (``input_valid`` / ``prepare`` /
+``pulse_needed`` / ``prefetch`` / ``commit`` / ``commit_async`` over
+wire bytes), so the two are interchangeable under the test harness and
+diffable bit for bit; method names follow the reference.
 
-State split:
-- DEVICE (DeviceEngine): the authoritative balance table (A, 8) and
-  account-meta table (A, 2), the summary ring, and the state
-  commitment.  Kernel K1 computes create_transfers result codes and
-  applies balances; kernel K2 keeps the commitment current.
-- HOST: id directories, immutable account attributes, the columnar
-  transfer store, and the balance mirror (bookkeeping and recovery).
+Two execution authorities, as in the reference (``engine``, or
+``TB_ENGINE``, default "host"):
 
-Slice scope: create_transfers batches of the order-free class run on
-the device.  Every other class — linked chains, post/void, balancing,
-limit or history accounts, timeouts, duplicate or already-existing ids,
-more events than the device bucket — needs the exact sequential
-residual, which is not ported: such a batch raises ResidualNotPorted
-instead of being approximated.  So does a flagged batch whose exact
-re-execution cannot rule out a balance overflow.
+- "host": the host resolves every create_transfers batch.  Order-free
+  batches are admitted and applied on the balance mirror and reach the
+  device table through the write-behind lane (kernel K4); every other
+  batch runs the exact sequential scan (kernel K3) against the device
+  table, and the mirror is rebuilt from the scan's row snapshots.
+- "device": the device-authoritative engine (DeviceEngine) computes the
+  order-free batches' codes with kernel K1 inside pipelined windows and
+  keeps the state commitment on the device (kernel K2).  Every other
+  batch drains the stream and takes the host path above; a flagged K1
+  batch is re-executed exactly (K3 for the classes only the scan ranks).
+
+State split: the device holds the balance table (and, device engine,
+the account-meta table, the summary ring and the digest); the host
+holds the id directories, immutable account attributes, the columnar
+transfer store, the expires index, the history rows and the balance
+mirror.  Not ported (ROADMAP): the native library, wave and speculative
+execution, the linked and two-phase device kernels and the host-only
+linked / two-phase fast paths (those batches take K3, which gives the
+same results), hot/cold tiering, the query operations.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from tigerbeetle_tpu_torch import constants as cfg
 from tigerbeetle_tpu_torch import envcheck, types
 from tigerbeetle_tpu_torch.device import resolve_device
+from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
+from tigerbeetle_tpu_torch.state_machine import kernel
 from tigerbeetle_tpu_torch.state_machine.device_engine import (
     DeviceEngine,
     ReplyFuture,
 )
-from tigerbeetle_tpu_torch.state_machine.mirror import BalanceMirror
+from tigerbeetle_tpu_torch.state_machine.kernel_fast import DeviceTable
+from tigerbeetle_tpu_torch.state_machine.mirror import BalanceMirror, _sub_u128
 from tigerbeetle_tpu_torch.types import (
     ACCOUNT_DTYPE,
     ACCOUNT_FILTER_DTYPE,
@@ -53,6 +64,7 @@ from tigerbeetle_tpu_torch.types import (
     CreateTransferResult,
     Operation,
     TransferFlags,
+    TransferPendingStatus,
 )
 from tigerbeetle_tpu_torch.utils import RunIndex
 
@@ -78,6 +90,13 @@ _STORE_FIELDS = {
     "status": np.uint8,  # TransferPendingStatus for pending transfers
 }
 
+_HISTORY_FIELDS = {
+    "timestamp": np.uint64,
+    "dr_id_lo": np.uint64, "dr_id_hi": np.uint64,
+    "cr_id_lo": np.uint64, "cr_id_hi": np.uint64,
+    "dr_bal": (np.uint64, 8), "cr_bal": (np.uint64, 8),
+}
+
 _ATTR_FIELDS = {
     "id_lo": np.uint64, "id_hi": np.uint64,
     "ud128_lo": np.uint64, "ud128_hi": np.uint64,
@@ -86,20 +105,7 @@ _ATTR_FIELDS = {
     "timestamp": np.uint64,
 }
 
-S_PENDING = 1  # TransferPendingStatus.pending
-
-
-class ResidualNotPorted(NotImplementedError):
-    """A create_transfers batch outside the order-free class: it needs
-    the exact sequential residual (ROADMAP slice 2), which this port
-    does not have yet."""
-
-    def __init__(self, batch_class: str) -> None:
-        self.batch_class = batch_class
-        super().__init__(
-            f"create_transfers batch of class {batch_class!r} needs the "
-            "exact residual: ROADMAP slice 2"
-        )
+_BATCH_BUCKETS = kernel.BATCH_BUCKETS
 
 
 def pack_u128(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -118,7 +124,12 @@ class Columns:
     def __init__(self, fields: dict, capacity: int = 1024) -> None:
         self.count = 0
         self._cap = capacity
-        self._cols = {name: np.zeros(capacity, dt) for name, dt in fields.items()}
+        self._cols = {}
+        for name, dt in fields.items():
+            if isinstance(dt, tuple):  # (dtype, width): a 2-D column
+                self._cols[name] = np.zeros((capacity, dt[1]), dt[0])
+            else:
+                self._cols[name] = np.zeros(capacity, dt)
 
     def _ensure(self, extra: int) -> None:
         need = self.count + extra
@@ -127,7 +138,7 @@ class Columns:
         while self._cap < need:
             self._cap *= 4
         for name, col in self._cols.items():
-            new = np.zeros(self._cap, col.dtype)
+            new = np.zeros((self._cap,) + col.shape[1:], col.dtype)
             new[: self.count] = col[: self.count]
             self._cols[name] = new
 
@@ -170,9 +181,25 @@ def _apply_code(result: np.ndarray, cond: np.ndarray, code: int) -> None:
     np.copyto(result, np.uint32(code), where=(result == 0) & cond)
 
 
+def _pad(arr: np.ndarray, size: int) -> np.ndarray:
+    out = np.zeros(size, arr.dtype)
+    out[: len(arr)] = arr
+    return out
+
+
+# Store columns the exact path joins for durable duplicates and pendings.
+_JOIN_FIELDS = (
+    "flags", "dr_slot", "cr_slot", "amount_lo", "amount_hi",
+    "pending_lo", "pending_hi", "ud128_lo", "ud128_hi",
+    "ud64", "ud32", "timeout", "ledger", "code", "timestamp",
+    "status",
+)
+
+
 class TorchStateMachine:
     """Accounting state machine whose create_transfers codes are
-    computed on the GPU by the device-authoritative engine."""
+    computed by the host engine or the device-authoritative engine,
+    with the kernels on the GPU."""
 
     def __init__(
         self,
@@ -181,18 +208,26 @@ class TorchStateMachine:
         transfer_capacity: int = 1 << 16,
         device=None,
         plain: bool = False,
+        engine: str | None = None,
     ) -> None:
         """`device`: None = the first CUDA card (raises without one);
         "cpu" runs the kernels' plain PyTorch versions on the CPU.
-        `plain` runs the plain versions on `device` (a reference run)."""
+        `plain` runs the plain versions on `device` (a reference run).
+        `engine`: "host" or "device" (default: TB_ENGINE, else "host")."""
         self.config = config
+        self.engine = engine or envcheck.engine()
+        if self.engine not in ("host", "device"):
+            raise ValueError(f"engine must be 'host' or 'device', got {self.engine!r}")
         self.device = resolve_device(device)
+        self.plain = plain
         self.prepare_timestamp = 0
         self.commit_timestamp = 0
         self.pulse_next_timestamp = TIMESTAMP_MIN
 
         # Work-split counters (the reference's names).
         self.stat_device_events = 0
+        self.stat_exact_events = 0
+        self.stat_exact_batches = 0
         self.stat_host_semantic_events = 0
         self.stat_fallback_events = 0
 
@@ -208,17 +243,37 @@ class TorchStateMachine:
                 account_capacity, meta_fn=self._commit_meta_cols
             )
             self._mirror.commitment = self._commitment
-        self._dev = DeviceEngine(
-            account_capacity, self._mirror, self.device, plain=plain
-        )
+        if self.engine == "device":
+            self._dev = DeviceEngine(
+                account_capacity, self._mirror, self.device, plain=plain
+            )
+        else:
+            self._dev = DeviceTable(account_capacity, self.device, plain=plain)
+        self._exact_scratch = None
         self._tdir = RunIndex(_dir_capacity(transfer_capacity))
         self._store = TailStore(_STORE_FIELDS, capacity=max(1024, transfer_capacity))
+        # expires_at index: (expires_at, store row, active).
+        self._exp = Columns(
+            {"expires_at": np.uint64, "row": np.uint32, "active": np.bool_}
+        )
+        self._exp_dead = 0
+        self._history = Columns(_HISTORY_FIELDS)
         self._expiry_rows: np.ndarray | None = None
+        # A device-window batch may create timeout-carrying pendings.
+        self._inflight_timeouts = False
 
     @property
     def stat_device_semantic_events(self) -> int:
         """Events whose result codes were computed on the device."""
-        return self._dev.stat_semantic_events
+        return self._dev.stat_semantic_events if self.engine == "device" else 0
+
+    @property
+    def history_count(self) -> int:
+        return self._history.count
+
+    def _engine_drain(self) -> None:
+        if self.engine == "device":
+            self._dev.drain()
 
     def _commit_meta_cols(self, slots: np.ndarray) -> np.ndarray:
         """(k, 2) uint32 meta columns (flags, ledger) for the commitment,
@@ -243,12 +298,19 @@ class TorchStateMachine:
     def verify_device_mirror(self) -> None:
         """Crash loudly unless the device tables equal the host copies.
 
-        With the commitment live: the device's maintained digest, its
+        Host engine: the device table (flushed) equals the mirror.
+        Device engine with the commitment live: the device's maintained
+        digest, its
         from-scratch recompute (K2 probe), the host twin, and a
         from-scratch host digest of the mirror must all agree.
         Without it: the drained device tables are compared whole."""
         dev = self._dev
+        if self.engine == "host":
+            if not (to_u64(dev.read()) == self._mirror.table8(dev.capacity)).all():
+                raise AssertionError("device/mirror table divergence")
+            return
         dev.drain()
+        dev.flush()
         if self._commitment is not None and dev.dev_digest is not None:
             pair = dev.commit_probe()
             twin = self._commitment.digest
@@ -304,13 +366,21 @@ class TorchStateMachine:
             self.prepare_timestamp += len(input_bytes) // event_size
 
     def pulse_needed(self) -> bool:
+        # A device-window batch in flight may be about to create a
+        # timeout-carrying pending, which would pull pulse_next_timestamp
+        # earlier: drain before deciding, so the pulse schedule matches
+        # the reference's exactly.
+        if self.engine == "device" and self._inflight_timeouts and self._dev.has_inflight():
+            self._engine_drain()
+        if self.engine == "device" and not self._dev.has_inflight():
+            self._inflight_timeouts = False
         return self.pulse_next_timestamp <= self.prepare_timestamp
 
     def prefetch(
         self, operation: Operation, input_bytes: bytes, prefetch_timestamp: int
     ) -> None:
         if operation == Operation.pulse:
-            self._dev.drain()
+            self._engine_drain()
             self._expiry_rows = self._scan_expired(prefetch_timestamp)
 
     def commit(self, client: int, op: int, timestamp: int,
@@ -319,23 +389,27 @@ class TorchStateMachine:
 
     def commit_async(self, client: int, op: int, timestamp: int,
                      operation: Operation, input_bytes: bytes):
-        """Dispatch one committed operation; returns a ReplyFuture.
-        create_transfers batches (and lookup_accounts gathers behind
-        in-flight batches) resolve at the next ring fetch."""
+        """Dispatch one committed operation; returns a ReplyFuture.  On
+        the device engine, create_transfers batches of the order-free
+        class (and lookup_accounts gathers behind in-flight batches)
+        resolve at the next ring fetch; every other reply resolves
+        synchronously."""
         assert op != 0
         assert self.input_valid(operation, input_bytes)
         assert timestamp > self.commit_timestamp
         if operation == Operation.create_transfers:
-            return self._commit_create_transfers_device(timestamp, input_bytes)
+            if self.engine == "device":
+                return self._commit_create_transfers_device(timestamp, input_bytes)
+            return ReplyFuture(value=self._commit_create_transfers(timestamp, input_bytes))
         if operation == Operation.lookup_accounts:
-            if self._dev.has_inflight():
+            if self.engine == "device" and self._dev.has_inflight():
                 return self._lookup_accounts_device(input_bytes)
             return ReplyFuture(value=self._lookup_accounts(input_bytes))
         if operation == Operation.pulse:
             return ReplyFuture(value=self._commit_expire(timestamp))
         if operation == Operation.create_accounts:
             return ReplyFuture(value=self._commit_create_accounts(timestamp, input_bytes))
-        self._dev.drain()
+        self._engine_drain()
         if operation == Operation.lookup_transfers:
             return ReplyFuture(value=self._lookup_transfers(input_bytes))
         raise NotImplementedError(
@@ -353,14 +427,19 @@ class TorchStateMachine:
         return int(slot[0]) if found[0] else None
 
     def _sync_engine_meta(self, n0: int) -> None:
-        """Register accounts created since slot n0 with the engine's
-        meta table (the device ladder's ledger input)."""
+        """Register accounts created since slot n0: with the device
+        engine's meta table (the device ladder's ledger input; it also
+        refreshes the commitment twin), or, on the host engine, with the
+        twin (their meta columns just became nonzero)."""
         if self._attrs.count <= n0:
             return
         slots = np.arange(n0, self._attrs.count, dtype=np.int64)
-        self._dev.add_accounts(
-            slots, self._attrs.col("flags")[n0:], self._attrs.col("ledger")[n0:]
-        )
+        if self.engine == "device":
+            self._dev.add_accounts(
+                slots, self._attrs.col("flags")[n0:], self._attrs.col("ledger")[n0:]
+            )
+        elif self._commitment is not None:
+            self._commitment.refresh(slots, self._mirror)
 
     def _commit_create_accounts(self, timestamp: int, input_bytes: bytes) -> bytes:
         events = np.frombuffer(input_bytes, dtype=ACCOUNT_DTYPE)
@@ -574,21 +653,24 @@ class TorchStateMachine:
         self._mirror.grow(cap)
 
     # ------------------------------------------------------------------
-    # Device-authoritative create_transfers.
+    # Device-authoritative create_transfers (engine == "device").
 
     def _commit_create_transfers_device(self, timestamp: int, input_bytes: bytes):
-        """Route a batch to K1; the host does joins, the device computes
-        the result codes.  Shapes outside the order-free class raise
-        ResidualNotPorted (the reference routes them to its host path)."""
+        """Route a batch to K1 (the host does the joins, the device
+        computes the result codes), or, for shapes outside the order-free
+        class, drain the stream and take the exact host path (reference:
+        tpu.py:1329-1489, with no wave dispatch and no linked or
+        two-phase device kernels)."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
         n = len(events)
         ts_base = timestamp - n + 1
 
-        if n == 0:
-            self._dev.drain()
-            return ReplyFuture(value=b"")
-        if n > dk.B:
-            raise ResidualNotPorted(f"more than {dk.B} events")
+        def host_path() -> ReplyFuture:
+            self._engine_drain()
+            return ReplyFuture(value=self._commit_create_transfers(timestamp, input_bytes))
+
+        if n == 0 or n > dk.B:
+            return host_path()
 
         id_lo = np.asarray(events["id_lo"])
         id_hi = np.asarray(events["id_hi"])
@@ -618,21 +700,22 @@ class TorchStateMachine:
                 0xC2B2AE3D27D4EB4F
             )
             ids_unique = len(np.unique(mix)) == n
-        if not ids_unique:
-            raise ResidualNotPorted("duplicate ids in batch")
-        if has_bal:
-            raise ResidualNotPorted("balancing")
+        # Linked and post/void batches have no device kernel yet (their
+        # kernels are slice 3): the reference routes them, when its
+        # linked and two-phase submissions decline, to the host path.
+        if not ids_unique or has_bal or has_linked or has_pv:
+            return host_path()
 
         # In-flight hazard: this batch's ids must not collide with
         # batches whose bookkeeping has not materialized yet.
         keys = pack_u128(id_lo, id_hi)
         keys_sorted = keys if ascending else np.sort(keys)
         if self._dev.inflight_ids_hit(keys):
-            self._dev.drain()
+            self._engine_drain()
 
         e_found, _e_row = self._tdir.lookup(id_lo, id_hi)
         if e_found.any():
-            raise ResidualNotPorted("id already exists")
+            return host_path()
 
         # Account joins (slots + flags for routing).
         dr_lo = np.asarray(events["debit_account_id_lo"])
@@ -654,15 +737,8 @@ class TorchStateMachine:
         touch_limit_hist = bool(
             ((dr_flags.astype(np.uint32) | cr_flags.astype(np.uint32)) & LIMH).any()
         )
-
-        if has_linked:
-            raise ResidualNotPorted("linked")
-        if has_pv:
-            raise ResidualNotPorted("post/void")
         if touch_limit_hist:
-            raise ResidualNotPorted("limit or history account")
-        if timeout.any():
-            raise ResidualNotPorted("timeout")
+            return host_path()
         return self._submit_device_orderfree(
             events=events, n=n, ts_base=ts_base, id_lo=id_lo, id_hi=id_hi,
             dr_lo=dr_lo, dr_hi=dr_hi, cr_lo=cr_lo, cr_hi=cr_hi, flags=flags,
@@ -716,6 +792,8 @@ class TorchStateMachine:
             and not has_hi
             and (n == 0 or int(amount_lo.max()) < _TIGHT_AMOUNT_LIMIT)
         )
+        if has_timeout:
+            self._inflight_timeouts = True
         if tight:
             pk = dk.pack_tight(
                 n, id_lo=id_lo, id_hi=id_hi, dr_lo=dr_lo, dr_hi=dr_hi,
@@ -762,7 +840,7 @@ class TorchStateMachine:
             if deltas is None:
                 raise AssertionError("device/mirror admission divergence")
             return self._finish_fast(
-                n, ts_base, id_lo, id_hi, flags, results, created,
+                n, ts_base, id_lo, id_hi, flags, timeout, results, created,
                 last_applied=summary["last_applied"],
             )
 
@@ -793,12 +871,10 @@ class TorchStateMachine:
         )
 
     # ------------------------------------------------------------------
-    # Exact host lane: the re-execution of a flagged batch.
+    # The exact host lane: the host engine's create_transfers, the
+    # device engine's host path and the re-execution of a flagged batch.
 
     def _commit_create_transfers(self, timestamp: int, input_bytes: bytes) -> bytes:
-        """Exact host execution of a batch, ported for the order-free
-        class only (static ladder + mirror admission); everything else
-        raises ResidualNotPorted."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
         n = len(events)
         if n == 0:
@@ -806,32 +882,13 @@ class TorchStateMachine:
         self.stat_host_semantic_events += n
         ts_base = timestamp - n + 1
         d = self._decode_static(events, n)
-        order_free = not (
-            d["flags"]
-            & np.uint32(
-                TF.linked | TF.post_pending_transfer | TF.void_pending_transfer
-                | TF.balancing_debit | TF.balancing_credit
-            )
-        ).any()
-        e_found, _ = self._tdir.lookup(d["id_lo"], d["id_hi"])
-        limit_hist = (
-            (d["dr_flags"] | d["cr_flags"])
-            & np.uint32(
-                AF.debits_must_not_exceed_credits
-                | AF.credits_must_not_exceed_debits | AF.history
-            )
-        ).any()
-        if not order_free or e_found.any() or limit_hist:
-            raise ResidualNotPorted("exact re-execution outside the order-free class")
-        reply = self._commit_fast(
+        return self._commit_transfers_resolved(
             n, ts_base, events, d["id_lo"], d["id_hi"], d["pend_lo"],
-            d["pend_hi"], d["flags"], d["timeout"], d["dr_slot"], d["cr_slot"],
-            d["amount_lo"], d["amount_hi"], d["ledger"], d["code"], d["static"],
+            d["pend_hi"], d["flags"], d["timeout"], d["dr_slot"],
+            d["cr_slot"], d["amount_lo"], d["amount_hi"], d["ledger"],
+            d["code"], d["static"], d["is_pv"], d["dr_flags"],
+            d["cr_flags"], d["dr_zero"], d["cr_zero"],
         )
-        if reply is None:
-            raise ResidualNotPorted("possible balance overflow")
-        self.stat_device_events += n
-        return reply
 
     def _decode_static(self, events: np.ndarray, n: int) -> dict:
         """Column decode + account resolution + the static precedence
@@ -934,6 +991,218 @@ class TorchStateMachine:
             cr_zero=cr_zero, static=static,
         )
 
+    def _commit_transfers_resolved(
+        self, n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi,
+        flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi,
+        ledger, code, static, is_pv, dr_flags, cr_flags, dr_zero, cr_zero,
+    ) -> bytes:
+        """Order-free batches apply through the mirror's admission
+        (_commit_fast); every other batch, and one whose admission cannot
+        rule out an overflow, runs the exact scan K3 (reference:
+        tpu.py:2445-2656, without the native library and the wave
+        executor)."""
+        B = next(b for b in _BATCH_BUCKETS if b >= n)
+        e_found, e_row = self._tdir.lookup(id_lo, id_hi)
+        order_free = not (
+            flags
+            & np.uint32(
+                TF.linked | TF.post_pending_transfer | TF.void_pending_transfer
+                | TF.balancing_debit | TF.balancing_credit
+            )
+        ).any()
+        ascending = n == 1 or bool(
+            (
+                (id_hi[1:] > id_hi[:-1])
+                | ((id_hi[1:] == id_hi[:-1]) & (id_lo[1:] > id_lo[:-1]))
+            ).all()
+        )
+        if order_free and not e_found.any():
+            ids_unique = ascending
+            if not ids_unique:
+                id_mix = id_lo * np.uint64(0x9E3779B97F4A7C15) + id_hi * np.uint64(
+                    0xC2B2AE3D27D4EB4F
+                )
+                ids_unique = len(np.unique(id_mix)) == n
+            limit_hist = (
+                (dr_flags | cr_flags)
+                & np.uint32(
+                    AF.debits_must_not_exceed_credits
+                    | AF.credits_must_not_exceed_debits | AF.history
+                )
+            ).any()
+            if ids_unique and not limit_hist:
+                reply = self._commit_fast(
+                    n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi,
+                    flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi,
+                    ledger, code, static,
+                )
+                if reply is not None:
+                    self.stat_device_events += n
+                    return reply
+
+        j = self._exact_joins(
+            n, B, id_lo, id_hi, pend_lo, pend_hi, is_pv, ascending, e_found, e_row,
+        )
+        ev = self._build_scan_events(
+            n, B, events, flags, static, amount_lo, amount_hi, pend_lo, pend_hi,
+            timeout, ledger, code, dr_slot, cr_slot, dr_flags, cr_flags,
+            dr_zero, cr_zero, e_found, j,
+        )
+        self.stat_exact_events += n
+        self.stat_exact_batches += 1
+        out = kernel.unpack_outputs(self._run_exact(ev, j["dstat_init"], n, ts_base))
+        return self._finish_exact_outputs(
+            out, n, ts_base, id_lo, id_hi, flags, timeout, j["uniq_rows"],
+            j["dstat_init"],
+        )
+
+    def _run_exact(self, ev: dict, dstat_init: np.ndarray, n: int, ts_base: int) -> np.ndarray:
+        """One K3 launch over the engine's table (read through its flush
+        barrier, written back in place) -> the (B, 37) u64 outputs."""
+        dev = self._dev
+        table = dev.read()
+        pk_np = kernel.pack_events(ev)
+        pk = from_u64(pk_np, table.device)
+        dstat = torch.from_numpy(dstat_init.astype(np.uint32).view(np.int32)).to(table.device)
+        if self.plain:
+            packed = kernel.run_exact_plain(table, pk, dstat, n, ts_base)
+        else:
+            if self._exact_scratch is None and table.device.type == "cuda":
+                self._exact_scratch = kernel.ExactScratch(_BATCH_BUCKETS[-1], table.device)
+            _, packed = kernel.run_create_transfers(
+                table, pk, dstat, n, ts_base, scratch=self._exact_scratch
+            )
+        dev.write_back(table)
+        if self.engine == "device":
+            # The swap does not move the device digest: fold in every
+            # row the scan could have written (a post/void moves its
+            # pending's rows, which may differ from its own).
+            dev.exact_written(kernel.touched_slots(pk_np, n))
+        return to_u64(packed)
+
+    def _finish_exact_outputs(self, out, n, ts_base, id_lo, id_hi, flags, timeout,
+                              uniq_rows, dstat_init) -> bytes:
+        """Exact-path bookkeeping from the unpacked scan outputs: the
+        mirror rebuilt from the applied events' row snapshots, the store,
+        statuses, expiry, pulses and history (reference: tpu.py:2677)."""
+        results = out["results"][:n]
+        created_mask = out["created_mask"][:n]
+        created = {f: out["created"][f][:n] for f in kernel.CREATED_FIELDS}
+        inb_status = out["inb_status"][:n]
+        hist_dr = out["hist_dr"][:n]
+        hist_cr = out["hist_cr"][:n]
+
+        # Events whose effects persisted (results == 0: rollback rewrote
+        # failed chain members) carry post-apply snapshots of both rows;
+        # interleaved in event order, the last write wins.
+        ok_idx = np.flatnonzero(results == 0)
+        if len(ok_idx):
+            slots2 = np.empty(2 * len(ok_idx), np.int64)
+            slots2[0::2] = created["dr_slot"][ok_idx]
+            slots2[1::2] = created["cr_slot"][ok_idx]
+            rows2 = np.empty((2 * len(ok_idx), 8), np.uint64)
+            rows2[0::2] = hist_dr[ok_idx]
+            rows2[1::2] = hist_cr[ok_idx]
+            self._mirror.set_rows8(slots2, rows2)
+
+        self._post_process_transfers(
+            n, ts_base, id_lo, id_hi, flags, timeout, results, created_mask,
+            created, inb_status, dstat_init, out["dstat"], uniq_rows,
+            hist_dr, hist_cr, int(out["last_applied"]),
+            out["pulse_create"][:n], out["pulse_remove"][:n],
+        )
+        fail_idx = np.flatnonzero(results != 0)
+        reply = np.zeros(len(fail_idx), dtype=CREATE_RESULT_DTYPE)
+        reply["index"] = fail_idx.astype(np.uint32)
+        reply["result"] = results[fail_idx]
+        return reply.tobytes()
+
+    def _exact_joins(self, n, B, id_lo, id_hi, pend_lo, pend_hi, is_pv, ascending,
+                     e_found, e_row) -> dict:
+        """Exact-path joins: compact id groups, in-batch pending
+        reference groups, durable duplicate / pending-target gathers and
+        the deduplicated durable-status seed (reference: tpu.py:2725)."""
+        id_key = pack_u128(id_lo, id_hi)
+        if ascending:
+            unique_ids = id_key
+            id_group = np.arange(n)
+        else:
+            unique_ids, id_group = np.unique(id_key, return_inverse=True)
+        pend_key = pack_u128(pend_lo, pend_hi)
+        pos = np.searchsorted(unique_ids, pend_key)
+        pos_c = np.minimum(pos, len(unique_ids) - 1)
+        p_group = np.where(is_pv & (unique_ids[pos_c] == pend_key), pos_c, -1).astype(np.int32)
+
+        if is_pv.any():
+            p_found, p_row = self._tdir.lookup(pend_lo, pend_hi)
+            p_found = p_found & is_pv
+        else:
+            p_found = np.zeros(n, bool)
+            p_row = np.zeros(n, np.uint64)
+        er = np.clip(e_row, 0, None).astype(np.int64)
+        pr = np.clip(p_row, 0, None).astype(np.int64)
+
+        def gather(found, rows):
+            full = {f: np.zeros(n, np.dtype(_STORE_FIELDS[f])) for f in _JOIN_FIELDS}
+            idx = np.flatnonzero(found)
+            if len(idx):
+                got = self._store.gather_many(list(_JOIN_FIELDS), rows[idx])
+                for f in _JOIN_FIELDS:
+                    full[f][idx] = got[f]
+            return full
+
+        gather_e = gather(e_found, er)
+        gather_p = gather(p_found, pr)
+        p_rows_valid = p_row[p_found].astype(np.int64)
+        if len(p_rows_valid):
+            uniq_rows, first_idx, tgt_inverse = np.unique(
+                p_rows_valid, return_index=True, return_inverse=True
+            )
+            rep_event = np.flatnonzero(p_found)[first_idx]
+            uniq_status = gather_p["status"][rep_event].astype(np.uint32)
+        else:
+            uniq_rows = np.zeros(0, np.int64)
+            tgt_inverse = np.zeros(0, np.int64)
+            uniq_status = np.zeros(0, np.uint32)
+        p_tgt = np.full(n, -1, np.int32)
+        p_tgt[p_found] = tgt_inverse.astype(np.int32)
+        dstat_init = np.zeros(B, np.uint32)
+        dstat_init[: len(uniq_rows)] = uniq_status
+        return dict(
+            id_group=id_group, p_group=p_group, p_found=p_found, gather_e=gather_e,
+            gather_p=gather_p, uniq_rows=uniq_rows, p_tgt=p_tgt, dstat_init=dstat_init,
+        )
+
+    def _build_scan_events(self, n, B, events, flags, static, amount_lo, amount_hi,
+                           pend_lo, pend_hi, timeout, ledger, code, dr_slot, cr_slot,
+                           dr_flags, cr_flags, dr_zero, cr_zero, e_found, j) -> dict:
+        """The (B,)-padded event columns per kernel.EVENT_FIELDS
+        (reference: tpu.py:2817)."""
+        ge, gp = j["gather_e"], j["gather_p"]
+        ev = {
+            "i": np.arange(B, dtype=np.int32),
+            "flags": flags,
+            "ts_nonzero": events["timestamp"] != 0,
+            "static_result": static,
+            "amount_lo": amount_lo, "amount_hi": amount_hi,
+            "pending_lo": pend_lo, "pending_hi": pend_hi,
+            "ud128_lo": events["user_data_128_lo"], "ud128_hi": events["user_data_128_hi"],
+            "ud64": events["user_data_64"], "ud32": events["user_data_32"],
+            "timeout": timeout, "ledger": ledger, "code": code,
+            "dr_slot": dr_slot, "cr_slot": cr_slot,
+            "dr_flags": dr_flags, "cr_flags": cr_flags,
+            "dr_id_zero": dr_zero, "cr_id_zero": cr_zero,
+            "id_group": j["id_group"], "p_group": j["p_group"],
+            "e_found": e_found, "p_found": j["p_found"], "p_tgt": j["p_tgt"],
+        }
+        for pre, g in (("e", ge), ("p", gp)):
+            for f in _JOIN_FIELDS:
+                if f != "status":
+                    ev[f"{pre}_{f}"] = g[f]
+        dtypes = dict(kernel.EVENT_FIELDS)
+        return {name: _pad(np.asarray(ev[name]).astype(dtypes[name]), B)
+                for name in dtypes}
+
     def _commit_fast(
         self, n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi,
         flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi, ledger, code,
@@ -960,7 +1229,7 @@ class TorchStateMachine:
         )
         if deltas is None:
             return None
-        self._dev.enqueue(*deltas, refresh_twin=False)
+        self._dev.enqueue(*deltas)
         created = {
             "flags": flags,
             "dr_slot": dr_slot.astype(np.int32),
@@ -974,20 +1243,30 @@ class TorchStateMachine:
             "timeout": timeout,
             "ledger": ledger, "code": code,
         }
-        return self._finish_fast(n, ts_base, id_lo, id_hi, flags, results, created)
+        return self._finish_fast(n, ts_base, id_lo, id_hi, flags, timeout, results, created)
 
-    def _finish_fast(self, n, ts_base, id_lo, id_hi, flags, results, created,
+    def _finish_fast(self, n, ts_base, id_lo, id_hi, flags, timeout, results, created,
                      last_applied: int | None = None) -> bytes:
-        """Shared fast-path tail: store bookkeeping + failure reply."""
+        """Shared fast-path tail: pulse signals, store bookkeeping and
+        the failure reply (reference: tpu.py:3532)."""
         apply_mask = results == 0
         is_pending = (flags & np.uint32(TF.pending)) != 0
-        inb_status = np.where(apply_mask & is_pending, np.uint32(S_PENDING), np.uint32(0))
+        ts_i = np.uint64(ts_base) + np.arange(n, dtype=np.uint64)
+        expires = ts_i + timeout * np.uint64(NS_PER_S)
+        inb_status = np.where(
+            apply_mask & is_pending, np.uint32(kernel.S_PENDING), np.uint32(0)
+        )
         if last_applied is None:
             applied_idx = np.flatnonzero(apply_mask)
             last_applied = int(applied_idx[-1]) if len(applied_idx) else -1
+        pulse_create = np.where(
+            apply_mask & is_pending & (timeout > 0), expires, np.uint64(0)
+        )
         self._post_process_transfers(
-            n, ts_base, id_lo, id_hi, flags, apply_mask, created, inb_status,
-            last_applied,
+            n, ts_base, id_lo, id_hi, flags, timeout, results, apply_mask,
+            created, inb_status, np.zeros(0, np.uint32), np.zeros(0, np.uint32),
+            np.zeros(0, np.int64), None, None, last_applied, pulse_create,
+            np.zeros(n, np.uint64),
         )
         fail_idx = np.flatnonzero(results != 0)
         reply = np.zeros(len(fail_idx), dtype=CREATE_RESULT_DTYPE)
@@ -995,15 +1274,21 @@ class TorchStateMachine:
         reply["result"] = results[fail_idx]
         return reply.tobytes()
 
-    def _post_process_transfers(self, n, ts_base, id_lo, id_hi, flags,
-                                created_mask, created, inb_status,
-                                last_applied) -> None:
-        """Insert the created transfers into the store and the id
-        directory, and advance commit_timestamp to the last event that
-        reached the apply point (reference: src/state_machine.zig:1583).
-        Expiry and history bookkeeping belong to classes this slice
-        refuses (timeouts, history accounts)."""
+    def _post_process_transfers(
+        self, n, ts_base, id_lo, id_hi, flags, timeout,
+        results, created_mask, created, inb_status,
+        dstat_init, dstat, uniq_rows,
+        hist_dr, hist_cr, last_applied, pulse_create, pulse_remove,
+    ) -> None:
+        """Durable effects of a resolved batch (reference: tpu.py:3576):
+        the created transfers into the store and id directory, durable
+        pending-status updates, the expires index, pulse_next_timestamp,
+        history rows (hist_dr None: the caller proved no history
+        account is touched), and commit_timestamp."""
+        ok = results == 0
+        # 1. Created transfers into the columnar store.
         cm_ = created_mask
+        row_of_event = np.full(n, -1, np.int64)
         if cm_.any():
             idx = np.arange(n) if cm_.all() else np.flatnonzero(cm_)
             ts = np.uint64(ts_base) + idx.astype(np.uint64)
@@ -1020,22 +1305,146 @@ class TorchStateMachine:
                 status=inb_status[idx].astype(np.uint8),
             )
             self._tdir.insert(id_lo[idx], id_hi[idx], rows.astype(np.uint64))
+            row_of_event[idx] = rows
+
+        # 2. Durable pending-status updates (+ expires index removal).
+        k = len(uniq_rows)
+        changed = np.flatnonzero(dstat[:k] != dstat_init[:k])
+        if len(changed):
+            ch_rows = uniq_rows[changed]
+            self._store["status"][ch_rows] = dstat[changed].astype(np.uint8)
+            timed = ch_rows[self._store["timeout"][ch_rows] > 0]
+            self._exp_deactivate(timed)
+
+        # 3. Expires entries for in-batch creations still pending.
+        pend_created = np.flatnonzero(
+            cm_ & (inb_status == kernel.S_PENDING) & (timeout > 0)
+        )
+        if len(pend_created):
+            self._exp.append(
+                expires_at=(
+                    np.uint64(ts_base) + pend_created.astype(np.uint64)
+                    + timeout[pend_created] * np.uint64(NS_PER_S)
+                ),
+                row=row_of_event[pend_created].astype(np.uint32),
+                active=np.ones(len(pend_created), bool),
+            )
+
+        # 4. pulse_next_timestamp from the apply-time signals, recorded
+        # before any rollback (reference: src/state_machine.zig:
+        # 1576-1580,1704-1708).
+        for i in np.flatnonzero((pulse_create != 0) | (pulse_remove != 0)):
+            create_at = int(pulse_create[i])
+            remove_at = int(pulse_remove[i])
+            if create_at and create_at < self.pulse_next_timestamp:
+                self.pulse_next_timestamp = create_at
+            if remove_at and self.pulse_next_timestamp == remove_at:
+                self.pulse_next_timestamp = TIMESTAMP_MIN
+
+        # 5. Historical balances of applied events on history accounts.
+        applied = cm_ & ok
+        if hist_dr is not None and applied.any():
+            idx = np.flatnonzero(applied)
+            drs = created["dr_slot"][idx]
+            crs = created["cr_slot"][idx]
+            dr_hist = (self._attrs["flags"][drs] & AF.history) != 0
+            cr_hist = (self._attrs["flags"][crs] & AF.history) != 0
+            want = dr_hist | cr_hist
+            if want.any():
+                sel = idx[want]
+                drs, crs = drs[want], crs[want]
+                dr_hist, cr_hist = dr_hist[want], cr_hist[want]
+                zero8 = np.zeros((len(sel), 8), np.uint64)
+                self._history.append(
+                    timestamp=np.uint64(ts_base) + sel.astype(np.uint64),
+                    dr_id_lo=np.where(dr_hist, self._attrs["id_lo"][drs], 0),
+                    dr_id_hi=np.where(dr_hist, self._attrs["id_hi"][drs], 0),
+                    cr_id_lo=np.where(cr_hist, self._attrs["id_lo"][crs], 0),
+                    cr_id_hi=np.where(cr_hist, self._attrs["id_hi"][crs], 0),
+                    dr_bal=np.where(dr_hist[:, None], hist_dr[sel], zero8),
+                    cr_bal=np.where(cr_hist[:, None], hist_cr[sel], zero8),
+                )
+
+        # 6. commit_timestamp advances to the last event that reached the
+        # apply point, chain events later rolled back included
+        # (reference: src/state_machine.zig:1583).
         if last_applied >= 0:
             self.commit_timestamp = ts_base + last_applied
 
     # ------------------------------------------------------------------
-    # Expiry pulse.  No pending transfer with a timeout is ever created
-    # in this slice (timeouts raise ResidualNotPorted), so the expiry
-    # index stays empty: a pulse finds nothing and parks the next one.
+    # Expiry pulse (reference: tpu.py:3697-3774).
+
+    def _exp_deactivate(self, rows: np.ndarray) -> None:
+        """Deactivate the expires entries of store `rows`; compact once
+        tombstones dominate, keeping scans O(live)."""
+        if len(rows) == 0:
+            return
+        active = self._exp.col("active")
+        matches = np.flatnonzero(np.isin(self._exp.col("row"), rows) & active)
+        self._exp["active"][matches] = False
+        self._exp_dead += len(matches)
+        if self._exp_dead * 2 > self._exp.count and self._exp.count > 64:
+            live = np.flatnonzero(self._exp.col("active"))
+            cols = {
+                name: self._exp.col(name)[live].copy()
+                for name in ("expires_at", "row", "active")
+            }
+            self._exp.truncate(0)
+            self._exp.append(**cols)
+            self._exp_dead = 0
 
     def _scan_expired(self, expires_at_max: int) -> np.ndarray:
-        self.pulse_next_timestamp = TIMESTAMP_MAX
-        return np.zeros(0, np.int64)
+        """Store rows of the live pendings due at `expires_at_max`, in
+        (expires_at, timestamp) order, at most one batch of them, and the
+        next pulse's timestamp."""
+        limit = self.config.batch_max_create_transfers
+        exp_at = self._exp.col("expires_at")
+        rows = self._exp.col("row")
+        live = np.flatnonzero(self._exp.col("active"))
+        if len(live) == 0:
+            self.pulse_next_timestamp = TIMESTAMP_MAX
+            return np.zeros(0, np.int64)
+        ts = self._store["timestamp"][rows[live]]
+        order = np.lexsort((ts, exp_at[live]))
+        ordered = live[order]
+        ordered_exp = exp_at[live][order]
+        due_idx = np.flatnonzero(ordered_exp <= expires_at_max)
+        if len(due_idx) > limit:
+            taken = ordered[due_idx[:limit]]
+            # The next pulse rescans from the overflow point (reference:
+            # src/state_machine.zig:2136-2140).
+            self.pulse_next_timestamp = int(ordered_exp[due_idx[limit]])
+        elif len(due_idx) == len(ordered_exp):
+            taken = ordered[due_idx]
+            self.pulse_next_timestamp = TIMESTAMP_MAX
+        else:
+            taken = ordered[due_idx]
+            self.pulse_next_timestamp = int(ordered_exp[len(due_idx)])
+        return rows[taken].astype(np.int64)
 
     def _commit_expire(self, timestamp: int) -> bytes:
+        """Expire the pendings the pulse's prefetch found: release their
+        amounts (dp -= amount on the debit side, cp -= amount on the
+        credit side; reference: src/state_machine.zig:1874-1929) on the
+        mirror exactly and on the device as two's-complement deltas
+        through the write-behind lane (K4)."""
         assert self._expiry_rows is not None
-        assert len(self._expiry_rows) == 0
-        self._expiry_rows = None
+        rows, self._expiry_rows = self._expiry_rows, None
+        if len(rows) == 0:
+            return b""
+        st = self._store
+        slots = np.concatenate([st["dr_slot"][rows], st["cr_slot"][rows]]).astype(np.int64)
+        cols = np.concatenate(
+            [np.zeros(len(rows), np.int64), np.full(len(rows), 2, np.int64)]
+        )
+        amt_lo = np.concatenate([st["amount_lo"][rows]] * 2)
+        amt_hi = np.concatenate([st["amount_hi"][rows]] * 2)
+        self._mirror.apply_subs(slots, cols, amt_lo, amt_hi)
+        zero = np.zeros(len(slots), np.uint64)
+        neg_lo, neg_hi, _ = _sub_u128(zero, zero, amt_lo, amt_hi)
+        self._dev.enqueue(slots, cols, neg_lo, neg_hi)
+        st["status"][rows] = np.uint8(TransferPendingStatus.expired)
+        self._exp_deactivate(rows)
         return b""
 
     # ------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Host-side exact mirror of the account-balance table (numpy only).
 
 This package's own copy of ``tigerbeetle_tpu/state_machine/mirror.py``
-(the subset the device engine reads).  The device table is
+(the subset the port's engines read).  The device table is
 authoritative; the mirror is the host's bookkeeping copy, updated by
 the same additions the device applied, in commit order, so it equals
 the device table at every window boundary (``verify_device_mirror``
@@ -31,6 +31,15 @@ def _add_u128(a_lo, a_hi, b_lo, b_hi):
     hi = hi_partial + carry
     ov2 = hi < hi_partial
     return lo, hi, ov1 | ov2
+
+
+def _sub_u128(a_lo, a_hi, b_lo, b_hi):
+    """Vectorized (a - b) mod 2^128 plus borrow flag."""
+    lo = a_lo - b_lo
+    borrow = (a_lo < b_lo).astype(np.uint64)
+    hi = a_hi - b_hi - borrow
+    under = (a_hi < b_hi) | ((a_hi == b_hi) & (borrow == 1))
+    return lo, hi, under
 
 
 def compact_deltas(slots, cols, amt_lo, amt_hi):
@@ -135,6 +144,32 @@ class BalanceMirror:
         table[:n, 0::2] = self.lo[:n]
         table[:n, 1::2] = self.hi[:n]
         return table
+
+    def set_rows8(self, slots: np.ndarray, rows: np.ndarray) -> None:
+        """Overwrite rows from (k, 8) device-layout snapshots; duplicate
+        slots resolve to the LAST occurrence (commit order)."""
+        rev = slots[::-1]
+        uniq, first = np.unique(rev, return_index=True)
+        pick = len(slots) - 1 - first
+        self.lo[uniq] = rows[pick][:, 0::2]
+        self.hi[uniq] = rows[pick][:, 1::2]
+        self.version += 1
+        self._touch(uniq)
+
+    def apply_subs(self, slots, cols, amt_lo, amt_hi) -> None:
+        """Release amounts (pending expiry): column -= amount, exact."""
+        u_slot, u_col, d_lo, d_hi, limb_ov = compact_deltas(
+            slots, cols, amt_lo, amt_hi
+        )
+        assert not limb_ov.any()
+        new_lo, new_hi, under = _sub_u128(
+            self.lo[u_slot, u_col], self.hi[u_slot, u_col], d_lo, d_hi
+        )
+        assert not under.any(), "pending release underflow"
+        self.lo[u_slot, u_col] = new_lo
+        self.hi[u_slot, u_col] = new_hi
+        self.version += 1
+        self._touch(u_slot)
 
     def try_apply_adds(
         self, dr_slot, cr_slot, amt_lo, amt_hi, is_pending, mask,

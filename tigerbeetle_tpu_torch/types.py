@@ -119,6 +119,16 @@ class TransferFlags(enum.IntFlag):
     balancing_credit = 1 << 5
 
 
+class TransferPendingStatus(enum.IntEnum):
+    """reference: src/tigerbeetle.zig:113-125"""
+
+    none = 0
+    pending = 1
+    posted = 2
+    voided = 3
+    expired = 4
+
+
 class CreateAccountResult(enum.IntEnum):
     """reference: src/tigerbeetle.zig:145-180"""
 
