@@ -6,10 +6,11 @@
 Builds the hand-written kernels (csrc/*.cu, one nvcc per source, in
 parallel), holds every kernel against its plain PyTorch version at the
 main path's shapes (bit-exact: the semantics are integer; K3 on full
-8190-event batches of every class, its plain version on CPU copies),
-measures one dependent L2 hit (K3's serial floor), then drives the
-port's create_transfers loop through SingleNodeHarness on
-TorchStateMachine in eight phases:
+8190-event batches of every class, its plain version on CPU copies; K5
+and K6 on 8192-event batches over a 2^20-row table), measures one
+dependent L2 hit (K3's and K5's serial floors), then drives the port's
+create_transfers loop through SingleNodeHarness on TorchStateMachine in
+eight phases:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -20,10 +21,10 @@ TorchStateMachine in eight phases:
                last batch whose re-execution ranks overflow codes (K3)
   linked       device engine, bench's gen_linked: 1,000 accounts, half
                debit-limited and funded, chains of 1-7, 250,000 transfers
-               (host path, K3 per batch)
+               (K5 per batch; the funding batch takes K3)
   two_phase    device engine, gen_two_phase widened to 1,000,000
                accounts: pending -> post | void pairs, 250,000 transfers
-               (K3 per batch)
+               (K6 per batch)
   offkernel    device engine, gen_offkernel: post pairs with balancing
                riders and linked chains that start with a pending, 8
                batches (K3 per batch); 10,001 accounts, since bench's
@@ -38,8 +39,8 @@ TorchStateMachine in eight phases:
 Each phase's main-path run starts with every launch count at 0 (set
 just before the state machine is built) and its counts are read as soon
 as the stream has drained, before any check launches anything.  After
-each phase: K3 launches == exact batches, every event was resolved (no
-exception), the device table equals the host mirror, the device digest
+each phase: K3 launches == exact batches, K5 and K6 launches == the
+batches the router sent them, every event was resolved (no exception), the device table equals the host mirror, the device digest
 equals its from-scratch recompute and the host root, and replies, root
 and tables equal a second run of the same stream with the plain
 versions on the card.  A third run, under torch.profiler, gives the
@@ -71,7 +72,7 @@ from tigerbeetle_tpu_torch.ops.u128 import to_u64
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases
+from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
 
@@ -91,6 +92,18 @@ K1_OPS_PER_ROW = 120
 K2_OPS_PER_ROW = 140
 K3_OPS_PER_EVENT = 400
 K4_OPS_PER_ENTRY = 8
+# K5 per event (decode, ladder, key) and per limit entry and fixpoint
+# iteration (two scans' adds, the verdict's u64 sums and compares); K6
+# per event (decode, both ladders, the target's ladder, the limbs).
+K5_OPS_PER_EVENT = 60
+K5_OPS_PER_ENTRY_ITER = 40
+K6_OPS_PER_EVENT = 120
+# K5's dependent block-wide passes per fixpoint iteration, each reading
+# what another thread wrote in the pass before (at least one L2 round
+# trip): the failure prefix sum (two passes), the chain flags, the
+# amount lanes' prefix sum (two passes), their exclusive fix-up, the
+# verdicts and the pass update.
+K5_PASSES_PER_ITER = 8
 A_ROWS = 1 << 20
 N_TRANSFERS = 1_000_000
 N_ACCOUNTS = 1_000_000
@@ -99,7 +112,8 @@ OFFKERNEL_ACCOUNTS = 10_001
 RING_ROWS = 256
 # Kernels the main path launches; K2 probe only serves the checks
 # (verify_device_mirror and the engine's commit_probe).
-MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "apply_deltas")
+MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "apply_deltas",
+             "linked", "two_phase")
 # K3's classes for the kernel check, and the codes each must produce.
 K3_CLASSES = {
     "linked": {1, 2},
@@ -127,12 +141,17 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def time_ms(fn, reps: int = 30, warm: int = 3) -> float:
-    """Median milliseconds per call, CUDA events around each call."""
+def time_ms(fn, reps: int = 30, warm: int = 3, reset=None) -> float:
+    """Median milliseconds per call, CUDA events around each call;
+    `reset()` (outside the events) restores what a call changed."""
     for _ in range(warm):
+        if reset is not None:
+            reset()
         fn()
     times = []
     for _ in range(reps):
+        if reset is not None:
+            reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -143,11 +162,12 @@ def time_ms(fn, reps: int = 30, warm: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, reps: int = 20) -> float | None:
+def device_ms(fn, reps: int = 20, reset=None, names=None) -> float | None:
     """Device time per call: the card's own kernel time (torch.profiler,
     CUDA activity) summed over `reps` calls, divided by `reps`.  Unlike
-    time_ms it excludes the host's launch work.  None when the profiler
-    saw no device time."""
+    time_ms it excludes the host's launch work.  `names` keeps only the
+    device functions whose name holds one of them (so a `reset`'s copies
+    do not count).  None when the profiler saw no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,21 +175,26 @@ def device_ms(fn, reps: int = 20) -> float | None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if reset is not None:
+                reset()
             fn()
         torch.cuda.synchronize()
     total_us = 0.0
     for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            total_us += getattr(e, "self_device_time_total", None) or getattr(
-                e, "self_cuda_time_total", 0.0
-            )
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if names is not None and not any(k in e.key for k in names):
+            continue
+        total_us += getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0
+        )
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
-def kernel_ms(fn) -> tuple[float, float | None]:
+def kernel_ms(fn, reset=None, names=None) -> tuple[float, float | None]:
     """(CUDA-event time per call, host launch work included; device
     time per call from the profiler)."""
-    return time_ms(fn), device_ms(fn)
+    return time_ms(fn, reset=reset), device_ms(fn, reset=reset, names=names)
 
 
 def _dev(ms: float | None) -> str:
@@ -468,6 +493,100 @@ def check_apply(dev, report):
           f"{ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
 
 
+# K5's and K6's cases for the check: (scenario, kind), the first the one
+# timed (the main path's shape: the bench streams' small amounts pick
+# linked_small and two_phase_lo; "spread" is "limits" over 1,000
+# accounts, as the linked stream's, where the default pool of 24 makes
+# every chain contend).
+LINKED_CHECKS = [("spread", "linked_small"), ("limits", "linked_small"), ("limits", "linked"), ("multi_iter", "linked_small"),
+                 ("nonconverge", "linked_small"), ("precond_sum", "linked"),
+                 ("small_wrapped", "linked_small"), ("overflow", "linked"),
+                 ("padding", "linked"), ("static", "linked_small")]
+TWO_PHASE_CHECKS = [("mixed", "two_phase_lo"), ("mixed", "two_phase"), ("inbatch", "two_phase_lo"),
+                    ("durable", "two_phase_lo"), ("races", "two_phase"), ("wide", "two_phase"),
+                    ("overflow", "two_phase_lo"), ("underflow", "two_phase"),
+                    ("padding", "two_phase_lo")]
+
+
+def _slots_of(pk, n, cols):
+    """Distinct rows the packed batch names in slot columns `cols`."""
+    w = pk[:n, cols].reshape(-1)
+    s = np.concatenate([(w & np.uint64(0xFFFFFFFF)).astype(np.int64),
+                        (w >> np.uint64(32)).astype(np.int64)]) - 1
+    return np.unique(s[s >= 0])
+
+
+def check_semantic(dev, report, name, checks, gen, l2_ns=None):
+    """K5 or K6 against its plain version ON THE CARD, on 8192-event
+    batches (dk.B) over a 2^20-row table whose batch rows are spread
+    over it (most above 2^17: the reference's u64-key path): the table
+    and the whole ring bit for bit.  The first case is timed."""
+    fn = dk.linked if name == "linked" else dk.two_phase
+    flag = "small" if name == "linked" else "lo_only"
+    rng = np.random.default_rng(2029)
+    rows = np.sort(rng.choice(A_ROWS, 8192, replace=False))
+    ring = torch.zeros((RING_ROWS, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+    scratch = dk.new_scratch(name, A_ROWS, dev)
+    slot_cols = [dk.COL_SLOTS] if name == "linked" else [dk.COL_SLOTS, dk.COL_TP_SLOTS]
+    for i, (scenario, kind) in enumerate(checks):
+        spread = scenario == "spread"
+        table, meta, pk, n = gen(900 + i, dk.B, "limits" if spread else scenario, A=A_ROWS,
+                                 rows=rows, **({"pool": 1000} if spread else {}))
+        variant = {flag: kind.endswith(("_small", "_lo"))}
+        t0 = torch.from_numpy(table.view(np.int64)).to(dev)
+        m = torch.from_numpy(meta.view(np.int32)).to(dev)
+        p = torch.from_numpy(pk.view(np.int64)).to(dev)
+        t_k, r_k, t_p, r_p = t0.clone(), ring.clone(), t0.clone(), ring.clone()
+        fn(t_k, m, r_k, 7, p, n, 1 << 40, scratch=scratch, **variant)
+        torch.cuda.synchronize()
+        plain = dk.linked_plain if name == "linked" else dk.two_phase_plain
+        plain(t_p, m, r_p, 7, p, n, 1 << 40, **variant)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(t_k, t_p), max_abs_err(r_k, r_p))
+        check(err == 0, f"{name} {kind}[{scenario}]: kernel differs from the plain version")
+        s = dk.unpack_summary(to_u64(r_k[7]))
+        line = (f"{'K5' if name == 'linked' else 'K6'} {kind}[{scenario}]: bit-exact; "
+                f"n_fail={s['n_fail']} overflow={s['overflow']} precond={s['precond']}")
+        if name == "linked":
+            line += f" iters={s['iters']}"
+        if i == 0:
+            idx_np = _slots_of(pk, n, slot_cols)
+            idx = torch.from_numpy(idx_np).to(dev)
+            saved = t0[idx]
+
+            def reset(t):
+                return lambda: t.index_copy_(0, idx, saved)
+
+            kernel_names = ("linked_kernel",) if name == "linked" else (
+                "tp_", "apply_rows_kernel", "summary_kernel")
+            ms, dev_ms = kernel_ms(
+                lambda: fn(t_k, m, r_k, 7, p, n, 1 << 40, scratch=scratch, **variant),
+                reset=reset(t_k), names=kernel_names,
+            )
+            plain_ms = time_ms(lambda: plain(t_p, m, r_p, 7, p, n, 1 << 40, **variant),
+                               reps=5, warm=1, reset=reset(t_p))
+            rows_n = len(idx)
+            n_bytes = pk.nbytes + rows_n * (64 + 8) + rows_n * 64 + 512
+            if name == "linked":
+                entries = int(((meta[idx_np, 0] & (dk.AF_DR_LIMIT | dk.AF_CR_LIMIT)) != 0).sum())
+                ops = n * K5_OPS_PER_EVENT + 2 * n * K5_OPS_PER_ENTRY_ITER * s["iters"]
+            else:
+                ops = n * K6_OPS_PER_EVENT
+            bound_ms, bound_by = bound(n_bytes, ops)
+            r = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, max_abs_err=err, timed_case=f"{kind}[{scenario}]")
+            line += f"; {ms * 1e3:.1f} us/launch, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}"
+            if name == "linked":
+                # The serial floor: the fixpoint's dependent block-wide
+                # passes, each at least one L2 round trip.
+                r["serial_floor_ms"] = s["iters"] * K5_PASSES_PER_ITER * l2_ns * 1e-6
+                r["iters"] = s["iters"]
+                line += (f", serial floor {r['serial_floor_ms'] * 1e3:.2f} us = {s['iters']} iters"
+                         f" x {K5_PASSES_PER_ITER} passes x {l2_ns:.1f} ns; {entries} limit rows")
+            report[name] = r
+        print(line)
+
+
 # ---------------------------------------------------------------------------
 # The main path: TorchStateMachine driven through the harness.
 
@@ -646,11 +765,18 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
     check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
     check(launches["exact_scan"] == sm.stat_exact_batches,
           f"{name}: {launches['exact_scan']} K3 launches != {sm.stat_exact_batches} exact batches")
+    # K5 and K6 launch once per batch the router sent them (a flagged
+    # batch is launched and re-executed exactly, and recovery launches
+    # the window's later batches again: then at least once).
+    for kname, stat in (("linked", "stat_linked_batches"), ("two_phase", "stat_two_phase_batches")):
+        routed = getattr(sm, stat)
+        same = launches[kname] == routed if sm.stat_fallback_events == 0 else launches[kname] >= routed
+        check(same, f"{name}: {launches[kname]} {kname} launches != {routed} routed batches")
     n_transfers = transfer_events(setup + timed)
     n_timed = transfer_events(timed)
     dev = sm._dev
-    # Every event's code came from K1 (device semantic) or from the host
-    # path (exact lane, flagged batches' re-execution included).
+    # Every event's code came from a semantic kernel (K1, K5, K6) or from
+    # the host path (exact lane, flagged batches' re-execution included).
     resolved = sm.stat_device_semantic_events + sm.stat_host_semantic_events
     check(resolved == n_transfers, f"{name}: {resolved} events resolved != {n_transfers}")
     if expect_fallbacks:
@@ -675,7 +801,11 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
         split = " ".join(f"{t[7:]}={getattr(dev, t):.3f}s" for t in ENGINE_TIMERS)
     else:
         split = f"flushes={dev.stat_flushes}"
-    exact = f"exact batches {sm.stat_exact_batches} ({sm.stat_exact_events} events)"
+    exact = (f"exact batches {sm.stat_exact_batches} ({sm.stat_exact_events} events); "
+             f"K5 batches {sm.stat_linked_batches} (mean fixpoint iterations "
+             f"{sm.stat_resolve_iters / max(sm.stat_linked_batches, 1):.2f}); "
+             f"K6 batches {sm.stat_two_phase_batches}; "
+             f"fallback events {sm.stat_fallback_events}")
     tables = tables_of(sm)
     del sm, dev
     torch.cuda.empty_cache()
@@ -740,6 +870,8 @@ def main() -> int:
     print(f"one dependent L2 hit: {l2_ns:.1f} ns (2^20-step chase over 4 MiB)")
     check_exact(dev, report, l2_ns)
     check_apply(dev, report)
+    check_semantic(dev, report, "linked", LINKED_CHECKS, semantic_cases.linked_case, l2_ns)
+    check_semantic(dev, report, "two_phase", TWO_PHASE_CHECKS, semantic_cases.two_phase_case)
 
     phases = {}
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
@@ -758,14 +890,16 @@ def main() -> int:
         expect_fallbacks=True, extra=overflow_ranked,
     )
     setup, timed, sizing = workload.gen_linked(N_EXACT)
-    phases["linked"] = run_phase("linked", setup, timed, sizing[0], must=("exact_scan",))
+    phases["linked"] = run_phase("linked", setup, timed, sizing[0], must=("linked",))
     setup, timed, sizing = workload.gen_two_phase(N_EXACT, n_accounts=N_ACCOUNTS)
-    phases["two_phase"] = run_phase("two_phase", setup, timed, sizing[0], must=("exact_scan",))
+    phases["two_phase"] = run_phase("two_phase", setup, timed, sizing[0], must=("two_phase",))
     # Bench's gen_offkernel cannot build a full 8190-event chain batch:
     # its 2730 chains need 2730 disjoint account pairs and 1,001 accounts
     # give 799.  10,001 accounts (odd, as bench's) give 9,799.
     setup, timed, sizing = workload.gen_offkernel(8 * workload.BATCH, n_accounts=OFFKERNEL_ACCOUNTS)
     phases["offkernel"] = run_phase("offkernel", setup, timed, sizing[0], must=("exact_scan",))
+    check(phases["offkernel"][0]["linked"] == phases["offkernel"][0]["two_phase"] == 0,
+          "offkernel: a batch outside K5's and K6's classes launched one of them")
 
     def all_released(sm, replies):
         bal = to_u64(sm._dev.read())
@@ -796,6 +930,10 @@ def main() -> int:
                        "tigerbeetle_tpu/state_machine/kernel.py:738"),
         "apply_deltas": ("tigerbeetle_tpu_torch/csrc/apply_deltas.cu",
                          "tigerbeetle_tpu/state_machine/device_kernels.py:1003"),
+        "linked": ("tigerbeetle_tpu_torch/csrc/linked.cu",
+                   "tigerbeetle_tpu/state_machine/device_kernels.py:473"),
+        "two_phase": ("tigerbeetle_tpu_torch/csrc/two_phase.cu",
+                      "tigerbeetle_tpu/state_machine/device_kernels.py:770"),
     }
     rows = []
     for name, (source, replaces) in meta.items():
@@ -810,7 +948,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "verified": True,
         }
-        for key in ("serial_floor_ms", "plain_on"):
+        for key in ("serial_floor_ms", "plain_on", "iters", "timed_case"):
             if key in r:
                 row[key] = r[key]
         rows.append(row)

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 on a CUDA card against their plain PyTorch versions,
+"""Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
 and TorchStateMachine on the card against the CPU run.  They
 skip without a card; on one, run them with
 
@@ -17,7 +17,7 @@ from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases
+from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
 pytestmark = pytest.mark.cuda
@@ -158,5 +158,57 @@ def test_exact_streams_on_card_match_cpu(card, engine):
             futs = [h.submit_async(op, body) for op, body in ops]
             replies = [f.result() for f in futs]
             sm.verify_device_mirror()
-            out.append((replies, sm.state_root(), sm.stat_exact_batches))
-        assert out[0] == out[1] and out[0][2] > 0
+            routed = (sm.stat_exact_batches, sm.stat_linked_batches,
+                      sm.stat_two_phase_batches, sm.stat_resolve_iters)
+            out.append((replies, sm.state_root(), routed))
+        assert out[0] == out[1]
+        exact, linked, two_phase, _ = out[0][2]
+        if engine == "host":
+            assert exact > 0
+        else:  # the device engine routes them to K5 and K6
+            assert (linked if gen is workload.gen_linked else two_phase) > 0
+
+
+def _semantic_on_card(card, kind, table, meta, pk, n):
+    """One K5 or K6 batch on the card and on the plain version (CPU):
+    the table and the whole ring are equal, and the kernel launched
+    once."""
+    fn, name = (dk.linked, "linked") if kind.startswith("linked") else (dk.two_phase, "two_phase")
+    variant = {"small": kind == "linked_small"} if name == "linked" else {"lo_only": kind == "two_phase_lo"}
+    t = torch.from_numpy(table.view(np.int64).copy())
+    m = torch.from_numpy(meta.view(np.int32).copy())
+    pk_t = torch.from_numpy(pk.view(np.int64).copy())
+    ring = torch.zeros((8, dk.SUMMARY_WORDS), dtype=torch.int64)
+    t_p, r_p = t.clone(), ring.clone()
+    fn(t_p, m, r_p, 3, pk_t, n, 1 << 40, **variant)
+    t_k, r_k = t.to(card), ring.to(card)
+    before = kernels.launches[name]
+    fn(t_k, m.to(card), r_k, 3, pk_t.to(card), n, 1 << 40, **variant)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert torch.equal(r_k.cpu(), r_p)
+    assert torch.equal(t_k.cpu(), t_p)
+
+
+@pytest.mark.parametrize("scenario", semantic_cases.LINKED_SCENARIOS)
+@pytest.mark.parametrize("kind", ["linked", "linked_small"])
+def test_linked_kernel_matches_plain(card, kind, scenario):
+    i = semantic_cases.LINKED_SCENARIOS.index(scenario)
+    _semantic_on_card(card, kind, *semantic_cases.linked_case(500 + i, dk.B, scenario, A=4096))
+
+
+@pytest.mark.parametrize("scenario", semantic_cases.TWO_PHASE_SCENARIOS)
+@pytest.mark.parametrize("kind", ["two_phase", "two_phase_lo"])
+def test_two_phase_kernel_matches_plain(card, kind, scenario):
+    i = semantic_cases.TWO_PHASE_SCENARIOS.index(scenario)
+    _semantic_on_card(card, kind, *semantic_cases.two_phase_case(600 + i, dk.B, scenario, A=4096))
+
+
+@pytest.mark.parametrize("kind", ["linked", "two_phase"])
+def test_semantic_kernels_above_2_17_rows(card, kind):
+    """Slots above 2^17 (the reference's u64-key sort path)."""
+    A = (1 << 17) + 4096
+    rows = np.arange(1 << 17, A)
+    gen = semantic_cases.linked_case if kind == "linked" else semantic_cases.two_phase_case
+    _semantic_on_card(card, kind, *gen(700, dk.B, "limits" if kind == "linked" else "races",
+                                       A=A, rows=rows))

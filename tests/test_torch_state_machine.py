@@ -2,9 +2,9 @@
 the CPU through the kernels' plain versions) against TpuStateMachine
 and CpuStateMachine: replies and state_root bit for bit on the bench
 streams, exact recovery, the tight/wide input formats, and the classes
-outside K1's (linked, post/void, duplicate or existing ids, a flagged
-batch whose re-execution must rank overflow codes), which the exact
-scan resolves: against TpuStateMachine with TB_WAVES=scan and
+outside K1's: linked and post/void batches (K5 and K6) and duplicate or
+existing ids and a flagged batch whose re-execution must rank overflow
+codes (the exact scan), against TpuStateMachine with TB_WAVES=scan and
 TB_DEV_WAVES=0, so the JAX scan runs there too."""
 
 import importlib
@@ -205,9 +205,12 @@ def test_wide_amounts_match_jax():
 
 @pytest.mark.parametrize("case", ["linked", "post_void", "duplicate_ids", "exists"])
 def test_residual_classes_raise(case, monkeypatch):
-    """The classes slice 1 refused now take the exact host path: drain,
-    then the exact scan K3.  Replies and root equal the JAX scan's and
-    the oracle's, and the batch raises nothing."""
+    """The classes slice 1 refused now raise nothing and are routed as
+    the JAX device engine routes them: a linked batch to K5, a post/void
+    batch to K6 (the counters equal the JAX machine's, and no exact
+    batch runs), duplicate or existing ids to the exact host path
+    (drain, then K3).  Replies and root equal the JAX machine's and the
+    oracle's."""
     setup = [(Operation.create_accounts, accounts([1, 2, 3]))]
     t = dict(debit_account_id=1, credit_account_id=2, amount=5)
     if case == "linked":
@@ -229,7 +232,13 @@ def test_residual_classes_raise(case, monkeypatch):
     sm_j = jax_scan_sm(monkeypatch)
     assert got == replay(sm_j, ops, ref_hz) == oracle(ops)
     assert sm.state_root() == sm_j.state_root()
-    assert sm.stat_exact_batches == 1
+    routed = {"linked": "stat_linked_batches", "post_void": "stat_two_phase_batches"}
+    for stat in ("stat_linked_batches", "stat_two_phase_batches", "stat_exact_events"):
+        assert getattr(sm, stat) == getattr(sm_j, stat), stat
+    if case in routed:
+        assert getattr(sm, routed[case]) == 1 and sm.stat_exact_batches == 0
+    else:
+        assert sm.stat_exact_batches == 1
     sm.verify_device_mirror()
 
 

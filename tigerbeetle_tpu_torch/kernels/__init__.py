@@ -23,6 +23,8 @@ launches = {
     "commit_probe": 0,
     "exact_scan": 0,
     "apply_deltas": 0,
+    "linked": 0,
+    "two_phase": 0,
 }
 
 _P = ctypes.c_void_p
@@ -54,6 +56,14 @@ _SIGNATURES = {
     "apply_deltas": {
         # table, A, packed, k, stride, stream
         "tb_apply_deltas": [_P, _I64, _P, _I64, _I64, _P],
+    },
+    "linked": {
+        # table, meta, A, ring_row, pk, n, B, small, slot_idx, words, stream
+        "tb_linked": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P],
+    },
+    "two_phase": {
+        # table, meta, A, ring_row, pk, n, B, lo_only, slot_idx, words, stream
+        "tb_two_phase": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P],
     },
 }
 
@@ -104,6 +114,36 @@ def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch):
         _ptr(scratch.codes), _ptr(scratch.touched), _ptr(scratch.acc),
         _ptr(scratch.newrows), _ptr(scratch.ctrl),
     )
+
+
+def linked(table, meta, ring_row_ptr, pk, n, small, scratch):
+    _launch(
+        "linked", "tb_linked", "linked",
+        _ptr(table), _ptr(meta), table.shape[0], ring_row_ptr, _ptr(pk), n,
+        pk.shape[0], int(small), _ptr(scratch.slot_idx), _ptr(scratch.words),
+    )
+
+
+def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch):
+    _launch(
+        "two_phase", "tb_two_phase", "two_phase",
+        _ptr(table), _ptr(meta), table.shape[0], ring_row_ptr, _ptr(pk), n,
+        pk.shape[0], int(lo_only), _ptr(scratch.slot_idx), _ptr(scratch.words),
+    )
+
+
+def scratch_words(lib: str, batch: int) -> int:
+    """u64 words of K5's or K6's scratch buffer for a `batch`-event
+    bucket (the layout is the kernel source's)."""
+    fn = _FNS.get(lib + ".words")
+    if fn is None:
+        from tigerbeetle_tpu_torch.kernels import build
+
+        fn = getattr(build.load(lib), f"tb_{lib}_scratch_words")
+        fn.argtypes = [_I]
+        fn.restype = _I64
+        _FNS[lib + ".words"] = fn
+    return int(fn(batch))
 
 
 def commit_hash_all(balances, meta, rows, row_hash, fold_out, count_as):

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers: a build takes seconds, not minutes).  Libraries
 land in ``build/kernels/`` at the repository root, named by a hash of
-their source, so an edited source is rebuilt and a stale library is
-never loaded.  All missing libraries are compiled in parallel, one
+their source and of the shared headers (``csrc/*.cuh``), so an edited
+source or header is rebuilt and a stale library is never loaded.  All missing libraries are compiled in parallel, one
 ``nvcc`` process per source.
 """
 
@@ -22,7 +22,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("orderfree", "commitment", "exact_scan", "apply_deltas")
+SOURCES = ("orderfree", "commitment", "exact_scan", "apply_deltas", "linked", "two_phase")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -52,6 +52,8 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a shared header rebuilds its includers
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libtb_{name}-{digest.hexdigest()[:12]}.so"
 

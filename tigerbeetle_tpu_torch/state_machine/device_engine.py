@@ -1,12 +1,14 @@
 """Device-authoritative execution pipeline for create_transfers.
 
-Counterpart of ``tigerbeetle_tpu/state_machine/device_engine.py``,
-reduced to the order-free slice.  The engine owns the authoritative
-device tables — balances (A, 8) int64 (u64 lanes), account meta (A, 2)
-int32 (flags, ledger) — and a stream of semantic batches.  The host
-submits packed batches and gets back reply futures; result codes are
-computed on the device (kernel K1), ride the failure-sparse summary
-ring, and materialize once per execution window:
+Counterpart of ``tigerbeetle_tpu/state_machine/device_engine.py``.
+The engine owns the authoritative device tables — balances (A, 8)
+int64 (u64 lanes), account meta (A, 2) int32 (flags, ledger) — and a
+stream of semantic batches of three classes: order-free (kernel K1),
+linked-chain (K5) and two-phase (K6), each kind launched by its own
+kernel (``device_kernels.KERNELS``).  The host submits packed batches
+and gets back reply futures; result codes are computed on the device,
+ride the failure-sparse summary ring, and materialize once per
+execution window:
 
   submit()  appends the packed batch to a host-side window; nothing
             is launched until the window fills (TB_DEV_WINDOW).
@@ -18,14 +20,15 @@ ring, and materialize once per execution window:
             the window's touched rows; (4) only then run the previous
             window's host bookkeeping, overlapped with the device.
 
-A batch whose summary carries a flag (balance overflow in play, or more
-failures than the summary holds) triggers exact recovery before the
+A batch whose summary carries a flag (balance overflow in play, more
+failures than the summary holds, or a linked kernel's precondition or
+fixpoint cap) triggers exact recovery before the
 next window launches: the batch is re-executed exactly against the
 mirror's image (the exact scan K3 runs on a card tensor built from it),
 the table is re-uploaded from the mirror (K2 rebuild), and every later
-batch of the window is launched again.
+batch of the window is launched again with its own kind's kernel.
 
-Batches outside the semantic kernels' class take the host path: the
+Batches outside the semantic kernels' classes take the host path: the
 machine drains the stream, then resolves the batch exactly against the
 table read through ``read()`` (a drain and flush barrier).  Order-free
 ones apply through the write-behind lane (``enqueue`` / ``flush``: K4
@@ -59,7 +62,7 @@ _WINDOW = envcheck.dev_window()
 _RING = envcheck.dev_ring()
 envcheck.validate_window_ring(_WINDOW, _RING)
 
-_SEMANTIC_KINDS = tuple(dk.KIND_MODE)
+_SEMANTIC_KINDS = tuple(dk.KERNELS)
 _MASK32_NP = np.uint64(0xFFFFFFFF)
 
 
@@ -114,22 +117,25 @@ class _InFlight:
 
 
 def _touched_of_pk(kind: str, pk, n: int) -> np.ndarray:
-    """Balance rows a packed order-free batch can modify, read from the
+    """Balance rows a packed semantic batch can modify, read from the
     host copy of the packed columns (a superset is fine — refreshing
-    an unmodified row is a no-op)."""
+    an unmodified row is a no-op).  The two-phase kernel also writes
+    the durable pending target's accounts (COL_TP_SLOTS); an in-batch
+    target's are its creator's own slots, which the batch covers."""
     pk = np.asarray(pk)
     if kind == "orderfree_tight":
         s = np.concatenate(
             [pk[:n, 1].astype(np.int64), pk[:n, 2].astype(np.int64)]
         ) - 1
         return s[s >= 0]
-    w = pk[:n, dk.COL_SLOTS]
-    s = np.concatenate(
-        [
-            (w & _MASK32_NP).astype(np.int64) - 1,
-            (w >> np.uint64(32)).astype(np.int64) - 1,
-        ]
-    )
+    cols = [dk.COL_SLOTS]
+    if kind in ("two_phase", "two_phase_lo"):
+        cols.append(dk.COL_TP_SLOTS)
+    parts = []
+    for col in cols:
+        w = pk[:n, col]
+        parts += [(w & _MASK32_NP).astype(np.int64) - 1, (w >> np.uint64(32)).astype(np.int64) - 1]
+    s = np.concatenate(parts)
     return s[s >= 0]
 
 
@@ -145,7 +151,7 @@ class DeviceEngine:
     """Authoritative device tables + windowed semantic dispatch.
 
     `plain=True` runs the plain PyTorch versions of the kernels on the
-    engine's device instead of K1/K2/K4 — the reference run the chip
+    engine's device instead of K1/K2/K4-K6 — the reference run the chip
     smoke test compares the kernels' end-to-end results against."""
 
     def __init__(self, capacity: int, mirror, device, plain: bool = False) -> None:
@@ -153,12 +159,13 @@ class DeviceEngine:
         self.mirror = mirror  # host bookkeeping copy (recovery + parity)
         self.device = device
         self.window = _WINDOW
+        self._plain = plain
         if plain:
-            self._orderfree = dk.orderfree_plain
+            self._kfn = dk.PLAIN
             self._cm = cm.PLAIN_FNS
             self._apply = dk.apply_deltas_plain
         else:
-            self._orderfree = dk.orderfree
+            self._kfn = dk.KERNELS
             self._cm = cm.device_fns()
             self._apply = dk.apply_deltas
         self._commit_enabled = envcheck.state_commit() == 1
@@ -184,7 +191,7 @@ class DeviceEngine:
             mirror.commitment = cm.HostCommitment(capacity, meta_fn=self._twin_meta)
         self.balances = torch.zeros((capacity, 8), dtype=torch.int64, device=device)
         self.meta = torch.zeros((capacity, 2), dtype=torch.int32, device=device)
-        self._scratch = self._new_scratch()
+        self._scratch: dict = {}  # kernel family -> its scratch, made at first use
         self._commit_rebuild()
         # Window pipeline: _pending accumulates host-side; _launched is
         # the window executing on the device; _recovering holds a
@@ -202,10 +209,15 @@ class DeviceEngine:
         self._queued = 0
         self.stat_flushes = 0
 
-    def _new_scratch(self):
-        if self.device.type == "cpu":
+    def _scratch_for(self, kind: str):
+        """The scratch of `kind`'s kernel family (None for the plain
+        versions and on the CPU)."""
+        if self._plain or self.device.type == "cpu":
             return None
-        return dk.OrderfreeScratch(self.capacity, dk.B, self.device)
+        family = dk.FAMILY[kind]
+        if family not in self._scratch:
+            self._scratch[family] = dk.new_scratch(family, self.capacity, self.device)
+        return self._scratch[family]
 
     # ------------------------------------------------------------------
     # Moving state in and out (bit for bit, numpy u64/u32 layouts).
@@ -283,7 +295,7 @@ class DeviceEngine:
             [self.balances, self.balances.new_zeros((extra, 8))]
         )
         self.meta = torch.cat([self.meta, self.meta.new_zeros((extra, 2))])
-        self._scratch = self._new_scratch()
+        self._scratch = {}
         # Zero rows hash to 0, so the digest VALUE is unchanged, but the
         # per-row hash array must match the new geometry.
         self._commit_rebuild()
@@ -403,11 +415,12 @@ class DeviceEngine:
             elif ukind == "lookup":
                 urecs[0].handle = self._gather(urecs[0].slots)
             else:
-                big, ns, tsb = dev_bufs[dk.PK_SPEC[urecs[0].kind]]
+                kind = urecs[0].kind
+                big, ns, tsb = dev_bufs[dk.PK_SPEC[kind]]
                 dk.run_window(
-                    urecs[0].kind, self.balances, self.meta, self.ring,
+                    kind, self.balances, self.meta, self.ring,
                     self._ring_at, big, offsets[i], len(urecs), ns, tsb,
-                    scratch=self._scratch, fn=self._orderfree,
+                    scratch=self._scratch_for(kind), fn=self._kfn[kind],
                 )
                 for g, rec in enumerate(urecs):
                     rec.ring_at = (self._ring_at + g) % _RING
@@ -421,11 +434,12 @@ class DeviceEngine:
                 self._commit_update(touched)
 
     def _dispatch(self, rec: _InFlight) -> None:
-        """Immediate single-batch launch (recovery re-dispatch path)."""
+        """Immediate single-batch launch (recovery re-dispatch path),
+        with the kernel of the batch's own kind."""
         pk = _host_tensor(rec.pk, self.device)
-        self._orderfree(
+        self._kfn[rec.kind](
             self.balances, self.meta, self.ring, self._ring_at, pk, rec.n,
-            rec.ts_base, mode=dk.KIND_MODE[rec.kind], scratch=self._scratch,
+            rec.ts_base, scratch=self._scratch_for(rec.kind),
         )
         rec.ring_at = self._ring_at
         self._ring_at = (self._ring_at + 1) % _RING

@@ -15,19 +15,24 @@ Two execution authorities, as in the reference (``engine``, or
   batch runs the exact sequential scan (kernel K3) against the device
   table, and the mirror is rebuilt from the scan's row snapshots.
 - "device": the device-authoritative engine (DeviceEngine) computes the
-  order-free batches' codes with kernel K1 inside pipelined windows and
-  keeps the state commitment on the device (kernel K2).  Every other
-  batch drains the stream and takes the host path above; a flagged K1
-  batch is re-executed exactly (K3 for the classes only the scan ranks).
+  codes on the device inside pipelined windows, routed as the
+  reference routes them: order-free batches to kernel K1, linked-chain
+  batches (limit accounts allowed) to K5, pending-create + post/void
+  batches to K6; the state commitment stays on the device (kernel K2).
+  Every other batch drains the stream and takes the host path above; a
+  flagged batch (an overflow, more failures than the summary holds, a
+  K5 precondition or fixpoint cap) is re-executed exactly (K3 for the
+  classes only the scan ranks).
 
 State split: the device holds the balance table (and, device engine,
 the account-meta table, the summary ring and the digest); the host
 holds the id directories, immutable account attributes, the columnar
 transfer store, the expires index, the history rows and the balance
 mirror.  Not ported (ROADMAP): the native library, wave and speculative
-execution, the linked and two-phase device kernels and the host-only
-linked / two-phase fast paths (those batches take K3, which gives the
-same results), hot/cold tiering, the query operations.
+execution (the reference tries it on the host path's batches), the
+device engine's degraded state, the host-only linked / two-phase fast
+paths (those batches take K3, which gives the same results), hot/cold
+tiering, the query operations.
 """
 
 from __future__ import annotations
@@ -76,6 +81,9 @@ CTR = CreateTransferResult
 # Tight device-input gate: amounts must fit u32 (tests shrink this to
 # force the wide format on the same stream).
 _TIGHT_AMOUNT_LIMIT = 1 << 32
+# Account flags that keep a batch off the order-free and two-phase
+# kernels: the limits (the linked kernel takes them) and history.
+_LIMH = np.uint32(AF.debits_must_not_exceed_credits | AF.credits_must_not_exceed_debits | AF.history)
 
 # Columnar transfer-store fields.
 _STORE_FIELDS = {
@@ -230,6 +238,9 @@ class TorchStateMachine:
         self.stat_exact_batches = 0
         self.stat_host_semantic_events = 0
         self.stat_fallback_events = 0
+        self.stat_linked_batches = 0      # batches resolved by K5
+        self.stat_two_phase_batches = 0   # batches routed to K6
+        self.stat_resolve_iters = 0       # K5 fixpoint iterations
 
         self._acct_dir = RunIndex(_dir_capacity(account_capacity))
         self._attrs = Columns(_ATTR_FIELDS, capacity=max(1024, account_capacity))
@@ -656,11 +667,12 @@ class TorchStateMachine:
     # Device-authoritative create_transfers (engine == "device").
 
     def _commit_create_transfers_device(self, timestamp: int, input_bytes: bytes):
-        """Route a batch to K1 (the host does the joins, the device
-        computes the result codes), or, for shapes outside the order-free
-        class, drain the stream and take the exact host path (reference:
-        tpu.py:1329-1489, with no wave dispatch and no linked or
-        two-phase device kernels)."""
+        """Route a batch to a device semantic kernel — order-free (K1),
+        linked-chain (K5) or two-phase (K6); the host does the joins,
+        the device computes the result codes — or, for shapes outside
+        the kernels' classes, drain the stream and take the exact host
+        path (reference: tpu.py:1329-1489, without its wave dispatch,
+        degraded state, forced speculation and tiering)."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
         n = len(events)
         ts_base = timestamp - n + 1
@@ -677,8 +689,10 @@ class TorchStateMachine:
         flags16 = np.asarray(events["flags"])
         flags = flags16.astype(np.uint32)
         timeout = events["timeout"].astype(np.uint64)
+        amount_hi = np.asarray(events["amount_hi"])
 
         has_linked = bool((flags16 & np.uint16(TF.linked)).any())
+        has_pending = bool((flags16 & np.uint16(TF.pending)).any())
         pv16 = np.uint16(TF.post_pending_transfer | TF.void_pending_transfer)
         has_pv = bool((flags16 & pv16).any())
         has_bal = bool(
@@ -700,17 +714,25 @@ class TorchStateMachine:
                 0xC2B2AE3D27D4EB4F
             )
             ids_unique = len(np.unique(mix)) == n
-        # Linked and post/void batches have no device kernel yet (their
-        # kernels are slice 3): the reference routes them, when its
-        # linked and two-phase submissions decline, to the host path.
-        if not ids_unique or has_bal or has_linked or has_pv:
+        if not ids_unique or has_bal:
             return host_path()
 
-        # In-flight hazard: this batch's ids must not collide with
-        # batches whose bookkeeping has not materialized yet.
+        # In-flight hazards: this batch's ids must not collide with
+        # batches whose bookkeeping has not materialized yet, and a
+        # post/void batch's pending references join the probe (and its
+        # recorded keys), so a later pipelined finalize of the same
+        # durable pending drains instead of reading a stale status
+        # (the double-finalize hazard, reference :1414-1426).
         keys = pack_u128(id_lo, id_hi)
-        keys_sorted = keys if ascending else np.sort(keys)
-        if self._dev.inflight_ids_hit(keys):
+        probe = keys
+        if has_pv:
+            # pending_id == 0 means "no reference" and must not alias.
+            plo = np.asarray(events["pending_id_lo"])
+            phi = np.asarray(events["pending_id_hi"])
+            ref = (plo != 0) | (phi != 0)
+            probe = np.concatenate([probe, pack_u128(plo[ref], phi[ref])])
+        keys_sorted = np.sort(probe) if (has_pv or not ascending) else keys
+        if self._dev.inflight_ids_hit(probe):
             self._engine_drain()
 
         e_found, _e_row = self._tdir.lookup(id_lo, id_hi)
@@ -727,28 +749,35 @@ class TorchStateMachine:
         dr_slot = np.where(dr_found, dr_slot_u.astype(np.int64), -1)
         cr_slot = np.where(cr_found, cr_slot_u.astype(np.int64), -1)
         attrs = self._attrs
-        dr_flags = np.where(dr_found, attrs["flags"][np.clip(dr_slot, 0, None)], 0)
-        cr_flags = np.where(cr_found, attrs["flags"][np.clip(cr_slot, 0, None)], 0)
-        LIMH = np.uint32(
-            AF.debits_must_not_exceed_credits
-            | AF.credits_must_not_exceed_debits
-            | AF.history
-        )
-        touch_limit_hist = bool(
-            ((dr_flags.astype(np.uint32) | cr_flags.astype(np.uint32)) & LIMH).any()
-        )
-        if touch_limit_hist:
-            return host_path()
-        return self._submit_device_orderfree(
+        dr_flags = np.where(dr_found, attrs["flags"][np.clip(dr_slot, 0, None)], 0).astype(np.uint32)
+        cr_flags = np.where(cr_found, attrs["flags"][np.clip(cr_slot, 0, None)], 0).astype(np.uint32)
+        touch_limit_hist = bool(((dr_flags | cr_flags) & _LIMH).any())
+        touch_hist = bool(((dr_flags | cr_flags) & np.uint32(AF.history)).any())
+
+        common = dict(
             events=events, n=n, ts_base=ts_base, id_lo=id_lo, id_hi=id_hi,
             dr_lo=dr_lo, dr_hi=dr_hi, cr_lo=cr_lo, cr_hi=cr_hi, flags=flags,
             timeout=timeout, dr_slot=dr_slot, cr_slot=cr_slot,
-            keys_sorted=keys_sorted, timestamp=timestamp,
-            input_bytes=input_bytes,
+            keys_sorted=keys_sorted, timestamp=timestamp, input_bytes=input_bytes,
         )
+        if not (has_linked or has_pv) and not touch_limit_hist:
+            return self._submit_device_orderfree(**common)
+        if (
+            has_linked
+            and not (has_pending or has_pv)
+            and not touch_hist
+            and not amount_hi.any()
+        ):
+            return self._submit_device_linked(**common)
+        if has_pv and not has_linked and not timeout.any() and not touch_limit_hist:
+            fut = self._submit_device_two_phase(**common)
+            if fut is not None:
+                return fut
+        return host_path()
 
     def _device_pack_base(self, n, events, id_lo, id_hi, dr_lo, dr_hi,
-                          cr_lo, cr_hi, flags, timeout, dr_slot, cr_slot):
+                          cr_lo, cr_hi, flags, timeout, dr_slot, cr_slot,
+                          p_found=None, p_tgt=None, n_cols=None):
         return dk.pack_base(
             n, id_lo=id_lo, id_hi=id_hi,
             dr_lo=dr_lo, dr_hi=dr_hi, cr_lo=cr_lo, cr_hi=cr_hi,
@@ -762,6 +791,7 @@ class TorchStateMachine:
             ts_nonzero=np.asarray(events["timestamp"] != 0),
             dr_slot=dr_slot, cr_slot=cr_slot,
             e_found=np.zeros(n, bool),  # the router proved no duplicates
+            p_found=p_found, p_tgt=p_tgt, n_cols=n_cols or dk.N_COLS,
         )
 
     def _device_fallback(self, timestamp, input_bytes):
@@ -811,21 +841,9 @@ class TorchStateMachine:
                 n, events, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
                 flags, timeout, dr_slot, cr_slot,
             )
-        created = {
-            "flags": flags,
-            "dr_slot": dr_slot.astype(np.int32),
-            "cr_slot": cr_slot.astype(np.int32),
-            "amount_lo": amount_lo, "amount_hi": amount_hi,
-            "pending_lo": np.asarray(events["pending_id_lo"]),
-            "pending_hi": np.asarray(events["pending_id_hi"]),
-            "ud128_lo": np.asarray(events["user_data_128_lo"]),
-            "ud128_hi": np.asarray(events["user_data_128_hi"]),
-            "ud64": np.asarray(events["user_data_64"]),
-            "ud32": np.asarray(events["user_data_32"]),
-            "timeout": timeout,
-            "ledger": np.asarray(events["ledger"]),
-            "code": events["code"].astype(np.uint32),
-        }
+        created = self._created_cols(
+            events, n, flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi
+        )
 
         def finish(summary) -> bytes:
             results = np.zeros(n, np.uint32)
@@ -853,6 +871,304 @@ class TorchStateMachine:
             self._device_fallback(timestamp, input_bytes),
             id_keys=keys_sorted,
         )
+
+    def _created_cols(self, events, n, flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi):
+        """Store columns of a batch's own events (the creates of a
+        device-resolved batch)."""
+        return {
+            "flags": flags,
+            "dr_slot": dr_slot.astype(np.int32),
+            "cr_slot": cr_slot.astype(np.int32),
+            "amount_lo": amount_lo, "amount_hi": amount_hi,
+            "pending_lo": np.asarray(events["pending_id_lo"]),
+            "pending_hi": np.asarray(events["pending_id_hi"]),
+            "ud128_lo": np.asarray(events["user_data_128_lo"]),
+            "ud128_hi": np.asarray(events["user_data_128_hi"]),
+            "ud64": np.asarray(events["user_data_64"]),
+            "ud32": np.asarray(events["user_data_32"]),
+            "timeout": timeout,
+            "ledger": np.asarray(events["ledger"]),
+            "code": events["code"].astype(np.uint32),
+        }
+
+    def _submit_device_linked(
+        self, events, n, ts_base, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
+        flags, timeout, dr_slot, cr_slot, keys_sorted, timestamp, input_bytes,
+    ):
+        """A linked-chain batch of posted transfers (limit accounts
+        allowed) to K5 (reference: tpu.py:1836-1894)."""
+        pk = self._device_pack_base(
+            n, events, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
+            flags, timeout, dr_slot, cr_slot,
+        )
+        amount_lo = np.asarray(events["amount_lo"])
+        amount_hi = np.asarray(events["amount_hi"])
+        created = self._created_cols(
+            events, n, flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi
+        )
+        # The router proved pending_id == 0 for no event; the store keeps
+        # zeros, as the reference's does.
+        created["pending_lo"] = np.zeros(n, np.uint64)
+        created["pending_hi"] = np.zeros(n, np.uint64)
+
+        def finish(summary) -> bytes:
+            results = np.zeros(n, np.uint32)
+            results[summary["fail_idx"]] = summary["fail_codes"]
+            self.stat_linked_batches += 1
+            self.stat_resolve_iters += summary["iters"]
+            deltas = self._mirror.try_apply_adds(
+                dr_slot, cr_slot, amount_lo, amount_hi, np.zeros(n, bool), results == 0,
+            )
+            if deltas is None:
+                raise AssertionError("device/mirror admission divergence")
+            return self._finish_fast(
+                n, ts_base, id_lo, id_hi, flags, timeout, results, created,
+                last_applied=summary["last_applied"],
+            )
+
+        # Small-amount specialization: a batch whose total contribution
+        # fits i32 (by the host's wrapping u64 sum, as the reference's)
+        # runs one int32 prefix per lane; K5 re-verifies the bound and a
+        # wrong pick falls back exactly.
+        kind = (
+            "linked_small"
+            if int(amount_lo.sum(dtype=np.uint64)) < (1 << 31)
+            else "linked"
+        )
+        return self._dev.submit(
+            kind, pk, n, ts_base, finish,
+            self._device_fallback(timestamp, input_bytes),
+            id_keys=keys_sorted,
+        )
+
+    def _submit_device_two_phase(
+        self, events, n, ts_base, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
+        flags, timeout, dr_slot, cr_slot, keys_sorted, timestamp, input_bytes,
+    ):
+        """A pending-create + post/void batch to K6 with its target joins
+        (reference: tpu.py:1896-2093).  Returns None — the batch takes
+        the host path — for an in-batch reference to a non-pending
+        create, and for a durable target with a timeout or on a limit or
+        history account."""
+        pend_lo = np.asarray(events["pending_id_lo"])
+        pend_hi = np.asarray(events["pending_id_hi"])
+        is_pv = (flags & np.uint32(TF.post_pending_transfer | TF.void_pending_transfer)) != 0
+
+        # In-batch pending references (ids unique: the creator is the
+        # unique event with that id).
+        id_key = pack_u128(id_lo, id_hi)
+        order = np.argsort(id_key, kind="stable")
+        sorted_keys = id_key[order]
+        pend_key = pack_u128(pend_lo, pend_hi)
+        pos_c = np.minimum(np.searchsorted(sorted_keys, pend_key), n - 1)
+        tgt_ev = np.where(
+            is_pv & (sorted_keys[pos_c] == pend_key), order[pos_c], -1
+        ).astype(np.int64)
+        ib = is_pv & (tgt_ev >= 0) & (tgt_ev < np.arange(n))
+        if (ib & ((flags[np.clip(tgt_ev, 0, None)] & np.uint32(TF.pending)) == 0)).any():
+            return None
+
+        # Durable pending-target join.
+        if is_pv.any():
+            p_found, p_row = self._tdir.lookup(pend_lo, pend_hi)
+            p_found = p_found & is_pv & ~ib
+        else:
+            p_found = np.zeros(n, bool)
+            p_row = np.zeros(n, np.uint64)
+        p_rows_valid = p_row[p_found].astype(np.int64)
+        p_tgt = np.full(n, -1, np.int64)
+        if len(p_rows_valid):
+            uniq_rows, tgt_inverse = np.unique(p_rows_valid, return_inverse=True)
+            join = self._store.gather_many(
+                ["flags", "dr_slot", "cr_slot", "amount_lo", "amount_hi", "ledger",
+                 "code", "ud128_lo", "ud128_hi", "ud64", "ud32", "timeout", "status"],
+                uniq_rows,
+            )
+            if (join["timeout"] != 0).any():
+                return None
+            pj_acct_flags = (
+                self._attrs["flags"][np.clip(join["dr_slot"].astype(np.int64), 0, None)]
+                | self._attrs["flags"][np.clip(join["cr_slot"].astype(np.int64), 0, None)]
+            ).astype(np.uint32)
+            if (pj_acct_flags & _LIMH).any():
+                return None
+            p_tgt[p_found] = tgt_inverse
+            uniq_status = join["status"].astype(np.uint32)
+
+            def jcol(name, dtype):
+                out = np.zeros(n, dtype)
+                out[p_found] = join[name][tgt_inverse].astype(dtype)
+                return out
+        else:
+            uniq_rows = np.zeros(0, np.int64)
+            uniq_status = np.zeros(0, np.uint32)
+
+            def jcol(name, dtype):
+                return np.zeros(n, dtype)
+
+        pj_dr_slot = jcol("dr_slot", np.int64)
+        pj_cr_slot = jcol("cr_slot", np.int64)
+        pk = self._device_pack_base(
+            n, events, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
+            flags, timeout, dr_slot, cr_slot,
+            p_found=p_found, p_tgt=p_tgt, n_cols=dk.N_COLS_TP,
+        )
+        # Target account-id equality predicates (u128 byte compares
+        # against the in-batch creator's or the durable target's ids).
+        tgt_c = np.clip(tgt_ev, 0, None)
+        p_drs = np.where(ib, dr_slot[tgt_c], pj_dr_slot)
+        p_crs = np.where(ib, cr_slot[tgt_c], pj_cr_slot)
+        pd = np.clip(p_drs, 0, None)
+        pc = np.clip(p_crs, 0, None)
+        dr_eq = (dr_lo == self._attrs["id_lo"][pd]) & (dr_hi == self._attrs["id_hi"][pd])
+        cr_eq = (cr_lo == self._attrs["id_lo"][pc]) & (cr_hi == self._attrs["id_hi"][pc])
+        bits_extra = (
+            np.where((dr_lo != 0) | (dr_hi != 0), np.uint64(dk.BIT_T_DR_SET), np.uint64(0))
+            | np.where((cr_lo != 0) | (cr_hi != 0), np.uint64(dk.BIT_T_CR_SET), np.uint64(0))
+            | np.where(dr_eq, np.uint64(dk.BIT_DR_EQ_P), np.uint64(0))
+            | np.where(cr_eq, np.uint64(dk.BIT_CR_EQ_P), np.uint64(0))
+        )
+        p_amt_lo_d = jcol("amount_lo", np.uint64)
+        p_amt_hi_d = jcol("amount_hi", np.uint64)
+        dstat_ev = np.zeros(n, np.uint32)
+        if len(uniq_rows):
+            dstat_ev[p_found] = uniq_status[p_tgt[p_found]]
+        pk = dk.pack_two_phase_ext(
+            pk, n, bits_extra_mask=bits_extra,
+            p_flags=jcol("flags", np.uint32).astype(np.uint16),
+            p_code=jcol("code", np.uint32).astype(np.uint16),
+            p_ledger=jcol("ledger", np.uint32),
+            p_dr_slot=np.where(p_found, pj_dr_slot, 0),
+            p_cr_slot=np.where(p_found, pj_cr_slot, 0),
+            p_amt_lo=p_amt_lo_d, p_amt_hi=p_amt_hi_d,
+            tgt_ev=tgt_ev, dstat_init_ev=dstat_ev,
+        )
+        amount_lo = np.asarray(events["amount_lo"])
+        amount_hi = np.asarray(events["amount_hi"])
+        p_amt_lo = np.where(ib, amount_lo[tgt_c], p_amt_lo_d)
+        p_amt_hi = np.where(ib, amount_hi[tgt_c], p_amt_hi_d)
+        ud128_lo = np.asarray(events["user_data_128_lo"])
+        ud128_hi = np.asarray(events["user_data_128_hi"])
+        ud64 = np.asarray(events["user_data_64"])
+        ud32 = np.asarray(events["user_data_32"]).astype(np.uint32)
+        ledger_arr = np.asarray(events["ledger"])
+        code_arr = events["code"].astype(np.uint32)
+        ctx = dict(
+            n=n, ts_base=ts_base, is_pv=is_pv, ib=ib, tgt_ev=tgt_ev,
+            p_drs=p_drs, p_crs=p_crs, p_amt_lo=p_amt_lo, p_amt_hi=p_amt_hi,
+            p_ud128_lo=np.where(ib, ud128_lo[tgt_c], jcol("ud128_lo", np.uint64)),
+            p_ud128_hi=np.where(ib, ud128_hi[tgt_c], jcol("ud128_hi", np.uint64)),
+            p_ud64=np.where(ib, ud64[tgt_c], jcol("ud64", np.uint64)),
+            p_ud32=np.where(ib, ud32[tgt_c], jcol("ud32", np.uint32)),
+            p_ledger=np.where(ib, ledger_arr[tgt_c].astype(np.uint32), jcol("ledger", np.uint32)),
+            p_code=np.where(ib, code_arr[tgt_c], jcol("code", np.uint32)),
+            uniq_rows=uniq_rows, uniq_status=uniq_status, p_tgt=p_tgt,
+            pend_flag=(flags & np.uint32(TF.pending)) != 0,
+            post=(flags & np.uint32(TF.post_pending_transfer)) != 0,
+        )
+
+        def finish(summary) -> bytes:
+            return self._finish_device_two_phase(
+                summary, events, id_lo, id_hi, flags, timeout, amount_lo, amount_hi,
+                pend_lo, pend_hi, ud128_lo, ud128_hi, ud64, ud32, ledger_arr,
+                code_arr, dr_slot, cr_slot, ctx,
+            )
+
+        self.stat_two_phase_batches += 1
+        kind = "two_phase_lo" if not (amount_hi.any() or p_amt_hi.any()) else "two_phase"
+        return self._dev.submit(
+            kind, pk, n, ts_base, finish,
+            self._device_fallback(timestamp, input_bytes),
+            id_keys=keys_sorted,
+        )
+
+    def _finish_device_two_phase(
+        self, summary, events, id_lo, id_hi, flags, timeout, amount_lo, amount_hi,
+        pend_lo, pend_hi, ud128_lo, ud128_hi, ud64, ud32, ledger_arr, code_arr,
+        dr_slot, cr_slot, ctx,
+    ) -> bytes:
+        """Bookkeeping from K6's codes (reference: tpu.py:2095-2212): the
+        mirror takes the adds (a tripwire: the device admitted them) and
+        the winners' releases, the store the created transfers and the
+        new pending statuses."""
+        n = ctx["n"]
+        ts_base = ctx["ts_base"]
+        is_pv = ctx["is_pv"]
+        results = np.zeros(n, np.uint32)
+        results[summary["fail_idx"]] = summary["fail_codes"]
+        ok = results == 0
+        winner = ok & is_pv
+        post = ctx["post"]
+        pend_flag = ctx["pend_flag"]
+        p_drs, p_crs = ctx["p_drs"], ctx["p_crs"]
+        p_amt_lo, p_amt_hi = ctx["p_amt_lo"], ctx["p_amt_hi"]
+        t_amt_set = (amount_lo != 0) | (amount_hi != 0)
+        res_amt_lo = np.where(is_pv & ~t_amt_set, p_amt_lo, amount_lo)
+        res_amt_hi = np.where(is_pv & ~t_amt_set, p_amt_hi, amount_hi)
+
+        pend_ok = ok & pend_flag
+        plain_ok = ok & ~pend_flag & ~is_pv
+        post_win = winner & post
+        groups = ((pend_ok, 0, 2, dr_slot, cr_slot, amount_lo, amount_hi),
+                  (plain_ok, 1, 3, dr_slot, cr_slot, amount_lo, amount_hi),
+                  (post_win, 1, 3, p_drs, p_crs, res_amt_lo, res_amt_hi))
+        add_slots, add_cols, add_lo, add_hi = [], [], [], []
+        for m, dcol, ccol, drs, crs, lo, hi in groups:
+            k = int(m.sum())
+            add_slots += [drs[m], crs[m]]
+            add_cols += [np.full(k, dcol, np.int64), np.full(k, ccol, np.int64)]
+            add_lo += [lo[m], lo[m]]
+            add_hi += [hi[m], hi[m]]
+        deltas = self._mirror.try_apply_deltas(
+            np.concatenate(add_slots), np.concatenate(add_cols),
+            np.concatenate(add_lo), np.concatenate(add_hi),
+        )
+        if deltas is None:
+            raise AssertionError("device/mirror admission divergence")
+        n_win = int(winner.sum())
+        if n_win:
+            self._mirror.apply_subs(
+                np.concatenate([p_drs[winner], p_crs[winner]]),
+                np.concatenate([np.zeros(n_win, np.int64), np.full(n_win, 2, np.int64)]),
+                np.concatenate([p_amt_lo[winner]] * 2),
+                np.concatenate([p_amt_hi[winner]] * 2),
+            )
+
+        ud128_set = (ud128_lo != 0) | (ud128_hi != 0)
+        created = {
+            "flags": flags,
+            "dr_slot": np.where(is_pv, p_drs, dr_slot).astype(np.int32),
+            "cr_slot": np.where(is_pv, p_crs, cr_slot).astype(np.int32),
+            "amount_lo": np.where(is_pv, res_amt_lo, amount_lo),
+            "amount_hi": np.where(is_pv, res_amt_hi, amount_hi),
+            "pending_lo": pend_lo, "pending_hi": pend_hi,
+            "ud128_lo": np.where(is_pv & ~ud128_set, ctx["p_ud128_lo"], ud128_lo),
+            "ud128_hi": np.where(is_pv & ~ud128_set, ctx["p_ud128_hi"], ud128_hi),
+            "ud64": np.where(is_pv & (ud64 == 0), ctx["p_ud64"], ud64),
+            "ud32": np.where(is_pv & (ud32 == 0), ctx["p_ud32"], ud32),
+            "timeout": np.zeros(n, np.uint64),
+            "ledger": np.where(is_pv, ctx["p_ledger"], ledger_arr).astype(np.uint32),
+            "code": np.where(is_pv, ctx["p_code"], code_arr).astype(np.uint32),
+        }
+        final = np.where(post, np.uint32(kernel.S_POSTED), np.uint32(kernel.S_VOIDED))
+        inb_status = np.where(pend_ok, np.uint32(kernel.S_PENDING), np.uint32(0))
+        ib_win = winner & ctx["ib"]
+        inb_status[ctx["tgt_ev"][ib_win]] = final[ib_win]
+        uniq_status = ctx["uniq_status"]
+        dstat = uniq_status.copy()
+        dur_win = winner & ~ctx["ib"]
+        dstat[ctx["p_tgt"][dur_win]] = final[dur_win]
+        zeros_u64 = np.zeros(n, np.uint64)
+        self._post_process_transfers(
+            n, ts_base, id_lo, id_hi, flags, timeout, results, ok, created,
+            inb_status, uniq_status, dstat, ctx["uniq_rows"], None, None,
+            summary["last_applied"], zeros_u64, zeros_u64, no_history=True,
+        )
+        fail_idx = np.flatnonzero(results != 0)
+        reply = np.zeros(len(fail_idx), dtype=CREATE_RESULT_DTYPE)
+        reply["index"] = fail_idx.astype(np.uint32)
+        reply["result"] = results[fail_idx]
+        return reply.tobytes()
 
     def _lookup_accounts_device(self, input_bytes: bytes):
         """lookup_accounts with balances gathered from the DEVICE table
@@ -1023,13 +1339,7 @@ class TorchStateMachine:
                     0xC2B2AE3D27D4EB4F
                 )
                 ids_unique = len(np.unique(id_mix)) == n
-            limit_hist = (
-                (dr_flags | cr_flags)
-                & np.uint32(
-                    AF.debits_must_not_exceed_credits
-                    | AF.credits_must_not_exceed_debits | AF.history
-                )
-            ).any()
+            limit_hist = ((dr_flags | cr_flags) & _LIMH).any()
             if ids_unique and not limit_hist:
                 reply = self._commit_fast(
                     n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi,
@@ -1266,7 +1576,7 @@ class TorchStateMachine:
             n, ts_base, id_lo, id_hi, flags, timeout, results, apply_mask,
             created, inb_status, np.zeros(0, np.uint32), np.zeros(0, np.uint32),
             np.zeros(0, np.int64), None, None, last_applied, pulse_create,
-            np.zeros(n, np.uint64),
+            np.zeros(n, np.uint64), no_history=True,
         )
         fail_idx = np.flatnonzero(results != 0)
         reply = np.zeros(len(fail_idx), dtype=CREATE_RESULT_DTYPE)
@@ -1279,12 +1589,13 @@ class TorchStateMachine:
         results, created_mask, created, inb_status,
         dstat_init, dstat, uniq_rows,
         hist_dr, hist_cr, last_applied, pulse_create, pulse_remove,
+        no_history: bool = False,
     ) -> None:
         """Durable effects of a resolved batch (reference: tpu.py:3576):
         the created transfers into the store and id directory, durable
         pending-status updates, the expires index, pulse_next_timestamp,
-        history rows (hist_dr None: the caller proved no history
-        account is touched), and commit_timestamp."""
+        history rows (no_history: the caller proved no history account
+        is touched), and commit_timestamp."""
         ok = results == 0
         # 1. Created transfers into the columnar store.
         cm_ = created_mask
@@ -1343,7 +1654,7 @@ class TorchStateMachine:
 
         # 5. Historical balances of applied events on history accounts.
         applied = cm_ & ok
-        if hist_dr is not None and applied.any():
+        if not no_history and applied.any():
             idx = np.flatnonzero(applied)
             drs = created["dr_slot"][idx]
             crs = created["cr_slot"][idx]

@@ -211,6 +211,24 @@ class BalanceMirror:
             return None
         return (u_slot, u_col, d_lo, d_hi)
 
+    def try_apply_deltas(self, slots, cols, amt_lo, amt_hi):
+        """Checked addition over explicit (slot, col) targets (the
+        two-phase kernel's mixed dp/dpo/cp/cpo adds): the same admission
+        as try_apply_adds, checked before any mutation.  Returns the
+        compact (slot, col, delta_lo, delta_hi) arrays, or None (the
+        mirror untouched)."""
+        if len(slots) == 0:
+            z = np.zeros(0, np.int64)
+            return (z, z.copy(), np.zeros(0, np.uint64), np.zeros(0, np.uint64))
+        u_slot, u_col, d_lo, d_hi, limb_ov = compact_deltas(
+            np.asarray(slots, np.int64), np.asarray(cols, np.int64), amt_lo, amt_hi,
+        )
+        if limb_ov.any():
+            return None
+        if not self._admit_commit(u_slot, u_col, d_lo, d_hi, True):
+            return None
+        return (u_slot, u_col, d_lo, d_hi)
+
     def _admit_commit(self, u_slot, u_col, d_lo, d_hi, commit: bool) -> bool:
         """Per-column u128 overflow + combined dp+dpo / cp+cpo totals of
         every touched account against the all-applied bound; mutates
