@@ -7,10 +7,14 @@ Builds the hand-written kernels (csrc/*.cu, one nvcc per source, in
 parallel), holds every kernel against its plain PyTorch version at the
 main path's shapes (bit-exact: the semantics are integer; K3 on full
 8190-event batches of every class, its plain version on CPU copies; K5
-and K6 on 8192-event batches over a 2^20-row table), measures one
-dependent L2 hit (K3's and K5's serial floors), then drives the port's
+and K6 on 8192-event batches over a 2^20-row table; K7 over an
+8190-lane wave with and without a commit mask, K8 over 8 positions x
+4096 chains with dead chains and shared credited accounts, K9 over an
+8190-event batch, a K3 segment resumed mid-batch from a K7 carry, K3's
+init and finalize, all on a 2^20-row table), measures one dependent L2
+hit (K3's and K5's serial floors), then drives the port's
 create_transfers loop through SingleNodeHarness on TorchStateMachine in
-eight phases:
+nine phases:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -25,22 +29,32 @@ eight phases:
   two_phase    device engine, gen_two_phase widened to 1,000,000
                accounts: pending -> post | void pairs, 250,000 transfers
                (K6 per batch)
-  offkernel    device engine, gen_offkernel: post pairs with balancing
-               riders and linked chains that start with a pending, 8
-               batches (K3 per batch); 10,001 accounts, since bench's
-               1,001 cannot hold a full batch of disjoint chains
+  offkernel    device engine, gen_offkernel at 1,000,001 accounts: post
+               pairs with balancing riders (speculated: K9, K7 with a
+               commit mask, the posts' residue as one K7 wave) and
+               3-member chains that start with a pending (one K8 chain
+               wave), 32 batches; replies and root equal a
+               TB_DEV_WAVES=0 run (every batch drained to K3)
   expiry       device engine, 8 batches of 8190 pendings with timeouts
                of 1-8 s on 1,000,000 accounts (K1), then the realtime
                moves past every expiry and the pulses release them all
                (write-behind lane, K4)
   simple_host  host engine, gen_simple at 1,000,000 accounts and
                1,000,000 transfers (mirror admission + K4 flushes)
+  waves_host   host engine, TB_WAVES=auto, gen_waves_host: per batch
+               ~90 % transfers between random pairs of 1,000,000
+               accounts around 8 runs of limit-reading chains over 1,000
+               funded accounts, 32 batches: every batch a wave plan (K7
+               waves, K3 segments for the chain runs); replies and root
+               equal a TB_WAVES=scan run
 
 Each phase's main-path run starts with every launch count at 0 (set
 just before the state machine is built) and its counts are read as soon
 as the stream has drained, before any check launches anything.  After
 each phase: K3 launches == exact batches, K5 and K6 launches == the
-batches the router sent them, every event was resolved (no exception), the device table equals the host mirror, the device digest
+batches the router sent them, K3's finalize launches == the wave and
+speculative batches executed, every event was resolved (no exception),
+the device table equals the host mirror, the device digest
 equals its from-scratch recompute and the host root, and replies, root
 and tables equal a second run of the same stream with the plain
 versions on the card.  A third run, under torch.profiler, gives the
@@ -57,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -71,8 +86,9 @@ from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.ops.u128 import to_u64
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
+from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases
+from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
 
@@ -88,6 +104,13 @@ OPS_PER_S = 67e12
 # K3 per event (the body's ladders, u128 adds and compares, the record
 # and undo writes); K4 per entry (two adds, a compare, the drop test).
 K1_OPS_PER_EVENT = 80
+# K7 per lane (the scan body's ladders, u128 compares and adds, record,
+# snapshot rows, atomics), K8 per active cell (the normal path and the
+# chain terms), K9 per lane (the token and slot entries, their minima
+# and reads).
+K7_OPS_PER_LANE = 400
+K8_OPS_PER_CELL = 250
+K9_OPS_PER_LANE = 60
 K1_OPS_PER_ROW = 120
 K2_OPS_PER_ROW = 140
 K3_OPS_PER_EVENT = 400
@@ -108,12 +131,14 @@ A_ROWS = 1 << 20
 N_TRANSFERS = 1_000_000
 N_ACCOUNTS = 1_000_000
 N_EXACT = 250_000
-OFFKERNEL_ACCOUNTS = 10_001
+OFFKERNEL_ACCOUNTS = 1_000_001
+WAVE_BATCHES = 32
 RING_ROWS = 256
 # Kernels the main path launches; K2 probe only serves the checks
 # (verify_device_mirror and the engine's commit_probe).
 MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "apply_deltas",
-             "linked", "two_phase")
+             "linked", "two_phase", "exact_init", "exact_segment", "exact_finalize",
+             "wave_step", "chain_wave", "spec_conflicts")
 # K3's classes for the kernel check, and the codes each must produce.
 K3_CLASSES = {
     "linked": {1, 2},
@@ -434,7 +459,7 @@ def check_exact(dev, report, l2_ns):
         t0 = time.perf_counter()
         _, out_p = k3.run_create_transfers(t_cpu, pk, ds, n, ts_base)
         plain_ms = (time.perf_counter() - t0) * 1e3
-        t_k = torch.from_numpy(table.view(np.int64)).to(dev)
+        t_k = torch.from_numpy(table.view(np.int64).copy()).to(dev)
         pk_k, ds_k = pk.to(dev), ds.to(dev)
         _, out_k = k3.run_create_transfers(t_k, pk_k, ds_k, n, ts_base, scratch=scratch)
         torch.cuda.synchronize()
@@ -533,7 +558,7 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
         table, meta, pk, n = gen(900 + i, dk.B, "limits" if spread else scenario, A=A_ROWS,
                                  rows=rows, **({"pool": 1000} if spread else {}))
         variant = {flag: kind.endswith(("_small", "_lo"))}
-        t0 = torch.from_numpy(table.view(np.int64)).to(dev)
+        t0 = torch.from_numpy(table.view(np.int64).copy()).to(dev)
         m = torch.from_numpy(meta.view(np.int32)).to(dev)
         p = torch.from_numpy(pk.view(np.int64)).to(dev)
         t_k, r_k, t_p, r_p = t0.clone(), ring.clone(), t0.clone(), ring.clone()
@@ -585,6 +610,231 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
                          f" x {K5_PASSES_PER_ITER} passes x {l2_ns:.1f} ns; {entries} limit rows")
             report[name] = r
         print(line)
+
+
+# ---------------------------------------------------------------------------
+# The wave kernels, at the main path's shapes on a 2^20-row table.
+
+
+def _rows_of(ev, n):
+    """Distinct table rows a batch's first n events name."""
+    cols = [np.asarray(ev[c][:n], np.int64) for c in ("dr_slot", "cr_slot", "p_dr_slot",
+                                                       "p_cr_slot")]
+    s = np.concatenate(cols)
+    return np.unique(s[s >= 0])
+
+
+def _wave_pair(dev, table, ev, dstat):
+    """[table, packed events, carry] on the card for the kernel and for
+    its plain version (also on the card), the carry from tb_exact_init
+    and from make_carry respectively."""
+    t = torch.from_numpy(table.view(np.int64).copy()).to(dev)
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64)).to(dev)
+    ds = torch.from_numpy(dstat.view(np.int32)).to(dev)
+    w = torch.empty(k3.scratch_words(pk.shape[0]), dtype=torch.int64, device=dev)
+    k3.exact_init(w, ds)
+    w_p = k3.make_carry(torch.empty_like(w), ds)
+    return [t, pk, w], [t.clone(), pk, w_p]
+
+
+def _err(a, b):
+    return max(max_abs_err(a[0], b[0]), max_abs_err(a[2], b[2]))
+
+
+def _resetter(state, rows):
+    """Restores a state's touched table rows and its carry (outside the
+    timed events)."""
+    t, _pk, w = state
+    saved_rows, saved_w = t[rows].clone(), w.clone()
+    return lambda: (t.index_copy_(0, rows, saved_rows), w.copy_(saved_w))
+
+
+def _wave_bytes(lanes, rows):
+    """Least bytes of a wave-like step: each lane's event row (52 words)
+    and index read, its touched rows read and written, ~35 carry words
+    written (result, mask, record, status, snapshots, pulses)."""
+    return lanes * (416 + 4) + rows * 128 + lanes * 35 * 8
+
+
+def check_waves(dev, report, l2_ns):
+    """K7, K8, K9, a K3 segment and K3's init and finalize against their
+    plain versions on the card, bit for bit (table and carry), at the
+    main path's shapes; each timed."""
+    rng = np.random.default_rng(2030)
+    pool = np.sort(rng.choice(A_ROWS, 200_000, replace=False))
+    scratch = waves.WaveScratch(dev)
+
+    # K7: one 8190-lane wave, without and with a commit mask.
+    table, ev, dstat, n, ts_base, plan = wave_cases.wide_case(31, 8192, A_ROWS, rows=pool)
+    idx = torch.from_numpy(np.asarray(plan.segments[0][1], np.int32)).to(dev)
+    rows = torch.from_numpy(_rows_of(ev, n)).to(dev)
+    K = idx.numel()
+    errs = []
+    for masked in (False, True):
+        kern, plain = _wave_pair(dev, table, ev, dstat)
+        mask = None
+        if masked:
+            mask = torch.from_numpy((np.random.default_rng(4).random(K) < 0.7)
+                                    .astype(np.uint8)).to(dev)
+        waves.wave_step(*kern, idx, n, ts_base, mask=mask, scratch=scratch)
+        waves.wave_step_plain(*plain, idx, n, ts_base, mask)
+        torch.cuda.synchronize()
+        errs.append(_err(kern, plain))
+        check(errs[-1] == 0, f"K7 wave_step (mask {masked}): kernel differs from the plain version")
+    kern, plain = _wave_pair(dev, table, ev, dstat)
+    ms, dev_ms = kernel_ms(lambda: waves.wave_step(*kern, idx, n, ts_base, scratch=scratch),
+                           reset=_resetter(kern, rows), names=("wave_",))
+    plain_ms = time_ms(lambda: waves.wave_step_plain(*plain, idx, n, ts_base), reps=5, warm=1,
+                       reset=_resetter(plain, rows))
+    bound_ms, bound_by = bound(_wave_bytes(K, rows.numel()), K * K7_OPS_PER_LANE)
+    report["wave_step"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by, max_abs_err=max(errs),
+                               timed_case=f"{K}-lane wave")
+    print(f"K7 wave_step ({K} lanes, unmasked and masked): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    # K9, then the whole speculative step (K9 + K7 with commit mask =
+    # not conflicted) on an 8190-event batch of every shape.
+    from tigerbeetle_tpu_torch.state_machine import resolve
+
+    table, ev, dstat, n, ts_base = scan_cases.make_case(2031, 8192, "mixed", A=A_ROWS,
+                                                        rows=pool[:8192], n=8190)
+    meta = resolve.spec_meta_from_events(ev, n, False)
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64)).to(dev)
+    sidx = torch.arange(n, dtype=torch.int32, device=dev)
+    serial = torch.from_numpy(meta["chain_member"].astype(np.uint8)).to(dev)
+    f_k = waves.spec_conflicts(pk, sidx, serial, n, A_ROWS, scratch=scratch)
+    f_p = waves.spec_conflicts_plain(pk, sidx, serial, n, A_ROWS).to(torch.uint8)
+    torch.cuda.synchronize()
+    err = max_abs_err(f_k.long(), f_p.long())
+    check(err == 0, "K9 spec_conflicts: kernel differs from the plain version")
+    spec = []
+    for plain_fns in (False, True):
+        t = torch.from_numpy(table.view(np.int64).copy()).to(dev)
+        carry, confl = waves.run_speculative_engine(t, ev, dstat, meta["chain_member"], n,
+                                                    ts_base, scratch=scratch, plain=plain_fns)
+        torch.cuda.synchronize()
+        spec.append([t, None, carry.words[:k3.scratch_words(8192)].clone(), confl])
+    err_s = max(_err(spec[0], spec[1]), max_abs_err(spec[0][3].long(), spec[1][3].long()))
+    check(err_s == 0, "K9 + K7 speculative step: kernels differ from the plain versions")
+    ms, dev_ms = kernel_ms(lambda: waves.spec_conflicts(pk, sidx, serial, n, A_ROWS,
+                                                        scratch=scratch), names=("spec_",))
+    plain_ms = time_ms(lambda: waves.spec_conflicts_plain(pk, sidx, serial, n, A_ROWS),
+                       reps=5, warm=1)
+    bound_ms, bound_by = bound(n * (12 * 8 + 4 + 1 + 1), n * K9_OPS_PER_LANE)
+    report["spec_conflicts"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    max_abs_err=max(err, err_s),
+                                    timed_case=f"{n}-event batch, {int(f_k.sum())} conflicted")
+    print(f"K9 spec_conflicts ({n} events, {int(f_k.sum())} conflicted; then K7 with the "
+          f"commit mask): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    # K8: 8 positions x 4096 chains (hub accounts credited by many
+    # chains, chains that die), and a 7-member shape.
+    errs = []
+    for n_chains, max_len in ((1000, 7), (4096, 2)):
+        table, ev, dstat, n, ts_base, plan = wave_cases.chain_case(
+            2032 + max_len, n_chains, 8192, A=A_ROWS, rows=pool, max_len=max_len)
+        P = plan.chain_steps[0]
+        plane = torch.from_numpy(waves._chain_plane(ev["flags"], plan.segments[0][1], P,
+                                                    8192)).to(dev)
+        kern, plain = _wave_pair(dev, table, ev, dstat)
+        waves.chain_wave(*kern, plane, n, ts_base, scratch=scratch)
+        waves.chain_wave_plain(*plain, plane, n, ts_base)
+        torch.cuda.synchronize()
+        errs.append(_err(kern, plain))
+        check(errs[-1] == 0,
+              f"K8 chain_wave ({n_chains} chains): kernel differs from the plain version")
+        dead = int((k3.carry_to_dict(kern[2], 8192)["results"][:n] == 1).sum())
+    rows = torch.from_numpy(_rows_of(ev, n)).to(dev)
+    kern, plain = _wave_pair(dev, table, ev, dstat)
+    ms, dev_ms = kernel_ms(lambda: waves.chain_wave(*kern, plane, n, ts_base, scratch=scratch),
+                           reset=_resetter(kern, rows), names=("chain_wave",))
+    plain_ms = time_ms(lambda: waves.chain_wave_plain(*plain, plane, n, ts_base), reps=5,
+                       warm=1, reset=_resetter(plain, rows))
+    bound_ms, bound_by = bound(_wave_bytes(n, rows.numel()), n * K8_OPS_PER_CELL)
+    serial_ms = 2 * P * l2_ns * 1e-6
+    report["chain_wave"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, max_abs_err=max(errs),
+                                serial_floor_ms=serial_ms,
+                                timed_case=f"P={P} x C={plane.shape[1]}, {dead} failed members")
+    print(f"K8 chain_wave (P={P} x C={plane.shape[1]}, {dead} members failed or rolled back): "
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, "
+          f"position floor {serial_ms * 1e3:.2f} us = {2 * P} phases x {l2_ns:.1f} ns")
+
+    # A K3 segment resumed mid-batch from K7 carries, then finalize and
+    # init, on a linked-class batch over 8192 rows.
+    table, ev, dstat, n, ts_base, plan = wave_cases.plan_case(
+        2034, 8192, "linked", A=A_ROWS, rows=pool[:8192], n=8190)
+    kern, _ = _wave_pair(dev, table, ev, dstat)
+    first_wave = next(k for k, (kind, _) in enumerate(plan.segments) if kind == "wave")
+    seg_at = max((k for k, (kind, _) in enumerate(plan.segments)
+                  if kind == "scan" and k > first_wave),
+                 key=lambda k: len(plan.segments[k][1]))
+    for kind, ix in plan.segments[:seg_at]:
+        ixt = torch.from_numpy(np.asarray(ix, np.int32)).to(dev)
+        if kind == "wave":
+            waves.wave_step(*kern, ixt, n, ts_base, scratch=scratch)
+        else:
+            k3.scan_segment(kern[0], kern[1], kern[2], ixt, n, ts_base)
+    plain = [kern[0].clone(), kern[1], kern[2].clone()]
+    seg = torch.from_numpy(np.asarray(plan.segments[seg_at][1], np.int32)).to(dev)
+    k3.scan_segment(kern[0], kern[1], kern[2], seg, n, ts_base)
+    k3.scan_segment_plain(plain[0], plain[1], plain[2], seg, n, ts_base)
+    torch.cuda.synchronize()
+    err = _err(kern, plain)
+    check(err == 0, "K3 exact_segment: kernel differs from the plain version")
+    L = seg.numel()
+    rows = torch.from_numpy(_rows_of(ev, n)).to(dev)
+    ms, dev_ms = kernel_ms(lambda: k3.scan_segment(kern[0], kern[1], kern[2], seg, n, ts_base),
+                           reset=_resetter(kern, rows), names=("segment_kernel",))
+    plain_ms = time_ms(lambda: k3.scan_segment_plain(plain[0], plain[1], plain[2], seg, n,
+                                                     ts_base),
+                       reps=3, warm=1, reset=_resetter(plain, rows))
+    bound_ms, bound_by = bound(L * (416 + 4) + rows.numel() * 128 + L * 50 * 8,
+                               L * K3_OPS_PER_EVENT)
+    report["exact_segment"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                                   serial_floor_ms=L * l2_ns * 1e-6,
+                                   timed_case=f"{L}-event segment after {seg_at} segments")
+    print(f"K3 exact_segment ({L} events, resumed after {seg_at} segments): bit-exact; "
+          f"{ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    B = 8192
+    fix = torch.zeros(B, dtype=torch.uint8)
+    fix[:n] = torch.from_numpy(plan.wave_mask.astype(np.uint8))
+    fix = fix.to(dev)
+    out_k = k3.finalize(kern[0], kern[2], B, fix)
+    out_p = k3.finalize_plain(kern[0], kern[2], B, fix)
+    torch.cuda.synchronize()
+    err = max_abs_err(out_k, out_p)
+    check(err == 0, "K3 exact_finalize: kernel differs from the plain version")
+    ms, dev_ms = kernel_ms(lambda: k3.finalize(kern[0], kern[2], B, fix),
+                           names=("finalize_kernel",))
+    plain_ms = time_ms(lambda: k3.finalize_plain(kern[0], kern[2], B, fix), reps=5, warm=1)
+    n_fix = int(fix.sum())
+    bound_ms, bound_by = bound(B * 36 * 8 + B + n_fix * 128 + B * k3.N_COLS * 8, B * 40)
+    report["exact_finalize"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                                    timed_case=f"B={B}, {n_fix} snapshots rewritten")
+    print(f"K3 exact_finalize (B={B}, {n_fix} rewritten): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    ds = torch.from_numpy(dstat.view(np.int32)).to(dev)
+    w_k = torch.empty(k3.scratch_words(B), dtype=torch.int64, device=dev)
+    w_p = torch.empty_like(w_k)
+    k3.exact_init(w_k, ds)
+    k3.make_carry(w_p, ds)
+    torch.cuda.synchronize()
+    err = max_abs_err(w_k, w_p)
+    check(err == 0, "K3 exact_init: kernel differs from the plain version")
+    ms, dev_ms = kernel_ms(lambda: k3.exact_init(w_k, ds), names=("init_kernel",))
+    plain_ms = time_ms(lambda: k3.make_carry(w_p, ds), reps=5, warm=1)
+    bound_ms, bound_by = bound(B * 4 + k3.scratch_words(B) * 8, k3.scratch_words(B))
+    report["exact_init"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=bound_by, max_abs_err=err, timed_case=f"B={B}")
+    print(f"K3 exact_init (B={B}): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} "
+          f"{_vs(plain_ms, bound_ms)}")
 
 
 # ---------------------------------------------------------------------------
@@ -772,6 +1022,15 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
         routed = getattr(sm, stat)
         same = launches[kname] == routed if sm.stat_fallback_events == 0 else launches[kname] >= routed
         check(same, f"{name}: {launches[kname]} {kname} launches != {routed} routed batches")
+    # Every wave or speculative execution initialises and finalizes one
+    # carry: host wave batches once, window records once (again when
+    # exact recovery re-runs a window's later records).
+    executed = sm.stat_wave_batches + sm.stat_dev_wave_batches
+    check(launches["exact_init"] == launches["exact_finalize"],
+          f"{name}: K3 init and finalize launches differ")
+    check(launches["exact_init"] == executed if sm.stat_fallback_events == 0
+          else launches["exact_init"] >= executed,
+          f"{name}: {launches['exact_init']} carries for {executed} wave executions")
     n_transfers = transfer_events(setup + timed)
     n_timed = transfer_events(timed)
     dev = sm._dev
@@ -805,7 +1064,7 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
              f"K5 batches {sm.stat_linked_batches} (mean fixpoint iterations "
              f"{sm.stat_resolve_iters / max(sm.stat_linked_batches, 1):.2f}); "
              f"K6 batches {sm.stat_two_phase_batches}; "
-             f"fallback events {sm.stat_fallback_events}")
+             f"fallback events {sm.stat_fallback_events}; {wave_counters(sm)}")
     tables = tables_of(sm)
     del sm, dev
     torch.cuda.empty_cache()
@@ -842,6 +1101,53 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
     return launches, check_launches
 
 
+def wave_counters(sm) -> str:
+    """The wave routing counters of a phase: host wave batches, window
+    wave/speculative batches, declines and the speculative counters."""
+    out = (f"wave batches {sm.stat_wave_batches} (steps {sm.stat_wave_steps}, events "
+           f"{sm.stat_wave_events}, parallel {sm.stat_wave_parallel_events}); dev_wave batches "
+           f"{sm.stat_dev_wave_batches} (declined {sm.stat_dev_wave_declined} "
+           f"{sm.stat_dev_wave_decline_reasons}, steps {sm.stat_dev_wave_steps}, events "
+           f"{sm.stat_dev_wave_events}, plan_s {sm.stat_dev_wave_plan_s:.3f})")
+    if sm.engine == "device":
+        st = sm._dev.spec_stats
+        out += "; spec " + " ".join(
+            f"{k}={v:.3f}" if k.endswith("_s") else f"{k}={v}" for k, v in st.items())
+    return out
+
+
+@contextlib.contextmanager
+def knobs(**values):
+    """Environment knobs for a control run, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def control_run(name, setup, timed, account_capacity, sm, replies, engine, **values):
+    """The same stream under other routing knobs (the scan control):
+    replies and state root must be equal.  Returns its events/s."""
+    transfer_capacity = transfer_events(setup + timed) + 1024
+    with knobs(**values):
+        ctl, ctl_replies, elapsed, _, _ = run_stream(
+            setup, timed, account_capacity, transfer_capacity, False, engine)
+    check(ctl_replies == replies, f"{name}: replies differ from the {values} run")
+    check(ctl.state_root() == sm.state_root(), f"{name}: root differs from the {values} run")
+    rate = transfer_events(timed) / elapsed
+    print(f"  {name} control {values}: {rate:.0f} events/s; exact batches "
+          f"{ctl.stat_exact_batches}; {wave_counters(ctl)}; replies and root equal")
+    del ctl
+    torch.cuda.empty_cache()
+    return rate
+
+
 def reply_codes(reply: bytes) -> set:
     return set(np.frombuffer(reply, "<u4")[1::2].tolist())
 
@@ -872,6 +1178,7 @@ def main() -> int:
     check_apply(dev, report)
     check_semantic(dev, report, "linked", LINKED_CHECKS, semantic_cases.linked_case, l2_ns)
     check_semantic(dev, report, "two_phase", TWO_PHASE_CHECKS, semantic_cases.two_phase_case)
+    check_waves(dev, report, l2_ns)
 
     phases = {}
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
@@ -893,11 +1200,26 @@ def main() -> int:
     phases["linked"] = run_phase("linked", setup, timed, sizing[0], must=("linked",))
     setup, timed, sizing = workload.gen_two_phase(N_EXACT, n_accounts=N_ACCOUNTS)
     phases["two_phase"] = run_phase("two_phase", setup, timed, sizing[0], must=("two_phase",))
-    # Bench's gen_offkernel cannot build a full 8190-event chain batch:
-    # its 2730 chains need 2730 disjoint account pairs and 1,001 accounts
-    # give 799.  10,001 accounts (odd, as bench's) give 9,799.
-    setup, timed, sizing = workload.gen_offkernel(8 * workload.BATCH, n_accounts=OFFKERNEL_ACCOUNTS)
-    phases["offkernel"] = run_phase("offkernel", setup, timed, sizing[0], must=("exact_scan",))
+    # Bench's gen_offkernel at 1,000,001 accounts (odd, as bench's 1,001,
+    # which cannot hold a full batch of disjoint chains): a 2^20-row table.
+    setup, timed, sizing = workload.gen_offkernel(WAVE_BATCHES * workload.BATCH,
+                                                  n_accounts=OFFKERNEL_ACCOUNTS)
+    check(sizing[0] <= A_ROWS, "offkernel phase: accounts exceed the 2^20-row table")
+
+    def offkernel_routed(sm, replies):
+        check(sm.stat_dev_wave_declined == 0, "offkernel: the wave router declined a batch")
+        check(sm.stat_dev_wave_batches == WAVE_BATCHES,
+              f"offkernel: {sm.stat_dev_wave_batches} of {WAVE_BATCHES} batches dispatched")
+        # Drained to the host path, which plans waves there; and the
+        # whole scan K3 for every batch (TB_WAVES=scan too).
+        control_run("offkernel", setup, timed, A_ROWS, sm, replies, "device",
+                    TB_DEV_WAVES="0")
+        control_run("offkernel", setup, timed, A_ROWS, sm, replies, "device",
+                    TB_DEV_WAVES="0", TB_WAVES="scan")
+
+    phases["offkernel"] = run_phase(
+        "offkernel", setup, timed, A_ROWS,
+        must=("wave_step", "chain_wave", "spec_conflicts"), extra=offkernel_routed)
     check(phases["offkernel"][0]["linked"] == phases["offkernel"][0]["two_phase"] == 0,
           "offkernel: a batch outside K5's and K6's classes launched one of them")
 
@@ -913,6 +1235,19 @@ def main() -> int:
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
     phases["simple_host"] = run_phase("simple_host", setup, timed, sizing[0], engine="host",
                                       must=("apply_deltas",))
+    setup, timed, sizing = workload.gen_waves_host(WAVE_BATCHES * workload.BATCH,
+                                                   n_accounts=N_ACCOUNTS)
+    check(sizing[0] == A_ROWS, "waves_host phase: table is not 2^20 rows")
+    n_exact = sum(1 for op, _ in setup + timed if op == Operation.create_transfers)
+
+    def every_batch_waved(sm, replies):
+        check(sm.stat_exact_batches == 0 and sm.stat_wave_batches == n_exact,
+              f"waves_host: {sm.stat_wave_batches} wave batches of {n_exact} exact-path batches")
+        control_run("waves_host", setup, timed, sizing[0], sm, replies, "host", TB_WAVES="scan")
+
+    phases["waves_host"] = run_phase("waves_host", setup, timed, sizing[0], engine="host",
+                                     must=("wave_step", "exact_segment"),
+                                     extra=every_batch_waved)
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")
@@ -934,6 +1269,18 @@ def main() -> int:
                    "tigerbeetle_tpu/state_machine/device_kernels.py:473"),
         "two_phase": ("tigerbeetle_tpu_torch/csrc/two_phase.cu",
                       "tigerbeetle_tpu/state_machine/device_kernels.py:770"),
+        "exact_init": ("tigerbeetle_tpu_torch/csrc/exact_scan.cu",
+                       "tigerbeetle_tpu/state_machine/waves.py:1633"),
+        "exact_segment": ("tigerbeetle_tpu_torch/csrc/exact_scan.cu",
+                          "tigerbeetle_tpu/state_machine/kernel.py:748"),
+        "exact_finalize": ("tigerbeetle_tpu_torch/csrc/exact_scan.cu",
+                           "tigerbeetle_tpu/state_machine/waves.py:1642"),
+        "wave_step": ("tigerbeetle_tpu_torch/csrc/wave_step.cu",
+                      "tigerbeetle_tpu/state_machine/waves.py:1010"),
+        "chain_wave": ("tigerbeetle_tpu_torch/csrc/chain_wave.cu",
+                       "tigerbeetle_tpu/state_machine/waves.py:1354"),
+        "spec_conflicts": ("tigerbeetle_tpu_torch/csrc/spec_conflicts.cu",
+                           "tigerbeetle_tpu/state_machine/waves.py:1971"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

@@ -1,5 +1,6 @@
-"""Kernels K1-K6 on a CUDA card against their plain PyTorch versions,
-and TorchStateMachine on the card against the CPU run.  They
+"""Kernels K1-K9 and K3's segment and finalize entries on a CUDA card
+against their plain PyTorch versions, and TorchStateMachine on the
+card against the CPU run or the plain-version run.  They
 skip without a card; on one, run them with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
@@ -16,8 +17,9 @@ from tigerbeetle_tpu_torch import kernels, workload
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
+from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases
+from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
 pytestmark = pytest.mark.cuda
@@ -144,9 +146,12 @@ def test_apply_deltas_kernel_matches_plain(card, padded):
 
 
 @pytest.mark.parametrize("engine", ["device", "host"])
-def test_exact_streams_on_card_match_cpu(card, engine):
+def test_exact_streams_on_card_match_cpu(card, engine, monkeypatch):
     """The bench's linked and two_phase shapes at 2000 events per batch:
-    K3 (and K2 updates, K4 flushes) on the card against the plain run."""
+    K3 (and K2 updates, K4 flushes) on the card against the plain run,
+    with the scan routing (no wave plans)."""
+    monkeypatch.setenv("TB_WAVES", "scan")
+    monkeypatch.setenv("TB_DEV_WAVES", "0")
     for gen in (workload.gen_linked, workload.gen_two_phase):
         setup, timed, sizing = gen(6000, batch=2000)
         ops = setup + timed
@@ -212,3 +217,156 @@ def test_semantic_kernels_above_2_17_rows(card, kind):
     gen = semantic_cases.linked_case if kind == "linked" else semantic_cases.two_phase_case
     _semantic_on_card(card, kind, *gen(700, dk.B, "limits" if kind == "linked" else "races",
                                        A=A, rows=rows))
+
+
+# ---------------------------------------------------------------------------
+# The wave kernels: K7, K8, K9 and K3's segments and finalize.
+
+
+def _wave_inputs(card, table, ev, dstat):
+    """(table, packed events, carry) on the card, the carry initialised
+    by tb_exact_init, and the same three for the plain run (on the card
+    too), with exact_init held against make_carry."""
+    t = torch.from_numpy(table.view(np.int64)).to(card)
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64)).to(card)
+    ds = torch.from_numpy(dstat.view(np.int32)).to(card)
+    B = pk.shape[0]
+    w_k = torch.empty(k3.scratch_words(B), dtype=torch.int64, device=card)
+    before = kernels.launches["exact_init"]
+    k3.exact_init(w_k, ds)
+    w_p = k3.make_carry(torch.empty_like(w_k), ds)
+    torch.cuda.synchronize()
+    assert kernels.launches["exact_init"] == before + 1 and torch.equal(w_k, w_p)
+    return (t, pk, w_k), (t.clone(), pk, w_p)
+
+
+def _step(card, plan, k, ev, n, ts_base, kern, plain, scratch):
+    """Segment k of the plan with the kernel on `kern` and the plain
+    version on `plain` ((table, events, carry) each); both equal after."""
+    kind, idx = plan.segments[k]
+    B = kern[1].shape[0]
+    if kind == "chains":
+        ix = torch.from_numpy(waves._chain_plane(ev["flags"], idx, plan.chain_steps[k], B))
+        name, run_k = "chain_wave", lambda t, p, w, x: waves.chain_wave(
+            t, p, w, x, n, ts_base, scratch=scratch)
+        run_p = lambda t, p, w, x: waves.chain_wave_plain(t, p, w, x, n, ts_base)  # noqa: E731
+    elif kind == "wave":
+        ix = torch.from_numpy(np.asarray(idx, np.int32))
+        name, run_k = "wave_step", lambda t, p, w, x: waves.wave_step(
+            t, p, w, x, n, ts_base, scratch=scratch)
+        run_p = lambda t, p, w, x: waves.wave_step_plain(t, p, w, x, n, ts_base)  # noqa: E731
+    else:
+        ix = torch.from_numpy(np.asarray(idx, np.int32))
+        name = "exact_segment"
+        run_k = lambda t, p, w, x: k3.scan_segment(t, p, w, x, n, ts_base)  # noqa: E731
+        run_p = lambda t, p, w, x: k3.scan_segment_plain(t, p, w, x, n, ts_base)  # noqa: E731
+    ix = ix.to(card)
+    before = kernels.launches[name]
+    run_k(*kern, ix)
+    run_p(*plain, ix)
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + 1
+    assert torch.equal(kern[0], plain[0]), f"{kind}: table"
+    assert torch.equal(kern[2], plain[2]), f"{kind}: carry"
+
+
+def _run_plan(card, case):
+    table, ev, dstat, n, ts_base, plan = case
+    kern, plain = _wave_inputs(card, table, ev, dstat)
+    scratch = waves.WaveScratch(card)
+    for k in range(len(plan.segments)):
+        _step(card, plan, k, ev, n, ts_base, kern, plain, scratch)
+    B = kern[1].shape[0]
+    fix = torch.zeros(B, dtype=torch.uint8)
+    fix[:n] = torch.from_numpy(plan.wave_mask.astype(np.uint8))
+    fix = fix.to(card)
+    out_k = k3.finalize(kern[0], kern[2], B, fix)
+    out_p = k3.finalize_plain(plain[0], plain[2], B, fix)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_p)
+    return plan
+
+
+@pytest.mark.parametrize("cls", scan_cases.CLASSES)
+def test_wave_plans_match_plain(card, cls):
+    """Every segment kind of real plans — waves, chain waves, scan
+    segments resumed from wave carries — and finalize, kernel against
+    plain version from the same carry, step by step."""
+    kinds = set()
+    for seed in range(3):
+        for B in (256, 2048):
+            plan = _run_plan(card, wave_cases.plan_case(
+                31 * seed + B + scan_cases.CLASSES.index(cls), B, cls, A=4096,
+                rows=np.arange(0, 4096, 37)))
+            kinds |= {k for k, _ in plan.segments}
+    assert "wave" in kinds
+
+
+@pytest.mark.parametrize("n_chains,max_len", [(4096, 2), (1000, 7), (40, 7)])
+def test_chain_wave_matches_plain(card, n_chains, max_len):
+    """K8: dead chains (static codes, duplicates, limits, an open tail)
+    and hub accounts credited by many chains."""
+    _run_plan(card, wave_cases.chain_case(n_chains + max_len, n_chains, 8192, A=1 << 17,
+                                          max_len=max_len))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_wave_step_full_width_matches_plain(card, masked):
+    """K7 over one 8190-lane wave on a 2^17-row table, with and without a
+    commit mask (any subset of a wave is a wave)."""
+    table, ev, dstat, n, ts_base, plan = wave_cases.wide_case(11 + masked, 8192, 1 << 17)
+    kern, plain = _wave_inputs(card, table, ev, dstat)
+    idx = torch.from_numpy(np.asarray(plan.segments[0][1], np.int32)).to(card)
+    mask = None
+    if masked:
+        rng = np.random.default_rng(3)
+        mask = torch.from_numpy((rng.random(len(idx)) < 0.7).astype(np.uint8)).to(card)
+    waves.wave_step(*kern, idx, n, ts_base, mask=mask, scratch=waves.WaveScratch(card))
+    waves.wave_step_plain(*plain, idx, n, ts_base, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[2], plain[2])
+
+
+@pytest.mark.parametrize("cls", ["mixed", "post_void", "balancing", "linked"])
+def test_speculative_step_matches_plain(card, cls):
+    """K9 on a whole 8190-event batch, then K7 with commit mask = not
+    conflicted, against the plain versions; then the residue plan."""
+    table, ev, dstat, n, ts_base = scan_cases.make_case(
+        77 + scan_cases.CLASSES.index(cls), 8192, cls, A=1 << 17,
+        rows=np.arange(0, 1 << 17, 13), n=8190)
+    serial = np.zeros(8192, bool)
+    out = []
+    for plain in (False, True):
+        t = torch.from_numpy(table.view(np.int64).copy()).to(card)
+        carry, confl = waves.run_speculative_engine(
+            t, ev, dstat, serial, n, ts_base, scratch=waves.WaveScratch(card), plain=plain)
+        torch.cuda.synchronize()
+        out.append((t, carry.words[:k3.scratch_words(8192)].clone(), confl))
+    assert torch.equal(out[0][2], out[1][2])
+    assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+    assert 0 < int(out[0][2].sum()) < n
+
+
+def test_offkernel_on_card_matches_plain(card):
+    """The offkernel stream on the device engine: speculative and chain-
+    wave records through K7, K8, K9 on the card against the same run on
+    the plain versions (on the card)."""
+    setup, timed, sizing = workload.gen_offkernel(6 * 2000, n_accounts=20_001, batch=2000)
+    ops = setup + timed
+    out, launched = [], []
+    for plain in (False, True):
+        kernels.reset_launches()
+        sm = TorchStateMachine(account_capacity=sizing[0], transfer_capacity=sizing[1],
+                               engine="device", plain=plain)
+        h = SingleNodeHarness(sm)
+        futs = [h.submit_async(op, body) for op, body in ops]
+        replies = [f.result() for f in futs]
+        sm._dev.drain()
+        sm.verify_device_mirror()
+        launched.append(dict(kernels.launches))
+        out.append((replies, sm.state_root(), sm.stat_dev_wave_batches,
+                    {k: v for k, v in sm._dev.spec_stats.items() if not k.endswith("_s")}))
+    assert out[0] == out[1]
+    assert out[0][2] > 0 and out[0][3]["attempts"] > 0
+    for name in ("wave_step", "chain_wave", "spec_conflicts", "exact_init", "exact_finalize"):
+        assert launched[0][name] > 0 and launched[1][name] == 0

@@ -131,15 +131,19 @@ def test_bench_exact_streams_match_jax_and_oracle(config, engine, bench400, jax_
 
 
 @pytest.mark.parametrize("config", ["simple", "zipf"])
-def test_orderfree_streams_on_host_engine(config, jax_scan):
+def test_orderfree_streams_on_host_engine(config, jax_scan, monkeypatch):
     """The slice-1 streams on engine="host": mirror admission plus the
-    write-behind lane (K4's plain version), no exact batch."""
+    write-behind lane (K4's plain version), no exact batch.  The port
+    runs with its default routing (TB_WAVES=scan would send every batch
+    to the exact scan, as it does the reference's)."""
     # 256-event batches: the JAX scan's smaller bucket, 8x fewer steps.
     setup, timed, sizing = getattr(workload, "gen_" + config)(1024, batch=256)
     ops = setup + timed
     sm_t = TorchStateMachine(account_capacity=ACCT_ROWS, transfer_capacity=sizing[1],
                              device="cpu", engine="host")
+    monkeypatch.delenv("TB_WAVES")
     h_t, replies_t = run(sm_t, ops)
+    monkeypatch.setenv("TB_WAVES", "scan")
     sm_j = jax_scan(ACCT_ROWS, sizing[1])
     h_j, replies_j = run(sm_j, ops, ref_hz)
     assert replies_t == replies_j
@@ -233,9 +237,10 @@ def test_history_accounts_match_jax(engine, jax_scan):
     assert_same_state(sm_t, sm_j, h_t, h_j, range(1, 7), range(10, tid))
 
 
-def test_overflow_recovery_on_host_engine(jax_scan):
+def test_overflow_recovery_on_host_engine(jax_scan, monkeypatch):
     """Host engine: the mirror's admission refuses the ~2^127 pair, so
-    the batch runs the scan, which ranks the overflow codes."""
+    the batch runs the scan, which ranks the overflow codes (the port
+    with its default routing: the wave admission refuses the pair too)."""
     big = (1 << 127) + 5
     ops = [(Operation.create_accounts, hz.pack([hz.account(i) for i in (1, 2, 3)]))]
     ops.append((Operation.create_transfers, hz.pack([
@@ -245,7 +250,9 @@ def test_overflow_recovery_on_host_engine(jax_scan):
     ops.append((Operation.create_transfers, hz.pack(
         [hz.transfer(12, debit_account_id=1, credit_account_id=3, amount=7)])))
     sm_t = TorchStateMachine(account_capacity=ACCT_ROWS, device="cpu", engine="host")
+    monkeypatch.delenv("TB_WAVES")
     h_t, got = run(sm_t, ops)
+    monkeypatch.setenv("TB_WAVES", "scan")
     sm_j = jax_scan(ACCT_ROWS)
     h_j, want = run(sm_j, ops, ref_hz)
     assert got == want and got[1] != b""

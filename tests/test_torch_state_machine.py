@@ -37,10 +37,16 @@ def torch_sm(account_capacity=1 << 12, transfer_capacity=1 << 16):
     )
 
 
-def jax_scan_sm(monkeypatch, account_capacity=1 << 12):
-    """The reference with its JAX exact scan on every host-path batch."""
+def pin_scan(monkeypatch):
+    """Scan routing for both machines: no wave dispatch in the window,
+    the whole exact scan on every host-path batch."""
     monkeypatch.setenv("TB_WAVES", "scan")
     monkeypatch.setenv("TB_DEV_WAVES", "0")
+
+
+def jax_scan_sm(monkeypatch, account_capacity=1 << 12):
+    """The reference with its JAX exact scan on every host-path batch."""
+    pin_scan(monkeypatch)
     return TpuStateMachine(account_capacity=account_capacity, engine="device")
 
 
@@ -227,6 +233,7 @@ def test_residual_classes_raise(case, monkeypatch):
     ops = setup + [(Operation.create_transfers, batch),
                    (Operation.lookup_accounts, hz.ids_bytes([1, 2, 3])),
                    (Operation.lookup_transfers, hz.ids_bytes([10, 11]))]
+    pin_scan(monkeypatch)
     sm = torch_sm()
     got = replay(sm, ops)
     sm_j = jax_scan_sm(monkeypatch)
@@ -246,6 +253,7 @@ def test_inflight_duplicate_drains_then_raises(monkeypatch):
     """A batch reusing the id of a batch still in flight drains the
     window first (hazard probe), then sees the id as existing: the exact
     scan answers `exists`, as the JAX scan and the oracle do."""
+    pin_scan(monkeypatch)
     sm = torch_sm()
     h = hz.SingleNodeHarness(sm)
     h.submit(Operation.create_accounts, accounts([1, 2]))

@@ -97,3 +97,43 @@ def state_commit() -> int:
     commitment on the host mirror and on the device; 0 disables it
     (roots are then computed from scratch on demand)."""
     return env_int("TB_STATE_COMMIT", 1, minimum=0, maximum=1)
+
+
+def env_float(name: str, default: float, *, minimum: float | None = None) -> float:
+    raw = os.environ.get(name)
+    if raw is None or raw == "":
+        return default
+    try:
+        value = float(raw)
+    except ValueError:
+        _fail(name, raw, "expected a number")
+    if minimum is not None and value < minimum:
+        _fail(name, raw, f"must be >= {minimum}")
+    return value
+
+
+def waves_speculate() -> str:
+    """TB_WAVES_SPECULATE: speculative execution mode of the device
+    wave dispatcher (gpu._try_submit_device_waves): "auto" (default)
+    and "1" run an off-kernel window batch as ONE speculative wave
+    step validated on the device and replay only the conflicted
+    residue, unless more than TB_WAVES_SPEC_RESIDUE_CAP of the batch
+    is already known to need the replay; "0" plans waves up front;
+    "force" routes every window batch through speculation, whatever
+    the residue gate says."""
+    return env_choice("TB_WAVES_SPECULATE", "auto", ("auto", "0", "1", "force"))
+
+
+def spec_residue_cap() -> float:
+    """TB_WAVES_SPEC_RESIDUE_CAP: the fraction of a batch that may be
+    known host-side to need residue replay (chain members, history
+    events, serialized post/voids) before speculation is skipped.  A
+    fraction, so it must be <= 1: a larger value could never bind."""
+    value = env_float("TB_WAVES_SPEC_RESIDUE_CAP", 0.25, minimum=0.0)
+    if value > 1.0:
+        _fail(
+            "TB_WAVES_SPEC_RESIDUE_CAP", str(value),
+            "must be <= 1 — the cap is a fraction of the batch and a "
+            "larger value can never bind",
+        )
+    return value

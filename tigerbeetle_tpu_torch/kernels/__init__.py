@@ -25,6 +25,12 @@ launches = {
     "apply_deltas": 0,
     "linked": 0,
     "two_phase": 0,
+    "exact_init": 0,
+    "exact_segment": 0,
+    "exact_finalize": 0,
+    "wave_step": 0,
+    "chain_wave": 0,
+    "spec_conflicts": 0,
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +58,27 @@ _SIGNATURES = {
         "tb_exact_scan": [_P, _I64, _P, _I, _P, _I, _U64, _P, _P, _P],
         # next, steps, sink, stream
         "tb_l2_chase": [_P, _I64, _P, _P],
+        # scratch, B, dstat_init, stream
+        "tb_exact_init": [_P, _I, _P, _P],
+        # table, A, ev, B, rows, L, n, ts_base, scratch, stream
+        "tb_exact_segment": [_P, _I64, _P, _I, _P, _I, _I, _U64, _P, _P],
+        # table, A, B, scratch, hist_fix (nullable), out, stream
+        "tb_exact_finalize": [_P, _I64, _I, _P, _P, _P, _P],
+    },
+    "wave_step": {
+        # table, A, ev, B, idx, K, mask (nullable), n, ts_base, scratch,
+        # lanes, stream
+        "tb_wave_step": [_P, _I64, _P, _I, _P, _I, _P, _I, _U64, _P, _P, _P],
+    },
+    "chain_wave": {
+        # table, A, ev, B, plane, P, C, n, ts_base, scratch, ys, alive,
+        # stream
+        "tb_chain_wave": [_P, _I64, _P, _I, _P, _I, _I, _I, _U64, _P, _P, _P, _P],
+    },
+    "spec_conflicts": {
+        # ev, B, idx, K, serial (nullable), n, A, tok, tgt, a_min, r_min,
+        # out, stream
+        "tb_spec_conflicts": [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _P, _P, _P, _P],
     },
     "apply_deltas": {
         # table, A, packed, k, stride, stream
@@ -185,3 +212,69 @@ def l2_chase(next_idx, steps, sink):
     if next_idx.dtype != torch.int32 or not next_idx.is_cuda or not next_idx.is_contiguous():
         raise ValueError("next_idx must be a contiguous CUDA int32 tensor")
     _launch("exact_scan", "tb_l2_chase", None, _ptr(next_idx), steps, _ptr(sink))
+
+
+def exact_init(scratch_words, dstat_init):
+    """K3's initial carry for a (B,)-row batch in `scratch_words`."""
+    _launch(
+        "exact_scan", "tb_exact_init", "exact_init",
+        _ptr(scratch_words), dstat_init.shape[0], _ptr(dstat_init),
+    )
+
+
+def exact_segment(table, events, rows, n, ts_base_u64, scratch_words):
+    """A K3 scan segment over the int32 global event indices `rows`."""
+    _launch(
+        "exact_scan", "tb_exact_segment", "exact_segment",
+        _ptr(table), table.shape[0], _ptr(events), events.shape[0],
+        _ptr(rows), rows.shape[0], n, ts_base_u64, _ptr(scratch_words),
+    )
+
+
+def exact_finalize(table, batch, scratch_words, hist_fix, out):
+    """The packed outputs of the carry; `hist_fix` a (B,) uint8 mask or
+    None."""
+    _launch(
+        "exact_scan", "tb_exact_finalize", "exact_finalize",
+        _ptr(table), table.shape[0], batch, _ptr(scratch_words),
+        _ptr(hist_fix), _ptr(out),
+    )
+
+
+def aux_words(lib: str, symbol: str) -> int:
+    """A word count a kernel source exports (lane-record or cell-log
+    words per lane)."""
+    fn = _FNS.get(symbol)
+    if fn is None:
+        from tigerbeetle_tpu_torch.kernels import build
+
+        fn = getattr(build.load(lib), symbol)
+        fn.argtypes = []
+        fn.restype = _I64
+        _FNS[symbol] = fn
+    return int(fn())
+
+
+def wave_step(table, events, idx, mask, n, ts_base_u64, scratch_words, lanes):
+    _launch(
+        "wave_step", "tb_wave_step", "wave_step",
+        _ptr(table), table.shape[0], _ptr(events), events.shape[0], _ptr(idx),
+        idx.shape[0], _ptr(mask), n, ts_base_u64, _ptr(scratch_words), _ptr(lanes),
+    )
+
+
+def chain_wave(table, events, plane, n, ts_base_u64, scratch_words, ys, alive):
+    _launch(
+        "chain_wave", "tb_chain_wave", "chain_wave",
+        _ptr(table), table.shape[0], _ptr(events), events.shape[0], _ptr(plane),
+        plane.shape[0], plane.shape[1], n, ts_base_u64, _ptr(scratch_words),
+        _ptr(ys), _ptr(alive),
+    )
+
+
+def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):
+    _launch(
+        "spec_conflicts", "tb_spec_conflicts", "spec_conflicts",
+        _ptr(events), events.shape[0], _ptr(idx), idx.shape[0], _ptr(serial), n, A,
+        _ptr(tok), _ptr(tgt), _ptr(a_min), _ptr(r_min), _ptr(out),
+    )

@@ -28,7 +28,15 @@ mirror's image (the exact scan K3 runs on a card tensor built from it),
 the table is re-uploaded from the mirror (K2 rebuild), and every later
 batch of the window is launched again with its own kind's kernel.
 
-Batches outside the semantic kernels' classes take the host path: the
+Batches outside the semantic kernels' classes ride the window too,
+as wave records (``submit_waves``: a wave plan's segments, kernels K7,
+K8 and K3 segments) or speculative records (``submit_speculative``: the
+whole batch as one K7 step behind K9's on-device validation, only the
+conflicted residue replayed through a plan) — executed in window order
+against the device table, their packed outputs fetched at rotation.
+Admission against the mirror plus every in-flight record's amount
+bound (``inflight_bound``) proves their plans exact, so they carry no
+failure flag.  A batch the wave router declines takes the host path: the
 machine drains the stream, then resolves the batch exactly against the
 table read through ``read()`` (a drain and flush barrier).  Order-free
 ones apply through the write-behind lane (``enqueue`` / ``flush``: K4
@@ -42,7 +50,7 @@ The window, ring and recovery structure and the knob defaults are the
 reference's, which a high-latency TPU link shaped; they are to be
 retuned once the H100 is measured.  Not ported yet (ROADMAP): the link
 seam and chaos shim, the degraded lifecycle and scrubs, hot/cold
-tiering, wave and speculative dispatch, row sharding.
+tiering, row sharding.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from tigerbeetle_tpu_torch import envcheck
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
+from tigerbeetle_tpu_torch.state_machine import resolve, waves
 from tigerbeetle_tpu_torch.state_machine.kernel_fast import flush_entries
 
 _WINDOW = envcheck.dev_window()
@@ -63,6 +72,17 @@ _RING = envcheck.dev_ring()
 envcheck.validate_window_ring(_WINDOW, _RING)
 
 _SEMANTIC_KINDS = tuple(dk.KERNELS)
+_WAVE_KINDS = ("waves", "spec")
+# Speculative-execution counters (the reference's dev_wave.spec.*).
+SPEC_COUNTERS = (
+    "attempts",        # speculative launches
+    "hits",            # batches validated conflict-free (one step)
+    "plan_skipped",    # partitioner runs avoided (== hits)
+    "residue_events",  # events replayed through a residue plan
+    "steps",           # device-step equivalents, residue plans included
+    "validation_s",    # host seconds: speculative launch + flags fetch
+    "residue_plan_s",  # host seconds: plan_residue on misses
+)
 _MASK32_NP = np.uint64(0xFFFFFFFF)
 
 
@@ -97,10 +117,12 @@ class _InFlight:
     __slots__ = (
         "kind", "pk", "n", "ts_base", "finish", "fallback", "future",
         "ring_at", "id_keys", "handle", "slots", "rows", "meta_args",
+        "wave_args", "touched", "bound",
     )
 
     def __init__(self, kind, future, finish, *, pk=None, n=0, ts_base=0,
-                 fallback=None, id_keys=None, slots=None, meta_args=None):
+                 fallback=None, id_keys=None, slots=None, meta_args=None,
+                 wave_args=None, bound=0):
         self.kind = kind
         self.pk = pk
         self.n = n
@@ -114,6 +136,13 @@ class _InFlight:
         self.slots = slots      # lookup slots
         self.rows = None        # fetched lookup rows
         self.meta_args = meta_args  # (slots, flags, ledger) for "meta"
+        # Wave / speculative records: (waves.PackedColumns, plan or the
+        # pv_serial fact), the compact record rebuilt at launch.
+        self.wave_args = wave_args
+        self.touched = None  # rows a wave record can modify (at launch)
+        # Bound on the balance additions the record can still make (the
+        # wave admission's in-flight term), released at its bookkeeping.
+        self.bound = bound
 
 
 def _touched_of_pk(kind: str, pk, n: int) -> np.ndarray:
@@ -169,6 +198,9 @@ class DeviceEngine:
             self._cm = cm.device_fns()
             self._apply = dk.apply_deltas
         self._commit_enabled = envcheck.state_commit() == 1
+        self._wave_scratch = None
+        self._inflight_bound = 0
+        self.spec_stats = {name: 0 for name in SPEC_COUNTERS}
         # Stat counters (the reference's names).
         self.stat_semantic_events = 0
         self.stat_fallback_batches = 0
@@ -304,21 +336,75 @@ class DeviceEngine:
     # Semantic dispatch.
 
     def submit(self, kind, pk, n, ts_base, finish, fallback,
-               id_keys=None) -> ReplyFuture:
+               id_keys=None, bound=0) -> ReplyFuture:
         """Queue one semantic batch; returns its reply future.
         `finish(summary) -> bytes` runs at materialization; `fallback()
-        -> bytes` re-executes the batch exactly on the host."""
-        # Earlier host-resolved batches' deltas land before this batch.
+        -> bytes` re-executes the batch exactly on the host; `bound` is
+        the batch's amount bound (the wave admission's in-flight term)."""
+        return self._submit_record(
+            lambda fut: _InFlight(kind, fut, finish, pk=pk, n=n, ts_base=ts_base,
+                                  fallback=fallback, id_keys=id_keys, bound=bound)
+        )
+
+    def submit_waves(self, ev, dstat_init, n, ts_base, plan, hist_fix, finish,
+                     fallback, id_keys=None, bound=0) -> ReplyFuture:
+        """Queue one WAVE-DISPATCHED batch: executed inside the window as
+        its plan's segments against the device table (_exec_waves).
+        `ev` is the host (B,)-array event dict (kernel.EVENT_FIELDS),
+        `plan` the admitted WavePlan, `hist_fix` the snapshot-rewrite
+        mask; `finish(packed_np) -> bytes` runs the exact path's
+        bookkeeping at materialization.  The record keeps the lossless
+        compact columns (waves.pack_wave_record), not the padded dict."""
+        packed = waves.pack_wave_record(ev, dstat_init, hist_fix, n)
+        return self._submit_record(
+            lambda fut: _InFlight("waves", fut, finish, n=n, ts_base=ts_base,
+                                  fallback=fallback, id_keys=id_keys, bound=bound,
+                                  wave_args=(packed, plan))
+        )
+
+    def submit_speculative(self, ev, dstat_init, n, ts_base, spec_serial, pv_serial,
+                           finish, fallback, id_keys=None, bound=0) -> ReplyFuture:
+        """Queue one SPECULATIVE batch: at launch the whole batch runs as
+        one validated step and only a conflicted residue replays through
+        a plan (_exec_spec).  `spec_serial` marks the events the step
+        does not model (chain members, history events, serialized
+        post/voids); `pv_serial` is the submit-time routing fact the
+        residue planner reuses.  `bound` must be the WHOLE batch's bound:
+        a later record's admission must count everything this one can
+        still apply."""
+        packed = waves.pack_spec_record(ev, dstat_init, spec_serial, n)
+        return self._submit_record(
+            lambda fut: _InFlight("spec", fut, finish, n=n, ts_base=ts_base,
+                                  fallback=fallback, id_keys=id_keys, bound=bound,
+                                  wave_args=(packed, bool(pv_serial)))
+        )
+
+    def _submit_record(self, make_rec) -> ReplyFuture:
+        """The one stream-entry protocol of semantic and wave records:
+        flush (earlier host-resolved deltas land first), enqueue, count
+        the record's bound in flight, rotate at the window boundary."""
         self.flush()
         fut = ReplyFuture(self)
-        self._pending.append(
-            _InFlight(kind, fut, finish, pk=pk, n=n, ts_base=ts_base,
-                      fallback=fallback, id_keys=id_keys)
-        )
+        rec = make_rec(fut)
+        self._pending.append(rec)
         self._pending_semantic += 1
+        self._inflight_bound += rec.bound
         if self._pending_semantic >= self.window:
             self._rotate()
         return fut
+
+    def inflight_bound(self) -> int:
+        """Upper bound on balance additions submitted but not yet in the
+        mirror: the wave admission's `extra` term."""
+        return self._inflight_bound
+
+    def _release_bound(self, rec: _InFlight) -> None:
+        """The record's bookkeeping reached the mirror (its finish or its
+        host fallback ran): its contributions are no longer in flight.
+        Idempotent."""
+        if rec.bound:
+            self._inflight_bound -= rec.bound
+            rec.bound = 0
 
     def lookup(self, slots, finish) -> ReplyFuture:
         """Device-side balance gather for lookup_accounts: rides the
@@ -356,6 +442,7 @@ class DeviceEngine:
         units = []
         run = []
         for rec in recs:
+            # Wave and speculative records are units of their own.
             if rec.kind in _SEMANTIC_KINDS and (not run or run[-1].kind == rec.kind):
                 run.append(rec)
                 continue
@@ -414,6 +501,10 @@ class DeviceEngine:
                 self._meta_update(urecs[0])
             elif ukind == "lookup":
                 urecs[0].handle = self._gather(urecs[0].slots)
+            elif ukind == "waves":
+                self._exec_waves(urecs[0])
+            elif ukind == "spec":
+                self._exec_spec(urecs[0])
             else:
                 kind = urecs[0].kind
                 big, ns, tsb = dev_bufs[dk.PK_SPEC[kind]]
@@ -443,6 +534,76 @@ class DeviceEngine:
         )
         rec.ring_at = self._ring_at
         self._ring_at = (self._ring_at + 1) % _RING
+
+    def _wave_scratch_dev(self):
+        if self._plain or self.device.type != "cuda":
+            return None
+        if self._wave_scratch is None:
+            self._wave_scratch = waves.WaveScratch(self.device)
+        return self._wave_scratch
+
+    def _exec_waves(self, rec: _InFlight) -> None:
+        """Execute a wave record's plan against the device table, in
+        place (waves.run_plan_engine); the packed outputs are fetched at
+        rotation like a lookup gather.  A CUDA error raises with part of
+        the batch applied: the engine has no retry (the reference's link
+        seam is not ported), and the mirror — which holds exactly the
+        batches before this one — is the state to rebuild the table
+        from."""
+        packed_rec, plan = rec.wave_args
+        ev, dstat_init, hist_fix = waves.unpack_wave_record(packed_rec)
+        if self._commit_enabled:
+            rec.touched = waves.touched_slots(ev, rec.n)
+        rec.handle = waves.run_plan_engine(
+            self.balances, ev, dstat_init, rec.n, rec.ts_base, plan, hist_fix,
+            scratch=self._wave_scratch_dev(), plain=self._plain,
+        )
+
+    def _exec_spec(self, rec: _InFlight) -> None:
+        """Execute a speculative record: one whole-batch step with the
+        on-device validation, the conflict flags fetched (the validation
+        synchronisation: later records read the table, so the verdict
+        cannot wait for rotation), then only on a miss plan_residue over
+        the conflicted events and the carry-threaded replay."""
+        packed_rec, pv_serial = rec.wave_args
+        ev, dstat_init, spec_serial = waves.unpack_spec_record(packed_rec)
+        if self._commit_enabled:
+            rec.touched = waves.touched_slots(ev, rec.n)
+        n = rec.n
+        B = len(ev["flags"])
+        scratch = self._wave_scratch_dev()
+        st = self.spec_stats
+        st["attempts"] += 1
+        t0 = _time.perf_counter()
+        carry, confl = waves.run_speculative_engine(
+            self.balances, ev, dstat_init, spec_serial, n, rec.ts_base,
+            scratch=scratch, plain=self._plain,
+        )
+        confl_np = confl.cpu().numpy().astype(bool)[:n]
+        st["validation_s"] += _time.perf_counter() - t0
+        residue = np.flatnonzero(confl_np)
+        hist = np.zeros(B, bool)
+        if len(residue) == 0:
+            hist[:n] = True
+            rec.handle = waves.finalize_engine(self.balances, carry, hist, plain=self._plain)
+            st["hits"] += 1
+            st["plan_skipped"] += 1
+            st["steps"] += 1
+            return
+        t1 = _time.perf_counter()
+        meta = resolve.spec_meta_from_events(ev, n, pv_serial)
+        plan = waves.plan_residue(n, meta, residue)
+        st["residue_plan_s"] += _time.perf_counter() - t1
+        # Committed events and residue wave/chain events take batch-final
+        # snapshots; residue scan events keep their sequential ones.
+        hist[:n] = ~confl_np
+        hist[:n] |= plan.wave_mask
+        rec.handle = waves.continue_plan_engine(
+            self.balances, carry, ev, n, rec.ts_base, plan, hist,
+            scratch=scratch, plain=self._plain,
+        )
+        st["residue_events"] += len(residue)
+        st["steps"] += 1 + plan.n_steps
 
     # ------------------------------------------------------------------
     # Hazard probe: does any probe id match an in-flight batch's ids?
@@ -482,7 +643,7 @@ class DeviceEngine:
             self.stat_fetches += 1
             ring_np = to_u64(self.ring)
         for rec in recs:
-            if rec.kind == "lookup" and rec.handle is not None:
+            if rec.kind in ("lookup",) + _WAVE_KINDS and rec.handle is not None:
                 rec.rows = to_u64(rec.handle)
                 rec.handle = None
         self.stat_t_fetch += _time.perf_counter() - t0
@@ -504,9 +665,15 @@ class DeviceEngine:
             if rec.kind == "lookup":
                 rec.future.resolve(rec.finish(rec.rows))
                 continue
+            if rec.kind in _WAVE_KINDS:
+                self.stat_semantic_events += rec.n
+                rec.future.resolve(rec.finish(rec.rows))
+                self._release_bound(rec)
+                continue
             s = dk.unpack_summary(ring_np[rec.ring_at])
             self.stat_semantic_events += rec.n
             rec.future.resolve(rec.finish(s))
+            self._release_bound(rec)
         self.stat_t_finish += _time.perf_counter() - t0
 
     def _rotate(self) -> None:
@@ -553,14 +720,24 @@ class DeviceEngine:
                 if rec.kind == "lookup":
                     rec.future.resolve(rec.finish(rec.rows))
                     continue
+                if rec.kind in _WAVE_KINDS:
+                    # No failure flag: admission proved the plan exact,
+                    # so the fetched outputs (computed against the
+                    # stream before any later fallback) resolve.
+                    self.stat_semantic_events += rec.n
+                    rec.future.resolve(rec.finish(rec.rows))
+                    self._release_bound(rec)
+                    continue
                 s = dk.unpack_summary(ring_np[rec.ring_at])
                 if s["overflow"] or s["cap_exceeded"] or s["precond"]:
                     failed_at = i
                     self.stat_fallback_batches += 1
                     rec.future.resolve(rec.fallback())
+                    self._release_bound(rec)
                     break
                 self.stat_semantic_events += rec.n
                 rec.future.resolve(rec.finish(s))
+                self._release_bound(rec)
             if failed_at is None:
                 return
             self._upload_from_mirror()
@@ -570,6 +747,10 @@ class DeviceEngine:
                     self._meta_update(rec)
                 elif rec.kind == "lookup":
                     rec.handle = self._gather(rec.slots)
+                elif rec.kind == "waves":
+                    self._exec_waves(rec)
+                elif rec.kind == "spec":
+                    self._exec_spec(rec)
                 else:
                     self._dispatch(rec)
             # The re-dispatched suffix mutated the rebuilt table: fold
@@ -630,6 +811,8 @@ class DeviceEngine:
         for rec in recs:
             if rec.kind == "meta":
                 touched.append(rec.meta_args[0])
+            elif rec.kind in _WAVE_KINDS and rec.touched is not None:
+                touched.append(rec.touched)
             elif rec.kind in _SEMANTIC_KINDS:
                 touched.append(_touched_of_pk(rec.kind, rec.pk, rec.n))
         if not touched:

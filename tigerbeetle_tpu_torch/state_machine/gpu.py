@@ -12,30 +12,37 @@ Two execution authorities, as in the reference (``engine``, or
 - "host": the host resolves every create_transfers batch.  Order-free
   batches are admitted and applied on the balance mirror and reach the
   device table through the write-behind lane (kernel K4); every other
-  batch runs the exact sequential scan (kernel K3) against the device
-  table, and the mirror is rebuilt from the scan's row snapshots.
+  batch takes the exact path against the device table: a wave plan
+  (TB_WAVES, ``waves.py``: parallel wave steps K7, chain waves K8 and
+  K3 scan segments over one carry) when admitted and profitable, else
+  the whole sequential scan K3; the mirror is rebuilt from the row
+  snapshots either way.
 - "device": the device-authoritative engine (DeviceEngine) computes the
   codes on the device inside pipelined windows, routed as the
   reference routes them: order-free batches to kernel K1, linked-chain
   batches (limit accounts allowed) to K5, pending-create + post/void
   batches to K6; the state commitment stays on the device (kernel K2).
-  Every other batch drains the stream and takes the host path above; a
-  flagged batch (an overflow, more failures than the summary holds, a
-  K5 precondition or fixpoint cap) is re-executed exactly (K3 for the
-  classes only the scan ranks).
+  Every other batch is speculated (the whole batch as one K7 step
+  behind K9's validation, only the conflicted residue replayed through
+  a plan) or wave-dispatched inside the window (TB_DEV_WAVES,
+  TB_WAVES_SPECULATE); a batch that routing declines drains the stream
+  and takes the host path above.  A flagged batch (an overflow, more
+  failures than the summary holds, a K5 precondition or fixpoint cap)
+  is re-executed exactly on the host.
 
 State split: the device holds the balance table (and, device engine,
 the account-meta table, the summary ring and the digest); the host
 holds the id directories, immutable account attributes, the columnar
 transfer store, the expires index, the history rows and the balance
-mirror.  Not ported (ROADMAP): the native library, wave and speculative
-execution (the reference tries it on the host path's batches), the
-device engine's degraded state, the host-only linked / two-phase fast
-paths (those batches take K3, which gives the same results), hot/cold
-tiering, the query operations.
+mirror.  Not ported (ROADMAP): the native library, the device engine's
+degraded state, the host-only linked / two-phase fast paths (those
+batches take the exact path, with the same results), hot/cold tiering,
+row sharding and the sharded wave executors, the query operations.
 """
 
 from __future__ import annotations
+
+import time as _time
 
 import numpy as np
 
@@ -47,7 +54,7 @@ from tigerbeetle_tpu_torch.device import resolve_device
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
-from tigerbeetle_tpu_torch.state_machine import kernel
+from tigerbeetle_tpu_torch.state_machine import kernel, resolve, waves
 from tigerbeetle_tpu_torch.state_machine.device_engine import (
     DeviceEngine,
     ReplyFuture,
@@ -114,6 +121,19 @@ _ATTR_FIELDS = {
 }
 
 _BATCH_BUCKETS = kernel.BATCH_BUCKETS
+
+
+def _amount_bound_total(amount_lo: np.ndarray, amount_hi: np.ndarray) -> int:
+    """Exact host-integer sum of (lo, hi) u128 amount bounds by 32-bit
+    limb sums (each below 2^21 * 2^32 < 2^64): the in-flight admission
+    bookkeeping of the device engine's window."""
+    m32 = np.uint64(0xFFFFFFFF)
+    return (
+        int((amount_lo & m32).sum(dtype=np.uint64))
+        + (int((amount_lo >> np.uint64(32)).sum(dtype=np.uint64)) << 32)
+        + (int((amount_hi & m32).sum(dtype=np.uint64)) << 64)
+        + (int((amount_hi >> np.uint64(32)).sum(dtype=np.uint64)) << 96)
+    )
 
 
 def pack_u128(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
@@ -241,6 +261,18 @@ class TorchStateMachine:
         self.stat_linked_batches = 0      # batches resolved by K5
         self.stat_two_phase_batches = 0   # batches routed to K6
         self.stat_resolve_iters = 0       # K5 fixpoint iterations
+        # Wave execution of the host exact path (TB_WAVES) and wave /
+        # speculative dispatch inside the device window (TB_DEV_WAVES).
+        self.stat_wave_batches = 0
+        self.stat_wave_steps = 0
+        self.stat_wave_events = 0
+        self.stat_wave_parallel_events = 0
+        self.stat_dev_wave_batches = 0
+        self.stat_dev_wave_declined = 0
+        self.stat_dev_wave_steps = 0
+        self.stat_dev_wave_events = 0
+        self.stat_dev_wave_plan_s = 0.0
+        self.stat_dev_wave_decline_reasons: dict = {}
 
         self._acct_dir = RunIndex(_dir_capacity(account_capacity))
         self._attrs = Columns(_ATTR_FIELDS, capacity=max(1024, account_capacity))
@@ -261,6 +293,7 @@ class TorchStateMachine:
         else:
             self._dev = DeviceTable(account_capacity, self.device, plain=plain)
         self._exact_scratch = None
+        self._wave_scratch = None
         self._tdir = RunIndex(_dir_capacity(transfer_capacity))
         self._store = TailStore(_STORE_FIELDS, capacity=max(1024, transfer_capacity))
         # expires_at index: (expires_at, store row, active).
@@ -670,18 +703,31 @@ class TorchStateMachine:
         """Route a batch to a device semantic kernel — order-free (K1),
         linked-chain (K5) or two-phase (K6); the host does the joins,
         the device computes the result codes — or, for shapes outside
-        the kernels' classes, drain the stream and take the exact host
-        path (reference: tpu.py:1329-1489, without its wave dispatch,
-        degraded state, forced speculation and tiering)."""
+        the kernels' classes, to wave or speculative dispatch inside the
+        window (_try_submit_device_waves), and on its decline drain the
+        stream and take the exact host path (reference:
+        tpu.py:1329-1489, without its degraded state and tiering)."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
         n = len(events)
         ts_base = timestamp - n + 1
 
         def host_path() -> ReplyFuture:
+            # Wave dispatch first; a decline hands its decode to the
+            # drained host path.
+            fut, decoded = self._try_submit_device_waves(events, n, timestamp, input_bytes)
+            if fut is not None:
+                return fut
             self._engine_drain()
-            return ReplyFuture(value=self._commit_create_transfers(timestamp, input_bytes))
+            return ReplyFuture(
+                value=self._commit_create_transfers(timestamp, input_bytes, decoded=decoded)
+            )
 
         if n == 0 or n > dk.B:
+            return host_path()
+
+        # TB_WAVES_SPECULATE=force: every window batch, kernel shapes
+        # included, goes through the speculative dispatcher.
+        if waves.spec_mode() == "force":
             return host_path()
 
         id_lo = np.asarray(events["id_lo"])
@@ -870,6 +916,7 @@ class TorchStateMachine:
             kind, pk, n, ts_base, finish,
             self._device_fallback(timestamp, input_bytes),
             id_keys=keys_sorted,
+            bound=_amount_bound_total(amount_lo, amount_hi),
         )
 
     def _created_cols(self, events, n, flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi):
@@ -939,6 +986,7 @@ class TorchStateMachine:
             kind, pk, n, ts_base, finish,
             self._device_fallback(timestamp, input_bytes),
             id_keys=keys_sorted,
+            bound=_amount_bound_total(amount_lo, amount_hi),
         )
 
     def _submit_device_two_phase(
@@ -1076,10 +1124,16 @@ class TorchStateMachine:
 
         self.stat_two_phase_batches += 1
         kind = "two_phase_lo" if not (amount_hi.any() or p_amt_hi.any()) else "two_phase"
+        # In-flight bound: creates add their amount through two slots,
+        # finalizers at most max(t.amount, pending.amount) — twice the
+        # amounts plus the joined pending amounts covers both.
+        bound = 2 * _amount_bound_total(amount_lo, amount_hi) + _amount_bound_total(
+            p_amt_lo, p_amt_hi
+        )
         return self._dev.submit(
             kind, pk, n, ts_base, finish,
             self._device_fallback(timestamp, input_bytes),
-            id_keys=keys_sorted,
+            id_keys=keys_sorted, bound=bound,
         )
 
     def _finish_device_two_phase(
@@ -1190,14 +1244,18 @@ class TorchStateMachine:
     # The exact host lane: the host engine's create_transfers, the
     # device engine's host path and the re-execution of a flagged batch.
 
-    def _commit_create_transfers(self, timestamp: int, input_bytes: bytes) -> bytes:
+    def _commit_create_transfers(self, timestamp: int, input_bytes: bytes,
+                                 decoded: dict | None = None) -> bytes:
+        """`decoded`: the batch's _decode_static, when a declined wave
+        dispatch already made it (account attributes are immutable and
+        the decode reads nothing else, so it is still current)."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
         n = len(events)
         if n == 0:
             return b""
         self.stat_host_semantic_events += n
         ts_base = timestamp - n + 1
-        d = self._decode_static(events, n)
+        d = decoded if decoded is not None else self._decode_static(events, n)
         return self._commit_transfers_resolved(
             n, ts_base, events, d["id_lo"], d["id_hi"], d["pend_lo"],
             d["pend_hi"], d["flags"], d["timeout"], d["dr_slot"],
@@ -1314,9 +1372,15 @@ class TorchStateMachine:
     ) -> bytes:
         """Order-free batches apply through the mirror's admission
         (_commit_fast); every other batch, and one whose admission cannot
-        rule out an overflow, runs the exact scan K3 (reference:
-        tpu.py:2445-2656, without the native library and the wave
-        executor)."""
+        rule out an overflow, runs the exact path: a wave plan when
+        TB_WAVES admits one, else the whole scan K3 (reference:
+        tpu.py:2445-2656, without the native library and the host-only
+        linked and two-phase resolvers, whose batches take the exact
+        path with the same results)."""
+        wave_mode = waves.mode()
+        # "1" / "exact" / "scan" route every batch to the exact path;
+        # "1" also forces the plan past its profitability gate.
+        wave_force = wave_mode in ("1", "exact", "scan")
         B = next(b for b in _BATCH_BUCKETS if b >= n)
         e_found, e_row = self._tdir.lookup(id_lo, id_hi)
         order_free = not (
@@ -1332,7 +1396,7 @@ class TorchStateMachine:
                 | ((id_hi[1:] == id_hi[:-1]) & (id_lo[1:] > id_lo[:-1]))
             ).all()
         )
-        if order_free and not e_found.any():
+        if order_free and not e_found.any() and not wave_force:
             ids_unique = ascending
             if not ids_unique:
                 id_mix = id_lo * np.uint64(0x9E3779B97F4A7C15) + id_hi * np.uint64(
@@ -1359,36 +1423,321 @@ class TorchStateMachine:
             dr_zero, cr_zero, e_found, j,
         )
         self.stat_exact_events += n
-        self.stat_exact_batches += 1
-        out = kernel.unpack_outputs(self._run_exact(ev, j["dstat_init"], n, ts_base))
+        wave_plan = None
+        if wave_mode not in ("0", "scan"):
+            wave_plan = self._plan_wave_execution(
+                n, flags, dr_slot, cr_slot, dr_flags, cr_flags, j["id_group"],
+                j["p_group"], j["p_tgt"], j["p_found"], j["gather_p"], is_pv,
+                amount_lo, amount_hi, force=(wave_mode == "1"),
+            )
+        if wave_plan is not None:
+            # Wave events' snapshots become batch finals at finalize
+            # (history events never ride waves).
+            packed = self._run_exact(ev, j["dstat_init"], n, ts_base, wave_plan,
+                                     _pad(wave_plan.wave_mask, B))
+            self.stat_wave_batches += 1
+            self.stat_wave_steps += wave_plan.n_steps
+            self.stat_wave_events += n
+            self.stat_wave_parallel_events += wave_plan.parallel_events
+        else:
+            self.stat_exact_batches += 1
+            packed = self._run_exact(ev, j["dstat_init"], n, ts_base)
+        out = kernel.unpack_outputs(packed)
         return self._finish_exact_outputs(
             out, n, ts_base, id_lo, id_hi, flags, timeout, j["uniq_rows"],
             j["dstat_init"],
         )
 
-    def _run_exact(self, ev: dict, dstat_init: np.ndarray, n: int, ts_base: int) -> np.ndarray:
-        """One K3 launch over the engine's table (read through its flush
-        barrier, written back in place) -> the (B, 37) u64 outputs."""
+    def _run_exact(self, ev: dict, dstat_init: np.ndarray, n: int, ts_base: int,
+                   plan=None, hist_fix=None) -> np.ndarray:
+        """One exact batch over the engine's table (read through its
+        flush barrier, written back in place) -> the (B, 37) u64
+        outputs: by the wave `plan` when there is one, else one K3
+        launch."""
         dev = self._dev
         table = dev.read()
-        pk_np = kernel.pack_events(ev)
-        pk = from_u64(pk_np, table.device)
-        dstat = torch.from_numpy(dstat_init.astype(np.uint32).view(np.int32)).to(table.device)
-        if self.plain:
-            packed = kernel.run_exact_plain(table, pk, dstat, n, ts_base)
-        else:
-            if self._exact_scratch is None and table.device.type == "cuda":
-                self._exact_scratch = kernel.ExactScratch(_BATCH_BUCKETS[-1], table.device)
-            _, packed = kernel.run_create_transfers(
-                table, pk, dstat, n, ts_base, scratch=self._exact_scratch
+        if plan is not None:
+            if self._wave_scratch is None and table.device.type == "cuda":
+                self._wave_scratch = waves.WaveScratch(table.device)
+            packed = waves.run_create_transfers_waves(
+                table, ev, dstat_init, n, ts_base, plan, hist_fix,
+                scratch=self._wave_scratch, plain=self.plain,
             )
+            touched = waves.touched_slots(ev, n)
+        else:
+            pk_np = kernel.pack_events(ev)
+            touched = kernel.touched_slots(pk_np, n)
+            pk = from_u64(pk_np, table.device)
+            dstat = torch.from_numpy(dstat_init.astype(np.uint32).view(np.int32)).to(table.device)
+            if self.plain:
+                packed = kernel.run_exact_plain(table, pk, dstat, n, ts_base)
+            else:
+                if self._exact_scratch is None and table.device.type == "cuda":
+                    self._exact_scratch = kernel.ExactScratch(_BATCH_BUCKETS[-1], table.device)
+                _, packed = kernel.run_create_transfers(
+                    table, pk, dstat, n, ts_base, scratch=self._exact_scratch
+                )
         dev.write_back(table)
         if self.engine == "device":
             # The swap does not move the device digest: fold in every
-            # row the scan could have written (a post/void moves its
+            # row the batch could have written (a post/void moves its
             # pending's rows, which may differ from its own).
-            dev.exact_written(kernel.touched_slots(pk_np, n))
+            dev.exact_written(touched)
         return to_u64(packed)
+
+    # ------------------------------------------------------------------
+    # Wave routing (reference: tpu.py:2876-3040).
+
+    def _plan_wave_execution(
+        self, n, flags, dr_slot, cr_slot, dr_flags, cr_flags,
+        id_group, p_group, p_tgt, p_found, gather_p, is_pv,
+        amount_lo, amount_hi, force: bool = False, extra_bound: int = 0,
+    ):
+        """Wave routing of one exact-path batch: dependency metadata ->
+        the cheap chain-dominance decline -> per-column overflow
+        admission -> level partition + profitability.  Returns the plan,
+        or None for the scan (never a wrong answer, only a slower one).
+        `extra_bound` is the device window's in-flight bound."""
+        meta, _pv_serial = self._wave_metadata(
+            n, flags, dr_slot, cr_slot, dr_flags, cr_flags,
+            id_group, p_group, p_tgt, p_found, gather_p,
+        )
+        if self._chain_dominated(n, meta, force):
+            return None
+        adm = self._wave_admission(
+            n, meta, flags, p_found, gather_p, is_pv,
+            amount_lo, amount_hi, extra_bound=extra_bound,
+        )
+        if adm is None:
+            return None
+        inb_pairs, batch_bound = adm
+        return self._grade_plan(n, meta, inb_pairs, batch_bound, force)
+
+    def _grade_plan(self, n, meta, inb_pairs, batch_bound, force: bool):
+        """Partition + profitability + bound: the one copy the host path
+        and the window submission share."""
+        plan = waves.plan_waves(n, meta, inb_pairs=inb_pairs)
+        if not (force or plan.profitable()):
+            return None
+        plan.batch_bound = batch_bound
+        return plan
+
+    def _wave_metadata(
+        self, n, flags, dr_slot, cr_slot, dr_flags, cr_flags,
+        id_group, p_group, p_tgt, p_found, gather_p,
+    ):
+        """Dependency metadata (resolve.py) and the pv_serial routing
+        fact: a post/void whose durable target could sit on a history
+        account goes to the scan, as every history event does."""
+        p_drs = gather_p["dr_slot"].astype(np.int64)
+        p_crs = gather_p["cr_slot"].astype(np.int64)
+        hist_ev = ((dr_flags | cr_flags) & np.uint32(AF.history)) != 0
+        pv_hist = False
+        if p_found.any():
+            pj = np.unique(np.concatenate([p_drs[p_found], p_crs[p_found]]))
+            pj = pj[pj >= 0]
+            pv_hist = bool((self._attrs["flags"][pj] & np.uint32(AF.history)).any())
+        pv_serial = bool(hist_ev.any() or pv_hist)
+        meta = resolve.wave_dependency_metadata(
+            n, flags, dr_slot, cr_slot, dr_flags, cr_flags,
+            id_group, p_group, p_tgt, p_found, p_drs, p_crs,
+            pv_serial=pv_serial,
+        )
+        meta["p_drs"] = p_drs
+        meta["p_crs"] = p_crs
+        return meta, pv_serial
+
+    def _wave_admission(
+        self, n, meta, flags, p_found, gather_p, is_pv,
+        amount_lo, amount_hi, extra_bound: int = 0,
+    ):
+        """Per-column overflow admission against the mirror (plus the
+        window's in-flight bound): (inb_pairs, batch_bound), or None
+        when the batch lacks provable u128 headroom."""
+        p_drs = meta["p_drs"]
+        p_crs = meta["p_crs"]
+        # Per-event amount upper bounds: balancing zero-amount means
+        # maxInt u64, a post/void applies at most max(t.amount,
+        # pending.amount), an in-batch inherit at most the largest
+        # create bound.
+        is_balancing = (flags & np.uint32(TF.balancing_debit | TF.balancing_credit)) != 0
+        amount_zero = (amount_lo == 0) & (amount_hi == 0)
+        bound_lo = np.where(is_balancing & amount_zero, np.uint64(U64_MAX), amount_lo)
+        bound_hi = np.where(is_balancing & amount_zero, np.uint64(0), amount_hi)
+        p_amt_lo = gather_p["amount_lo"].astype(np.uint64)
+        p_amt_hi = gather_p["amount_hi"].astype(np.uint64)
+        p_bigger = is_pv & (
+            (p_amt_hi > bound_hi) | ((p_amt_hi == bound_hi) & (p_amt_lo > bound_lo))
+        )
+        bound_lo = np.where(p_bigger, p_amt_lo, bound_lo)
+        bound_hi = np.where(p_bigger, p_amt_hi, bound_hi)
+        inb_inherit = is_pv & amount_zero & ~p_found
+        if inb_inherit.any():
+            nm = ~is_pv
+            if nm.any():
+                mx_hi = bound_hi[nm].max()
+                at = bound_hi[nm] == mx_hi
+                mx_lo = bound_lo[nm][at].max()
+                bound_lo = np.where(inb_inherit, mx_lo, bound_lo)
+                bound_hi = np.where(inb_inherit, mx_hi, bound_hi)
+        inb_ev, inb_slot = waves._inb_pv_write_pairs(n, meta)
+        slots = np.concatenate(
+            [meta["ev_dr"], meta["ev_cr"], p_drs[p_found], p_crs[p_found], inb_slot]
+        )
+        bounds_lo = np.concatenate(
+            [bound_lo, bound_lo, bound_lo[p_found], bound_lo[p_found], bound_lo[inb_ev]]
+        )
+        bounds_hi = np.concatenate(
+            [bound_hi, bound_hi, bound_hi[p_found], bound_hi[p_found], bound_hi[inb_ev]]
+        )
+        if not waves.admission_ok(
+            self._mirror.lo, self._mirror.hi, slots, bounds_lo, bounds_hi,
+            extra=extra_bound,
+        ):
+            return None
+        return (inb_ev, inb_slot), _amount_bound_total(bound_lo, bound_hi)
+
+    @staticmethod
+    def _chain_dominated(n, meta, force: bool) -> bool:
+        """Cheap pre-admission decline: chain members cost one exact step
+        each unless they can ride a chain wave."""
+        n_chain = int(meta["chain_member"].sum())
+        chain_wave_possible = (
+            waves.chain_max() >= 2
+            and not meta["chain_serial"].any()
+            and not (meta["chain_linked"] & meta["is_pv"]).any()
+        )
+        return (
+            not force
+            and bool(n_chain)
+            and not chain_wave_possible
+            and n < waves.min_ratio() * n_chain
+        )
+
+    def _observe_plan_time(self, t0: float) -> None:
+        """One wave-routing pass's host seconds (decode, joins,
+        admission and the partitioner when it ran)."""
+        self.stat_dev_wave_plan_s += _time.perf_counter() - t0
+
+    def _dev_wave_decline(self, reason: str) -> None:
+        self.stat_dev_wave_declined += 1
+        reasons = self.stat_dev_wave_decline_reasons
+        reasons[reason] = reasons.get(reason, 0) + 1
+
+    def _try_submit_device_waves(self, events, n, timestamp, input_bytes):
+        """Wave-dispatch one window batch that fell off the semantic
+        kernels (reference: tpu.py:1546-1720): host joins and overflow
+        admission now, then either SPECULATIVE submission (the whole
+        batch as one validated step at launch, only a conflicted
+        residue planned: DeviceEngine._exec_spec) or the wave plan
+        (DeviceEngine._exec_waves), against the device table at window
+        launch; the exact path's bookkeeping runs from the fetched
+        packed outputs at materialization.  Returns (reply_future,
+        None), or (None, decoded) on decline, and the caller drains to
+        the host path reusing the decode.
+
+        Planning against a LAGGING mirror is sound: the hazard probe
+        drains on any id or pending-reference overlap with in-flight
+        records, and the admission charges every in-flight record's
+        amount bound on top of the mirror (DeviceEngine.inflight_bound).
+        The reference's declines for a tiered table ("tier"), a mesh
+        ("mesh", "shard_plan") and a degraded engine cannot arise here:
+        tiering is slice 5, row sharding slice 7, the degraded state
+        slice 6."""
+        dev = self._dev
+        dm = waves.dev_mode()
+        if dm == "0" or n == 0 or n > _BATCH_BUCKETS[-1]:
+            return None, None
+        t0 = _time.perf_counter()
+        d = self._decode_static(events, n)
+        ts_base = timestamp - n + 1
+
+        keys = pack_u128(d["id_lo"], d["id_hi"])
+        probe = keys
+        if d["is_pv"].any():
+            ref = (d["pend_lo"] != 0) | (d["pend_hi"] != 0)
+            probe = np.concatenate([probe, pack_u128(d["pend_lo"][ref], d["pend_hi"][ref])])
+        if dev.inflight_ids_hit(probe):
+            self._engine_drain()
+
+        e_found, e_row = self._tdir.lookup(d["id_lo"], d["id_hi"])
+        id_lo, id_hi = d["id_lo"], d["id_hi"]
+        ascending = n == 1 or bool(
+            (
+                (id_hi[1:] > id_hi[:-1])
+                | ((id_hi[1:] == id_hi[:-1]) & (id_lo[1:] > id_lo[:-1]))
+            ).all()
+        )
+        B = next(b for b in _BATCH_BUCKETS if b >= n)
+        j = self._exact_joins(
+            n, B, id_lo, id_hi, d["pend_lo"], d["pend_hi"], d["is_pv"],
+            ascending, e_found, e_row,
+        )
+        meta, pv_serial = self._wave_metadata(
+            n, d["flags"], d["dr_slot"], d["cr_slot"], d["dr_flags"],
+            d["cr_flags"], j["id_group"], j["p_group"], j["p_tgt"],
+            j["p_found"], j["gather_p"],
+        )
+        # Speculate unless the host already knows too much of the batch
+        # must replay (chain members, history events, serialized
+        # post/voids); "force" speculates regardless.
+        sm_mode = waves.spec_mode()
+        speculate = sm_mode != "0"
+        if speculate and sm_mode != "force":
+            speculate = int(meta["chain_member"].sum()) <= waves.spec_residue_cap() * n
+        if not speculate and self._chain_dominated(n, meta, force=(dm == "1")):
+            self._observe_plan_time(t0)
+            self._dev_wave_decline("plan")
+            return None, d
+        adm = self._wave_admission(
+            n, meta, d["flags"], j["p_found"], j["gather_p"], d["is_pv"],
+            d["amount_lo"], d["amount_hi"], extra_bound=dev.inflight_bound(),
+        )
+        if adm is None:
+            self._observe_plan_time(t0)
+            self._dev_wave_decline("plan")
+            return None, d
+        inb_pairs, batch_bound = adm
+        plan = None
+        if not speculate:
+            plan = self._grade_plan(n, meta, inb_pairs, batch_bound, force=(dm == "1"))
+        self._observe_plan_time(t0)
+        if not speculate and plan is None:
+            self._dev_wave_decline("plan")
+            return None, d
+
+        ev = self._build_scan_events(
+            n, B, events, d["flags"], d["static"], d["amount_lo"], d["amount_hi"],
+            d["pend_lo"], d["pend_hi"], d["timeout"], d["ledger"], d["code"],
+            d["dr_slot"], d["cr_slot"], d["dr_flags"], d["cr_flags"], d["dr_zero"],
+            d["cr_zero"], e_found, j,
+        )
+        if d["timeout"].any():
+            self._inflight_timeouts = True
+        flags, timeout = d["flags"], d["timeout"]
+        uniq_rows, dstat_init = j["uniq_rows"], j["dstat_init"]
+
+        def finish(packed_np) -> bytes:
+            return self._finish_exact_outputs(
+                kernel.unpack_outputs(packed_np), n, ts_base, id_lo, id_hi, flags,
+                timeout, uniq_rows, dstat_init,
+            )
+
+        self.stat_dev_wave_batches += 1
+        self.stat_dev_wave_events += n
+        fallback = self._device_fallback(timestamp, input_bytes)
+        if speculate:
+            # The in-flight charge is the WHOLE batch's bound, never the
+            # committed subset's.
+            return dev.submit_speculative(
+                ev, dstat_init, n, ts_base, meta["chain_member"], pv_serial, finish,
+                fallback, id_keys=np.sort(probe), bound=batch_bound,
+            ), None
+        self.stat_dev_wave_steps += plan.n_steps
+        return dev.submit_waves(
+            ev, dstat_init, n, ts_base, plan, _pad(plan.wave_mask, B), finish, fallback,
+            id_keys=np.sort(probe), bound=plan.batch_bound,
+        ), None
 
     def _finish_exact_outputs(self, out, n, ts_base, id_lo, id_hi, flags, timeout,
                               uniq_rows, dstat_init) -> bytes:

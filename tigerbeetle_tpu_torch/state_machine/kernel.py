@@ -19,6 +19,16 @@ Python walk over the same events with u128 values as Python integers.
 Both update the table IN PLACE (the reference donates it) and return
 the (B, N_COLS) u64 output matrix of ``_pack_outputs``, bit for bit the
 reference's, padding lanes included.  Tensors hold u64 lanes as int64.
+
+The same scan runs resumably, for the wave executor (``waves.py``):
+the carry is K3's scratch buffer (``scratch_words(B)`` u64 words, the
+layout ``csrc/exact_scan.cu`` documents); ``exact_init`` fills it,
+``scan_segment`` walks a list of global event indices resuming from it
+and ``finalize`` packs it (with the wave path's snapshot rewrite), each
+a K3 entry point on CUDA tensors and a plain version (``make_carry``,
+``scan_segment_plain``, ``finalize_plain``) on CPU tensors.
+``carry_from_dict`` / ``carry_to_dict`` map the reference's carry dict
+to and from that image.
 """
 
 from __future__ import annotations
@@ -282,9 +292,9 @@ class _Rows:
         self.table[idx] = torch.from_numpy(vals.view(np.int64)).to(self.table.device)
 
 
-def make_carry(dstat_init: list, B: int) -> dict:
-    """Initial scan carry (also the resume state of a segment): the
-    same fields as the reference's, as Python lists."""
+def _carry_lists(dstat_init: list, B: int) -> dict:
+    """Initial scan carry of the plain walk: the same fields as the
+    reference's make_carry, as Python lists."""
     return {
         "results": [0] * B,
         "created_mask": [0] * B,
@@ -668,7 +678,7 @@ def run_exact_plain(table, events, dstat_init, n, ts_base):
                               COL["p_cr_slot"]]].view(np.int64)
     slots = np.unique(np.concatenate([np.clip(cols.ravel(), 0, A - 1), [0]]))
     rows = _Rows(table, slots)
-    carry = make_carry([int(v) & _M32 for v in dstat_init.tolist()], B)
+    carry = _carry_lists([int(v) & _M32 for v in dstat_init.tolist()], B)
     body = make_body(int(n), int(ts_base) & _M64, B, A, id_group_full, rows)
     for ev in ev_rows:
         body(carry, ev)
@@ -698,25 +708,32 @@ def scratch_words(B: int) -> int:
     return B * (14 + 11 + 32) + 4
 
 
-def _check_exact(table, events, dstat_init, n):
+def _check_table_events(table, events, n):
+    """The table and packed-events contract shared by K3's entry points
+    and the wave kernels."""
     A = table.shape[0]
     if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != 8 or A < 1:
         raise ValueError(f"table must be (A, 8) int64, got {tuple(table.shape)} {table.dtype}")
     B = events.shape[0]
     if events.dtype != torch.int64 or events.shape != (B, N_EVENT_COLS):
         raise ValueError(f"events must be (B, {N_EVENT_COLS}) int64, got {tuple(events.shape)}")
-    if dstat_init.dtype != torch.int32 or dstat_init.shape != (B,):
-        raise ValueError(f"dstat_init must be ({B},) int32")
     if not 0 <= n <= B or B < 1 or B > 8192:
         raise ValueError(f"need 0 <= n={n} <= B={B} <= 8192")
     if A >= 1 << 31:
         raise ValueError("table rows must fit int32 slot indices")
-    for t in (events, dstat_init):
-        if t.device != table.device:
-            raise ValueError("tensors must share one device")
-    for t in (table, events, dstat_init):
-        if not t.is_contiguous():
-            raise ValueError("tensors must be contiguous")
+    if events.device != table.device:
+        raise ValueError("tensors must share one device")
+    if not (table.is_contiguous() and events.is_contiguous()):
+        raise ValueError("tensors must be contiguous")
+
+
+def _check_exact(table, events, dstat_init, n):
+    _check_table_events(table, events, n)
+    B = events.shape[0]
+    if dstat_init.dtype != torch.int32 or dstat_init.shape != (B,):
+        raise ValueError(f"dstat_init must be ({B},) int32")
+    if dstat_init.device != table.device or not dstat_init.is_contiguous():
+        raise ValueError("dstat_init must be contiguous on the table's device")
 
 
 def run_create_transfers(table, events, dstat_init, n, ts_base,
@@ -736,3 +753,244 @@ def run_create_transfers(table, events, dstat_init, n, ts_base,
     kernels.exact_scan(table, events, dstat_init, int(n),
                        int(ts_base) & U64_MAX, scratch.words, out)
     return table, out
+
+
+# ---------------------------------------------------------------------------
+# The resumable carry: K3's scratch image (csrc/exact_scan.cu's layout).
+
+N_REGIONS = 57
+(R_RESULTS, R_CMASK, R_GC, R_INB, R_DSTAT, R_U_DR, R_U_CR, R_U_KIND,
+ R_U_SIDX, R_PULSE_C, R_PULSE_R) = range(14, 25)
+R_U_DR_BAL, R_U_CR_BAL, R_HIST_DR, R_HIST_CR = 25, 33, 41, 49
+# Per-event regions holding signed values (sign-extended int64).
+_SIGNED_REGIONS = (CREATED_FIELDS.index("dr_slot"), CREATED_FIELDS.index("cr_slot"),
+                   R_GC, R_U_DR, R_U_CR, R_U_SIDX)
+# (reference carry key, region) of the (B,) scalar-per-event entries.
+_CARRY_COLUMNS = (
+    ("results", R_RESULTS, np.uint32), ("created_mask", R_CMASK, np.bool_),
+    ("group_creator", R_GC, np.int32), ("inb_status", R_INB, np.uint32),
+    ("dstat", R_DSTAT, np.uint32), ("u_dr_slot", R_U_DR, np.int32),
+    ("u_cr_slot", R_U_CR, np.int32), ("u_status_kind", R_U_KIND, np.int32),
+    ("u_status_idx", R_U_SIDX, np.int32), ("pulse_create", R_PULSE_C, np.uint64),
+    ("pulse_remove", R_PULSE_R, np.uint64),
+)
+_CARRY_ROWS = (("u_dr_bal", R_U_DR_BAL), ("u_cr_bal", R_U_CR_BAL),
+               ("hist_dr", R_HIST_DR), ("hist_cr", R_HIST_CR))
+
+
+def _word_col(arr) -> np.ndarray:
+    """A (B,) column of any integer or bool dtype -> its u64 words
+    (signed values sign-extended)."""
+    a = np.asarray(arr)
+    if a.dtype.kind == "i":
+        return a.astype(np.int64).view(np.uint64)
+    return a.astype(np.uint64)
+
+
+def carry_from_dict(carry: dict) -> np.ndarray:
+    """The reference's carry dict (kernel.make_carry's keys as numpy
+    arrays, "balances" ignored) -> the (57 B + 4,) u64 scratch image."""
+    B = len(carry["results"])
+    out = np.zeros(scratch_words(B), np.uint64)
+    for f, name in enumerate(CREATED_FIELDS):
+        out[f * B:(f + 1) * B] = _word_col(carry["created"][name])
+    for key, region, _dt in _CARRY_COLUMNS:
+        out[region * B:(region + 1) * B] = _word_col(carry[key])
+    for key, region in _CARRY_ROWS:
+        out[region * B:(region + 8) * B] = np.asarray(carry[key], np.uint64).reshape(-1)
+    base = N_REGIONS * B
+    out[base] = np.uint64(int(carry["chain_start"]) & _M64)
+    out[base + 1] = np.uint64(bool(carry["chain_broken"]))
+    out[base + 2] = np.uint64(int(carry["last_applied"]) & _M64)
+    return out
+
+
+def carry_to_dict(words, B: int) -> dict:
+    """The scratch image (u64 numpy words or an int64 tensor) -> the
+    reference's carry dict, each entry in the reference's dtype."""
+    w = to_u64(words) if isinstance(words, torch.Tensor) else np.asarray(words, np.uint64)
+    sv = w.view(np.int64)
+
+    def col(region, dtype):
+        src = sv if region in _SIGNED_REGIONS else w
+        return src[region * B:(region + 1) * B].astype(dtype)
+
+    out = {"created": {f: col(k, _CREATED_DTYPES.get(f, np.uint64))
+                       for k, f in enumerate(CREATED_FIELDS)}}
+    for key, region, dtype in _CARRY_COLUMNS:
+        out[key] = col(region, dtype)
+    for key, region in _CARRY_ROWS:
+        out[key] = w[region * B:(region + 8) * B].reshape(B, 8).copy()
+    base = N_REGIONS * B
+    out["chain_start"] = np.int32(sv[base])
+    out["chain_broken"] = np.bool_(w[base + 1] != 0)
+    out["last_applied"] = np.int32(sv[base + 2])
+    return out
+
+
+def carry_views(words: torch.Tensor, B: int) -> dict:
+    """Named int64 views into a scratch image (writes land in it)."""
+    v = {"created": words[:14 * B].view(14, B)}
+    for key, region, _dt in _CARRY_COLUMNS:
+        v[key] = words[region * B:(region + 1) * B]
+    for key, region in _CARRY_ROWS:
+        v[key] = words[region * B:(region + 8) * B].view(B, 8)
+    v["scalars"] = words[N_REGIONS * B:N_REGIONS * B + 4]
+    return v
+
+
+def make_carry(words: torch.Tensor, dstat_init: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3's tb_exact_init: the initial carry of a
+    (B,)-row batch (dstat_init int32 (B,)) in `words`, which holds at
+    least scratch_words(B) words.  Returns `words`."""
+    B = dstat_init.shape[0]
+    words[:scratch_words(B)] = 0
+    v = carry_views(words, B)
+    for key in ("group_creator", "u_dr_slot", "u_cr_slot"):
+        v[key].fill_(-1)
+    v["dstat"].copy_(dstat_init.to(torch.int64) & 0xFFFFFFFF)
+    v["scalars"].copy_(torch.tensor([-1, 0, -1, 0], dtype=torch.int64))
+    return words
+
+
+def _lists_from_words(w: np.ndarray, B: int) -> dict:
+    """The plain walk's Python-list carry from a u64 scratch image."""
+    sv = w.view(np.int64)
+
+    def col(region):
+        src = sv if region in _SIGNED_REGIONS else w
+        return src[region * B:(region + 1) * B].tolist()
+
+    carry = {"created": {f: col(k) for k, f in enumerate(CREATED_FIELDS)}}
+    for key, region, _dt in _CARRY_COLUMNS:
+        carry[key] = col(region)
+    for key, region in _CARRY_ROWS:
+        carry[key] = w[region * B:(region + 8) * B].reshape(B, 8).tolist()
+    base = N_REGIONS * B
+    carry["chain_start"] = int(sv[base])
+    carry["chain_broken"] = bool(w[base + 1])
+    carry["last_applied"] = int(sv[base + 2])
+    return carry
+
+
+def _lists_to_words(carry: dict, w: np.ndarray, B: int) -> None:
+    def put(region, values):
+        dt = np.int64 if region in _SIGNED_REGIONS else np.uint64
+        w[region * B:(region + 1) * B] = np.array(values, dt).view(np.uint64)
+
+    for k, f in enumerate(CREATED_FIELDS):
+        put(k, carry["created"][f])
+    for key, region, _dt in _CARRY_COLUMNS:
+        put(region, carry[key])
+    for key, region in _CARRY_ROWS:
+        w[region * B:(region + 8) * B] = np.array(carry[key], np.uint64).reshape(-1)
+    base = N_REGIONS * B
+    w[base] = np.uint64(carry["chain_start"] & _M64)
+    w[base + 1] = np.uint64(bool(carry["chain_broken"]))
+    w[base + 2] = np.uint64(carry["last_applied"] & _M64)
+
+
+def scan_segment_plain(table, events, words, rows, n, ts_base) -> None:
+    """Plain version of K3's tb_exact_segment (the reference's
+    _scan_segment_impl): the walk over the global event indices `rows`
+    (an index outside [0, B) is padding and skipped), resuming from and
+    returning to the carry in `words`; `table` updated in place."""
+    B, A = events.shape[0], table.shape[0]
+    order = [r for r in rows.tolist() if 0 <= r < B]
+    if not order:
+        return
+    pk = to_u64(events)
+    ev_rows = pk.tolist()
+    id_group_full = [_s32(r[COL["id_group"]]) for r in ev_rows]
+    sel = pk[order][:, [COL["dr_slot"], COL["cr_slot"], COL["p_dr_slot"], COL["p_cr_slot"]]]
+    slots = np.unique(np.concatenate([np.clip(sel.view(np.int64).ravel(), 0, A - 1), [0]]))
+    table_rows = _Rows(table, slots)
+    size = scratch_words(B)
+    w = to_u64(words[:size]).copy()
+    carry = _lists_from_words(w, B)
+    body = make_body(int(n), int(ts_base) & _M64, B, A, id_group_full, table_rows)
+    for r in order:
+        body(carry, ev_rows[r])
+    table_rows.write_back()
+    _lists_to_words(carry, w, B)
+    words[:size] = torch.from_numpy(w.view(np.int64)).to(words.device)
+
+
+def finalize_plain(table, words, B: int, hist_fix=None) -> torch.Tensor:
+    """Plain version of K3's tb_exact_finalize (the reference's
+    _finalize_body): events named by `hist_fix` ((B,) bool/uint8 or
+    None) whose result is 0 take the batch-final rows of their created
+    record's accounts as snapshots; returns the (B, N_COLS) int64
+    packed outputs."""
+    A = table.shape[0]
+    v = carry_views(words, B)
+    out = torch.zeros((B, N_COLS), dtype=torch.int64, device=words.device)
+    out[:, 0] = v["results"]
+    out[:, 1] = v["created_mask"]
+    out[:, 2:16] = v["created"].T
+    for k, key in enumerate(("inb_status", "dstat", "pulse_create", "pulse_remove")):
+        out[:, 16 + k] = v[key]
+    out[0, 20] = v["scalars"][2] + 1
+    hist_dr, hist_cr = v["hist_dr"], v["hist_cr"]
+    if hist_fix is not None:
+        fix = (hist_fix.to(torch.bool) & (v["results"] == 0))[:, None]
+        dr = v["created"][CREATED_FIELDS.index("dr_slot")].clamp(0, A - 1)
+        cr = v["created"][CREATED_FIELDS.index("cr_slot")].clamp(0, A - 1)
+        hist_dr = torch.where(fix, table[dr], hist_dr)
+        hist_cr = torch.where(fix, table[cr], hist_cr)
+    out[:, 21:29] = hist_dr
+    out[:, 29:37] = hist_cr
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Wrappers of K3's resumable entry points: CUDA tensors launch the
+# kernel (raising on any CUDA error), CPU tensors run the plain version.
+
+
+def _check_carry(words, B, device):
+    if words.dtype != torch.int64 or words.dim() != 1 or words.numel() < scratch_words(B):
+        raise ValueError(f"carry must be >= {scratch_words(B)} int64 words")
+    if words.device != device or not words.is_contiguous():
+        raise ValueError("carry must be contiguous on the table's device")
+
+
+def exact_init(words, dstat_init) -> torch.Tensor:
+    """The initial carry of a (B,)-row batch: `dstat_init` int32 (B,)."""
+    B = dstat_init.shape[0]
+    _check_carry(words, B, dstat_init.device)
+    if dstat_init.dtype != torch.int32 or not dstat_init.is_contiguous():
+        raise ValueError("dstat_init must be contiguous int32")
+    if words.device.type == "cpu":
+        return make_carry(words, dstat_init)
+    kernels.exact_init(words, dstat_init)
+    return words
+
+
+def scan_segment(table, events, words, rows, n, ts_base) -> None:
+    """A scan segment over the global event indices `rows` (int32),
+    resuming from the carry; table and carry updated in place."""
+    B = events.shape[0]
+    _check_table_events(table, events, n)
+    _check_carry(words, B, table.device)
+    if rows.dtype != torch.int32 or rows.dim() != 1 or rows.device != table.device:
+        raise ValueError("rows must be a 1-D int32 tensor on the table's device")
+    if table.device.type == "cpu":
+        scan_segment_plain(table, events, words, rows, n, ts_base)
+        return
+    kernels.exact_segment(table, events, rows.contiguous(), int(n), int(ts_base) & U64_MAX, words)
+
+
+def finalize(table, words, B: int, hist_fix=None) -> torch.Tensor:
+    """The (B, N_COLS) int64 packed outputs of the carry; `hist_fix` a
+    (B,) uint8 mask on the table's device, or None."""
+    _check_carry(words, B, table.device)
+    if hist_fix is not None and (hist_fix.dtype != torch.uint8 or hist_fix.shape != (B,)
+                                 or hist_fix.device != table.device):
+        raise ValueError(f"hist_fix must be ({B},) uint8 on the table's device")
+    if table.device.type == "cpu":
+        return finalize_plain(table, words, B, hist_fix)
+    out = torch.empty((B, N_COLS), dtype=torch.int64, device=table.device)
+    kernels.exact_finalize(table, B, words,
+                           None if hist_fix is None else hist_fix.contiguous(), out)
+    return out

@@ -363,3 +363,71 @@ def gen_offkernel(n_events: int, n_accounts: int = 1_001, batch: int = BATCH):
         events += len(arrs["ids"])
         k += 1
     return setup, timed, (n_accounts + 1, (tid - TID0) + 4 * batch + 1024)
+
+
+def gen_waves_host(n_events: int, n_accounts: int = 1_000_000, n_limited: int = 1_000,
+                   batch: int = BATCH, chain_share: float = 0.1, runs: int = 8):
+    """The host engine's wave stream (no counterpart in bench): per
+    batch, about (1 - chain_share) of the events are transfers between
+    random pairs of the plain accounts n_limited + 1 .. n_accounts, the
+    rest gen_linked-style chains of 1-7 over the first n_limited
+    accounts, all debit-limited and funded in setup, placed as `runs`
+    contiguous runs at random batch positions.  The chains read the
+    balances they debit, so a wave plan runs them as scan segments
+    among parallel waves of the plain transfers."""
+    rng = np.random.default_rng(49)
+    flags = np.zeros(n_accounts, np.uint16)
+    flags[:n_limited] = int(AF.debits_must_not_exceed_credits)
+    setup = [
+        (Operation.create_accounts,
+         accounts_bytes(range(at + 1, min(at + BATCH, n_accounts) + 1),
+                        flags=flags[at : at + BATCH]))
+        for at in range(0, n_accounts, BATCH)
+    ]
+    limited = np.arange(1, n_limited + 1, dtype=np.uint64)
+    setup += batched(
+        {
+            "ids": np.arange(WARM0, WARM0 + n_limited, dtype=np.uint64),
+            "dr": np.full(n_limited, n_accounts, np.uint64),
+            "cr": limited,
+            "amount": np.full(n_limited, 50_000, np.uint64),
+        },
+        batch,
+    )
+    timed = []
+    tid = TID0
+    done = 0
+    n_plain_acct = n_accounts - n_limited
+    while done < n_events:
+        m = min(batch, n_events - done)
+        ch = _chain_events(rng, max(2, int(chain_share * m)), n_limited, 0, batch)
+        k = len(ch["ids"])
+        p = m - k
+        dr = rng.integers(0, n_plain_acct, p)
+        cr = (dr + rng.integers(1, n_plain_acct, p)) % n_plain_acct
+        # Split the chains into runs at chain boundaries and slot each
+        # run in before a random plain event.
+        ends = ch["chain_ends"]
+        cuts = np.sort(rng.choice(len(ends) - 1, min(runs, len(ends)) - 1, replace=False))
+        bounds = np.concatenate([[0], ends[cuts], [k]])
+        at = np.sort(rng.integers(0, p + 1, len(bounds) - 1))
+        order = []
+        prev = 0
+        for r, pos in enumerate(at):
+            order.append(np.arange(prev, pos))
+            order.append(p + np.arange(bounds[r], bounds[r + 1]))
+            prev = pos
+        order.append(np.arange(prev, p))
+        order = np.concatenate(order)
+        all_dr = np.concatenate([dr.astype(np.uint64) + np.uint64(n_limited + 1), ch["dr"]])
+        all_cr = np.concatenate([cr.astype(np.uint64) + np.uint64(n_limited + 1), ch["cr"]])
+        amount = np.concatenate([rng.integers(1, 100, p, np.uint64), ch["amount"]])
+        fl = np.concatenate([np.zeros(p, np.uint16), ch["flags"]])
+        timed.append((
+            Operation.create_transfers,
+            transfers_bytes(np.arange(tid, tid + m, dtype=np.uint64), all_dr[order],
+                            all_cr[order], amount[order], flags=fl[order]),
+        ))
+        tid += m
+        done += m
+    return setup, timed, _sizing(n_accounts, done + n_limited + 1024)
