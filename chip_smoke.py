@@ -11,10 +11,12 @@ and K6 on 8192-event batches over a 2^20-row table; K7 over an
 8190-lane wave with and without a commit mask, K8 over 8 positions x
 4096 chains with dead chains and shared credited accounts, K9 over an
 8190-event batch, a K3 segment resumed mid-batch from a K7 carry, K3's
-init and finalize, all on a 2^20-row table), measures one dependent L2
-hit (K3's and K5's serial floors), then drives the port's
-create_transfers loop through SingleNodeHarness on TorchStateMachine in
-nine phases:
+init and finalize, all on a 2^20-row table; K10 at 128 and 16,384 rows
+into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
+slots, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
+holding words >= 2^31), measures one dependent L2 hit (K3's and K5's
+serial floors), then drives the port's create_transfers loop through
+SingleNodeHarness on TorchStateMachine in eleven phases:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -47,6 +49,14 @@ nine phases:
                funded accounts, 32 batches: every batch a wave plan (K7
                waves, K3 segments for the chain runs); replies and root
                equal a TB_WAVES=scan run
+  tiered       device engine, TB_HOT_CAPACITY=2^20 under 10,485,760
+               accounts: bench's tiering stream (head 786,432 accounts,
+               tail mass 0.008), 48 warm-up batches sweeping the head,
+               then 64 timed batches submitted one at a time (K1 on hot
+               slots, K10 + K2 admit per admission); replies and root
+               equal the plain-version run and an all-resident control
+  tiered_host  host engine, the same stream (K10 admissions, K4 flushes;
+               its run ends with the checkpoint tripwire, K11)
 
 Each phase's main-path run starts with every launch count at 0 (set
 just before the state machine is built) and its counts are read as soon
@@ -138,7 +148,8 @@ RING_ROWS = 256
 # (verify_device_mirror and the engine's commit_probe).
 MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "apply_deltas",
              "linked", "two_phase", "exact_init", "exact_segment", "exact_finalize",
-             "wave_step", "chain_wave", "spec_conflicts")
+             "wave_step", "chain_wave", "spec_conflicts", "tier_set_rows", "commit_admit",
+             "checksum")
 # K3's classes for the kernel check, and the codes each must produce.
 K3_CLASSES = {
     "linked": {1, 2},
@@ -516,6 +527,96 @@ def check_apply(dev, report):
                                   bound_by=bound_by, max_abs_err=err)
     print(f"K4 apply_deltas ({live} entries + {K - live} padding): bit-exact; "
           f"{ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+
+def check_tier_kernels(dev, report):
+    """K10, K2 admit and K11 against their plain versions on the card, at
+    the tiered phases' shapes, bit for bit.  K10: k = 128 and 16,384 rows
+    (a timed batch's and a warm-up batch's admissions) into a 2^20-row
+    balance table, with distinct out-of-range padding, and into the meta
+    table; timed beside Tensor.index_copy_, the one PyTorch call that
+    computes the same function.  K2 admit: 16,384 slots of a 2^20-row
+    hash table.  K11: a (2^20, 8) balance table and a (2^20, 2) meta
+    table holding words >= 2^31."""
+    rng = np.random.default_rng(2035)
+    table, meta = _tables(rng, A_ROWS, dev)
+    meta_np = rng.integers(0, 1 << 32, (A_ROWS, 2), dtype=np.uint64).astype(np.uint32)
+    meta_np[: A_ROWS // 3] |= np.uint32(1 << 31)
+    meta = torch.from_numpy(meta_np.view(np.int32)).to(dev)
+    errs, timed = [], {}
+    for k in (128, 16_384):
+        idx_np = rng.choice(A_ROWS, k, replace=False).astype(np.int64)
+        padded = torch.from_numpy(np.concatenate([idx_np, A_ROWS + np.arange(64)])).to(dev)
+        src = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (k + 64, 8))).to(dev)
+        src_m = torch.from_numpy(rng.integers(-(1 << 31), (1 << 31) - 1, (k + 64, 2))
+                                 .astype(np.int32)).to(dev)
+        for tab, rows in ((table, src), (meta, src_m)):
+            got = dk.tier_set_rows(tab.clone(), padded, rows)
+            want = dk.tier_set_rows_plain(tab.clone(), padded, rows)
+            torch.cuda.synchronize()
+            errs.append(max_abs_err(got, want))
+            check(errs[-1] == 0, f"K10 tier_set_rows (k={k}): kernel differs from the plain version")
+        idx = padded[:k].contiguous()
+        live = src[:k].contiguous()
+        t_k = table.clone()
+        ms, dev_ms = kernel_ms(lambda: dk.tier_set_rows(t_k, idx, live), names=("set_rows",))
+        plain_ms = time_ms(lambda: dk.tier_set_rows_plain(t_k, idx, live), reps=10)
+        lib_ms, lib_dev_ms = kernel_ms(lambda: t_k.index_copy_(0, idx, live))
+        check(torch.equal(t_k, dk.tier_set_rows(table.clone(), idx, live)),
+              "K10 and index_copy_ disagree")
+        bound_ms, bound_by = bound(k * 8 + 2 * k * 64, k)
+        timed[k] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"K10 tier_set_rows (k={k} of 2^20 rows + 64 padding; balances and meta): "
+              f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, "
+              f"index_copy_ {lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms)}")
+    report["tier_set_rows"] = dict(timed[16_384], max_abs_err=max(errs),
+                                   timed_case="k=16384 rows of a 2^20-row balance table",
+                                   k128=timed[128])
+
+    k = 16_384
+    rh = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (A_ROWS, 2))).to(dev)
+    dg = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 2)).to(dev)
+    slots = torch.from_numpy(cm.pad_slots(rng.choice(A_ROWS, k, replace=False))).to(dev)
+    new_lo, new_hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, len(slots)))
+                      .to(dev) for _ in range(2))
+    rh_k, dg_k = cm.admit(rh.clone(), dg.clone(), slots, new_lo, new_hi)
+    rh_p, dg_p = cm.admit_plain(rh.clone(), dg.clone(), slots, new_lo, new_hi)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(rh_k, rh_p), max_abs_err(dg_k, dg_p))
+    check(err == 0, "K2 admit differs from the plain version")
+    ms, dev_ms = kernel_ms(lambda: cm.admit(rh_k, dg_k, slots, new_lo, new_hi),
+                           names=("cm_admit",))
+    plain_ms = time_ms(lambda: cm.admit_plain(rh_p, dg_p, slots, new_lo, new_hi), reps=10)
+    bound_ms, bound_by = bound(len(slots) * 8 + k * (16 + 16 + 16) + 32, k * 6)
+    report["commit_admit"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, max_abs_err=err,
+                                  timed_case=f"k={k} slots ({len(slots)} padded) of 2^20")
+    print(f"K2 admit ({k} slots, {len(slots) - k} padding): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    errs = []
+    for name, tab in (("balances", table), ("meta", meta)):
+        got = dk.checksum(tab)
+        want = dk.checksum_plain(tab)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, want))
+        check(errs[-1] == 0, f"K11 checksum[{name}]: kernel differs from the plain version")
+        C = tab.shape[1]
+        ms, dev_ms = kernel_ms(lambda: dk.checksum(tab), names=("checksum",))
+        plain_ms = time_ms(lambda: dk.checksum_plain(tab), reps=10)
+        bound_ms, bound_by = bound(tab.numel() * tab.element_size() + 2 * C * 8,
+                                   tab.numel() * 4)
+        print(f"K11 checksum[{name}] ({A_ROWS} x {C} {tab.dtype}): bit-exact; {ms * 1e3:.1f} us, "
+              f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+        if name == "balances":
+            report["checksum"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by,
+                                      timed_case="(2^20, 8) u64 balance table")
+        else:
+            report["checksum"]["meta"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                              bound_ms=bound_ms)
+    report["checksum"]["max_abs_err"] = max(errs)
 
 
 # K5's and K6's cases for the check: (scenario, kind), the first the one
@@ -995,9 +1096,12 @@ def host_digest(sm) -> np.ndarray:
 
 
 def tables_of(sm):
+    """The device tables (drained and flushed): hot-shaped under
+    tiering."""
     if sm.engine == "device":
         return sm._dev.to_numpy_tables()
-    return (to_u64(sm._dev.read()),)
+    sm._dev.flush()
+    return (to_u64(sm._dev.balances),)
 
 
 def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
@@ -1152,6 +1256,184 @@ def reply_codes(reply: bytes) -> set:
     return set(np.frombuffer(reply, "<u4")[1::2].tolist())
 
 
+# ---------------------------------------------------------------------------
+# Hot/cold tiering: bench's run_tiering_compare shape at the card's scale.
+
+TIER_ACCOUNTS = 10 * (1 << 20)  # 10,485,760: 10x the hot set, as bench's 640 over 64
+TIER_HOT = 1 << 20
+TIER_HEAD = 786_432            # 75 % of the hot set (bench: 48 of 64)
+TIER_TAIL = 0.008
+TIER_WARM = 48                 # one sweep over the head
+TIER_TIMED = 64
+
+
+def tier_accounts():
+    """create_accounts ops for the tiered phases, made as they are
+    submitted (10.5M accounts are 1.3 GB of wire bytes)."""
+    for at in range(0, TIER_ACCOUNTS, workload.BATCH):
+        ids = range(at + 1, min(at + workload.BATCH, TIER_ACCOUNTS) + 1)
+        yield Operation.create_accounts, workload.accounts_bytes(ids)
+
+
+def head_sweep(n_batches: int, batch: int, head: int, tid0: int):
+    """Warm-up: transfers between consecutive head accounts (2k+1 ->
+    2k+2), one sweep, so the head is resident before the timed batches."""
+    k = np.arange(n_batches * batch, dtype=np.uint64)
+    dr = (np.uint64(2) * k) % np.uint64(head) + np.uint64(1)
+    return workload.batched(
+        {"ids": np.uint64(tid0) + k, "dr": dr, "cr": dr + np.uint64(1),
+         "amount": np.ones(len(k), np.uint64)},
+        batch,
+    )
+
+
+def tiering_arm(engine, hot, plain, warm, timed, profile=False, checkpoint=False):
+    """One arm of a tiered phase: the accounts and the warm-up, then the
+    tier counters reset (as bench's _run_tiering_arm does) and the timed
+    batches submitted one at a time, synchronously, for a per-batch
+    latency.  The launch counts are set to 0 before the machine is built
+    and read after the timed batches' barrier (and, with `checkpoint`,
+    the checkpoint tripwire verify_device_mirror, which a replica runs at
+    every checkpoint).  Returns (machine, replies, stats, launches,
+    device trace or None)."""
+    cap, _ = workload._sizing(TIER_ACCOUNTS, 0)
+    tcap = (len(warm) + len(timed)) * workload.BATCH + 1024
+    with knobs(TB_HOT_CAPACITY=str(hot or 0)):  # 0: all-resident
+        kernels.reset_launches()
+        sm = TorchStateMachine(account_capacity=cap, transfer_capacity=tcap, plain=plain,
+                               engine=engine)
+    check((sm._dev.hot is None) == (hot is None), "tiering knob not taken")
+    h = SingleNodeHarness(sm)
+    t_setup = time.perf_counter()
+    replies = [h.submit(op, body) for op, body in tier_accounts()]
+    t_warm = time.perf_counter()
+    replies += [h.submit(op, body) for op, body in warm]
+    t_warm = time.perf_counter() - t_warm
+    t_setup = time.perf_counter() - t_setup
+    tier = sm._dev.hot
+    if tier is not None:
+        tier.hits = tier.misses = tier.evicts = 0
+        tier.prefetch_stall_us = 0.0
+    punts0 = sm.stat_tier_punts
+    torch.cuda.synchronize()
+    prof = device_profiler() if profile else contextlib.nullcontext()
+    lat = []
+    with prof:
+        t0 = time.perf_counter()
+        for op, body in timed:
+            t1 = time.perf_counter()
+            replies.append(h.submit(op, body))
+            lat.append(time.perf_counter() - t1)
+        if engine == "device":
+            sm._dev.drain()
+        sm._dev.flush()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    if checkpoint:
+        sm.verify_device_mirror()
+    launches = dict(kernels.launches)
+    lat_ms = 1e3 * np.asarray(lat)
+    n_events = transfer_events(timed)
+    st = dict(events_per_s=n_events / elapsed, step_p50_ms=float(np.percentile(lat_ms, 50)),
+              step_p99_ms=float(np.percentile(lat_ms, 99)), setup_s=t_setup, warm_s=t_warm,
+              punts=sm.stat_tier_punts - punts0)
+    if tier is not None:
+        total = tier.hits + tier.misses
+        st.update(hit_rate=tier.hits / total if total else None, hits=tier.hits,
+                  misses=tier.misses, evicts=tier.evicts,
+                  stall_us_per_batch=tier.prefetch_stall_us / len(timed),
+                  prefetches=tier.prefetches)
+    return sm, replies, st, launches, (device_busy(prof) if profile else None)
+
+
+def _arm_line(st) -> str:
+    out = (f"{st['events_per_s']:.0f} events/s, step p50 {st['step_p50_ms']:.3f} ms "
+           f"p99 {st['step_p99_ms']:.3f} ms (setup {st['setup_s']:.1f} s)")
+    if "hit_rate" in st:
+        out += (f", hit rate {st['hit_rate']:.6f} ({st['hits']} hits, {st['misses']} misses), "
+                f"evicts {st['evicts']}, prefetch stall {st['stall_us_per_batch']:.1f} us/batch, "
+                f"punts {st['punts']}")
+    return out
+
+
+def run_tiering_phase(name, engine, warm, timed, must):
+    """A tiered phase: TB_HOT_CAPACITY=2^20 under 10,485,760 accounts on
+    bench's Zipf-head stream.  The main-path run (kernels, counted), the
+    plain-version run and the all-resident control (TB_HOT_CAPACITY
+    unset) must give the same replies and root; each passes the
+    checkpoint tripwire; the hit rate holds bench's 0.90 gate; a fourth
+    run under torch.profiler gives the device busy share.  Returns
+    (main-path launches, check launches)."""
+    n_transfers = transfer_events(warm + timed)
+    host = engine == "host"
+    sm, replies, st, launches, _ = tiering_arm(engine, TIER_HOT, False, warm, timed,
+                                               checkpoint=host)
+    for kname in must:
+        check(launches[kname] > 0, f"{name}: {kname} was not launched")
+    check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
+    check(launches["exact_scan"] == sm.stat_exact_batches,
+          f"{name}: {launches['exact_scan']} K3 launches != {sm.stat_exact_batches} exact batches")
+    resolved = sm.stat_device_semantic_events + sm.stat_host_semantic_events
+    check(resolved == n_transfers, f"{name}: {resolved} events resolved != {n_transfers}")
+    check(sm.stat_fallback_events == 0, f"{name}: unexpected fallback")
+    check(st["hit_rate"] is not None and st["hit_rate"] >= 0.90,
+          f"{name}: hit rate {st['hit_rate']} below 0.90")
+    if not host:
+        check(sm.stat_dev_wave_batches == 0, f"{name}: a wave record ran under tiering")
+    kernels.reset_launches()
+    if not host:
+        sm.verify_device_mirror()
+        pair = sm._dev.commit_probe()
+        want = sm._dev.twin_expected_digest()
+        check((pair[0] == want).all() and (pair[1] == want).all(),
+              f"{name}: device digest != the host twin's hot partial")
+    check_launches = dict(kernels.launches)
+    root = sm.state_root()
+    tables = tables_of(sm)
+    counters = (f"exact batches {sm.stat_exact_batches}; wave declines "
+                f"{sm.stat_dev_wave_decline_reasons}")
+    del sm
+    torch.cuda.empty_cache()
+
+    ref, ref_replies, ref_st, ref_launches, _ = tiering_arm(engine, TIER_HOT, True, warm, timed)
+    check(ref_replies == replies, f"{name}: replies differ from the plain-version run")
+    check(ref.state_root() == root, f"{name}: root differs from the plain-version run")
+    check(all((a == b).all() for a, b in zip(tables, tables_of(ref))),
+          f"{name}: device tables differ from the plain-version run")
+    check(all(ref_launches[k] == 0 for k in ("tier_set_rows", "commit_admit", "checksum")),
+          f"{name}: the plain-version run launched a kernel")
+    ref.verify_device_mirror()
+    del ref
+    torch.cuda.empty_cache()
+
+    ctl, ctl_replies, ctl_st, _, _ = tiering_arm(engine, None, False, warm, timed)
+    check(ctl_replies == replies, f"{name}: replies differ from the all-resident run")
+    check(ctl.state_root() == root, f"{name}: root differs from the all-resident run")
+    ctl.verify_device_mirror()
+    del ctl
+    torch.cuda.empty_cache()
+
+    prof_sm, prof_replies, prof_st, _, trace = tiering_arm(engine, TIER_HOT, False, warm, timed,
+                                                           profile=True)
+    check(prof_replies == replies, f"{name}: replies differ in the profiled run")
+    del prof_sm
+    torch.cuda.empty_cache()
+    busy = "not measured (no device activity in the trace)"
+    if trace is not None:
+        busy_ms, top = trace
+        prof_s = transfer_events(timed) / prof_st["events_per_s"]
+        busy = (f"{busy_ms:.3f} ms of the profiled timed run's {prof_s:.3f} s "
+                f"(busy share {busy_ms / 1e3 / prof_s:.6f}); top {top}")
+    print(
+        f"phase {name} ({engine} engine, TB_HOT_CAPACITY={TIER_HOT}, {TIER_ACCOUNTS} accounts, "
+        f"{len(timed)} timed batches after {len(warm)} warm-up batches): tiered "
+        f"{_arm_line(st)}; plain-version run {_arm_line(ref_st)}; all-resident control "
+        f"{_arm_line(ctl_st)}; {counters}; main-path launches {launches}; check launches "
+        f"{check_launches}; device busy {busy}; root {root.hex()}; checks passed"
+    )
+    return launches, check_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1179,6 +1461,7 @@ def main() -> int:
     check_semantic(dev, report, "linked", LINKED_CHECKS, semantic_cases.linked_case, l2_ns)
     check_semantic(dev, report, "two_phase", TWO_PHASE_CHECKS, semantic_cases.two_phase_case)
     check_waves(dev, report, l2_ns)
+    check_tier_kernels(dev, report)
 
     phases = {}
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
@@ -1248,6 +1531,14 @@ def main() -> int:
     phases["waves_host"] = run_phase("waves_host", setup, timed, sizing[0], engine="host",
                                      must=("wave_step", "exact_segment"),
                                      extra=every_batch_waved)
+    # Hot/cold tiering: one stream for both engines.
+    warm = head_sweep(TIER_WARM, workload.BATCH, TIER_HEAD, workload.WARM0)
+    timed = workload.gen_tiering(TIER_TIMED, workload.BATCH, TIER_ACCOUNTS, TIER_HEAD,
+                                 TIER_TAIL, workload.TID0)
+    phases["tiered"] = run_tiering_phase(
+        "tiered", "device", warm, timed, must=("orderfree", "tier_set_rows", "commit_admit"))
+    phases["tiered_host"] = run_tiering_phase(
+        "tiered_host", "host", warm, timed, must=("apply_deltas", "tier_set_rows", "checksum"))
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")
@@ -1281,6 +1572,12 @@ def main() -> int:
                        "tigerbeetle_tpu/state_machine/waves.py:1354"),
         "spec_conflicts": ("tigerbeetle_tpu_torch/csrc/spec_conflicts.cu",
                            "tigerbeetle_tpu/state_machine/waves.py:1971"),
+        "tier_set_rows": ("tigerbeetle_tpu_torch/csrc/tier.cu",
+                          "tigerbeetle_tpu/state_machine/device_engine.py:364"),
+        "commit_admit": ("tigerbeetle_tpu_torch/csrc/commitment.cu",
+                         "tigerbeetle_tpu/state_machine/commitment.py:358"),
+        "checksum": ("tigerbeetle_tpu_torch/csrc/checksum.cu",
+                     "tigerbeetle_tpu/state_machine/device_kernels.py:1036"),
     }
     rows = []
     for name, (source, replaces) in meta.items():
@@ -1293,9 +1590,10 @@ def main() -> int:
             "check_launches": sum(p[1][name] for p in phases.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None, "verified": True,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "verified": True,
         }
-        for key in ("serial_floor_ms", "plain_on", "iters", "timed_case"):
+        for key in ("serial_floor_ms", "plain_on", "iters", "timed_case", "k128", "meta",
+                    "library_device_ms"):
             if key in r:
                 row[key] = r[key]
         rows.append(row)

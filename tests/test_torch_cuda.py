@@ -1,4 +1,4 @@
-"""Kernels K1-K9 and K3's segment and finalize entries on a CUDA card
+"""Kernels K1-K11 and K3's segment and finalize entries on a CUDA card
 against their plain PyTorch versions, and TorchStateMachine on the
 card against the CPU run or the plain-version run.  They
 skip without a card; on one, run them with
@@ -370,3 +370,110 @@ def test_offkernel_on_card_matches_plain(card):
     assert out[0][2] > 0 and out[0][3]["attempts"] > 0
     for name in ("wave_step", "chain_wave", "spec_conflicts", "exact_init", "exact_finalize"):
         assert launched[0][name] > 0 and launched[1][name] == 0
+
+
+@pytest.mark.parametrize("width,dtype", [(8, torch.int64), (2, torch.int32)])
+def test_tier_set_rows_kernel_matches_plain(card, width, dtype):
+    """K10: distinct admitted slots plus distinct out-of-range padding."""
+    rng = np.random.default_rng(width)
+    H, k = 5000, 700
+    info = torch.iinfo(dtype)
+    table = torch.from_numpy(rng.integers(info.min, info.max, (H, width))).to(dtype)
+    src = torch.from_numpy(rng.integers(info.min, info.max, (k + 9, width))).to(dtype)
+    idx = torch.from_numpy(np.concatenate([rng.choice(H, k, replace=False),
+                                           H + np.arange(9)]).astype(np.int64))
+    want = dk.tier_set_rows_plain(table.clone(), idx, src)
+    before = kernels.launches["tier_set_rows"]
+    got = dk.tier_set_rows(table.to(card), idx.to(card), src.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["tier_set_rows"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+def test_commit_admit_kernel_matches_plain(card):
+    rng = np.random.default_rng(12)
+    H, k = 6000, 1500
+    row_hash = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (H, 2)))
+    digest = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 2))
+    slots = torch.from_numpy(cm.pad_slots(rng.choice(H, k, replace=False).astype(np.int64)))
+    new_lo, new_hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, len(slots)))
+                      for _ in range(2))
+    rh_p, dg_p = cm.admit_plain(row_hash.clone(), digest.clone(), slots, new_lo, new_hi)
+    before = kernels.launches["commit_admit"]
+    rh_k, dg_k = cm.admit(row_hash.to(card), digest.to(card), slots.to(card), new_lo.to(card),
+                          new_hi.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["commit_admit"] == before + 1
+    assert torch.equal(rh_k.cpu(), rh_p) and torch.equal(dg_k.cpu(), dg_p)
+
+
+@pytest.mark.parametrize("rows,cols,dtype", [(1, 8, torch.int64), (100_003, 8, torch.int64),
+                                             (70_001, 2, torch.int32), (513, 32, torch.int64),
+                                             (999, 1, torch.int32)])
+def test_checksum_kernel_matches_plain(card, rows, cols, dtype):
+    """K11, meta words >= 2^31 included (zero-extended)."""
+    rng = np.random.default_rng(rows)
+    info = torch.iinfo(dtype)
+    table = torch.from_numpy(rng.integers(info.min, info.max, (rows, cols))).to(dtype)
+    before = kernels.launches["checksum"]
+    got = dk.checksum(table.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["checksum"] == before + 1
+    assert torch.equal(got.cpu(), dk.checksum_plain(table))
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_tiered_state_machine_on_card_matches_plain(card, engine, monkeypatch):
+    """TB_HOT_CAPACITY below the accounts: the tiering stream on the card
+    through K10, K2 admit and K11 against the plain-version run and the
+    all-resident run."""
+    n_acct, head = 20_000, 1500
+    ops = [(op, body) for op, body in workload._create_accounts(n_acct)]
+    ops += workload.gen_tiering(12, 2000, n_acct, head, 0.008, workload.TID0)
+    out = []
+    for hot, plain in (("2048", False), ("2048", True), (None, False)):
+        if hot is None:
+            monkeypatch.delenv("TB_HOT_CAPACITY", raising=False)
+        else:
+            monkeypatch.setenv("TB_HOT_CAPACITY", hot)
+        kernels.reset_launches()
+        sm = TorchStateMachine(account_capacity=1 << 15, transfer_capacity=1 << 16,
+                               engine=engine, plain=plain)
+        h = SingleNodeHarness(sm)
+        replies = [h.submit(op, body) for op, body in ops]
+        launched = dict(kernels.launches)
+        sm.verify_device_mirror()
+        out.append((replies, sm.state_root()))
+        if hot is not None and not plain:
+            assert launched["tier_set_rows"] > 0
+            assert sm._dev.hot.misses > 0
+            if engine == "device":
+                assert launched["commit_admit"] > 0
+    assert out[0] == out[1] == out[2]
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_tiered_exact_streams_on_card_match_cpu(card, engine, monkeypatch):
+    """Tiered engines on streams that take the exact path: the bench's
+    linked and waves_host shapes under a 256-row hot set, on the card
+    (K3, K7/K8 waves over the logical image, the tiered write-back and
+    digest rebuild, K5 on hot slots) against the CPU run."""
+    monkeypatch.setenv("TB_HOT_CAPACITY", "256")
+    streams = (workload.gen_linked(2000, batch=500),
+               workload.gen_waves_host(1000, n_accounts=4000, n_limited=100, batch=200))
+    for setup, timed, sizing in streams:
+        ops = setup + timed
+        out = []
+        for device in (None, "cpu"):
+            sm = TorchStateMachine(account_capacity=sizing[0], transfer_capacity=sizing[1],
+                                   device=device, engine=engine)
+            assert sm._dev.hot is not None
+            h = SingleNodeHarness(sm)
+            futs = [h.submit_async(op, body) for op, body in ops]
+            replies = [f.result() for f in futs]
+            sm.verify_device_mirror()
+            t = sm._dev.hot
+            out.append((replies, sm.state_root(), sm.stat_exact_events, sm.stat_linked_batches,
+                        sm.stat_tier_punts, t.hits, t.misses, t.evicts))
+        assert out[0] == out[1]
+        assert out[0][2] > 0 or out[0][3] > 0

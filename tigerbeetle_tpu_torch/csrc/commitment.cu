@@ -4,7 +4,8 @@
 // _rebuild :335 and _probe :379 (tb_commit_hash_all: hash every row and
 // fold) and _update :339 (tb_commit_update: re-hash the touched rows,
 // move the digest by new - old, store the new row hashes), all through
-// the row hash of rows_hash :94.
+// the row hash of rows_hash :94; and _admit :358 (tb_commit_admit: the
+// tiered admission's hash swap at the admitted hot slots).
 //
 // Row hash: the row index and the 10 row columns (8 u64 balance limbs,
 // 2 u32 meta columns) mixed lane-wise through a splitmix64 finalizer,
@@ -18,7 +19,8 @@
 // 64-bit mixes per row (~150 integer operations) stay far below the
 // card's integer rate.  The design reads each row once with
 // neighbouring threads on neighbouring rows and keeps the fold in
-// registers until one atomic per block.
+// registers until one atomic per block.  Admit is bytes-bound too: per
+// slot its index and new hash read, the old hash read and overwritten.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -128,6 +130,28 @@ __global__ void cm_update(const uint64_t* bal, const uint32_t* meta,
   block_fold(d_lo, d_hi, digest);
 }
 
+// Tiered admission: at each hot slot (distinct; -1 or >= H is padding)
+// the stored hash becomes (new_lo, new_hi), supplied by the host twin,
+// and the digest moves by new - old.  A thread owns its slot, so the
+// read of old and the store of new cannot race; the differences meet in
+// the block fold (wrapping sums: any order gives the same digest).
+__global__ void cm_admit(uint64_t* row_hash, int64_t H,
+                         unsigned long long* digest, const int64_t* slots,
+                         const uint64_t* new_lo, const uint64_t* new_hi,
+                         int64_t k) {
+  uint64_t d_lo = 0, d_hi = 0;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
+       i += (int64_t)gridDim.x * THREADS) {
+    const int64_t s = slots[i];
+    if (s < 0 || s >= H) continue;
+    d_lo += new_lo[i] - row_hash[s * 2];
+    d_hi += new_hi[i] - row_hash[s * 2 + 1];
+    row_hash[s * 2] = new_lo[i];
+    row_hash[s * 2 + 1] = new_hi[i];
+  }
+  block_fold(d_lo, d_hi, digest);
+}
+
 int grid_for(int64_t n) {
   int64_t g = (n + THREADS - 1) / THREADS;
   const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride past it
@@ -163,5 +187,16 @@ extern "C" int tb_commit_update(const void* balances, const void* meta,
       static_cast<unsigned long long*>(digest),
       static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(rows),
       k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tb_commit_admit(void* row_hash, int64_t H, void* digest,
+                               const void* slots, const void* new_lo,
+                               const void* new_hi, int64_t k, void* stream) {
+  cm_admit<<<grid_for(k), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint64_t*>(row_hash), H,
+      static_cast<unsigned long long*>(digest),
+      static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(new_lo),
+      static_cast<const uint64_t*>(new_hi), k);
   return (int)cudaGetLastError();
 }

@@ -137,3 +137,16 @@ def spec_residue_cap() -> float:
             "larger value can never bind",
         )
     return value
+
+
+def hot_capacity() -> int:
+    """TB_HOT_CAPACITY: device-resident hot-set rows of the tiered
+    account table (state_machine/hot_tier.py).  0 (default) keeps the
+    whole logical table on the card.  A value below the logical
+    capacity caps the device tables at that many rows: each batch's
+    cold rows are admitted from the host mirror (the cold tier) before
+    its device step, and the state root keeps covering the whole
+    logical table as fold(hot_partial, cold_partial).  Values >= the
+    logical capacity leave the table all-resident.  Read when an engine
+    is constructed."""
+    return env_int("TB_HOT_CAPACITY", 0, minimum=0, maximum=1 << 31)

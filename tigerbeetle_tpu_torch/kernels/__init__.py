@@ -31,6 +31,9 @@ launches = {
     "wave_step": 0,
     "chain_wave": 0,
     "spec_conflicts": 0,
+    "tier_set_rows": 0,
+    "commit_admit": 0,
+    "checksum": 0,
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +55,16 @@ _SIGNATURES = {
         "tb_commit_hash_all": [_P, _P, _P, _I64, _P, _P, _P],
         # balances, meta, row_hash, digest, slots, rows, k, stream
         "tb_commit_update": [_P, _P, _P, _P, _P, _P, _I64, _P],
+        # row_hash, H, digest, slots, new_lo, new_hi, k, stream
+        "tb_commit_admit": [_P, _I64, _P, _P, _P, _P, _I64, _P],
+    },
+    "tier": {
+        # table, H, width, word_bytes, idx, src, k, stream
+        "tb_tier_set_rows": [_P, _I64, _I, _I, _P, _P, _I64, _P],
+    },
+    "checksum": {
+        # table, R, C, word_bytes, out, stream
+        "tb_checksum": [_P, _I64, _I, _I, _P, _P],
     },
     "exact_scan": {
         # table, A, ev, B, dstat_init, n, ts_base, scratch, out, stream
@@ -186,6 +199,29 @@ def commit_update(balances, meta, row_hash, digest, slots, rows):
         "commitment", "tb_commit_update", "commit_update",
         _ptr(balances), _ptr(meta), _ptr(row_hash), _ptr(digest),
         _ptr(slots), _ptr(rows), slots.shape[0],
+    )
+
+
+def commit_admit(row_hash, digest, slots, new_lo, new_hi):
+    _launch(
+        "commitment", "tb_commit_admit", "commit_admit",
+        _ptr(row_hash), row_hash.shape[0], _ptr(digest), _ptr(slots),
+        _ptr(new_lo), _ptr(new_hi), slots.shape[0],
+    )
+
+
+def tier_set_rows(table, idx, src):
+    _launch(
+        "tier", "tb_tier_set_rows", "tier_set_rows",
+        _ptr(table), table.shape[0], table.shape[1], table.element_size(),
+        _ptr(idx), _ptr(src), idx.shape[0],
+    )
+
+
+def checksum(table, out):
+    _launch(
+        "checksum", "tb_checksum", "checksum",
+        _ptr(table), table.shape[0], table.shape[1], table.element_size(), _ptr(out),
     )
 
 

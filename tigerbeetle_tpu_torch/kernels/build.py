@@ -23,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("orderfree", "commitment", "exact_scan", "apply_deltas", "linked", "two_phase",
-           "wave_step", "chain_wave", "spec_conflicts")
+           "wave_step", "chain_wave", "spec_conflicts", "tier", "checksum")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

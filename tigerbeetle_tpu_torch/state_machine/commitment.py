@@ -14,8 +14,8 @@ same construction bit for bit (the golden digest in
 
 Host side (numpy): ``rows_hash``, ``fold``, ``table_digest``,
 ``root_bytes``, ``HostCommitment`` (the twin on the BalanceMirror) and
-``pad_slots``.  Device side: ``rebuild``, ``update`` and ``probe`` —
-each a wrapper that launches kernel K2 (``csrc/commitment.cu``) on a
+``pad_slots``.  Device side: ``rebuild``, ``update``, ``admit`` (the
+tiered admission's hash swap) and ``probe`` — each a wrapper that launches kernel K2 (``csrc/commitment.cu``) on a
 CUDA tensor and runs its plain PyTorch version (``*_plain``) on a CPU
 tensor.  Tensors hold u64 lanes as int64 and u32 meta as int32.
 """
@@ -150,6 +150,21 @@ class HostCommitment:
         self.digest = np.zeros(2, np.uint64)
         self.refresh(np.arange(cap, dtype=np.int64), mirror)
 
+    def partial(self, rows) -> np.ndarray:
+        """(2,) u64 fold of the stored hashes of `rows` (any order,
+        duplicates collapsed): the host's view of a tiered device
+        engine's hot partial.  The fold is a per-lane sum, so
+        ``digest == partial(hot) + partial(cold)`` for any split."""
+        rows = np.unique(np.asarray(rows, np.int64))
+        rows = rows[(rows >= 0) & (rows < len(self.row_lo))]
+        return np.array(
+            [
+                np.add.reduce(self.row_lo[rows], dtype=np.uint64),
+                np.add.reduce(self.row_hi[rows], dtype=np.uint64),
+            ],
+            np.uint64,
+        )
+
     def root_bytes(self) -> bytes:
         return root_bytes(self.digest)
 
@@ -214,6 +229,19 @@ def update_plain(balances, meta, row_hash, digest, slots, rows):
     return row_hash, digest
 
 
+def admit_plain(row_hash, digest, slots, new_lo, new_hi):
+    """Plain version of K2 admit: at each hot slot (-1 and any slot
+    outside [0, H) are padding) replace the stored row hash with (new_lo,
+    new_hi) and move the digest by new - old.  Slots are distinct.  In
+    place."""
+    valid = (slots >= 0) & (slots < row_hash.shape[0])
+    idx = slots[valid]
+    new = torch.stack([new_lo[valid], new_hi[valid]], dim=-1)
+    digest += (new - row_hash[idx]).sum(dim=0)
+    row_hash[idx] = new
+    return row_hash, digest
+
+
 def probe_plain(balances, meta, digest, rows):
     lo, hi = rows_hash_plain(rows, balances, meta)
     return torch.stack([digest, torch.stack([lo.sum(), hi.sum()])])
@@ -271,6 +299,32 @@ def update(balances, meta, row_hash, digest, slots, rows):
     return row_hash, digest
 
 
+def admit(row_hash, digest, slots, new_lo, new_hi):
+    """Tiered admission in one step: the row hashes at hot `slots` (the
+    victims', or (0, 0) for a free slot) become the admitted rows' host
+    twin hashes (new_lo, new_hi), and the hot-partial digest moves by
+    new - old.  Exact because the admitted device rows are uploaded from
+    the very mirror rows the twin hashed.  `slots` are distinct; -1 is
+    padding.  Updates `row_hash` and `digest` IN PLACE and returns them.
+    K2 admit on CUDA."""
+    H = row_hash.shape[0]
+    if row_hash.dtype != torch.int64 or row_hash.shape != (H, 2):
+        raise ValueError(f"row_hash must be (H, 2) int64, got {tuple(row_hash.shape)}")
+    _check_digest(row_hash, digest)
+    k = slots.shape[0]
+    for name, t in (("slots", slots), ("new_lo", new_lo), ("new_hi", new_hi)):
+        if t.dtype != torch.int64 or t.shape != (k,):
+            raise ValueError(f"{name} must be ({k},) int64, got {tuple(t.shape)} {t.dtype}")
+    for t in (row_hash, slots, new_lo, new_hi):
+        if t.device != row_hash.device or not t.is_contiguous():
+            raise ValueError("tensors must be contiguous and on one device")
+    if row_hash.device.type == "cpu":
+        return admit_plain(row_hash, digest, slots, new_lo, new_hi)
+    if k:
+        kernels.commit_admit(row_hash, digest, slots, new_lo, new_hi)
+    return row_hash, digest
+
+
 def probe(balances, meta, digest, rows):
     """(2, 2): [maintained digest, from-scratch digest].  K2 on CUDA."""
     _check_tables(balances, meta, rows)
@@ -283,9 +337,13 @@ def probe(balances, meta, digest, rows):
     return out
 
 
-PLAIN_FNS = {"rebuild": rebuild_plain, "update": update_plain, "probe": probe_plain}
+PLAIN_FNS = {
+    "rebuild": rebuild_plain, "update": update_plain, "admit": admit_plain,
+    "probe": probe_plain,
+}
 
 
 def device_fns() -> dict:
-    """The reference's device_fns() names: rebuild / update / probe."""
-    return {"rebuild": rebuild, "update": update, "probe": probe}
+    """The reference's device_fns() names: rebuild / update / admit /
+    probe."""
+    return {"rebuild": rebuild, "update": update, "admit": admit, "probe": probe}

@@ -46,11 +46,20 @@ refreshes the device digest over every row K3 could have written
 (``exact_written``).  Pending expiry's releases ride the write-behind
 lane too.
 
+Hot/cold tiering (``hot_tier.py``, TB_HOT_CAPACITY): the device
+tables (balances, meta, row hashes, every kernel scratch) then hold
+only the hot rows, and the mirror plus ``_meta_host`` are the whole
+logical table.  The machine prefetches a batch's logical touched set
+(``tier_prefetch``: drain, flush, admission, then K10 uploads the
+admitted rows and K2 admit swaps their hashes into the digest) before
+packing it with hot slots; a batch the hot set cannot hold takes the
+host path.  The device digest is then the hot partial of the logical
+root, and the host path reads the logical table built from the mirror.
+
 The window, ring and recovery structure and the knob defaults are the
 reference's, which a high-latency TPU link shaped; they are to be
 retuned once the H100 is measured.  Not ported yet (ROADMAP): the link
-seam and chaos shim, the degraded lifecycle and scrubs, hot/cold
-tiering, row sharding.
+seam and chaos shim, the degraded lifecycle and scrubs, row sharding.
 """
 
 from __future__ import annotations
@@ -64,8 +73,9 @@ from tigerbeetle_tpu_torch import envcheck
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
-from tigerbeetle_tpu_torch.state_machine import resolve, waves
+from tigerbeetle_tpu_torch.state_machine import hot_tier, resolve, waves
 from tigerbeetle_tpu_torch.state_machine.kernel_fast import flush_entries
+from tigerbeetle_tpu_torch.state_machine.mirror import digest_columns
 
 _WINDOW = envcheck.dev_window()
 _RING = envcheck.dev_ring()
@@ -117,12 +127,12 @@ class _InFlight:
     __slots__ = (
         "kind", "pk", "n", "ts_base", "finish", "fallback", "future",
         "ring_at", "id_keys", "handle", "slots", "rows", "meta_args",
-        "wave_args", "touched", "bound",
+        "wave_args", "touched", "bound", "hot_slots",
     )
 
     def __init__(self, kind, future, finish, *, pk=None, n=0, ts_base=0,
                  fallback=None, id_keys=None, slots=None, meta_args=None,
-                 wave_args=None, bound=0):
+                 wave_args=None, bound=0, hot_slots=None):
         self.kind = kind
         self.pk = pk
         self.n = n
@@ -134,6 +144,7 @@ class _InFlight:
         self.id_keys = id_keys  # sorted u128-packed ids (hazard probes)
         self.handle = None      # lookup gather, fetched at rotation
         self.slots = slots      # lookup slots
+        self.hot_slots = hot_slots  # their hot slots under tiering
         self.rows = None        # fetched lookup rows
         self.meta_args = meta_args  # (slots, flags, ledger) for "meta"
         # Wave / speculative records: (waves.PackedColumns, plan or the
@@ -180,7 +191,7 @@ class DeviceEngine:
     """Authoritative device tables + windowed semantic dispatch.
 
     `plain=True` runs the plain PyTorch versions of the kernels on the
-    engine's device instead of K1/K2/K4-K6 — the reference run the chip
+    engine's device instead of the kernels — the reference run the chip
     smoke test compares the kernels' end-to-end results against."""
 
     def __init__(self, capacity: int, mirror, device, plain: bool = False) -> None:
@@ -193,10 +204,19 @@ class DeviceEngine:
             self._kfn = dk.PLAIN
             self._cm = cm.PLAIN_FNS
             self._apply = dk.apply_deltas_plain
+            self._set_rows = dk.tier_set_rows_plain
+            self._checksum = dk.checksum_plain
         else:
             self._kfn = dk.KERNELS
             self._cm = cm.device_fns()
             self._apply = dk.apply_deltas
+            self._set_rows = dk.tier_set_rows
+            self._checksum = dk.checksum
+        # Hot/cold tiering: None = all-resident.  Tiered, the device
+        # tables hold hot.hot_rows rows and the mirror (+ _meta_host) is
+        # the logical cold tier.
+        self.hot = hot_tier.from_env(capacity)
+        rows = capacity if self.hot is None else self.hot.hot_rows
         self._commit_enabled = envcheck.state_commit() == 1
         self._wave_scratch = None
         self._inflight_bound = 0
@@ -221,9 +241,13 @@ class DeviceEngine:
         self.dev_digest = None
         if self._commit_enabled and mirror.commitment is None:
             mirror.commitment = cm.HostCommitment(capacity, meta_fn=self._twin_meta)
-        self.balances = torch.zeros((capacity, 8), dtype=torch.int64, device=device)
-        self.meta = torch.zeros((capacity, 2), dtype=torch.int32, device=device)
+        self.balances = torch.zeros((rows, 8), dtype=torch.int64, device=device)
+        self.meta = torch.zeros((rows, 2), dtype=torch.int32, device=device)
         self._scratch: dict = {}  # kernel family -> its scratch, made at first use
+        # The logical table built from the mirror for the host path,
+        # keyed by (mirror stamp, capacity); write_back drops it (K3
+        # writes it in place).
+        self._degraded_cache = None
         self._commit_rebuild()
         # Window pipeline: _pending accumulates host-side; _launched is
         # the window executing on the device; _recovering holds a
@@ -248,7 +272,7 @@ class DeviceEngine:
             return None
         family = dk.FAMILY[kind]
         if family not in self._scratch:
-            self._scratch[family] = dk.new_scratch(family, self.capacity, self.device)
+            self._scratch[family] = dk.new_scratch(family, self.balances.shape[0], self.device)
         return self._scratch[family]
 
     # ------------------------------------------------------------------
@@ -262,6 +286,8 @@ class DeviceEngine:
         in-flight work."""
         if self.has_inflight():
             raise RuntimeError("from_numpy_tables with batches in flight")
+        if self.hot is not None:
+            raise RuntimeError("from_numpy_tables takes logical tables: not on a tiered engine")
         balances_u64 = np.asarray(balances_u64, np.uint64)
         meta_u32 = np.asarray(meta_u32, np.uint32)
         if balances_u64.shape != (self.capacity, 8) or meta_u32.shape != (self.capacity, 2):
@@ -280,7 +306,8 @@ class DeviceEngine:
 
     def to_numpy_tables(self):
         """(balances (A, 8) u64, meta (A, 2) u32, row_hash (A, 2) u64 or
-        None, digest (2,) u64 or None) — drains and flushes first."""
+        None, digest (2,) u64 or None) — drains and flushes first.  The
+        device tables: hot-shaped under tiering."""
         self.drain()
         self.flush()
         meta = self.meta.cpu().numpy().view(np.uint32)
@@ -309,6 +336,16 @@ class DeviceEngine:
         )
 
     def _queue_meta(self, slots, flags_u32, ledger_u32) -> None:
+        """Queue a device meta update.  Tiered, the record carries hot
+        slots (the map holds until the next admission, which drains
+        first) and cold rows drop: _meta_host is their authority and
+        admission uploads their meta."""
+        if self.hot is not None:
+            h = self.hot.translate(slots)
+            keep = h >= 0
+            if not keep.any():
+                return
+            slots, flags_u32, ledger_u32 = h[keep], flags_u32[keep], ledger_u32[keep]
         self._pending.append(
             _InFlight("meta", None, None, meta_args=(slots, flags_u32, ledger_u32))
         )
@@ -318,19 +355,73 @@ class DeviceEngine:
             return
         self.drain()
         self.flush()
-        extra = capacity - self.capacity
-        grown = np.zeros((capacity, 2), np.uint32)
-        grown[: self.capacity] = self._meta_host
-        self._meta_host = grown
+        self._meta_host = hot_tier.grow_zero_host(self._meta_host, capacity)
         self.capacity = capacity
-        self.balances = torch.cat(
-            [self.balances, self.balances.new_zeros((extra, 8))]
-        )
-        self.meta = torch.cat([self.meta, self.meta.new_zeros((extra, 2))])
+        if self.hot is not None:
+            # The device tables keep their hot-row geometry: logical
+            # growth widens only the maps (new rows are cold and zero,
+            # so the hot partial does not move).
+            self.hot.grow_logical(capacity)
+            return
+        self.balances = hot_tier.grow_zero_device(self.balances, capacity)
+        self.meta = hot_tier.grow_zero_device(self.meta, capacity)
         self._scratch = {}
         # Zero rows hash to 0, so the digest VALUE is unchanged, but the
         # per-row hash array must match the new geometry.
         self._commit_rebuild()
+
+    # ------------------------------------------------------------------
+    # Hot/cold tiering: the machine calls tier_prefetch with a batch's
+    # logical touched set before packing; packed records then carry hot
+    # slots.  The map only moves against a quiesced pipeline (admission
+    # drains and flushes first), so every record launches under the map
+    # it was translated with, and eviction is free: after the drain the
+    # mirror holds every finished batch's effects.
+
+    def tier_prefetch(self, slots) -> bool:
+        """Make every logical row of `slots` device-resident (negative
+        entries ignored).  False when the batch cannot run on the device
+        (its touched set is wider than the hot set, or nothing can be
+        evicted): the caller takes the exact host path."""
+        if self.hot is None:
+            return True
+        hot = self.hot
+        uniq, missing = hot.plan(np.asarray(slots, np.int64))
+        if len(missing) == 0:
+            hot.record_use(uniq, len(uniq), 0)
+            return True
+        if len(uniq) > hot.hot_rows:
+            return False
+        t0 = _time.perf_counter()
+        self.drain()
+        self.flush()
+        got = hot.admit(missing, protect=uniq)
+        if got is None:
+            return False
+        admitted, hot_slots, _evicted = got
+        self._tier_upload(admitted, hot_slots)
+        hot.record_use(uniq, len(uniq) - len(missing), len(missing))
+        hot.note_stall(_time.perf_counter() - t0)
+        return True
+
+    def _tier_upload(self, admitted, hot_slots) -> None:
+        """Upload the admitted rows (balances and meta, from the cold
+        tier) into their hot slots with K10, and swap their hashes into
+        the device digest with K2 admit: the victims' hashes out, the
+        host twin's hashes of the admitted rows in, so the digest stays
+        the exact hot partial."""
+        if len(admitted) == 0:
+            return
+        idx = torch.from_numpy(np.asarray(hot_slots, np.int64)).to(self.device)
+        self._set_rows(self.balances, idx, from_u64(self.mirror.rows8(admitted), self.device))
+        self._set_rows(self.meta, idx, _host_tensor(self._meta_host[admitted], self.device))
+        if self._commit_enabled and self.dev_row_hash is not None:
+            twin = self.mirror.commitment
+            self._cm["admit"](
+                self.dev_row_hash, self.dev_digest, idx,
+                from_u64(twin.row_lo[admitted], self.device),
+                from_u64(twin.row_hi[admitted], self.device),
+            )
 
     # ------------------------------------------------------------------
     # Semantic dispatch.
@@ -408,15 +499,25 @@ class DeviceEngine:
 
     def lookup(self, slots, finish) -> ReplyFuture:
         """Device-side balance gather for lookup_accounts: rides the
-        record stream, so it sees every earlier batch's effects."""
+        record stream, so it sees every earlier batch's effects.
+        Tiered, every looked-up row is made resident first; when that
+        cannot be done, the stream drains and the rows come from the
+        mirror (exact: the drain put every earlier batch there)."""
+        slots = np.asarray(slots, np.int64)
+        if not self.tier_prefetch(slots):
+            self.drain()
+            self.flush()
+            return ReplyFuture(value=finish(self.mirror.rows8(slots)))
         self.flush()
         fut = ReplyFuture(self)
-        self._pending.append(
-            _InFlight("lookup", fut, finish, slots=np.asarray(slots, np.int64))
-        )
+        self._pending.append(_InFlight(
+            "lookup", fut, finish, slots=slots,
+            hot_slots=None if self.hot is None else self.hot.translate(slots),
+        ))
         return fut
 
-    def _gather(self, slots):
+    def _gather(self, rec: _InFlight):
+        slots = rec.slots if rec.hot_slots is None else rec.hot_slots
         pad = ((len(slots) + 255) & ~255) or 256
         sl = np.full(pad, -1, np.int64)
         sl[: len(slots)] = slots
@@ -500,7 +601,7 @@ class DeviceEngine:
             if ukind == "meta":
                 self._meta_update(urecs[0])
             elif ukind == "lookup":
-                urecs[0].handle = self._gather(urecs[0].slots)
+                urecs[0].handle = self._gather(urecs[0])
             elif ukind == "waves":
                 self._exec_waves(urecs[0])
             elif ukind == "spec":
@@ -746,7 +847,7 @@ class DeviceEngine:
                 if rec.kind == "meta":
                     self._meta_update(rec)
                 elif rec.kind == "lookup":
-                    rec.handle = self._gather(rec.slots)
+                    rec.handle = self._gather(rec)
                 elif rec.kind == "waves":
                     self._exec_waves(rec)
                 elif rec.kind == "spec":
@@ -762,11 +863,77 @@ class DeviceEngine:
             ring_np = None
 
     def _upload_from_mirror(self) -> None:
-        """Re-upload the balance table from the mirror and re-derive the
-        device commitment from scratch (reads the current device meta,
-        which the stream keeps in step with the host)."""
-        self.balances = _host_tensor(self.mirror.table8(self.capacity), self.device)
+        """Re-upload the balance table from the mirror (its hot image
+        under tiering) and re-derive the device commitment from scratch
+        (reads the current device meta, which the stream keeps in step
+        with the host)."""
+        src = self._mirror_hot_table_np() if self.hot is not None else self.mirror.table8(self.capacity)
+        self.balances = _host_tensor(src, self.device)
         self._commit_rebuild()
+
+    def _mirror_hot_table_np(self) -> np.ndarray:
+        """Hot-shaped (hot_rows, 8) u64 image of the mirror: what the
+        device balance table must equal under tiering."""
+        return hot_tier.mirror_hot_table8(self.mirror, self.hot.logical_of)
+
+    def _meta_hot_np(self) -> np.ndarray:
+        """Hot-shaped (hot_rows, 2) u32 image of _meta_host (zeros for a
+        free hot slot)."""
+        lof = self.hot.logical_of
+        out = np.zeros((len(lof), 2), np.uint32)
+        occ = np.flatnonzero(lof >= 0)
+        out[occ] = self._meta_host[lof[occ]]
+        return out
+
+    # ------------------------------------------------------------------
+    # Integrity digests (kernel K11) and divergence localization.
+
+    def _device_checksum(self) -> np.ndarray:
+        """K11 digest of the device balance table (16 u64 words)."""
+        return to_u64(self._checksum(self.balances))
+
+    def _device_health_digest(self) -> np.ndarray:
+        """Balance digest + meta digest of the device tables (K11 on
+        each): what the host's copies are compared with."""
+        return np.concatenate([self._device_checksum(), to_u64(self._checksum(self.meta))])
+
+    def _host_health_digest(self) -> np.ndarray:
+        """The same 20 words from the host's copies: hot-shaped images
+        under tiering (the logical table is attested through the
+        commitment fold), the logical tables otherwise."""
+        if self.hot is not None:
+            return np.concatenate([
+                digest_columns(self._mirror_hot_table_np()),
+                digest_columns(self._meta_hot_np()),
+            ])
+        return np.concatenate([
+            self.mirror.checksum8(self.capacity), digest_columns(self._meta_host),
+        ])
+
+    def checksum(self) -> np.ndarray:
+        """Digest of the authoritative logical balance table (drained and
+        flushed first): K11 on the device table all-resident; tiered the
+        logical table is the mirror's, which the drain made current."""
+        self.drain()
+        self.flush()
+        if self.hot is not None:
+            return self.mirror.checksum8(self.capacity)
+        return self._device_checksum()
+
+    def _localize_divergence(self) -> np.ndarray:
+        """The full-table fetch, run only after a digest compare failed:
+        the logical rows where the device tables differ from the host's
+        copies (hot-shaped tables compared under tiering)."""
+        bal, meta, _, _ = self.to_numpy_tables()
+        if self.hot is not None:
+            diverged = (bal != self._mirror_hot_table_np()).any(axis=1) | (
+                meta != self._meta_hot_np()
+            ).any(axis=1)
+            return self.hot.logical_of[np.flatnonzero(diverged)]
+        diverged = (bal != self.mirror.table8(self.capacity)).any(axis=1) | (
+            meta != self._meta_host
+        ).any(axis=1)
+        return np.flatnonzero(diverged)
 
     # ------------------------------------------------------------------
     # Incremental state commitment (kernel K2).
@@ -779,8 +946,14 @@ class DeviceEngine:
         return out
 
     def _commit_rows(self) -> torch.Tensor:
-        """Logical-row binding for the commitment kernels: identity."""
-        return torch.arange(self.balances.shape[0], dtype=torch.int64, device=self.device)
+        """Logical-row binding for the commitment kernels: identity
+        all-resident, logical_of tiered.  A free hot slot binds to row 0:
+        its all-zero content hashes to (0, 0) whatever the binding, so
+        the digest is exactly the hot partial of the logical table."""
+        if self.hot is None:
+            return torch.arange(self.balances.shape[0], dtype=torch.int64, device=self.device)
+        lof = self.hot.logical_of
+        return torch.from_numpy(np.where(lof >= 0, lof, 0)).to(self.device)
 
     def _commit_rebuild(self) -> None:
         if not self._commit_enabled:
@@ -791,18 +964,23 @@ class DeviceEngine:
 
     def _commit_update(self, slots) -> None:
         """Absorb the touched rows of one window into the device digest:
-        one launch, O(touched)."""
+        one launch, O(touched).  `slots` index the device tables (hot
+        slots under tiering, hashed under their logical rows)."""
         if not self._commit_enabled or self.dev_row_hash is None:
             return
         slots = np.unique(np.asarray(slots, np.int64))
         slots = slots[(slots >= 0) & (slots < self.balances.shape[0])]
         if len(slots) == 0:
             return
-        padded = torch.from_numpy(cm.pad_slots(slots)).to(self.device)
+        padded_np = cm.pad_slots(slots)
+        padded = torch.from_numpy(padded_np).to(self.device)
+        rows = padded
+        if self.hot is not None:
+            lof = self.hot.logical_of[np.maximum(padded_np, 0)]
+            rows = torch.from_numpy(np.where(padded_np >= 0, lof, 0)).to(self.device)
         self.stat_commit_updates += 1
         self._cm["update"](
-            self.balances, self.meta, self.dev_row_hash, self.dev_digest,
-            padded, padded,
+            self.balances, self.meta, self.dev_row_hash, self.dev_digest, padded, rows,
         )
 
     def _collect_touched(self, recs) -> np.ndarray | None:
@@ -818,6 +996,15 @@ class DeviceEngine:
         if not touched:
             return None
         return np.concatenate(touched)
+
+    def twin_expected_digest(self) -> np.ndarray:
+        """What the host twin says the device digest is: the whole root
+        all-resident, the hot partial tiered (the cold partial is the
+        twin's remainder: fold(hot, cold) stays the logical root)."""
+        twin = self.mirror.commitment
+        if self.hot is None:
+            return twin.digest
+        return twin.partial(self.hot.occupied())
 
     def commit_probe(self) -> np.ndarray:
         """(2, 2) u64 [maintained digest, from-scratch digest]; the
@@ -867,31 +1054,53 @@ class DeviceEngine:
         self._q.clear()
         self._queued = 0
         self.stat_flushes += 1
-        written = flush_entries(self.balances, slots, cols, a_lo, a_hi, self._apply)
+        # Tiered, the entries carry logical slots: flush_entries applies
+        # the hot ones and returns their hot slots (cold rows keep their
+        # deltas in the mirror, and upload whole on admission).
+        written = flush_entries(self.balances, slots, cols, a_lo, a_hi, self._apply, self.hot)
         self._commit_update(written)
 
     def read(self) -> torch.Tensor:
-        """The table the host path resolves against.  During exact
-        recovery the mirror is the truth (it holds exactly the stream
-        prefix before the re-executed batch, while the device table holds
-        the whole window's effects), so a card tensor is built from it;
-        otherwise a drain and flush barrier and the device table."""
+        """The logical table the host path resolves against.  During
+        exact recovery the mirror is the truth (it holds exactly the
+        stream prefix before the re-executed batch, while the device
+        table holds the whole window's effects), so a card tensor is
+        built from it; otherwise a drain and flush barrier, then the
+        device table — tiered, the table built from the mirror, which
+        the drain made current."""
         if self._recovering:
             return self._degraded_table()
         self.drain()
         self.flush()
+        if self.hot is not None:
+            return self._degraded_table()
         return self.balances
 
     def write_back(self, value: torch.Tensor) -> None:
-        """Replace the table from a full table image (the host path's
-        exact result): a handle swap, which does not move the digest."""
-        self.balances = value
+        """Replace the table from a full logical table image (the host
+        path's exact result): a handle swap all-resident, which does not
+        move the digest; tiered, the hot rows gathered out of the image
+        and the digest rebuilt (the mirror stays the cold tier's
+        authority)."""
+        self._degraded_cache = None
+        if self.hot is None:
+            self.balances = value
+            return
+        self.balances = hot_tier.gather_hot(value, self.hot.logical_of)
+        self._commit_rebuild()
 
     def exact_written(self, slots) -> None:
-        """Fold the rows an exact scan wrote into the device digest.  In
-        recovery the re-upload and rebuild that follow cover them."""
-        if not self._recovering:
+        """Fold the rows an exact scan wrote (logical slots) into the
+        device digest.  In recovery the re-upload and rebuild that follow
+        cover them; tiered, write_back's rebuild did."""
+        if not self._recovering and self.hot is None:
             self._commit_update(slots)
 
     def _degraded_table(self) -> torch.Tensor:
-        return _host_tensor(self.mirror.table8(self.capacity), self.device)
+        """The logical table built from the mirror on the card, cached
+        against (mirror stamp, capacity): a tiered engine's exact batches
+        would otherwise upload the whole table each time."""
+        key = (self.mirror.version, self.capacity)
+        if self._degraded_cache is None or self._degraded_cache[0] != key:
+            self._degraded_cache = (key, _host_tensor(self.mirror.table8(self.capacity), self.device))
+        return self._degraded_cache[1]

@@ -27,7 +27,10 @@ versions update the table and the ring IN PLACE (and return them).
 
 ``apply_deltas`` is kernel K4 (``csrc/apply_deltas.cu``), the
 write-behind lane's modular adds, with its plain version
-``apply_deltas_plain``.
+``apply_deltas_plain``; ``tier_set_rows`` is kernel K10
+(``csrc/tier.cu``), the tiered admission's row scatter; ``checksum`` is
+kernel K11 (``csrc/checksum.cu``), the table digest of the integrity
+compares.  Each has its plain version beside it.
 """
 
 from __future__ import annotations
@@ -906,6 +909,85 @@ def apply_deltas(table, packed):
     if packed.shape[1]:
         kernels.apply_deltas(table, packed)
     return table
+
+
+# ---------------------------------------------------------------------------
+# K10: the tiered admission's row scatter.
+
+
+def tier_set_rows_plain(table, idx, src):
+    """Plain version of K10: table[idx[j]] = src[j] for every entry whose
+    index lies in [0, H); the others are padding and dropped.  Indices
+    are distinct.  In place."""
+    keep = (idx >= 0) & (idx < table.shape[0])
+    table[idx[keep]] = src[keep]
+    return table
+
+
+def tier_set_rows(table, idx, src):
+    """Overwrite rows of an (H, W) table (int64 balances or int32 meta)
+    from the (k, W) `src` at the distinct indices `idx` (k,) int64; an
+    index outside [0, H) is dropped.  In place.  CUDA tensors launch K10
+    (raising on any CUDA error); CPU tensors run tier_set_rows_plain."""
+    if table.dim() != 2 or table.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"table must be (H, W) int64 or int32, got {tuple(table.shape)} {table.dtype}")
+    k = idx.shape[0]
+    if idx.dtype != torch.int64 or idx.dim() != 1:
+        raise ValueError(f"idx must be (k,) int64, got {tuple(idx.shape)} {idx.dtype}")
+    if src.dtype != table.dtype or tuple(src.shape) != (k, table.shape[1]):
+        raise ValueError(f"src must be ({k}, {table.shape[1]}) {table.dtype}, got "
+                         f"{tuple(src.shape)} {src.dtype}")
+    for t in (table, idx, src):
+        if t.device != table.device or not t.is_contiguous():
+            raise ValueError("tensors must be contiguous and on one device")
+    if table.device.type == "cpu":
+        return tier_set_rows_plain(table, idx, src)
+    if k:
+        kernels.tier_set_rows(table, idx, src)
+    return table
+
+
+# ---------------------------------------------------------------------------
+# K11: the table checksum.
+
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+def _wide(table):
+    """The table's words as int64 lanes (an int32 table zero-extended)."""
+    if table.dtype == torch.int32:
+        return table.to(torch.int64) & MASK32
+    return table
+
+
+def checksum_plain(table):
+    """Plain version of K11: the (2C,) int64 digest of an (R, C) table —
+    C column sums, then C sums of v * (row * GOLDEN + 1), mod 2^64 (the
+    words of mirror.digest_columns)."""
+    m = _wide(table)
+    rows = torch.arange(m.shape[0], dtype=torch.int64, device=m.device)[:, None]
+    mixed = (m * (rows * s64(_GOLDEN) + 1)).sum(dim=0)
+    return torch.cat([m.sum(dim=0), mixed])
+
+
+def checksum(table):
+    """The (2C,) int64 digest of an (R, C) table of u64 lanes (int64) or
+    u32 words (int32, zero-extended); C a power of two up to 32.  CUDA
+    tensors launch K11 (raising on any CUDA error); CPU tensors run
+    checksum_plain."""
+    if table.dim() != 2 or table.dtype not in (torch.int64, torch.int32):
+        raise ValueError(f"table must be (R, C) int64 or int32, got {tuple(table.shape)} {table.dtype}")
+    C = table.shape[1]
+    if C < 1 or C > 32 or C & (C - 1):
+        raise ValueError(f"checksum takes a power-of-two column count up to 32, got {C}")
+    if not table.is_contiguous():
+        raise ValueError("table must be contiguous")
+    if table.device.type == "cpu":
+        return checksum_plain(table)
+    out = torch.zeros(2 * C, dtype=torch.int64, device=table.device)
+    if table.shape[0]:
+        kernels.checksum(table, out)
+    return out
 
 
 # ---------------------------------------------------------------------------

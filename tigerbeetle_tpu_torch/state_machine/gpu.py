@@ -34,9 +34,13 @@ State split: the device holds the balance table (and, device engine,
 the account-meta table, the summary ring and the digest); the host
 holds the id directories, immutable account attributes, the columnar
 transfer store, the expires index, the history rows and the balance
-mirror.  Not ported (ROADMAP): the native library, the device engine's
-degraded state, the host-only linked / two-phase fast paths (those
-batches take the exact path, with the same results), hot/cold tiering,
+mirror.  Hot/cold tiering (TB_HOT_CAPACITY, ``hot_tier.py``) keeps only
+a hot set of rows on the card in either engine, with the mirror as the
+cold tier: the device engine prefetches each batch's accounts before
+packing it with hot slots (``_tier_translate``), the host engine admits
+them as its deltas arrive.  Not ported (ROADMAP): the native library,
+the device engine's degraded state, the host-only linked / two-phase
+fast paths (those batches take the exact path, with the same results),
 row sharding and the sharded wave executors, the query operations.
 """
 
@@ -59,8 +63,9 @@ from tigerbeetle_tpu_torch.state_machine.device_engine import (
     DeviceEngine,
     ReplyFuture,
 )
+from tigerbeetle_tpu_torch.state_machine.hot_tier import mirror_hot_table8
 from tigerbeetle_tpu_torch.state_machine.kernel_fast import DeviceTable
-from tigerbeetle_tpu_torch.state_machine.mirror import BalanceMirror, _sub_u128
+from tigerbeetle_tpu_torch.state_machine.mirror import BalanceMirror, _sub_u128, digest_columns
 from tigerbeetle_tpu_torch.types import (
     ACCOUNT_DTYPE,
     ACCOUNT_FILTER_DTYPE,
@@ -273,6 +278,10 @@ class TorchStateMachine:
         self.stat_dev_wave_events = 0
         self.stat_dev_wave_plan_s = 0.0
         self.stat_dev_wave_decline_reasons: dict = {}
+        # Device-engine batches whose touched set the hot set could not
+        # take (the reference's dev_tier.punt): they ran the host path.
+        # The tier's own counters are on self._dev.hot.
+        self.stat_tier_punts = 0
 
         self._acct_dir = RunIndex(_dir_capacity(account_capacity))
         self._attrs = Columns(_ATTR_FIELDS, capacity=max(1024, account_capacity))
@@ -291,7 +300,7 @@ class TorchStateMachine:
                 account_capacity, self._mirror, self.device, plain=plain
             )
         else:
-            self._dev = DeviceTable(account_capacity, self.device, plain=plain)
+            self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain)
         self._exact_scratch = None
         self._wave_scratch = None
         self._tdir = RunIndex(_dir_capacity(transfer_capacity))
@@ -340,18 +349,33 @@ class TorchStateMachine:
         return cm.root_bytes(cm.table_digest(self._mirror.rows8(np.arange(n)), meta))
 
     def verify_device_mirror(self) -> None:
-        """Crash loudly unless the device tables equal the host copies.
+        """Crash loudly unless the device tables equal the host copies
+        (the checkpoint tripwire; reference: tpu.py:642-778).
 
-        Host engine: the device table (flushed) equals the mirror.
         Device engine with the commitment live: the device's maintained
-        digest, its
-        from-scratch recompute (K2 probe), the host twin, and a
-        from-scratch host digest of the mirror must all agree.
-        Without it: the drained device tables are compared whole."""
+        digest and its from-scratch recompute (K2 probe) must equal what
+        the host twin expects (the whole root, or under tiering the hot
+        partial), and the twin a from-scratch host digest of the mirror.
+        Device engine without it: the K11 digests of the device tables
+        against the host's (hot-shaped images under tiering).  Host
+        engine: the K11 digest of the flushed device table against the
+        mirror's (its hot image under tiering).  The whole tables are
+        fetched only to name the diverged rows."""
         dev = self._dev
         if self.engine == "host":
-            if not (to_u64(dev.read()) == self._mirror.table8(dev.capacity)).all():
-                raise AssertionError("device/mirror table divergence")
+            if dev.hot is not None:
+                dev.flush()
+                dev_sum = to_u64(dk.checksum(dev.balances))
+                host_sum = digest_columns(mirror_hot_table8(self._mirror, dev.hot.logical_of))
+            else:
+                table = dev.read()
+                dev_sum = to_u64(dk.checksum(table))
+                host_sum = self._mirror.checksum8(int(table.shape[0]))
+            if not (dev_sum == host_sum).all():
+                raise AssertionError(
+                    "device/mirror balance divergence: "
+                    f"device={dev_sum.tolist()} host={host_sum.tolist()}"
+                )
             return
         dev.drain()
         dev.flush()
@@ -365,27 +389,26 @@ class TorchStateMachine:
             )
             if (
                 (pair[0] == pair[1]).all()
-                and (pair[1] == twin).all()
+                and (pair[1] == dev.twin_expected_digest()).all()
                 and (twin == host_scratch).all()
             ):
                 return
-            bal, meta, _, _ = dev.to_numpy_tables()
-            rows = np.flatnonzero(
-                (bal != self._mirror.table8(dev.capacity)).any(axis=1)
-                | (meta != dev._meta_host).any(axis=1)
-            )
+            rows = dev._localize_divergence()
             raise AssertionError(
                 "device/mirror commitment divergence: "
                 f"{len(rows)} rows diverged (first: {rows[:8].tolist()}); "
                 f"device(maintained, scratch)={pair.tolist()} "
                 f"twin={twin.tolist()} host_scratch={host_scratch.tolist()}"
             )
-        bal, meta, _, _ = dev.to_numpy_tables()
-        if not (
-            (bal == self._mirror.table8(dev.capacity)).all()
-            and (meta == dev._meta_host).all()
-        ):
-            raise AssertionError("device/mirror table divergence")
+        dev_sum = dev._device_health_digest()
+        host_sum = dev._host_health_digest()
+        if not (dev_sum == host_sum).all():
+            rows = dev._localize_divergence()
+            raise AssertionError(
+                "device/mirror table divergence: "
+                f"{len(rows)} rows diverged (first: {rows[:8].tolist()}); "
+                f"device={dev_sum.tolist()} host={host_sum.tolist()}"
+            )
 
     # ------------------------------------------------------------------
     # Interface plumbing (reference: src/state_machine.zig:543-596).
@@ -706,7 +729,9 @@ class TorchStateMachine:
         the kernels' classes, to wave or speculative dispatch inside the
         window (_try_submit_device_waves), and on its decline drain the
         stream and take the exact host path (reference:
-        tpu.py:1329-1489, without its degraded state and tiering)."""
+        tpu.py:1329-1489, without its degraded state).  Each kernel's
+        submit returns None, and the batch takes the host path, when the
+        tiered hot set cannot hold its accounts."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
         n = len(events)
         ts_base = timestamp - n + 1
@@ -807,14 +832,16 @@ class TorchStateMachine:
             keys_sorted=keys_sorted, timestamp=timestamp, input_bytes=input_bytes,
         )
         if not (has_linked or has_pv) and not touch_limit_hist:
-            return self._submit_device_orderfree(**common)
+            fut = self._submit_device_orderfree(**common)
+            return fut if fut is not None else host_path()
         if (
             has_linked
             and not (has_pending or has_pv)
             and not touch_hist
             and not amount_hi.any()
         ):
-            return self._submit_device_linked(**common)
+            fut = self._submit_device_linked(**common)
+            return fut if fut is not None else host_path()
         if has_pv and not has_linked and not timeout.any() and not touch_limit_hist:
             fut = self._submit_device_two_phase(**common)
             if fut is not None:
@@ -854,10 +881,32 @@ class TorchStateMachine:
 
         return run
 
+    def _tier_translate(self, *slot_arrays):
+        """The tiering front door of the device submit paths (reference:
+        tpu.py:1728-1748): prefetch the batch's logical touched set into
+        the hot set (DeviceEngine.tier_prefetch) and return each array
+        translated to hot slots (negative entries pass through); None
+        when the batch cannot run on the device (counted as a punt).
+        All-resident: the arrays themselves."""
+        hot = self._dev.hot
+        if hot is None:
+            return slot_arrays
+        touched = np.concatenate([np.asarray(a, np.int64).ravel() for a in slot_arrays])
+        if not self._dev.tier_prefetch(touched):
+            self.stat_tier_punts += 1
+            return None
+        return tuple(hot.translate(np.asarray(a, np.int64)) for a in slot_arrays)
+
     def _submit_device_orderfree(
         self, events, n, ts_base, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
         flags, timeout, dr_slot, cr_slot, keys_sorted, timestamp, input_bytes,
     ):
+        # Packed columns take hot slots; the finish closure keeps the
+        # logical ones (the mirror and attributes are logical).
+        tr = self._tier_translate(dr_slot, cr_slot)
+        if tr is None:
+            return None
+        t_dr_slot, t_cr_slot = tr
         amount_lo = np.asarray(events["amount_lo"])
         amount_hi = np.asarray(events["amount_hi"])
         has_timeout = bool(timeout.any())
@@ -868,8 +917,6 @@ class TorchStateMachine:
             and not has_hi
             and (n == 0 or int(amount_lo.max()) < _TIGHT_AMOUNT_LIMIT)
         )
-        if has_timeout:
-            self._inflight_timeouts = True
         if tight:
             pk = dk.pack_tight(
                 n, id_lo=id_lo, id_hi=id_hi, dr_lo=dr_lo, dr_hi=dr_hi,
@@ -880,13 +927,15 @@ class TorchStateMachine:
                 ledger=np.asarray(events["ledger"]),
                 code=events["code"].astype(np.uint32),
                 ts_nonzero=np.asarray(events["timestamp"] != 0),
-                dr_slot=dr_slot, cr_slot=cr_slot,
+                dr_slot=t_dr_slot, cr_slot=t_cr_slot,
             )
         else:
             pk = self._device_pack_base(
                 n, events, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
-                flags, timeout, dr_slot, cr_slot,
+                flags, timeout, t_dr_slot, t_cr_slot,
             )
+        if has_timeout:
+            self._inflight_timeouts = True
         created = self._created_cols(
             events, n, flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi
         )
@@ -943,10 +992,15 @@ class TorchStateMachine:
         flags, timeout, dr_slot, cr_slot, keys_sorted, timestamp, input_bytes,
     ):
         """A linked-chain batch of posted transfers (limit accounts
-        allowed) to K5 (reference: tpu.py:1836-1894)."""
+        allowed) to K5 (reference: tpu.py:1836-1894); None when the
+        tiered hot set cannot hold its accounts."""
+        tr = self._tier_translate(dr_slot, cr_slot)
+        if tr is None:
+            return None
+        t_dr_slot, t_cr_slot = tr
         pk = self._device_pack_base(
             n, events, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
-            flags, timeout, dr_slot, cr_slot,
+            flags, timeout, t_dr_slot, t_cr_slot,
         )
         amount_lo = np.asarray(events["amount_lo"])
         amount_hi = np.asarray(events["amount_hi"])
@@ -996,8 +1050,9 @@ class TorchStateMachine:
         """A pending-create + post/void batch to K6 with its target joins
         (reference: tpu.py:1896-2093).  Returns None — the batch takes
         the host path — for an in-batch reference to a non-pending
-        create, and for a durable target with a timeout or on a limit or
-        history account."""
+        create, for a durable target with a timeout or on a limit or
+        history account, and when the tiered hot set cannot hold the
+        batch's accounts."""
         pend_lo = np.asarray(events["pending_id_lo"])
         pend_hi = np.asarray(events["pending_id_hi"])
         is_pv = (flags & np.uint32(TF.post_pending_transfer | TF.void_pending_transfer)) != 0
@@ -1056,9 +1111,18 @@ class TorchStateMachine:
 
         pj_dr_slot = jcol("dr_slot", np.int64)
         pj_cr_slot = jcol("cr_slot", np.int64)
+        # Tiered prefetch over the whole touched set: the events' and the
+        # durable targets' accounts (an in-batch target's are its
+        # creator's).  Only the packed columns take hot slots.
+        tr = self._tier_translate(
+            dr_slot, cr_slot, np.where(p_found, pj_dr_slot, -1), np.where(p_found, pj_cr_slot, -1),
+        )
+        if tr is None:
+            return None
+        t_dr_slot, t_cr_slot, t_pj_dr, t_pj_cr = tr
         pk = self._device_pack_base(
             n, events, id_lo, id_hi, dr_lo, dr_hi, cr_lo, cr_hi,
-            flags, timeout, dr_slot, cr_slot,
+            flags, timeout, t_dr_slot, t_cr_slot,
             p_found=p_found, p_tgt=p_tgt, n_cols=dk.N_COLS_TP,
         )
         # Target account-id equality predicates (u128 byte compares
@@ -1086,8 +1150,8 @@ class TorchStateMachine:
             p_flags=jcol("flags", np.uint32).astype(np.uint16),
             p_code=jcol("code", np.uint32).astype(np.uint16),
             p_ledger=jcol("ledger", np.uint32),
-            p_dr_slot=np.where(p_found, pj_dr_slot, 0),
-            p_cr_slot=np.where(p_found, pj_cr_slot, 0),
+            p_dr_slot=np.where(p_found, t_pj_dr, 0),
+            p_cr_slot=np.where(p_found, t_pj_cr, 0),
             p_amt_lo=p_amt_lo_d, p_amt_hi=p_amt_hi_d,
             tgt_ev=tgt_ev, dstat_init_ev=dstat_ev,
         )
@@ -1640,13 +1704,16 @@ class TorchStateMachine:
         drains on any id or pending-reference overlap with in-flight
         records, and the admission charges every in-flight record's
         amount bound on top of the mirror (DeviceEngine.inflight_bound).
-        The reference's declines for a tiered table ("tier"), a mesh
+        A tiered table declines ("tier"): the wave records index the
+        table by logical slot.  The reference's declines for a mesh
         ("mesh", "shard_plan") and a degraded engine cannot arise here:
-        tiering is slice 5, row sharding slice 7, the degraded state
-        slice 6."""
+        row sharding is slice 7, the degraded state slice 6."""
         dev = self._dev
         dm = waves.dev_mode()
         if dm == "0" or n == 0 or n > _BATCH_BUCKETS[-1]:
+            return None, None
+        if dev.hot is not None:
+            self._dev_wave_decline("tier")
             return None, None
         t0 = _time.perf_counter()
         d = self._decode_static(events, n)

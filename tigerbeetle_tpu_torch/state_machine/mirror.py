@@ -12,14 +12,24 @@ from __future__ import annotations
 
 import numpy as np
 
+from tigerbeetle_tpu_torch.state_machine.hot_tier import grow_zero_host
+
 _MASK32 = np.uint64(0xFFFFFFFF)
+# The row factor of the table digest: row * GOLDEN + 1 (mod 2^64).
+GOLDEN = 0x9E3779B97F4A7C15
 
 
-def grow_zero_host(array: np.ndarray, rows: int) -> np.ndarray:
-    """Zero-extend a numpy table to `rows` rows."""
-    out = np.zeros((rows,) + array.shape[1:], array.dtype)
-    out[: len(array)] = array
-    return out
+def digest_columns(table: np.ndarray) -> np.ndarray:
+    """Order-sensitive digest of a (rows, C) unsigned table: C column
+    sums, then C row-mixed sums sum(v * (row * GOLDEN + 1)), all mod
+    2^64, as u64 (a u32 table is zero-extended).  The host side of every
+    integrity compare; kernel K11 (``device_kernels.checksum``) computes
+    the same words on the card."""
+    m = np.asarray(table).astype(np.uint64)
+    col_sums = m.sum(axis=0, dtype=np.uint64)
+    rows = np.arange(m.shape[0], dtype=np.uint64)[:, None]
+    mixed = (m * (rows * np.uint64(GOLDEN) + np.uint64(1))).sum(axis=0, dtype=np.uint64)
+    return np.concatenate([col_sums, mixed])
 
 
 def _add_u128(a_lo, a_hi, b_lo, b_hi):
@@ -144,6 +154,11 @@ class BalanceMirror:
         table[:n, 0::2] = self.lo[:n]
         table[:n, 1::2] = self.hi[:n]
         return table
+
+    def checksum8(self, capacity: int) -> np.ndarray:
+        """Digest of the first `capacity` rows in device layout, word for
+        word what K11 gives for the device table (16 u64 words)."""
+        return digest_columns(self.table8(capacity))
 
     def set_rows8(self, slots: np.ndarray, rows: np.ndarray) -> None:
         """Overwrite rows from (k, 8) device-layout snapshots; duplicate

@@ -431,3 +431,30 @@ def gen_waves_host(n_events: int, n_accounts: int = 1_000_000, n_limited: int = 
         tid += m
         done += m
     return setup, timed, _sizing(n_accounts, done + n_limited + 1024)
+
+
+def gen_tiering(n_batches: int, batch: int, n_acct: int, head: int, tail_mass: float,
+                tid0: int):
+    """Zipf-head batches for hot/cold tiering (bench's
+    _gen_tiering_stream, byte for byte): near-uniform draws over a
+    `head` that fits the hot set plus a thin 1/rank tail of mass
+    `tail_mass` over the other accounts.  Returns [(Operation, bytes)];
+    every call restarts the generator at seed 45, as bench's does."""
+    rng = np.random.default_rng(45)
+    p = np.zeros(n_acct)
+    p[:head] = (1.0 - tail_mass) / head
+    tail_rank = np.arange(1, n_acct - head + 1, dtype=np.float64)
+    p[head:] = (1.0 / tail_rank) / (1.0 / tail_rank).sum() * tail_mass
+    p /= p.sum()
+    ops = []
+    tid = tid0
+    for _ in range(n_batches):
+        dr = rng.choice(n_acct, size=batch, p=p).astype(np.uint64) + np.uint64(1)
+        cr = rng.choice(n_acct, size=batch, p=p).astype(np.uint64) + np.uint64(1)
+        clash = cr == dr
+        cr[clash] = dr[clash] % np.uint64(n_acct) + np.uint64(1)
+        ids = np.arange(tid, tid + batch, dtype=np.uint64)
+        tid += batch
+        ops.append((Operation.create_transfers,
+                    transfers_bytes(ids, dr, cr, rng.integers(1, 100, batch, np.uint64))))
+    return ops
