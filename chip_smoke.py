@@ -14,9 +14,12 @@ and K6 on 8192-event batches over a 2^20-row table; K7 over an
 init and finalize, all on a 2^20-row table; K10 at 128 and 16,384 rows
 into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
 slots, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
-holding words >= 2^31), measures one dependent L2 hit (K3's and K5's
-serial floors), then drives the port's create_transfers loop through
-SingleNodeHarness on TorchStateMachine in eleven phases:
+holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
+local rows of a 2^20-row table split in 4, K14 gather and scatter at
+16,380 slots), measures one dependent L2 hit (K3's and K5's serial
+floors), then drives the port's create_transfers loop through
+SingleNodeHarness on TorchStateMachine in eleven phases, and the two
+row-sharded entry points in two more:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -57,6 +60,22 @@ SingleNodeHarness on TorchStateMachine in eleven phases:
                equal the plain-version run and an all-resident control
   tiered_host  host engine, the same stream (K10 admissions, K4 flushes;
                its run ends with the checkpoint tripwire, K11)
+  sharded_apply  parallel.sharded.build_apply_step on a 2 x 2 (dp, shard)
+               mesh of the one card over a 2^20-row table: gen_simple's
+               1,000,000 transfers at 1,000,000 accounts decoded to slot
+               columns, then a batch onto 64 rows seeded near 2^128 (K12,
+               K13); table and admitted masks equal a numpy oracle's and
+               a plain-version run's
+  sharded_waves  waves._execute_plan_sharded on a 4-shard row mesh of the
+               one card: 32 full 8190-event batches (one wave; a chain
+               wave, then a wave; wave, chains, wave, chains), each on
+               its own rows of one 2^20-row table, run one after another
+               (K14, K7, K8, K3 init and finalize), timed three times;
+               packed outputs and the joined table equal the dense
+               executor's and a plain-version run's
+
+All the shards of a mesh lie on the one card: copies between shards
+are device-local, and no time here is a multi-GPU one.
 
 Each phase's main-path run starts with every launch count at 0 (set
 just before the state machine is built) and its counts are read as soon
@@ -94,11 +113,12 @@ from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.kernels import build
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.ops.u128 import to_u64
+from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, wave_cases
+from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
 
@@ -149,7 +169,8 @@ RING_ROWS = 256
 MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "apply_deltas",
              "linked", "two_phase", "exact_init", "exact_segment", "exact_finalize",
              "wave_step", "chain_wave", "spec_conflicts", "tier_set_rows", "commit_admit",
-             "checksum")
+             "checksum", "shard_accumulate", "shard_admit", "shard_apply", "shard_gather",
+             "shard_scatter")
 # K3's classes for the kernel check, and the codes each must produce.
 K3_CLASSES = {
     "linked": {1, 2},
@@ -617,6 +638,358 @@ def check_tier_kernels(dev, report):
             report["checksum"]["meta"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                                               bound_ms=bound_ms)
     report["checksum"]["max_abs_err"] = max(errs)
+
+
+# ---------------------------------------------------------------------------
+# Row sharding: K12-K14, the sharded apply and the sharded wave executor.
+# Every shard of a mesh here lies on the one card (S shards on one H100):
+# copies between shards are device-local, and no time is a multi-GPU one.
+
+SHARDS = 4              # the kernel checks' and sharded_waves' shard count
+SHARD_GATHER_K = 16_380  # a batch's debit and credit slots
+K12_OPS_PER_EVENT = 30   # per event: the limbs, two ownership tests, 8 atomics
+K13_OPS_PER_CELL = 12    # per (row, column): limb carries, the u128 add, the test
+
+
+def check_shard_kernels(dev, report):
+    """K12, K13 admit and apply, K14 gather and scatter against their
+    plain versions on the card, bit for bit, at the sharded phases'
+    shapes: an 8190-event slice onto shard 1 of a 2^20-row table split
+    in 4 (2^18 local rows; 64 rows of the table within 2^40 of 2^128,
+    so events reject), K = 16,380 gathered and scattered slots.  K12 is
+    timed beside Tensor.index_put_(accumulate=True) and K14 gather
+    beside index_select + where."""
+    local = A_ROWS // SHARDS
+    shard = 1
+    row0 = shard * local
+    balances, *events = shard_cases.apply_events(2040, A_ROWS, workload.BATCH, near_ceiling=64)
+    ev = [x[0] for x in sharded.shard_events(sharded.make_mesh([dev], dp=1), *events)]
+    dr, cr, lo, hi, pend = ev
+    E = dr.numel()
+    table = sharded.shard_balances(sharded.make_row_mesh([dev] * SHARDS), balances)[shard]
+    mask = torch.from_numpy(np.random.default_rng(5).random(E) < 0.7).to(dev)
+
+    errs = []
+    for m in (None, mask):
+        got = sharded.accumulate(local, row0, *ev, mask=m)
+        want = sharded._accumulate(local, row0, *ev, mask=m)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, want))
+        check(errs[-1] == 0, f"K12 shard_accumulate (mask {m is not None}): kernel differs "
+                             "from the plain version")
+    acc = sharded.accumulate(local, row0, *ev)
+    ms, dev_ms = kernel_ms(lambda: sharded.accumulate(local, row0, *ev),
+                           names=("shard_accumulate", "Memset"))
+    plain_ms = time_ms(lambda: sharded._accumulate(local, row0, *ev), reps=10)
+    idx, vals = [], []
+    for slot, col_p, col_posted in ((dr, 0, 1), (cr, 2, 3)):
+        own, rel = sharded.own_rows(slot.long(), local, shard)
+        col = torch.where(pend, col_p, col_posted)
+        cell = (rel * 4 + col)[:, None] * 4 + torch.arange(4, device=dev)
+        idx.append(cell[own].reshape(-1))
+        vals.append(torch.stack([lo & 0xFFFFFFFF, (lo >> 32) & 0xFFFFFFFF, hi & 0xFFFFFFFF,
+                                 (hi >> 32) & 0xFFFFFFFF], -1)[own].reshape(-1))
+    idx, vals = torch.cat(idx), torch.cat(vals)
+    lib = torch.zeros(local * 16, dtype=torch.int64, device=dev)
+    lib_ms, lib_dev_ms = kernel_ms(lambda: lib.index_put_((idx,), vals, accumulate=True))
+    lib.zero_()
+    lib.index_put_((idx,), vals, accumulate=True)
+    check(torch.equal(lib.view(local, 4, 4), acc), "K12 and index_put_ disagree")
+    bound_ms, bound_by = bound(E * (4 + 4 + 8 + 8 + 1) + local * 128, E * K12_OPS_PER_EVENT)
+    report["shard_accumulate"] = dict(
+        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=max(errs), timed_case=f"{E} events onto {local} local rows")
+    print(f"K12 shard_accumulate ({E} events onto {local} local rows, masked and not): "
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, "
+          f"index_put_ {lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms)}")
+
+    got = sharded.admit(table, acc, row0, dr, cr)
+    want = sharded.admit_plain(table, acc, row0, dr, cr)
+    torch.cuda.synchronize()
+    err = max_abs_err(got.long(), want.long())
+    check(err == 0, "K13 shard_admit: kernel differs from the plain version")
+    n_rej = int(got.sum())
+    check(n_rej > 0, "K13 shard_admit: no event rejected")
+    ms, dev_ms = kernel_ms(lambda: sharded.admit(table, acc, row0, dr, cr),
+                           names=("shard_admit",))
+    plain_ms = time_ms(lambda: sharded.admit_plain(table, acc, row0, dr, cr), reps=10)
+    rows = torch.unique(torch.cat([s[(s >= row0) & (s < row0 + local)] for s in (dr, cr)]))
+    bound_ms, bound_by = bound(E * 8 + rows.numel() * (64 + 128) + E,
+                               rows.numel() * 4 * K13_OPS_PER_CELL)
+    report["shard_admit"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, max_abs_err=err,
+                                 timed_case=f"{E} events, {rows.numel()} local rows named, "
+                                            f"{n_rej} rejected")
+    print(f"K13 shard_admit ({E} events, {rows.numel()} local rows named, {n_rej} rejected): "
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    t_k, t_p = table.clone(), table.clone()
+    sharded.apply(t_k, acc)
+    sharded.apply_plain(t_p, acc)
+    torch.cuda.synchronize()
+    err = max_abs_err(t_k, t_p)
+    check(err == 0, "K13 shard_apply: kernel differs from the plain version")
+    ms, dev_ms = kernel_ms(lambda: sharded.apply(t_k, acc), names=("shard_apply",))
+    plain_ms = time_ms(lambda: sharded.apply_plain(t_p, acc), reps=10)
+    bound_ms, bound_by = bound(local * (64 + 64 + 128), local * 4 * K13_OPS_PER_CELL)
+    report["shard_apply"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, max_abs_err=err,
+                                 timed_case=f"{local} local rows")
+    print(f"K13 shard_apply ({local} local rows): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+    rng = np.random.default_rng(2041)
+    slots = torch.from_numpy(np.sort(rng.choice(A_ROWS, SHARD_GATHER_K, replace=False))).to(dev)
+    K = slots.numel()
+    owned = int(((slots >= row0) & (slots < row0 + local)).sum())
+    got = sharded.gather_part(table, slots, shard)
+    want = sharded.gather_part_plain(table, slots, shard)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    check(err == 0, "K14 shard_gather: kernel differs from the plain version")
+    ms, dev_ms = kernel_ms(lambda: sharded.gather_part(table, slots, shard),
+                           names=("shard_gather",))
+    plain_ms = time_ms(lambda: sharded.gather_part_plain(table, slots, shard), reps=10)
+    own, rel = sharded.own_rows(slots, local, shard)
+    own2 = own[:, None]
+    lib_ms, lib_dev_ms = kernel_ms(lambda: torch.where(own2, table.index_select(0, rel), 0))
+    check(torch.equal(torch.where(own2, table.index_select(0, rel), 0), got),
+          "K14 gather and index_select + where disagree")
+    bound_ms, bound_by = bound(K * 8 + owned * 64 + K * 64, K * 8)
+    report["shard_gather"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                  library_device_ms=lib_dev_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, max_abs_err=err,
+                                  timed_case=f"K={K} slots of 2^20, {owned} owned")
+    print(f"K14 shard_gather (K={K} slots, {owned} owned): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, index_select + where "
+          f"{lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms)}")
+
+    new = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (K, 8))).to(dev)
+    t_k, t_p = table.clone(), table.clone()
+    sharded.scatter_part(t_k, slots, new, shard)
+    sharded.scatter_part_plain(t_p, slots, new, shard)
+    torch.cuda.synchronize()
+    err = max_abs_err(t_k, t_p)
+    check(err == 0, "K14 shard_scatter: kernel differs from the plain version")
+    ms, dev_ms = kernel_ms(lambda: sharded.scatter_part(t_k, slots, new, shard),
+                           names=("shard_scatter",))
+    plain_ms = time_ms(lambda: sharded.scatter_part_plain(t_p, slots, new, shard), reps=10)
+    bound_ms, bound_by = bound(K * 8 + K * 64 + owned * 64, K * 8)
+    report["shard_scatter"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                                   timed_case=f"K={K} slots of 2^20, {owned} owned")
+    print(f"K14 shard_scatter (K={K} slots, {owned} owned): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+
+
+CEILING_ROWS = 64  # rows past the accounts seeded within 2^40 of 2^128
+
+
+def sharded_apply_inputs():
+    """(balances, per-batch event columns): gen_simple's 1,000,000 timed
+    transfers at 1,000,000 accounts decoded to (dr_slot, cr_slot,
+    amount_lo, amount_hi, is_pending) (account k is row k - 1), then one
+    8190-event batch of which half name the CEILING_ROWS rows past the
+    accounts, each seeded within 2^40 of 2^128 in one column, with
+    amounts up to 2^41: their events reject."""
+    _setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
+    check(sizing[0] == A_ROWS, "sharded_apply: table is not 2^20 rows")
+    batches = []
+    for _op, body in timed:
+        t = np.frombuffer(body, TRANSFER_DTYPE)
+        batches.append(((t["debit_account_id_lo"] - 1).astype(np.int32),
+                        (t["credit_account_id_lo"] - 1).astype(np.int32),
+                        t["amount_lo"].copy(), t["amount_hi"].copy(),
+                        (t["flags"] & TransferFlags.pending) != 0))
+    rng = np.random.default_rng(2042)
+    balances = np.zeros((A_ROWS, 8), np.uint64)
+    hot = N_ACCOUNTS + np.arange(CEILING_ROWS)
+    col = rng.integers(0, 4, CEILING_ROWS)
+    balances[hot, 2 * col] = np.uint64((1 << 64) - (1 << 40))
+    balances[hot, 2 * col + 1] = np.uint64((1 << 64) - 1)
+    E = workload.BATCH
+    dr = rng.integers(0, N_ACCOUNTS, E).astype(np.int32)
+    dr[: E // 2] = hot[rng.integers(0, CEILING_ROWS, E // 2)]
+    cr = ((dr.astype(np.int64) + 1) % N_ACCOUNTS).astype(np.int32)
+    batches.append((dr, cr, rng.integers(1, 1 << 41, E).astype(np.uint64),
+                    np.zeros(E, np.uint64), rng.random(E) < 0.5))
+    return balances, batches
+
+
+def _busy_line(trace, seconds) -> str:
+    if trace is None:
+        return "not measured (no device activity in the trace)"
+    busy_ms, top = trace
+    return (f"{busy_ms:.3f} ms of {seconds:.3f} s (busy share {busy_ms / 1e3 / seconds:.6f}); "
+            f"top {top}")
+
+
+def run_sharded_apply(mesh, balances, slices, plain, profile=False):
+    """Every batch through one build_apply_step; returns (tables, the
+    admitted masks concatenated, seconds, device trace or None)."""
+    step = sharded.build_apply_step(mesh, A_ROWS, plain=plain)
+    tables = sharded.shard_balances(mesh, balances)
+    admitted = []
+    torch.cuda.synchronize()
+    prof = device_profiler() if profile else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        for ev in slices:
+            tables, adm = step(tables, *ev)
+            admitted.append(adm)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    trace = device_busy(prof) if profile else None
+    return tables, torch.cat(admitted).cpu().numpy(), elapsed, trace
+
+
+def run_sharded_apply_phase(dev):
+    """Phase sharded_apply: a 2 x 2 (dp, shard) mesh of one card; the
+    final table and admitted masks equal the vectorised oracle's and a
+    plain-version run's, bit for bit.  Returns (main-path launches,
+    check launches)."""
+    mesh = sharded.make_mesh([dev] * 4, dp=2)
+    n_dp, n_shard = mesh.shape["dp"], mesh.shape["shard"]
+    balances, batches = sharded_apply_inputs()
+    slices = [sharded.shard_events(mesh, *b) for b in batches]
+    n_events = sum(len(b[0]) for b in batches)
+    kernels.reset_launches()
+    tables, admitted, elapsed, _ = run_sharded_apply(mesh, balances, slices, False)
+    launches = dict(kernels.launches)
+    nb = len(batches)
+    want = {"shard_accumulate": 2 * n_dp * n_shard * nb, "shard_admit": n_dp * n_shard * nb,
+            "shard_apply": n_shard * nb}
+    for name, count in want.items():
+        check(launches[name] == count,
+              f"sharded_apply: {launches[name]} {name} launches != {count}")
+    got = shard_cases.join_tables(tables)
+    del tables
+    kernels.reset_launches()
+    p_tables, p_admitted, p_elapsed, _ = run_sharded_apply(mesh, balances, slices, True)
+    check(not any(kernels.launches[k] for k in want), "sharded_apply: the plain run launched")
+    check_launches = dict(kernels.launches)
+    check((shard_cases.join_tables(p_tables) == got).all(),
+          "sharded_apply: table differs from the plain-version run")
+    check((p_admitted == admitted).all(), "sharded_apply: admitted differs from the plain run")
+    del p_tables
+    t0 = time.perf_counter()
+    oracle = balances.copy()
+    o_admitted = []
+    for b in batches:
+        oracle, adm = shard_cases.apply_oracle(oracle, *b)
+        o_admitted.append(adm)
+    oracle_s = time.perf_counter() - t0
+    check((got == oracle).all(), "sharded_apply: table differs from the oracle")
+    check((np.concatenate(o_admitted) == admitted).all(),
+          "sharded_apply: admitted differs from the oracle")
+    n_rej = int((~admitted).sum())
+    check(n_rej > 0 and (~admitted[: -len(batches[-1][0])]).sum() == 0,
+          "sharded_apply: rejects outside the ceiling batch, or none in it")
+    _, prof_admitted, prof_s, trace = run_sharded_apply(mesh, balances, slices, False, True)
+    check((prof_admitted == admitted).all(), "sharded_apply: the profiled run differs")
+    torch.cuda.empty_cache()
+    print(f"phase sharded_apply ({n_dp} x {n_shard} mesh on one card, {A_ROWS} rows, "
+          f"{n_events} transfers in {nb} batches of <= {workload.BATCH}): "
+          f"{n_events / elapsed:.0f} events/s ({elapsed / nb * 1e3:.3f} ms per batch); "
+          f"plain-version run {n_events / p_elapsed:.0f} events/s; numpy oracle {oracle_s:.1f} s; "
+          f"{n_rej} rejected (ceiling batch); main-path launches "
+          f"{ {k: launches[k] for k in want} }; device busy {_busy_line(trace, prof_s)}; "
+          f"table and admitted masks equal the oracle's and the plain run's; checks passed")
+    return launches, check_launches
+
+
+WAVE_SHARD_SEED = 2050
+WAVE_SHARD_RUNS = 3  # timed runs of the stream, each on fresh shard tables
+
+
+def run_sharded_waves_phase(dev):
+    """Phase sharded_waves: WAVE_BATCHES full 8190-event batches
+    (shard_cases.wave_stream: one wave; a chain wave, then a wave; wave,
+    chains, wave, chains), each on its own rows of one 2^20-row table,
+    run one after another through _execute_plan_sharded over a 4-shard
+    row mesh of one card.  The stream is timed WAVE_SHARD_RUNS times on
+    fresh tables (the first run is the main path's); every batch's
+    packed outputs and the final joined table equal the dense
+    executor's and a plain-version sharded run's.  Returns (main-path
+    launches, check launches)."""
+    mesh = sharded.make_row_mesh([dev] * SHARDS)
+    B = workload.BATCH
+    table, batches = shard_cases.wave_stream(WAVE_SHARD_SEED, WAVE_BATCHES, B, A_ROWS)
+    fixes = [shard_cases.hist_fix(plan, n, B) for _ev, _dstat, n, _ts, plan in batches]
+    n_events = sum(n for _ev, _dstat, n, _ts, _plan in batches)
+    kinds = [k for *_b, plan in batches for k, _ in plan.segments]
+    want = {"wave_step": kinds.count("wave"), "chain_wave": kinds.count("chains"),
+            "exact_init": len(batches), "exact_finalize": len(batches),
+            "shard_gather": SHARDS * len(batches), "shard_scatter": SHARDS * len(batches)}
+    scratch = waves.WaveScratch(dev)
+
+    def run(plain=False, profile=False):
+        tables = sharded.shard_balances(mesh, table)
+        outs = []
+        torch.cuda.synchronize()
+        prof = device_profiler() if profile else contextlib.nullcontext()
+        with prof:
+            t0 = time.perf_counter()
+            for (ev, dstat, n, ts_base, plan), fix in zip(batches, fixes):
+                tables, packed = waves._execute_plan_sharded(
+                    tables, ev, dstat, n, ts_base, plan, fix, mesh,
+                    scratch=None if plain else scratch, plain=plain)
+                outs.append(packed)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+        return torch.cat(tables), outs, elapsed, (device_busy(prof) if profile else None)
+
+    launches, rates = None, []
+    for _ in range(WAVE_SHARD_RUNS):
+        kernels.reset_launches()
+        joined, outs, elapsed, _ = run()
+        got = dict(kernels.launches)
+        for name, count in want.items():
+            check(got[name] == count, f"sharded_waves: {got[name]} {name} launches != {count}")
+        if launches is None:
+            launches, first_joined, first_outs = got, joined, outs
+        check(torch.equal(joined, first_joined)
+              and all(torch.equal(a, b) for a, b in zip(outs, first_outs)),
+              "sharded_waves: a timed run differs from the first")
+        rates.append(n_events / elapsed)
+        del joined, outs
+
+    kernels.reset_launches()
+    p_joined, p_outs, p_elapsed, _ = run(plain=True)
+    check(not any(kernels.launches[k] for k in want), "sharded_waves: the plain run launched")
+    check(torch.equal(p_joined, first_joined)
+          and all(torch.equal(a, b) for a, b in zip(p_outs, first_outs)),
+          "sharded_waves: differs from the plain-version run")
+    del p_joined, p_outs
+    dense = torch.from_numpy(table.view(np.int64).copy()).to(dev)
+    for k, ((ev, dstat, n, ts_base, plan), fix) in enumerate(zip(batches, fixes)):
+        want_packed = waves.run_create_transfers_waves(dense, ev, dstat, n, ts_base, plan, fix,
+                                                       scratch=scratch)
+        check(torch.equal(first_outs[k], want_packed),
+              f"sharded_waves batch {k}: packed outputs differ from the dense executor's")
+    check(torch.equal(first_joined, dense), "sharded_waves: joined table differs from the "
+                                            "dense executor's")
+    check_launches = dict(kernels.launches)
+    del dense
+    prof_joined, prof_outs, prof_s, trace = run(profile=True)
+    check(torch.equal(prof_joined, first_joined)
+          and all(torch.equal(a, b) for a, b in zip(prof_outs, first_outs)),
+          "sharded_waves: the profiled run differs")
+    del prof_joined, prof_outs, first_joined, first_outs
+    torch.cuda.empty_cache()
+    spread = ", ".join(f"{r:.0f}" for r in rates)
+    print(f"phase sharded_waves ({SHARDS}-shard row mesh on one card, {A_ROWS} rows, "
+          f"{len(batches)} batches of {B} events, {n_events} events, {len(kinds)} segments "
+          f"({want['wave_step']} wave, {want['chain_wave']} chains)): {rates[0]:.0f} events/s "
+          f"({n_events / rates[0] / len(batches) * 1e3:.3f} ms per batch); "
+          f"{WAVE_SHARD_RUNS} timed runs {spread} events/s (min {min(rates):.0f}, "
+          f"median {sorted(rates)[len(rates) // 2]:.0f}, max {max(rates):.0f}); "
+          f"plain-version run {n_events / p_elapsed:.0f} events/s; main-path launches "
+          f"{ {k: launches[k] for k in want} }; device busy {_busy_line(trace, prof_s)}; "
+          f"packed outputs and tables equal the dense executor's and the plain run's; "
+          f"checks passed")
+    return launches, check_launches
 
 
 # K5's and K6's cases for the check: (scenario, kind), the first the one
@@ -1462,6 +1835,7 @@ def main() -> int:
     check_semantic(dev, report, "two_phase", TWO_PHASE_CHECKS, semantic_cases.two_phase_case)
     check_waves(dev, report, l2_ns)
     check_tier_kernels(dev, report)
+    check_shard_kernels(dev, report)
 
     phases = {}
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
@@ -1539,6 +1913,8 @@ def main() -> int:
         "tiered", "device", warm, timed, must=("orderfree", "tier_set_rows", "commit_admit"))
     phases["tiered_host"] = run_tiering_phase(
         "tiered_host", "host", warm, timed, must=("apply_deltas", "tier_set_rows", "checksum"))
+    phases["sharded_apply"] = run_sharded_apply_phase(dev)
+    phases["sharded_waves"] = run_sharded_waves_phase(dev)
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")
@@ -1578,6 +1954,16 @@ def main() -> int:
                          "tigerbeetle_tpu/state_machine/commitment.py:358"),
         "checksum": ("tigerbeetle_tpu_torch/csrc/checksum.cu",
                      "tigerbeetle_tpu/state_machine/device_kernels.py:1036"),
+        "shard_accumulate": ("tigerbeetle_tpu_torch/csrc/shard_apply.cu",
+                             "tigerbeetle_tpu/parallel/sharded.py:135"),
+        "shard_admit": ("tigerbeetle_tpu_torch/csrc/shard_apply.cu",
+                        "tigerbeetle_tpu/parallel/sharded.py:185"),
+        "shard_apply": ("tigerbeetle_tpu_torch/csrc/shard_apply.cu",
+                        "tigerbeetle_tpu/parallel/sharded.py:203"),
+        "shard_gather": ("tigerbeetle_tpu_torch/csrc/shard_rows.cu",
+                         "tigerbeetle_tpu/parallel/sharded.py:107"),
+        "shard_scatter": ("tigerbeetle_tpu_torch/csrc/shard_rows.cu",
+                          "tigerbeetle_tpu/state_machine/waves.py:976"),
     }
     rows = []
     for name, (source, replaces) in meta.items():

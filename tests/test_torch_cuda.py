@@ -1,4 +1,4 @@
-"""Kernels K1-K11 and K3's segment and finalize entries on a CUDA card
+"""Kernels K1-K14 and K3's segment and finalize entries on a CUDA card
 against their plain PyTorch versions, and TorchStateMachine on the
 card against the CPU run or the plain-version run.  They
 skip without a card; on one, run them with
@@ -14,12 +14,13 @@ import pytest
 import torch
 
 from tigerbeetle_tpu_torch import kernels, workload
+from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, wave_cases
+from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
 pytestmark = pytest.mark.cuda
@@ -477,3 +478,69 @@ def test_tiered_exact_streams_on_card_match_cpu(card, engine, monkeypatch):
                         sm.stat_tier_punts, t.hits, t.misses, t.evicts))
         assert out[0] == out[1]
         assert out[0][2] > 0 or out[0][3] > 0
+
+
+@pytest.mark.parametrize("shard", [0, 5])
+def test_shard_kernels_match_plain(card, shard):
+    """K12 (with and without a mask), K13 admit / apply and K14 gather /
+    scatter against their plain versions on the card, bit for bit."""
+    rows, n_shard = 1 << 12, 8
+    local = rows // n_shard
+    row0 = shard * local
+    balances, *events = shard_cases.apply_events(90 + shard, rows, 8190, near_ceiling=64)
+    mesh = sharded.make_mesh([card], dp=1)
+    ev = [x[0] for x in sharded.shard_events(mesh, *events)]
+    mask = torch.from_numpy(np.random.default_rng(shard).random(8190) < 0.5).to(card)
+    for m in (None, mask):
+        got = sharded.accumulate(local, row0, *ev, mask=m)
+        want = sharded._accumulate(local, row0, *ev, mask=m)
+        assert torch.equal(got, want)
+    acc = sharded.accumulate(local, row0, *ev)
+    table = sharded.shard_balances(sharded.make_row_mesh([card] * n_shard), balances)[shard]
+    got = sharded.admit(table, acc, row0, ev[0], ev[1])
+    want = sharded.admit_plain(table, acc, row0, ev[0], ev[1])
+    assert torch.equal(got, want) and bool(want.any())
+    t_k, t_p = table.clone(), table.clone()
+    sharded.apply(t_k, acc)
+    sharded.apply_plain(t_p, acc)
+    assert torch.equal(t_k, t_p)
+    slots = torch.from_numpy(np.random.default_rng(7).choice(rows, 1000, replace=False)).to(card)
+    assert torch.equal(sharded.gather_part(t_k, slots, shard),
+                       sharded.gather_part_plain(t_k, slots, shard))
+    new = torch.randint(-(1 << 62), 1 << 62, (1000, 8), dtype=torch.int64, device=card)
+    sharded.scatter_part(t_k, slots, new, shard)
+    sharded.scatter_part_plain(t_p, slots, new, shard)
+    assert torch.equal(t_k, t_p)
+
+
+def test_sharded_paths_on_card_match_plain_and_dense(card):
+    """build_apply_step on a 2 x 2 mesh of one card against the oracle
+    and the plain run; _execute_plan_sharded on a 4-shard row mesh
+    against the dense executor and the plain run."""
+    rows = 1 << 14
+    balances, *events = shard_cases.apply_events(5, rows, 8190, near_ceiling=32)
+    mesh = sharded.make_mesh([card] * 4, dp=2)
+    outs = []
+    for plain in (False, True):
+        step = sharded.build_apply_step(mesh, rows, plain=plain)
+        tables, admitted = step(sharded.shard_balances(mesh, balances),
+                                *sharded.shard_events(mesh, *events))
+        outs.append((shard_cases.join_tables(tables), admitted.cpu().numpy()))
+    want, want_admitted = shard_cases.apply_oracle(balances, *events)
+    for got, got_admitted in outs:
+        np.testing.assert_array_equal(got_admitted, want_admitted)
+        np.testing.assert_array_equal(got, want)
+
+    row_mesh = sharded.make_row_mesh([card] * 4)
+    for name, (table, ev, dstat, n, ts_base, plan) in shard_cases.shardable_cases(
+            3, 8192, rows):
+        fix = shard_cases.hist_fix(plan, n, 8192)
+        dense = torch.from_numpy(table.view(np.int64).copy()).to(card)
+        want = waves.run_create_transfers_waves(dense, ev, dstat, n, ts_base, plan, fix)
+        for plain in (False, True):
+            tables, packed = waves._execute_plan_sharded(
+                sharded.shard_balances(row_mesh, table), ev, dstat, n, ts_base, plan, fix,
+                row_mesh, plain=plain)
+            assert torch.equal(packed, want), name
+            np.testing.assert_array_equal(shard_cases.join_tables(tables),
+                                          dense.cpu().numpy().view(np.uint64))

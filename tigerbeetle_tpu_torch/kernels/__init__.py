@@ -1,8 +1,9 @@
 """ctypes bindings of the hand-written CUDA kernels, with launch counts.
 
 Every binding takes CUDA tensors the caller has already checked (the
-wrappers in ``state_machine/device_kernels.py`` and
-``state_machine/commitment.py`` do), launches on PyTorch's current
+wrappers in ``state_machine/device_kernels.py``,
+``state_machine/commitment.py``, ``state_machine/waves.py`` and
+``parallel/sharded.py`` do), launches on PyTorch's current
 stream without synchronising, raises on a non-zero CUDA status, and
 adds one to its entry in ``launches``.  Nothing here imports or builds
 anything until the first launch.
@@ -34,6 +35,11 @@ launches = {
     "tier_set_rows": 0,
     "commit_admit": 0,
     "checksum": 0,
+    "shard_accumulate": 0,
+    "shard_admit": 0,
+    "shard_apply": 0,
+    "shard_gather": 0,
+    "shard_scatter": 0,
 }
 
 _P = ctypes.c_void_p
@@ -65,6 +71,20 @@ _SIGNATURES = {
     "checksum": {
         # table, R, C, word_bytes, out, stream
         "tb_checksum": [_P, _I64, _I, _I, _P, _P],
+    },
+    "shard_apply": {
+        # acc, local_rows, row0, dr, cr, lo, hi, pending, mask (nullable),
+        # E, stream
+        "tb_shard_accumulate": [_P, _I64, _I64, _P, _P, _P, _P, _P, _P, _I64, _P],
+        # table, acc, local_rows, row0, dr, cr, E, reject, stream
+        "tb_shard_admit": [_P, _P, _I64, _I64, _P, _P, _I64, _P, _P],
+        # table, acc, local_rows, stream
+        "tb_shard_apply": [_P, _P, _I64, _P],
+    },
+    "shard_rows": {
+        # table, local_rows, row0, slots, k, out / rows, stream
+        "tb_shard_gather": [_P, _I64, _I64, _P, _I64, _P, _P],
+        "tb_shard_scatter": [_P, _I64, _I64, _P, _I64, _P, _P],
     },
     "exact_scan": {
         # table, A, ev, B, dstat_init, n, ts_base, scratch, out, stream
@@ -313,4 +333,39 @@ def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):
         "spec_conflicts", "tb_spec_conflicts", "spec_conflicts",
         _ptr(events), events.shape[0], _ptr(idx), idx.shape[0], _ptr(serial), n, A,
         _ptr(tok), _ptr(tgt), _ptr(a_min), _ptr(r_min), _ptr(out),
+    )
+
+
+def shard_accumulate(acc, row0, dr, cr, lo, hi, pending, mask):
+    _launch(
+        "shard_apply", "tb_shard_accumulate", "shard_accumulate",
+        _ptr(acc), acc.shape[0], row0, _ptr(dr), _ptr(cr), _ptr(lo), _ptr(hi),
+        _ptr(pending), _ptr(mask), dr.shape[0],
+    )
+
+
+def shard_admit(table, acc, row0, dr, cr, reject):
+    _launch(
+        "shard_apply", "tb_shard_admit", "shard_admit",
+        _ptr(table), _ptr(acc), table.shape[0], row0, _ptr(dr), _ptr(cr), dr.shape[0],
+        _ptr(reject),
+    )
+
+
+def shard_apply(table, acc):
+    _launch("shard_apply", "tb_shard_apply", "shard_apply", _ptr(table), _ptr(acc),
+            table.shape[0])
+
+
+def shard_gather(table, row0, slots, out):
+    _launch(
+        "shard_rows", "tb_shard_gather", "shard_gather",
+        _ptr(table), table.shape[0], row0, _ptr(slots), slots.shape[0], _ptr(out),
+    )
+
+
+def shard_scatter(table, row0, slots, rows):
+    _launch(
+        "shard_rows", "tb_shard_scatter", "shard_scatter",
+        _ptr(table), table.shape[0], row0, _ptr(slots), slots.shape[0], _ptr(rows),
     )

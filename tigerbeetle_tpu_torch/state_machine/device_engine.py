@@ -59,7 +59,9 @@ root, and the host path reads the logical table built from the mirror.
 The window, ring and recovery structure and the knob defaults are the
 reference's, which a high-latency TPU link shaped; they are to be
 retuned once the H100 is measured.  Not ported yet (ROADMAP): the link
-seam and chaos shim, the degraded lifecycle and scrubs, row sharding.
+seam and chaos shim, the degraded lifecycle and scrubs, a row-sharded
+table (the sharded apply and wave executors exist outside the engine:
+``parallel/sharded.py``, ``waves._execute_plan_sharded``).
 """
 
 from __future__ import annotations

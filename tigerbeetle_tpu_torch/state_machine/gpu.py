@@ -41,7 +41,8 @@ packing it with hot slots (``_tier_translate``), the host engine admits
 them as its deltas arrive.  Not ported (ROADMAP): the native library,
 the device engine's degraded state, the host-only linked / two-phase
 fast paths (those batches take the exact path, with the same results),
-row sharding and the sharded wave executors, the query operations.
+the engine's row-sharded table (the sharded apply and wave executors
+themselves are ported: ``parallel/sharded.py``), the query operations.
 """
 
 from __future__ import annotations
@@ -1707,7 +1708,8 @@ class TorchStateMachine:
         A tiered table declines ("tier"): the wave records index the
         table by logical slot.  The reference's declines for a mesh
         ("mesh", "shard_plan") and a degraded engine cannot arise here:
-        row sharding is slice 7, the degraded state slice 6."""
+        the engine's tables are not sharded (ROADMAP slice 10b) and the
+        degraded state is not ported (slice 6)."""
         dev = self._dev
         dm = waves.dev_mode()
         if dm == "0" or n == 0 or n > _BATCH_BUCKETS[-1]:

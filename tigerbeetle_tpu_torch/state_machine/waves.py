@@ -30,9 +30,13 @@ chain wave) instead of re-gathering columns per segment.  The
 reference pads segments to compile-cache buckets (``_SEG_BUCKETS``);
 padding lanes are inactive and write nothing, so the port drops it.
 
-Where the reference's executors run on a row-sharded mesh (an ``ops``
-table-access seam and ``_sharded_fns``), the port has one dense table:
-the seam stays a comment until row sharding is ported.
+The row-sharded executor (``_execute_plan_sharded``, at the end of the
+module) runs the same kernels over the shard tables of a ("shard",)
+mesh (``parallel/sharded.py``): it gathers the rows a batch can touch
+into a compact table once (kernel K14), runs the dense executor there
+with the batch's slots remapped, and writes the rows back onto their
+owners.
+The device engine's tables stay dense (engine sharding is not ported).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import torch
 from tigerbeetle_tpu_torch import envcheck, kernels
 from tigerbeetle_tpu_torch.ops import u128 as w
 from tigerbeetle_tpu_torch.ops.u128 import MASK32, from_u64, s64, ult
+from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import kernel
 from tigerbeetle_tpu_torch.state_machine.kernel import (
     AF_CR_LIMIT,
@@ -976,7 +981,8 @@ def touched_slots(ev: dict, n: int | None = None) -> np.ndarray:
 # values held in int64 lanes, the carry read and written through
 # kernel.carry_views.  The reference's ops seam (a whole table, or a
 # shard's rows inside shard_map) has one implementation here: the dense
-# table.
+# table.  The sharded executor hands them a compact table of the batch's
+# rows instead (_execute_plan_sharded).
 
 _E_FIELD_MAP = {
     "flags": "e_flags", "dr_slot": "e_dr_slot", "cr_slot": "e_cr_slot",
@@ -1685,7 +1691,7 @@ def run_create_transfers_waves(table, ev, dstat_init, n, ts_base, plan, hist_fix
 
 
 # The device engine's wave record runs the same executor against the
-# engine's table (dense: row sharding is not ported).
+# engine's table (dense: the engine's table is not sharded yet).
 run_plan_engine = run_create_transfers_waves
 
 
@@ -1719,3 +1725,91 @@ def continue_plan_engine(table, carry, ev, n, ts_base, plan, hist_fix, scratch=N
 def finalize_engine(table, carry, hist_fix, plain=False):
     """Finalize a speculative carry whose residue is empty."""
     return _finish(table, carry, hist_fix, _fns(plain))
+
+
+# ---------------------------------------------------------------------------
+# Row-sharded executor: the reference's _execute_plan_sharded over a 1-D
+# ("shard",) mesh of shard-local tables (parallel/sharded.py).  The
+# reference runs each step body inside shard_map (_sharded_fns), every
+# row read recombined from its single owner (_ShardTableOps: sharded.
+# gather_rows) and every write landing on owned rows only.  Here the
+# rows a batch can touch are gathered once (kernel K14 gather on every
+# shard + the sum over shard) into a compact table, the dense executor
+# runs the whole plan there with the batch's slot columns remapped onto
+# it, and the rows are written back onto their owners (K14 scatter).
+# Nothing else writes the shard tables in between, so each read the
+# reference makes from the owners sees the row the compact table holds.
+# Every table access of K7, K8 and K3 finalize is a row at a clipped
+# slot of the batch's slot columns or of a created record (which copies
+# them), so the compact table serves every read, the reads in the middle
+# of K8 included, and the results are the dense executor's bit for bit.
+
+
+def plan_shardable(plan: WavePlan) -> bool:
+    """True when every segment has a sharded executor: "wave" and
+    "chains" do; "scan" segments (K3's sequential walk) keep
+    single-table scope."""
+    return all(kind in ("wave", "chains") for kind, _ in plan.segments)
+
+
+_SLOT_COLS = ("dr_slot", "cr_slot", "e_dr_slot", "e_cr_slot", "p_dr_slot", "p_cr_slot")
+_OUT_SLOT_COLS = (kernel._SCALAR_COLS.index("dr_slot"), kernel._SCALAR_COLS.index("cr_slot"))
+
+
+def _batch_rows(ev: dict, A: int) -> np.ndarray:
+    """The sorted global rows a batch can touch: every value of its slot
+    columns clipped into [0, A), with rows 0 and A - 1 (where a slot
+    outside the table clips to)."""
+    cols = [np.asarray(ev[c], np.int64) for c in _SLOT_COLS]
+    return np.unique(np.concatenate([np.clip(np.concatenate(cols), 0, A - 1), [0, A - 1]]))
+
+
+def _remap_slots(ev: dict, rows: np.ndarray, A: int) -> dict:
+    """The batch with its slot columns moved onto the compact table of
+    `rows`: a slot in [0, A) becomes its row's position, a negative slot
+    stays, a slot s >= A becomes s - A + len(rows).  The map is strictly
+    increasing (so equal, unequal and ordered slots stay so) and a
+    clip into the compact table lands on the row the clip into the
+    whole table would."""
+    out = dict(ev)
+    K = len(rows)
+    for c in _SLOT_COLS:
+        s = np.asarray(ev[c], np.int64)
+        pos = np.searchsorted(rows, np.clip(s, 0, A - 1))
+        out[c] = np.where(s < 0, s, np.where(s >= A, s - A + K, pos)).astype(np.int32)
+    return out
+
+
+def _unmap_slots(packed: torch.Tensor, rows: torch.Tensor, A: int) -> torch.Tensor:
+    """The packed outputs' created-record slots back in global rows (the
+    inverse of _remap_slots)."""
+    K = rows.numel()
+    for col in _OUT_SLOT_COLS:
+        v = packed[:, col]
+        packed[:, col] = torch.where(v < 0, v, torch.where(v < K, rows[v.clamp(0, K - 1)],
+                                                           v - K + A))
+    return packed
+
+
+def _execute_plan_sharded(tables, ev: dict, dstat_init, n: int, ts_base: int, plan: WavePlan,
+                          hist_fix: np.ndarray, mesh, scratch=None, plain: bool = False):
+    """Execute a batch by its wave plan over the shard tables of a 1-D
+    ("shard",) mesh (one (A / n_shard, 8) int64 tensor per shard, each
+    on its shard's device, updated in place): the same (B, 37) packed
+    outputs and the same joined table, bit for bit, as
+    run_create_transfers_waves on the whole table.  The caller proved
+    plan_shardable(plan).  Returns (tables, packed outputs on the mesh's
+    first device).  `plain` runs the plain versions (a reference run on
+    the card)."""
+    assert plan_shardable(plan), "scan segments have no sharded executor (plan_shardable)"
+    n_shard = mesh.shape["shard"]
+    assert len(tables) == n_shard, (len(tables), n_shard)
+    A = n_shard * tables[0].shape[0]
+    home = mesh.device(0)
+    rows = _batch_rows(ev, A)
+    slots = torch.from_numpy(rows).to(home)
+    compact = sharded.gather_rows(tables, slots, home, plain=plain)
+    packed = run_create_transfers_waves(compact, _remap_slots(ev, rows, A), dstat_init, n,
+                                        ts_base, plan, hist_fix, scratch, plain)
+    sharded.scatter_rows(tables, slots, compact, plain=plain)
+    return tables, _unmap_slots(packed, slots, A)
