@@ -16,10 +16,13 @@ into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
 slots, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
 holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
 local rows of a 2^20-row table split in 4, K14 gather and scatter at
-16,380 slots), measures one dependent L2 hit (K3's and K5's serial
-floors), then drives the port's create_transfers loop through
-SingleNodeHarness on TorchStateMachine in eleven phases, and the two
-row-sharded entry points in two more:
+row widths 8, 2 and 1 on 16,380 slots (a wave batch) and on the
+~780,000 rows of a window unit of sharded_engine, K11 with row0 on the four
+shards of a split table against the joined table's digest), measures
+one dependent L2 hit (K3's and K5's serial floors), then drives the
+port's create_transfers loop through SingleNodeHarness on
+TorchStateMachine in eleven phases, the two row-sharded entry points
+in two more, and the row-sharded engines in two more:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -73,6 +76,22 @@ row-sharded entry points in two more:
                (K14, K7, K8, K3 init and finalize), timed three times;
                packed outputs and the joined table equal the dense
                executor's and a plain-version run's
+  sharded_engine  device engine, devices=[cuda:0] * 4: its tables in 4
+               shards of a 2^20-row table.  gen_simple's 1,000,000
+               transfers (K1 window units and their K2 updates on one
+               compact table: K14 gathers and scatters around it, K2 rebuild per
+               shard), then 32 full batches of pending / post pairs with
+               balancing riders under TB_DEV_WAVES=1 (wave records
+               through the sharded executor; two batches with a pending
+               between history accounts decline "shard_plan"); no
+               speculation.  Each stream timed three times; replies,
+               lookups, root, tables and the K11 digest equal the
+               unsharded engine's and a plain-version sharded run's
+  sharded_host  host engine on the same mesh: gen_simple's stream (K4
+               flushes on compact rows) and one linked batch (the exact
+               path on the joined table, written back onto the shards),
+               ending with the checkpoint tripwire (K11 per shard);
+               timed three times, held as sharded_engine is
 
 All the shards of a mesh lie on the one card: copies between shards
 are device-local, and no time here is a multi-GPU one.
@@ -108,7 +127,7 @@ import time
 import numpy as np
 import torch
 
-from tigerbeetle_tpu_torch import kernels
+from tigerbeetle_tpu_torch import envcheck, kernels
 from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.kernels import build
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
@@ -637,6 +656,29 @@ def check_tier_kernels(dev, report):
         else:
             report["checksum"]["meta"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                                               bound_ms=bound_ms)
+    # K11 with row0: the table split in SHARDS, each shard's digest under
+    # its first global row, summed mod 2^64, is the joined table's.
+    local = A_ROWS // SHARDS
+    for name, tab in (("balances", table), ("meta", meta)):
+        parts = [dk.checksum(tab[s * local:(s + 1) * local].contiguous(), s * local)
+                 for s in range(SHARDS)]
+        plain = [dk.checksum_plain(tab[s * local:(s + 1) * local], s * local)
+                 for s in range(SHARDS)]
+        torch.cuda.synchronize()
+        errs += [max_abs_err(a, b) for a, b in zip(parts, plain)]
+        check(max(errs) == 0, f"K11 checksum[{name}] with row0: kernel differs from plain")
+        check(torch.equal(torch.stack(parts).sum(0), dk.checksum(tab)),
+              f"K11 checksum[{name}]: the {SHARDS} shards' row0 digests do not sum to the "
+              "joined table's")
+    shard = table[local:2 * local].contiguous()
+    ms, dev_ms = kernel_ms(lambda: dk.checksum(shard, local), names=("checksum",))
+    bound_ms, _ = bound(shard.numel() * 8 + 16 * 8, shard.numel() * 4)
+    report["checksum"]["row0"] = dict(ms=ms, device_ms=dev_ms, bound_ms=bound_ms,
+                                      timed_case=f"shard 1 of {SHARDS}: ({local}, 8), "
+                                                 f"row0={local}")
+    print(f"K11 checksum with row0 ({SHARDS} shards of {local} rows, balances and meta): "
+          f"bit-exact, shard digests sum to the joined table's; one shard {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms)} (bound {bound_ms * 1e3:.3f} us)")
     report["checksum"]["max_abs_err"] = max(errs)
 
 
@@ -656,9 +698,10 @@ def check_shard_kernels(dev, report):
     plain versions on the card, bit for bit, at the sharded phases'
     shapes: an 8190-event slice onto shard 1 of a 2^20-row table split
     in 4 (2^18 local rows; 64 rows of the table within 2^40 of 2^128,
-    so events reject), K = 16,380 gathered and scattered slots.  K12 is
-    timed beside Tensor.index_put_(accumulate=True) and K14 gather
-    beside index_select + where."""
+    so events reject); K14 at W = 8, 2 and 1 on K = 16,380 slots (a wave
+    batch's) and on a window unit's rows (window_unit_rows).  K12 is
+    timed beside Tensor.index_put_(accumulate=True), K14 gather beside
+    index_select + where and its scatter beside index_copy_."""
     local = A_ROWS // SHARDS
     shard = 1
     row0 = shard * local
@@ -740,47 +783,80 @@ def check_shard_kernels(dev, report):
           f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
 
     rng = np.random.default_rng(2041)
-    slots = torch.from_numpy(np.sort(rng.choice(A_ROWS, SHARD_GATHER_K, replace=False))).to(dev)
-    K = slots.numel()
-    owned = int(((slots >= row0) & (slots < row0 + local)).sum())
+    batch = torch.from_numpy(np.sort(rng.choice(A_ROWS, SHARD_GATHER_K, replace=False))).to(dev)
+    window = torch.from_numpy(window_unit_rows(rng)).to(dev)
+    for key, slots in (("widths", batch), ("window_unit", window)):
+        for W in (8, 2, 1):
+            t = table if W == 8 else torch.from_numpy(
+                rng.integers(-(1 << 63), (1 << 63) - 1, (local, W))).to(dev)
+            gather, scatter = k14_case(t, slots, shard, rng)
+            if key == "widths" and W == 8:
+                # The headline: the wave executor's batch at the balances' width.
+                report["shard_gather"], report["shard_scatter"] = gather, scatter
+            else:
+                report["shard_gather"].setdefault(key, {})[W] = gather
+                report["shard_scatter"].setdefault(key, {})[W] = scatter
+
+
+def window_unit_rows(rng) -> np.ndarray:
+    """The rows one window unit of sharded_engine/simple gathers: the
+    compact rows (sharded.compact_rows) of a window of gen_simple
+    batches on the 2^20-row table, each event debiting a uniform account
+    d of N_ACCOUNTS and crediting d % N_ACCOUNTS + 1 (~780,000 rows at
+    the default window of 96 batches)."""
+    d = rng.integers(0, N_ACCOUNTS, envcheck.dev_window() * workload.BATCH)
+    return sharded.compact_rows(np.concatenate([d, (d + 1) % N_ACCOUNTS]), A_ROWS)
+
+
+def k14_case(table, slots, shard, rng):
+    """K14 gather and scatter of the global `slots` on the (local_rows,
+    W) shard `table` of a 2^20-row table against the plain versions, bit
+    for bit; each timed beside index_select + where (gather) and
+    index_copy_ (scatter).  Returns the gather's and the scatter's
+    report entries."""
+    local, W = table.shape
+    own, rel = sharded.own_rows(slots, local, shard)
+    K, owned = slots.numel(), int(own.sum())
+    case = f"K={K} slots of 2^20, {owned} owned, W={W}"
     got = sharded.gather_part(table, slots, shard)
     want = sharded.gather_part_plain(table, slots, shard)
     torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    check(err == 0, "K14 shard_gather: kernel differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: sharded.gather_part(table, slots, shard),
-                           names=("shard_gather",))
-    plain_ms = time_ms(lambda: sharded.gather_part_plain(table, slots, shard), reps=10)
-    own, rel = sharded.own_rows(slots, local, shard)
+    err_g = max_abs_err(got, want)
+    check(err_g == 0, f"K14 shard_gather ({case}): kernel differs from the plain version")
+    g_ms, g_dev = kernel_ms(lambda: sharded.gather_part(table, slots, shard),
+                            names=("shard_gather",))
+    g_plain = time_ms(lambda: sharded.gather_part_plain(table, slots, shard), reps=10)
     own2 = own[:, None]
-    lib_ms, lib_dev_ms = kernel_ms(lambda: torch.where(own2, table.index_select(0, rel), 0))
+    g_lib, g_lib_dev = kernel_ms(lambda: torch.where(own2, table.index_select(0, rel), 0))
     check(torch.equal(torch.where(own2, table.index_select(0, rel), 0), got),
-          "K14 gather and index_select + where disagree")
-    bound_ms, bound_by = bound(K * 8 + owned * 64 + K * 64, K * 8)
-    report["shard_gather"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                  library_device_ms=lib_dev_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, max_abs_err=err,
-                                  timed_case=f"K={K} slots of 2^20, {owned} owned")
-    print(f"K14 shard_gather (K={K} slots, {owned} owned): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, index_select + where "
-          f"{lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms)}")
-
-    new = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (K, 8))).to(dev)
+          f"K14 gather and index_select + where disagree ({case})")
+    g_bound, g_by = bound(K * 8 + owned * 8 * W + K * 8 * W, K * W)
+    new = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (K, W))).to(table.device)
     t_k, t_p = table.clone(), table.clone()
     sharded.scatter_part(t_k, slots, new, shard)
     sharded.scatter_part_plain(t_p, slots, new, shard)
     torch.cuda.synchronize()
-    err = max_abs_err(t_k, t_p)
-    check(err == 0, "K14 shard_scatter: kernel differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: sharded.scatter_part(t_k, slots, new, shard),
-                           names=("shard_scatter",))
-    plain_ms = time_ms(lambda: sharded.scatter_part_plain(t_p, slots, new, shard), reps=10)
-    bound_ms, bound_by = bound(K * 8 + K * 64 + owned * 64, K * 8)
-    report["shard_scatter"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                                   bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                                   timed_case=f"K={K} slots of 2^20, {owned} owned")
-    print(f"K14 shard_scatter (K={K} slots, {owned} owned): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+    err_s = max_abs_err(t_k, t_p)
+    check(err_s == 0, f"K14 shard_scatter ({case}): kernel differs from the plain version")
+    s_ms, s_dev = kernel_ms(lambda: sharded.scatter_part(t_k, slots, new, shard),
+                            names=("shard_scatter",))
+    s_plain = time_ms(lambda: sharded.scatter_part_plain(t_p, slots, new, shard), reps=10)
+    rel_own, new_own = rel[own].contiguous(), new[own].contiguous()
+    s_lib, s_lib_dev = kernel_ms(lambda: t_k.index_copy_(0, rel_own, new_own))
+    # The scatter reads every slot but only the owned entries' rows.
+    s_bound, s_by = bound(K * 8 + 2 * owned * 8 * W, K * W)
+    print(f"K14 W={W} ({case}): bit-exact; gather {g_ms * 1e3:.1f} us, {_dev(g_dev)} "
+          f"{_vs(g_plain, g_bound)}, index_select + where {g_lib * 1e3:.1f} us, "
+          f"{_dev(g_lib_dev)}; scatter {s_ms * 1e3:.1f} us, {_dev(s_dev)} "
+          f"{_vs(s_plain, s_bound)}, index_copy_ {s_lib * 1e3:.1f} us, {_dev(s_lib_dev)}")
+    return (
+        dict(ms=g_ms, device_ms=g_dev, plain_ms=g_plain, library_ms=g_lib,
+             library_device_ms=g_lib_dev, bound_ms=g_bound, bound_by=g_by, max_abs_err=err_g,
+             timed_case=case),
+        dict(ms=s_ms, device_ms=s_dev, plain_ms=s_plain, library_ms=s_lib,
+             library_device_ms=s_lib_dev, bound_ms=s_bound, bound_by=s_by, max_abs_err=err_s,
+             timed_case=case),
+    )
 
 
 CEILING_ROWS = 64  # rows past the accounts seeded within 2^40 of 2^128
@@ -1383,16 +1459,20 @@ def _submit(h, item):
 
 
 def run_stream(setup, timed, account_capacity, transfer_capacity, plain, engine,
-               profile=False):
+               profile=False, devices=None, checkpoint=False, named=()):
     """Drive one stream through the harness.  The launch counts are set
     to 0 just before the state machine is built and read just after the
-    stream has drained (device engine) or flushed (host engine).
-    Returns (machine, replies, seconds of the timed batches, launches,
-    device trace or None)."""
+    stream has drained (device engine) or flushed (host engine), and
+    after the checkpoint tripwire (verify_device_mirror) when
+    `checkpoint`.  `devices` is the machine's device list (None: every
+    visible card, as a user's call).  Returns (machine, replies, seconds
+    of the timed batches, launches, device trace or None); the trace
+    carries a third item, {key: device ms} of the device functions whose
+    names hold each key of `named`, when `named` is given."""
     kernels.reset_launches()
     sm = TorchStateMachine(
         account_capacity=account_capacity, transfer_capacity=transfer_capacity,
-        plain=plain, engine=engine,
+        plain=plain, engine=engine, devices=devices,
     )
     h = SingleNodeHarness(sm)
     replies = [h.submit(op, body) for op, body in setup]
@@ -1411,8 +1491,13 @@ def run_stream(setup, timed, account_capacity, transfer_capacity, plain, engine,
             sm._dev.read()  # the write-behind lane's flush barrier
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
+    if checkpoint:
+        sm.verify_device_mirror()
     launches = dict(kernels.launches)
-    return sm, replies, elapsed, launches, (device_busy(prof) if profile else None)
+    trace = device_busy(prof) if profile else None
+    if trace is not None and named:
+        trace = trace + (device_named_ms(prof, named),)
+    return sm, replies, elapsed, launches, trace
 
 
 def device_profiler():
@@ -1443,9 +1528,25 @@ def device_busy(prof) -> tuple[float, list] | None:
     return busy_us / 1e3, [(name[:48], round(us / 1e3, 3)) for name, us in top]
 
 
+def device_named_ms(prof, keys) -> dict:
+    """{key: device ms of the trace's device functions whose name holds
+    key}."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(keys, 0.0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for key in keys:
+                if key in e.name:
+                    out[key] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
 # Host wall-clock split of the engine (upload + launch enqueue, ring
 # fetch = the one device synchronisation per window, host bookkeeping).
-ENGINE_TIMERS = ("stat_t_h2d", "stat_t_dispatch", "stat_t_fetch", "stat_t_finish")
+# stat_t_rows and stat_t_remap are the sharded engine's parts of h2d.
+ENGINE_TIMERS = ("stat_t_h2d", "stat_t_rows", "stat_t_remap", "stat_t_dispatch",
+                 "stat_t_fetch", "stat_t_finish")
 
 
 def transfer_events(ops) -> int:
@@ -1474,7 +1575,7 @@ def tables_of(sm):
     if sm.engine == "device":
         return sm._dev.to_numpy_tables()
     sm._dev.flush()
-    return (to_u64(sm._dev.balances),)
+    return (to_u64(sharded.dense(sm._dev.balances)),)
 
 
 def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
@@ -1533,10 +1634,7 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
         check(cm.root_bytes(host_digest(sm)) == root,
               f"{name}: digest of the device table != host root")
     check_launches = dict(kernels.launches)
-    if engine == "device":
-        split = " ".join(f"{t[7:]}={getattr(dev, t):.3f}s" for t in ENGINE_TIMERS)
-    else:
-        split = f"flushes={dev.stat_flushes}"
+    split = engine_split(dev)
     exact = (f"exact batches {sm.stat_exact_batches} ({sm.stat_exact_events} events); "
              f"K5 batches {sm.stat_linked_batches} (mean fixpoint iterations "
              f"{sm.stat_resolve_iters / max(sm.stat_linked_batches, 1):.2f}); "
@@ -1807,6 +1905,208 @@ def run_tiering_phase(name, engine, warm, timed, must):
     return launches, check_launches
 
 
+# ---------------------------------------------------------------------------
+# The row-sharded engines: the state machine's tables split in SHARDS over
+# a ("shard",) mesh of the one card (devices=[cuda:0] * SHARDS).
+
+SHARDED_RUNS = 3       # timed runs of each sharded stream
+PV_HISTORY = (7, 23)   # batches with a pending between history accounts
+CARD = torch.device("cuda", 0)  # the card every shard lies on
+
+
+def sharded_stream(name, setup, timed, capacity, engine, must, extra=None):
+    """One stream on the row-sharded engine: SHARDED_RUNS timed runs (the
+    first is the main path's, its launch counts read after the drain, and
+    after the checkpoint tripwire on the host engine), the checks, an
+    unsharded control run (profiled) and a plain-version sharded run
+    (replies, root, tables and the K11 table digest equal), and a
+    profiled sharded run (busy share, K14 device time per window).
+    Returns (main-path launches, check launches)."""
+    devices = [CARD] * SHARDS
+    tc = transfer_events(setup + timed) + 1024
+    n_timed = transfer_events(timed)
+    rates, main = [], None
+    for _ in range(SHARDED_RUNS):
+        sm, replies, elapsed, launches, _ = run_stream(
+            setup, timed, capacity, tc, False, engine, devices=devices,
+            checkpoint=engine == "host")
+        rates.append(n_timed / elapsed)
+        if main is None:
+            main = (sm, replies, launches)
+        else:
+            check(replies == main[1], f"{name}: a timed run's replies differ from the first's")
+            del sm
+            torch.cuda.empty_cache()
+    sm, replies, launches = main
+    del main
+    dev = sm._dev
+    check(isinstance(dev.balances, sharded.ShardedTable) and len(dev.balances.shards) == SHARDS,
+          f"{name}: the table is not split in {SHARDS} shards")
+    for kname in must + ("shard_gather", "shard_scatter"):
+        check(launches[kname] > 0, f"{name}: {kname} was not launched")
+    check(launches["exact_scan"] == sm.stat_exact_batches,
+          f"{name}: {launches['exact_scan']} K3 launches != {sm.stat_exact_batches}")
+    check(launches["exact_init"] == launches["exact_finalize"]
+          == sm.stat_wave_batches + sm.stat_dev_wave_batches,
+          f"{name}: K3 init / finalize launches != wave executions")
+    resolved = sm.stat_device_semantic_events + sm.stat_host_semantic_events
+    check(resolved == transfer_events(setup + timed), f"{name}: {resolved} events resolved")
+    check(sm.stat_fallback_events == 0, f"{name}: unexpected fallback")
+    if engine == "device":
+        check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
+        check(launches["spec_conflicts"] == 0 and not any(dev.spec_stats.values()),
+              f"{name}: a sharded engine speculated")
+    if extra is not None:
+        extra(sm, launches)
+    kernels.reset_launches()
+    sm.verify_device_mirror()
+    root = sm.state_root()
+    if engine == "device":
+        pair = dev.commit_probe()
+        check(cm.root_bytes(pair[0]) == root and cm.root_bytes(pair[1]) == root,
+              f"{name}: device digest != host root")
+        digest = dev.checksum()
+    else:
+        digest = dev.device_checksum()
+    check((digest == sm._mirror.checksum8(dev.capacity)).all(),
+          f"{name}: the shards' K11 digest != the mirror's")
+    tables = tables_of(sm)
+    check_launches = dict(kernels.launches)
+    windows = dev.stat_windows if engine == "device" else dev.stat_flushes
+    split = engine_split(dev)
+    counters = (f"K3 batches {sm.stat_exact_batches}; K5 batches {sm.stat_linked_batches}; "
+                f"K6 batches {sm.stat_two_phase_batches}; {wave_counters(sm)}; "
+                f"stat_wave_sharded {getattr(dev, 'stat_wave_sharded', 0)}")
+    del sm, dev
+    torch.cuda.empty_cache()
+
+    ctl, ctl_replies, ctl_s, _, ctl_trace = run_stream(
+        setup, timed, capacity, tc, False, engine, profile=True, devices=devices[:1],
+        checkpoint=engine == "host")
+    check(ctl._dev.sharding is None, f"{name}: the control run is sharded")
+    check(ctl_replies == replies, f"{name}: replies differ from the unsharded engine's")
+    check(ctl.state_root() == root, f"{name}: root differs from the unsharded engine's")
+    check(all((a == b).all() for a, b in zip(tables, tables_of(ctl))),
+          f"{name}: tables differ from the unsharded engine's")
+    ctl_digest = ctl._dev.checksum() if engine == "device" else ctl._dev.device_checksum()
+    check((ctl_digest == digest).all(), f"{name}: K11 digest differs from the unsharded one")
+    ctl_split = engine_split(ctl._dev)
+    del ctl
+    torch.cuda.empty_cache()
+
+    ref, ref_replies, ref_s, ref_launches, _ = run_stream(
+        setup, timed, capacity, tc, True, engine, devices=devices)
+    check(ref_launches["shard_gather"] == ref_launches["shard_scatter"] == 0,
+          f"{name}: the plain-version run launched K14")
+    check(ref_replies == replies, f"{name}: replies differ from the plain-version run")
+    check(ref.state_root() == root, f"{name}: root differs from the plain-version run")
+    check(all((a == b).all() for a, b in zip(tables, tables_of(ref))),
+          f"{name}: tables differ from the plain-version run")
+    del ref
+    torch.cuda.empty_cache()
+
+    prof_sm, prof_replies, prof_s, _, trace = run_stream(
+        setup, timed, capacity, tc, False, engine, profile=True, devices=devices,
+        named=("shard_gather", "shard_scatter"))
+    check(prof_replies == replies, f"{name}: replies differ in the profiled run")
+    del prof_sm
+    torch.cuda.empty_cache()
+    k14 = "not measured (no device activity in the trace)"
+    if trace is not None:
+        named = trace[2]
+        k14 = (f"gather {named['shard_gather'] * 1e3 / max(windows, 1):.1f} us, scatter "
+               f"{named['shard_scatter'] * 1e3 / max(windows, 1):.1f} us per "
+               f"{'window' if engine == 'device' else 'flush'} ({windows}; device time, "
+               f"profiled run)")
+        trace = trace[:2]
+    ordered = sorted(rates)
+    print(f"phase {name} ({engine} engine, {capacity} rows in {SHARDS} shards of one card): "
+          f"{n_timed} timed events; {SHARDED_RUNS} runs "
+          f"{', '.join(f'{r:.0f}' for r in rates)} events/s (median "
+          f"{ordered[len(ordered) // 2]:.0f}, min {ordered[0]:.0f}, max {ordered[-1]:.0f}); "
+          f"device busy {_busy_line(trace, prof_s)}; K14 {k14}; engine split {split}; "
+          f"unsharded control {n_timed / ctl_s:.0f} events/s under the profiler, device busy "
+          f"{_busy_line(ctl_trace, ctl_s)}, engine split {ctl_split}; plain-version sharded run "
+          f"{n_timed / ref_s:.0f} events/s; {counters}; main-path launches {launches}; "
+          f"check launches {check_launches}; root {root.hex()}; replies, root, tables and "
+          f"K11 digest equal the unsharded engine's and the plain run's; checks passed")
+    return launches, check_launches
+
+
+def engine_split(dev) -> str:
+    """The device engine's host wall-clock split over the timed batches
+    (upload, of which sharded the units' rows and the remap; launch
+    enqueue; ring fetch; bookkeeping); the host engine's flush count."""
+    if not hasattr(dev, "stat_t_h2d"):
+        return f"flushes={dev.stat_flushes}"
+    return " ".join(f"{t[7:]}={getattr(dev, t):.3f}s" for t in ENGINE_TIMERS)
+
+
+def _sum_launches(parts):
+    return {k: sum(p[k] for p in parts) for k in parts[0]}
+
+
+def run_sharded_engine_phase():
+    """Phase sharded_engine: the device engine over 4 shards of a 2^20-row
+    table.  Two streams: gen_simple's 1,000,000 transfers (K1 windows on
+    compact rows, K2 update on compact rows) and 32 full batches of
+    (pending, post) pairs with balancing riders under TB_DEV_WAVES=1
+    (wave records through the sharded executor; the PV_HISTORY batches
+    name history accounts, so their plans need a scan segment and
+    decline "shard_plan")."""
+    setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
+    check(sizing[0] == A_ROWS, "sharded_engine: table is not 2^20 rows")
+    simple = sharded_stream("sharded_engine/simple", setup, timed, A_ROWS, "device",
+                            must=("orderfree", "commit_update", "commit_rebuild"))
+    setup, timed = shard_cases.pv_balancing_stream(2060, WAVE_BATCHES, workload.BATCH,
+                                                   N_ACCOUNTS, PV_HISTORY)
+
+    def routed(sm, launches):
+        waved = WAVE_BATCHES - len(PV_HISTORY)
+        check(sm.stat_dev_wave_decline_reasons == {"shard_plan": len(PV_HISTORY)},
+              f"sharded_engine/pv: declines {sm.stat_dev_wave_decline_reasons}, want "
+              f"shard_plan exactly at the {len(PV_HISTORY)} history batches")
+        check(sm.stat_dev_wave_batches == sm._dev.stat_wave_sharded == waved,
+              f"sharded_engine/pv: {sm._dev.stat_wave_sharded} sharded wave records of {waved}")
+
+    with knobs(TB_DEV_WAVES="1"):
+        pv = sharded_stream("sharded_engine/pv", setup, timed, A_ROWS, "device",
+                            must=("wave_step",), extra=routed)
+    return _sum_launches([simple[0], pv[0]]), _sum_launches([simple[1], pv[1]])
+
+
+def linked_exact_batch(n_accounts, tid0):
+    """One create_transfers batch of 2,730 three-member linked chains
+    between random accounts: the host engine's exact path (read, a wave
+    plan or K3 on the joined table, write_back)."""
+    rng = np.random.default_rng(2061)
+    B = workload.BATCH
+    dr = rng.integers(1, n_accounts + 1, B).astype(np.uint64)
+    cr = dr % np.uint64(n_accounts) + np.uint64(1)
+    flags = np.where(np.arange(B) % 3 < 2, int(TransferFlags.linked), 0).astype(np.uint16)
+    return (Operation.create_transfers, workload.transfers_bytes(
+        np.arange(tid0, tid0 + B, dtype=np.uint64), dr, cr,
+        rng.integers(1, 100, B).astype(np.uint64), flags=flags))
+
+
+def run_sharded_host_phase():
+    """Phase sharded_host: the host engine over 4 shards of a 2^20-row
+    table, gen_simple's stream (K4 flushes on compact rows) and one
+    linked batch (the exact path through read / write_back), ending with
+    the checkpoint tripwire (K11 per shard)."""
+    setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
+    timed = timed + [linked_exact_batch(N_ACCOUNTS, workload.TID0 + N_TRANSFERS)]
+
+    def exact_ran(sm, launches):
+        check(sm.stat_exact_batches + sm.stat_wave_batches == 1,
+              "sharded_host: the linked batch did not take the exact path")
+        check(launches["checksum"] == SHARDS, f"sharded_host: {launches['checksum']} K11 "
+                                              f"launches at the checkpoint, want {SHARDS}")
+
+    return sharded_stream("sharded_host", setup, timed, sizing[0], "host",
+                          must=("apply_deltas", "checksum"), extra=exact_ran)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1915,6 +2215,8 @@ def main() -> int:
         "tiered_host", "host", warm, timed, must=("apply_deltas", "tier_set_rows", "checksum"))
     phases["sharded_apply"] = run_sharded_apply_phase(dev)
     phases["sharded_waves"] = run_sharded_waves_phase(dev)
+    phases["sharded_engine"] = run_sharded_engine_phase()
+    phases["sharded_host"] = run_sharded_host_phase()
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")
@@ -1979,7 +2281,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "verified": True,
         }
         for key in ("serial_floor_ms", "plain_on", "iters", "timed_case", "k128", "meta",
-                    "library_device_ms"):
+                    "library_device_ms", "widths", "window_unit", "row0"):
             if key in r:
                 row[key] = r[key]
         rows.append(row)

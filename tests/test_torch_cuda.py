@@ -544,3 +544,92 @@ def test_sharded_paths_on_card_match_plain_and_dense(card):
             assert torch.equal(packed, want), name
             np.testing.assert_array_equal(shard_cases.join_tables(tables),
                                           dense.cpu().numpy().view(np.uint64))
+
+
+@pytest.mark.parametrize("width", [1, 2, 8])
+def test_shard_rows_kernel_at_width_matches_plain(card, width):
+    """K14 gather and scatter at the row layer's widths (meta W = 1, row
+    hashes W = 2, balances W = 8) against the plain versions, with -1
+    and out-of-table slots."""
+    rng = np.random.default_rng(width)
+    local, shard = 1 << 10, 3
+    t = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (local, width))).to(card)
+    slots = torch.from_numpy(np.concatenate([rng.choice(8 * local, 500, replace=False),
+                                             [-1, 8 * local]])).to(card)
+    assert torch.equal(sharded.gather_part(t, slots, shard),
+                       sharded.gather_part_plain(t, slots, shard))
+    new = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, (502, width))).to(card)
+    t_k, t_p = t.clone(), t.clone()
+    sharded.scatter_part(t_k, slots, new, shard)
+    sharded.scatter_part_plain(t_p, slots, new, shard)
+    assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("dtype,cols", [(torch.int64, 8), (torch.int32, 2)])
+def test_checksum_row0_kernel_matches_plain(card, dtype, cols):
+    """K11 with row0 against its plain version; four shards' digests sum
+    to the joined table's."""
+    rng = np.random.default_rng(cols)
+    hi = (1 << 62) if dtype == torch.int64 else (1 << 31) - 1
+    table = torch.from_numpy(rng.integers(-hi, hi, (1 << 14, cols))).to(dtype).to(card)
+    local = table.shape[0] // 4
+    parts = [dk.checksum(table[s * local:(s + 1) * local].contiguous(), s * local)
+             for s in range(4)]
+    for s, p in enumerate(parts):
+        assert torch.equal(p, dk.checksum_plain(table[s * local:(s + 1) * local], s * local))
+    assert torch.equal(torch.stack(parts).sum(0), dk.checksum(table))
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_sharded_engine_on_card_matches_unsharded(card, engine, monkeypatch):
+    """Either engine over 4 shards of the card against the unsharded
+    engine on the same stream (gen_simple plus the offkernel shapes):
+    replies, root and tables equal; the sharded run went through K14."""
+    monkeypatch.setenv("TB_DEV_WAVES", "1")
+    setup, timed, sizing = workload.gen_simple(3 * 8190, n_accounts=20_000)
+    s2, t2, _ = workload.gen_offkernel(2 * 8190, n_accounts=20_001)
+    ops = setup + timed + s2[1:] + t2
+    out = []
+    for devices in ([card] * 4, [card]):
+        kernels.reset_launches()
+        sm = TorchStateMachine(account_capacity=1 << 15, transfer_capacity=1 << 17,
+                               engine=engine, devices=devices)
+        h = SingleNodeHarness(sm)
+        replies = [f.result() for f in [h.submit_async(op, body) for op, body in ops]]
+        sm.verify_device_mirror()
+        table = sharded.dense(sm._dev.read() if engine == "host" else sm._dev.balances)
+        out.append((replies, sm.state_root(), table.cpu(), dict(kernels.launches)))
+    assert out[0][:2] == out[1][:2] and torch.equal(out[0][2], out[1][2])
+    assert out[0][3]["shard_gather"] > 0 and out[1][3]["shard_gather"] == 0
+
+
+@pytest.mark.parametrize("hot", [None, 1 << 12])
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_sharded_engine_across_cards_matches_one_card(card, engine, hot, monkeypatch):
+    """Either engine built with no device named: its tables shard over
+    every visible card, each shard's kernels launched on its own card's
+    stream.  Replies, root and tables equal a dense engine's on cuda:0
+    (TB_DEV_WAVES=1 sends the offkernel batches through the sharded wave
+    executor; a 4096-row hot set takes K10 and K2 admit per shard)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    monkeypatch.setenv("TB_DEV_WAVES", "1")
+    if hot is not None:
+        monkeypatch.setenv("TB_HOT_CAPACITY", str(hot))
+    setup, timed, _ = workload.gen_simple(3 * 8190, n_accounts=20_000)
+    s2, t2, _ = workload.gen_offkernel(2 * 8190, n_accounts=20_001)
+    ops = setup + timed + s2[1:] + t2
+    out = []
+    for devices in (None, [card]):
+        sm = TorchStateMachine(account_capacity=1 << 15, transfer_capacity=1 << 17,
+                               engine=engine, devices=devices)
+        if devices is None:
+            shards = sm._dev.balances.shards
+            assert len({t.device for t in shards}) == n == len(shards)
+        h = SingleNodeHarness(sm)
+        replies = [f.result() for f in [h.submit_async(op, body) for op, body in ops]]
+        sm.verify_device_mirror()
+        table = sharded.dense(sm._dev.read() if engine == "host" else sm._dev.balances)
+        out.append((replies, sm.state_root(), table.cpu()))
+    assert out[0][:2] == out[1][:2] and torch.equal(out[0][2], out[1][2])

@@ -7,9 +7,13 @@
 // balances) or u32 words (the account meta, zero-extended), the 2C u64
 // words
 //   out[j]     = sum_r v[r, j]                          (mod 2^64)
-//   out[C + j] = sum_r v[r, j] * (r * GOLDEN + 1)       (mod 2^64)
+//   out[C + j] = sum_r v[r, j] * ((row0 + r) * GOLDEN + 1)  (mod 2^64)
 // The checkpoint tripwire and the engines' health digests compare these
-// words with the host's digest of the mirror.
+// words with the host's digest of the mirror.  `row0` is the global
+// index of the table's first row: a row-sharded table's shards each
+// mix their rows under their global indices, so the shards' words add
+// up (mod 2^64) to the words of the joined table; row0 = 0 is the
+// whole table.
 //
 // What bounds it on the H100: bytes.  Every word is read once (64 MiB
 // for a 2^20-row balance table, ~20 us at 3.35 TB/s); per word one
@@ -32,7 +36,7 @@ constexpr int MAX_C = 32;
 constexpr uint64_t GOLDEN = 0x9E3779B97F4A7C15ull;
 
 template <typename T>
-__global__ void checksum_kernel(const T* __restrict__ table, int64_t R,
+__global__ void checksum_kernel(const T* __restrict__ table, int64_t R, int64_t row0,
                                 int C, int log2c,
                                 unsigned long long* __restrict__ out) {
   __shared__ unsigned long long s_col[WARPS][MAX_C];
@@ -42,7 +46,7 @@ __global__ void checksum_kernel(const T* __restrict__ table, int64_t R,
   for (int64_t e = (int64_t)blockIdx.x * THREADS + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * THREADS) {
     const unsigned long long v = (unsigned long long)table[e];
-    const unsigned long long row = (unsigned long long)(e >> log2c);
+    const unsigned long long row = (unsigned long long)(row0 + (e >> log2c));
     col += v;
     mix += v * (row * GOLDEN + 1ull);
   }
@@ -81,8 +85,9 @@ extern "C" const char* tb_error_string(int err) {
 }
 
 // out: 2C u64 words, zeroed by the caller.  C a power of two <= 32;
-// word_bytes 8 (u64) or 4 (u32, zero-extended).
-extern "C" int tb_checksum(const void* table, int64_t R, int C,
+// word_bytes 8 (u64) or 4 (u32, zero-extended); row0 the first row's
+// global index.
+extern "C" int tb_checksum(const void* table, int64_t R, int64_t row0, int C,
                            int word_bytes, void* out, void* stream) {
   int log2c = 0;
   while ((1 << log2c) < C) ++log2c;
@@ -96,10 +101,10 @@ extern "C" int tb_checksum(const void* table, int64_t R, int C,
     auto* o = static_cast<unsigned long long*>(out);
     if (word_bytes == 8) {
       checksum_kernel<uint64_t><<<grid, THREADS, 0, s>>>(
-          static_cast<const uint64_t*>(table), R, C, log2c, o);
+          static_cast<const uint64_t*>(table), R, row0, C, log2c, o);
     } else {
       checksum_kernel<uint32_t><<<grid, THREADS, 0, s>>>(
-          static_cast<const uint32_t*>(table), R, C, log2c, o);
+          static_cast<const uint32_t*>(table), R, row0, C, log2c, o);
     }
   }
   return (int)cudaGetLastError();

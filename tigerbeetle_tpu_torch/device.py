@@ -23,4 +23,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {device!r} requested but CUDA is unavailable")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -3,10 +3,10 @@
 Every binding takes CUDA tensors the caller has already checked (the
 wrappers in ``state_machine/device_kernels.py``,
 ``state_machine/commitment.py``, ``state_machine/waves.py`` and
-``parallel/sharded.py`` do), launches on PyTorch's current
-stream without synchronising, raises on a non-zero CUDA status, and
-adds one to its entry in ``launches``.  Nothing here imports or builds
-anything until the first launch.
+``parallel/sharded.py`` do), launches on the current stream of the
+device its tensors lie on without synchronising, raises on a non-zero
+CUDA status, and adds one to its entry in ``launches``.  Nothing here
+imports or builds anything until the first launch.
 """
 
 from __future__ import annotations
@@ -69,8 +69,8 @@ _SIGNATURES = {
         "tb_tier_set_rows": [_P, _I64, _I, _I, _P, _P, _I64, _P],
     },
     "checksum": {
-        # table, R, C, word_bytes, out, stream
-        "tb_checksum": [_P, _I64, _I, _I, _P, _P],
+        # table, R, row0, C, word_bytes, out, stream
+        "tb_checksum": [_P, _I64, _I64, _I, _I, _P, _P],
     },
     "shard_apply": {
         # acc, local_rows, row0, dr, cr, lo, hi, pending, mask (nullable),
@@ -82,9 +82,9 @@ _SIGNATURES = {
         "tb_shard_apply": [_P, _P, _I64, _P],
     },
     "shard_rows": {
-        # table, local_rows, row0, slots, k, out / rows, stream
-        "tb_shard_gather": [_P, _I64, _I64, _P, _I64, _P, _P],
-        "tb_shard_scatter": [_P, _I64, _I64, _P, _I64, _P, _P],
+        # table, local_rows, row0, slots, k, width, out / rows, stream
+        "tb_shard_gather": [_P, _I64, _I64, _P, _I64, _I64, _P, _P],
+        "tb_shard_scatter": [_P, _I64, _I64, _P, _I64, _I64, _P, _P],
     },
     "exact_scan": {
         # table, A, ev, B, dstat_init, n, ts_base, scratch, out, stream
@@ -153,8 +153,14 @@ def _fn(lib: str, symbol: str):
 
 
 def _launch(lib: str, symbol: str, count_as: str | None, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = _fn(lib, symbol)(*args, stream)
+    """Call `symbol` with `args` (tensors pass as their data pointers,
+    None as a null pointer) on the current stream of the device of the
+    first tensor argument, with that device current: a shard's tensors
+    may lie on another card than the current one."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        rc = _fn(lib, symbol)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         msg = _FNS[lib + ".err"](rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
@@ -162,33 +168,29 @@ def _launch(lib: str, symbol: str, count_as: str | None, *args) -> None:
         launches[count_as] += 1
 
 
-def _ptr(t: torch.Tensor | None) -> int | None:
-    return None if t is None else t.data_ptr()
-
-
 def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch):
     _launch(
         "orderfree", "tb_orderfree", "orderfree",
-        _ptr(table), _ptr(meta), table.shape[0], ring_row_ptr, _ptr(pk),
-        mode, n, pk.shape[0], ts_base_u64, _ptr(scratch.slot_idx),
-        _ptr(scratch.codes), _ptr(scratch.touched), _ptr(scratch.acc),
-        _ptr(scratch.newrows), _ptr(scratch.ctrl),
+        table, meta, table.shape[0], ring_row_ptr, pk,
+        mode, n, pk.shape[0], ts_base_u64, scratch.slot_idx,
+        scratch.codes, scratch.touched, scratch.acc,
+        scratch.newrows, scratch.ctrl,
     )
 
 
 def linked(table, meta, ring_row_ptr, pk, n, small, scratch):
     _launch(
         "linked", "tb_linked", "linked",
-        _ptr(table), _ptr(meta), table.shape[0], ring_row_ptr, _ptr(pk), n,
-        pk.shape[0], int(small), _ptr(scratch.slot_idx), _ptr(scratch.words),
+        table, meta, table.shape[0], ring_row_ptr, pk, n,
+        pk.shape[0], int(small), scratch.slot_idx, scratch.words,
     )
 
 
 def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch):
     _launch(
         "two_phase", "tb_two_phase", "two_phase",
-        _ptr(table), _ptr(meta), table.shape[0], ring_row_ptr, _ptr(pk), n,
-        pk.shape[0], int(lo_only), _ptr(scratch.slot_idx), _ptr(scratch.words),
+        table, meta, table.shape[0], ring_row_ptr, pk, n,
+        pk.shape[0], int(lo_only), scratch.slot_idx, scratch.words,
     )
 
 
@@ -209,54 +211,54 @@ def scratch_words(lib: str, batch: int) -> int:
 def commit_hash_all(balances, meta, rows, row_hash, fold_out, count_as):
     _launch(
         "commitment", "tb_commit_hash_all", count_as,
-        _ptr(balances), _ptr(meta), _ptr(rows), balances.shape[0],
-        _ptr(row_hash), _ptr(fold_out),
+        balances, meta, rows, balances.shape[0],
+        row_hash, fold_out,
     )
 
 
 def commit_update(balances, meta, row_hash, digest, slots, rows):
     _launch(
         "commitment", "tb_commit_update", "commit_update",
-        _ptr(balances), _ptr(meta), _ptr(row_hash), _ptr(digest),
-        _ptr(slots), _ptr(rows), slots.shape[0],
+        balances, meta, row_hash, digest,
+        slots, rows, slots.shape[0],
     )
 
 
 def commit_admit(row_hash, digest, slots, new_lo, new_hi):
     _launch(
         "commitment", "tb_commit_admit", "commit_admit",
-        _ptr(row_hash), row_hash.shape[0], _ptr(digest), _ptr(slots),
-        _ptr(new_lo), _ptr(new_hi), slots.shape[0],
+        row_hash, row_hash.shape[0], digest, slots,
+        new_lo, new_hi, slots.shape[0],
     )
 
 
 def tier_set_rows(table, idx, src):
     _launch(
         "tier", "tb_tier_set_rows", "tier_set_rows",
-        _ptr(table), table.shape[0], table.shape[1], table.element_size(),
-        _ptr(idx), _ptr(src), idx.shape[0],
+        table, table.shape[0], table.shape[1], table.element_size(),
+        idx, src, idx.shape[0],
     )
 
 
-def checksum(table, out):
+def checksum(table, out, row0=0):
     _launch(
         "checksum", "tb_checksum", "checksum",
-        _ptr(table), table.shape[0], table.shape[1], table.element_size(), _ptr(out),
+        table, table.shape[0], row0, table.shape[1], table.element_size(), out,
     )
 
 
 def exact_scan(table, events, dstat_init, n, ts_base_u64, scratch_words, out):
     _launch(
         "exact_scan", "tb_exact_scan", "exact_scan",
-        _ptr(table), table.shape[0], _ptr(events), events.shape[0],
-        _ptr(dstat_init), n, ts_base_u64, _ptr(scratch_words), _ptr(out),
+        table, table.shape[0], events, events.shape[0],
+        dstat_init, n, ts_base_u64, scratch_words, out,
     )
 
 
 def apply_deltas(table, packed):
     _launch(
         "apply_deltas", "tb_apply_deltas", "apply_deltas",
-        _ptr(table), table.shape[0], _ptr(packed), packed.shape[1],
+        table, table.shape[0], packed, packed.shape[1],
         packed.shape[1],
     )
 
@@ -267,14 +269,14 @@ def l2_chase(next_idx, steps, sink):
     a CUDA int32 permutation of its own indices."""
     if next_idx.dtype != torch.int32 or not next_idx.is_cuda or not next_idx.is_contiguous():
         raise ValueError("next_idx must be a contiguous CUDA int32 tensor")
-    _launch("exact_scan", "tb_l2_chase", None, _ptr(next_idx), steps, _ptr(sink))
+    _launch("exact_scan", "tb_l2_chase", None, next_idx, steps, sink)
 
 
 def exact_init(scratch_words, dstat_init):
     """K3's initial carry for a (B,)-row batch in `scratch_words`."""
     _launch(
         "exact_scan", "tb_exact_init", "exact_init",
-        _ptr(scratch_words), dstat_init.shape[0], _ptr(dstat_init),
+        scratch_words, dstat_init.shape[0], dstat_init,
     )
 
 
@@ -282,8 +284,8 @@ def exact_segment(table, events, rows, n, ts_base_u64, scratch_words):
     """A K3 scan segment over the int32 global event indices `rows`."""
     _launch(
         "exact_scan", "tb_exact_segment", "exact_segment",
-        _ptr(table), table.shape[0], _ptr(events), events.shape[0],
-        _ptr(rows), rows.shape[0], n, ts_base_u64, _ptr(scratch_words),
+        table, table.shape[0], events, events.shape[0],
+        rows, rows.shape[0], n, ts_base_u64, scratch_words,
     )
 
 
@@ -292,8 +294,8 @@ def exact_finalize(table, batch, scratch_words, hist_fix, out):
     None."""
     _launch(
         "exact_scan", "tb_exact_finalize", "exact_finalize",
-        _ptr(table), table.shape[0], batch, _ptr(scratch_words),
-        _ptr(hist_fix), _ptr(out),
+        table, table.shape[0], batch, scratch_words,
+        hist_fix, out,
     )
 
 
@@ -314,58 +316,61 @@ def aux_words(lib: str, symbol: str) -> int:
 def wave_step(table, events, idx, mask, n, ts_base_u64, scratch_words, lanes):
     _launch(
         "wave_step", "tb_wave_step", "wave_step",
-        _ptr(table), table.shape[0], _ptr(events), events.shape[0], _ptr(idx),
-        idx.shape[0], _ptr(mask), n, ts_base_u64, _ptr(scratch_words), _ptr(lanes),
+        table, table.shape[0], events, events.shape[0], idx,
+        idx.shape[0], mask, n, ts_base_u64, scratch_words, lanes,
     )
 
 
 def chain_wave(table, events, plane, n, ts_base_u64, scratch_words, ys, alive):
     _launch(
         "chain_wave", "tb_chain_wave", "chain_wave",
-        _ptr(table), table.shape[0], _ptr(events), events.shape[0], _ptr(plane),
-        plane.shape[0], plane.shape[1], n, ts_base_u64, _ptr(scratch_words),
-        _ptr(ys), _ptr(alive),
+        table, table.shape[0], events, events.shape[0], plane,
+        plane.shape[0], plane.shape[1], n, ts_base_u64, scratch_words,
+        ys, alive,
     )
 
 
 def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):
     _launch(
         "spec_conflicts", "tb_spec_conflicts", "spec_conflicts",
-        _ptr(events), events.shape[0], _ptr(idx), idx.shape[0], _ptr(serial), n, A,
-        _ptr(tok), _ptr(tgt), _ptr(a_min), _ptr(r_min), _ptr(out),
+        events, events.shape[0], idx, idx.shape[0], serial, n, A,
+        tok, tgt, a_min, r_min, out,
     )
 
 
 def shard_accumulate(acc, row0, dr, cr, lo, hi, pending, mask):
     _launch(
         "shard_apply", "tb_shard_accumulate", "shard_accumulate",
-        _ptr(acc), acc.shape[0], row0, _ptr(dr), _ptr(cr), _ptr(lo), _ptr(hi),
-        _ptr(pending), _ptr(mask), dr.shape[0],
+        acc, acc.shape[0], row0, dr, cr, lo, hi,
+        pending, mask, dr.shape[0],
     )
 
 
 def shard_admit(table, acc, row0, dr, cr, reject):
     _launch(
         "shard_apply", "tb_shard_admit", "shard_admit",
-        _ptr(table), _ptr(acc), table.shape[0], row0, _ptr(dr), _ptr(cr), dr.shape[0],
-        _ptr(reject),
+        table, acc, table.shape[0], row0, dr, cr, dr.shape[0],
+        reject,
     )
 
 
 def shard_apply(table, acc):
-    _launch("shard_apply", "tb_shard_apply", "shard_apply", _ptr(table), _ptr(acc),
+    _launch("shard_apply", "tb_shard_apply", "shard_apply", table, acc,
             table.shape[0])
 
 
 def shard_gather(table, row0, slots, out):
+    """K14 gather over an (local_rows, W) int64 table: W u64 words per row."""
     _launch(
         "shard_rows", "tb_shard_gather", "shard_gather",
-        _ptr(table), table.shape[0], row0, _ptr(slots), slots.shape[0], _ptr(out),
+        table, table.shape[0], row0, slots, slots.shape[0], table.shape[1],
+        out,
     )
 
 
 def shard_scatter(table, row0, slots, rows):
     _launch(
         "shard_rows", "tb_shard_scatter", "shard_scatter",
-        _ptr(table), table.shape[0], row0, _ptr(slots), slots.shape[0], _ptr(rows),
+        table, table.shape[0], row0, slots, slots.shape[0], table.shape[1],
+        rows,
     )

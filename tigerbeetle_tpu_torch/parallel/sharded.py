@@ -32,12 +32,15 @@ serves them.  ``shard_map_kwargs`` has no counterpart: nothing here
 runs under ``shard_map``.
 
 ``own_rows`` is the one definition of the contiguous row layout; the
-row gather (``gather_rows``, kernel K14 ``csrc/shard_rows.cu``) and the
-owned-row write-back (``scatter_rows``) of the sharded wave executors
-(``state_machine/waves.py``) resolve ownership through it.  Every
-kernel has its plain PyTorch version here: a wrapper launches the
-kernel on CUDA tensors and runs the plain version on CPU tensors.
-u64 values live in int64 lanes.
+row gather (``gather_rows``, kernel K14 ``csrc/shard_rows.cu``, at the
+row widths 1, 2 and 8) and the owned-row write-back (``scatter_rows``) of the
+sharded wave executors (``state_machine/waves.py``) resolve ownership
+through it.  ``ShardedTable`` is the engines' row layer on top of them
+(split, join, gather into a compact table on the mesh's first device,
+scatter back, per-shard map), and ``row_mesh_for`` the reference's rule
+for when an engine's tables shard.  Every kernel has its plain PyTorch
+version here: a wrapper launches the kernel on CUDA tensors and runs
+the plain version on CPU tensors.  u64 values live in int64 lanes.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ class Mesh:
         return self.devices[shard]
 
 
-def _devices(devices) -> list:
+def resolve_devices(devices=None) -> list:
     """`devices` as torch devices; None is every visible CUDA device
     (raising without one, as device.resolve_device does)."""
     if devices is None:
@@ -94,8 +97,18 @@ def make_row_mesh(devices=None) -> Mesh:
     """1-D ("shard",) mesh over `devices`: the row-sharding axis the
     sharded wave executors (``waves._execute_plan_sharded``) partition
     the table over."""
-    devs = _devices(devices)
+    devs = resolve_devices(devices)
     return Mesh(_grid(devs, (len(devs),)), ("shard",))
+
+
+def row_mesh_for(rows: int, devices) -> Mesh | None:
+    """The ("shard",) mesh an engine's (rows, C) tables split over: None
+    (one dense table) unless `devices` holds more than one device and
+    `rows` divides among them (the reference's rule,
+    device_engine.py:528-537 and kernel_fast.py:107-113)."""
+    if devices is None or len(devices) < 2 or rows % len(devices):
+        return None
+    return make_row_mesh(devices)
 
 
 def make_mesh(devices=None, dp: int | None = None) -> Mesh:
@@ -104,7 +117,7 @@ def make_mesh(devices=None, dp: int | None = None) -> Mesh:
     Defaults: dp=2 when the device count allows (so both axes are
     exercised), else a pure "shard" mesh.
     """
-    devs = _devices(devices)
+    devs = resolve_devices(devices)
     n = len(devs)
     if dp is None:
         dp = 2 if n % 2 == 0 and n >= 4 else 1
@@ -133,10 +146,13 @@ def _combine(parts, device):
     return out
 
 
+ROW_WIDTHS = (1, 2, 8)  # K14's row widths: meta, row hashes, balances
+
+
 def _check_rows(table, slots, name):
-    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != 8:
-        raise ValueError(f"local table must be (local_rows, 8) int64, got "
-                         f"{tuple(table.shape)} {table.dtype}")
+    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] not in ROW_WIDTHS:
+        raise ValueError(f"local table must be (local_rows, W) int64 with W in {ROW_WIDTHS}, "
+                         f"got {tuple(table.shape)} {table.dtype}")
     if slots.dtype != torch.int64 or slots.dim() != 1:
         raise ValueError(f"{name}: slots must be (K,) int64")
     if slots.device != table.device or not (table.is_contiguous() and slots.is_contiguous()):
@@ -144,13 +160,16 @@ def _check_rows(table, slots, name):
 
 
 # ---------------------------------------------------------------------------
-# K14: a shard's part of a row gather, and the owned-row write-back.
+# K14: a shard's part of a row gather, and the owned-row write-back, for
+# (local_rows, W) int64 tables of the row layer's widths (the engine's
+# balances, W = 8; its meta seen as one int64 per row, W = 1; its row
+# hashes, W = 2).
 
 
 def gather_part_plain(local_table, slots, shard: int):
-    """Plain version of K14 gather: the (K, 8) owned rows of the global
-    `slots` (already clipped to the table), zeros where `shard` does
-    not own the row."""
+    """Plain version of K14 gather: the (K, W) owned rows of the global
+    `slots`, zeros where `shard` does not own the row (a slot outside
+    every shard, -1 included, gathers zeros)."""
     local, rel = own_rows(slots, local_table.shape[0], shard)
     return torch.where(local[:, None], local_table[rel], 0)
 
@@ -161,7 +180,8 @@ def gather_part(local_table, slots, shard: int):
     _check_rows(local_table, slots, "gather")
     if local_table.device.type == "cpu":
         return gather_part_plain(local_table, slots, shard)
-    out = torch.empty((slots.shape[0], 8), dtype=torch.int64, device=local_table.device)
+    out = torch.empty((slots.shape[0], local_table.shape[1]), dtype=torch.int64,
+                      device=local_table.device)
     if slots.shape[0]:
         kernels.shard_gather(local_table, shard * local_table.shape[0], slots, out)
     return out
@@ -178,8 +198,9 @@ def scatter_part_plain(local_table, slots, rows, shard: int) -> None:
 def scatter_part(local_table, slots, rows, shard: int) -> None:
     """K14 scatter on CUDA tensors; scatter_part_plain on CPU tensors."""
     _check_rows(local_table, slots, "scatter")
-    if rows.dtype != torch.int64 or tuple(rows.shape) != (slots.shape[0], 8):
-        raise ValueError("rows must be (K, 8) int64")
+    W = local_table.shape[1]
+    if rows.dtype != torch.int64 or tuple(rows.shape) != (slots.shape[0], W):
+        raise ValueError(f"rows must be (K, {W}) int64")
     if rows.device != local_table.device or not rows.is_contiguous():
         raise ValueError("rows must be contiguous on the table's device")
     if local_table.device.type == "cpu":
@@ -190,7 +211,7 @@ def scatter_part(local_table, slots, rows, shard: int) -> None:
 
 
 def gather_rows(local_tables, slots, device=None, plain: bool = False):
-    """Cross-shard row gather: the full (K, 8) rows of the global row
+    """Cross-shard row gather: the full (K, W) rows of the global row
     indices `slots` ((K,) int64, already clipped to [0, total_rows)) on
     `device` (default: shard 0's).  Each shard contributes the rows it
     owns and zeros elsewhere; gathering the parts and summing them
@@ -204,11 +225,142 @@ def gather_rows(local_tables, slots, device=None, plain: bool = False):
 
 
 def scatter_rows(local_tables, slots, rows, plain: bool = False) -> None:
-    """Write the (K, 8) `rows` of the distinct global `slots` back onto
+    """Write the (K, W) `rows` of the distinct global `slots` back onto
     their owners; every shard keeps only the rows it owns."""
     part = scatter_part_plain if plain else scatter_part
     for s, t in enumerate(local_tables):
         part(t, slots.to(t.device), rows.to(t.device), s)
+
+
+# ---------------------------------------------------------------------------
+# The engines' row layer: one table split over a ("shard",) mesh.
+
+
+def _words(table: torch.Tensor) -> torch.Tensor:
+    """An (R, C) int64 or int32 table as (R, W) int64 words (an int32
+    table's row pairs as one word: C must be even)."""
+    return table if table.dtype == torch.int64 else table.view(torch.int64)
+
+
+class ShardedTable:
+    """An (A, C) table (int64, or int32 with C even) split row-wise over
+    a 1-D ("shard",) mesh: shard s holds rows [s * A / S, (s + 1) * A /
+    S) on its device (``own_rows``).  The row layer every sharded engine
+    site calls: ``split`` / ``join``, the K14 ``gather`` of global rows
+    into a compact table on the home device (the mesh's first) and the
+    K14 ``scatter`` back onto the owners, and ``map`` over the shards
+    with each one's first global row.  `plain` runs K14's plain
+    versions (a reference run on the card)."""
+
+    def __init__(self, mesh: Mesh, shards: list, plain: bool = False) -> None:
+        assert len(shards) == mesh.shape["shard"], (len(shards), mesh.shape)
+        self.mesh = mesh
+        self.shards = shards
+        self.plain = plain
+
+    @classmethod
+    def split(cls, mesh: Mesh, table: torch.Tensor, plain: bool = False) -> "ShardedTable":
+        """`table`'s rows cut into the mesh's shards (copies)."""
+        n = mesh.shape["shard"]
+        assert table.shape[0] % n == 0, (table.shape[0], n)
+        local = table.shape[0] // n
+        return cls(mesh, [table[s * local:(s + 1) * local].to(mesh.device(s)).clone()
+                          for s in range(n)], plain)
+
+    @property
+    def home(self) -> torch.device:
+        return self.mesh.device(0)
+
+    @property
+    def local_rows(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def rows(self) -> int:
+        return self.local_rows * len(self.shards)
+
+    def join(self) -> torch.Tensor:
+        """The whole table on the home device (a copy)."""
+        return torch.cat([t.to(self.home) for t in self.shards])
+
+    def gather(self, slots: torch.Tensor) -> torch.Tensor:
+        """The (K, C) rows of the global int64 `slots` on the home
+        device; zeros where no shard owns a slot (-1, or >= rows)."""
+        out = gather_rows([_words(t) for t in self.shards], slots.to(self.home), self.home,
+                          plain=self.plain)
+        return out.view(self.shards[0].dtype)
+
+    def scatter(self, slots: torch.Tensor, compact: torch.Tensor) -> None:
+        """Write the (K, C) `compact` rows of the distinct global `slots`
+        onto their owners; a slot no shard owns is dropped."""
+        scatter_rows([_words(t) for t in self.shards], slots.to(self.home), _words(compact),
+                     plain=self.plain)
+
+    def map(self, fn) -> list:
+        """[fn(shard table, its first global row) for every shard]."""
+        L = self.local_rows
+        return [fn(t, s * L) for s, t in enumerate(self.shards)]
+
+    def owned(self, idx: np.ndarray):
+        """For the global rows `idx` (host int64): (shard index, the
+        shard's local rows as an int64 tensor on its device, positions
+        in `idx`) for every shard that owns any of them (own_rows)."""
+        slots = torch.from_numpy(idx)
+        for s, t in enumerate(self.shards):
+            local, rel = own_rows(slots, self.local_rows, s)
+            pos = torch.nonzero(local).flatten()
+            if len(pos):
+                yield s, rel[pos].to(t.device), pos.numpy()
+
+    def sum(self, parts) -> torch.Tensor:
+        """The wrapping int64 sum of per-shard results on the home device
+        (the combine of a fold or a digest over shard)."""
+        return _combine(parts, self.home)
+
+
+def compact_rows(slots: np.ndarray, A: int) -> np.ndarray:
+    """The sorted global rows of a compact table serving global `slots`:
+    each clipped into [0, A), with rows 0 and A - 1 (where a kernel's
+    clip of a slot outside the table lands).  A mark per table row, not
+    a sort: a window of the sharded engine names ~1.6M slots."""
+    mark = np.zeros(A, bool)
+    mark[np.clip(slots, 0, A - 1)] = True
+    mark[[0, A - 1]] = True
+    return np.flatnonzero(mark)
+
+
+def remap_slots(s: np.ndarray, rows: np.ndarray, A: int) -> np.ndarray:
+    """Global slots `s` moved onto the compact table of `rows`
+    (compact_rows): a slot in [0, A) becomes its row's position, a
+    negative slot stays, a slot s >= A becomes s - A + len(rows).  The
+    map is strictly increasing (equal, unequal and ordered slots stay
+    so), and a clip into the compact table lands on the row the clip
+    into the whole table would."""
+    pos = np.searchsorted(rows, np.clip(s, 0, A - 1))
+    return np.where(s < 0, s, np.where(s >= A, s - A + len(rows), pos))
+
+
+def place(table: torch.Tensor, mesh: Mesh | None, plain: bool = False):
+    """A dense table as an engine holds it: itself without a mesh, else
+    split over the mesh."""
+    return table if mesh is None else ShardedTable.split(mesh, table, plain)
+
+
+def checksum(table, fn) -> torch.Tensor:
+    """K11's (16,) digest of a dense or sharded table by `fn` (the
+    kernel's wrapper or its plain version, called as fn(table, row0)):
+    sharded, `fn` on every shard under its first global row, the words
+    summed on the home device (every word is a wrapping sum over
+    rows)."""
+    if isinstance(table, ShardedTable):
+        return table.sum(table.map(fn))
+    return fn(table)
+
+
+def dense(table) -> torch.Tensor:
+    """The whole table of a dense or sharded engine table (a copy on the
+    home device when sharded)."""
+    return table.join() if isinstance(table, ShardedTable) else table
 
 
 # ---------------------------------------------------------------------------

@@ -56,23 +56,39 @@ packing it with hot slots; a batch the hot set cannot hold takes the
 host path.  The device digest is then the hot partial of the logical
 root, and the host path reads the logical table built from the mirror.
 
+Row sharding (``devices``): given several devices and a table whose
+rows divide among them (the reference's rule), balances, meta and row
+hashes are ``sharded.ShardedTable``s split row-wise over a ("shard",)
+mesh; the ring and the digest stay on the mesh's first device (home).
+The row kernels (K1, K5, K6 per window unit, K4, K2 update, lookups
+and meta writes) run dense on a compact table: a K14 gather of the
+rows the unit can touch onto home, its slot columns remapped onto the
+compact rows (``_remap_pk``), the dense kernel unchanged, a K14
+scatter back onto the owners.  Wave records run
+``waves._execute_plan_sharded`` on the shard tables.  The whole-table
+kernels run per shard and add up on home: K2 rebuild and probe (each
+shard hashes its rows under their global ids), K11 (each shard mixes
+its rows under their global indices, ``row0``).  ``read`` joins the
+table onto home and ``write_back`` splits it again.
+
 The window, ring and recovery structure and the knob defaults are the
 reference's, which a high-latency TPU link shaped; they are to be
 retuned once the H100 is measured.  Not ported yet (ROADMAP): the link
-seam and chaos shim, the degraded lifecycle and scrubs, a row-sharded
-table (the sharded apply and wave executors exist outside the engine:
-``parallel/sharded.py``, ``waves._execute_plan_sharded``).
+seam and chaos shim, the degraded lifecycle and scrubs.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time as _time
 
 import numpy as np
 import torch
 
 from tigerbeetle_tpu_torch import envcheck
+from tigerbeetle_tpu_torch.device import resolve_device
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
+from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import hot_tier, resolve, waves
@@ -181,6 +197,31 @@ def _touched_of_pk(kind: str, pk, n: int) -> np.ndarray:
     return s[s >= 0]
 
 
+def _remap_pk(kind: str, pk: np.ndarray, rows: np.ndarray, A: int) -> np.ndarray:
+    """A packed batch's copy with its slot words moved onto the compact
+    table of `rows` (sharded.compact_rows): each word holds slot + 1, 0
+    meaning none, and is remapped by sharded.remap_slots (0 stays 0).
+    The tight format holds its slots in u32 columns 1 and 2; the others
+    in the two u32 halves of COL_SLOTS (and COL_TP_SLOTS for the
+    two-phase kinds)."""
+
+    def move(word):
+        return sharded.remap_slots(word.astype(np.int64) - 1, rows, A) + 1
+
+    out = np.array(pk, copy=True)
+    if kind == "orderfree_tight":
+        for col in (1, 2):
+            out[:, col] = move(out[:, col]).astype(np.uint32)
+        return out
+    cols = [dk.COL_SLOTS] + ([dk.COL_TP_SLOTS] if kind in ("two_phase", "two_phase_lo") else [])
+    for col in cols:
+        w = out[:, col]
+        lo = move(w & _MASK32_NP).astype(np.uint64)
+        hi = move(w >> np.uint64(32)).astype(np.uint64)
+        out[:, col] = lo | (hi << np.uint64(32))
+    return out
+
+
 def _host_tensor(array: np.ndarray, device) -> torch.Tensor:
     """numpy u64/u32 array -> int64/int32 tensor with the same bits."""
     a = np.ascontiguousarray(array)
@@ -196,7 +237,11 @@ class DeviceEngine:
     engine's device instead of the kernels — the reference run the chip
     smoke test compares the kernels' end-to-end results against."""
 
-    def __init__(self, capacity: int, mirror, device, plain: bool = False) -> None:
+    def __init__(self, capacity: int, mirror, device, plain: bool = False,
+                 devices=None) -> None:
+        """`devices`: the devices the tables may shard over (the
+        reference's jax.devices()); None or one device keeps one dense
+        table on `device`, which must be the list's first."""
         self.capacity = capacity
         self.mirror = mirror  # host bookkeeping copy (recovery + parity)
         self.device = device
@@ -219,6 +264,12 @@ class DeviceEngine:
         # the logical cold tier.
         self.hot = hot_tier.from_env(capacity)
         rows = capacity if self.hot is None else self.hot.hot_rows
+        # Multi-device: the tables shard row-wise over `devices` when
+        # there are several and the device rows divide among them.
+        if devices is not None and sharded.resolve_devices(devices)[0] != resolve_device(device):
+            raise ValueError(f"device {device} is not the first of {devices}")
+        self.sharding = sharded.row_mesh_for(rows, devices)
+        self.stat_wave_sharded = 0
         self._commit_enabled = envcheck.state_commit() == 1
         self._wave_scratch = None
         self._inflight_bound = 0
@@ -228,7 +279,12 @@ class DeviceEngine:
         self.stat_fallback_batches = 0
         self.stat_fetches = 0
         self.stat_commit_updates = 0
+        self.stat_windows = 0  # window launches (the unit of the per-window costs)
         self.stat_t_h2d = 0.0
+        # Sharded, the parts of stat_t_h2d spent on the units' compact
+        # rows and on remapping their batches into the upload buffer.
+        self.stat_t_rows = 0.0
+        self.stat_t_remap = 0.0
         self.stat_t_dispatch = 0.0
         self.stat_t_fetch = 0.0
         self.stat_t_finish = 0.0
@@ -243,8 +299,8 @@ class DeviceEngine:
         self.dev_digest = None
         if self._commit_enabled and mirror.commitment is None:
             mirror.commitment = cm.HostCommitment(capacity, meta_fn=self._twin_meta)
-        self.balances = torch.zeros((rows, 8), dtype=torch.int64, device=device)
-        self.meta = torch.zeros((rows, 2), dtype=torch.int32, device=device)
+        self.balances = self._place(torch.zeros((rows, 8), dtype=torch.int64, device=device))
+        self.meta = self._place(torch.zeros((rows, 2), dtype=torch.int32, device=device))
         self._scratch: dict = {}  # kernel family -> its scratch, made at first use
         # The logical table built from the mirror for the host path,
         # keyed by (mirror stamp, capacity); write_back drops it (K3
@@ -267,14 +323,25 @@ class DeviceEngine:
         self._queued = 0
         self.stat_flushes = 0
 
+    def _place(self, table: torch.Tensor):
+        """A dense table on the engine's device, as the engine holds it
+        (split over the mesh when sharded)."""
+        return sharded.place(table, self.sharding, self._plain)
+
+    @property
+    def device_rows(self) -> int:
+        """Rows of the device tables (hot_rows under tiering)."""
+        return self.meta.rows if self.sharding is not None else self.meta.shape[0]
+
     def _scratch_for(self, kind: str):
         """The scratch of `kind`'s kernel family (None for the plain
-        versions and on the CPU)."""
+        versions and on the CPU).  Sized for the device rows, so it also
+        serves a sharded engine's compact tables."""
         if self._plain or self.device.type == "cpu":
             return None
         family = dk.FAMILY[kind]
         if family not in self._scratch:
-            self._scratch[family] = dk.new_scratch(family, self.balances.shape[0], self.device)
+            self._scratch[family] = dk.new_scratch(family, self.device_rows, self.device)
         return self._scratch[family]
 
     # ------------------------------------------------------------------
@@ -297,13 +364,14 @@ class DeviceEngine:
                 f"tables must be ({self.capacity}, 8) and ({self.capacity}, 2), "
                 f"got {balances_u64.shape} and {meta_u32.shape}"
             )
-        self.balances = _host_tensor(balances_u64, self.device)
-        self.meta = _host_tensor(meta_u32, self.device)
+        self.balances = self._place(_host_tensor(balances_u64, self.device))
+        self.meta = self._place(_host_tensor(meta_u32, self.device))
         self._meta_host = meta_u32.copy()
         if row_hash_u64 is None or not self._commit_enabled:
             self._commit_rebuild()
         else:
-            self.dev_row_hash = _host_tensor(np.asarray(row_hash_u64, np.uint64), self.device)
+            self.dev_row_hash = self._place(
+                _host_tensor(np.asarray(row_hash_u64, np.uint64), self.device))
             self.dev_digest = _host_tensor(np.asarray(digest_u64, np.uint64), self.device)
 
     def to_numpy_tables(self):
@@ -312,11 +380,12 @@ class DeviceEngine:
         device tables: hot-shaped under tiering."""
         self.drain()
         self.flush()
-        meta = self.meta.cpu().numpy().view(np.uint32)
+        balances = to_u64(sharded.dense(self.balances))
+        meta = sharded.dense(self.meta).cpu().numpy().view(np.uint32)
         if self.dev_row_hash is None:
-            return to_u64(self.balances), meta, None, None
+            return balances, meta, None, None
         return (
-            to_u64(self.balances), meta, to_u64(self.dev_row_hash),
+            balances, meta, to_u64(sharded.dense(self.dev_row_hash)),
             to_u64(self.dev_digest),
         )
 
@@ -365,8 +434,11 @@ class DeviceEngine:
             # so the hot partial does not move).
             self.hot.grow_logical(capacity)
             return
-        self.balances = hot_tier.grow_zero_device(self.balances, capacity)
-        self.meta = hot_tier.grow_zero_device(self.meta, capacity)
+        balances, meta = sharded.dense(self.balances), sharded.dense(self.meta)
+        if self.sharding is not None and capacity % self.sharding.shape["shard"]:
+            self.sharding = None  # one dense table from here on
+        self.balances = self._place(hot_tier.grow_zero_device(balances, capacity))
+        self.meta = self._place(hot_tier.grow_zero_device(meta, capacity))
         self._scratch = {}
         # Zero rows hash to 0, so the digest VALUE is unchanged, but the
         # per-row hash array must match the new geometry.
@@ -414,11 +486,30 @@ class DeviceEngine:
         the exact hot partial."""
         if len(admitted) == 0:
             return
-        idx = torch.from_numpy(np.asarray(hot_slots, np.int64)).to(self.device)
+        commit = self._commit_enabled and self.dev_row_hash is not None
+        twin = self.mirror.commitment
+        hot_slots = np.asarray(hot_slots, np.int64)
+        if self.sharding is not None:
+            # K10 and K2 admit on each shard for the slots it owns; each
+            # shard's admit moves a zero digest by its new - old, and
+            # the moves add up on home.
+            moves = []
+            for s, idx, pos in self.balances.owned(hot_slots):
+                dev, rows = idx.device, admitted[pos]
+                self._set_rows(self.balances.shards[s], idx, from_u64(self.mirror.rows8(rows), dev))
+                self._set_rows(self.meta.shards[s], idx, _host_tensor(self._meta_host[rows], dev))
+                if commit:
+                    moves.append(self._cm["admit"](
+                        self.dev_row_hash.shards[s], torch.zeros(2, dtype=torch.int64, device=dev),
+                        idx, from_u64(twin.row_lo[rows], dev), from_u64(twin.row_hi[rows], dev),
+                    )[1])
+            if moves:
+                self.dev_digest += self.balances.sum(moves)
+            return
+        idx = torch.from_numpy(hot_slots).to(self.device)
         self._set_rows(self.balances, idx, from_u64(self.mirror.rows8(admitted), self.device))
         self._set_rows(self.meta, idx, _host_tensor(self._meta_host[admitted], self.device))
-        if self._commit_enabled and self.dev_row_hash is not None:
-            twin = self.mirror.commitment
+        if commit:
             self._cm["admit"](
                 self.dev_row_hash, self.dev_digest, idx,
                 from_u64(twin.row_lo[admitted], self.device),
@@ -523,10 +614,23 @@ class DeviceEngine:
         pad = ((len(slots) + 255) & ~255) or 256
         sl = np.full(pad, -1, np.int64)
         sl[: len(slots)] = slots
+        if self.sharding is not None:
+            # K14 gathers zeros for -1 (no shard owns it); a slot past
+            # the table clips to its last row, as dk.lookup's does.
+            sl = np.where(sl >= 0, np.minimum(sl, self.device_rows - 1), -1)
+            return self.balances.gather(torch.from_numpy(sl).to(self.device))
         return dk.lookup(self.balances, torch.from_numpy(sl).to(self.device))
 
     def _meta_update(self, rec: _InFlight) -> None:
         slots, flags, ledger = rec.meta_args
+        if self.sharding is not None:
+            # A K14 scatter of the (flags, ledger) rows (the slots are
+            # distinct: a range of new accounts); a slot no shard owns
+            # drops, as dk.meta_update's does.
+            rows = np.stack([flags, ledger], axis=1).astype(np.uint32)
+            self.meta.scatter(torch.from_numpy(np.asarray(slots, np.int64)).to(self.device),
+                              _host_tensor(rows, self.device))
+            return
         dk.meta_update(
             self.meta, torch.from_numpy(slots).to(self.device),
             _host_tensor(flags, self.device), _host_tensor(ledger, self.device),
@@ -563,6 +667,7 @@ class DeviceEngine:
     def _launch(self, recs: list[_InFlight]) -> None:
         if not recs:
             return
+        self.stat_windows += 1
         t0 = _time.perf_counter()
         units = self._plan_chunks(recs)
         # One (rows, B, C) buffer per input layout; launch groups claim
@@ -574,6 +679,9 @@ class DeviceEngine:
                 rows_of[spec] = rows_of.get(spec, 0) + len(urecs)
         bufs: dict[tuple, list] = {}  # spec -> [big, ns, tsb, cursor]
         offsets: dict[int, int] = {}
+        # Sharded: each unit's compact rows; its batches are uploaded
+        # with their slots remapped onto them.
+        unit_rows: dict[int, np.ndarray] = {}
         for i, (ukind, urecs) in enumerate(units):
             if ukind != "scan":
                 continue
@@ -587,10 +695,18 @@ class DeviceEngine:
                     0,
                 ]
             big, ns, tsb, cur = bufs[spec]
+            if self.sharding is not None:
+                t_rows = _time.perf_counter()
+                unit_rows[i] = self._unit_rows(urecs)
+                t_remap = _time.perf_counter()
+                self.stat_t_rows += t_remap - t_rows
             for g, rec in enumerate(urecs):
-                big[cur + g] = rec.pk
+                big[cur + g] = rec.pk if i not in unit_rows else _remap_pk(
+                    rec.kind, rec.pk, unit_rows[i], self.device_rows)
                 ns[cur + g] = rec.n
                 tsb[cur + g] = rec.ts_base
+            if i in unit_rows:
+                self.stat_t_remap += _time.perf_counter() - t_remap
             offsets[i] = cur
             bufs[spec][3] = cur + len(urecs)
         dev_bufs = {
@@ -611,30 +727,53 @@ class DeviceEngine:
             else:
                 kind = urecs[0].kind
                 big, ns, tsb = dev_bufs[dk.PK_SPEC[kind]]
-                dk.run_window(
-                    kind, self.balances, self.meta, self.ring,
-                    self._ring_at, big, offsets[i], len(urecs), ns, tsb,
-                    scratch=self._scratch_for(kind), fn=self._kfn[kind],
-                )
+                with self._compact(unit_rows.get(i)) as (bal, meta):
+                    dk.run_window(
+                        kind, bal, meta, self.ring,
+                        self._ring_at, big, offsets[i], len(urecs), ns, tsb,
+                        scratch=self._scratch_for(kind), fn=self._kfn[kind],
+                    )
                 for g, rec in enumerate(urecs):
                     rec.ring_at = (self._ring_at + g) % _RING
                 self._ring_at = (self._ring_at + len(urecs)) % _RING
         self.stat_t_dispatch += _time.perf_counter() - t1
-        # Absorb the whole window's touched rows into the device
-        # commitment: one extra launch per window.
-        if self._commit_enabled:
-            touched = self._collect_touched(recs)
-            if touched is not None:
-                self._commit_update(touched)
+        # Absorb the window's touched rows into the device commitment:
+        # one extra launch per window.
+        self._commit_records(recs)
+
+    def _unit_rows(self, recs) -> np.ndarray:
+        """A sharded unit's compact rows: every row its batches can
+        touch (_touched_of_pk), with the clip rows."""
+        return sharded.compact_rows(
+            np.concatenate([_touched_of_pk(r.kind, r.pk, r.n) for r in recs]), self.device_rows)
+
+    @contextlib.contextmanager
+    def _compact(self, rows):
+        """(balances, meta) for a row kernel: the engine's tables when
+        dense (`rows` None); sharded, the K14 gather of `rows` onto home,
+        whose balances are K14-scattered back onto their owners after
+        the body (the row kernels write no meta).  The K2 update of
+        `rows` then runs on the same compact table, so the unit's
+        records need none at the end of the window (_commit_records)."""
+        if rows is None:
+            yield self.balances, self.meta
+            return
+        slots = torch.from_numpy(rows).to(self.device)
+        bal, meta = self.balances.gather(slots), self.meta.gather(slots)
+        yield bal, meta
+        self.balances.scatter(slots, bal)
+        self._commit_compact(rows, slots, bal, meta)
 
     def _dispatch(self, rec: _InFlight) -> None:
         """Immediate single-batch launch (recovery re-dispatch path),
         with the kernel of the batch's own kind."""
-        pk = _host_tensor(rec.pk, self.device)
-        self._kfn[rec.kind](
-            self.balances, self.meta, self.ring, self._ring_at, pk, rec.n,
-            rec.ts_base, scratch=self._scratch_for(rec.kind),
-        )
+        rows = None if self.sharding is None else self._unit_rows([rec])
+        pk = rec.pk if rows is None else _remap_pk(rec.kind, rec.pk, rows, self.device_rows)
+        with self._compact(rows) as (bal, meta):
+            self._kfn[rec.kind](
+                bal, meta, self.ring, self._ring_at, _host_tensor(pk, self.device), rec.n,
+                rec.ts_base, scratch=self._scratch_for(rec.kind),
+            )
         rec.ring_at = self._ring_at
         self._ring_at = (self._ring_at + 1) % _RING
 
@@ -645,11 +784,20 @@ class DeviceEngine:
             self._wave_scratch = waves.WaveScratch(self.device)
         return self._wave_scratch
 
+    def wave_mesh(self):
+        """The row mesh a sharded engine's wave records run over (a 1-D
+        ("shard",) mesh whose shard count divides the capacity), else
+        None: the router then declines wave dispatch ("mesh")."""
+        if self.sharding is None or self.capacity % self.sharding.shape["shard"]:
+            return None
+        return self.sharding
+
     def _exec_waves(self, rec: _InFlight) -> None:
         """Execute a wave record's plan against the device table, in
-        place (waves.run_plan_engine); the packed outputs are fetched at
-        rotation like a lookup gather.  A CUDA error raises with part of
-        the batch applied: the engine has no retry (the reference's link
+        place (waves.run_plan_engine; sharded, the sharded executor on
+        the shard tables); the packed outputs are fetched at rotation
+        like a lookup gather.  A CUDA error raises with part of the
+        batch applied: the engine has no retry (the reference's link
         seam is not ported), and the mirror — which holds exactly the
         batches before this one — is the state to rebuild the table
         from."""
@@ -657,10 +805,18 @@ class DeviceEngine:
         ev, dstat_init, hist_fix = waves.unpack_wave_record(packed_rec)
         if self._commit_enabled:
             rec.touched = waves.touched_slots(ev, rec.n)
+        mesh = self.wave_mesh()
+        if self.sharding is not None and mesh is None:
+            raise RuntimeError("a wave record on a sharded engine without a wave mesh")
         rec.handle = waves.run_plan_engine(
-            self.balances, ev, dstat_init, rec.n, rec.ts_base, plan, hist_fix,
-            scratch=self._wave_scratch_dev(), plain=self._plain,
+            self.balances if mesh is None else self.balances.shards, ev, dstat_init, rec.n,
+            rec.ts_base, plan, hist_fix, mesh, scratch=self._wave_scratch_dev(),
+            plain=self._plain,
         )
+        # Counted only after the launch succeeded (the reference's
+        # forensics, :1428-1433).
+        if mesh is not None:
+            self.stat_wave_sharded += 1
 
     def _exec_spec(self, rec: _InFlight) -> None:
         """Execute a speculative record: one whole-batch step with the
@@ -668,6 +824,8 @@ class DeviceEngine:
         synchronisation: later records read the table, so the verdict
         cannot wait for rotation), then only on a miss plan_residue over
         the conflicted events and the carry-threaded replay."""
+        if self.sharding is not None:
+            raise RuntimeError("speculative records do not run on a sharded engine")
         packed_rec, pv_serial = rec.wave_args
         ev, dstat_init, spec_serial = waves.unpack_spec_record(packed_rec)
         if self._commit_enabled:
@@ -858,10 +1016,7 @@ class DeviceEngine:
                     self._dispatch(rec)
             # The re-dispatched suffix mutated the rebuilt table: fold
             # its touched rows back into the commitment.
-            if self._commit_enabled and covered:
-                touched = self._collect_touched(covered)
-                if touched is not None:
-                    self._commit_update(touched)
+            self._commit_records(covered)
             ring_np = None
 
     def _upload_from_mirror(self) -> None:
@@ -870,7 +1025,7 @@ class DeviceEngine:
         (reads the current device meta, which the stream keeps in step
         with the host)."""
         src = self._mirror_hot_table_np() if self.hot is not None else self.mirror.table8(self.capacity)
-        self.balances = _host_tensor(src, self.device)
+        self.balances = self._place(_host_tensor(src, self.device))
         self._commit_rebuild()
 
     def _mirror_hot_table_np(self) -> np.ndarray:
@@ -892,12 +1047,13 @@ class DeviceEngine:
 
     def _device_checksum(self) -> np.ndarray:
         """K11 digest of the device balance table (16 u64 words)."""
-        return to_u64(self._checksum(self.balances))
+        return to_u64(sharded.checksum(self.balances, self._checksum))
 
     def _device_health_digest(self) -> np.ndarray:
         """Balance digest + meta digest of the device tables (K11 on
         each): what the host's copies are compared with."""
-        return np.concatenate([self._device_checksum(), to_u64(self._checksum(self.meta))])
+        meta = to_u64(sharded.checksum(self.meta, self._checksum))
+        return np.concatenate([self._device_checksum(), meta])
 
     def _host_health_digest(self) -> np.ndarray:
         """The same 20 words from the host's copies: hot-shaped images
@@ -947,22 +1103,42 @@ class DeviceEngine:
         out[m] = self._meta_host[slots[m]]
         return out
 
-    def _commit_rows(self) -> torch.Tensor:
-        """Logical-row binding for the commitment kernels: identity
+    def _commit_rows(self, row0: int = 0, count: int | None = None,
+                     device=None) -> torch.Tensor:
+        """Logical-row binding of device rows [row0, row0 + count) (all
+        of them by default) for the commitment kernels: identity
         all-resident, logical_of tiered.  A free hot slot binds to row 0:
         its all-zero content hashes to (0, 0) whatever the binding, so
         the digest is exactly the hot partial of the logical table."""
+        count = self.device_rows if count is None else count
+        device = self.device if device is None else device
         if self.hot is None:
-            return torch.arange(self.balances.shape[0], dtype=torch.int64, device=self.device)
-        lof = self.hot.logical_of
-        return torch.from_numpy(np.where(lof >= 0, lof, 0)).to(self.device)
+            return torch.arange(row0, row0 + count, dtype=torch.int64, device=device)
+        lof = self.hot.logical_of[row0 : row0 + count]
+        return torch.from_numpy(np.where(lof >= 0, lof, 0)).to(device)
+
+    def _shard_rows(self):
+        """Sharded: (balances, meta, logical rows) of every shard."""
+        L = self.balances.local_rows
+        return [
+            (b, m, self._commit_rows(s * L, L, b.device))
+            for s, (b, m) in enumerate(zip(self.balances.shards, self.meta.shards))
+        ]
 
     def _commit_rebuild(self) -> None:
         if not self._commit_enabled:
             return
-        self.dev_row_hash, self.dev_digest = self._cm["rebuild"](
-            self.balances, self.meta, self._commit_rows()
-        )
+        if self.sharding is None:
+            self.dev_row_hash, self.dev_digest = self._cm["rebuild"](
+                self.balances, self.meta, self._commit_rows()
+            )
+            return
+        # Each shard hashes its rows under their global ids; the fold is
+        # a wrapping sum, so the shards' folds add up on home.
+        parts = [self._cm["rebuild"](b, m, rows) for b, m, rows in self._shard_rows()]
+        self.dev_row_hash = sharded.ShardedTable(self.sharding, [p[0] for p in parts],
+                                                 self._plain)
+        self.dev_digest = self.balances.sum([p[1] for p in parts])
 
     def _commit_update(self, slots) -> None:
         """Absorb the touched rows of one window into the device digest:
@@ -971,8 +1147,11 @@ class DeviceEngine:
         if not self._commit_enabled or self.dev_row_hash is None:
             return
         slots = np.unique(np.asarray(slots, np.int64))
-        slots = slots[(slots >= 0) & (slots < self.balances.shape[0])]
+        slots = slots[(slots >= 0) & (slots < self.device_rows)]
         if len(slots) == 0:
+            return
+        if self.sharding is not None:
+            self._commit_update_sharded(slots)
             return
         padded_np = cm.pad_slots(slots)
         padded = torch.from_numpy(padded_np).to(self.device)
@@ -984,6 +1163,45 @@ class DeviceEngine:
         self._cm["update"](
             self.balances, self.meta, self.dev_row_hash, self.dev_digest, padded, rows,
         )
+
+    def _commit_update_sharded(self, slots: np.ndarray) -> None:
+        """K2 update of the distinct device `slots`: their balances and
+        meta K14-gathered onto home, then _commit_compact."""
+        idx = torch.from_numpy(slots).to(self.device)
+        self._commit_compact(slots, idx, self.balances.gather(idx), self.meta.gather(idx))
+
+    def _commit_compact(self, slots: np.ndarray, idx, bal, meta) -> None:
+        """K2 update on a compact table (`bal`, `meta`) of the distinct
+        device rows `slots` (`idx` on home): their row hashes
+        K14-gathered, K2 over compact positions hashing under the global
+        (logical) rows, the new hashes K14-scattered back; the digest
+        lives on home.  A row the unit left unchanged hashes as before
+        and does not move the digest."""
+        if not self._commit_enabled or self.dev_row_hash is None:
+            return
+        rows = slots if self.hot is None else np.where(
+            self.hot.logical_of[slots] >= 0, self.hot.logical_of[slots], 0)
+        row_hash = self.dev_row_hash.gather(idx)
+        self.stat_commit_updates += 1
+        self._cm["update"](
+            bal, meta, row_hash, self.dev_digest,
+            torch.arange(len(slots), dtype=torch.int64, device=self.device),
+            torch.from_numpy(rows).to(self.device),
+        )
+        self.dev_row_hash.scatter(idx, row_hash)
+
+    def _commit_records(self, recs) -> None:
+        """Absorb the rows `recs` can have modified into the device
+        commitment (one K2 update).  Sharded, the K1 / K5 / K6 records
+        were absorbed on their units' compact tables (_compact): only
+        meta and wave records remain."""
+        if not self._commit_enabled:
+            return
+        if self.sharding is not None:
+            recs = [r for r in recs if r.kind not in _SEMANTIC_KINDS]
+        touched = self._collect_touched(recs)
+        if touched is not None:
+            self._commit_update(touched)
 
     def _collect_touched(self, recs) -> np.ndarray | None:
         """Union of balance rows a record list can have modified."""
@@ -1010,12 +1228,20 @@ class DeviceEngine:
 
     def commit_probe(self) -> np.ndarray:
         """(2, 2) u64 [maintained digest, from-scratch digest]; the
-        caller holds the engine drained."""
-        return to_u64(
-            self._cm["probe"](
-                self.balances, self.meta, self.dev_digest, self._commit_rows()
+        caller holds the engine drained.  Sharded, each shard's
+        from-scratch fold (a probe against a zero digest) adds up on
+        home."""
+        if self.sharding is None:
+            return to_u64(
+                self._cm["probe"](
+                    self.balances, self.meta, self.dev_digest, self._commit_rows()
+                )
             )
-        )
+        folds = [
+            self._cm["probe"](b, m, torch.zeros(2, dtype=torch.int64, device=b.device), rows)[1]
+            for b, m, rows in self._shard_rows()
+        ]
+        return to_u64(torch.stack([self.dev_digest, self.balances.sum(folds)]))
 
     def drain(self) -> None:
         # A drain nested inside exact recovery (the host re-execution
@@ -1068,27 +1294,28 @@ class DeviceEngine:
         stream prefix before the re-executed batch, while the device
         table holds the whole window's effects), so a card tensor is
         built from it; otherwise a drain and flush barrier, then the
-        device table — tiered, the table built from the mirror, which
-        the drain made current."""
+        device table (sharded: joined onto home, a copy that only
+        write_back puts back) — tiered, the table built from the mirror,
+        which the drain made current."""
         if self._recovering:
             return self._degraded_table()
         self.drain()
         self.flush()
         if self.hot is not None:
             return self._degraded_table()
-        return self.balances
+        return sharded.dense(self.balances)
 
     def write_back(self, value: torch.Tensor) -> None:
         """Replace the table from a full logical table image (the host
-        path's exact result): a handle swap all-resident, which does not
-        move the digest; tiered, the hot rows gathered out of the image
-        and the digest rebuilt (the mirror stays the cold tier's
-        authority)."""
+        path's exact result): a handle swap all-resident (sharded: the
+        image split onto the shards), which does not move the digest;
+        tiered, the hot rows gathered out of the image and the digest
+        rebuilt (the mirror stays the cold tier's authority)."""
         self._degraded_cache = None
         if self.hot is None:
-            self.balances = value
+            self.balances = self._place(value)
             return
-        self.balances = hot_tier.gather_hot(value, self.hot.logical_of)
+        self.balances = self._place(hot_tier.gather_hot(value, self.hot.logical_of))
         self._commit_rebuild()
 
     def exact_written(self, slots) -> None:

@@ -720,7 +720,10 @@ class OrderfreeScratch:
         self.ctrl = torch.zeros(2, dtype=i32, device=device)
 
     def fits(self, rows: int, batch: int) -> bool:
-        return self.rows == rows and self.batch >= batch
+        # A launch touches slot_idx only below its table's row count,
+        # so a scratch made for more rows serves a smaller (compact)
+        # table too.
+        return self.rows >= rows and self.batch >= batch
 
 
 def _check_batch(table, meta, ring, ring_at, pk, n, want):
@@ -790,7 +793,7 @@ class WordScratch:
         )
 
     def fits(self, rows: int, batch: int) -> bool:
-        return self.rows == rows and self.batch == batch
+        return self.rows >= rows and self.batch == batch
 
 
 def linked(table, meta, ring, ring_at, pk, n, ts_base, small=False,
@@ -960,21 +963,23 @@ def _wide(table):
     return table
 
 
-def checksum_plain(table):
+def checksum_plain(table, row0: int = 0):
     """Plain version of K11: the (2C,) int64 digest of an (R, C) table —
-    C column sums, then C sums of v * (row * GOLDEN + 1), mod 2^64 (the
-    words of mirror.digest_columns)."""
+    C column sums, then C sums of v * ((row0 + r) * GOLDEN + 1), mod
+    2^64 (the words of mirror.digest_columns).  `row0` is the global
+    index of the table's first row: the digests of a row-sharded
+    table's shards, each under its own row0, sum to the joined table's."""
     m = _wide(table)
-    rows = torch.arange(m.shape[0], dtype=torch.int64, device=m.device)[:, None]
+    rows = torch.arange(row0, row0 + m.shape[0], dtype=torch.int64, device=m.device)[:, None]
     mixed = (m * (rows * s64(_GOLDEN) + 1)).sum(dim=0)
     return torch.cat([m.sum(dim=0), mixed])
 
 
-def checksum(table):
+def checksum(table, row0: int = 0):
     """The (2C,) int64 digest of an (R, C) table of u64 lanes (int64) or
-    u32 words (int32, zero-extended); C a power of two up to 32.  CUDA
-    tensors launch K11 (raising on any CUDA error); CPU tensors run
-    checksum_plain."""
+    u32 words (int32, zero-extended) whose first row is global row
+    `row0`; C a power of two up to 32.  CUDA tensors launch K11 (raising
+    on any CUDA error); CPU tensors run checksum_plain."""
     if table.dim() != 2 or table.dtype not in (torch.int64, torch.int32):
         raise ValueError(f"table must be (R, C) int64 or int32, got {tuple(table.shape)} {table.dtype}")
     C = table.shape[1]
@@ -982,11 +987,13 @@ def checksum(table):
         raise ValueError(f"checksum takes a power-of-two column count up to 32, got {C}")
     if not table.is_contiguous():
         raise ValueError("table must be contiguous")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if table.device.type == "cpu":
-        return checksum_plain(table)
+        return checksum_plain(table, row0)
     out = torch.zeros(2 * C, dtype=torch.int64, device=table.device)
     if table.shape[0]:
-        kernels.checksum(table, out)
+        kernels.checksum(table, out, row0)
     return out
 
 

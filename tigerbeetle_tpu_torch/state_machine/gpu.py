@@ -41,8 +41,15 @@ packing it with hot slots (``_tier_translate``), the host engine admits
 them as its deltas arrive.  Not ported (ROADMAP): the native library,
 the device engine's degraded state, the host-only linked / two-phase
 fast paths (those batches take the exact path, with the same results),
-the engine's row-sharded table (the sharded apply and wave executors
-themselves are ported: ``parallel/sharded.py``), the query operations.
+the query operations.
+
+Row sharding (``devices``, the reference's ``jax.devices()``): with
+several devices whose count divides the device table's rows, either
+engine splits its tables row-wise over a ("shard",) mesh
+(``parallel/sharded.py``); the router then routes as the reference's
+sharded machine does: no speculation, and wave dispatch declines a plan
+with scan segments ("shard_plan") or a mesh that does not divide the
+capacity ("mesh").
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from tigerbeetle_tpu_torch import constants as cfg
 from tigerbeetle_tpu_torch import envcheck, types
 from tigerbeetle_tpu_torch.device import resolve_device
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
+from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel, resolve, waves
@@ -243,15 +251,25 @@ class TorchStateMachine:
         device=None,
         plain: bool = False,
         engine: str | None = None,
+        devices=None,
     ) -> None:
         """`device`: None = the first CUDA card (raises without one);
         "cpu" runs the kernels' plain PyTorch versions on the CPU.
+        `devices`: the devices the device tables may shard over (the
+        reference's jax.devices(); they may repeat a device, as
+        ["cpu"] * 8); `device`, when named too, must be the first.  With
+        neither, every visible CUDA card; with `device` alone, that one.
         `plain` runs the plain versions on `device` (a reference run).
         `engine`: "host" or "device" (default: TB_ENGINE, else "host")."""
         self.config = config
         self.engine = engine or envcheck.engine()
         if self.engine not in ("host", "device"):
             raise ValueError(f"engine must be 'host' or 'device', got {self.engine!r}")
+        if devices is not None or device is None:
+            devices = sharded.resolve_devices(devices)
+            if device is not None and resolve_device(device) != devices[0]:
+                raise ValueError(f"device {device!r} is not the first of {devices}")
+            device = devices[0]
         self.device = resolve_device(device)
         self.plain = plain
         self.prepare_timestamp = 0
@@ -298,10 +316,11 @@ class TorchStateMachine:
             self._mirror.commitment = self._commitment
         if self.engine == "device":
             self._dev = DeviceEngine(
-                account_capacity, self._mirror, self.device, plain=plain
+                account_capacity, self._mirror, self.device, plain=plain, devices=devices
             )
         else:
-            self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain)
+            self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain,
+                                    devices=devices)
         self._exact_scratch = None
         self._wave_scratch = None
         self._tdir = RunIndex(_dir_capacity(transfer_capacity))
@@ -364,14 +383,11 @@ class TorchStateMachine:
         fetched only to name the diverged rows."""
         dev = self._dev
         if self.engine == "host":
+            dev_sum = dev.device_checksum()
             if dev.hot is not None:
-                dev.flush()
-                dev_sum = to_u64(dk.checksum(dev.balances))
                 host_sum = digest_columns(mirror_hot_table8(self._mirror, dev.hot.logical_of))
             else:
-                table = dev.read()
-                dev_sum = to_u64(dk.checksum(table))
-                host_sum = self._mirror.checksum8(int(table.shape[0]))
+                host_sum = self._mirror.checksum8(dev.capacity)
             if not (dev_sum == host_sum).all():
                 raise AssertionError(
                     "device/mirror balance divergence: "
@@ -1706,16 +1722,22 @@ class TorchStateMachine:
         records, and the admission charges every in-flight record's
         amount bound on top of the mirror (DeviceEngine.inflight_bound).
         A tiered table declines ("tier"): the wave records index the
-        table by logical slot.  The reference's declines for a mesh
-        ("mesh", "shard_plan") and a degraded engine cannot arise here:
-        the engine's tables are not sharded (ROADMAP slice 10b) and the
-        degraded state is not ported (slice 6)."""
+        table by logical slot.  A row-sharded engine declines a mesh that
+        does not divide its capacity ("mesh") and a plan with scan
+        segments ("shard_plan": the sharded executor runs wave and chain
+        segments only), and never speculates.  The reference's
+        "degraded" decline cannot arise here: the degraded state is not
+        ported (ROADMAP queue 1, item 6)."""
         dev = self._dev
         dm = waves.dev_mode()
         if dm == "0" or n == 0 or n > _BATCH_BUCKETS[-1]:
             return None, None
         if dev.hot is not None:
             self._dev_wave_decline("tier")
+            return None, None
+        is_sharded = dev.sharding is not None
+        if is_sharded and dev.wave_mesh() is None:
+            self._dev_wave_decline("mesh")
             return None, None
         t0 = _time.perf_counter()
         d = self._decode_static(events, n)
@@ -1751,7 +1773,7 @@ class TorchStateMachine:
         # must replay (chain members, history events, serialized
         # post/voids); "force" speculates regardless.
         sm_mode = waves.spec_mode()
-        speculate = sm_mode != "0"
+        speculate = sm_mode != "0" and not is_sharded
         if speculate and sm_mode != "force":
             speculate = int(meta["chain_member"].sum()) <= waves.spec_residue_cap() * n
         if not speculate and self._chain_dominated(n, meta, force=(dm == "1")):
@@ -1771,9 +1793,13 @@ class TorchStateMachine:
         if not speculate:
             plan = self._grade_plan(n, meta, inb_pairs, batch_bound, force=(dm == "1"))
         self._observe_plan_time(t0)
-        if not speculate and plan is None:
-            self._dev_wave_decline("plan")
-            return None, d
+        if not speculate:
+            if plan is None:
+                self._dev_wave_decline("plan")
+                return None, d
+            if is_sharded and not waves.plan_shardable(plan):
+                self._dev_wave_decline("shard_plan")
+                return None, d
 
         ev = self._build_scan_events(
             n, B, events, d["flags"], d["static"], d["amount_lo"], d["amount_hi"],

@@ -35,8 +35,8 @@ module) runs the same kernels over the shard tables of a ("shard",)
 mesh (``parallel/sharded.py``): it gathers the rows a batch can touch
 into a compact table once (kernel K14), runs the dense executor there
 with the batch's slots remapped, and writes the rows back onto their
-owners.
-The device engine's tables stay dense (engine sharding is not ported).
+owners.  A row-sharded device engine runs its wave records through it
+(``run_plan_engine`` with the engine's mesh).
 """
 
 from __future__ import annotations
@@ -1690,9 +1690,18 @@ def run_create_transfers_waves(table, ev, dstat_init, n, ts_base, plan, hist_fix
     return _finish(table, carry, hist_fix, fns)
 
 
-# The device engine's wave record runs the same executor against the
-# engine's table (dense: the engine's table is not sharded yet).
-run_plan_engine = run_create_transfers_waves
+def run_plan_engine(table, ev, dstat_init, n, ts_base, plan, hist_fix, mesh=None,
+                    scratch=None, plain=False) -> torch.Tensor:
+    """The device engine's wave record (reference: run_plan_engine,
+    :1919-1941): the dense executor on the engine's table, or with a row
+    `mesh` the sharded executor on its shard tables (`table` is then
+    their list).  The tables are updated in place; returns the (B, 37)
+    packed outputs."""
+    if mesh is None:
+        return run_create_transfers_waves(table, ev, dstat_init, n, ts_base, plan, hist_fix,
+                                          scratch, plain)
+    return _execute_plan_sharded(table, ev, dstat_init, n, ts_base, plan, hist_fix, mesh,
+                                 scratch, plain)[1]
 
 
 def run_speculative_engine(table, ev, dstat_init, spec_serial, n, ts_base, scratch=None,
@@ -1757,26 +1766,18 @@ _OUT_SLOT_COLS = (kernel._SCALAR_COLS.index("dr_slot"), kernel._SCALAR_COLS.inde
 
 
 def _batch_rows(ev: dict, A: int) -> np.ndarray:
-    """The sorted global rows a batch can touch: every value of its slot
-    columns clipped into [0, A), with rows 0 and A - 1 (where a slot
-    outside the table clips to)."""
-    cols = [np.asarray(ev[c], np.int64) for c in _SLOT_COLS]
-    return np.unique(np.concatenate([np.clip(np.concatenate(cols), 0, A - 1), [0, A - 1]]))
+    """The sorted global rows a batch can touch (sharded.compact_rows of
+    every value of its slot columns)."""
+    return sharded.compact_rows(
+        np.concatenate([np.asarray(ev[c], np.int64) for c in _SLOT_COLS]), A)
 
 
 def _remap_slots(ev: dict, rows: np.ndarray, A: int) -> dict:
     """The batch with its slot columns moved onto the compact table of
-    `rows`: a slot in [0, A) becomes its row's position, a negative slot
-    stays, a slot s >= A becomes s - A + len(rows).  The map is strictly
-    increasing (so equal, unequal and ordered slots stay so) and a
-    clip into the compact table lands on the row the clip into the
-    whole table would."""
+    `rows` (sharded.remap_slots)."""
     out = dict(ev)
-    K = len(rows)
     for c in _SLOT_COLS:
-        s = np.asarray(ev[c], np.int64)
-        pos = np.searchsorted(rows, np.clip(s, 0, A - 1))
-        out[c] = np.where(s < 0, s, np.where(s >= A, s - A + K, pos)).astype(np.int32)
+        out[c] = sharded.remap_slots(np.asarray(ev[c], np.int64), rows, A).astype(np.int32)
     return out
 
 

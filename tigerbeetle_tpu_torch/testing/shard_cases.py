@@ -16,16 +16,24 @@ numpy only, shared by the CPU tests and ``chip_smoke.py``:
 - ``shardable_cases``: the wave_cases plans the sharded wave executor
   takes (wave and chain segments only);
 - ``wave_stream``: a stream of full batches of those shapes, each on
-  its own rows of one table.
+  its own rows of one table;
+- ``pv_balancing_stream``: create_transfers wire batches of
+  (pending, post) pairs with balancing riders (the reference's
+  ``_pv_balancing_batch`` shape, tests/test_device_waves.py:191) at
+  full size, which the device engine wave-dispatches with wave-only
+  plans, some batches carrying a pending between history accounts
+  (a scan segment: the sharded engine declines those).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.ops.u128 import to_u64
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.testing import wave_cases
+from tigerbeetle_tpu_torch.types import AccountFlags, Operation, TransferFlags
 
 M32 = np.uint64(0xFFFFFFFF)
 S32 = np.uint64(32)
@@ -249,3 +257,50 @@ def hist_fix(plan, n, B) -> np.ndarray:
     fix = np.zeros(B, bool)
     fix[:n] = plan.wave_mask
     return fix
+
+
+def pv_balancing_stream(seed, n_batches, batch, n_accounts, history_batches=()):
+    """(setup, timed): accounts 1..n_accounts, then 2 * len(history_batches)
+    history accounts after them; `n_batches` create_transfers batches of
+    exactly `batch` events.  A batch is P (pending, post) pairs (P =
+    2 * batch // 5) over accounts drawn from the pool below the riders'
+    accounts, then balancing_debit riders, each on its own account pair
+    (reused by every batch).  A batch whose index is in
+    `history_batches` has its first pair's pending between two history
+    accounts instead (its post stays on it)."""
+    rng = np.random.default_rng(seed)
+    P = 2 * batch // 5
+    Q = batch - 2 * P
+    pool = n_accounts - 2 * Q
+    hist0 = n_accounts + 1
+    setup = workload._create_accounts(n_accounts)
+    if history_batches:
+        ids = np.arange(hist0, hist0 + 2 * len(history_batches), dtype=np.uint64)
+        setup.append((Operation.create_accounts, workload.accounts_bytes(
+            ids, flags=np.full(len(ids), int(AccountFlags.history), np.uint16))))
+    pend, post, bal = (int(TransferFlags.pending), int(TransferFlags.post_pending_transfer),
+                       int(TransferFlags.balancing_debit))
+    rider_dr = np.arange(pool + 1, pool + 1 + 2 * Q, 2, dtype=np.uint64)
+    timed, tid = [], workload.TID0
+    for k in range(n_batches):
+        dr = rng.integers(1, pool + 1, P).astype(np.uint64)
+        cr = (dr + rng.integers(1, pool, P).astype(np.uint64) - 1) % np.uint64(pool) + 1
+        if k in history_batches:
+            h = hist0 + 2 * list(history_batches).index(k)
+            dr[0], cr[0] = h, h + 1
+        ids = np.arange(tid, tid + batch, dtype=np.uint64)
+        pair_dr = np.zeros(2 * P, np.uint64)
+        pair_cr = np.zeros(2 * P, np.uint64)
+        pair_dr[0::2], pair_cr[0::2] = dr, cr
+        amount = np.zeros(2 * P, np.uint64)
+        amount[0::2] = rng.integers(1, 50, P)
+        flags = np.zeros(batch, np.uint16)
+        flags[0:2 * P:2], flags[1:2 * P:2], flags[2 * P:] = pend, post, bal
+        pending_id = np.zeros(batch, np.uint64)
+        pending_id[1:2 * P:2] = ids[0:2 * P:2]
+        timed.append((Operation.create_transfers, workload.transfers_bytes(
+            ids, np.concatenate([pair_dr, rider_dr]), np.concatenate([pair_cr, rider_dr + 1]),
+            np.concatenate([amount, rng.integers(1, 20, Q).astype(np.uint64)]),
+            flags=flags, pending_id=pending_id)))
+        tid += batch
+    return setup, timed
