@@ -18,11 +18,15 @@ holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
 local rows of a 2^20-row table split in 4, K14 gather and scatter at
 row widths 8, 2 and 1 on 16,380 slots (a wave batch) and on the
 ~780,000 rows of a window unit of sharded_engine, K11 with row0 on the four
-shards of a split table against the joined table's digest), measures
-one dependent L2 hit (K3's and K5's serial floors), then drives the
-port's create_transfers loop through SingleNodeHarness on
+shards of a split table against the joined table's digest; the
+launchers scan_of, for every kind at G = 4, and staged, for the five
+*_staged names at g = 0, G - 1, G and -1, on full batches over a
+2^20-row table, against their plain loops and one launch per batch),
+measures one dependent L2 hit (K3's and K5's serial floors), then
+drives the port's create_transfers loop through SingleNodeHarness on
 TorchStateMachine in eleven phases, the two row-sharded entry points
-in two more, and the row-sharded engines in two more:
+in two more, the row-sharded engines in two more, and the graft entry
+and the launcher probes in two more:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -92,6 +96,15 @@ in two more, and the row-sharded engines in two more:
                path on the joined table, written back onto the shards),
                ending with the checkpoint tripwire (K11 per shard);
                timed three times, held as sharded_engine is
+  graft_entry  graft_entry.entry() (K3 on the reference's example),
+               held to its plain run on the CPU; dryrun_multichip(4)
+               on four cards, or the first card four times: the
+               sharded apply step (K12, K13), a linked batch through K3
+               on a row-sharded table (K14), the sharded device engine
+               and its wave dispatch, each against the CPU oracle
+  probes       the seven experiments probes at 2^20 rows and their own
+               repetitions (scan_of, staged: K1, K5, K6), each ending
+               with its table and ring held to a batch-by-batch replay
 
 All the shards of a mesh lie on the one card: copies between shards
 are device-local, and no time here is a multi-GPU one.
@@ -118,6 +131,7 @@ device or on any failed check.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import json
 import os
 import subprocess
@@ -189,7 +203,7 @@ MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "appl
              "linked", "two_phase", "exact_init", "exact_segment", "exact_finalize",
              "wave_step", "chain_wave", "spec_conflicts", "tier_set_rows", "commit_admit",
              "checksum", "shard_accumulate", "shard_admit", "shard_apply", "shard_gather",
-             "shard_scatter")
+             "shard_scatter", "scan_of", "staged")
 # K3's classes for the kernel check, and the codes each must produce.
 K3_CLASSES = {
     "linked": {1, 2},
@@ -283,6 +297,10 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _dev_us(us: float | None) -> str:
+    return "not measured" if us is None else f"{us:.1f} us"
 
 
 def _vs(plain_ms: float, bound_ms: float) -> str:
@@ -858,6 +876,158 @@ def k14_case(table, slots, shard, rng):
              timed_case=case),
     )
 
+
+
+# ---------------------------------------------------------------------------
+# The multi-batch launchers: K1, K5 and K6 over a resident stack
+# (scan_of) or one batch of a resident superbatch (staged).
+
+LAUNCH_G = 4              # batches per scan_of call in the checks
+TIMED_G = (4, 16, 32)     # scan_of depths timed
+TIMED_KINDS = ("orderfree_lo", "linked_small", "two_phase_lo")  # the scan_kinds probe's
+
+
+def batch_bound(kind, pk, n, ring_row) -> tuple[float, float]:
+    """(bytes, operations) one batch of `kind` must move and do: the
+    packed batch, the distinct named rows read (balances and meta) and
+    written, one ring row; the kernel's operations per event, per row
+    and, for K5, per limit entry and fixpoint iteration."""
+    fam = dk.FAMILY[kind]
+    if fam == "orderfree":
+        n_bytes, rows = orderfree_bytes(dk.KIND_MODE[kind], pk, n, None)
+        return n_bytes, n * K1_OPS_PER_EVENT + rows * K1_OPS_PER_ROW
+    pk_np = to_u64(pk)
+    cols = [dk.COL_SLOTS] if fam == "linked" else [dk.COL_SLOTS, dk.COL_TP_SLOTS]
+    idx = _slots_of(pk_np, n, cols)
+    n_bytes = pk_np.nbytes + len(idx) * (64 + 8) + len(idx) * 64 + 512
+    if fam == "two_phase":
+        return n_bytes, n * K6_OPS_PER_EVENT
+    iters = dk.unpack_summary(ring_row)["iters"]
+    return n_bytes, n * K5_OPS_PER_EVENT + 2 * n * K5_OPS_PER_ENTRY_ITER * iters
+
+
+def check_launchers(dev, report):
+    """scan_of for every kind (G = LAUNCH_G, ring rows wrapping past the
+    end) and staged for the five *_staged names at g = 0, G - 1, G and
+    -1 (the clamp), on the experiments' probe batches (full 8190-event
+    batches over a 2^20-row table of random balances): each against its
+    plain version and against the same batches launched one per call,
+    table and ring bit for bit.  Then µs per batch of orderfree_lo one
+    per call with a sync after each, scan_of at TIMED_G and staged, and
+    scan_of at 16 for the scan_kinds probe's three kinds."""
+    from tigerbeetle_tpu_torch.experiments import common
+
+    rng = np.random.default_rng(2031)
+    table, meta = _tables(rng, A_ROWS, dev)
+    ring = torch.zeros((RING_ROWS, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+    G = LAUNCH_G
+    ns = np.array([common.N - 7 * g for g in range(G)], np.int64)
+    tsb = np.arange(G, dtype=np.uint64) + np.uint64(1 << 40)
+    err_scan = err_staged = 0
+    stacks = {}
+    for kind in dk.KIND_MODE:
+        stacks[kind] = stack = common.upload(common.probe_stack(kind, A_ROWS, G, seed=41), dev)
+        at0 = RING_ROWS - 2
+        out = []
+        for run in ("kernel", "plain", "one per call"):
+            t, r = table.clone(), ring.clone()
+            kernels.reset_launches()
+            if run == "one per call":
+                for g in range(G):
+                    dk.KERNELS[kind](t, meta, r, (at0 + g) % RING_ROWS, stack[g], int(ns[g]),
+                                     int(tsb[g]))
+            else:
+                dk.scan_of(kind, G, plain=run == "plain")(t, meta, r, at0, stack, ns, tsb)
+            torch.cuda.synchronize()
+            out.append((t, r, kernels.launches["scan_of"]))
+        check([c for *_x, c in out] == [G, 0, 0], f"scan_of[{kind}]: launches {out[0][2]}")
+        e = max(max(max_abs_err(out[0][0], t), max_abs_err(out[0][1], r)) for t, r, _ in out[1:])
+        check(e == 0, f"scan_of[{kind}]: differs from the plain loop or one launch per call")
+        err_scan = max(err_scan, e)
+        del out
+    print(f"scan_of: {len(dk.KIND_MODE)} kinds x G = {G} (ring rows {RING_ROWS - 2} onward, "
+          f"wrapping): bit-exact against the plain loop and one launch per call")
+    for name, kind in sorted(dk.STAGED.items()):
+        sup = stacks[kind].reshape(G * dk.B, -1)
+        for g in (0, G - 1, G, -1):
+            s = dk.dynamic_start(g * dk.B, G * dk.B, dk.B)
+            t_k, r_k, t_p, r_p, t_1, r_1 = (x.clone() for x in (table, ring) * 3)
+            kernels.reset_launches()
+            getattr(dk, name)(t_k, meta, r_k, 9, sup, g, common.N, 1 << 40)
+            check(kernels.launches["staged"] == 1, f"{name}: not one staged launch")
+            dk.staged(kind, plain=True)(t_p, meta, r_p, 9, sup, g, common.N, 1 << 40)
+            dk.KERNELS[kind](t_1, meta, r_1, 9, sup[s:s + dk.B], common.N, 1 << 40)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(t_k, t_p), max_abs_err(r_k, r_p), max_abs_err(t_k, t_1),
+                    max_abs_err(r_k, r_1))
+            check(e == 0, f"{name} g={g}: differs from the plain version or its own launch")
+            err_staged = max(err_staged, e)
+    print(f"staged: {len(dk.STAGED)} names x g in (0, {G - 1}, {G}, -1): bit-exact against the "
+          f"plain version and one launch on rows [dynamic_start(g * B), + B)")
+    del stacks
+
+    # Timing: orderfree_lo, the probes' kind, on full batches.
+    kind = "orderfree_lo"
+    scratch = common.scratch_for(kind, A_ROWS, dev)
+    big = common.upload(common.probe_stack(kind, A_ROWS, max(TIMED_G), seed=43), dev)
+    ns_all = np.full(max(TIMED_G), common.N, np.int64)
+    tsb_all = np.arange(max(TIMED_G), dtype=np.uint64) + np.uint64(1 << 40)
+    t, r = table.clone(), ring.clone()
+    dk.KERNELS[kind](t, meta, r, 0, big[0], common.N, 1 << 40)
+    b_bytes, b_ops = batch_bound(kind, big[0], common.N, to_u64(r[0]))
+    solo = dk.scan_of(kind, 1)
+    solo_ms = time_ms(lambda: solo(t, meta, r, 0, big[:1], ns_all[:1], tsb_all[:1],
+                                   scratch=scratch))
+    us = {"solo_sync": solo_ms * 1e3}
+    for Gt in TIMED_G:
+        scan = dk.scan_of(kind, Gt)
+        args = (t, meta, r, 0, big[:Gt], ns_all[:Gt], tsb_all[:Gt])
+        us[str(Gt)] = time_ms(lambda: scan(*args, scratch=scratch)) / Gt * 1e3
+    G16 = 16
+    scan16 = dk.scan_of(kind, G16)
+    args16 = (t, meta, r, 0, big[:G16], ns_all[:G16], tsb_all[:G16])
+    scan_ms, scan_dev = kernel_ms(lambda: scan16(*args16, scratch=scratch))
+    t_p, r_p = table.clone(), ring.clone()
+    plain16 = dk.scan_of(kind, G16, plain=True)
+    scan_plain = time_ms(lambda: plain16(t_p, meta, r_p, 0, big[:G16], ns_all[:G16],
+                                         tsb_all[:G16]), reps=3, warm=1)
+    scan_bound, scan_by = bound(G16 * b_bytes, G16 * b_ops)
+    sup = big[:8].reshape(8 * dk.B, -1)
+    stg = dk.orderfree_lo_staged
+    st_ms, st_dev = kernel_ms(lambda: stg(t, meta, r, 3, sup, 5, common.N, 1, scratch=scratch))
+    st_plain = time_ms(lambda: dk.staged(kind, plain=True)(t_p, meta, r_p, 3, sup, 5, common.N, 1),
+                       reps=5, warm=1)
+    st_bound, st_by = bound(b_bytes, b_ops)
+    us["staged"] = st_ms * 1e3
+    by_kind = {}
+    for k in TIMED_KINDS:
+        st = common.upload(common.probe_stack(k, A_ROWS, G16, seed=45), dev)
+        sc = common.scratch_for(k, A_ROWS, dev)
+        tk, rk = table.clone(), ring.clone()
+        scan_k = dk.scan_of(k, G16)
+        kargs = (tk, meta, rk, 0, st, ns_all[:G16], tsb_all[:G16])
+        k_ms, k_dev = kernel_ms(lambda: scan_k(*kargs, scratch=sc))
+        kb, ko = batch_bound(k, st[0], common.N, to_u64(rk[0]))
+        by_kind[k] = dict(us_per_batch=k_ms / G16 * 1e3,
+                          device_us_per_batch=None if k_dev is None else k_dev / G16 * 1e3,
+                          bound_us_per_batch=bound(kb, ko)[0] * 1e3)
+        del st, tk, rk
+    print(f"scan_of[{kind}] per batch: solo + sync {us['solo_sync']:.1f} us, "
+          + ", ".join(f"scan-{g} {us[str(g)]:.1f} us" for g in TIMED_G)
+          + f", staged {us['staged']:.1f} us; scan-16 call {scan_ms * 1e3:.1f} us, "
+          f"{_dev(scan_dev)} {_vs(scan_plain, scan_bound)}; staged call {_dev(st_dev)} "
+          f"{_vs(st_plain, st_bound)}")
+    print("scan_of G=16 per batch by kind: " + "; ".join(
+        f"{k} {v['us_per_batch']:.1f} us (device {_dev_us(v['device_us_per_batch'])}, "
+        f"bound {v['bound_us_per_batch']:.3f} us)" for k, v in by_kind.items()))
+    report["scan_of"] = dict(ms=scan_ms, device_ms=scan_dev, plain_ms=scan_plain,
+                             bound_ms=scan_bound, bound_by=scan_by, max_abs_err=err_scan,
+                             timed_case=f"{kind} G={G16}", us_per_batch=us, by_kind=by_kind)
+    report["staged"] = dict(ms=st_ms, device_ms=st_dev, plain_ms=st_plain, bound_ms=st_bound,
+                            bound_by=st_by, max_abs_err=err_staged,
+                            timed_case="orderfree_lo_staged g=5 of 8")
+    del big, t, r, t_p, r_p
+    torch.cuda.empty_cache()
 
 CEILING_ROWS = 64  # rows past the accounts seeded within 2^40 of 2^128
 
@@ -2107,6 +2277,90 @@ def run_sharded_host_phase():
                           must=("apply_deltas", "checksum"), extra=exact_ran)
 
 
+GRAFT_MUST = ("exact_scan", "shard_accumulate", "shard_admit", "shard_apply", "shard_gather",
+              "shard_scatter")
+
+
+def run_graft_entry_phase():
+    """Phase graft_entry: the graft entry's step (K3 on the reference's
+    example) on the card, held to its plain run on the CPU; then
+    dryrun_multichip(SHARDS) on SHARDS cards, or the first card SHARDS
+    times (the sharded apply step, the linked batch through K3 on a
+    row-sharded table, the sharded device engine and its wave dispatch,
+    each against the CPU oracle).  Returns (main-path launches, check
+    launches)."""
+    from tigerbeetle_tpu_torch import graft_entry as ge
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fn, args = ge.entry()
+    table, packed = fn(*args)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    devs = ge.mesh_devices(SHARDS)
+    ge.dryrun_multichip(SHARDS)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    for name in GRAFT_MUST:
+        check(launches[name] > 0, f"graft_entry: {name} was not launched")
+    codes = k3.unpack_outputs(to_u64(packed))["results"][:8]
+    check(not codes.any(), f"graft_entry: entry codes {codes.tolist()}")
+    kernels.reset_launches()
+    cfn, cargs = ge.entry(device="cpu")
+    c_table, c_packed = cfn(*cargs)
+    check(torch.equal(table.cpu(), c_table) and torch.equal(packed.cpu(), c_packed),
+          "graft_entry: entry's outputs differ from its plain run")
+    check_launches = dict(kernels.launches)
+    print(f"phase graft_entry: entry (K3, 8 of 32 events, (64, 8) table) {entry_s * 1e3:.1f} ms, "
+          f"codes 0, table and outputs equal the plain run; dryrun_multichip({SHARDS}) on "
+          f"{sorted({str(d) for d in devs})} x {SHARDS // len(set(devs))}: sharded apply, "
+          f"linked batch on the row-sharded table, sharded device engine and wave dispatch "
+          f"equal the CPU oracle; {elapsed:.1f} s; main-path launches "
+          f"{ {k: v for k, v in launches.items() if v} }; checks passed")
+    return launches, check_launches
+
+
+PROBES = ("scan_kinds_probe", "scan_resident_probe", "scan_probe", "stage_sweep",
+          "staged_prod_probe", "kernel_time_probe", "kernel_time_probe2")
+
+
+def run_probes_phase(dev):
+    """Phase probes: each ported probe's run at 2^20 rows and its own
+    repetitions (its lines printed as it goes), the launch counts read
+    as it returns; then its final check, the same launches replayed one
+    batch per call (check launches).  Returns (main-path launches, check
+    launches)."""
+    from tigerbeetle_tpu_torch.experiments import common
+
+    launches = dict.fromkeys(kernels.launches, 0)
+    check_launches = dict.fromkeys(kernels.launches, 0)
+    t0 = time.perf_counter()
+    for name in PROBES:
+        mod = importlib.import_module(f"tigerbeetle_tpu_torch.experiments.{name}")
+        args = common.parser(mod.__doc__, mod.REPS).parse_args(["--rows", str(A_ROWS)])
+        print(f"probe {name} (--rows {A_ROWS} --reps {args.reps}):", flush=True)
+        kernels.reset_launches()
+        tapes = mod.run(args, dev)
+        torch.cuda.synchronize()
+        for k, v in kernels.launches.items():
+            launches[k] += v
+        kernels.reset_launches()
+        print(common.verify(tapes), flush=True)
+        for k, v in kernels.launches.items():
+            check_launches[k] += v
+        del tapes
+        torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t0
+    for name in ("scan_of", "staged"):
+        check(launches[name] > 0, f"probes: {name} was not launched")
+    others = {k: v for k, v in launches.items() if v and k not in ("scan_of", "staged")}
+    check(not others, f"probes: launches outside the launchers {others}")
+    print(f"phase probes ({len(PROBES)} probes, {A_ROWS} rows): {elapsed:.1f} s; main-path "
+          f"launches scan_of {launches['scan_of']}, staged {launches['staged']}; every probe's "
+          f"table and ring equal a batch-by-batch run; checks passed")
+    return launches, check_launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2136,6 +2390,7 @@ def main() -> int:
     check_waves(dev, report, l2_ns)
     check_tier_kernels(dev, report)
     check_shard_kernels(dev, report)
+    check_launchers(dev, report)
 
     phases = {}
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
@@ -2217,6 +2472,8 @@ def main() -> int:
     phases["sharded_waves"] = run_sharded_waves_phase(dev)
     phases["sharded_engine"] = run_sharded_engine_phase()
     phases["sharded_host"] = run_sharded_host_phase()
+    phases["graft_entry"] = run_graft_entry_phase()
+    phases["probes"] = run_probes_phase(dev)
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")
@@ -2266,6 +2523,12 @@ def main() -> int:
                          "tigerbeetle_tpu/parallel/sharded.py:107"),
         "shard_scatter": ("tigerbeetle_tpu_torch/csrc/shard_rows.cu",
                           "tigerbeetle_tpu/state_machine/waves.py:976"),
+        # Host launchers of K1 / K5 / K6 (csrc/orderfree.cu, linked.cu,
+        # two_phase.cu): no source of their own.
+        "scan_of": ("tigerbeetle_tpu_torch/state_machine/device_kernels.py",
+                    "tigerbeetle_tpu/state_machine/device_kernels.py:1066"),
+        "staged": ("tigerbeetle_tpu_torch/state_machine/device_kernels.py",
+                   "tigerbeetle_tpu/state_machine/device_kernels.py:1172"),
     }
     rows = []
     for name, (source, replaces) in meta.items():
@@ -2281,7 +2544,8 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "verified": True,
         }
         for key in ("serial_floor_ms", "plain_on", "iters", "timed_case", "k128", "meta",
-                    "library_device_ms", "widths", "window_unit", "row0"):
+                    "library_device_ms", "widths", "window_unit", "row0", "us_per_batch",
+                    "by_kind"):
             if key in r:
                 row[key] = r[key]
         rows.append(row)

@@ -633,3 +633,76 @@ def test_sharded_engine_across_cards_matches_one_card(card, engine, hot, monkeyp
         table = sharded.dense(sm._dev.read() if engine == "host" else sm._dev.balances)
         out.append((replies, sm.state_root(), table.cpu()))
     assert out[0][:2] == out[1][:2] and torch.equal(out[0][2], out[1][2])
+
+
+def _launcher_inputs(kind, A, G, card):
+    """A (G, B, C) stack of the experiments' probe batches over an
+    A-row table, with meta and a ring, on the card."""
+    from tigerbeetle_tpu_torch.experiments import common
+
+    table, meta, ring = common.tables(A, card)
+    stack = common.upload(common.probe_stack(kind, A, G, seed=3), card)
+    ns = np.array([common.N - g for g in range(G)], np.int64)
+    tsb = np.arange(G, dtype=np.uint64) + np.uint64(1 << 40)
+    return table, meta, ring, stack, ns, tsb
+
+
+@pytest.mark.parametrize("kind", list(dk.KIND_MODE))
+def test_scan_of_matches_its_plain_version(card, kind):
+    """G = 4 batches from a resident stack, ring rows wrapping past the
+    end: the kernels' launcher equals the plain loop and the same batches
+    launched one per call; the batches count as scan_of."""
+    G, A = 4, 1 << 16
+    table, meta, ring, stack, ns, tsb = _launcher_inputs(kind, A, G, card)
+    runs = []
+    for fn in (dk.scan_of(kind, G), dk.scan_of(kind, G, plain=True), None):
+        t, r = table.clone(), ring.clone()
+        kernels.reset_launches()
+        if fn is None:
+            for g in range(G):
+                dk.KERNELS[kind](t, meta, r, (254 + g) % 256, stack[g], int(ns[g]), int(tsb[g]))
+        else:
+            fn(t, meta, r, 254, stack, ns, tsb)
+        torch.cuda.synchronize()
+        runs.append((t, r, dict(kernels.launches)))
+    assert runs[0][2]["scan_of"] == G and runs[1][2]["scan_of"] == 0
+    assert runs[2][2][dk.FAMILY[kind]] == G and runs[0][2][dk.FAMILY[kind]] == 0
+    for t, r, _ in runs[1:]:
+        assert torch.equal(runs[0][0], t) and torch.equal(runs[0][1], r)
+
+
+@pytest.mark.parametrize("name", sorted(dk.STAGED))
+def test_staged_matches_its_plain_version(card, name):
+    """Batch g of a superbatch for g = 0, G - 1, G and -1 (the clamp)."""
+    kind, G, A = dk.STAGED[name], 3, 1 << 16
+    table, meta, ring, stack, ns, _ = _launcher_inputs(kind, A, G, card)
+    sup = stack.reshape(G * stack.shape[1], stack.shape[2])
+    for g in (0, G - 1, G, -1):
+        t_k, r_k, t_p, r_p = table.clone(), ring.clone(), table.clone(), ring.clone()
+        kernels.reset_launches()
+        getattr(dk, name)(t_k, meta, r_k, 5, sup, g, int(ns[-1]), 1 << 40)
+        assert kernels.launches["staged"] == 1
+        dk.staged(kind, plain=True)(t_p, meta, r_p, 5, sup, g, int(ns[-1]), 1 << 40)
+        torch.cuda.synchronize()
+        assert torch.equal(t_k, t_p) and torch.equal(r_k, r_p), g
+
+
+def test_graft_entry_on_the_card(card):
+    from tigerbeetle_tpu_torch import graft_entry as ge
+
+    fn, args = ge.entry()
+    table, packed = fn(*args)
+    cfn, cargs = ge.entry(device="cpu")
+    c_table, c_packed = cfn(*cargs)
+    assert torch.equal(table.cpu(), c_table) and torch.equal(packed.cpu(), c_packed)
+    ge.dryrun_multichip(4)
+
+
+def test_probes_on_the_card(card, capsys):
+    import importlib
+
+    for name in ("scan_kinds_probe", "scan_resident_probe", "scan_probe", "stage_sweep",
+                 "staged_prod_probe", "kernel_time_probe", "kernel_time_probe2"):
+        mod = importlib.import_module(f"tigerbeetle_tpu_torch.experiments.{name}")
+        assert mod.main(["--rows", str(1 << 16), "--reps", "1"]) == 0
+        assert capsys.readouterr().out.splitlines()[-1].startswith("check: ")

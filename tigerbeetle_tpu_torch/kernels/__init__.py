@@ -40,6 +40,11 @@ launches = {
     "shard_apply": 0,
     "shard_gather": 0,
     "shard_scatter": 0,
+    # K1 / K5 / K6 launched by the G-batch and superbatch launchers
+    # (device_kernels.scan_of, staged): counted here, not under their
+    # kernels' own names.
+    "scan_of": 0,
+    "staged": 0,
 }
 
 _P = ctypes.c_void_p
@@ -168,9 +173,10 @@ def _launch(lib: str, symbol: str, count_as: str | None, *args) -> None:
         launches[count_as] += 1
 
 
-def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch):
+def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch,
+              count_as="orderfree"):
     _launch(
-        "orderfree", "tb_orderfree", "orderfree",
+        "orderfree", "tb_orderfree", count_as,
         table, meta, table.shape[0], ring_row_ptr, pk,
         mode, n, pk.shape[0], ts_base_u64, scratch.slot_idx,
         scratch.codes, scratch.touched, scratch.acc,
@@ -178,17 +184,17 @@ def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch):
     )
 
 
-def linked(table, meta, ring_row_ptr, pk, n, small, scratch):
+def linked(table, meta, ring_row_ptr, pk, n, small, scratch, count_as="linked"):
     _launch(
-        "linked", "tb_linked", "linked",
+        "linked", "tb_linked", count_as,
         table, meta, table.shape[0], ring_row_ptr, pk, n,
         pk.shape[0], int(small), scratch.slot_idx, scratch.words,
     )
 
 
-def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch):
+def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch, count_as="two_phase"):
     _launch(
-        "two_phase", "tb_two_phase", "two_phase",
+        "two_phase", "tb_two_phase", count_as,
         table, meta, table.shape[0], ring_row_ptr, pk, n,
         pk.shape[0], int(lo_only), scratch.slot_idx, scratch.words,
     )

@@ -31,6 +31,13 @@ write-behind lane's modular adds, with its plain version
 (``csrc/tier.cu``), the tiered admission's row scatter; ``checksum`` is
 kernel K11 (``csrc/checksum.cu``), the table digest of the integrity
 compares.  Each has its plain version beside it.
+
+Three launchers run K1, K5 and K6 over several batches: ``run_window``
+(the engine's window, the reference's ``_scan_win_of``), ``scan_of``
+(G batches of a resident stack, ``_scan_of``: ``scan_kernels``) and
+``staged`` (one batch of a resident superbatch, ``_staged``: the five
+``*_staged`` names).  Their batch indices follow ``dynamic_start``, the
+reference's ``dynamic_slice`` rule.
 """
 
 from __future__ import annotations
@@ -757,10 +764,10 @@ def _ring_row(ring, ring_at) -> int:
 
 
 def orderfree(table, meta, ring, ring_at, pk, n, ts_base, mode=MODE_FULL,
-              scratch: OrderfreeScratch | None = None):
+              scratch: OrderfreeScratch | None = None, count_as: str = "orderfree"):
     """One order-free batch, in place on `table` and `ring[ring_at]`.
-    CUDA tensors launch K1 (raising on any CUDA error); CPU tensors run
-    orderfree_plain."""
+    CUDA tensors launch K1 (raising on any CUDA error), counted in
+    kernels.launches[count_as]; CPU tensors run orderfree_plain."""
     want = (N_COLS_TIGHT, torch.int32) if mode == MODE_TIGHT else (N_COLS, torch.int64)
     _check_batch(table, meta, ring, ring_at, pk, n, want)
     if table.device.type == "cpu":
@@ -769,7 +776,7 @@ def orderfree(table, meta, ring, ring_at, pk, n, ts_base, mode=MODE_FULL,
         scratch = OrderfreeScratch(table.shape[0], pk.shape[0], table.device)
     kernels.orderfree(
         table, meta, _ring_row(ring, ring_at), pk, mode, int(n),
-        int(ts_base) & ((1 << 64) - 1), scratch,
+        int(ts_base) & ((1 << 64) - 1), scratch, count_as,
     )
     return table, ring
 
@@ -797,10 +804,10 @@ class WordScratch:
 
 
 def linked(table, meta, ring, ring_at, pk, n, ts_base, small=False,
-           scratch: WordScratch | None = None):
+           scratch: WordScratch | None = None, count_as: str = "linked"):
     """One linked-chain batch, in place on `table` and `ring[ring_at]`.
-    CUDA tensors launch K5 (raising on any CUDA error); CPU tensors run
-    linked_plain."""
+    CUDA tensors launch K5 (raising on any CUDA error), counted in
+    kernels.launches[count_as]; CPU tensors run linked_plain."""
     _check_batch(table, meta, ring, ring_at, pk, n, (N_COLS, torch.int64))
     if pk.shape[0] > 8192:
         raise ValueError("the linked kernel packs events into 13 key bits: B <= 8192")
@@ -808,21 +815,24 @@ def linked(table, meta, ring, ring_at, pk, n, ts_base, small=False,
         return linked_plain(table, meta, ring, ring_at, pk, n, ts_base, small)
     if scratch is None or not scratch.fits(table.shape[0], pk.shape[0]):
         scratch = WordScratch("linked", table.shape[0], pk.shape[0], table.device)
-    kernels.linked(table, meta, _ring_row(ring, ring_at), pk, int(n), bool(small), scratch)
+    kernels.linked(table, meta, _ring_row(ring, ring_at), pk, int(n), bool(small), scratch,
+                   count_as)
     return table, ring
 
 
 def two_phase(table, meta, ring, ring_at, pk, n, ts_base, lo_only=False,
-              scratch: WordScratch | None = None):
+              scratch: WordScratch | None = None, count_as: str = "two_phase"):
     """One pending-create + post/void batch, in place on `table` and
     `ring[ring_at]`.  CUDA tensors launch K6 (raising on any CUDA
-    error); CPU tensors run two_phase_plain."""
+    error), counted in kernels.launches[count_as]; CPU tensors run
+    two_phase_plain."""
     _check_batch(table, meta, ring, ring_at, pk, n, (N_COLS_TP, torch.int64))
     if table.device.type == "cpu":
         return two_phase_plain(table, meta, ring, ring_at, pk, n, ts_base, lo_only)
     if scratch is None or not scratch.fits(table.shape[0], pk.shape[0]):
         scratch = WordScratch("two_phase", table.shape[0], pk.shape[0], table.device)
-    kernels.two_phase(table, meta, _ring_row(ring, ring_at), pk, int(n), bool(lo_only), scratch)
+    kernels.two_phase(table, meta, _ring_row(ring, ring_at), pk, int(n), bool(lo_only), scratch,
+                      count_as)
     return table, ring
 
 
@@ -858,21 +868,117 @@ def new_scratch(family: str, rows: int, device):
     return WordScratch(family, rows, B, device)
 
 
+def dynamic_start(start: int, extent: int, size: int) -> int:
+    """The first index lax.dynamic_slice reads when it takes `size`
+    entries from `start` along an axis of `extent`: a negative start
+    wraps once (start + extent, as Python indexing), then clamps into
+    [0, extent - size], so the slice always lies inside the axis.  The
+    rule of the reference's window and superbatch reads
+    (device_kernels.py:1146-1150, :1181)."""
+    if size > extent:
+        raise ValueError(f"a slice of {size} does not fit an axis of {extent}")
+    if start < 0:
+        start += extent
+    return min(max(start, 0), extent - size)
+
+
+def _host(a) -> np.ndarray:
+    """A launcher's per-batch scalars as one host array: a tensor (on
+    the card too) is copied once per call, never read once per batch."""
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _launcher(kind: str, plain: bool, count_as: str):
+    if plain:
+        return PLAIN[kind]
+    return partial(KERNELS[kind], count_as=count_as)
+
+
 def run_window(kind, table, meta, ring, ring_at0, big, off, G, ns, tsb,
                scratch=None, fn=None):
     """G same-kind batches back to back on one stream, no host sync:
     batch g reads big[off + g] with n = ns[off + g] and ts_base =
-    tsb[off + g] (host arrays), and writes ring row (ring_at0 + g) % R
-    — the counterpart of the reference's _scan_win_of (:1142).  `fn` is
-    the kind's launcher (default: its kernel's wrapper)."""
+    tsb[off + g] (host arrays; each index taken by dynamic_start, as
+    the reference's dynamic_slice takes it), and writes ring row
+    (ring_at0 + g) % R — the counterpart of the reference's
+    _scan_win_of (:1142).  `fn` is the kind's launcher (default: its
+    kernel's wrapper)."""
     R = ring.shape[0]
     fn = KERNELS[kind] if fn is None else fn
     for g in range(G):
+        at = off + g
         fn(
-            table, meta, ring, (ring_at0 + g) % R, big[off + g],
-            int(ns[off + g]), int(tsb[off + g]), scratch=scratch,
+            table, meta, ring, (ring_at0 + g) % R, big[dynamic_start(at, big.shape[0], 1)],
+            int(ns[dynamic_start(at, len(ns), 1)]), int(tsb[dynamic_start(at, len(tsb), 1)]),
+            scratch=scratch,
         )
     return table, ring
+
+
+def scan_of(kind: str, G: int, plain: bool = False):
+    """The G-batch launcher of one kind, the counterpart of the
+    reference's _scan_of (:1066): run(table, meta, ring, ring_at0,
+    stack, ns, tsb, scratch=None) runs G batches back to back on one
+    stream with no host sync; batch g reads stack[g] of a resident
+    (G, B, C) stack with n = ns[g] and ts_base = tsb[g], and writes
+    ring row (ring_at0 + g) % R.  Each batch launches the kind's kernel
+    (K1, K5 or K6), counted as "scan_of"; `plain` runs the plain
+    versions through the same loop."""
+    fn = _launcher(kind, plain, "scan_of")
+
+    def run(table, meta, ring, ring_at0, stack, ns, tsb, scratch=None):
+        if stack.dim() != 3 or stack.shape[0] < G:
+            raise ValueError(f"stack must be (>= {G}, B, C), got {tuple(stack.shape)}")
+        ns, tsb = _host(ns), _host(tsb)
+        if len(ns) != G or len(tsb) != G:
+            raise ValueError(f"ns and tsb must hold {G} entries")
+        if scratch is None and table.device.type == "cuda" and not plain:
+            # One scratch for every batch of the call.
+            scratch = new_scratch(FAMILY[kind], table.shape[0], table.device)
+        R = ring.shape[0]
+        for g in range(G):
+            fn(table, meta, ring, (ring_at0 + g) % R, stack[g], int(ns[g]), int(tsb[g]),
+               scratch=scratch)
+        return table, ring
+
+    return run
+
+
+def staged(kind: str, plain: bool = False):
+    """The superbatch launcher of one kind, the counterpart of the
+    reference's _staged (:1172): run(table, meta, ring, ring_at,
+    super_pk, g, n, ts_base, scratch=None) runs one batch, rows [s, s +
+    B) of a resident (G * B, C) superbatch with s = dynamic_start(g * B,
+    G * B, B) — so g = -1 and g >= G read the last batch, g <= -(G + 1)
+    the first — passed to the kind's kernel (K1, K5 or K6) as a
+    contiguous view, not a copy; counted as "staged".  `plain` runs the
+    plain version on the same view."""
+    fn = _launcher(kind, plain, "staged")
+
+    def run(table, meta, ring, ring_at, super_pk, g, n, ts_base, scratch=None):
+        s = dynamic_start(int(g) * B, super_pk.shape[0], B)
+        return fn(table, meta, ring, ring_at, super_pk[s:s + B], int(n), int(ts_base),
+                  scratch=scratch)
+
+    return run
+
+
+# The reference's default batches per scan launch (_scan_sizes, :1112;
+# its TB_DEV_SCAN_SIZES knob is not carried over: scan_of takes any G).
+SCAN_SIZES = (16, 4)
+# kind -> {G: launcher}, as the reference's scan_kernels (:1129).
+scan_kernels = {kind: {G: scan_of(kind, G) for G in SCAN_SIZES} for kind in KIND_MODE}
+# The reference's five staged instances (:1185-1189).
+orderfree_staged = staged("orderfree")
+orderfree_lo_staged = staged("orderfree_lo")
+linked_staged = staged("linked")
+two_phase_staged = staged("two_phase")
+two_phase_lo_staged = staged("two_phase_lo")
+STAGED = {
+    "orderfree_staged": "orderfree", "orderfree_lo_staged": "orderfree_lo",
+    "linked_staged": "linked", "two_phase_staged": "two_phase",
+    "two_phase_lo_staged": "two_phase_lo",
+}
 
 
 # ---------------------------------------------------------------------------

@@ -107,6 +107,8 @@ class AccountFlags(enum.IntFlag):
     credits_must_not_exceed_debits = 1 << 2
     history = 1 << 3
 
+    _valid_mask = (1 << 4) - 1
+
 
 class TransferFlags(enum.IntFlag):
     """reference: src/tigerbeetle.zig:127-140"""
@@ -117,6 +119,18 @@ class TransferFlags(enum.IntFlag):
     void_pending_transfer = 1 << 3
     balancing_debit = 1 << 4
     balancing_credit = 1 << 5
+
+    _valid_mask = (1 << 6) - 1
+
+
+class AccountFilterFlags(enum.IntFlag):
+    """reference: src/tigerbeetle.zig:309-322"""
+
+    debits = 1 << 0
+    credits = 1 << 1
+    reversed = 1 << 2
+
+    _valid_mask = (1 << 3) - 1
 
 
 class TransferPendingStatus(enum.IntEnum):
@@ -228,6 +242,15 @@ class Operation(enum.IntEnum):
     get_account_transfers = 133
     get_account_balances = 134
 
+
+# Read-only operations: pure queries over committed state
+# (CpuStateMachine.READ_OPERATIONS).
+READ_OPERATIONS = frozenset({
+    Operation.lookup_accounts,
+    Operation.lookup_transfers,
+    Operation.get_account_transfers,
+    Operation.get_account_balances,
+})
 
 # reference: src/state_machine.zig:503-525
 EVENT_DTYPE = {
