@@ -121,6 +121,12 @@ and tables equal a second run of the same stream with the plain
 versions on the card.  A third run, under torch.profiler, gives the
 device's busy time: the union of its kernel and copy intervals.
 
+Each kernel is timed three ways: CUDA events around one call (`ms`, the
+host's launch work included), the profiler's device time (`device_ms`)
+and the host time per call of 200 back-to-back calls and one sync
+(`host_ms`); K10's host time is also split into its pieces
+(tools/launch_split.py).
+
 Prints the card's name and power limit, one line per phase, a JSON line
 listing every kernel (main-path launches in total and per phase, check
 launches, error against the plain version, times, bound), and as its
@@ -153,6 +159,7 @@ from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
+from tigerbeetle_tpu_torch.tools import launch_split
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -242,14 +249,19 @@ def time_ms(fn, reps: int = 30, warm: int = 3, reset=None) -> float:
     for _ in range(reps):
         if reset is not None:
             reset()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(_event_ms(fn))
     return float(np.median(times))
+
+
+def _event_ms(fn) -> float:
+    """Milliseconds of one call of `fn`, CUDA events around it."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def device_ms(fn, reps: int = 20, reset=None, names=None) -> float | None:
@@ -281,14 +293,68 @@ def device_ms(fn, reps: int = 20, reset=None, names=None) -> float | None:
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
-def kernel_ms(fn, reset=None, names=None) -> tuple[float, float | None]:
+HOST_REPS = 200  # back-to-back calls per host time
+
+
+def host_ms(fn, reset=None, reps: int = HOST_REPS) -> float:
+    """Host milliseconds per call: time.perf_counter around `reps`
+    back-to-back calls with no sync inside, then one
+    torch.cuda.synchronize(), over `reps`.  While the host is slower
+    than the card this is the host's work per call (checks, launch
+    path, cudaLaunchKernel); a kernel that takes the card longer than
+    its launch fills the queue, and the figure reads the card's time.
+    With `reset`, the same time of `reset` alone is subtracted."""
+
+    def per_call(f) -> float:
+        f()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            f()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    if reset is None:
+        return per_call(fn)
+
+    def both():
+        reset()
+        fn()
+
+    return per_call(both) - per_call(reset)
+
+
+def kernel_ms(fn, reset=None, names=None) -> tuple[float, float | None, float]:
     """(CUDA-event time per call, host launch work included; device
-    time per call from the profiler)."""
-    return time_ms(fn, reset=reset), device_ms(fn, reset=reset, names=names)
+    time per call from the profiler; host time per call, host_ms)."""
+    return (time_ms(fn, reset=reset), device_ms(fn, reset=reset, names=names),
+            host_ms(fn, reset=reset))
 
 
-def _dev(ms: float | None) -> str:
-    return "device time not measured" if ms is None else f"{ms * 1e3:.1f} us on the device"
+YARDSTICK_REPS = 200  # CUDA-event calls of each side in paired_ms
+
+
+def paired_ms(fn, library, names=None) -> tuple[tuple, tuple]:
+    """kernel_ms of a kernel (`fn`) and of the PyTorch call that computes
+    the same function (`library`), the CUDA-event times taken in turns
+    (fn, library, fn, ...; YARDSTICK_REPS calls each, medians): the two
+    sit within a few µs of each other near the card's launch floor, and
+    the host's speed drifts within a run by more than that."""
+    for _ in range(3):
+        fn()
+        library()
+    times = ([], [])
+    for _ in range(YARDSTICK_REPS):
+        times[0].append(_event_ms(fn))
+        times[1].append(_event_ms(library))
+    ms, lib_ms = (float(np.median(t)) for t in times)
+    return ((ms, device_ms(fn, names=names), host_ms(fn)),
+            (lib_ms, device_ms(library), host_ms(library)))
+
+
+def _dev(ms: float | None, host: float | None = None) -> str:
+    out = "device time not measured" if ms is None else f"{ms * 1e3:.1f} us on the device"
+    return out if host is None else f"{out}, host {host * 1e3:.1f} us/call"
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -418,7 +484,7 @@ def check_orderfree(rng, dev, report):
         check(err == 0, f"K1 {name}: kernel differs from the plain version")
         scratch = dk.OrderfreeScratch(A_ROWS, dk.B, dev)
         args = (meta, r_k, 7, pk, n, ts_base)
-        ms, dev_ms = kernel_ms(lambda: dk.orderfree(t_k, *args, mode=mode, scratch=scratch))
+        ms, dev_ms, host = kernel_ms(lambda: dk.orderfree(t_k, *args, mode=mode, scratch=scratch))
         plain_ms = time_ms(
             lambda: dk.orderfree_plain(t_p, meta, r_p, 7, pk, n, ts_base, mode=mode), reps=10
         )
@@ -427,10 +493,11 @@ def check_orderfree(rng, dev, report):
         print(
             f"K1 orderfree[{name}]: bit-exact; n_fail={summary['n_fail']} "
             f"overflow={summary['overflow']} cap={summary['cap_exceeded']}; "
-            f"{ms * 1e3:.1f} us/launch, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}"
+            f"{ms * 1e3:.1f} us/launch, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}"
         )
         if name == "tight":  # the main path's format
-            report["orderfree"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            report["orderfree"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                       plain_ms=plain_ms, bound_ms=bound_ms,
                                        bound_by=bound_by, max_abs_err=err)
 
 
@@ -442,12 +509,14 @@ def check_commitment(rng, dev, report):
     torch.cuda.synchronize()
     err = max(max_abs_err(rh_k, rh_p), max_abs_err(dg_k, dg_p))
     check(err == 0, "K2 rebuild differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: cm.rebuild(table, meta, rows))
+    ms, dev_ms, host = kernel_ms(lambda: cm.rebuild(table, meta, rows))
     plain_ms = time_ms(lambda: cm.rebuild_plain(table, meta, rows), reps=10)
     bound_ms, bound_by = bound(A_ROWS * (64 + 8 + 8 + 16), A_ROWS * K2_OPS_PER_ROW)
-    report["commit_rebuild"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["commit_rebuild"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, max_abs_err=err)
-    print(f"K2 rebuild: bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+    print(f"K2 rebuild: bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} "
+          f"{_vs(plain_ms, bound_ms)}")
 
     # A window's touched rows at the simple phase's shape: 96 batches
     # x 2 x 8190 draws over 1M accounts, deduplicated and padded.
@@ -464,13 +533,15 @@ def check_commitment(rng, dev, report):
     check(err_u == 0, "K2 update differs from the plain version")
     scratch_digest = cm.rebuild_plain(table, meta, rows)[1]
     check(torch.equal(dg_k, scratch_digest), "K2 update digest differs from a from-scratch digest")
-    ms, dev_ms = kernel_ms(lambda: cm.update(table, meta, rh_k, dg_k, padded, padded))
+    ms, dev_ms, host = kernel_ms(lambda: cm.update(table, meta, rh_k, dg_k, padded, padded))
     plain_ms = time_ms(lambda: cm.update_plain(table, meta, rh_p2, dg_p2, padded, padded), reps=10)
     k, u = len(padded), len(touched)
     bound_ms, bound_by = bound(k * 16 + u * (64 + 8 + 16 + 16), u * K2_OPS_PER_ROW)
-    report["commit_update"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["commit_update"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                   plain_ms=plain_ms, bound_ms=bound_ms,
                                    bound_by=bound_by, max_abs_err=err_u)
-    print(f"K2 update ({u} rows, {k} padded slots): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} "
+    print(f"K2 update ({u} rows, {k} padded slots): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms, host)} "
           f"{_vs(plain_ms, bound_ms)}")
 
     p_k = cm.probe(table, meta, dg_k, rows)
@@ -479,12 +550,13 @@ def check_commitment(rng, dev, report):
     err_p = max_abs_err(p_k, p_p)
     check(err_p == 0, "K2 probe differs from the plain version")
     check(torch.equal(p_k[0], p_k[1]), "K2 probe: maintained digest != from-scratch digest")
-    ms, dev_ms = kernel_ms(lambda: cm.probe(table, meta, dg_k, rows))
+    ms, dev_ms, host = kernel_ms(lambda: cm.probe(table, meta, dg_k, rows))
     plain_ms = time_ms(lambda: cm.probe_plain(table, meta, dg_k, rows), reps=10)
     bound_ms, bound_by = bound(A_ROWS * (64 + 8 + 8) + 32, A_ROWS * K2_OPS_PER_ROW)
-    report["commit_probe"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["commit_probe"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, max_abs_err=err_p)
-    print(f"K2 probe: bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+    print(f"K2 probe: bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
 
 def l2_hit_ns(dev) -> float:
@@ -538,7 +610,7 @@ def check_exact(dev, report, l2_ns):
         check(want <= codes, f"K3 {cls}: codes {sorted(want - codes)} not reached")
         line = f"K3 exact_scan[{cls}]: bit-exact; {len(codes)} distinct codes"
         if cls == "linked":  # the main path's dominant class: time it
-            ms, dev_ms = kernel_ms(
+            ms, dev_ms, host = kernel_ms(
                 lambda: k3.run_create_transfers(t_k, pk_k, ds_k, n, ts_base, scratch=scratch)
             )
             rows = len(np.unique(np.clip(pk.numpy()[:n, [k3.COL["dr_slot"], k3.COL["cr_slot"]]], 0, None)))
@@ -546,11 +618,11 @@ def check_exact(dev, report, l2_ns):
             bound_ms, bound_by = bound(n_bytes, n * K3_OPS_PER_EVENT)
             serial_ms = n * l2_ns * 1e-6
             report["exact_scan"] = dict(
-                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, max_abs_err=err, serial_floor_ms=serial_ms,
                 plain_on="cpu",
             )
-            line += (f"; {ms * 1e3:.1f} us/launch, {_dev(dev_ms)} (plain {plain_ms:.1f} ms "
+            line += (f"; {ms * 1e3:.1f} us/launch, {_dev(dev_ms, host)} (plain {plain_ms:.1f} ms "
                      f"on CPU copies; bound {bound_ms * 1e3:.3f} us by {bound_by}, "
                      f"serial floor {serial_ms * 1e3:.1f} us = {n} x {l2_ns:.1f} ns)")
         print(line)
@@ -578,13 +650,14 @@ def check_apply(dev, report):
     torch.cuda.synchronize()
     err = max_abs_err(t_k, t_p)
     check(err == 0, "K4 differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: dk.apply_deltas(t_k, pk))
+    ms, dev_ms, host = kernel_ms(lambda: dk.apply_deltas(t_k, pk))
     plain_ms = time_ms(lambda: dk.apply_deltas_plain(t_p, pk), reps=10)
     bound_ms, bound_by = bound(K * 32 + live * 32, live * K4_OPS_PER_ENTRY)
-    report["apply_deltas"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["apply_deltas"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, max_abs_err=err)
     print(f"K4 apply_deltas ({live} entries + {K - live} padding): bit-exact; "
-          f"{ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
 
 def check_tier_kernels(dev, report):
@@ -617,20 +690,24 @@ def check_tier_kernels(dev, report):
         idx = padded[:k].contiguous()
         live = src[:k].contiguous()
         t_k = table.clone()
-        ms, dev_ms = kernel_ms(lambda: dk.tier_set_rows(t_k, idx, live), names=("set_rows",))
+        (ms, dev_ms, host), (lib_ms, lib_dev_ms, lib_host) = paired_ms(
+            lambda: dk.tier_set_rows(t_k, idx, live), lambda: t_k.index_copy_(0, idx, live),
+            names=("set_rows",))
         plain_ms = time_ms(lambda: dk.tier_set_rows_plain(t_k, idx, live), reps=10)
-        lib_ms, lib_dev_ms = kernel_ms(lambda: t_k.index_copy_(0, idx, live))
         check(torch.equal(t_k, dk.tier_set_rows(table.clone(), idx, live)),
               "K10 and index_copy_ disagree")
         bound_ms, bound_by = bound(k * 8 + 2 * k * 64, k)
-        timed[k] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                        library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by)
+        timed[k] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
+                        library_ms=lib_ms, library_device_ms=lib_dev_ms,
+                        library_host_ms=lib_host, bound_ms=bound_ms, bound_by=bound_by)
         print(f"K10 tier_set_rows (k={k} of 2^20 rows + 64 padding; balances and meta): "
-              f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, "
-              f"index_copy_ {lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms)}")
+              f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}, "
+              f"index_copy_ {lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms, lib_host)}")
+    split = launch_split.run(dev)
     report["tier_set_rows"] = dict(timed[16_384], max_abs_err=max(errs),
                                    timed_case="k=16384 rows of a 2^20-row balance table",
-                                   k128=timed[128])
+                                   k128=timed[128], host_split=split)
+    print("K10 host path, us per call (tools/launch_split.py, k=16384): " + json.dumps(split))
 
     k = 16_384
     rh = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (A_ROWS, 2))).to(dev)
@@ -643,15 +720,16 @@ def check_tier_kernels(dev, report):
     torch.cuda.synchronize()
     err = max(max_abs_err(rh_k, rh_p), max_abs_err(dg_k, dg_p))
     check(err == 0, "K2 admit differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: cm.admit(rh_k, dg_k, slots, new_lo, new_hi),
-                           names=("cm_admit",))
+    ms, dev_ms, host = kernel_ms(lambda: cm.admit(rh_k, dg_k, slots, new_lo, new_hi),
+                                 names=("cm_admit",))
     plain_ms = time_ms(lambda: cm.admit_plain(rh_p, dg_p, slots, new_lo, new_hi), reps=10)
     bound_ms, bound_by = bound(len(slots) * 8 + k * (16 + 16 + 16) + 32, k * 6)
-    report["commit_admit"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["commit_admit"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                   bound_by=bound_by, max_abs_err=err,
                                   timed_case=f"k={k} slots ({len(slots)} padded) of 2^20")
     print(f"K2 admit ({k} slots, {len(slots) - k} padding): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     errs = []
     for name, tab in (("balances", table), ("meta", meta)):
@@ -661,18 +739,19 @@ def check_tier_kernels(dev, report):
         errs.append(max_abs_err(got, want))
         check(errs[-1] == 0, f"K11 checksum[{name}]: kernel differs from the plain version")
         C = tab.shape[1]
-        ms, dev_ms = kernel_ms(lambda: dk.checksum(tab), names=("checksum",))
+        ms, dev_ms, host = kernel_ms(lambda: dk.checksum(tab), names=("checksum",))
         plain_ms = time_ms(lambda: dk.checksum_plain(tab), reps=10)
         bound_ms, bound_by = bound(tab.numel() * tab.element_size() + 2 * C * 8,
                                    tab.numel() * 4)
         print(f"K11 checksum[{name}] ({A_ROWS} x {C} {tab.dtype}): bit-exact; {ms * 1e3:.1f} us, "
-              f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+              f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
         if name == "balances":
-            report["checksum"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            report["checksum"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
                                       bound_ms=bound_ms, bound_by=bound_by,
                                       timed_case="(2^20, 8) u64 balance table")
         else:
-            report["checksum"]["meta"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+            report["checksum"]["meta"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                              plain_ms=plain_ms,
                                               bound_ms=bound_ms)
     # K11 with row0: the table split in SHARDS, each shard's digest under
     # its first global row, summed mod 2^64, is the joined table's.
@@ -689,14 +768,14 @@ def check_tier_kernels(dev, report):
               f"K11 checksum[{name}]: the {SHARDS} shards' row0 digests do not sum to the "
               "joined table's")
     shard = table[local:2 * local].contiguous()
-    ms, dev_ms = kernel_ms(lambda: dk.checksum(shard, local), names=("checksum",))
+    ms, dev_ms, host = kernel_ms(lambda: dk.checksum(shard, local), names=("checksum",))
     bound_ms, _ = bound(shard.numel() * 8 + 16 * 8, shard.numel() * 4)
-    report["checksum"]["row0"] = dict(ms=ms, device_ms=dev_ms, bound_ms=bound_ms,
+    report["checksum"]["row0"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, bound_ms=bound_ms,
                                       timed_case=f"shard 1 of {SHARDS}: ({local}, 8), "
                                                  f"row0={local}")
     print(f"K11 checksum with row0 ({SHARDS} shards of {local} rows, balances and meta): "
           f"bit-exact, shard digests sum to the joined table's; one shard {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} (bound {bound_ms * 1e3:.3f} us)")
+          f"{_dev(dev_ms, host)} (bound {bound_ms * 1e3:.3f} us)")
     report["checksum"]["max_abs_err"] = max(errs)
 
 
@@ -739,8 +818,8 @@ def check_shard_kernels(dev, report):
         check(errs[-1] == 0, f"K12 shard_accumulate (mask {m is not None}): kernel differs "
                              "from the plain version")
     acc = sharded.accumulate(local, row0, *ev)
-    ms, dev_ms = kernel_ms(lambda: sharded.accumulate(local, row0, *ev),
-                           names=("shard_accumulate", "Memset"))
+    ms, dev_ms, host = kernel_ms(lambda: sharded.accumulate(local, row0, *ev),
+                                 names=("shard_accumulate", "Memset"))
     plain_ms = time_ms(lambda: sharded._accumulate(local, row0, *ev), reps=10)
     idx, vals = [], []
     for slot, col_p, col_posted in ((dr, 0, 1), (cr, 2, 3)):
@@ -752,18 +831,19 @@ def check_shard_kernels(dev, report):
                                  (hi >> 32) & 0xFFFFFFFF], -1)[own].reshape(-1))
     idx, vals = torch.cat(idx), torch.cat(vals)
     lib = torch.zeros(local * 16, dtype=torch.int64, device=dev)
-    lib_ms, lib_dev_ms = kernel_ms(lambda: lib.index_put_((idx,), vals, accumulate=True))
+    lib_ms, lib_dev_ms, lib_host = kernel_ms(lambda: lib.index_put_((idx,), vals, accumulate=True))
     lib.zero_()
     lib.index_put_((idx,), vals, accumulate=True)
     check(torch.equal(lib.view(local, 4, 4), acc), "K12 and index_put_ disagree")
     bound_ms, bound_by = bound(E * (4 + 4 + 8 + 8 + 1) + local * 128, E * K12_OPS_PER_EVENT)
     report["shard_accumulate"] = dict(
-        ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library_device_ms=lib_dev_ms, bound_ms=bound_ms, bound_by=bound_by,
+        ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms, library_ms=lib_ms,
+        library_device_ms=lib_dev_ms, library_host_ms=lib_host, bound_ms=bound_ms,
+        bound_by=bound_by,
         max_abs_err=max(errs), timed_case=f"{E} events onto {local} local rows")
     print(f"K12 shard_accumulate ({E} events onto {local} local rows, masked and not): "
-          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, "
-          f"index_put_ {lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms)}")
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}, "
+          f"index_put_ {lib_ms * 1e3:.1f} us, {_dev(lib_dev_ms, lib_host)}")
 
     got = sharded.admit(table, acc, row0, dr, cr)
     want = sharded.admit_plain(table, acc, row0, dr, cr)
@@ -772,18 +852,19 @@ def check_shard_kernels(dev, report):
     check(err == 0, "K13 shard_admit: kernel differs from the plain version")
     n_rej = int(got.sum())
     check(n_rej > 0, "K13 shard_admit: no event rejected")
-    ms, dev_ms = kernel_ms(lambda: sharded.admit(table, acc, row0, dr, cr),
-                           names=("shard_admit",))
+    ms, dev_ms, host = kernel_ms(lambda: sharded.admit(table, acc, row0, dr, cr),
+                                 names=("shard_admit",))
     plain_ms = time_ms(lambda: sharded.admit_plain(table, acc, row0, dr, cr), reps=10)
     rows = torch.unique(torch.cat([s[(s >= row0) & (s < row0 + local)] for s in (dr, cr)]))
     bound_ms, bound_by = bound(E * 8 + rows.numel() * (64 + 128) + E,
                                rows.numel() * 4 * K13_OPS_PER_CELL)
-    report["shard_admit"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["shard_admit"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, max_abs_err=err,
                                  timed_case=f"{E} events, {rows.numel()} local rows named, "
                                             f"{n_rej} rejected")
     print(f"K13 shard_admit ({E} events, {rows.numel()} local rows named, {n_rej} rejected): "
-          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     t_k, t_p = table.clone(), table.clone()
     sharded.apply(t_k, acc)
@@ -791,14 +872,15 @@ def check_shard_kernels(dev, report):
     torch.cuda.synchronize()
     err = max_abs_err(t_k, t_p)
     check(err == 0, "K13 shard_apply: kernel differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: sharded.apply(t_k, acc), names=("shard_apply",))
+    ms, dev_ms, host = kernel_ms(lambda: sharded.apply(t_k, acc), names=("shard_apply",))
     plain_ms = time_ms(lambda: sharded.apply_plain(t_p, acc), reps=10)
     bound_ms, bound_by = bound(local * (64 + 64 + 128), local * 4 * K13_OPS_PER_CELL)
-    report["shard_apply"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["shard_apply"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                 plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by, max_abs_err=err,
                                  timed_case=f"{local} local rows")
     print(f"K13 shard_apply ({local} local rows): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     rng = np.random.default_rng(2041)
     batch = torch.from_numpy(np.sort(rng.choice(A_ROWS, SHARD_GATHER_K, replace=False))).to(dev)
@@ -841,11 +923,12 @@ def k14_case(table, slots, shard, rng):
     torch.cuda.synchronize()
     err_g = max_abs_err(got, want)
     check(err_g == 0, f"K14 shard_gather ({case}): kernel differs from the plain version")
-    g_ms, g_dev = kernel_ms(lambda: sharded.gather_part(table, slots, shard),
-                            names=("shard_gather",))
+    g_ms, g_dev, g_host = kernel_ms(lambda: sharded.gather_part(table, slots, shard),
+                                    names=("shard_gather",))
     g_plain = time_ms(lambda: sharded.gather_part_plain(table, slots, shard), reps=10)
     own2 = own[:, None]
-    g_lib, g_lib_dev = kernel_ms(lambda: torch.where(own2, table.index_select(0, rel), 0))
+    g_lib, g_lib_dev, g_lib_host = kernel_ms(
+        lambda: torch.where(own2, table.index_select(0, rel), 0))
     check(torch.equal(torch.where(own2, table.index_select(0, rel), 0), got),
           f"K14 gather and index_select + where disagree ({case})")
     g_bound, g_by = bound(K * 8 + owned * 8 * W + K * 8 * W, K * W)
@@ -856,23 +939,36 @@ def k14_case(table, slots, shard, rng):
     torch.cuda.synchronize()
     err_s = max_abs_err(t_k, t_p)
     check(err_s == 0, f"K14 shard_scatter ({case}): kernel differs from the plain version")
-    s_ms, s_dev = kernel_ms(lambda: sharded.scatter_part(t_k, slots, new, shard),
-                            names=("shard_scatter",))
     s_plain = time_ms(lambda: sharded.scatter_part_plain(t_p, slots, new, shard), reps=10)
     rel_own, new_own = rel[own].contiguous(), new[own].contiguous()
-    s_lib, s_lib_dev = kernel_ms(lambda: t_k.index_copy_(0, rel_own, new_own))
+    (s_ms, s_dev, s_host), (s_lib, s_lib_dev, s_lib_host) = paired_ms(
+        lambda: sharded.scatter_part(t_k, slots, new, shard),
+        lambda: t_k.index_copy_(0, rel_own, new_own), names=("shard_scatter",))
+
+    def full_scatter():
+        # The same function in PyTorch from the unfiltered slots: own_rows,
+        # the owned entries picked out, index_copy_.
+        o, r = sharded.own_rows(slots, local, shard)
+        t_k.index_copy_(0, r[o], new[o])
+
+    s_full, s_full_dev, s_full_host = kernel_ms(full_scatter)
     # The scatter reads every slot but only the owned entries' rows.
     s_bound, s_by = bound(K * 8 + 2 * owned * 8 * W, K * W)
-    print(f"K14 W={W} ({case}): bit-exact; gather {g_ms * 1e3:.1f} us, {_dev(g_dev)} "
+    print(f"K14 W={W} ({case}): bit-exact; gather {g_ms * 1e3:.1f} us, {_dev(g_dev, g_host)} "
           f"{_vs(g_plain, g_bound)}, index_select + where {g_lib * 1e3:.1f} us, "
-          f"{_dev(g_lib_dev)}; scatter {s_ms * 1e3:.1f} us, {_dev(s_dev)} "
-          f"{_vs(s_plain, s_bound)}, index_copy_ {s_lib * 1e3:.1f} us, {_dev(s_lib_dev)}")
+          f"{_dev(g_lib_dev, g_lib_host)}; scatter {s_ms * 1e3:.1f} us, {_dev(s_dev, s_host)} "
+          f"{_vs(s_plain, s_bound)}, index_copy_ {s_lib * 1e3:.1f} us, "
+          f"{_dev(s_lib_dev, s_lib_host)}; own_rows + index_copy_ {s_full * 1e3:.1f} us, "
+          f"{_dev(s_full_dev, s_full_host)}")
     return (
-        dict(ms=g_ms, device_ms=g_dev, plain_ms=g_plain, library_ms=g_lib,
-             library_device_ms=g_lib_dev, bound_ms=g_bound, bound_by=g_by, max_abs_err=err_g,
+        dict(ms=g_ms, device_ms=g_dev, host_ms=g_host, plain_ms=g_plain, library_ms=g_lib,
+             library_device_ms=g_lib_dev, library_host_ms=g_lib_host, bound_ms=g_bound,
+             bound_by=g_by, max_abs_err=err_g,
              timed_case=case),
-        dict(ms=s_ms, device_ms=s_dev, plain_ms=s_plain, library_ms=s_lib,
-             library_device_ms=s_lib_dev, bound_ms=s_bound, bound_by=s_by, max_abs_err=err_s,
+        dict(ms=s_ms, device_ms=s_dev, host_ms=s_host, plain_ms=s_plain, library_ms=s_lib,
+             library_device_ms=s_lib_dev, library_host_ms=s_lib_host, bound_ms=s_bound,
+             bound_by=s_by, max_abs_err=err_s,
+             library_full=dict(ms=s_full, device_ms=s_full_dev, host_ms=s_full_host),
              timed_case=case),
     )
 
@@ -986,7 +1082,7 @@ def check_launchers(dev, report):
     G16 = 16
     scan16 = dk.scan_of(kind, G16)
     args16 = (t, meta, r, 0, big[:G16], ns_all[:G16], tsb_all[:G16])
-    scan_ms, scan_dev = kernel_ms(lambda: scan16(*args16, scratch=scratch))
+    scan_ms, scan_dev, scan_host = kernel_ms(lambda: scan16(*args16, scratch=scratch))
     t_p, r_p = table.clone(), ring.clone()
     plain16 = dk.scan_of(kind, G16, plain=True)
     scan_plain = time_ms(lambda: plain16(t_p, meta, r_p, 0, big[:G16], ns_all[:G16],
@@ -994,7 +1090,8 @@ def check_launchers(dev, report):
     scan_bound, scan_by = bound(G16 * b_bytes, G16 * b_ops)
     sup = big[:8].reshape(8 * dk.B, -1)
     stg = dk.orderfree_lo_staged
-    st_ms, st_dev = kernel_ms(lambda: stg(t, meta, r, 3, sup, 5, common.N, 1, scratch=scratch))
+    st_ms, st_dev, st_host = kernel_ms(
+        lambda: stg(t, meta, r, 3, sup, 5, common.N, 1, scratch=scratch))
     st_plain = time_ms(lambda: dk.staged(kind, plain=True)(t_p, meta, r_p, 3, sup, 5, common.N, 1),
                        reps=5, warm=1)
     st_bound, st_by = bound(b_bytes, b_ops)
@@ -1006,24 +1103,28 @@ def check_launchers(dev, report):
         tk, rk = table.clone(), ring.clone()
         scan_k = dk.scan_of(k, G16)
         kargs = (tk, meta, rk, 0, st, ns_all[:G16], tsb_all[:G16])
-        k_ms, k_dev = kernel_ms(lambda: scan_k(*kargs, scratch=sc))
+        k_ms, k_dev, k_host = kernel_ms(lambda: scan_k(*kargs, scratch=sc))
         kb, ko = batch_bound(k, st[0], common.N, to_u64(rk[0]))
         by_kind[k] = dict(us_per_batch=k_ms / G16 * 1e3,
                           device_us_per_batch=None if k_dev is None else k_dev / G16 * 1e3,
+                          host_us_per_batch=k_host / G16 * 1e3,
                           bound_us_per_batch=bound(kb, ko)[0] * 1e3)
         del st, tk, rk
     print(f"scan_of[{kind}] per batch: solo + sync {us['solo_sync']:.1f} us, "
           + ", ".join(f"scan-{g} {us[str(g)]:.1f} us" for g in TIMED_G)
           + f", staged {us['staged']:.1f} us; scan-16 call {scan_ms * 1e3:.1f} us, "
-          f"{_dev(scan_dev)} {_vs(scan_plain, scan_bound)}; staged call {_dev(st_dev)} "
+          f"{_dev(scan_dev, scan_host)} {_vs(scan_plain, scan_bound)}; staged call "
+          f"{_dev(st_dev, st_host)} "
           f"{_vs(st_plain, st_bound)}")
     print("scan_of G=16 per batch by kind: " + "; ".join(
         f"{k} {v['us_per_batch']:.1f} us (device {_dev_us(v['device_us_per_batch'])}, "
         f"bound {v['bound_us_per_batch']:.3f} us)" for k, v in by_kind.items()))
-    report["scan_of"] = dict(ms=scan_ms, device_ms=scan_dev, plain_ms=scan_plain,
+    report["scan_of"] = dict(ms=scan_ms, device_ms=scan_dev, host_ms=scan_host,
+                             plain_ms=scan_plain,
                              bound_ms=scan_bound, bound_by=scan_by, max_abs_err=err_scan,
                              timed_case=f"{kind} G={G16}", us_per_batch=us, by_kind=by_kind)
-    report["staged"] = dict(ms=st_ms, device_ms=st_dev, plain_ms=st_plain, bound_ms=st_bound,
+    report["staged"] = dict(ms=st_ms, device_ms=st_dev, host_ms=st_host, plain_ms=st_plain,
+                            bound_ms=st_bound,
                             bound_by=st_by, max_abs_err=err_staged,
                             timed_case="orderfree_lo_staged g=5 of 8")
     del big, t, r, t_p, r_p
@@ -1304,7 +1405,7 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
 
             kernel_names = ("linked_kernel",) if name == "linked" else (
                 "tp_", "apply_rows_kernel", "summary_kernel")
-            ms, dev_ms = kernel_ms(
+            ms, dev_ms, host = kernel_ms(
                 lambda: fn(t_k, m, r_k, 7, p, n, 1 << 40, scratch=scratch, **variant),
                 reset=reset(t_k), names=kernel_names,
             )
@@ -1318,9 +1419,9 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
             else:
                 ops = n * K6_OPS_PER_EVENT
             bound_ms, bound_by = bound(n_bytes, ops)
-            r = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+            r = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by, max_abs_err=err, timed_case=f"{kind}[{scenario}]")
-            line += f"; {ms * 1e3:.1f} us/launch, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}"
+            line += f"; {ms * 1e3:.1f} us/launch, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}"
             if name == "linked":
                 # The serial floor: the fixpoint's dependent block-wide
                 # passes, each at least one L2 round trip.
@@ -1402,16 +1503,17 @@ def check_waves(dev, report, l2_ns):
         errs.append(_err(kern, plain))
         check(errs[-1] == 0, f"K7 wave_step (mask {masked}): kernel differs from the plain version")
     kern, plain = _wave_pair(dev, table, ev, dstat)
-    ms, dev_ms = kernel_ms(lambda: waves.wave_step(*kern, idx, n, ts_base, scratch=scratch),
-                           reset=_resetter(kern, rows), names=("wave_",))
+    ms, dev_ms, host = kernel_ms(lambda: waves.wave_step(*kern, idx, n, ts_base, scratch=scratch),
+                                 reset=_resetter(kern, rows), names=("wave_",))
     plain_ms = time_ms(lambda: waves.wave_step_plain(*plain, idx, n, ts_base), reps=5, warm=1,
                        reset=_resetter(plain, rows))
     bound_ms, bound_by = bound(_wave_bytes(K, rows.numel()), K * K7_OPS_PER_LANE)
-    report["wave_step"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["wave_step"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
                                bound_by=bound_by, max_abs_err=max(errs),
                                timed_case=f"{K}-lane wave")
     print(f"K7 wave_step ({K} lanes, unmasked and masked): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     # K9, then the whole speculative step (K9 + K7 with commit mask =
     # not conflicted) on an 8190-event batch of every shape.
@@ -1437,17 +1539,19 @@ def check_waves(dev, report, l2_ns):
         spec.append([t, None, carry.words[:k3.scratch_words(8192)].clone(), confl])
     err_s = max(_err(spec[0], spec[1]), max_abs_err(spec[0][3].long(), spec[1][3].long()))
     check(err_s == 0, "K9 + K7 speculative step: kernels differ from the plain versions")
-    ms, dev_ms = kernel_ms(lambda: waves.spec_conflicts(pk, sidx, serial, n, A_ROWS,
-                                                        scratch=scratch), names=("spec_",))
+    ms, dev_ms, host = kernel_ms(lambda: waves.spec_conflicts(pk, sidx, serial, n, A_ROWS,
+                                                              scratch=scratch),
+                                 names=("spec_",))
     plain_ms = time_ms(lambda: waves.spec_conflicts_plain(pk, sidx, serial, n, A_ROWS),
                        reps=5, warm=1)
     bound_ms, bound_by = bound(n * (12 * 8 + 4 + 1 + 1), n * K9_OPS_PER_LANE)
-    report["spec_conflicts"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+    report["spec_conflicts"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     max_abs_err=max(err, err_s),
                                     timed_case=f"{n}-event batch, {int(f_k.sum())} conflicted")
     print(f"K9 spec_conflicts ({n} events, {int(f_k.sum())} conflicted; then K7 with the "
-          f"commit mask): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"commit mask): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} "
+          f"{_vs(plain_ms, bound_ms)}")
 
     # K8: 8 positions x 4096 chains (hub accounts credited by many
     # chains, chains that die), and a 7-member shape.
@@ -1468,18 +1572,20 @@ def check_waves(dev, report, l2_ns):
         dead = int((k3.carry_to_dict(kern[2], 8192)["results"][:n] == 1).sum())
     rows = torch.from_numpy(_rows_of(ev, n)).to(dev)
     kern, plain = _wave_pair(dev, table, ev, dstat)
-    ms, dev_ms = kernel_ms(lambda: waves.chain_wave(*kern, plane, n, ts_base, scratch=scratch),
-                           reset=_resetter(kern, rows), names=("chain_wave",))
+    ms, dev_ms, host = kernel_ms(
+        lambda: waves.chain_wave(*kern, plane, n, ts_base, scratch=scratch),
+        reset=_resetter(kern, rows), names=("chain_wave",))
     plain_ms = time_ms(lambda: waves.chain_wave_plain(*plain, plane, n, ts_base), reps=5,
                        warm=1, reset=_resetter(plain, rows))
     bound_ms, bound_by = bound(_wave_bytes(n, rows.numel()), n * K8_OPS_PER_CELL)
     serial_ms = 2 * P * l2_ns * 1e-6
-    report["chain_wave"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["chain_wave"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, max_abs_err=max(errs),
                                 serial_floor_ms=serial_ms,
                                 timed_case=f"P={P} x C={plane.shape[1]}, {dead} failed members")
     print(f"K8 chain_wave (P={P} x C={plane.shape[1]}, {dead} members failed or rolled back): "
-          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}, "
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}, "
           f"position floor {serial_ms * 1e3:.2f} us = {2 * P} phases x {l2_ns:.1f} ns")
 
     # A K3 segment resumed mid-batch from K7 carries, then finalize and
@@ -1506,19 +1612,20 @@ def check_waves(dev, report, l2_ns):
     check(err == 0, "K3 exact_segment: kernel differs from the plain version")
     L = seg.numel()
     rows = torch.from_numpy(_rows_of(ev, n)).to(dev)
-    ms, dev_ms = kernel_ms(lambda: k3.scan_segment(kern[0], kern[1], kern[2], seg, n, ts_base),
-                           reset=_resetter(kern, rows), names=("segment_kernel",))
+    ms, dev_ms, host = kernel_ms(
+        lambda: k3.scan_segment(kern[0], kern[1], kern[2], seg, n, ts_base),
+        reset=_resetter(kern, rows), names=("segment_kernel",))
     plain_ms = time_ms(lambda: k3.scan_segment_plain(plain[0], plain[1], plain[2], seg, n,
                                                      ts_base),
                        reps=3, warm=1, reset=_resetter(plain, rows))
     bound_ms, bound_by = bound(L * (416 + 4) + rows.numel() * 128 + L * 50 * 8,
                                L * K3_OPS_PER_EVENT)
-    report["exact_segment"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+    report["exact_segment"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
                                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                                    serial_floor_ms=L * l2_ns * 1e-6,
                                    timed_case=f"{L}-event segment after {seg_at} segments")
     print(f"K3 exact_segment ({L} events, resumed after {seg_at} segments): bit-exact; "
-          f"{ms * 1e3:.1f} us, {_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     B = 8192
     fix = torch.zeros(B, dtype=torch.uint8)
@@ -1529,16 +1636,16 @@ def check_waves(dev, report, l2_ns):
     torch.cuda.synchronize()
     err = max_abs_err(out_k, out_p)
     check(err == 0, "K3 exact_finalize: kernel differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: k3.finalize(kern[0], kern[2], B, fix),
-                           names=("finalize_kernel",))
+    ms, dev_ms, host = kernel_ms(lambda: k3.finalize(kern[0], kern[2], B, fix),
+                                 names=("finalize_kernel",))
     plain_ms = time_ms(lambda: k3.finalize_plain(kern[0], kern[2], B, fix), reps=5, warm=1)
     n_fix = int(fix.sum())
     bound_ms, bound_by = bound(B * 36 * 8 + B + n_fix * 128 + B * k3.N_COLS * 8, B * 40)
-    report["exact_finalize"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+    report["exact_finalize"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                                     timed_case=f"B={B}, {n_fix} snapshots rewritten")
     print(f"K3 exact_finalize (B={B}, {n_fix} rewritten): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms)} {_vs(plain_ms, bound_ms)}")
+          f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     ds = torch.from_numpy(dstat.view(np.int32)).to(dev)
     w_k = torch.empty(k3.scratch_words(B), dtype=torch.int64, device=dev)
@@ -1548,12 +1655,13 @@ def check_waves(dev, report, l2_ns):
     torch.cuda.synchronize()
     err = max_abs_err(w_k, w_p)
     check(err == 0, "K3 exact_init: kernel differs from the plain version")
-    ms, dev_ms = kernel_ms(lambda: k3.exact_init(w_k, ds), names=("init_kernel",))
+    ms, dev_ms, host = kernel_ms(lambda: k3.exact_init(w_k, ds), names=("init_kernel",))
     plain_ms = time_ms(lambda: k3.make_carry(w_p, ds), reps=5, warm=1)
     bound_ms, bound_by = bound(B * 4 + k3.scratch_words(B) * 8, k3.scratch_words(B))
-    report["exact_init"] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    report["exact_init"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
+                                plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, max_abs_err=err, timed_case=f"B={B}")
-    print(f"K3 exact_init (B={B}): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms)} "
+    print(f"K3 exact_init (B={B}): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} "
           f"{_vs(plain_ms, bound_ms)}")
 
 
@@ -2540,11 +2648,13 @@ def main() -> int:
             "launches_by_phase": {ph: p[0][name] for ph, p in phases.items()},
             "check_launches": sum(p[1][name] for p in phases.values()),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "verified": True,
         }
         for key in ("serial_floor_ms", "plain_on", "iters", "timed_case", "k128", "meta",
-                    "library_device_ms", "widths", "window_unit", "row0", "us_per_batch",
+                    "library_device_ms", "library_host_ms", "widths", "window_unit", "row0",
+                    "us_per_batch", "host_split", "library_full",
                     "by_kind"):
             if key in r:
                 row[key] = r[key]

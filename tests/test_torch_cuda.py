@@ -565,6 +565,147 @@ def test_shard_rows_kernel_at_width_matches_plain(card, width):
     assert torch.equal(t_k, t_p)
 
 
+def _on_side_stream(launch):
+    """Run `launch()` on a fresh stream while the default stream is kept
+    busy, and copy its result to the host on that stream alone: a kernel
+    launched on any other than the current stream would still sit behind
+    the default stream's spin when the copy reads the table."""
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    torch.cuda._sleep(1 << 28)  # ~0.15 s of spinning on the default stream
+    with torch.cuda.stream(side):
+        out = launch()
+        host = out.cpu()
+        side.synchronize()
+    torch.cuda.synchronize()
+    return host
+
+
+def _k10_inputs(rng, H, k, pad, width, dtype):
+    info = torch.iinfo(dtype)
+    table = torch.from_numpy(rng.integers(info.min, info.max, (H, width))).to(dtype)
+    src = torch.from_numpy(rng.integers(info.min, info.max, (k + pad, width))).to(dtype)
+    idx = torch.from_numpy(np.concatenate([rng.choice(H, k, replace=False),
+                                           H + np.arange(pad)]).astype(np.int64))
+    return table, idx, src
+
+
+@pytest.mark.parametrize("side_stream", [False, True])
+@pytest.mark.parametrize("k,pad", [(0, 0), (1, 0), (0, 64), (128, 64), (16_384, 64)])
+@pytest.mark.parametrize("width,dtype", [(8, torch.int64), (2, torch.int32)])
+def test_tier_set_rows_edges_match_plain(card, width, dtype, k, pad, side_stream):
+    """K10 on a 2^15-row balance (8 int64) or meta (2 int32) table: no
+    rows, one row, padding only, 128 and 16,384 rows with 64 distinct
+    padding indices past H; on the current stream, and on a side stream
+    while the default one is busy.  A call with no rows launches
+    nothing."""
+    rng = np.random.default_rng(k + pad + width)
+    table, idx, src = _k10_inputs(rng, 1 << 15, k, pad, width, dtype)
+    want = dk.tier_set_rows_plain(table.clone(), idx, src)
+    t, i, sr = table.to(card), idx.to(card), src.to(card)
+    before = kernels.launches["tier_set_rows"]
+    if side_stream:
+        got = _on_side_stream(lambda: dk.tier_set_rows(t, i, sr))
+    else:
+        got = dk.tier_set_rows(t, i, sr).cpu()
+    assert kernels.launches["tier_set_rows"] == before + (1 if k + pad else 0)
+    assert torch.equal(got, want)
+
+
+def _k14_scatter_inputs(rng, width, local, shard, shards=4):
+    """A shard table and distinct slots: owned rows, rows of the other
+    shards, -1 and slots past every shard, shuffled."""
+    A = local * shards
+    table = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (local, width)))
+    own = rng.choice(local, local // 3, replace=False) + shard * local
+    other = rng.choice(np.setdiff1d(np.arange(A), shard * local + np.arange(local)), 700,
+                       replace=False)
+    slots = rng.permutation(np.concatenate([own, other, [-1, A, A + 1, 1 << 40]]))
+    rows = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (len(slots), width)))
+    return table, torch.from_numpy(slots.astype(np.int64)), rows
+
+
+@pytest.mark.parametrize("side_stream", [False, True])
+@pytest.mark.parametrize("width", [1, 2, 8])
+def test_shard_scatter_drops_what_it_does_not_own(card, width, side_stream):
+    """K14 scatter at W = 1, 2 and 8 onto shard 2 of 4: the owned rows
+    written, slots -1, past every shard and owned by another shard
+    dropped; on the current stream, and on a side stream while the
+    default one is busy."""
+    rng = np.random.default_rng(40 + width)
+    local, shard = 4096, 2
+    table, slots, rows = _k14_scatter_inputs(rng, width, local, shard)
+    want = table.clone()
+    sharded.scatter_part_plain(want, slots, rows, shard)
+    t, sl, r = table.to(card), slots.to(card), rows.to(card)
+    before = kernels.launches["shard_scatter"]
+
+    def launch():
+        sharded.scatter_part(t, sl, r, shard)
+        return t
+
+    got = _on_side_stream(launch) if side_stream else launch().cpu()
+    assert kernels.launches["shard_scatter"] == before + 1
+    assert torch.equal(got, want)
+
+
+def test_row_kernels_on_unaligned_views_match_plain(card):
+    """K10 and K14 scatter on tables and sources that are views at an
+    offset of one word (8 bytes; 4 for int32 meta): the kernels move
+    them with narrower pieces, bit for bit as the plain versions."""
+    rng = np.random.default_rng(77)
+
+    def shifted(t):  # the same values at a pointer one element past an aligned one
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = flat[1:].view(t.shape)
+        view.copy_(t.to(card))
+        return view
+
+    for width, dtype in ((8, torch.int64), (2, torch.int32)):
+        table, idx, src = _k10_inputs(rng, 1 << 12, 900, 7, width, dtype)
+        t, sr = shifted(table), shifted(src)
+        assert t.data_ptr() % 16 != 0 and sr.data_ptr() % 16 != 0
+        got = dk.tier_set_rows(t, idx.to(card), sr).cpu()
+        assert torch.equal(got, dk.tier_set_rows_plain(table.clone(), idx, src))
+    for width in (2, 8):
+        table, slots, rows = _k14_scatter_inputs(rng, width, 1024, 1)
+        want = table.clone()
+        sharded.scatter_part_plain(want, slots, rows, 1)
+        t = shifted(table)
+        sharded.scatter_part(t, slots.to(card), shifted(rows), 1)
+        assert torch.equal(t.cpu(), want)
+
+
+def test_tier_set_rows_refuses_other_rows_on_the_card(card):
+    """K10 is compiled for the engine's rows (8 int64 words, 2 int32
+    words): any other row raises on the card."""
+    table = torch.zeros((64, 4), dtype=torch.int64, device=card)
+    idx = torch.arange(3, device=card)
+    with pytest.raises(RuntimeError, match="tb_tier_set_rows"):
+        dk.tier_set_rows(table, idx, torch.ones((3, 4), dtype=torch.int64, device=card))
+
+
+def test_row_kernels_launch_on_another_card(card):
+    """With cuda:0 current, K10 and K14 scatter on cuda:1 tensors launch
+    on cuda:1 (on its current stream) and leave cuda:0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    other = torch.device("cuda", 1)
+    rng = np.random.default_rng(91)
+    table, idx, src = _k10_inputs(rng, 1 << 14, 3000, 9, 8, torch.int64)
+    part, slots, rows = _k14_scatter_inputs(rng, 8, 2048, 3)
+    want_t = dk.tier_set_rows_plain(table.clone(), idx, src)
+    want_p = part.clone()
+    sharded.scatter_part_plain(want_p, slots, rows, 3)
+    torch.cuda.set_device(0)
+    t, p = table.to(other), part.to(other)
+    dk.tier_set_rows(t, idx.to(other), src.to(other))
+    sharded.scatter_part(p, slots.to(other), rows.to(other), 3)
+    assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(other)
+    assert torch.equal(t.cpu(), want_t) and torch.equal(p.cpu(), want_p)
+
+
 @pytest.mark.parametrize("dtype,cols", [(torch.int64, 8), (torch.int32, 2)])
 def test_checksum_row0_kernel_matches_plain(card, dtype, cols):
     """K11 with row0 against its plain version; four shards' digests sum

@@ -55,11 +55,62 @@ def test_k14_parts_at_width(width):
         assert (part.numpy() == expect).all()
 
 
-def test_k14_rejects_a_row_of_the_wrong_width():
-    part = torch.zeros((8, 2), dtype=torch.int64)
-    with pytest.raises(ValueError):
-        sharded.scatter_part(part, torch.zeros(3, dtype=torch.int64),
-                             torch.zeros((3, 8), dtype=torch.int64), 0)
+def _z(shape, dtype=torch.int64, device="cpu"):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+_TABLE_MSG = "local table must be (local_rows, W) int64 with W in (1, 2, 8), got "
+# (local table, slots) -> the message after "gather: " / "scatter: ",
+# or the whole message (None prefix) for the table's own checks.  A
+# `meta` tensor stands in for a second device.
+_ROWS_REFUSALS = {
+    "table_dtype": (lambda: (_z((8, 2), torch.int32), _z(3)),
+                    None, _TABLE_MSG + "(8, 2) torch.int32"),
+    "table_rank": (lambda: (_z(8), _z(3)), None, _TABLE_MSG + "(8,) torch.int64"),
+    "table_width": (lambda: (_z((8, 3)), _z(3)), None, _TABLE_MSG + "(8, 3) torch.int64"),
+    "slots_dtype": (lambda: (_z((8, 2)), _z(3, torch.int32)), True, "slots must be (K,) int64"),
+    "slots_rank": (lambda: (_z((8, 2)), _z((3, 1))), True, "slots must be (K,) int64"),
+    "table_strided": (lambda: (_z((2, 8)).t(), _z(3)), True,
+                      "tensors must be contiguous and on one device"),
+    "slots_strided": (lambda: (_z((8, 2)), _z(6)[::2]), True,
+                      "tensors must be contiguous and on one device"),
+    "slots_elsewhere": (lambda: (_z((8, 2)), _z(3, device="meta")), True,
+                        "tensors must be contiguous and on one device"),
+}
+# scatter_part's checks of its rows, on a valid (8, 2) table and 3 slots.
+_SCATTER_ROWS_REFUSALS = {
+    "rows_width": (lambda: _z((3, 8)), "rows must be (K, 2) int64"),
+    "rows_count": (lambda: _z((4, 2)), "rows must be (K, 2) int64"),
+    "rows_rank": (lambda: _z(6), "rows must be (K, 2) int64"),
+    "rows_dtype": (lambda: _z((3, 2), torch.int32), "rows must be (K, 2) int64"),
+    "rows_strided": (lambda: _z((2, 3)).t(), "rows must be contiguous on the table's device"),
+    "rows_elsewhere": (lambda: _z((3, 2), device="meta"),
+                       "rows must be contiguous on the table's device"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_SCATTER_ROWS_REFUSALS) + [
+    f"{op}:{c}" for op in ("gather", "scatter") for c in sorted(_ROWS_REFUSALS)])
+def test_k14_rejects_a_row_of_the_wrong_width(case):
+    """Every refusal of K14's wrappers, with its message: the rows of
+    the wrong width, count, rank, dtype, strided or on another device;
+    the table's and the slots' (gather and scatter alike)."""
+    if case in _SCATTER_ROWS_REFUSALS:
+        make, message = _SCATTER_ROWS_REFUSALS[case]
+        call = lambda: sharded.scatter_part(_z((8, 2)), _z(3), make(), 0)  # noqa: E731
+    else:
+        op, name = case.split(":")
+        make, prefixed, message = _ROWS_REFUSALS[name]
+        part, slots = make()
+        if prefixed:
+            message = f"{op}: {message}"
+        if op == "gather":
+            call = lambda: sharded.gather_part(part, slots, 0)  # noqa: E731
+        else:
+            call = lambda: sharded.scatter_part(part, slots, _z((3, 2)), 0)  # noqa: E731
+    with pytest.raises(ValueError) as err:
+        call()
+    assert str(err.value) == message
 
 
 @pytest.mark.parametrize("width", [3, 4, 16])

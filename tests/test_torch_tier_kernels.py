@@ -63,12 +63,53 @@ def test_tier_set_rows_matches_jax(H, k, width):
     assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
-def test_tier_set_rows_checks_its_inputs():
-    t = torch.zeros((4, 8), dtype=torch.int64)
-    with pytest.raises(ValueError):
-        dk.tier_set_rows(t, torch.zeros(2, dtype=torch.int32), torch.zeros((2, 8), dtype=torch.int64))
-    with pytest.raises(ValueError):
-        dk.tier_set_rows(t, torch.zeros(2, dtype=torch.int64), torch.zeros((2, 2), dtype=torch.int64))
+_I64, _I32 = torch.int64, torch.int32
+_ON_TWO = "tensors must be contiguous and on one device"
+
+
+def _z(shape, dtype=_I64, device="cpu"):
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+# (table, idx, src) -> the ValueError's whole message.  A `meta` tensor
+# stands in for a second device; `.t()` and `[::2]` make strided views.
+_TIER_REFUSALS = {
+    "table_dtype": (lambda: (_z((4, 8), torch.float32), _z(2), _z((2, 8))),
+                    "table must be (H, W) int64 or int32, got (4, 8) torch.float32"),
+    "table_rank": (lambda: (_z(4), _z(2), _z((2, 8))),
+                   "table must be (H, W) int64 or int32, got (4,) torch.int64"),
+    "idx_dtype": (lambda: (_z((4, 8)), _z(2, _I32), _z((2, 8))),
+                  "idx must be (k,) int64, got (2,) torch.int32"),
+    "idx_rank": (lambda: (_z((4, 8)), _z((2, 1)), _z((2, 8))),
+                 "idx must be (k,) int64, got (2, 1) torch.int64"),
+    "src_width": (lambda: (_z((4, 8)), _z(2), _z((2, 2))),
+                  "src must be (2, 8) torch.int64, got (2, 2) torch.int64"),
+    "src_rows": (lambda: (_z((4, 8)), _z(2), _z((3, 8))),
+                 "src must be (2, 8) torch.int64, got (3, 8) torch.int64"),
+    "src_rank": (lambda: (_z((4, 8)), _z(2), _z(16)),
+                 "src must be (2, 8) torch.int64, got (16,) torch.int64"),
+    "src_dtype": (lambda: (_z((4, 8)), _z(2), _z((2, 8), _I32)),
+                  "src must be (2, 8) torch.int64, got (2, 8) torch.int32"),
+    "src_dtype_meta_table": (lambda: (_z((4, 2), _I32), _z(2), _z((2, 2))),
+                             "src must be (2, 2) torch.int32, got (2, 2) torch.int64"),
+    "table_strided": (lambda: (_z((8, 4)).t(), _z(2), _z((2, 8))), _ON_TWO),
+    "idx_strided": (lambda: (_z((4, 8)), _z(4)[::2], _z((2, 8))), _ON_TWO),
+    "src_strided": (lambda: (_z((4, 8)), _z(2), _z((8, 2)).t()), _ON_TWO),
+    "idx_elsewhere": (lambda: (_z((4, 8)), _z(2, device="meta"), _z((2, 8))), _ON_TWO),
+    "src_elsewhere": (lambda: (_z((4, 8)), _z(2), _z((2, 8), device="meta")), _ON_TWO),
+    "table_elsewhere": (lambda: (_z((4, 8), device="meta"), _z(2), _z((2, 8))), _ON_TWO),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_TIER_REFUSALS))
+def test_tier_set_rows_checks_its_inputs(case):
+    """Every refusal of K10's wrapper, with its message: wrong dtype,
+    rank, width or row count, a strided input, tensors on two devices."""
+    make, message = _TIER_REFUSALS[case]
+    table, idx, src = make()
+    with pytest.raises(ValueError) as err:
+        dk.tier_set_rows(table, idx, src)
+    assert str(err.value) == message
 
 
 @pytest.mark.parametrize("H,k", [(64, 1), (64, 40), (300, 256), (300, 7)])

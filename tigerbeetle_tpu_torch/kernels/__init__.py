@@ -5,8 +5,12 @@ wrappers in ``state_machine/device_kernels.py``,
 ``state_machine/commitment.py``, ``state_machine/waves.py`` and
 ``parallel/sharded.py`` do), launches on the current stream of the
 device its tensors lie on without synchronising, raises on a non-zero
-CUDA status, and adds one to its entry in ``launches``.  Nothing here
-imports or builds anything until the first launch.
+CUDA status, and adds one to its entry in ``launches``.  Each binding
+names its pointers and sizes to the resolved ctypes function itself;
+``_launch`` adds the raw handle of the device's current stream and
+switches the current device only when the tensors lie on another
+card.  Nothing here imports or builds anything until the first
+launch.
 """
 
 from __future__ import annotations
@@ -70,8 +74,8 @@ _SIGNATURES = {
         "tb_commit_admit": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     },
     "tier": {
-        # table, H, width, word_bytes, idx, src, k, stream
-        "tb_tier_set_rows": [_P, _I64, _I, _I, _P, _P, _I64, _P],
+        # table, H, row_bytes, idx, src, k, stream
+        "tb_tier_set_rows": [_P, _I64, _I, _P, _P, _I64, _P],
     },
     "checksum": {
         # table, R, row0, C, word_bytes, out, stream
@@ -157,15 +161,34 @@ def _fn(lib: str, symbol: str):
     return fn
 
 
-def _launch(lib: str, symbol: str, count_as: str | None, *args) -> None:
-    """Call `symbol` with `args` (tensors pass as their data pointers,
-    None as a null pointer) on the current stream of the device of the
-    first tensor argument, with that device current: a shard's tensors
-    may lie on another card than the current one."""
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    with torch.cuda.device(dev):
-        rc = _fn(lib, symbol)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+# The current-device and raw-stream lookups of a CUDA build of torch
+# (the CPU build lacks them): resolved at the first launch, never at
+# import.  torch._C._cuda_getCurrentRawStream(index) is the handle
+# PyTorch's own inductor wrapper passes to its kernels; it builds no
+# Stream object.
+_current_device = None
+_raw_stream = None
+
+
+def _resolve_cuda() -> None:
+    global _current_device, _raw_stream
+    _current_device = torch._C._cuda_getDevice
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+
+
+def _launch(lib: str, symbol: str, count_as: str | None, device: int, *args) -> None:
+    """Call `symbol` with `args` (data pointers, sizes; None is a null
+    pointer) and the current stream of CUDA device `device`, with that
+    device current: a shard's tensors may lie on another card than the
+    current one.  The device is switched only then, and back after."""
+    fn = _FNS.get(symbol) or _fn(lib, symbol)
+    if _raw_stream is None:
+        _resolve_cuda()
+    if device == _current_device():
+        rc = fn(*args, _raw_stream(device))
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, _raw_stream(device))
     if rc != 0:
         msg = _FNS[lib + ".err"](rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
@@ -173,30 +196,35 @@ def _launch(lib: str, symbol: str, count_as: str | None, *args) -> None:
         launches[count_as] += 1
 
 
+def _ptr(t):
+    """A nullable tensor argument's data pointer (None stays NULL)."""
+    return None if t is None else t.data_ptr()
+
+
 def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch,
               count_as="orderfree"):
     _launch(
-        "orderfree", "tb_orderfree", count_as,
-        table, meta, table.shape[0], ring_row_ptr, pk,
-        mode, n, pk.shape[0], ts_base_u64, scratch.slot_idx,
-        scratch.codes, scratch.touched, scratch.acc,
-        scratch.newrows, scratch.ctrl,
+        "orderfree", "tb_orderfree", count_as, table.get_device(),
+        table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(),
+        mode, n, pk.shape[0], ts_base_u64, scratch.slot_idx.data_ptr(),
+        scratch.codes.data_ptr(), scratch.touched.data_ptr(), scratch.acc.data_ptr(),
+        scratch.newrows.data_ptr(), scratch.ctrl.data_ptr(),
     )
 
 
 def linked(table, meta, ring_row_ptr, pk, n, small, scratch, count_as="linked"):
     _launch(
-        "linked", "tb_linked", count_as,
-        table, meta, table.shape[0], ring_row_ptr, pk, n,
-        pk.shape[0], int(small), scratch.slot_idx, scratch.words,
+        "linked", "tb_linked", count_as, table.get_device(),
+        table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(), n,
+        pk.shape[0], int(small), scratch.slot_idx.data_ptr(), scratch.words.data_ptr(),
     )
 
 
 def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch, count_as="two_phase"):
     _launch(
-        "two_phase", "tb_two_phase", count_as,
-        table, meta, table.shape[0], ring_row_ptr, pk, n,
-        pk.shape[0], int(lo_only), scratch.slot_idx, scratch.words,
+        "two_phase", "tb_two_phase", count_as, table.get_device(),
+        table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(), n,
+        pk.shape[0], int(lo_only), scratch.slot_idx.data_ptr(), scratch.words.data_ptr(),
     )
 
 
@@ -216,55 +244,59 @@ def scratch_words(lib: str, batch: int) -> int:
 
 def commit_hash_all(balances, meta, rows, row_hash, fold_out, count_as):
     _launch(
-        "commitment", "tb_commit_hash_all", count_as,
-        balances, meta, rows, balances.shape[0],
-        row_hash, fold_out,
+        "commitment", "tb_commit_hash_all", count_as, balances.get_device(),
+        balances.data_ptr(), meta.data_ptr(), rows.data_ptr(), balances.shape[0],
+        _ptr(row_hash), fold_out.data_ptr(),
     )
 
 
 def commit_update(balances, meta, row_hash, digest, slots, rows):
     _launch(
-        "commitment", "tb_commit_update", "commit_update",
-        balances, meta, row_hash, digest,
-        slots, rows, slots.shape[0],
+        "commitment", "tb_commit_update", "commit_update", balances.get_device(),
+        balances.data_ptr(), meta.data_ptr(), row_hash.data_ptr(), digest.data_ptr(),
+        slots.data_ptr(), rows.data_ptr(), slots.shape[0],
     )
 
 
 def commit_admit(row_hash, digest, slots, new_lo, new_hi):
     _launch(
-        "commitment", "tb_commit_admit", "commit_admit",
-        row_hash, row_hash.shape[0], digest, slots,
-        new_lo, new_hi, slots.shape[0],
+        "commitment", "tb_commit_admit", "commit_admit", row_hash.get_device(),
+        row_hash.data_ptr(), row_hash.shape[0], digest.data_ptr(), slots.data_ptr(),
+        new_lo.data_ptr(), new_hi.data_ptr(), slots.shape[0],
     )
 
 
 def tier_set_rows(table, idx, src):
+    """K10 over an (H, W) table of 64-byte (8 int64) or 8-byte (2 int32)
+    rows; the library refuses any other row size."""
+    H, W = table.shape
     _launch(
-        "tier", "tb_tier_set_rows", "tier_set_rows",
-        table, table.shape[0], table.shape[1], table.element_size(),
-        idx, src, idx.shape[0],
+        "tier", "tb_tier_set_rows", "tier_set_rows", table.get_device(),
+        table.data_ptr(), H, W * table.element_size(), idx.data_ptr(), src.data_ptr(),
+        idx.shape[0],
     )
 
 
 def checksum(table, out, row0=0):
     _launch(
-        "checksum", "tb_checksum", "checksum",
-        table, table.shape[0], row0, table.shape[1], table.element_size(), out,
+        "checksum", "tb_checksum", "checksum", table.get_device(),
+        table.data_ptr(), table.shape[0], row0, table.shape[1], table.element_size(),
+        out.data_ptr(),
     )
 
 
 def exact_scan(table, events, dstat_init, n, ts_base_u64, scratch_words, out):
     _launch(
-        "exact_scan", "tb_exact_scan", "exact_scan",
-        table, table.shape[0], events, events.shape[0],
-        dstat_init, n, ts_base_u64, scratch_words, out,
+        "exact_scan", "tb_exact_scan", "exact_scan", table.get_device(),
+        table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0],
+        dstat_init.data_ptr(), n, ts_base_u64, scratch_words.data_ptr(), out.data_ptr(),
     )
 
 
 def apply_deltas(table, packed):
     _launch(
-        "apply_deltas", "tb_apply_deltas", "apply_deltas",
-        table, table.shape[0], packed, packed.shape[1],
+        "apply_deltas", "tb_apply_deltas", "apply_deltas", table.get_device(),
+        table.data_ptr(), table.shape[0], packed.data_ptr(), packed.shape[1],
         packed.shape[1],
     )
 
@@ -275,23 +307,24 @@ def l2_chase(next_idx, steps, sink):
     a CUDA int32 permutation of its own indices."""
     if next_idx.dtype != torch.int32 or not next_idx.is_cuda or not next_idx.is_contiguous():
         raise ValueError("next_idx must be a contiguous CUDA int32 tensor")
-    _launch("exact_scan", "tb_l2_chase", None, next_idx, steps, sink)
+    _launch("exact_scan", "tb_l2_chase", None, next_idx.get_device(),
+            next_idx.data_ptr(), steps, sink.data_ptr())
 
 
 def exact_init(scratch_words, dstat_init):
     """K3's initial carry for a (B,)-row batch in `scratch_words`."""
     _launch(
-        "exact_scan", "tb_exact_init", "exact_init",
-        scratch_words, dstat_init.shape[0], dstat_init,
+        "exact_scan", "tb_exact_init", "exact_init", scratch_words.get_device(),
+        scratch_words.data_ptr(), dstat_init.shape[0], dstat_init.data_ptr(),
     )
 
 
 def exact_segment(table, events, rows, n, ts_base_u64, scratch_words):
     """A K3 scan segment over the int32 global event indices `rows`."""
     _launch(
-        "exact_scan", "tb_exact_segment", "exact_segment",
-        table, table.shape[0], events, events.shape[0],
-        rows, rows.shape[0], n, ts_base_u64, scratch_words,
+        "exact_scan", "tb_exact_segment", "exact_segment", table.get_device(),
+        table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0],
+        rows.data_ptr(), rows.shape[0], n, ts_base_u64, scratch_words.data_ptr(),
     )
 
 
@@ -299,9 +332,9 @@ def exact_finalize(table, batch, scratch_words, hist_fix, out):
     """The packed outputs of the carry; `hist_fix` a (B,) uint8 mask or
     None."""
     _launch(
-        "exact_scan", "tb_exact_finalize", "exact_finalize",
-        table, table.shape[0], batch, scratch_words,
-        hist_fix, out,
+        "exact_scan", "tb_exact_finalize", "exact_finalize", table.get_device(),
+        table.data_ptr(), table.shape[0], batch, scratch_words.data_ptr(),
+        _ptr(hist_fix), out.data_ptr(),
     )
 
 
@@ -321,62 +354,64 @@ def aux_words(lib: str, symbol: str) -> int:
 
 def wave_step(table, events, idx, mask, n, ts_base_u64, scratch_words, lanes):
     _launch(
-        "wave_step", "tb_wave_step", "wave_step",
-        table, table.shape[0], events, events.shape[0], idx,
-        idx.shape[0], mask, n, ts_base_u64, scratch_words, lanes,
+        "wave_step", "tb_wave_step", "wave_step", table.get_device(),
+        table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0], idx.data_ptr(),
+        idx.shape[0], _ptr(mask), n, ts_base_u64, scratch_words.data_ptr(), lanes.data_ptr(),
     )
 
 
 def chain_wave(table, events, plane, n, ts_base_u64, scratch_words, ys, alive):
     _launch(
-        "chain_wave", "tb_chain_wave", "chain_wave",
-        table, table.shape[0], events, events.shape[0], plane,
-        plane.shape[0], plane.shape[1], n, ts_base_u64, scratch_words,
-        ys, alive,
+        "chain_wave", "tb_chain_wave", "chain_wave", table.get_device(),
+        table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0],
+        plane.data_ptr(), plane.shape[0], plane.shape[1], n, ts_base_u64,
+        scratch_words.data_ptr(), ys.data_ptr(), alive.data_ptr(),
     )
 
 
 def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):
     _launch(
-        "spec_conflicts", "tb_spec_conflicts", "spec_conflicts",
-        events, events.shape[0], idx, idx.shape[0], serial, n, A,
-        tok, tgt, a_min, r_min, out,
+        "spec_conflicts", "tb_spec_conflicts", "spec_conflicts", events.get_device(),
+        events.data_ptr(), events.shape[0], idx.data_ptr(), idx.shape[0], _ptr(serial), n, A,
+        tok.data_ptr(), tgt.data_ptr(), a_min.data_ptr(), r_min.data_ptr(), out.data_ptr(),
     )
 
 
 def shard_accumulate(acc, row0, dr, cr, lo, hi, pending, mask):
     _launch(
-        "shard_apply", "tb_shard_accumulate", "shard_accumulate",
-        acc, acc.shape[0], row0, dr, cr, lo, hi,
-        pending, mask, dr.shape[0],
+        "shard_apply", "tb_shard_accumulate", "shard_accumulate", acc.get_device(),
+        acc.data_ptr(), acc.shape[0], row0, dr.data_ptr(), cr.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), pending.data_ptr(), _ptr(mask), dr.shape[0],
     )
 
 
 def shard_admit(table, acc, row0, dr, cr, reject):
     _launch(
-        "shard_apply", "tb_shard_admit", "shard_admit",
-        table, acc, table.shape[0], row0, dr, cr, dr.shape[0],
-        reject,
+        "shard_apply", "tb_shard_admit", "shard_admit", table.get_device(),
+        table.data_ptr(), acc.data_ptr(), table.shape[0], row0, dr.data_ptr(), cr.data_ptr(),
+        dr.shape[0], reject.data_ptr(),
     )
 
 
 def shard_apply(table, acc):
-    _launch("shard_apply", "tb_shard_apply", "shard_apply", table, acc,
-            table.shape[0])
+    _launch("shard_apply", "tb_shard_apply", "shard_apply", table.get_device(),
+            table.data_ptr(), acc.data_ptr(), table.shape[0])
 
 
 def shard_gather(table, row0, slots, out):
     """K14 gather over an (local_rows, W) int64 table: W u64 words per row."""
+    local_rows, W = table.shape
     _launch(
-        "shard_rows", "tb_shard_gather", "shard_gather",
-        table, table.shape[0], row0, slots, slots.shape[0], table.shape[1],
-        out,
+        "shard_rows", "tb_shard_gather", "shard_gather", table.get_device(),
+        table.data_ptr(), local_rows, row0, slots.data_ptr(), slots.shape[0], W,
+        out.data_ptr(),
     )
 
 
 def shard_scatter(table, row0, slots, rows):
+    local_rows, W = table.shape
     _launch(
-        "shard_rows", "tb_shard_scatter", "shard_scatter",
-        table, table.shape[0], row0, slots, slots.shape[0], table.shape[1],
-        rows,
+        "shard_rows", "tb_shard_scatter", "shard_scatter", table.get_device(),
+        table.data_ptr(), local_rows, row0, slots.data_ptr(), slots.shape[0], W,
+        rows.data_ptr(),
     )

@@ -150,13 +150,19 @@ ROW_WIDTHS = (1, 2, 8)  # K14's row widths: meta, row hashes, balances
 
 
 def _check_rows(table, slots, name):
-    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] not in ROW_WIDTHS:
+    """K14's checks of a shard table and its slots; returns the table's
+    device and shape.  Each attribute is read once (they run ahead of
+    every launch of the row layer)."""
+    shape = table.shape
+    if table.dtype is not torch.int64 or len(shape) != 2 or shape[1] not in ROW_WIDTHS:
         raise ValueError(f"local table must be (local_rows, W) int64 with W in {ROW_WIDTHS}, "
-                         f"got {tuple(table.shape)} {table.dtype}")
-    if slots.dtype != torch.int64 or slots.dim() != 1:
+                         f"got {tuple(shape)} {table.dtype}")
+    if slots.dtype is not torch.int64 or slots.ndim != 1:
         raise ValueError(f"{name}: slots must be (K,) int64")
-    if slots.device != table.device or not (table.is_contiguous() and slots.is_contiguous()):
+    dev = table.device
+    if slots.device != dev or not (table.is_contiguous() and slots.is_contiguous()):
         raise ValueError(f"{name}: tensors must be contiguous and on one device")
+    return dev, shape
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +184,7 @@ def gather_part(local_table, slots, shard: int):
     """K14 gather on CUDA tensors (raising on any CUDA error);
     gather_part_plain on CPU tensors."""
     _check_rows(local_table, slots, "gather")
-    if local_table.device.type == "cpu":
+    if local_table.is_cpu:
         return gather_part_plain(local_table, slots, shard)
     out = torch.empty((slots.shape[0], local_table.shape[1]), dtype=torch.int64,
                       device=local_table.device)
@@ -197,17 +203,17 @@ def scatter_part_plain(local_table, slots, rows, shard: int) -> None:
 
 def scatter_part(local_table, slots, rows, shard: int) -> None:
     """K14 scatter on CUDA tensors; scatter_part_plain on CPU tensors."""
-    _check_rows(local_table, slots, "scatter")
-    W = local_table.shape[1]
-    if rows.dtype != torch.int64 or tuple(rows.shape) != (slots.shape[0], W):
+    dev, (local_rows, W) = _check_rows(local_table, slots, "scatter")
+    K = slots.shape[0]
+    if rows.dtype is not torch.int64 or rows.shape != (K, W):
         raise ValueError(f"rows must be (K, {W}) int64")
-    if rows.device != local_table.device or not rows.is_contiguous():
+    if rows.device != dev or not rows.is_contiguous():
         raise ValueError("rows must be contiguous on the table's device")
-    if local_table.device.type == "cpu":
+    if local_table.is_cpu:
         scatter_part_plain(local_table, slots, rows, shard)
         return
-    if slots.shape[0]:
-        kernels.shard_scatter(local_table, shard * local_table.shape[0], slots, rows)
+    if K:
+        kernels.shard_scatter(local_table, shard * local_rows, slots, rows)
 
 
 def gather_rows(local_tables, slots, device=None, plain: bool = False):
@@ -229,7 +235,9 @@ def scatter_rows(local_tables, slots, rows, plain: bool = False) -> None:
     their owners; every shard keeps only the rows it owns."""
     part = scatter_part_plain if plain else scatter_part
     for s, t in enumerate(local_tables):
-        part(t, slots.to(t.device), rows.to(t.device), s)
+        dev = t.device
+        part(t, slots if slots.device == dev else slots.to(dev),
+             rows if rows.device == dev else rows.to(dev), s)
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +301,9 @@ class ShardedTable:
     def scatter(self, slots: torch.Tensor, compact: torch.Tensor) -> None:
         """Write the (K, C) `compact` rows of the distinct global `slots`
         onto their owners; a slot no shard owns is dropped."""
-        scatter_rows([_words(t) for t in self.shards], slots.to(self.home), _words(compact),
+        home = self.home
+        scatter_rows([_words(t) for t in self.shards],
+                     slots if slots.device == home else slots.to(home), _words(compact),
                      plain=self.plain)
 
     def map(self, fn) -> list:

@@ -1037,19 +1037,23 @@ def tier_set_rows(table, idx, src):
     """Overwrite rows of an (H, W) table (int64 balances or int32 meta)
     from the (k, W) `src` at the distinct indices `idx` (k,) int64; an
     index outside [0, H) is dropped.  In place.  CUDA tensors launch K10
-    (raising on any CUDA error); CPU tensors run tier_set_rows_plain."""
-    if table.dim() != 2 or table.dtype not in (torch.int64, torch.int32):
-        raise ValueError(f"table must be (H, W) int64 or int32, got {tuple(table.shape)} {table.dtype}")
-    k = idx.shape[0]
-    if idx.dtype != torch.int64 or idx.dim() != 1:
-        raise ValueError(f"idx must be (k,) int64, got {tuple(idx.shape)} {idx.dtype}")
-    if src.dtype != table.dtype or tuple(src.shape) != (k, table.shape[1]):
-        raise ValueError(f"src must be ({k}, {table.shape[1]}) {table.dtype}, got "
-                         f"{tuple(src.shape)} {src.dtype}")
-    for t in (table, idx, src):
-        if t.device != table.device or not t.is_contiguous():
-            raise ValueError("tensors must be contiguous and on one device")
-    if table.device.type == "cpu":
+    (raising on any CUDA error, and on a row other than the engine's
+    8 int64 or 2 int32 words); CPU tensors run tier_set_rows_plain.
+    The checks read each attribute once: they sit on the admission's
+    host path, ahead of every launch."""
+    dt, shape, ishape = table.dtype, table.shape, idx.shape
+    if len(shape) != 2 or (dt is not torch.int64 and dt is not torch.int32):
+        raise ValueError(f"table must be (H, W) int64 or int32, got {tuple(shape)} {dt}")
+    if idx.dtype is not torch.int64 or len(ishape) != 1:
+        raise ValueError(f"idx must be (k,) int64, got {tuple(ishape)} {idx.dtype}")
+    k, W = ishape[0], shape[1]
+    if src.dtype is not dt or src.shape != (k, W):
+        raise ValueError(f"src must be ({k}, {W}) {dt}, got {tuple(src.shape)} {src.dtype}")
+    dev = table.device
+    if (idx.device != dev or src.device != dev
+            or not (table.is_contiguous() and idx.is_contiguous() and src.is_contiguous())):
+        raise ValueError("tensors must be contiguous and on one device")
+    if table.is_cpu:
         return tier_set_rows_plain(table, idx, src)
     if k:
         kernels.tier_set_rows(table, idx, src)
