@@ -9,9 +9,12 @@ main path's shapes (bit-exact: the semantics are integer; K3 on full
 8190-event batches of every class, its plain version on CPU copies; K5
 and K6 on 8192-event batches over a 2^20-row table; K7 over an
 8190-lane wave with and without a commit mask, K8 over 8 positions x
-4096 chains with dead chains and shared credited accounts, K9 over an
+4096 chains with dead chains and shared credited accounts (one cluster
+of 16 blocks; its barrier floor, from tools/serial_probes.py, and four
+more chain shapes), K9 over an
 8190-event batch, a K3 segment resumed mid-batch from a K7 carry, K3's
-init and finalize, all on a 2^20-row table; K10 at 128 and 16,384 rows
+init and finalize, all on a 2^20-row table, and K3 segments of 1, 8, 59
+and 512 events for its fixed and per-event cost; K10 at 128 and 16,384 rows
 into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
 slots, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
 holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
@@ -159,7 +162,7 @@ from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
-from tigerbeetle_tpu_torch.tools import launch_split
+from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
@@ -1563,7 +1566,7 @@ def check_waves(dev, report, l2_ns):
         plane = torch.from_numpy(waves._chain_plane(ev["flags"], plan.segments[0][1], P,
                                                     8192)).to(dev)
         kern, plain = _wave_pair(dev, table, ev, dstat)
-        waves.chain_wave(*kern, plane, n, ts_base, scratch=scratch)
+        waves.chain_wave(*kern, plane, n, ts_base)
         waves.chain_wave_plain(*plain, plane, n, ts_base)
         torch.cuda.synchronize()
         errs.append(_err(kern, plain))
@@ -1573,20 +1576,38 @@ def check_waves(dev, report, l2_ns):
     rows = torch.from_numpy(_rows_of(ev, n)).to(dev)
     kern, plain = _wave_pair(dev, table, ev, dstat)
     ms, dev_ms, host = kernel_ms(
-        lambda: waves.chain_wave(*kern, plane, n, ts_base, scratch=scratch),
+        lambda: waves.chain_wave(*kern, plane, n, ts_base),
         reset=_resetter(kern, rows), names=("chain_wave",))
     plain_ms = time_ms(lambda: waves.chain_wave_plain(*plain, plane, n, ts_base), reps=5,
                        warm=1, reset=_resetter(plain, rows))
     bound_ms, bound_by = bound(_wave_bytes(n, rows.numel()), n * K8_OPS_PER_CELL)
     serial_ms = 2 * P * l2_ns * 1e-6
+    # The barrier floor: 2P cluster barriers (K8 runs 2P - 1) of the
+    # cluster this plane launches.
+    blocks, threads = kernels.chain_wave_geometry(plane.shape[1])
+    barriers = serial_probes.barrier_sweep(dev)
+    sync_us = barriers.get(f"cluster_{blocks}_us")
+    if sync_us is None:  # a cluster size the probe does not time: the next one up
+        sync_us = barriers[f"cluster_{min(g for g in (2, 8, 16) if g >= blocks)}_us"]
+    barrier_ms = 2 * P * sync_us * 1e-3
+    sweep = serial_probes.k8_sweep(dev)
     report["chain_wave"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
                                 bound_by=bound_by, max_abs_err=max(errs),
-                                serial_floor_ms=serial_ms,
-                                timed_case=f"P={P} x C={plane.shape[1]}, {dead} failed members")
-    print(f"K8 chain_wave (P={P} x C={plane.shape[1]}, {dead} members failed or rolled back): "
+                                serial_floor_ms=serial_ms, barrier_floor_ms=barrier_ms,
+                                barriers=barriers, sweep=sweep,
+                                timed_case=f"P={P} x C={plane.shape[1]}, {dead} failed members, "
+                                           f"{blocks} blocks x {threads} threads")
+    print(f"K8 chain_wave (P={P} x C={plane.shape[1]}, {dead} members failed or rolled back; "
+          f"one cluster of {blocks} blocks x {threads} threads): "
           f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}, "
-          f"position floor {serial_ms * 1e3:.2f} us = {2 * P} phases x {l2_ns:.1f} ns")
+          f"position floor {serial_ms * 1e3:.2f} us = {2 * P} phases x {l2_ns:.1f} ns, "
+          f"barrier floor {barrier_ms * 1e3:.2f} us = {2 * P} x {sync_us:.3f} us")
+    print("barriers (us each): " + ", ".join(
+        f"{k[:-3]} {v:.3f}" if k.endswith("_us") else f"{k} {v}" for k, v in barriers.items()))
+    print("K8 sweep (device us per chain wave): " + "; ".join(
+        f"C={r['chains']} chains of 2..{r['max_len']} (P={r['P']}, {r['events']} events) "
+        f"{_dev_us(r['device_us'])}" for r in sweep))
 
     # A K3 segment resumed mid-batch from K7 carries, then finalize and
     # init, on a linked-class batch over 8192 rows.
@@ -1620,12 +1641,18 @@ def check_waves(dev, report, l2_ns):
                        reps=3, warm=1, reset=_resetter(plain, rows))
     bound_ms, bound_by = bound(L * (416 + 4) + rows.numel() * 128 + L * 50 * 8,
                                L * K3_OPS_PER_EVENT)
+    sweep = serial_probes.k3_sweep(dev)
     report["exact_segment"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
                                    bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                                   serial_floor_ms=L * l2_ns * 1e-6,
+                                   serial_floor_ms=L * l2_ns * 1e-6, sweep=sweep,
                                    timed_case=f"{L}-event segment after {seg_at} segments")
     print(f"K3 exact_segment ({L} events, resumed after {seg_at} segments): bit-exact; "
-          f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
+          f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}, "
+          f"serial floor {L * l2_ns * 1e-3:.1f} us")
+    print("K3 length sweep (device us, events [0, L) from a fresh carry): " + ", ".join(
+        f"L={k} {_dev_us(v)}" for k, v in sweep["segment_us"].items())
+        + f"; fixed {sweep['fixed_us']:.2f} us + {sweep['per_event_us']:.3f} us per event; "
+          f"whole scan {_dev_us(sweep['scan_us'])} for {sweep['scan_events']} events")
 
     B = 8192
     fix = torch.zeros(B, dtype=torch.uint8)
@@ -2652,7 +2679,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "verified": True,
         }
-        for key in ("serial_floor_ms", "plain_on", "iters", "timed_case", "k128", "meta",
+        for key in ("serial_floor_ms", "barrier_floor_ms", "barriers", "sweep",
+                    "plain_on", "iters", "timed_case", "k128", "meta",
                     "library_device_ms", "library_host_ms", "widths", "window_unit", "row0",
                     "us_per_batch", "host_split", "library_full",
                     "by_kind"):

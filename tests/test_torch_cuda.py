@@ -106,7 +106,7 @@ def test_state_machine_on_card_matches_cpu(card, engine):
     assert replies[0] == replies[1] and roots[0] == roots[1]
 
 
-@pytest.mark.parametrize("B,cls", [(256, c) for c in scan_cases.CLASSES] + [(8192, "mixed")])
+@pytest.mark.parametrize("B,cls", [(B, c) for B in (256, 8192) for c in scan_cases.CLASSES])
 def test_exact_scan_kernel_matches_plain(card, B, cls):
     table, ev, dstat, n, ts_base = scan_cases.make_case(
         B + scan_cases.CLASSES.index(cls), B, cls, A=4096,
@@ -249,7 +249,7 @@ def _step(card, plan, k, ev, n, ts_base, kern, plain, scratch):
     if kind == "chains":
         ix = torch.from_numpy(waves._chain_plane(ev["flags"], idx, plan.chain_steps[k], B))
         name, run_k = "chain_wave", lambda t, p, w, x: waves.chain_wave(
-            t, p, w, x, n, ts_base, scratch=scratch)
+            t, p, w, x, n, ts_base)
         run_p = lambda t, p, w, x: waves.chain_wave_plain(t, p, w, x, n, ts_base)  # noqa: E731
     elif kind == "wave":
         ix = torch.from_numpy(np.asarray(idx, np.int32))
@@ -309,6 +309,170 @@ def test_chain_wave_matches_plain(card, n_chains, max_len):
     and hub accounts credited by many chains."""
     _run_plan(card, wave_cases.chain_case(n_chains + max_len, n_chains, 8192, A=1 << 17,
                                           max_len=max_len))
+
+
+def _chain_wave_case(seed, n_chains, max_len, P=None, dead_at=None):
+    """A chain_case batch on a 2^17-row table (hub accounts credited by
+    chains in every block, an open tail) and its (P, C) plane, C =
+    `n_chains`, the first of at least 40 (the planner scans fewer); with
+    `dead_at`, every chain's member at that position fails statically."""
+    table, ev, dstat, n, ts_base, plan = wave_cases.chain_case(
+        seed, max(n_chains, 40), 8192, A=1 << 17, max_len=max_len)
+    P = plan.chain_steps[0] if P is None else P
+    plane = waves._chain_plane(ev["flags"], plan.segments[0][1], max(P, max_len), 8192)
+    plane = np.ascontiguousarray(plane[:P, :n_chains])
+    if dead_at is not None:
+        cells = plane[dead_at]
+        ev["static_result"][cells[cells < 8192]] = 22
+    return (table, ev, dstat, n, ts_base), plane
+
+
+def _chain_wave_check(card, case, plane, words=None):
+    """K8 against its plain version on one plane, bit for bit; `words`
+    (the kernel's carry buffer) is initialised for this batch in place."""
+    table, ev, dstat, n, ts_base = case
+    kern, plain = _wave_inputs(card, table, ev, dstat)
+    if words is not None:
+        kern = (kern[0], kern[1],
+                k3.exact_init(words, torch.from_numpy(dstat.view(np.int32)).to(card)))
+    plane = torch.from_numpy(np.ascontiguousarray(plane)).to(card)
+    before = kernels.launches["chain_wave"]
+    waves.chain_wave(*kern, plane, n, ts_base)
+    waves.chain_wave_plain(*plain, plane, n, ts_base)
+    torch.cuda.synchronize()
+    assert kernels.launches["chain_wave"] == before + 1
+    assert torch.equal(kern[0], plain[0]), "table"
+    size = plain[2].numel()
+    assert torch.equal(kern[2][:size], plain[2]), "carry"
+    return k3.carry_to_dict(kern[2], kern[1].shape[0])
+
+
+@pytest.mark.parametrize("n_chains", [1, 33, 511, 512, 513, 2048, 4095])
+def test_chain_wave_across_blocks_matches_plain(card, n_chains):
+    """K8 over one to sixteen blocks of a cluster: chains in different
+    blocks credit the same hub accounts, so every snapshot after the
+    first position holds other blocks' adds."""
+    case, plane = _chain_wave_case(100 + n_chains, n_chains, 2 if n_chains > 2048 else 4)
+    res = _chain_wave_check(card, case, plane)["results"]
+    assert (res[:case[3]] == 0).any()
+
+
+@pytest.mark.parametrize("P", [1, "max"])
+def test_chain_wave_position_counts_match_plain(card, P):
+    """One position, and the longest plane the admission makes
+    (TB_WAVES_CHAIN_MAX chains, bucketed)."""
+    longest = waves.chain_max()
+    case, plane = _chain_wave_case(7, 100, longest,
+                                   P=1 if P == 1 else waves._bucket_positions(longest))
+    _chain_wave_check(card, case, plane)
+
+
+def test_chain_wave_every_chain_dead_matches_plain(card):
+    """Every chain fails at its second member: all of them repaired."""
+    case, plane = _chain_wave_case(9, 3000, 2, dead_at=1)
+    res = _chain_wave_check(card, case, plane)["results"]
+    first = res[plane[0][plane[0] < 8192]]
+    assert (first != 0).all() and (first == 1).any()
+
+
+def test_chain_wave_reused_scratch_matches_plain(card):
+    """K8's only scratch is the carry: a WaveScratch carry reused, dirty
+    past the batch's words, from a larger batch's chain wave."""
+    words = waves.WaveScratch(card).carry()
+    for n_chains, B in ((4095, 8192), (40, 2048)):
+        table, ev, dstat, n, ts_base, plan = wave_cases.chain_case(
+            11 + n_chains, n_chains, B, A=1 << 17, max_len=2)
+        plane = waves._chain_plane(ev["flags"], plan.segments[0][1], plan.chain_steps[0], B)
+        _chain_wave_check(card, (table, ev, dstat, n, ts_base), plane, words=words)
+
+
+def _segments_check(card, case, segments):
+    """K3 segments one after another on one carry, each against its
+    plain version from the same carry; the carry dict after each."""
+    table, ev, dstat, n, ts_base = case
+    kern, plain = _wave_inputs(card, table, ev, dstat)
+    seen = []
+    for rows in segments:
+        rows_t = torch.from_numpy(np.asarray(rows, np.int32)).to(card)
+        before = kernels.launches["exact_segment"]
+        k3.scan_segment(*kern, rows_t, n, ts_base)
+        k3.scan_segment_plain(*plain, rows_t, n, ts_base)
+        torch.cuda.synchronize()
+        assert kernels.launches["exact_segment"] == before + 1
+        assert torch.equal(kern[0], plain[0]), "table"
+        assert torch.equal(kern[2], plain[2]), "carry"
+        seen.append(k3.carry_to_dict(kern[2], kern[1].shape[0]))
+    return seen
+
+
+def test_scan_segment_lengths_0_and_1_match_plain(card):
+    case = scan_cases.make_case(41, 256, "mixed", A=4096, rows=np.arange(0, 4096, 97))
+    segs = [[], [0], [], [1], [2], list(range(3, case[3]))]
+    _segments_check(card, case, segs)
+
+
+def test_scan_segment_chain_across_segments_matches_plain(card):
+    """A linked chain that starts in one segment and fails in the next:
+    chain_start comes from the carry, and the rollback reaches back
+    into the first segment."""
+    case = scan_cases.make_case(43, 2048, "linked", A=4096, rows=np.arange(0, 4096, 37))
+    n, flags = case[3], case[1]["flags"]
+    crossed = 0
+    for s in [s for s in range(2, n - 2) if flags[s - 1] & 1 and flags[s - 2] & 1][:12]:
+        first, second = _segments_check(card, case, [range(s), range(s, n)])
+        start = first["chain_start"]
+        if start >= 0 and (second["results"][start:s] == 1).all():
+            crossed += 1
+    assert crossed > 0
+
+
+def _with_inbatch_pendings(case, pairs, seed):
+    """`pairs` pendings created in the batch, each posted or voided by a
+    later event that names it by its id group alone (inherited amount,
+    slots, ledger and code), on fresh id groups."""
+    table, ev, dstat, n, ts_base = case
+    rng = np.random.default_rng(seed)
+    B = ev["flags"].shape[0]
+    picks = np.sort(rng.choice(n, 2 * pairs, replace=False)).reshape(pairs, 2)
+    fresh = iter(range(B // 2, B))
+    for j, k in picks:
+        for x in (j, k):
+            ev["id_group"][x] = next(fresh)
+            for f in ("static_result", "ts_nonzero", "e_found", "p_found", "timeout",
+                      "dr_flags", "cr_flags"):
+                ev[f][x] = 0
+        ev["flags"][j] = 2
+        ev["flags"][k] = 4 if rng.random() < 0.5 else 8
+        ev["amount_lo"][j], ev["amount_hi"][j] = 5, 0
+        ev["cr_slot"][j] = ev["dr_slot"][j] + 37
+        ev["p_group"][k] = ev["id_group"][j]
+        ev["p_tgt"][k] = -1
+        ev["amount_lo"][k] = ev["amount_hi"][k] = ev["ledger"][k] = ev["code"][k] = 0
+        ev["dr_id_zero"][k] = ev["cr_id_zero"][k] = True
+    return table, ev, dstat, n, ts_base
+
+
+def test_scan_segment_post_void_matches_plain(card):
+    """Posts and voids against pendings created in the batch and against
+    durable ones, walked in segments of 64."""
+    case = scan_cases.make_case(47, 2048, "post_void", A=4096, rows=np.arange(1, 4096 - 37, 37))
+    case = _with_inbatch_pendings(case, 60, 47)
+    n = case[3]
+    last = _segments_check(card, case, [range(k, min(k + 64, n)) for k in range(0, n, 64)])[-1]
+    kinds = set(last["u_status_kind"][:n].tolist())
+    assert {1, 2} <= kinds, kinds
+
+
+def test_scan_segment_padding_rows_match_plain(card):
+    """Indices outside [0, B) in a segment are padding: skipped."""
+    case = scan_cases.make_case(53, 256, "mixed", A=4096, rows=np.arange(0, 4096, 97))
+    n, B = case[3], 256
+    rows = []
+    for k in range(n):
+        rows.append(k)
+        if k % 7 == 0:
+            rows += [-1, B, B + 5, (1 << 31) - 1][k % 4:]
+    _segments_check(card, case, [rows[:40], [-3, B], rows[40:]])
 
 
 @pytest.mark.parametrize("masked", [False, True])

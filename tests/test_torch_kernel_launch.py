@@ -60,7 +60,7 @@ CALLS = {
     "wave_step": ("wave_step", "tb_wave_step",
                   lambda: kernels.wave_step(T, PK, V, None, 5, 7, V, V)),
     "chain_wave": ("chain_wave", "tb_chain_wave",
-                   lambda: kernels.chain_wave(T, PK, PK, 5, 7, V, V, V)),
+                   lambda: kernels.chain_wave(T, PK, PK, 5, 7, V)),
     "spec_conflicts": ("spec_conflicts", "tb_spec_conflicts",
                        lambda: kernels.spec_conflicts(PK, V, None, 5, 16, V, V, V, V, V)),
     "shard_accumulate": ("shard_apply", "tb_shard_accumulate",
@@ -140,6 +140,34 @@ def test_k10_and_k14_scatter_pass_pointers_and_sizes(fake_cuda):
         (part.data_ptr(), 8, 24, idx.data_ptr(), 5, 2, rows.data_ptr(), STREAM - 1),
     ]
     assert kernels.launches["tier_set_rows"] == 2 and kernels.launches["shard_scatter"] == 1
+
+
+def test_k8_and_k3_segment_pass_pointers_and_sizes(fake_cuda):
+    """K8 takes the table, events, plane and carry and no scratch of its
+    own (each chain's state stays in its thread; the repair reads the
+    carry); K3's segment entry the table, events, rows and carry."""
+    table, ev, plane, carry = _z((32, 8)), _z((16, 52)), _z((3, 5), torch.int32), _z(999)
+    rows = _z(7, torch.int32)
+    kernels.chain_wave(table, ev, plane, 12, 1 << 40, carry)
+    kernels.exact_segment(table, ev, rows, 12, 1 << 40, carry)
+    assert [a for _, a in fake_cuda.calls] == [
+        (table.data_ptr(), 32, ev.data_ptr(), 16, plane.data_ptr(), 3, 5, 12, 1 << 40,
+         carry.data_ptr(), STREAM - 1),
+        (table.data_ptr(), 32, ev.data_ptr(), 16, rows.data_ptr(), 7, 12, 1 << 40,
+         carry.data_ptr(), STREAM - 1),
+    ]
+    assert len(kernels._SIGNATURES["chain_wave"]["tb_chain_wave"]) == 11
+    assert kernels.launches["chain_wave"] == 1 and kernels.launches["exact_segment"] == 1
+
+
+def test_wave_scratch_holds_no_chain_wave_log():
+    """WaveScratch keeps the carry, K7's lanes and K9's arrays; K8's cell
+    log and alive flags are gone."""
+    from tigerbeetle_tpu_torch.state_machine import waves
+
+    scratch = waves.WaveScratch(torch.device("cpu"))
+    assert not hasattr(scratch, "cells")
+    assert set(vars(scratch)) == {"device", "_carry", "_lanes", "_spec"}
 
 
 def test_nullable_pointers_pass_as_null(fake_cuda):

@@ -15,27 +15,49 @@
 // What bounds it on the H100: the dependence between events, not
 // bandwidth.  Event i reads balance rows, the in-batch id directory and
 // pending statuses that events < i wrote, so the walk is serial: n
-// dependent steps, each a few loads that hit L2 (the batch's rows and
-// its ~3.7 MB of carry fit the 50 MB cache).  The bytes (3.4 MB of
+// dependent steps, each at least one L2 round trip (the batch's rows
+// and its ~3.7 MB of carry fit the 50 MB cache).  The bytes (3.4 MB of
 // events in, 2.4 MB of outputs, the touched rows) would take about 3 us
-// at 3.35 TB/s.  The design keeps the serial part to one thread doing
-// only the body's arithmetic and loads, and gives every parallel part
-// (clearing the carry, packing the outputs) to many threads.  Four C
+// at 3.35 TB/s.  So one thread walks, and does only what depends on
+// earlier events:
+//
+//   producer  a second warp stages the walk in chunks of 32 events in a
+//             shared-memory ring of two, a chunk ahead of the walker:
+//             each event's row copied, then one lane per event works
+//             out everything that depends on the event alone (flags and
+//             class, the precedence before the chain terms, the amount
+//             before the clamps, timeout x 10^9 and its overflow, the
+//             durable duplicate's and the durable pending's exists and
+//             post/void ladders, p_expires, the created record)
+//   walker    per event, the state it reads first in one batch of loads
+//             (its id- and pending-directory entries, a durable
+//             pending's status, the rows at its update slots), issued
+//             while the event before it finishes and patched with what
+//             that event wrote; then only its class's branch: a normal
+//             event never looks up its pending, a post/void never runs
+//             the balancing and overflow ladder; each row read once
+//
+// Every in-range event, failed, inactive and padding ones included,
+// still writes its hist and undo rows, result, mask, status and pulse
+// words, as the reference's body does.  What a walked event costs now is
+// the walker's own chain of dependent instructions, ~1.6 us an event
+// (tools/serial_probes.py splits it into stages).  The parallel parts
+// (clearing the carry, packing the outputs) take every thread.  Four C
 // entry points over ONE carry, the scratch buffer below:
 //
 //   tb_exact_init      all threads: the initial carry (make_carry, the
 //                      durable statuses dstat_init)
-//   tb_exact_segment   thread 0 walks a list of global event indices
-//                      (a scan segment of a wave plan), resuming
+//   tb_exact_segment   the walk over a list of global event indices (a
+//                      scan segment of a wave plan), resuming
 //                      chain_start, chain_broken and last_applied from
 //                      the carry; a failed linked chain is rolled back
-//                      by the same thread from the undo log
+//                      by the walker from the undo log
 //   tb_exact_finalize  one thread per row: rows named by hist_fix whose
 //                      result is 0 take the batch-final table rows of
 //                      their created record's accounts as snapshots,
 //                      then the packed (B, 37) output
 //   tb_exact_scan      one batch whole, in one launch of one block:
-//                      init, a walk over i = 0 .. B-1, the pack (no
+//                      init, the walk over i = 0 .. B-1, the pack (no
 //                      snapshot rewrite) — the host exact lane's K3
 //
 // u128 values are unsigned __int128; wrap and carry-out follow the
@@ -62,15 +84,18 @@
 #include <cuda_runtime.h>
 
 #include "tb_scan.cuh"
+#include "tb_walk.cuh"
 
 namespace {
 
 using namespace tbs;
 
-// 256 threads: the walking thread may use up to 255 registers (a 1024-
-// thread bound caps it at 64 and spills the body's live state).
+// The whole-scan block: 256 threads share the carry's init and pack
+// (the walking thread keeps up to 255 registers; a 1024-thread bound
+// caps it at 64 and spills the body's live state).
 constexpr int THREADS = 256;
-
+// The segment block: the walking warp and the producer warp.
+constexpr int SEG_THREADS = 64;
 // The initial carry, filled by `nthreads` threads starting at `t`.
 __device__ void init_carry(uint64_t* s, int64_t Bn, const int32_t* dstat_init, int64_t t,
                            int64_t nthreads) {
@@ -90,131 +115,157 @@ __device__ void init_carry(uint64_t* s, int64_t Bn, const int32_t* dstat_init, i
   }
 }
 
-// The serial walk over event rows rows[0 .. L-1] (rows null: 0 .. L-1),
-// resuming from and returning to the carry.  A row outside [0, B) is a
-// padding lane: inactive, it writes nothing.
-__device__ void walk(uint64_t* __restrict__ table, int64_t A,
-                     const uint64_t* __restrict__ ev, int64_t Bn,
-                     const int32_t* __restrict__ rows, int64_t L, int n,
-                     uint64_t ts_base, const Carry& cy) {
+// The walker over one chunk of `cnt` planned events in ring slot `slot`
+// (reference body: kernel.make_body, src/state_machine.zig:1240-1741).
+__device__ void walk_chunk(uint64_t* __restrict__ table, int64_t A,
+                           const uint64_t* __restrict__ ev, int64_t Bn, int n,
+                           uint64_t ts_base, const Carry& cy, const Ring& ring, int slot,
+                           int cnt, WalkState& ws) {
   const int64_t Bm = Bn - 1, Am = A - 1;
-  int64_t chain_start = (int64_t)cy.scalars[0];
-  bool chain_broken = cy.scalars[1] != 0;
-  int64_t last_applied = (int64_t)cy.scalars[2];
-  for (int64_t k = 0; k < L; ++k) {
-    int64_t row = k;
-    if (rows != nullptr) {
-      row = rows[k];
-      if (row < 0 || row >= Bn) continue;
+  Ahead cur, nxt;
+  bool have = false;  // cur holds this event's state, fetched ahead
+  for (int j = 0; j < cnt; ++j) {
+    const Plan& pl = ring.plan[slot][j];
+    const int4 hdr = pl.hdr;
+    const uint32_t bits = (uint32_t)hdr.z;
+    if (!(bits & PL_OK)) {
+      have = false;
+      continue;
     }
-    const uint64_t* e = ev + row * NEV;
-    const int64_t i = s32(e[E_I]);
+    if (!have) fetch(pl, table, cy, Am, Bm, cur);
+    const bool ahead = j + 1 < cnt && ((uint32_t)ring.plan[slot][j + 1].hdr.z & PL_OK);
+    if (ahead) fetch(ring.plan[slot][j + 1], table, cy, Am, Bm, nxt);
+
+    const int4 codes = pl.codes, slots = pl.slots;
+    const uint64_t* e = ring.ev[slot][j];
+    const int64_t i = hdr.x;
     const bool in_range = i >= 0 && i < Bn;  // writes at i drop otherwise
     const bool active = i < n;
-    const uint32_t flags = (uint32_t)e[E_FLAGS];
-    const bool linked = flags & F_LINKED;
-    const bool is_pv = flags & (F_POST | F_VOID);
-    const uint64_t ts_i = ts_base + (uint64_t)i;
+    const uint32_t flags = (uint32_t)hdr.y;
+    const bool linked = bits & PL_LINKED;
+    const bool is_pending = bits & PL_PENDING;
+    const bool p_dur = bits & PL_P_DUR;
+    const int64_t p_tgt = slots.x;
 
     // Chain bookkeeping (reference: src/state_machine.zig:1240-1248).
-    if (active && linked && chain_start < 0) chain_start = i;
-    uint32_t pre;
-    if (linked && i == n - 1) pre = LINKED_EVENT_CHAIN_OPEN;
-    else if (chain_broken) pre = LINKED_EVENT_FAILED;
-    else if (e[E_TS_NONZERO]) pre = TIMESTAMP_MUST_BE_ZERO;
-    else pre = (uint32_t)e[E_STATIC];
-
-    // Exists resolution via the in-batch id directory.
-    const int64_t e_creator = cy.gc[clip(s32(e[E_ID_GROUP]), Bm)];
-    const bool e_inb = e_creator >= 0;
-    const bool e_any = e_inb || e[E_E_FOUND] != 0;
-    uint64_t er[NCR];
-    if (e_inb) {
-      for (int f = 0; f < NCR; ++f) er[f] = cy.created[f * Bn + e_creator];
-    } else {
-      durable_e(e, er);
-    }
-
-    // ============ normal create_transfer ============
-    const int64_t ev_dr = s32(e[E_DR]), ev_cr = s32(e[E_CR]);
-    uint64_t drr[8], crr[8];
-    for (int c = 0; c < 8; ++c) {
-      drr[c] = table[clip(ev_dr, Am) * 8 + c];
-      crr[c] = table[clip(ev_cr, Am) * 8 + c];
-    }
-    u128 amount;
-    uint64_t ts_plus;
-    const uint32_t rn = normal_verdict(e, flags, drr, crr, ts_i, e_any, er, amount, ts_plus);
-    const bool is_pending = flags & F_PENDING;
-    const uint64_t timeout = e[E_TIMEOUT];
-
-    // ============ post/void pending transfer ============
-    // (reference: src/state_machine.zig:1608-1741)
-    const int64_t pg = s32(e[E_P_GROUP]);
-    const int64_t p_creator = cy.gc[clip(pg, Bm)];
-    const bool p_dur = e[E_P_FOUND] != 0;
-    const bool p_any = p_dur || (pg >= 0 && p_creator >= 0);
-    const int64_t pcr = clip(p_creator, Bm);
-    uint64_t pr[NCR];
-    uint64_t p_timestamp;
-    if (p_dur) {
-      durable_p(e, pr);
-      p_timestamp = e[E_P_TIMESTAMP];
-    } else {
-      for (int f = 0; f < NCR; ++f) pr[f] = cy.created[f * Bn + pcr];
-      p_timestamp = ts_base + (uint64_t)pcr;
-    }
-    const u128 p_amount = mk(pr[C_AMT_LO], pr[C_AMT_HI]);
-    const u128 raw_amount = mk(e[E_AMT_LO], e[E_AMT_HI]);
-    const u128 pv_amount = raw_amount != 0 ? raw_amount : p_amount;
-    const bool is_post = flags & F_POST;
-    const int64_t p_tgt = s32(e[E_P_TGT]);
-    const uint64_t st = p_dur ? cy.dstat[clip(p_tgt, Bm)] : cy.inb[pcr];
-    const uint32_t rp_pre = pv_verdict(e, flags, p_any, pr, pv_amount, p_amount, e_any, er, st);
-    // QUIRK (reference: src/state_machine.zig:1687-1696): the insert
-    // lands before the overdue check, so an overdue post/void is
-    // inserted while it returns pending_transfer_expired.
-    const uint64_t p_expires = p_timestamp + pr[C_TIMEOUT] * NS_PER_S;
-    const bool overdue = pr[C_TIMEOUT] > 0 && p_expires <= ts_i;
-    const uint32_t rp = (rp_pre == 0 && overdue) ? PENDING_EXPIRED : rp_pre;
-
-    // ============ merge & apply ============
+    if (active && linked && ws.chain_start < 0) ws.chain_start = i;
+    const uint32_t pre = (bits & PL_OPEN) ? LINKED_EVENT_CHAIN_OPEN
+                         : ws.chain_broken ? LINKED_EVENT_FAILED
+                                           : (uint32_t)hdr.w;
     const bool gate = active && pre == 0;
-    const uint32_t r = gate ? (is_pv ? rp : rn) : (active ? pre : 0);
-    const bool pv_inserted = gate && is_pv && rp_pre == 0;
-    const bool normal_applied = gate && !is_pv && rn == 0;
-    const bool pv_applied = gate && is_pv && rp == 0;
-    const bool inserted = pv_inserted || normal_applied;
-    const bool applied = pv_applied || normal_applied;
+    // Exists resolution via the in-batch id directory.
+    const int64_t e_creator = cur.gce, p_creator = cur.gcp;
+    const bool e_inb = e_creator >= 0;
+    const bool e_any = e_inb || (bits & PL_E_FOUND);
+    const int64_t pcr = clip(p_creator, Bm);
 
-    const int64_t up_dr = is_pv ? (int64_t)pr[C_DR] : ev_dr;
-    const int64_t up_cr = is_pv ? (int64_t)pr[C_CR] : ev_cr;
-    const int64_t safe_dr = clip(up_dr, Am), safe_cr = clip(up_cr, Am);
-    uint64_t old_dr[8], old_cr[8];
-    for (int c = 0; c < 8; ++c) {
-      old_dr[c] = table[safe_dr * 8 + c];
-      old_cr[c] = table[safe_cr * 8 + c];
-    }
+    uint32_t r;
+    bool inserted, applied, normal_applied = false, pv_applied = false;
+    int64_t up_dr, up_cr;
     uint64_t new_dr[8], new_cr[8];
-    snapshot_rows(old_dr, old_cr, is_pv, is_post, is_pending, amount, pv_amount, p_amount,
-                  new_dr, new_cr);
-    if (applied) {  // the dr row first, then the cr row
-      for (int c = 0; c < 8; ++c) table[safe_dr * 8 + c] = new_dr[c];
-      for (int c = 0; c < 8; ++c) table[safe_cr * 8 + c] = new_cr[c];
+    uint64_t pulse_c = 0, pulse_r = 0;
+    if (!(bits & PL_PV)) {
+      // ============ normal create_transfer ============
+      uint32_t ex = (uint32_t)codes.x;
+      if (e_inb) {
+        uint64_t er[NCR];
+        for (int f = 0; f < NCR; ++f) er[f] = cy.created[f * Bn + e_creator];
+        ex = exists_normal(e, er);
+      }
+      u128 amount;
+      const uint32_t rn =
+          normal_ladder(mk(pl.amt.x, pl.amt.y), flags, cur.dr, cur.cr, e_any, ex,
+                        bits & PL_TS_OVF, bits & PL_DR_LIMIT, bits & PL_CR_LIMIT, amount);
+      r = gate ? rn : (active ? pre : 0);
+      normal_applied = gate && rn == 0;
+      inserted = applied = normal_applied;
+      up_dr = slots.y;
+      up_cr = slots.z;
+      snapshot_rows(cur.dr, cur.cr, false, false, is_pending, amount, 0, 0, new_dr, new_cr);
+      if (in_range && inserted) {
+        for (int f = 0; f < NCR; ++f)
+          cy.created[f * Bn + i] = f == C_AMT_LO   ? (uint64_t)amount
+                                   : f == C_AMT_HI ? (uint64_t)(amount >> 64)
+                                                   : pl.rec[f];
+      }
+      pulse_c = (normal_applied && is_pending && (bits & PL_TIMEOUT)) ? pl.t.x : 0;
+    } else {
+      // ============ post/void pending transfer ============
+      // (reference: src/state_machine.zig:1608-1741)
+      u128 pv_amount, p_amount;
+      uint32_t rp_pre;
+      uint64_t p_expires;
+      bool overdue, p_timeout;
+      if (p_dur) {
+        pv_amount = mk(pl.amt.x, pl.amt.y);
+        p_amount = mk(pl.pam.x, pl.pam.y);
+        rp_pre = (uint32_t)codes.y;
+        if (rp_pre == 0) {
+          if (e_inb) {
+            uint64_t er[NCR], pr[NCR];
+            for (int f = 0; f < NCR; ++f) er[f] = cy.created[f * Bn + e_creator];
+            durable_p(e, pr);
+            rp_pre = exists_post_void(e, er, pr);
+          } else {
+            rp_pre = e_any ? (uint32_t)codes.x : pv_status(cur.dst);
+          }
+        }
+        p_expires = pl.t.x;
+        p_timeout = bits & PL_TIMEOUT;
+        overdue = bits & PL_OVERDUE;
+        up_dr = slots.y;
+        up_cr = slots.z;
+        inserted = gate && rp_pre == 0;
+        if (in_range && inserted)
+          for (int f = 0; f < NCR; ++f) cy.created[f * Bn + i] = pl.rec[f];
+      } else {
+        const bool p_any = (bits & PL_P_GROUP) && p_creator >= 0;
+        uint64_t pr[NCR], er[NCR];
+        for (int f = 0; f < NCR; ++f) pr[f] = cy.created[f * Bn + pcr];
+        const uint64_t st = cy.inb[pcr];
+        if (e_inb) {
+          for (int f = 0; f < NCR; ++f) er[f] = cy.created[f * Bn + e_creator];
+        } else {
+          durable_e(e, er);
+        }
+        p_amount = mk(pr[C_AMT_LO], pr[C_AMT_HI]);
+        const u128 raw_amount = mk(e[E_AMT_LO], e[E_AMT_HI]);
+        pv_amount = raw_amount != 0 ? raw_amount : p_amount;
+        rp_pre = pv_verdict(e, flags, p_any, pr, pv_amount, p_amount, e_any, er, st);
+        p_timeout = pr[C_TIMEOUT] > 0;
+        p_expires = ts_base + (uint64_t)pcr + pr[C_TIMEOUT] * NS_PER_S;
+        overdue = p_timeout && p_expires <= ts_base + (uint64_t)i;
+        up_dr = (int64_t)pr[C_DR];
+        up_cr = (int64_t)pr[C_CR];
+        load_row(table + clip(up_dr, Am) * 8, cur.dr);
+        load_row(table + clip(up_cr, Am) * 8, cur.cr);
+        inserted = gate && rp_pre == 0;
+        if (in_range && inserted) {
+          uint64_t rec[NCR];
+          build_record(e, flags, true, up_dr, up_cr, pv_amount, pr, rec);
+          for (int f = 0; f < NCR; ++f) cy.created[f * Bn + i] = rec[f];
+        }
+      }
+      const uint32_t rp = (rp_pre == 0 && overdue) ? PENDING_EXPIRED : rp_pre;
+      r = gate ? rp : (active ? pre : 0);
+      pv_applied = applied = gate && rp == 0;
+      snapshot_rows(cur.dr, cur.cr, true, bits & PL_POST, is_pending, 0, pv_amount, p_amount,
+                    new_dr, new_cr);
+      pulse_r = (pv_applied && p_timeout) ? p_expires : 0;
     }
 
+    // ============ apply ============
+    const int64_t safe_dr = clip(up_dr, Am), safe_cr = clip(up_cr, Am);
+    if (applied) {  // the dr row first, then the cr row
+      store_row(table + safe_dr * 8, new_dr);
+      store_row(table + safe_cr * 8, new_cr);
+    }
     if (in_range) {
-      // Created-transfer record + id directory.
-      if (inserted) {
-        uint64_t rec[NCR];
-        build_record(e, flags, is_pv, up_dr, up_cr, is_pv ? pv_amount : amount, pr, rec);
-        for (int f = 0; f < NCR; ++f) cy.created[f * Bn + i] = rec[f];
-        cy.gc[clip(s32(e[E_ID_GROUP]), Bm)] = i;
-      }
+      if (inserted) cy.gc[codes.z] = i;
       cy.cmask[i] = inserted;
       cy.inb[i] = (normal_applied && is_pending) ? S_PENDING : 0;
     }
-    const uint64_t new_status = is_post ? S_POSTED : S_VOIDED;
+    const uint64_t new_status = (bits & PL_POST) ? S_POSTED : S_VOIDED;
     if (pv_applied) {
       if (p_dur) cy.dstat[clip(p_tgt, Bm)] = new_status;
       else cy.inb[pcr] = new_status;
@@ -223,27 +274,29 @@ __device__ void walk(uint64_t* __restrict__ table, int64_t A,
       // Undo log (balance restore, creation, status change).
       cy.u_dr[i] = applied ? up_dr : -1;
       cy.u_cr[i] = applied ? up_cr : -1;
-      for (int c = 0; c < 8; ++c) {
-        cy.u_dr_bal[i * 8 + c] = old_dr[c];
-        cy.u_cr_bal[i * 8 + c] = old_cr[c];
-        cy.hist_dr[i * 8 + c] = new_dr[c];
-        cy.hist_cr[i * 8 + c] = new_cr[c];
-      }
+      store_row(cy.u_dr_bal + i * 8, cur.dr);
+      store_row(cy.u_cr_bal + i * 8, cur.cr);
+      store_row(cy.hist_dr + i * 8, new_dr);
+      store_row(cy.hist_cr + i * 8, new_cr);
       cy.u_kind[i] = pv_applied ? (p_dur ? 1 : 2) : 0;
       cy.u_sidx[i] = p_dur ? p_tgt : p_creator;
       cy.results[i] = r;
+      cy.pulse_c[i] = pulse_c;
+      cy.pulse_r[i] = pulse_r;
     }
 
     // Chain failure: roll back [chain_start, i] newest first
     // (reference: src/state_machine.zig:1269-1290).
-    const bool chain_fail = active && r != 0 && chain_start >= 0 && !chain_broken;
+    const bool chain_fail = active && r != 0 && ws.chain_start >= 0 && !ws.chain_broken;
     if (chain_fail) {
-      for (int64_t idx = i; idx >= chain_start; --idx) {
+      for (int64_t idx = i; idx >= ws.chain_start; --idx) {
         const int64_t ds = cy.u_dr[idx];
         if (ds >= 0) {
-          const int64_t scs = clip(cy.u_cr[idx], Am), sds = clip(ds, Am);
-          for (int c = 0; c < 8; ++c) table[scs * 8 + c] = cy.u_cr_bal[idx * 8 + c];
-          for (int c = 0; c < 8; ++c) table[sds * 8 + c] = cy.u_dr_bal[idx * 8 + c];
+          uint64_t saved[8];
+          load_row(cy.u_cr_bal + idx * 8, saved);
+          store_row(table + clip(cy.u_cr[idx], Am) * 8, saved);
+          load_row(cy.u_dr_bal + idx * 8, saved);
+          store_row(table + clip(ds, Am) * 8, saved);
         }
         const int64_t g = clip(s32(ev[idx * NEV + E_ID_GROUP]), Bm);
         if (cy.gc[g] == idx) cy.gc[g] = -1;
@@ -254,24 +307,71 @@ __device__ void walk(uint64_t* __restrict__ table, int64_t A,
         if (kind == 1) cy.dstat[sidx] = S_PENDING;
         else if (kind == 2) cy.inb[sidx] = S_PENDING;
       }
-      for (int64_t j = chain_start; j < i; ++j) cy.results[j] = LINKED_EVENT_FAILED;
-      chain_broken = true;
+      for (int64_t k = ws.chain_start; k < i; ++k) cy.results[k] = LINKED_EVENT_FAILED;
+      ws.chain_broken = true;
     }
 
     // Chain close (reference: src/state_machine.zig:1292-1300).
-    if (chain_start >= 0 && (!linked || r == LINKED_EVENT_CHAIN_OPEN)) {
-      chain_start = -1;
-      chain_broken = false;
+    if (ws.chain_start >= 0 && (!linked || r == LINKED_EVENT_CHAIN_OPEN)) {
+      ws.chain_start = -1;
+      ws.chain_broken = false;
     }
-    if (applied) last_applied = i;
-    if (in_range) {
-      cy.pulse_c[i] = (normal_applied && is_pending && timeout > 0) ? ts_plus : 0;
-      cy.pulse_r[i] = (pv_applied && pr[C_TIMEOUT] > 0) ? p_expires : 0;
+    if (applied) ws.last_applied = i;
+
+    // The next event's state, fetched above, patched with this event's
+    // writes (a rollback rewrote too much: fetch again).
+    have = ahead && !chain_fail;
+    if (have) {
+      const Plan& pn = ring.plan[slot][j + 1];
+      const int4 ncodes = pn.codes, nslots = pn.slots;
+      if (applied && ((uint32_t)pn.hdr.z & PL_ROWS)) {
+        const int64_t nd = clip(nslots.y, Am), nc = clip(nslots.z, Am);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          nxt.dr[k] = nd == safe_cr ? new_cr[k] : nd == safe_dr ? new_dr[k] : nxt.dr[k];
+          nxt.cr[k] = nc == safe_cr ? new_cr[k] : nc == safe_dr ? new_dr[k] : nxt.cr[k];
+        }
+      }
+      if (in_range && inserted) {
+        if (ncodes.z == codes.z) nxt.gce = i;
+        if (ncodes.w == codes.z) nxt.gcp = i;
+      }
+      if (pv_applied && p_dur && clip(nslots.x, Bm) == clip(p_tgt, Bm)) nxt.dst = new_status;
+      cur = nxt;
     }
   }
-  cy.scalars[0] = (uint64_t)chain_start;
-  cy.scalars[1] = chain_broken;
-  cy.scalars[2] = (uint64_t)last_applied;
+}
+
+// The walk over event rows rows[0 .. L-1] (rows null: 0 .. L-1),
+// resuming from and returning to the carry, run by every thread of the
+// block: warp 1 produces chunk c while thread 0 walks chunk c - 1, one
+// block barrier between chunks.
+__device__ void walk(uint64_t* __restrict__ table, int64_t A,
+                     const uint64_t* __restrict__ ev, int64_t Bn,
+                     const int32_t* __restrict__ rows, int64_t L, int n,
+                     uint64_t ts_base, const Carry& cy, Ring& ring) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t chunks = (L + CH - 1) / CH;
+  WalkState ws{};
+  if (threadIdx.x == 0) {
+    ws.chain_start = (int64_t)cy.scalars[0];
+    ws.chain_broken = cy.scalars[1] != 0;
+    ws.last_applied = (int64_t)cy.scalars[2];
+  }
+  for (int64_t c = 0; c <= chunks; ++c) {
+    if (warp == 1 && c < chunks) produce(ev, Bn, rows, L, n, ts_base, c, ring, lane);
+    if (threadIdx.x == 0 && c > 0) {
+      const int64_t k0 = (c - 1) * CH;
+      walk_chunk(table, A, ev, Bn, n, ts_base, cy, ring, (int)((c - 1) & 1),
+                 (int)(L - k0 < CH ? L - k0 : CH), ws);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    cy.scalars[0] = (uint64_t)ws.chain_start;
+    cy.scalars[1] = ws.chain_broken;
+    cy.scalars[2] = (uint64_t)ws.last_applied;
+  }
 }
 
 // One row of the packed (B, 37) output (_pack_outputs).  With `fix`
@@ -306,11 +406,12 @@ exact_scan(uint64_t* __restrict__ table, int64_t A,
            const uint64_t* __restrict__ ev, int B,
            const int32_t* __restrict__ dstat_init, int n, uint64_t ts_base,
            uint64_t* __restrict__ s, uint64_t* __restrict__ out) {
+  __shared__ Ring ring;
   const int64_t Bn = B;
   const Carry cy = carry_of(s, Bn);
   init_carry(s, Bn, dstat_init, threadIdx.x, THREADS);
   __syncthreads();
-  if (threadIdx.x == 0) walk(table, A, ev, Bn, nullptr, Bn, n, ts_base, cy);
+  walk(table, A, ev, Bn, nullptr, Bn, n, ts_base, cy, ring);
   __syncthreads();
   for (int64_t i = threadIdx.x; i < Bn; i += THREADS) pack_row(table, A, Bn, cy, i, nullptr, out);
 }
@@ -321,12 +422,13 @@ __global__ void init_kernel(uint64_t* __restrict__ s, int B,
              (int64_t)gridDim.x * blockDim.x);
 }
 
-// One warp: the walking thread keeps the register budget of K3's.
-__global__ void __launch_bounds__(32)
+// The walking warp and the producer warp.
+__global__ void __launch_bounds__(SEG_THREADS)
 segment_kernel(uint64_t* __restrict__ table, int64_t A, const uint64_t* __restrict__ ev,
                int B, const int32_t* __restrict__ rows, int L, int n, uint64_t ts_base,
                uint64_t* __restrict__ s) {
-  if (threadIdx.x == 0) walk(table, A, ev, B, rows, L, n, ts_base, carry_of(s, B));
+  __shared__ Ring ring;
+  walk(table, A, ev, B, rows, L, n, ts_base, carry_of(s, B), ring);
 }
 
 __global__ void finalize_kernel(const uint64_t* __restrict__ table, int64_t A, int B,
@@ -387,7 +489,7 @@ extern "C" int tb_exact_init(void* scratch, int B, const void* dstat_init, void*
 extern "C" int tb_exact_segment(void* table, int64_t A, const void* ev, int B,
                                 const void* rows, int L, int n, uint64_t ts_base,
                                 void* scratch, void* stream) {
-  segment_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  segment_kernel<<<1, SEG_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint64_t*>(table), A, static_cast<const uint64_t*>(ev), B,
       static_cast<const int32_t*>(rows), L, n, ts_base, static_cast<uint64_t*>(scratch));
   return (int)cudaGetLastError();

@@ -94,25 +94,28 @@ enum {
 };
 
 // The carry, as pointers into K3's scratch buffer (u64 words, B = the
-// batch's rows; the layout exact_scan.cu documents).
+// batch's rows; the layout exact_scan.cu documents).  The regions are
+// disjoint and none overlaps the table or the events, so every pointer
+// is __restrict__: the compiler may move a load above a store to
+// another region.
 struct Carry {
-  uint64_t* created;  // [f * B + i]
-  uint64_t* results;
-  uint64_t* cmask;
-  int64_t* gc;
-  uint64_t* inb;
-  uint64_t* dstat;
-  int64_t* u_dr;
-  int64_t* u_cr;
-  uint64_t* u_kind;
-  int64_t* u_sidx;
-  uint64_t* pulse_c;
-  uint64_t* pulse_r;
-  uint64_t* u_dr_bal;  // [8 * i + c]
-  uint64_t* u_cr_bal;
-  uint64_t* hist_dr;
-  uint64_t* hist_cr;
-  uint64_t* scalars;  // chain_start, chain_broken, last_applied
+  uint64_t* __restrict__ created;  // [f * B + i]
+  uint64_t* __restrict__ results;
+  uint64_t* __restrict__ cmask;
+  int64_t* __restrict__ gc;
+  uint64_t* __restrict__ inb;
+  uint64_t* __restrict__ dstat;
+  int64_t* __restrict__ u_dr;
+  int64_t* __restrict__ u_cr;
+  uint64_t* __restrict__ u_kind;
+  int64_t* __restrict__ u_sidx;
+  uint64_t* __restrict__ pulse_c;
+  uint64_t* __restrict__ pulse_r;
+  uint64_t* __restrict__ u_dr_bal;  // [8 * i + c]
+  uint64_t* __restrict__ u_cr_bal;
+  uint64_t* __restrict__ hist_dr;
+  uint64_t* __restrict__ hist_cr;
+  uint64_t* __restrict__ scalars;  // chain_start, chain_broken, last_applied
 };
 
 constexpr int CARRY_REGIONS = 57;
@@ -235,22 +238,20 @@ __device__ inline void durable_p(const uint64_t* e, uint64_t* pr) {
   pr[C_CODE] = (uint32_t)e[E_P_CODE];
 }
 
-// The normal create_transfer verdict against the current debit and
-// credit rows (reference: src/state_machine.zig:1506-1547): the
-// balancing clamps (amount out), then the overflow and limit ladder.
-// ts_plus is ts_i + timeout in ns (wrapping).
-__device__ inline uint32_t normal_verdict(const uint64_t* e, uint32_t flags,
-                                          const uint64_t* drr, const uint64_t* crr,
-                                          uint64_t ts_i, bool e_any, const uint64_t* er,
-                                          u128& amount_out, uint64_t& ts_plus) {
+// The normal create_transfer ladder (reference: src/state_machine.zig:
+// 1506-1547) from its event-only inputs: `amount` (the raw amount,
+// maxInt(u64) for a balancing zero, reference :1512), the exists code
+// `ex` (returned when e_any), ts_overflow (ts_i + timeout wrapped) and
+// the accounts' limit flags; the balancing clamps against the current
+// debit and credit rows give amount_out.
+__device__ inline uint32_t normal_ladder(u128 amount, uint32_t flags, const uint64_t* drr,
+                                         const uint64_t* crr, bool e_any, uint32_t ex,
+                                         bool ts_overflow, bool dr_limit, bool cr_limit,
+                                         u128& amount_out) {
   const u128 dr_dp = mk(drr[0], drr[1]), dr_dpo = mk(drr[2], drr[3]);
   const u128 dr_cpo = mk(drr[6], drr[7]);
   const u128 cr_dpo = mk(crr[2], crr[3]);
   const u128 cr_cp = mk(crr[4], crr[5]), cr_cpo = mk(crr[6], crr[7]);
-  u128 amount = mk(e[E_AMT_LO], e[E_AMT_HI]);
-  // amount == 0 with balancing means maxInt(u64)
-  // (reference: src/state_machine.zig:1512).
-  if ((flags & (F_BAL_DR | F_BAL_CR)) && amount == 0) amount = U64_MAX;
   bool bd_fail = false, bc_fail = false;
   if (flags & F_BAL_DR) {
     amount = umin(amount, sub_sat(dr_cpo, (u128)(dr_dpo + dr_dp)));
@@ -263,9 +264,8 @@ __device__ inline uint32_t normal_verdict(const uint64_t* e, uint32_t flags,
   const bool is_pending = flags & F_PENDING;
   const u128 dr_total = dr_dp + dr_dpo;
   const u128 cr_total = cr_cp + cr_cpo;
-  ts_plus = ts_i + e[E_TIMEOUT] * NS_PER_S;
   amount_out = amount;
-  if (e_any) return exists_normal(e, er);
+  if (e_any) return ex;
   if (bd_fail) return EXCEEDS_CREDITS;
   if (bc_fail) return EXCEEDS_DEBITS;
   if (is_pending && carry_out(amount, dr_dp)) return OVERFLOWS_DP;
@@ -274,11 +274,48 @@ __device__ inline uint32_t normal_verdict(const uint64_t* e, uint32_t flags,
   if (carry_out(amount, cr_cpo)) return OVERFLOWS_CPO;
   if (carry_out(amount, dr_total)) return OVERFLOWS_DEBITS;
   if (carry_out(amount, cr_total)) return OVERFLOWS_CREDITS;
-  if (ts_plus < ts_i) return OVERFLOWS_TIMEOUT;
-  if (((uint32_t)e[E_DR_FLAGS] & AF_DR_LIMIT) && (u128)(dr_total + amount) > dr_cpo)
-    return EXCEEDS_CREDITS;
-  if (((uint32_t)e[E_CR_FLAGS] & AF_CR_LIMIT) && (u128)(cr_total + amount) > cr_dpo)
-    return EXCEEDS_DEBITS;
+  if (ts_overflow) return OVERFLOWS_TIMEOUT;
+  if (dr_limit && (u128)(dr_total + amount) > dr_cpo) return EXCEEDS_CREDITS;
+  if (cr_limit && (u128)(cr_total + amount) > cr_dpo) return EXCEEDS_DEBITS;
+  return 0;
+}
+
+// The normal create_transfer verdict against the current debit and
+// credit rows: the event-only inputs of normal_ladder from the event.
+// ts_plus is ts_i + timeout in ns (wrapping).
+__device__ inline uint32_t normal_verdict(const uint64_t* e, uint32_t flags,
+                                          const uint64_t* drr, const uint64_t* crr,
+                                          uint64_t ts_i, bool e_any, const uint64_t* er,
+                                          u128& amount_out, uint64_t& ts_plus) {
+  u128 amount = mk(e[E_AMT_LO], e[E_AMT_HI]);
+  if ((flags & (F_BAL_DR | F_BAL_CR)) && amount == 0) amount = U64_MAX;
+  ts_plus = ts_i + e[E_TIMEOUT] * NS_PER_S;
+  return normal_ladder(amount, flags, drr, crr, e_any, e_any ? exists_normal(e, er) : 0,
+                       ts_plus < ts_i, ((uint32_t)e[E_DR_FLAGS] & AF_DR_LIMIT) != 0,
+                       ((uint32_t)e[E_CR_FLAGS] & AF_CR_LIMIT) != 0, amount_out);
+}
+
+// The post/void checks that read only the event and the pending record
+// (reference: src/state_machine.zig:1608-1660), 0 when all pass.
+__device__ inline uint32_t pv_prefix(const uint64_t* e, uint32_t flags, const uint64_t* pr,
+                                     u128 pv_amount, u128 p_amount) {
+  const uint32_t ev_ledger = (uint32_t)e[E_LEDGER];
+  const uint32_t ev_code = (uint32_t)e[E_CODE];
+  if ((pr[C_FLAGS] & F_PENDING) == 0) return PENDING_NOT_PENDING;
+  if (!e[E_DR_ID_ZERO] && s32(e[E_DR]) != (int64_t)pr[C_DR]) return PENDING_DIFF_DR;
+  if (!e[E_CR_ID_ZERO] && s32(e[E_CR]) != (int64_t)pr[C_CR]) return PENDING_DIFF_CR;
+  if (ev_ledger > 0 && ev_ledger != (uint32_t)pr[C_LEDGER]) return PENDING_DIFF_LEDGER;
+  if (ev_code > 0 && ev_code != (uint32_t)pr[C_CODE]) return PENDING_DIFF_CODE;
+  if (pv_amount > p_amount) return EXCEEDS_PENDING_AMOUNT;
+  if ((flags & F_VOID) && pv_amount < p_amount) return PENDING_DIFF_AMOUNT;
+  return 0;
+}
+
+// The pending target's status checks (reference: :1662-1686).
+__device__ __forceinline__ uint32_t pv_status(uint64_t st) {
+  if (st == S_POSTED) return ALREADY_POSTED;
+  if (st == S_VOIDED) return ALREADY_VOIDED;
+  if (st == S_EXPIRED) return PENDING_EXPIRED;
   return 0;
 }
 
@@ -287,21 +324,11 @@ __device__ inline uint32_t normal_verdict(const uint64_t* e, uint32_t flags,
 __device__ inline uint32_t pv_verdict(const uint64_t* e, uint32_t flags, bool p_any,
                                       const uint64_t* pr, u128 pv_amount, u128 p_amount,
                                       bool e_any, const uint64_t* er, uint64_t st) {
-  const uint32_t ev_ledger = (uint32_t)e[E_LEDGER];
-  const uint32_t ev_code = (uint32_t)e[E_CODE];
   if (!p_any) return PENDING_NOT_FOUND;
-  if ((pr[C_FLAGS] & F_PENDING) == 0) return PENDING_NOT_PENDING;
-  if (!e[E_DR_ID_ZERO] && s32(e[E_DR]) != (int64_t)pr[C_DR]) return PENDING_DIFF_DR;
-  if (!e[E_CR_ID_ZERO] && s32(e[E_CR]) != (int64_t)pr[C_CR]) return PENDING_DIFF_CR;
-  if (ev_ledger > 0 && ev_ledger != (uint32_t)pr[C_LEDGER]) return PENDING_DIFF_LEDGER;
-  if (ev_code > 0 && ev_code != (uint32_t)pr[C_CODE]) return PENDING_DIFF_CODE;
-  if (pv_amount > p_amount) return EXCEEDS_PENDING_AMOUNT;
-  if ((flags & F_VOID) && pv_amount < p_amount) return PENDING_DIFF_AMOUNT;
+  const uint32_t pre = pv_prefix(e, flags, pr, pv_amount, p_amount);
+  if (pre != 0) return pre;
   if (e_any) return exists_post_void(e, er, pr);
-  if (st == S_POSTED) return ALREADY_POSTED;
-  if (st == S_VOIDED) return ALREADY_VOIDED;
-  if (st == S_EXPIRED) return PENDING_EXPIRED;
-  return 0;
+  return pv_status(st);
 }
 
 // The created-transfer record (reference t2 construction:

@@ -113,9 +113,8 @@ _SIGNATURES = {
         "tb_wave_step": [_P, _I64, _P, _I, _P, _I, _P, _I, _U64, _P, _P, _P],
     },
     "chain_wave": {
-        # table, A, ev, B, plane, P, C, n, ts_base, scratch, ys, alive,
-        # stream
-        "tb_chain_wave": [_P, _I64, _P, _I, _P, _I, _I, _I, _U64, _P, _P, _P, _P],
+        # table, A, ev, B, plane, P, C, n, ts_base, scratch, stream
+        "tb_chain_wave": [_P, _I64, _P, _I, _P, _I, _I, _I, _U64, _P, _P],
     },
     "spec_conflicts": {
         # ev, B, idx, K, serial (nullable), n, A, tok, tgt, a_min, r_min,
@@ -339,8 +338,8 @@ def exact_finalize(table, batch, scratch_words, hist_fix, out):
 
 
 def aux_words(lib: str, symbol: str) -> int:
-    """A word count a kernel source exports (lane-record or cell-log
-    words per lane)."""
+    """A word count a kernel source exports (lane-record words per
+    lane)."""
     fn = _FNS.get(symbol)
     if fn is None:
         from tigerbeetle_tpu_torch.kernels import build
@@ -360,13 +359,29 @@ def wave_step(table, events, idx, mask, n, ts_base_u64, scratch_words, lanes):
     )
 
 
-def chain_wave(table, events, plane, n, ts_base_u64, scratch_words, ys, alive):
+def chain_wave(table, events, plane, n, ts_base_u64, scratch_words):
     _launch(
         "chain_wave", "tb_chain_wave", "chain_wave", table.get_device(),
         table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0],
         plane.data_ptr(), plane.shape[0], plane.shape[1], n, ts_base_u64,
-        scratch_words.data_ptr(), ys.data_ptr(), alive.data_ptr(),
+        scratch_words.data_ptr(),
     )
+
+
+def chain_wave_geometry(C: int) -> tuple[int, int]:
+    """K8's launch for a C-chain wave: (blocks in its one cluster,
+    threads per block)."""
+    fn = _FNS.get("tb_chain_wave_geometry")
+    if fn is None:
+        from tigerbeetle_tpu_torch.kernels import build
+
+        fn = build.load("chain_wave").tb_chain_wave_geometry
+        fn.argtypes = [_I, ctypes.POINTER(_I)]
+        fn.restype = _I
+        _FNS["tb_chain_wave_geometry"] = fn
+    geom = (_I * 2)()
+    fn(C, geom)
+    return geom[0], geom[1]
 
 
 def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):

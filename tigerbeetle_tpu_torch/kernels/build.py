@@ -6,7 +6,8 @@ into a shared library with a plain C interface, loaded with ``ctypes``
 land in ``build/kernels/`` at the repository root, named by a hash of
 their source and of the shared headers (``csrc/*.cuh``), so an edited
 source or header is rebuilt and a stale library is never loaded.  All missing libraries are compiled in parallel, one
-``nvcc`` process per source.
+``nvcc`` process per source.  The measurement probes under ``tools/``
+(``src=TOOLS``) build the same way; they are not kernels of the port.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+TOOLS = _PKG / "tools"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("orderfree", "commitment", "exact_scan", "apply_deltas", "linked", "two_phase",
            "wave_step", "chain_wave", "spec_conflicts", "tier", "checksum", "shard_apply",
@@ -52,8 +54,8 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def library_path(name: str, src: Path = CSRC) -> Path:
+    digest = hashlib.sha256((src / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # a shared header rebuilds its includers
         digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
@@ -64,12 +66,12 @@ def log_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.log"
 
 
-def build_all(names=SOURCES) -> dict[str, float]:
+def build_all(names=SOURCES, src: Path = CSRC) -> dict[str, float]:
     """Compile every named source whose library is missing, all nvcc
     processes started together.  Returns seconds per compiled source
     (empty when everything was already built); raises KernelBuildError
     with nvcc's output on the first failure."""
-    todo = [n for n in names if not library_path(n).is_file()]
+    todo = [n for n in names if not library_path(n, src).is_file()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -77,9 +79,9 @@ def build_all(names=SOURCES) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
-        out = library_path(name)
+        out = library_path(name, src)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -103,11 +105,11 @@ def build_all(names=SOURCES) -> dict[str, float]:
     return seconds
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, src: Path = CSRC) -> ctypes.CDLL:
     """The loaded library for `name`, building it first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
+        build_all((name,), src)
+        lib = ctypes.CDLL(str(library_path(name, src)))
         _LOADED[name] = lib
     return lib

@@ -1463,16 +1463,15 @@ INT32_MAX = (1 << 31) - 1
 class WaveScratch:
     """The wave kernels' device buffers, made at first use and reused:
     the carry (K3's scratch at the largest batch bucket), K7's lane
-    records, K8's cell log and alive flags, and K9's arrays, which rest
-    at INT32_MAX between calls (tokens and targets: B entries; slot
-    minima: one per table row)."""
+    records and K9's arrays, which rest at INT32_MAX between calls
+    (tokens and targets: B entries; slot minima: one per table row).
+    K8 needs none: each chain's state stays in its thread, and the
+    dead-chain repair reads the carry."""
 
     def __init__(self, device) -> None:
         self.device = device
         self._carry = None
         self._lanes = None
-        self._cells = None
-        self._alive = None
         self._spec = None
 
     def carry(self) -> torch.Tensor:
@@ -1486,14 +1485,6 @@ class WaveScratch:
         if self._lanes is None or self._lanes.numel() < need:
             self._lanes = torch.empty(max(need, 1), dtype=torch.int64, device=self.device)
         return self._lanes
-
-    def cells(self, P: int, C: int):
-        need = P * C * kernels.aux_words("chain_wave", "tb_chain_wave_cell_words")
-        if self._cells is None or self._cells.numel() < need:
-            self._cells = torch.empty(need, dtype=torch.int64, device=self.device)
-        if self._alive is None or self._alive.numel() < C:
-            self._alive = torch.empty(C, dtype=torch.uint8, device=self.device)
-        return self._cells, self._alive
 
     def spec(self, B: int, A: int, K: int):
         """(tok, tgt, a_min, r_min, out) for a B-row batch, an A-row
@@ -1534,8 +1525,15 @@ def wave_step(table, events, words, idx, n, ts_base, mask=None, scratch=None) ->
                       scratch.lanes(idx.shape[0]))
 
 
-def chain_wave(table, events, words, plane, n, ts_base, scratch=None) -> None:
-    """K8: one chain wave over the (P, C) int32 index plane."""
+# K8 runs one chain per thread in one cluster of at most 16 blocks of
+# 512 threads (csrc/chain_wave.cu).
+CHAIN_WAVE_MAX_CHAINS = 16 * 512
+
+
+def chain_wave(table, events, words, plane, n, ts_base) -> None:
+    """K8: one chain wave over the (P, C) int32 index plane (on the card,
+    C at most CHAIN_WAVE_MAX_CHAINS); it needs no scratch beyond the
+    carry."""
     B = events.shape[0]
     kernel._check_table_events(table, events, n)
     kernel._check_carry(words, B, table.device)
@@ -1543,9 +1541,9 @@ def chain_wave(table, events, words, plane, n, ts_base, scratch=None) -> None:
     if table.device.type == "cpu":
         chain_wave_plain(table, events, words, plane, n, ts_base)
         return
-    scratch = scratch or WaveScratch(table.device)
-    ys, alive = scratch.cells(*plane.shape)
-    kernels.chain_wave(table, events, plane, int(n), int(ts_base) & U64_MAX, words, ys, alive)
+    if plane.shape[1] > CHAIN_WAVE_MAX_CHAINS:
+        raise ValueError(f"K8 holds at most {CHAIN_WAVE_MAX_CHAINS} chains a wave")
+    kernels.chain_wave(table, events, plane, int(n), int(ts_base) & U64_MAX, words)
 
 
 def spec_conflicts(events, idx, serial, n, A, scratch=None) -> torch.Tensor:
@@ -1634,8 +1632,7 @@ _PLAIN_FNS = {
     "finalize": kernel.finalize_plain,
     "wave": lambda table, events, words, idx, n, ts_base, mask=None, scratch=None: (
         wave_step_plain(table, events, words, idx, n, ts_base, mask)),
-    "chain": lambda table, events, words, plane, n, ts_base, scratch=None: (
-        chain_wave_plain(table, events, words, plane, n, ts_base)),
+    "chain": chain_wave_plain,
     "spec": lambda events, idx, serial, n, A, scratch=None: (
         spec_conflicts_plain(events, idx, serial, n, A).to(torch.uint8)),
 }
@@ -1661,8 +1658,7 @@ def _run_segments(table, carry: SegmentCarry, ev, n, ts_base, plan, scratch, fns
         if kind == "wave":
             fns["wave"](table, carry.events, carry.words, seg, n, ts_base, scratch=scratch)
         elif kind == "chains":
-            fns["chain"](table, carry.events, carry.words, seg.view(shape), n, ts_base,
-                         scratch=scratch)
+            fns["chain"](table, carry.events, carry.words, seg.view(shape), n, ts_base)
         else:
             fns["segment"](table, carry.events, carry.words, seg, n, ts_base)
 
