@@ -194,12 +194,13 @@ K4_OPS_PER_ENTRY = 8
 K5_OPS_PER_EVENT = 60
 K5_OPS_PER_ENTRY_ITER = 40
 K6_OPS_PER_EVENT = 120
-# K5's dependent block-wide passes per fixpoint iteration, each reading
-# what another thread wrote in the pass before (at least one L2 round
-# trip): the failure prefix sum (two passes), the chain flags, the
-# amount lanes' prefix sum (two passes), their exclusive fix-up, the
-# verdicts and the pass update.
-K5_PASSES_PER_ITER = 8
+# K5's dependent passes per fixpoint iteration, each reading what
+# another thread wrote in the pass before (counted at one L2 round trip
+# each, though K5 keeps them in shared memory): the failure prefix, the
+# chain state, the amount lanes' prefix, the verdicts, the pass update;
+# and the cluster barriers between them.
+K5_PASSES_PER_ITER = 5
+K5_BARRIERS_PER_ITER = 4
 A_ROWS = 1 << 20
 N_TRANSFERS = 1_000_000
 N_ACCOUNTS = 1_000_000
@@ -1426,14 +1427,41 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
                      bound_by=bound_by, max_abs_err=err, timed_case=f"{kind}[{scenario}]")
             line += f"; {ms * 1e3:.1f} us/launch, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}"
             if name == "linked":
-                # The serial floor: the fixpoint's dependent block-wide
-                # passes, each at least one L2 round trip.
+                # The serial floor: the fixpoint's dependent passes, each
+                # at least one L2 round trip; the barrier floor: the
+                # cluster barriers of its iterations.
                 r["serial_floor_ms"] = s["iters"] * K5_PASSES_PER_ITER * l2_ns * 1e-6
                 r["iters"] = s["iters"]
+                blocks = kernels.linked_geometry(dk.B)[0]
+                sync_us = serial_probes.barrier_sweep(dev)[f"cluster_{blocks}_us"]
+                r["barrier_floor_ms"] = s["iters"] * K5_BARRIERS_PER_ITER * sync_us * 1e-3
                 line += (f", serial floor {r['serial_floor_ms'] * 1e3:.2f} us = {s['iters']} iters"
-                         f" x {K5_PASSES_PER_ITER} passes x {l2_ns:.1f} ns; {entries} limit rows")
+                         f" x {K5_PASSES_PER_ITER} passes x {l2_ns:.1f} ns, barrier floor "
+                         f"{r['barrier_floor_ms'] * 1e3:.2f} us = {s['iters']} iters x "
+                         f"{K5_BARRIERS_PER_ITER} x {sync_us:.3f} us; {entries} limit rows; "
+                         f"one cluster of {blocks} blocks")
             report[name] = r
         print(line)
+    if name == "linked":
+        # The first timed batch of the linked phase, as the device engine
+        # launched K5 on it: kernel against plain version, then timed.
+        table, meta, pk, n, small = serial_probes.linked_phase_batch(dev)
+        r_k = torch.zeros((RING_ROWS, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+        t_k, t_p, r_p = table.clone(), table.clone(), r_k.clone()
+        dk.linked(t_k, meta, r_k, 7, pk, n, 1 << 40, small=small)
+        dk.linked_plain(t_p, meta, r_p, 7, pk, n, 1 << 40, small=small)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(t_k, t_p), max_abs_err(r_k, r_p))
+        check(err == 0, "linked: K5 differs from the plain version on a linked-phase batch")
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+        sweep = serial_probes.k5_sweep(dev)
+        report[name]["sweep"] = sweep
+        for case in ("timed", "linked_phase"):
+            c = sweep[case]
+            print(f"K5 {case} batch ({c['events']} events, {c['iters']} iterations, "
+                  f"{c['geometry'][0]} blocks x {c['geometry'][1]} threads): "
+                  f"{_dev_us(c['device_us'])}; stages (cycles at {sweep['sm_clock_khz']} kHz): "
+                  + ", ".join(f"{k} {v:.0f}" for k, v in c["stage_cycles"].items()))
 
 
 # ---------------------------------------------------------------------------
@@ -1500,13 +1528,13 @@ def check_waves(dev, report, l2_ns):
         if masked:
             mask = torch.from_numpy((np.random.default_rng(4).random(K) < 0.7)
                                     .astype(np.uint8)).to(dev)
-        waves.wave_step(*kern, idx, n, ts_base, mask=mask, scratch=scratch)
+        waves.wave_step(*kern, idx, n, ts_base, mask=mask)
         waves.wave_step_plain(*plain, idx, n, ts_base, mask)
         torch.cuda.synchronize()
         errs.append(_err(kern, plain))
         check(errs[-1] == 0, f"K7 wave_step (mask {masked}): kernel differs from the plain version")
     kern, plain = _wave_pair(dev, table, ev, dstat)
-    ms, dev_ms, host = kernel_ms(lambda: waves.wave_step(*kern, idx, n, ts_base, scratch=scratch),
+    ms, dev_ms, host = kernel_ms(lambda: waves.wave_step(*kern, idx, n, ts_base),
                                  reset=_resetter(kern, rows), names=("wave_",))
     plain_ms = time_ms(lambda: waves.wave_step_plain(*plain, idx, n, ts_base), reps=5, warm=1,
                        reset=_resetter(plain, rows))
@@ -1621,7 +1649,7 @@ def check_waves(dev, report, l2_ns):
     for kind, ix in plan.segments[:seg_at]:
         ixt = torch.from_numpy(np.asarray(ix, np.int32)).to(dev)
         if kind == "wave":
-            waves.wave_step(*kern, ixt, n, ts_base, scratch=scratch)
+            waves.wave_step(*kern, ixt, n, ts_base)
         else:
             k3.scan_segment(kern[0], kern[1], kern[2], ixt, n, ts_base)
     plain = [kern[0].clone(), kern[1], kern[2].clone()]
@@ -1690,6 +1718,41 @@ def check_waves(dev, report, l2_ns):
                                 bound_by=bound_by, max_abs_err=err, timed_case=f"B={B}")
     print(f"K3 exact_init (B={B}): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} "
           f"{_vs(plain_ms, bound_ms)}")
+
+
+def k7_lanes(dev, report, main_lanes):
+    """K7's lanes per wave on the main path (median, p90, max per phase
+    and over both), and its device time at the median, the p90 and 8190
+    lanes."""
+    stats = {}
+    for name, ks in list(main_lanes.items()) + [("both", sum(main_lanes.values(), []))]:
+        k = np.asarray(ks)
+        stats[name] = dict(waves=int(k.size), median=int(np.median(k)),
+                           p90=int(np.percentile(k, 90, method="higher")), max=int(k.max()))
+    both = stats["both"]
+    rng = np.random.default_rng(2030)
+    pool = np.sort(rng.choice(A_ROWS, 200_000, replace=False))
+    for K in sorted({both["median"], both["p90"]}):
+        table, ev, dstat, n, ts_base, plan = wave_cases.wide_case(31, 8192, A_ROWS, rows=pool, n=K)
+        idx = torch.from_numpy(np.asarray(plan.segments[0][1], np.int32)).to(dev)
+        kern, plain = _wave_pair(dev, table, ev, dstat)
+        waves.wave_step(*kern, idx, n, ts_base)
+        waves.wave_step_plain(*plain, idx, n, ts_base)
+        torch.cuda.synchronize()
+        err = _err(kern, plain)
+        check(err == 0, f"K7 wave_step ({K} lanes): kernel differs from the plain version")
+        report["wave_step"]["max_abs_err"] = max(report["wave_step"]["max_abs_err"], err)
+    sweep = serial_probes.k7_sweep(dev, lanes=sorted({both["median"], both["p90"], 8190}))
+    report["wave_step"]["sweep"] = {"main_path_lanes": stats, "by_lanes": sweep}
+    print("K7 lanes per wave on the main path: " + "; ".join(
+        f"{n} {s['waves']} waves, median {s['median']}, p90 {s['p90']}, max {s['max']}"
+        for n, s in stats.items()))
+    print("K7 sweep (device us per wave): " + "; ".join(
+        f"K={r['K']} ({r['geometry'][0]} blocks x {r['geometry'][1]}, barrier "
+        f"{('block', 'cluster', 'grid')[r['geometry'][2]]}) {_dev_us(r['device_us'])}"
+        + "".join(f", {k[:-3]} {_dev_us(v)}" for k, v in r.items()
+                  if k.endswith("_us") and k != "device_us")
+        for r in sweep))
 
 
 # ---------------------------------------------------------------------------
@@ -2528,6 +2591,16 @@ def main() -> int:
     check_launchers(dev, report)
 
     phases = {}
+    # K7's lanes per wave on the main path: every K7 launch records its
+    # width; the first launches of a phase are its main-path run's.
+    wave_lanes = []
+    launch_k7 = kernels.wave_step
+
+    def recording(table, events, idx, *args, **kw):
+        wave_lanes.append(idx.shape[0])
+        return launch_k7(table, events, idx, *args, **kw)
+
+    kernels.wave_step = recording
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
     check(sizing[0] == A_ROWS, "simple phase: table is not 2^20 rows")
     phases["simple"] = run_phase("simple", setup, timed, sizing[0], must=("orderfree",))
@@ -2564,9 +2637,11 @@ def main() -> int:
         control_run("offkernel", setup, timed, A_ROWS, sm, replies, "device",
                     TB_DEV_WAVES="0", TB_WAVES="scan")
 
+    wave_lanes.clear()
     phases["offkernel"] = run_phase(
         "offkernel", setup, timed, A_ROWS,
         must=("wave_step", "chain_wave", "spec_conflicts"), extra=offkernel_routed)
+    main_lanes = {"offkernel": wave_lanes[:phases["offkernel"][0]["wave_step"]]}
     check(phases["offkernel"][0]["linked"] == phases["offkernel"][0]["two_phase"] == 0,
           "offkernel: a batch outside K5's and K6's classes launched one of them")
 
@@ -2592,9 +2667,13 @@ def main() -> int:
               f"waves_host: {sm.stat_wave_batches} wave batches of {n_exact} exact-path batches")
         control_run("waves_host", setup, timed, sizing[0], sm, replies, "host", TB_WAVES="scan")
 
+    wave_lanes.clear()
     phases["waves_host"] = run_phase("waves_host", setup, timed, sizing[0], engine="host",
                                      must=("wave_step", "exact_segment"),
                                      extra=every_batch_waved)
+    main_lanes["waves_host"] = wave_lanes[:phases["waves_host"][0]["wave_step"]]
+    kernels.wave_step = launch_k7
+    k7_lanes(dev, report, main_lanes)
     # Hot/cold tiering: one stream for both engines.
     warm = head_sweep(TIER_WARM, workload.BATCH, TIER_HEAD, workload.WARM0)
     timed = workload.gen_tiering(TIER_TIMED, workload.BATCH, TIER_ACCOUNTS, TIER_HEAD,

@@ -220,6 +220,80 @@ def test_semantic_kernels_above_2_17_rows(card, kind):
                                        A=A, rows=rows))
 
 
+def _entries(meta, pk, n):
+    """Limit entries of a batch (events whose debit / credit account
+    carries a limit flag), before the static ladder."""
+    lim = dk.AF_DR_LIMIT | dk.AF_CR_LIMIT
+    w = pk[:n, dk.COL_SLOTS]
+    count = 0
+    for s in ((w & np.uint64(0xFFFFFFFF)).astype(np.int64) - 1, (w >> np.uint64(32)).astype(np.int64) - 1):
+        count += int(((s >= 0) & ((meta[np.clip(s, 0, None), 0] & lim) != 0)).sum())
+    return count
+
+
+@pytest.mark.parametrize("entries", ["none", "few", "all"])
+@pytest.mark.parametrize("kind", ["linked", "linked_small"])
+def test_linked_kernel_entry_counts(card, kind, entries):
+    """K5 at B = 8192 (one cluster of 16 blocks) with no limit entry, a
+    few, and 2B (both sides of every event limited)."""
+    table, meta, pk, n = semantic_cases.linked_case(800, dk.B, "limits", A=4096, pool=1000)
+    slots = (pk[:n, dk.COL_SLOTS] & np.uint64(0xFFFFFFFF)).astype(np.int64) - 1
+    meta[:, 0] = 0
+    if entries == "few":
+        meta[slots[17], 0] = dk.AF_DR_LIMIT
+        table[slots[17]] = 0     # unfunded: its debits fail
+    elif entries == "all":
+        meta[:, 0] = dk.AF_DR_LIMIT | dk.AF_CR_LIMIT
+    V = _entries(meta, pk, n)
+    assert (V == 0) if entries == "none" else (0 < V < 64 if entries == "few" else V == 2 * n)
+    assert kernels.linked_geometry(dk.B)[0] == 16
+    _semantic_on_card(card, kind, table, meta, pk, n)
+
+
+@pytest.mark.parametrize("kind", ["linked", "linked_small"])
+def test_linked_kernel_segment_across_blocks(card, kind):
+    """One debit-limited hub account named by every other event: its
+    segment of ~4096 sorted entries spans several blocks' shares, so
+    its prefixes and boundaries are read across the cluster."""
+    table, meta, pk, n = semantic_cases.linked_case(801, dk.B, "limits", A=4096, pool=1000)
+    hub = 4000
+    meta[hub, 0] = dk.AF_DR_LIMIT
+    table[hub] = 0
+    table[hub, 6] = 1_000_000     # credits for ~half the hub's debits
+    w = pk[:n, dk.COL_SLOTS]
+    cr = (w >> np.uint64(32)).astype(np.int64) - 1
+    every = np.arange(n) % 2 == 0
+    every &= cr != hub
+    pk[:n, dk.COL_SLOTS] = np.where(every, np.uint64(hub + 1) | (w & ~np.uint64(0xFFFFFFFF)), w)
+    _semantic_on_card(card, kind, table, meta, pk, n)
+
+
+@pytest.mark.parametrize("B", [32, 512, 2048])
+def test_linked_kernel_smaller_batches(card, B):
+    """Smaller power-of-two batches: one block (B <= 512, where the
+    fixpoint's 64 iterations run on __syncthreads) and a 4-block
+    cluster, on the non-converging cascade and on limits."""
+    assert kernels.linked_geometry(B)[0] == max(1, B // 512)
+    for scenario in ("nonconverge", "limits") if B >= 128 else ("limits",):
+        # Seed 803 + B: a cascade the random chains leave whole (64
+        # iterations, FLAG_PRECOND).
+        table, meta, pk, n = semantic_cases.linked_case(803 + B, B, scenario, A=4096)
+        _semantic_on_card(card, "linked_small", table, meta, pk, n)
+        _semantic_on_card(card, "linked", table, meta, pk, n)
+
+
+@pytest.mark.parametrize("case", ["round_2", "round_3", "near_below", "near_above"])
+@pytest.mark.parametrize("kind", ["linked", "linked_small"])
+def test_linked_kernel_precondition_float_sum(card, kind, case):
+    """The contribution sum rounded per element to float64 and summed in
+    float64 (the reference's test), on the inputs where rounding
+    decides and on totals near 2^61."""
+    amounts = dict(semantic_cases.FLOAT_SUM_AMOUNTS,
+                   near_below=semantic_cases.near_bound_amounts(61, 512, (1 << 61) - (1 << 30)),
+                   near_above=semantic_cases.near_bound_amounts(62, 512, (1 << 61) + (1 << 30)))
+    _semantic_on_card(card, kind, *semantic_cases.float_sum_case(5, dk.B, amounts[case], A=4096))
+
+
 # ---------------------------------------------------------------------------
 # The wave kernels: K7, K8, K9 and K3's segments and finalize.
 
@@ -241,7 +315,7 @@ def _wave_inputs(card, table, ev, dstat):
     return (t, pk, w_k), (t.clone(), pk, w_p)
 
 
-def _step(card, plan, k, ev, n, ts_base, kern, plain, scratch):
+def _step(card, plan, k, ev, n, ts_base, kern, plain):
     """Segment k of the plan with the kernel on `kern` and the plain
     version on `plain` ((table, events, carry) each); both equal after."""
     kind, idx = plan.segments[k]
@@ -254,7 +328,7 @@ def _step(card, plan, k, ev, n, ts_base, kern, plain, scratch):
     elif kind == "wave":
         ix = torch.from_numpy(np.asarray(idx, np.int32))
         name, run_k = "wave_step", lambda t, p, w, x: waves.wave_step(
-            t, p, w, x, n, ts_base, scratch=scratch)
+            t, p, w, x, n, ts_base)
         run_p = lambda t, p, w, x: waves.wave_step_plain(t, p, w, x, n, ts_base)  # noqa: E731
     else:
         ix = torch.from_numpy(np.asarray(idx, np.int32))
@@ -274,9 +348,8 @@ def _step(card, plan, k, ev, n, ts_base, kern, plain, scratch):
 def _run_plan(card, case):
     table, ev, dstat, n, ts_base, plan = case
     kern, plain = _wave_inputs(card, table, ev, dstat)
-    scratch = waves.WaveScratch(card)
     for k in range(len(plan.segments)):
-        _step(card, plan, k, ev, n, ts_base, kern, plain, scratch)
+        _step(card, plan, k, ev, n, ts_base, kern, plain)
     B = kern[1].shape[0]
     fix = torch.zeros(B, dtype=torch.uint8)
     fix[:n] = torch.from_numpy(plan.wave_mask.astype(np.uint8))
@@ -486,10 +559,72 @@ def test_wave_step_full_width_matches_plain(card, masked):
     if masked:
         rng = np.random.default_rng(3)
         mask = torch.from_numpy((rng.random(len(idx)) < 0.7).astype(np.uint8)).to(card)
-    waves.wave_step(*kern, idx, n, ts_base, mask=mask, scratch=waves.WaveScratch(card))
+    waves.wave_step(*kern, idx, n, ts_base, mask=mask)
     waves.wave_step_plain(*plain, idx, n, ts_base, mask)
     torch.cuda.synchronize()
     assert torch.equal(kern[0], plain[0]) and torch.equal(kern[2], plain[2])
+
+
+def _one_wave(card, K, seed, hub=False, mask_p=None, shape=None):
+    """K7 over a wide_case wave of K lanes on a 2^17-row table against
+    the plain version; `hub`: every 5th lane that posts or pends
+    credits one account, so lanes in every block write one row."""
+    table, ev, dstat, n, ts_base, plan = wave_cases.wide_case(seed, 8192, 1 << 17, n=K)
+    if hub:
+        writers = (np.arange(8192) % 5 == 0) & (np.arange(8192) < n) & (ev["p_found"] == 0)
+        writers &= (ev["flags"] & 0xC) == 0
+        ev["cr_slot"][writers] = 131_000
+        assert writers.sum() * 8 > n  # a writer in about every 8 lanes
+    kern, plain = _wave_inputs(card, table, ev, dstat)
+    idx = torch.from_numpy(np.asarray(plan.segments[0][1], np.int32)).to(card)
+    assert idx.numel() == K
+    mask = None
+    if mask_p is not None:
+        rng = np.random.default_rng(seed)
+        mask = torch.from_numpy((rng.random(K) < mask_p).astype(np.uint8)).to(card)
+    before = kernels.launches["wave_step"]
+    if shape is None:
+        waves.wave_step(*kern, idx, n, ts_base, mask=mask)
+        assert kernels.launches["wave_step"] == before + 1
+    else:
+        kernels.wave_step(kern[0], kern[1], idx, mask, n, ts_base, kern[2], shape=shape)
+    waves.wave_step_plain(*plain, idx, n, ts_base, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(kern[0], plain[0]) and torch.equal(kern[2], plain[2])
+
+
+@pytest.mark.parametrize("K", [1, 32, 511, 512, 513, 4096, 8190])
+def test_wave_step_lane_counts_match_plain(card, K):
+    """K7 at one block (K <= 8), clusters of 2-16 blocks and the
+    cooperative grid above 16 x 64 lanes: one launch a wave."""
+    blocks, threads, mode, lanes = kernels.wave_step_geometry(K)
+    assert blocks * lanes >= K and lanes <= threads and (mode == 0) == (blocks == 1)
+    assert (mode == 2) == (K > 16 * 64)
+    _one_wave(card, K, 900 + K % 97)
+
+
+@pytest.mark.parametrize("K", [513, 8190])
+def test_wave_step_hub_row_matches_plain(card, K):
+    """One balance row written by lanes in every block of the wave."""
+    _one_wave(card, K, 910, hub=True)
+
+
+@pytest.mark.parametrize("K", [33, 4096])
+def test_wave_step_commit_mask_matches_plain(card, K):
+    _one_wave(card, K, 920, mask_p=0.6)
+
+
+@pytest.mark.parametrize("shape", [(256, False), (64, False), (8, False), (256, True),
+                                   (128, True), (64, True), (32, True)])
+def test_wave_step_shapes_match_plain(card, shape):
+    """The launch shapes the probes compare: 16-block clusters of 256,
+    64 and 8 lanes a block and cooperative grids at K = 4096, grids at
+    8190."""
+    lanes, grid = shape
+    K = 4096 if not grid or lanes == 256 else 8190
+    if not grid:
+        K = min(K, 16 * lanes)
+    _one_wave(card, K, 930, hub=True, shape=shape)
 
 
 @pytest.mark.parametrize("cls", ["mixed", "post_void", "balancing", "linked"])

@@ -58,7 +58,7 @@ CALLS = {
     "exact_finalize": ("exact_scan", "tb_exact_finalize",
                        lambda: kernels.exact_finalize(T, 16, V, None, PK)),
     "wave_step": ("wave_step", "tb_wave_step",
-                  lambda: kernels.wave_step(T, PK, V, None, 5, 7, V, V)),
+                  lambda: kernels.wave_step(T, PK, V, None, 5, 7, V)),
     "chain_wave": ("chain_wave", "tb_chain_wave",
                    lambda: kernels.chain_wave(T, PK, PK, 5, 7, V)),
     "spec_conflicts": ("spec_conflicts", "tb_spec_conflicts",
@@ -161,13 +161,33 @@ def test_k8_and_k3_segment_pass_pointers_and_sizes(fake_cuda):
 
 
 def test_wave_scratch_holds_no_chain_wave_log():
-    """WaveScratch keeps the carry, K7's lanes and K9's arrays; K8's cell
-    log and alive flags are gone."""
+    """WaveScratch keeps the carry and K9's arrays; K8's cell log and
+    alive flags and K7's lane records (now in its blocks' shared
+    memory) are gone."""
     from tigerbeetle_tpu_torch.state_machine import waves
 
     scratch = waves.WaveScratch(torch.device("cpu"))
-    assert not hasattr(scratch, "cells")
-    assert set(vars(scratch)) == {"device", "_carry", "_lanes", "_spec"}
+    assert not hasattr(scratch, "cells") and not hasattr(scratch, "lanes")
+    assert set(vars(scratch)) == {"device", "_carry", "_spec"}
+
+
+def test_k7_and_k5_pass_no_buffer_of_their_own(fake_cuda):
+    """K7 takes the table, events, indices, mask and carry and no lane
+    buffer (one launch per wave; the lane records stay on chip); its
+    shaped entry adds the launch shape and counts nothing.  K5 passes
+    its stamp buffer as a nullable pointer."""
+    table, ev, idx, carry = _z((32, 8)), _z((16, 52)), _z(5, torch.int32), _z(999)
+    kernels.wave_step(table, ev, idx, None, 12, 1 << 40, carry)
+    kernels.wave_step(table, ev, idx, None, 12, 1 << 40, carry, shape=(64, True))
+    head = (table.data_ptr(), 32, ev.data_ptr(), 16, idx.data_ptr(), 5, None, 12, 1 << 40,
+            carry.data_ptr())
+    assert [a for _, a in fake_cuda.calls] == [head + (STREAM - 1,),
+                                                head + (64, 1, STREAM - 1)]
+    assert kernels.launches["wave_step"] == 1
+    kernels.linked(T, M, 4096, PK, 5, True, SC)
+    kernels.linked(T, M, 4096, PK, 5, True, SC, stamps=V)
+    assert fake_cuda.calls[-2][1][-2] is None and fake_cuda.calls[-1][1][-2] == V.data_ptr()
+    assert kernels.launches["linked"] == 2
 
 
 def test_nullable_pointers_pass_as_null(fake_cuda):

@@ -119,3 +119,42 @@ def test_wrapper_rejects_bad_inputs():
         dk.linked(table, meta, ring, 0, pk, dk.B + 1, 1)                # n > B
     with pytest.raises(ValueError):
         dk.linked(table, meta, ring, 0, pk[:, :5].contiguous(), 1, 1)  # wrong width
+
+
+# The non-small precondition sum against the reference's float64 test.
+# Each case's expected precondition bit: the float total of the round
+# cases reaches 2^61 (per-element rounding decides); the near-bound
+# totals lie 2^30 from 2^61, far outside any order's rounding, so any
+# order of the sum gives the same bit.
+FLOAT_CASES = {
+    "round_2": sc.FLOAT_SUM_AMOUNTS["round_2"],
+    "round_3": sc.FLOAT_SUM_AMOUNTS["round_3"],
+    "near_below": sc.near_bound_amounts(61, 512, (1 << 61) - (1 << 30)),
+    "near_above": sc.near_bound_amounts(62, 512, (1 << 61) + (1 << 30)),
+}
+FLOAT_PRECOND = {"round_2": True, "round_3": True, "near_below": False, "near_above": True}
+
+
+@pytest.mark.parametrize("case", sorted(FLOAT_CASES))
+@pytest.mark.parametrize("kind", KINDS)
+def test_linked_precondition_float_sum(kind, case):
+    table, meta, pk, n = sc.float_sum_case(5, dk.B, FLOAT_CASES[case], A=A)
+    (jt, jr), (pt, pr) = run_both(kind, table, meta, pk, n)
+    assert np.array_equal(pr, jr)
+    assert np.array_equal(pt, jt)
+    precond = dk.unpack_summary(jr[RING_AT])["precond"]
+    # linked_small's exact bound (2^31 - 1) flags every one of these.
+    assert bool(precond) == (FLOAT_PRECOND[case] or kind == "linked_small")
+
+
+def test_pairwise_sum_order():
+    """The plain version's float64 sum is a pairwise tree of adjacent
+    lanes, zero-padded to a power of two, with one rounding per u64."""
+    x = torch.tensor([1 << 53, 1, 1, 0, 3], dtype=torch.int64)
+    f = dk.u64_to_f64(x)
+    assert f.tolist() == [float(1 << 53), 1.0, 1.0, 0.0, 3.0]
+    # ((2^53 + 1) + (1 + 0)) + (3 + 0): 2^53 + 1 rounds to 2^53 (even).
+    assert dk.pairwise_sum(f).item() == float((1 << 53) + 4)
+    # 2^64 - 1, 2^64 - 2049 and the tie 2^64 - 3072 (ulp 2^11 there).
+    top = torch.tensor([-1, -2049, -3072], dtype=torch.int64)
+    assert dk.u64_to_f64(top).tolist() == [2.0 ** 64, 2.0 ** 64 - 2048, 2.0 ** 64 - 4096]

@@ -109,8 +109,10 @@ _SIGNATURES = {
     },
     "wave_step": {
         # table, A, ev, B, idx, K, mask (nullable), n, ts_base, scratch,
-        # lanes, stream
-        "tb_wave_step": [_P, _I64, _P, _I, _P, _I, _P, _I, _U64, _P, _P, _P],
+        # stream
+        "tb_wave_step": [_P, _I64, _P, _I, _P, _I, _P, _I, _U64, _P, _P],
+        # ... scratch, lanes per block, grid, stream
+        "tb_wave_step_shaped": [_P, _I64, _P, _I, _P, _I, _P, _I, _U64, _P, _I, _I, _P],
     },
     "chain_wave": {
         # table, A, ev, B, plane, P, C, n, ts_base, scratch, stream
@@ -126,8 +128,9 @@ _SIGNATURES = {
         "tb_apply_deltas": [_P, _I64, _P, _I64, _I64, _P],
     },
     "linked": {
-        # table, meta, A, ring_row, pk, n, B, small, slot_idx, words, stream
-        "tb_linked": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P],
+        # table, meta, A, ring_row, pk, n, B, small, slot_idx, words,
+        # stamps (nullable), stream
+        "tb_linked": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     },
     "two_phase": {
         # table, meta, A, ring_row, pk, n, B, lo_only, slot_idx, words, stream
@@ -211,11 +214,14 @@ def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch,
     )
 
 
-def linked(table, meta, ring_row_ptr, pk, n, small, scratch, count_as="linked"):
+def linked(table, meta, ring_row_ptr, pk, n, small, scratch, count_as="linked", stamps=None):
+    """K5; `stamps` a CUDA int64 tensor of linked_stamps() words for
+    the stage stamps of a measurement, or None."""
     _launch(
         "linked", "tb_linked", count_as, table.get_device(),
         table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(), n,
         pk.shape[0], int(small), scratch.slot_idx.data_ptr(), scratch.words.data_ptr(),
+        _ptr(stamps),
     )
 
 
@@ -337,26 +343,56 @@ def exact_finalize(table, batch, scratch_words, hist_fix, out):
     )
 
 
-def aux_words(lib: str, symbol: str) -> int:
-    """A word count a kernel source exports (lane-record words per
-    lane)."""
+def linked_stamps() -> int:
+    """Words of K5's stage-stamp buffer."""
+    fn = _FNS.get("tb_linked_stamps")
+    if fn is None:
+        from tigerbeetle_tpu_torch.kernels import build
+
+        fn = build.load("linked").tb_linked_stamps
+        fn.argtypes = []
+        fn.restype = _I
+        _FNS["tb_linked_stamps"] = fn
+    return int(fn())
+
+
+def _geometry(lib: str, symbol: str, size: int, width: int) -> tuple[int, ...]:
     fn = _FNS.get(symbol)
     if fn is None:
         from tigerbeetle_tpu_torch.kernels import build
 
         fn = getattr(build.load(lib), symbol)
-        fn.argtypes = []
-        fn.restype = _I64
+        fn.argtypes = [_I, ctypes.POINTER(_I)]
+        fn.restype = _I
         _FNS[symbol] = fn
-    return int(fn())
+    geom = (_I * width)()
+    fn(size, geom)
+    return tuple(geom)
 
 
-def wave_step(table, events, idx, mask, n, ts_base_u64, scratch_words, lanes):
-    _launch(
-        "wave_step", "tb_wave_step", "wave_step", table.get_device(),
-        table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0], idx.data_ptr(),
-        idx.shape[0], _ptr(mask), n, ts_base_u64, scratch_words.data_ptr(), lanes.data_ptr(),
-    )
+def linked_geometry(B: int) -> tuple[int, int, int]:
+    """K5's launch for a B-event batch: (blocks in its one cluster,
+    threads per block, dynamic shared-memory bytes)."""
+    return _geometry("linked", "tb_linked_geometry", B, 3)
+
+
+def wave_step(table, events, idx, mask, n, ts_base_u64, scratch_words, shape=None):
+    """K7; `shape` (lanes per block, grid) forces a launch shape (the
+    probes' comparison; not counted), None takes the kernel's own."""
+    args = (table.data_ptr(), table.shape[0], events.data_ptr(), events.shape[0],
+            idx.data_ptr(), idx.shape[0], _ptr(mask), n, ts_base_u64, scratch_words.data_ptr())
+    if shape is None:
+        _launch("wave_step", "tb_wave_step", "wave_step", table.get_device(), *args)
+    else:
+        _launch("wave_step", "tb_wave_step_shaped", None, table.get_device(), *args,
+                int(shape[0]), int(bool(shape[1])))
+
+
+def wave_step_geometry(K: int) -> tuple[int, int, int, int]:
+    """K7's launch for a K-lane wave: (blocks, threads per block,
+    barrier: 0 one block, 1 cluster, 2 cooperative grid, lanes per
+    block)."""
+    return _geometry("wave_step", "tb_wave_step_geometry", K, 4)
 
 
 def chain_wave(table, events, plane, n, ts_base_u64, scratch_words):
@@ -371,17 +407,7 @@ def chain_wave(table, events, plane, n, ts_base_u64, scratch_words):
 def chain_wave_geometry(C: int) -> tuple[int, int]:
     """K8's launch for a C-chain wave: (blocks in its one cluster,
     threads per block)."""
-    fn = _FNS.get("tb_chain_wave_geometry")
-    if fn is None:
-        from tigerbeetle_tpu_torch.kernels import build
-
-        fn = build.load("chain_wave").tb_chain_wave_geometry
-        fn.argtypes = [_I, ctypes.POINTER(_I)]
-        fn.restype = _I
-        _FNS["tb_chain_wave_geometry"] = fn
-    geom = (_I * 2)()
-    fn(C, geom)
-    return geom[0], geom[1]
+    return _geometry("chain_wave", "tb_chain_wave_geometry", C, 2)
 
 
 def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):

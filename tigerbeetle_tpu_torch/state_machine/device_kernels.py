@@ -365,6 +365,25 @@ def _meta_flags(ev, meta, A):
     return dr, cr
 
 
+def u64_to_f64(x):
+    """u64 values held in int64, rounded to float64 to nearest even:
+    hi32 * 2^32 is exact, so the one addition is the one rounding (a
+    signed .to(float64) is wrong at and above 2^63)."""
+    return shr(x, 32).to(torch.float64) * float(1 << 32) + (x & MASK32).to(torch.float64)
+
+
+def pairwise_sum(x):
+    """The float64 sum of `x` in a pairwise tree of adjacent lanes
+    ((x0 + x1) + (x2 + x3)) + ..., zero-padded to a power of two (adding
+    +0.0 is exact): the order K5's warp, block and cluster reductions
+    take."""
+    n = max(1, 1 << (x.shape[0] - 1).bit_length()) if x.shape[0] else 1
+    x = torch.cat([x, x.new_zeros(n - x.shape[0])])
+    while x.shape[0] > 1:
+        x = x[0::2] + x[1::2]
+    return x[0]
+
+
 def _chains(linked):
     """Chain structure — maximal runs of linked events plus the event
     after them: (chain id, first event, last event) per event."""
@@ -444,16 +463,17 @@ def linked_plain(table, meta, ring, ring_at, pk, n, ts_base, small=False, scratc
         | (rows[:, 1::2] != 0).any()
         | (~u128.ult(rows[:, 0::2], U64_SAFE)).any()
     )
-    # The reference sums the contributions in float64 (:535-539); this
-    # is the exact sum.  They can differ only when the exact total lies
-    # within rounding (~2^25) of the bound 2^61; below 2^31 every float
-    # partial sum is exact, so the small bound's bit is always equal.
+    # The contribution sum.  Small: exact, against 2^31 - 1 (below 2^53
+    # every float64 conversion and partial sum is exact, so this is the
+    # reference's bit).  Otherwise the reference's test (:535-539): each
+    # contribution rounded to float64, summed in float64, >= 2^61 —
+    # here in a pairwise tree over the B event lanes, K5's order too.
     contrib = torch.where(static_ok, ev["amt_lo"], 0)
-    sum_lo, sum_hi = (contrib & MASK32).sum(), shr(contrib, 32).sum()
     if small:
+        sum_lo, sum_hi = (contrib & MASK32).sum(), shr(contrib, 32).sum()
         precond = precond | (sum_hi > 0) | (sum_lo >= (1 << 31) - 1)
     else:
-        precond = precond | (sum_hi + (sum_lo >> 32) >= U64_SAFE >> 32)
+        precond = precond | (pairwise_sum(u64_to_f64(contrib)) >= float(U64_SAFE))
 
     # ---- limit entries sorted by (slot, event): the valid entries of
     # the reference's packed keys slot << 14 | event << 1 | side, whose
@@ -788,9 +808,10 @@ def orderfree(table, meta, ring, ring_at, pk, n, ts_base, mode=MODE_FULL,
 class WordScratch:
     """Device scratch K5 or K6 reuses across launches: the per-slot
     index that rests at -1 (as K1's) and one zeroed u64 word buffer
-    holding the kernel's per-event, per-entry and per-row arrays (its
-    layout, and which words rest at zero between launches, are the
-    kernel source's; the library reports the size)."""
+    holding the kernel's global arrays (K5: only the admission's
+    accumulators and touched-row list; its layout, and which words rest
+    at zero between launches, are the kernel source's; the library
+    reports the size)."""
 
     def __init__(self, kernel: str, rows: int, batch: int, device) -> None:
         self.rows, self.batch = rows, batch

@@ -1462,16 +1462,16 @@ INT32_MAX = (1 << 31) - 1
 
 class WaveScratch:
     """The wave kernels' device buffers, made at first use and reused:
-    the carry (K3's scratch at the largest batch bucket), K7's lane
-    records and K9's arrays, which rest at INT32_MAX between calls
-    (tokens and targets: B entries; slot minima: one per table row).
-    K8 needs none: each chain's state stays in its thread, and the
-    dead-chain repair reads the carry."""
+    the carry (K3's scratch at the largest batch bucket) and K9's
+    arrays, which rest at INT32_MAX between calls (tokens and targets:
+    B entries; slot minima: one per table row).  K7 and K8 need none:
+    K7's lane records stay in its blocks' shared memory, each K8
+    chain's state in its thread, and K8's dead-chain repair reads the
+    carry."""
 
     def __init__(self, device) -> None:
         self.device = device
         self._carry = None
-        self._lanes = None
         self._spec = None
 
     def carry(self) -> torch.Tensor:
@@ -1479,12 +1479,6 @@ class WaveScratch:
             self._carry = torch.empty(kernel.scratch_words(kernel.BATCH_BUCKETS[-1]),
                                       dtype=torch.int64, device=self.device)
         return self._carry
-
-    def lanes(self, K: int) -> torch.Tensor:
-        need = K * kernels.aux_words("wave_step", "tb_wave_step_lane_words")
-        if self._lanes is None or self._lanes.numel() < need:
-            self._lanes = torch.empty(max(need, 1), dtype=torch.int64, device=self.device)
-        return self._lanes
 
     def spec(self, B: int, A: int, K: int):
         """(tok, tgt, a_min, r_min, out) for a B-row batch, an A-row
@@ -1507,7 +1501,7 @@ def _check_index(idx, device, dims=1):
         raise ValueError("indices must be contiguous")
 
 
-def wave_step(table, events, words, idx, n, ts_base, mask=None, scratch=None) -> None:
+def wave_step(table, events, words, idx, n, ts_base, mask=None) -> None:
     """K7: one wave over the global event indices `idx` (int32 (K,));
     `mask` an optional (K,) uint8 commit mask."""
     B = events.shape[0]
@@ -1520,9 +1514,9 @@ def wave_step(table, events, words, idx, n, ts_base, mask=None, scratch=None) ->
     if table.device.type == "cpu":
         wave_step_plain(table, events, words, idx, n, ts_base, mask)
         return
-    scratch = scratch or WaveScratch(table.device)
-    kernels.wave_step(table, events, idx, mask, int(n), int(ts_base) & U64_MAX, words,
-                      scratch.lanes(idx.shape[0]))
+    if events.data_ptr() % 16:
+        raise ValueError("K7 reads event rows in 16-byte pieces: events must be 16-byte aligned")
+    kernels.wave_step(table, events, idx, mask, int(n), int(ts_base) & U64_MAX, words)
 
 
 # K8 runs one chain per thread in one cluster of at most 16 blocks of
@@ -1630,8 +1624,7 @@ _PLAIN_FNS = {
     "init": kernel.make_carry,
     "segment": kernel.scan_segment_plain,
     "finalize": kernel.finalize_plain,
-    "wave": lambda table, events, words, idx, n, ts_base, mask=None, scratch=None: (
-        wave_step_plain(table, events, words, idx, n, ts_base, mask)),
+    "wave": wave_step_plain,
     "chain": chain_wave_plain,
     "spec": lambda events, idx, serial, n, A, scratch=None: (
         spec_conflicts_plain(events, idx, serial, n, A).to(torch.uint8)),
@@ -1656,7 +1649,7 @@ def _run_segments(table, carry: SegmentCarry, ev, n, ts_base, plan, scratch, fns
     for kind, off, shape in segs:
         seg = ix[off:off + int(np.prod(shape))]
         if kind == "wave":
-            fns["wave"](table, carry.events, carry.words, seg, n, ts_base, scratch=scratch)
+            fns["wave"](table, carry.events, carry.words, seg, n, ts_base)
         elif kind == "chains":
             fns["chain"](table, carry.events, carry.words, seg.view(shape), n, ts_base)
         else:
@@ -1714,7 +1707,7 @@ def run_speculative_engine(table, ev, dstat_init, spec_serial, n, ts_base, scrat
     conflicted = fns["spec"](carry.events, idx, serial.to(table.device), n, table.shape[0],
                              scratch=scratch)
     fns["wave"](table, carry.events, carry.words, idx, n, ts_base,
-                mask=(conflicted == 0).to(torch.uint8), scratch=scratch)
+                mask=(conflicted == 0).to(torch.uint8))
     return carry, conflicted
 
 

@@ -158,6 +158,35 @@ def linked_case(seed, B, scenario, A=1024, rows=None, n=None, pool=24):
     return table, meta, pk, n
 
 
+# Contributions where the reference's float64 precondition sum (each
+# amount rounded to float64, then summed) differs from the exact sum:
+# 2^60 - 1 rounds up to 2^60, so the float total reaches 2^61 while
+# the exact total stays below it.
+FLOAT_SUM_AMOUNTS = {
+    "round_2": (1 << 60, (1 << 60) - 1),
+    "round_3": (1 << 60, 1 << 59, (1 << 59) - 1),
+}
+
+
+def float_sum_case(seed, B, amounts, A=1024, rows=None):
+    """A passing-scenario batch of len(amounts) events carrying
+    `amounts` (u64 each) as their amounts."""
+    table, meta, pk, n = linked_case(seed, B, "passing", A=A, rows=rows, n=len(amounts))
+    pk[:n, dk.COL_AMT_LO] = np.asarray(amounts, np.uint64)
+    return table, meta, pk, n
+
+
+def near_bound_amounts(seed, n, total):
+    """n seeded amounts, each below 2^53 (exact in float64), summing to
+    exactly `total` (about n * 2^52 at most)."""
+    rng = np.random.default_rng(seed)
+    w = rng.random(n) + 0.5
+    amt = np.floor(w / w.sum() * total).astype(np.uint64)
+    amt[0] += np.uint64(total - int(amt.astype(object).sum()))
+    assert int(amt.max()) < 1 << 53 and int(amt.astype(object).sum()) == total
+    return tuple(int(a) for a in amt)
+
+
 def two_phase_case(seed, B, scenario, A=1024, rows=None, n=None):
     """One pending-create + post/void batch leaning on `scenario`
     (TWO_PHASE_SCENARIOS).  Post/voids name in-batch creators (earlier

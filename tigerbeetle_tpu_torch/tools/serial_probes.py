@@ -3,6 +3,7 @@ over its chain shapes, K3 over its segment lengths, and where one K3
 event's time goes.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
+        [--parent DIR] [--k7-lanes K,...]
 
 Needs a CUDA card.  Builds ``tools/serial_probes.cu`` (probes, not
 kernels of the port) and drives the port's own wrappers:
@@ -27,10 +28,27 @@ kernels of the port) and drives the port's own wrappers:
   event in each stage and in all (the stamps' own cycles included; the
   plain walk's time is the ``k3`` part), and the events of each class.
 
+* ``k5``: K5 on two batches — ``chip_smoke.py``'s timed case
+  (``linked_small`` on the "limits" scenario over 1,000 accounts spread
+  over 2^20 rows) and the first timed batch of its ``linked`` phase
+  (captured from the state machine's own launch): device microseconds
+  and the fixpoint's iterations, and the cycles of each stage from
+  ``clock64()`` stamps in a stamped launch (``stamps=``).
+* ``k7``: K7 at K lanes of one ``wave_cases.wide_case`` wave, K in
+  ``K7_LANES`` and any ``--k7-lanes``: device microseconds per wave at
+  the kernel's own launch and at every shape of ``k7_shapes(K)``
+  (clusters and cooperative grids, 8-256 lanes a block).
+
+``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
+``git archive`` under ``build/``) adds, in the same process and on the
+same inputs, that tree's K5 and K7 (built from its ``csrc``; its K5
+also built with stamps patched in between its stages) to ``k5`` and
+``k7``.
+
 ``main`` prints one JSON object of the parts asked for (``--parts``;
-``k8`` and ``k3`` build nothing of their own, so they run on any tree
-with the wrappers); ``chip_smoke.py`` prints the barrier, k8 and k3
-parts.
+``k8``, ``k3``, ``k5`` and ``k7`` build nothing of their own but the
+parent's, so they run on any tree with the wrappers); ``chip_smoke.py``
+prints the barrier, k8, k3, k5 and k7 parts.
 """
 
 from __future__ import annotations
@@ -38,14 +56,18 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from tigerbeetle_tpu_torch import kernels, workload
 from tigerbeetle_tpu_torch.kernels import build
+from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
-from tigerbeetle_tpu_torch.testing import wave_cases
+from tigerbeetle_tpu_torch.testing import semantic_cases, wave_cases
 
 LIB = "serial_probes"
 A_ROWS = 1 << 20
@@ -254,7 +276,241 @@ def walk_split(dev) -> dict:
     return out
 
 
-PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split}
+# ---- K5 and K7, the change against an earlier tree's kernels.
+
+K5_STAGES = ("events", "sort", "merge", "entries", "fixpoint", "results", "admit")
+# The stamp buffer after the stages' clocks: the merge's parts (clocks)
+# and the fixpoint's parts (cycles summed over its iterations; "seg",
+# the entries' segment starts and chain boundaries, in the first only).
+K5_MERGE = ("totals", "copy", "rank")
+K5_ITERATION = ("scan", "barrier_a", "totals_a", "seg", "chain", "barrier_chain", "lanes",
+                "barrier_b", "totals_b", "verdict", "barrier_c", "update")
+# The stages of the K5 before its redesign (one block of 1024 threads),
+# each ending at the barrier before the comment the stamp goes in front
+# of in that source.
+K5_OLD_STAGES = (("step0", "  // 1. Chain bounds"), ("chain_bounds", "  // 2. Sort the entry keys"),
+                 ("sort", "  const int V = n_valid;"), ("entries", "  // 4. The fixpoint"),
+                 ("fixpoint", "  // 5. Result codes."), ("results", "  // 6b. Low-limb sums"),
+                 ("admit_apply", "  // 7. The summary row."),
+                 ("summary", "\n}\n\n}  // namespace"))
+K7_LANES = (1, 32, 64, 256, 1024, 2048, 4096, 8190)
+
+
+def k7_shapes(K):
+    """The launch shapes K7 is also timed at for a K-lane wave: clusters
+    of 2-16 blocks and cooperative grids of 2 blocks or more, each at
+    8-256 lanes a block."""
+    out = [(lanes, False) for lanes in (8, 16, 32, 64, 128, 256) if 1 < -(-K // lanes) <= 16]
+    return out + [(lanes, True) for lanes in (32, 64, 128) if -(-K // lanes) > 1]
+
+
+def _parent_csrc(parent) -> Path:
+    return Path(parent).resolve() / "tigerbeetle_tpu_torch" / "csrc"
+
+
+def _parent_lib(parent, name):
+    """The earlier tree's library `name`, built from its own sources."""
+    src = _parent_csrc(parent)
+    build.build_all((name,), src)
+    lib = ctypes.CDLL(str(build.library_path(name, src)))
+    lib.tb_error_string.argtypes = [_I]
+    lib.tb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _stamped_parent_k5(parent):
+    """The earlier tree's K5 with clock64() stamps (thread 0, after each
+    stage's block barrier) into a device array, read back by
+    tb_linked_stamp_read: the source patched in front of each stage's
+    closing comment, built beside it."""
+    src = _parent_csrc(parent)
+    text = (src / "linked.cu").read_text()
+    text = text.replace('#include "tb_common.cuh"\n', '#include "tb_common.cuh"\n'
+                        "__device__ unsigned long long tb_stamp_buf[16];\n"
+                        "#define TB_STAMP(k) do { if (threadIdx.x == 0) "
+                        "tb_stamp_buf[k] = clock64(); } while (0)\n", 1)
+    text = re.sub(r"(  const int M = 2 \* B;\n)", r"\1  TB_STAMP(0);\n", text, count=1)
+    for k, (_stage, anchor) in enumerate(K5_OLD_STAGES, start=1):
+        if anchor.startswith("\n"):
+            at = text.index(anchor)
+            text = text[:at] + f"\n  TB_STAMP({k});" + text[at:]
+        else:
+            if text.count(anchor) != 1:
+                raise ValueError(f"{src / 'linked.cu'}: no single stage anchor {anchor!r}")
+            text = text.replace(anchor, f"  TB_STAMP({k});\n" + anchor)
+    text += ('\nextern "C" int tb_linked_stamp_read(void* out) {\n'
+             "  return (int)cudaMemcpyFromSymbol(out, tb_stamp_buf, sizeof(tb_stamp_buf));\n}\n")
+    (src / "linked_stamped.cu").write_text(text)
+    lib = _parent_lib(parent, "linked_stamped")
+    lib.tb_linked_stamp_read.argtypes = [_P]
+    lib.tb_linked_stamp_read.restype = _I
+    return lib
+
+
+def _old_linked(lib, table, meta, ring_row, pk, n, small, scratch, stream):
+    fn = lib.tb_linked
+    fn.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P]
+    rc = fn(table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row, pk.data_ptr(), n,
+            pk.shape[0], int(small), scratch[0].data_ptr(), scratch[1].data_ptr(), stream)
+    if rc:
+        raise RuntimeError(f"parent tb_linked: {lib.tb_error_string(rc).decode()}")
+
+
+def linked_phase_batch(dev):
+    """(table, meta, pk, n, small) of the K5 launch of the first timed
+    batch of chip_smoke.py's linked phase (workload.gen_linked), as the
+    device engine launched it: the engine's table as it stood then."""
+    setup, timed, sizing = workload.gen_linked(4 * workload.BATCH)
+    from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+    from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
+
+    seen = []
+    launch = kernels.linked
+
+    def capture(table, meta, ring_row, pk, n, small, scratch, *a, **kw):
+        seen.append((table.clone(), meta.clone(), pk.clone(), n, small))
+        return launch(table, meta, ring_row, pk, n, small, scratch, *a, **kw)
+
+    kernels.linked = capture
+    try:
+        sm = TorchStateMachine(account_capacity=sizing[0],
+                               transfer_capacity=sizing[1],
+                               engine="device", devices=[dev])
+        h = SingleNodeHarness(sm)
+        for op, body in setup:
+            h.submit(op, body)
+        sm._dev.drain()
+        before = len(seen)
+        h.submit(*timed[0][:2])
+        sm._dev.drain()
+        torch.cuda.synchronize()
+    finally:
+        kernels.linked = launch
+    if len(seen) <= before:
+        raise RuntimeError("the linked phase's first timed batch launched no K5")
+    return seen[before]
+
+
+def timed_case(dev):
+    """chip_smoke.py's timed K5 case on the card: (table, meta, pk, n,
+    small)."""
+    rows = np.sort(np.random.default_rng(2029).choice(A_ROWS, B, replace=False))
+    table, meta, pk, n = semantic_cases.linked_case(900, B, "limits", A=A_ROWS, rows=rows,
+                                                    pool=1000)
+    to = lambda a, dt: torch.from_numpy(a.view(dt).copy()).to(dev)  # noqa: E731
+    return to(table, np.int64), to(meta, np.int32), to(pk, np.int64), n, True
+
+
+def k5_sweep(dev, parent=None) -> dict:
+    """K5 on the timed case and on a linked-phase batch: device
+    microseconds per launch (the table's touched rows restored between
+    calls), iterations, and cycles per stage of a stamped launch; with
+    `parent`, the same for that tree's K5."""
+    khz = _lib().tb_sm_clock_khz()
+    old = stamped = None
+    if parent is not None:
+        old = _parent_lib(parent, "linked")
+        stamped = _stamped_parent_k5(parent)
+    out = {"sm_clock_khz": khz}
+    for name, (table, meta, pk, n, small) in (("timed", timed_case(dev)),
+                                              ("linked_phase", linked_phase_batch(dev))):
+        ring = torch.zeros((4, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+        saved = table.clone()
+        reset = lambda t=table, s=saved: t.copy_(s)  # noqa: E731
+        scratch = dk.WordScratch("linked", table.shape[0], pk.shape[0], dev)
+        row = {"events": n, "B": pk.shape[0], "small": small,
+               "geometry": kernels.linked_geometry(pk.shape[0])}
+        run = lambda: kernels.linked(table, meta, ring[1].data_ptr(), pk, n, small,  # noqa: E731
+                                     scratch, count_as=None)
+        row["device_us"] = device_us(run, reset=reset, names=("linked_kernel",))
+        row["iters"] = int(dk.unpack_summary(ring[1].cpu().numpy().view(np.uint64))["iters"])
+        st = torch.zeros(kernels.linked_stamps(), dtype=torch.int64, device=dev)
+        reset()
+        kernels.linked(table, meta, ring[1].data_ptr(), pk, n, small, scratch, count_as=None,
+                       stamps=st)
+        c = st.cpu().numpy().astype(np.float64)
+        ns = len(K5_STAGES) + 1
+        row["stage_cycles"] = {s: c[k + 1] - c[k] for k, s in enumerate(K5_STAGES)}
+        merge = [c[2]] + list(c[ns:ns + len(K5_MERGE)]) + [c[3]]
+        row["merge_cycles"] = {s: merge[k + 1] - merge[k]
+                               for k, s in enumerate(K5_MERGE + ("barrier",))}
+        it = c[ns + len(K5_MERGE):]
+        row["iteration_cycles"] = {s: it[k] / max(row["iters"], 1)
+                                   for k, s in enumerate(K5_ITERATION)}
+        row["stamped_us"] = (c[ns - 1] - c[0]) / khz * 1e3
+        if old is not None:
+            olds = (torch.full((table.shape[0],), -1, dtype=torch.int32, device=dev),
+                    torch.zeros(old_words(old, pk.shape[0]), dtype=torch.int64, device=dev))
+            orun = lambda lib=old: _old_linked(lib, table, meta, ring[2].data_ptr(),  # noqa: E731
+                                               pk, n, small, olds, _stream())
+            row["parent_device_us"] = device_us(orun, reset=reset, names=("linked_kernel",))
+            reset()
+            orun()
+            torch.cuda.synchronize()
+            row["parent_ring_equal"] = bool(torch.equal(ring[1], ring[2]))
+            reset()
+            orun(stamped)
+            buf = (ctypes.c_uint64 * 16)()
+            torch.cuda.synchronize()
+            stamped.tb_linked_stamp_read(ctypes.addressof(buf))
+            oc = np.array(buf[:len(K5_OLD_STAGES) + 1], np.float64)
+            row["parent_stage_cycles"] = {s: oc[k + 1] - oc[k]
+                                          for k, (s, _a) in enumerate(K5_OLD_STAGES)}
+            row["parent_stamped_us"] = (oc[-1] - oc[0]) / khz * 1e3
+        reset()
+        out[name] = row
+    return out
+
+
+def old_words(lib, B) -> int:
+    fn = lib.tb_linked_scratch_words
+    fn.argtypes = [_I]
+    fn.restype = _I64
+    return int(fn(B))
+
+
+def _old_wave(lib, t, pk, idx, n, ts_base, w, lanes):
+    fn = lib.tb_wave_step
+    fn.argtypes = [_P, _I64, _P, _I, _P, _I, _P, _I, _U64, _P, _P, _P]
+    rc = fn(t.data_ptr(), t.shape[0], pk.data_ptr(), pk.shape[0], idx.data_ptr(),
+            idx.shape[0], None, n, ts_base, w.data_ptr(), lanes.data_ptr(), _stream())
+    if rc:
+        raise RuntimeError(f"parent tb_wave_step: {lib.tb_error_string(rc).decode()}")
+
+
+def k7_sweep(dev, lanes=K7_LANES, parent=None) -> list:
+    """K7's device microseconds per wave at each K of `lanes` (the
+    kernel's own launch and each shape of k7_shapes(K));
+    with `parent`, that tree's two-launch K7 on the same inputs."""
+    old = _parent_lib(parent, "wave_step") if parent is not None else None
+    pool = _pool()
+    out = []
+    for K in lanes:
+        table, ev, dstat, n, ts_base, plan = wave_cases.wide_case(31, B, A_ROWS, rows=pool, n=K)
+        t, pk, _ds, w = _pair(dev, table, ev, dstat)
+        idx = torch.from_numpy(np.asarray(plan.segments[0][1], np.int32)).to(dev)
+        reset = _resetter(t, w, _rows(ev, n, dev))
+        ts = ts_base & ((1 << 64) - 1)
+        row = {"K": K, "geometry": kernels.wave_step_geometry(K)}
+        row["device_us"] = device_us(
+            lambda: kernels.wave_step(t, pk, idx, None, n, ts, w), reset=reset,
+            names=("wave_",))
+        for shape in k7_shapes(K):
+            row[f"{'grid' if shape[1] else 'cluster'}_{shape[0]}_us"] = device_us(
+                lambda shape=shape: kernels.wave_step(t, pk, idx, None, n, ts, w, shape=shape),
+                reset=reset, names=("wave_",))
+        if old is not None:
+            buf = torch.empty(K * 48, dtype=torch.int64, device=dev)
+            row["parent_device_us"] = device_us(
+                lambda: _old_wave(old, t, pk, idx, n, ts, w, buf), reset=reset,
+                names=("wave_",))
+        reset()
+        out.append(row)
+    return out
+
+
+PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
+         "k5": k5_sweep, "k7": k7_sweep}
 
 
 def main(argv=None) -> int:
@@ -262,11 +518,17 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write the JSON object to this file")
     ap.add_argument("--parts", default=",".join(PARTS),
                     help="comma-separated subset of " + ",".join(PARTS))
+    ap.add_argument("--parent", help="an earlier tree whose K5 and K7 run beside these")
+    ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serial_probes: needs a CUDA card")
     dev = torch.device("cuda", 0)
-    res = {part: PARTS[part](dev) for part in args.parts.split(",")}
+    extra = {"k5": {"parent": args.parent},
+             "k7": {"parent": args.parent,
+                    "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
+                                                    if k})}}
+    res = {part: PARTS[part](dev, **extra.get(part, {})) for part in args.parts.split(",")}
     text = json.dumps(res)
     print(text)
     if args.out:
