@@ -5,7 +5,11 @@
 
 Builds the hand-written kernels (csrc/*.cu, one nvcc per source, in
 parallel), holds every kernel against its plain PyTorch version at the
-main path's shapes (bit-exact: the semantics are integer; K3 on full
+main path's shapes (bit-exact: the semantics are integer; K1 on six
+8190-event batches — tight, lo, lo with an overflowing row, full, a
+gen_zipf-skewed tight batch, a tight batch on a compact 2^18-row table —
+with its one launch a call and stage stamps from tools/serial_probes.py;
+K3 on full
 8190-event batches of every class, its plain version on CPU copies; K5
 and K6 on 8192-event batches over a 2^20-row table; K7 over an
 8190-lane wave with and without a commit mask, K8 over 8 positions x
@@ -18,7 +22,8 @@ and 512 events for its fixed and per-event cost; K10 at 128 and 16,384 rows
 into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
 slots, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
 holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
-local rows of a 2^20-row table split in 4, K14 gather and scatter at
+local rows of a 2^20-row table split in 4 (K13 admit also at the
+sharded_apply phase's 4095-event slice of 2^19 rows), K14 gather and scatter at
 row widths 8, 2 and 1 on 16,380 slots (a wave batch) and on the
 ~780,000 rows of a window unit of sharded_engine, K11 with row0 on the four
 shards of a split table against the joined table's digest; the
@@ -160,6 +165,7 @@ from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+from tigerbeetle_tpu_torch.testing import orderfree_cases as of_cases
 from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
@@ -410,26 +416,17 @@ def orderfree_cases(rng, dev):
     ledger-mismatch failures (> FAIL_CAP of them); a lo batch of
     63-bit amounts; the same with an overflow-admission row; a full
     batch with high amount limbs, pending flags and overflowing
-    timeouts."""
+    timeouts; a skewed tight batch (gen_zipf's 100 accounts); a tight
+    batch on a compact table of one 2^18-row shard of the sharded
+    engine."""
     B, n = dk.B, min(dk.B, 8190)
     cases = []
     table, meta = _tables(rng, A_ROWS, dev)
+    to = lambda a, dt: torch.from_numpy(a.view(dt)).to(dev)  # noqa: E731
 
-    dr, cr = _slots(rng, n, N_ACCOUNTS)
-    pk = np.zeros((B, dk.N_COLS_TIGHT), np.uint32)
-    pk[:n, 0] = dk.TIGHT_CODE_BIT
-    pk[:n, 1] = dr + 1
-    pk[:n, 2] = cr + 1
-    pk[:n, 3] = rng.integers(1, 100, n)
-    pk[:n, 4] = 1
-    pk[:40, 1] = 0                       # debit account not found
-    pk[40:70, 0] |= dk.BIT_SAME_ACCT     # accounts must be different
-    odd = pk[70:100, 1].astype(np.int64) - 1
-    meta_np = meta.cpu().numpy().copy()
-    meta_np[odd, 1] = 2                  # ledger mismatch
-    meta_t = torch.from_numpy(meta_np).to(dev)
-    cases.append(("tight", dk.MODE_TIGHT, torch.from_numpy(pk.view(np.int32)).to(dev),
-                  n, 1 << 40, table, meta_t))
+    pk, meta_np = of_cases.tight(rng, B, n, N_ACCOUNTS, meta.cpu().numpy().view(np.uint32))
+    cases.append(("tight", dk.MODE_TIGHT, to(pk, np.int32), n, 1 << 40, table,
+                  to(meta_np, np.int32)))
 
     def wide(amt_hi_max, pending, timeouts):
         d, c = _slots(rng, n, N_ACCOUNTS)
@@ -457,6 +454,11 @@ def orderfree_cases(rng, dev):
     w, _ = wide(1 << 20, 0.5, True)
     cases.append(("full", dk.MODE_FULL, wide_t(w), n,
                   (1 << 64) - 2_000_000_000_000_000_000, table, meta))
+    for name, (tab, met, pk, n_) in (
+            ("skewed", of_cases.skewed(2061, B, n, A_ROWS)),
+            ("compact", of_cases.compact(2062, B, n))):
+        cases.append((name, dk.MODE_TIGHT, to(pk, np.int32), n_, 1 << 40, to(tab, np.int64),
+                      to(met, np.int32)))
     return cases
 
 
@@ -476,17 +478,23 @@ def orderfree_bytes(mode, pk, n, table) -> int:
 
 
 def check_orderfree(rng, dev, report):
+    """K1 against its plain version on every case of orderfree_cases,
+    bit for bit, with µs/call, device µs and host µs beside the bound;
+    "tight", the main path's format, is the kernels line's timed case.
+    Then tools/serial_probes.py's k1 part: one kernel a call, device µs
+    on its timed cases, and the stage stamps."""
     ring = torch.zeros((RING_ROWS, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+    scratch = dk.OrderfreeScratch(dk.B, dev)
+    by_case = {}
     for name, mode, pk, n, ts_base, table, meta in orderfree_cases(rng, dev):
         t_k, r_k = table.clone(), ring.clone()
         t_p, r_p = table.clone(), ring.clone()
-        dk.orderfree(t_k, meta, r_k, 7, pk, n, ts_base, mode=mode)
+        dk.orderfree(t_k, meta, r_k, 7, pk, n, ts_base, mode=mode, scratch=scratch)
         dk.orderfree_plain(t_p, meta, r_p, 7, pk, n, ts_base, mode=mode)
         torch.cuda.synchronize()
         err = max(max_abs_err(t_k, t_p), max_abs_err(r_k, r_p))
         summary = dk.unpack_summary(r_k[7].cpu().numpy().view(np.uint64))
         check(err == 0, f"K1 {name}: kernel differs from the plain version")
-        scratch = dk.OrderfreeScratch(A_ROWS, dk.B, dev)
         args = (meta, r_k, 7, pk, n, ts_base)
         ms, dev_ms, host = kernel_ms(lambda: dk.orderfree(t_k, *args, mode=mode, scratch=scratch))
         plain_ms = time_ms(
@@ -495,14 +503,26 @@ def check_orderfree(rng, dev, report):
         n_bytes, rows = orderfree_bytes(mode, pk, n, table)
         bound_ms, bound_by = bound(n_bytes, n * K1_OPS_PER_EVENT + rows * K1_OPS_PER_ROW)
         print(
-            f"K1 orderfree[{name}]: bit-exact; n_fail={summary['n_fail']} "
+            f"K1 orderfree[{name}] ({table.shape[0]} rows, {rows} distinct rows named): "
+            f"bit-exact; n_fail={summary['n_fail']} "
             f"overflow={summary['overflow']} cap={summary['cap_exceeded']}; "
             f"{ms * 1e3:.1f} us/launch, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}"
         )
-        if name == "tight":  # the main path's format
-            report["orderfree"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
-                                       plain_ms=plain_ms, bound_ms=bound_ms,
-                                       bound_by=bound_by, max_abs_err=err)
+        by_case[name] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                             rows=table.shape[0], distinct_rows=rows)
+    report["orderfree"] = dict(by_case["tight"], cases=by_case, timed_case="tight")
+    report["orderfree"]["max_abs_err"] = max(c["max_abs_err"] for c in by_case.values())
+    sweep = serial_probes.k1_sweep(dev)
+    for name in ("tight", "skewed", "compact"):
+        row = sweep[name]
+        check(row["plain_equal"], f"K1 probe {name}: kernel differs from the plain version")
+        check(row["kernels_per_call"] == 1,
+              f"K1 probe {name}: {row['kernels_per_call']} kernels a call, not one")
+        print(f"K1 probe[{name}]: {row['kernels_per_call']:.0f} kernel a call, "
+              f"{_dev_us(row['device_us'])} on the device; stamped {row['stamped_us']:.2f} us, "
+              f"cycles per stage {({k: int(v) for k, v in row['stage_cycles'].items()})}")
+    report["orderfree"]["sweep"] = sweep
 
 
 def check_commitment(rng, dev, report):
@@ -869,6 +889,33 @@ def check_shard_kernels(dev, report):
                                             f"{n_rej} rejected")
     print(f"K13 shard_admit ({E} events, {rows.numel()} local rows named, {n_rej} rejected): "
           f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
+    # The sharded_apply phase's own slice (4095 events onto one of two
+    # 2^19-row shards), and the k13 probe's device time of both shapes.
+    for name, t_, a_, r0, d_, c_ in serial_probes.k13_cases(dev):
+        if name != "phase_slice":
+            continue
+        got = sharded.admit(t_, a_, r0, d_, c_)
+        want = sharded.admit_plain(t_, a_, r0, d_, c_)
+        torch.cuda.synchronize()
+        p_err = max_abs_err(got.long(), want.long())
+        check(p_err == 0, "K13 shard_admit (phase slice): kernel differs from the plain version")
+        p_ms, p_dev, p_host = kernel_ms(lambda: sharded.admit(t_, a_, r0, d_, c_),
+                                        names=("shard_admit",))
+        p_plain = time_ms(lambda: sharded.admit_plain(t_, a_, r0, d_, c_), reps=10)
+        local_ = t_.shape[0]
+        p_rows = torch.unique(torch.cat([s_[(s_ >= r0) & (s_ < r0 + local_)] for s_ in (d_, c_)]))
+        p_bound, p_by = bound(d_.numel() * 8 + p_rows.numel() * (64 + 128) + d_.numel(),
+                              p_rows.numel() * 4 * K13_OPS_PER_CELL)
+        report["shard_admit"]["phase_slice"] = dict(
+            ms=p_ms, device_ms=p_dev, host_ms=p_host, plain_ms=p_plain, bound_ms=p_bound,
+            bound_by=p_by, max_abs_err=p_err, events=d_.numel(), local_rows=local_,
+            rows_named=p_rows.numel(), rejected=int(got.sum()))
+        print(f"K13 shard_admit (phase slice: {d_.numel()} events onto {local_} local rows, "
+              f"{p_rows.numel()} named, {int(got.sum())} rejected): bit-exact; "
+              f"{p_ms * 1e3:.1f} us, {_dev(p_dev, p_host)} {_vs(p_plain, p_bound)}")
+    k13 = serial_probes.k13_sweep(dev)
+    report["shard_admit"]["sweep"] = k13
+    print(f"K13 probe: device us {({k: v['device_us'] for k, v in k13.items()})}")
 
     t_k, t_p = table.clone(), table.clone()
     sharded.apply(t_k, acc)
@@ -2762,7 +2809,7 @@ def main() -> int:
                     "plain_on", "iters", "timed_case", "k128", "meta",
                     "library_device_ms", "library_host_ms", "widths", "window_unit", "row0",
                     "us_per_batch", "host_split", "library_full",
-                    "by_kind"):
+                    "by_kind", "cases", "phase_slice"):
             if key in r:
                 row[key] = r[key]
         rows.append(row)

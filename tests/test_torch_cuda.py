@@ -20,7 +20,9 @@ from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
-from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
+from tigerbeetle_tpu_torch.testing import (
+    orderfree_cases, scan_cases, semantic_cases, shard_cases, wave_cases,
+)
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
 pytestmark = pytest.mark.cuda
@@ -72,6 +74,173 @@ def test_orderfree_kernel_matches_plain(card, mode):
     torch.cuda.synchronize()
     assert kernels.launches["orderfree"] == before + 1
     assert torch.equal(t_k.cpu(), t_p) and torch.equal(r_k.cpu(), r_p)
+
+
+def _k1_vs_plain(card, table, meta, pk, n, mode, scratch=None, ts_base=1 << 40, ring_at=3):
+    """One K1 launch on the card against orderfree_plain on the CPU
+    (numpy inputs), bit for bit; returns the summary and the kernel's
+    new table (CPU)."""
+    to = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).view(dt).copy())  # noqa: E731
+    t, m = to(table, np.int64), to(meta, np.int32)
+    p = to(pk, np.int32 if pk.dtype == np.uint32 else np.int64)
+    ring = torch.zeros((8, dk.SUMMARY_WORDS), dtype=torch.int64)
+    t_p, r_p = t.clone(), ring.clone()
+    dk.orderfree_plain(t_p, m, r_p, ring_at, p, n, ts_base, mode=mode)
+    t_k, r_k = t.to(card), ring.to(card)
+    before = kernels.launches["orderfree"]
+    dk.orderfree(t_k, m.to(card), r_k, ring_at, p.to(card), n, ts_base, mode=mode,
+                 scratch=scratch)
+    torch.cuda.synchronize()
+    assert kernels.launches["orderfree"] == before + 1
+    assert torch.equal(t_k.cpu(), t_p) and torch.equal(r_k.cpu(), r_p)
+    return dk.unpack_summary(r_p[ring_at].numpy().view(np.uint64)), t_p
+
+
+def _k1_batch(mode, B, dr, cr, amt_lo, amt_hi=0, pending=None):
+    """A K1 batch in `mode`'s format: tight keeps amounts' low 32 bits."""
+    if mode == dk.MODE_TIGHT:
+        return orderfree_cases.pack_tight(B, dr, cr, np.asarray(amt_lo, np.uint64) & M32_NP)
+    flags = 0 if pending is None else np.where(pending, dk.F_PENDING, 0)
+    return orderfree_cases.pack_wide(B, dr, cr, amt_lo, amt_hi, flags=flags)
+
+
+M32_NP = np.uint64((1 << 32) - 1)
+MODES = [dk.MODE_FULL, dk.MODE_LO, dk.MODE_TIGHT]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_orderfree_kernel_one_pair_largest_sums(card, mode):
+    """Every event on one pair of rows, every amount limb 2^32 - 1: the
+    largest limb sums (8190 x (2^32 - 1) per limb) and one owner's
+    hottest row, combined in warps; zero balances, so lo and tight
+    apply and full (every limb of 2^128 - 1) overflows."""
+    B, n, A = dk.B, 8190, 1 << 12
+    table = np.zeros((A, 8), np.uint64)
+    meta = np.ones((A, 2), np.uint32)
+    pending = np.random.default_rng(3).random(n) < 0.3
+    pk = _k1_batch(mode, B, np.full(n, 17), np.full(n, 4000), np.full(n, (1 << 64) - 1,
+                   np.uint64), np.full(n, (1 << 64) - 1, np.uint64), pending)
+    s, t = _k1_vs_plain(card, table, meta, pk, n, mode)
+    assert s["overflow"] == (mode == dk.MODE_FULL) and s["n_fail"] == 0
+    assert (t.numpy() != 0).any() == (mode != dk.MODE_FULL)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_orderfree_kernel_crowded_hash_rows(card, mode):
+    """16,380 distinct rows whose homes in K1's hash table all lie in its
+    first 4096 slots (an eighth of it): long probe chains; a second
+    batch on the same scratch (bit-exact only if the first left the
+    table at rest)."""
+    B, n, A = dk.B, 8190, 1 << 20
+    rows = orderfree_cases.crowded_slots(A, 2 * n, B, 4096)
+    rng = np.random.default_rng(4)
+    table, meta = orderfree_cases.tables(rng, A)
+    scratch = dk.OrderfreeScratch(B, card)
+    for k in range(2):
+        perm = rng.permutation(rows)
+        pk = _k1_batch(mode, B, perm[:n], perm[n:], rng.integers(1, 1 << 62, n, dtype=np.int64),
+                       rng.integers(0, 1 << 20, n), rng.random(n) < 0.5)
+        s, table = _k1_vs_plain(card, table, meta, pk, n, mode, scratch=scratch)
+        table = table.numpy().view(np.uint64)
+        assert not s["overflow"] and s["n_fail"] == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_orderfree_kernel_every_event_fails(card, mode):
+    """A batch where every event fails (debit or credit account not
+    found, same accounts): the summary caps at FAIL_CAP, nothing
+    applies, last applied + 1 is 0."""
+    B, n, A = dk.B, 8190, 1 << 12
+    rng = np.random.default_rng(5)
+    table, meta = orderfree_cases.tables(rng, A)
+    dr = rng.integers(0, A, n)
+    cr = (dr + 1) % A
+    dr[0::2] = -1
+    cr[1::2] = -1
+    pk = _k1_batch(mode, B, dr, cr, rng.integers(1, 100, n))
+    s, t = _k1_vs_plain(card, table, meta, pk, n, mode)
+    assert s["n_fail"] == n and s["cap_exceeded"] and s["last_applied"] == -1
+    assert np.array_equal(t.numpy().view(np.uint64), table)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_orderfree_kernel_overflow_then_second_launch(card, mode):
+    """An overflowing batch (one row at 2^128 - 1 in its column), then a
+    second batch on the same scratch: bit-exact only if the first left
+    the hash table at rest."""
+    B, n, A = dk.B, 8190, 1 << 16
+    rng = np.random.default_rng(6)
+    table, meta = orderfree_cases.tables(rng, A)
+    scratch = dk.OrderfreeScratch(B, card)
+    dr = rng.integers(0, A, n)
+    bad = int(dr[0])
+    table[bad, 2:4] = np.uint64((1 << 64) - 1)   # debits_posted of event 0's debit row
+    pk = _k1_batch(mode, B, dr, (dr + 1) % A, rng.integers(1, 1 << 40, n))
+    s, t = _k1_vs_plain(card, table, meta, pk, n, mode, scratch=scratch)
+    assert s["overflow"] and np.array_equal(t.numpy().view(np.uint64), table)
+    table[bad, 2:4] = 0
+    dr = rng.integers(0, A, n)
+    pk = _k1_batch(mode, B, dr, (dr + 1) % A, rng.integers(1, 1 << 40, n))
+    s, _ = _k1_vs_plain(card, table, meta, pk, n, mode, scratch=scratch)
+    assert not s["overflow"]
+
+
+@pytest.mark.parametrize("n", [0, 1, 511, 4097])
+def test_orderfree_kernel_partial_batches(card, n):
+    """n = 0 and n < B: padding events never apply or fail."""
+    B, A = dk.B, 1 << 12
+    rng = np.random.default_rng(7 + n)
+    table, meta = orderfree_cases.tables(rng, A)
+    dr = rng.integers(0, A, B)
+    for mode in MODES:
+        pk = _k1_batch(mode, B, dr, (dr + 3) % A, rng.integers(1, 1 << 30, B))
+        s, _ = _k1_vs_plain(card, table, meta, pk, n, mode)
+        assert s["n_active"] == n and s["last_applied"] == n - 1
+
+
+@pytest.mark.parametrize("B", [32, 512, 1000, 8192])
+def test_orderfree_kernel_five_row_table(card, B):
+    """A 5-row table (every event on a few rows, some slots past it) at
+    one-block and cluster batch sizes."""
+    A, n = 5, B - 3
+    rng = np.random.default_rng(B)
+    table, meta = orderfree_cases.tables(rng, A)
+    dr = rng.integers(0, A, n)
+    cr = (dr + rng.integers(1, A, n)) % A
+    cr[::97] = A + 3                             # a slot past the table (clamped)
+    for mode in MODES:
+        pk = _k1_batch(mode, B, dr, cr, rng.integers(1, 1 << 60, n, dtype=np.int64),
+                       rng.integers(0, 4, n), rng.random(n) < 0.5)
+        _k1_vs_plain(card, table, meta, pk, n, mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_orderfree_kernel_skewed(card, mode):
+    """gen_zipf's skew: 8190 events over 100 accounts."""
+    table, meta, pk, n = orderfree_cases.skewed(8, dk.B, 8190, 1 << 12)
+    if mode != dk.MODE_TIGHT:
+        w = pk[:n].astype(np.int64)
+        pk = _k1_batch(mode, dk.B, w[:, 1] - 1, w[:, 2] - 1, w[:, 3], w[:, 3] >> 4,
+                       np.random.default_rng(9).random(n) < 0.3)
+    _k1_vs_plain(card, table, meta, pk, n, mode)
+
+
+@pytest.mark.parametrize("kind", ["orderfree", "orderfree_lo", "orderfree_tight"])
+def test_orderfree_run_window_wraps_the_ring(card, kind):
+    """G = 4 batches through scan_of and through run_window (offsets
+    past the stack's end wrap and clamp as dynamic_slice), ring rows
+    wrapping past the end: each equals its plain loop."""
+    G, A = 4, 1 << 16
+    table, meta, ring, stack, ns, tsb = _launcher_inputs(kind, A, G, card)
+    outs = []
+    for plain in (False, True):
+        t, r = table.clone(), ring.clone()
+        dk.scan_of(kind, G, plain=plain)(t, meta, r, 254, stack, ns, tsb)
+        fn = dk.PLAIN[kind] if plain else None
+        dk.run_window(kind, t, meta, r, 255, stack, 2, G, ns, tsb, fn=fn)
+        torch.cuda.synchronize()
+        outs.append((t, r))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 def test_commitment_kernels_match_plain(card):
@@ -810,6 +979,41 @@ def test_shard_kernels_match_plain(card, shard):
     sharded.scatter_part(t_k, slots, new, shard)
     sharded.scatter_part_plain(t_p, slots, new, shard)
     assert torch.equal(t_k, t_p)
+
+
+@pytest.mark.parametrize("owned", ["none", "all", "ceiling"])
+def test_shard_admit_ownership_edges(card, owned):
+    """K13 admit on an 8190-event slice where no slot is this shard's,
+    where every slot is, and where every side of every event names a
+    row within 2^40 of 2^128 in some column (most reject)."""
+    rows, n_shard, shard, E = 1 << 14, 4, 2, 8190
+    local = rows // n_shard
+    row0 = shard * local
+    rng = np.random.default_rng(11)
+    balances, dr, cr, lo, hi, pend = shard_cases.apply_events(12, rows, E, near_ceiling=0,
+                                                              out_of_range=0)
+    if owned == "none":
+        dr = rng.integers(0, row0, E)
+        cr = rng.integers(row0 + local, rows, E)
+    else:
+        dr = row0 + rng.integers(0, local, E)
+        cr = row0 + (dr - row0 + 1 + rng.integers(0, local - 1, E)) % local
+    if owned == "ceiling":
+        col = rng.integers(0, 4, rows)
+        balances[np.arange(rows), 2 * col] = np.uint64((1 << 64) - (1 << 40))
+        balances[np.arange(rows), 2 * col + 1] = np.uint64((1 << 64) - 1)
+    mesh = sharded.make_mesh([card], dp=1)
+    ev = [x[0] for x in sharded.shard_events(mesh, dr.astype(np.int32), cr.astype(np.int32),
+                                             lo, hi, pend)]
+    acc = sharded.accumulate(local, row0, *ev)
+    table = sharded.shard_balances(sharded.make_row_mesh([card] * n_shard), balances)[shard]
+    got = sharded.admit(table, acc, row0, ev[0], ev[1])
+    want = sharded.admit_plain(table, acc, row0, ev[0], ev[1])
+    assert torch.equal(got, want)
+    assert bool(want.any()) == (owned == "ceiling")
+    unaligned = torch.empty(acc.numel() + 1, dtype=torch.int64, device=card)[1:].view_as(acc)
+    unaligned.copy_(acc)
+    assert torch.equal(sharded.admit(table, unaligned, row0, ev[0], ev[1]), want)
 
 
 def test_sharded_paths_on_card_match_plain_and_dense(card):

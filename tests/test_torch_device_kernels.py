@@ -20,7 +20,8 @@ from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 A = 1024          # table rows
 N_ACCT = 900      # rows with accounts (the rest stay zero)
 KINDS = ["orderfree", "orderfree_lo", "orderfree_tight"]
-SCENARIOS = ["padding", "failures", "not_found", "overflow"]
+SCENARIOS = ["padding", "failures", "not_found", "overflow", "skewed", "one_pair"]
+ZIPF_ACCT = 100   # the skewed scenario's accounts, p ~ 1 / rank (gen_zipf)
 
 
 def _table(rng):
@@ -42,6 +43,14 @@ def _batch(rng, kind, scenario, table, meta):
     n = B - 7 if scenario == "padding" else B
     dr = rng.integers(0, N_ACCT, n)
     cr = (dr + 1 + rng.integers(0, 5, n)) % N_ACCT
+    if scenario == "skewed":
+        p = 1.0 / np.arange(1, ZIPF_ACCT + 1)
+        dr = rng.choice(ZIPF_ACCT, n, p=p / p.sum())
+        cr = rng.choice(ZIPF_ACCT, n, p=p / p.sum())
+        cr = np.where(cr == dr, (dr + 1) % ZIPF_ACCT, cr)
+    elif scenario == "one_pair":   # every event on one pair of rows
+        dr = np.full(n, 17)
+        cr = np.full(n, 400)
     dr1 = dr + 1
     if scenario in ("not_found", "failures"):
         dr1[rng.random(n) < 0.1] = 0  # debit account not found
@@ -95,6 +104,12 @@ def _batch(rng, kind, scenario, table, meta):
             flags.astype(np.uint64) | (code.astype(np.uint64) << np.uint64(16))
             | (ledger.astype(np.uint64) << np.uint64(32))
         )
+    if scenario == "one_pair":     # every amount limb 2^32 - 1: the largest limb sums
+        if kind == "orderfree_tight":
+            pk[:n, 3] = np.uint32(0xFFFFFFFF)
+        else:
+            pk[:n, dk.COL_AMT_LO] = np.uint64((1 << 64) - 1)
+            pk[:n, dk.COL_AMT_HI] = np.uint64((1 << 64) - 1)
     if scenario == "overflow":
         s = int(dr[0])
         col = 0 if pending[0] else 1
@@ -131,7 +146,9 @@ def test_orderfree_matches_jax(kind, scenario):
     assert np.array_equal(pt, jt)
     assert np.array_equal(pr, jr)
     s = dk.unpack_summary(pr[5])
-    if scenario == "overflow":
+    # One pair in the full format: every limb of 2^128 - 1, summed over
+    # the batch, passes 2^128.
+    if scenario == "overflow" or (scenario == "one_pair" and kind == "orderfree"):
         assert s["overflow"] and np.array_equal(pt, table)
     else:
         assert not s["overflow"] and not np.array_equal(pt, table)

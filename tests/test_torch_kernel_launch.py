@@ -32,7 +32,7 @@ def _z(shape, dtype=torch.int64):
 
 
 T, M, V, PK = _z((16, 8)), _z((16, 2), torch.int32), _z(16), _z((4, 16))
-SC = SimpleNamespace(slot_idx=V, codes=V, touched=V, acc=V, newrows=V, ctrl=V, words=V)
+SC = SimpleNamespace(slot_idx=V, words=V, batch=4)
 
 # binding name -> (library, symbol, a call of the binding on CPU tensors)
 CALLS = {

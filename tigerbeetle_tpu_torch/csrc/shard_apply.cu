@@ -16,15 +16,25 @@
 //   the row would overflow: some column's old value + its dp-combined
 //   sum passes 2^128 (the carry of the u128 add, or the sum's own carry
 //   past 2^128).  The reference computes row_over for every local row
-//   and gathers it per event; each event thread here computes it for
-//   its own two rows, the same bits from a read of only those rows.
+//   and gathers it per event; here eight lanes take one event, one a
+//   (side, column), and compute it for the event's own two rows only:
+//   the same bits (row_over of a row is the OR of its columns'), from a
+//   read of only those rows.
 // K13 tb_shard_apply: table[r] = old + admitted sums mod 2^128, every
 //   local row, one thread per (row, column).
 //
-// What bounds them on the H100: bytes.  K12 writes the dense acc
-// (128 bytes per local row) and reads 26 bytes per event; K13 admit
-// reads two rows of table and acc per event; K13 apply reads and writes
-// the whole local table and reads the whole acc (256 bytes per row).
+// What bounds them on the H100: bytes for K12 and K13 apply — K12
+// writes the dense acc (128 bytes per local row) and reads 26 bytes per
+// event; K13 apply reads and writes the whole local table and reads the
+// whole acc (256 bytes per row).  K13 admit reads only the named rows'
+// acc and table (192 bytes a row, ~0.25 us for an 8190-event slice), so
+// latency bounds it: the launch and two dependent trips to memory (the
+// slot, then the row).  Its lanes therefore test ownership first (a
+// lane whose slot the shard does not own loads nothing more), load a
+// column's 32-byte limb sums and 16-byte old value as 16-byte vectors
+// (8-byte loads when a pointer is not 16-byte aligned), and spread over
+// one 256-lane block per 32 events, enough to fill every SM; the event's
+// eight verdicts meet in one warp ballot.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -77,34 +87,50 @@ __device__ __forceinline__ void from_limbs(const uint64_t* a, uint64_t& d_lo, ui
   d_carry = c3 >> 32;
 }
 
-__device__ bool row_over(const uint64_t* __restrict__ table, const uint64_t* __restrict__ acc,
-                         int64_t rel) {
-  bool over = false;
-  for (int c = 0; c < 4; ++c) {
-    uint64_t d_lo, d_hi, d_carry;
-    from_limbs(acc + (rel * 4 + c) * 4, d_lo, d_hi, d_carry);
-    const uint64_t o_lo = table[rel * 8 + 2 * c], o_hi = table[rel * 8 + 2 * c + 1];
-    const uint64_t n_lo = o_lo + d_lo;
-    const uint64_t hp = o_hi + d_hi;
-    const uint64_t n_hi = hp + (n_lo < o_lo ? 1ull : 0ull);
-    over |= (hp < o_hi) | (n_hi < hp) | (d_carry != 0);
+constexpr int ADMIT_LANES = 8;  // lanes an event: (debit, credit) x four columns
+
+__device__ __forceinline__ void load2(const uint64_t* p, bool vec, uint64_t& x, uint64_t& y) {
+  if (vec) {
+    const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(p);
+    x = v.x;
+    y = v.y;
+  } else {
+    x = p[0];
+    y = p[1];
   }
-  return over;
 }
 
-__global__ void shard_admit(const uint64_t* __restrict__ table, const uint64_t* __restrict__ acc,
-                            int64_t local_rows, int64_t row0, const int32_t* __restrict__ dr,
-                            const int32_t* __restrict__ cr, int64_t E,
-                            uint8_t* __restrict__ reject) {
-  for (int64_t e = (int64_t)blockIdx.x * THREADS + threadIdx.x; e < E;
-       e += (int64_t)gridDim.x * THREADS) {
-    bool r = false;
-    for (int side = 0; side < 2; ++side) {
-      const int64_t rel = (int64_t)(side ? cr[e] : dr[e]) - row0;
-      if (rel >= 0 && rel < local_rows) r |= row_over(table, acc, rel);
+// One lane per (event, side, column): does the column of the row its
+// side names, if this shard owns it, overflow?  The event's eight
+// lanes are eight neighbouring lanes of one warp, so one ballot ORs
+// them; their lowest writes the event's reject byte.
+__global__ void __launch_bounds__(THREADS)
+    shard_admit(const uint64_t* __restrict__ table, const uint64_t* __restrict__ acc,
+                int64_t local_rows, int64_t row0, const int32_t* __restrict__ dr,
+                const int32_t* __restrict__ cr, int64_t E, uint8_t* __restrict__ reject,
+                bool vec) {
+  const int64_t j = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t e = j / ADMIT_LANES;
+  const int side = (int)(j >> 2) & 1, c = (int)j & 3;
+  bool over = false;
+  if (e < E) {
+    const int64_t rel = (int64_t)(side ? cr[e] : dr[e]) - row0;
+    if (rel >= 0 && rel < local_rows) {
+      uint64_t a[4], o_lo, o_hi, d_lo, d_hi, d_carry;
+      const uint64_t* ap = acc + (rel * 4 + c) * 4;
+      load2(ap, vec, a[0], a[1]);
+      load2(ap + 2, vec, a[2], a[3]);
+      load2(table + rel * 8 + 2 * c, vec, o_lo, o_hi);
+      from_limbs(a, d_lo, d_hi, d_carry);
+      const uint64_t n_lo = o_lo + d_lo;
+      const uint64_t hp = o_hi + d_hi;
+      const uint64_t n_hi = hp + (n_lo < o_lo ? 1ull : 0ull);
+      over = (hp < o_hi) | (n_hi < hp) | (d_carry != 0);
     }
-    reject[e] = r ? 1 : 0;
   }
+  const unsigned votes = __ballot_sync(0xFFFFFFFFu, over);
+  const int lane = threadIdx.x & 31;
+  if ((lane & (ADMIT_LANES - 1)) == 0 && e < E) reject[e] = (votes >> lane) & 0xFFu ? 1 : 0;
 }
 
 __global__ void shard_apply(uint64_t* __restrict__ table, const uint64_t* __restrict__ acc,
@@ -152,10 +178,14 @@ extern "C" int tb_shard_admit(const void* table, const void* acc, int64_t local_
                               int64_t row0, const void* dr, const void* cr, int64_t E,
                               void* reject, void* stream) {
   if (E > 0) {
-    shard_admit<<<grid_for(E), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    const bool vec =
+        ((reinterpret_cast<uintptr_t>(table) | reinterpret_cast<uintptr_t>(acc)) & 15) == 0;
+    const int64_t blocks = (E * ADMIT_LANES + THREADS - 1) / THREADS;
+    if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    shard_admit<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint64_t*>(table), static_cast<const uint64_t*>(acc), local_rows,
         row0, static_cast<const int32_t*>(dr), static_cast<const int32_t*>(cr), E,
-        static_cast<uint8_t*>(reject));
+        static_cast<uint8_t*>(reject), vec);
   }
   return (int)cudaGetLastError();
 }

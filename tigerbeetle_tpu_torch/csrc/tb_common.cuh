@@ -1,7 +1,8 @@
 // Device code shared by the semantic kernels K1 (orderfree.cu), K5
-// (linked.cu) and K6 (two_phase.cu): the packed input layout, the
-// static precedence ladder, the per-slot row claim, the u128 overflow
-// test and the failure-sparse summary row.  Counterparts of
+// (linked.cu) and K6 (two_phase.cu): the packed input layout (K1's
+// three formats), the static precedence ladder, the per-slot row claim
+// (K5, K6), the u128 overflow test and the failure-sparse summary row
+// (K6; K5 and K1 write theirs from every block).  Counterparts of
 // tigerbeetle_tpu/state_machine/device_kernels.py _unpack :157,
 // _static_ladder_normal :180, _admit_apply :311 and _summary :344.
 //
@@ -164,6 +165,43 @@ __device__ __forceinline__ uint32_t ladder_normal(const Event& ev, const uint32_
   return 0;
 }
 
+// K1's packed formats (the tight format's word 0 layout) and modes.
+constexpr uint32_t TIGHT_FLAGS_SHIFT = 18;
+constexpr uint32_t TIGHT_CODE_BIT = 1u << 24;
+constexpr uint32_t TIGHT_RESERVED_BIT = 1u << 25;
+constexpr uint64_t NS_PER_S = 1000000000ull;
+enum Mode : int { MODE_FULL = 0, MODE_LO = 1, MODE_TIGHT = 2 };
+
+// The three packed input formats (device_kernels.py _unpack and
+// _orderfree_tight): (B, 6) u64 for full/lo, (B, 5) u32 for tight.
+__device__ __forceinline__ Event decode_orderfree(const void* pk, int mode, int e) {
+  if (mode != MODE_TIGHT) return decode_wide(static_cast<const uint64_t*>(pk), N_COLS, e);
+  Event ev;
+  const uint32_t* w = static_cast<const uint32_t*>(pk) + (size_t)e * 5;
+  const uint32_t w0 = w[0];
+  ev.bits = w0;
+  ev.flags = ((w0 >> TIGHT_FLAGS_SHIFT) & 0x3Fu) | ((w0 & TIGHT_RESERVED_BIT) ? 0x40u : 0u);
+  ev.code = (w0 & TIGHT_CODE_BIT) ? 1u : 0u;
+  ev.dr = (int64_t)w[1] - 1;
+  ev.cr = (int64_t)w[2] - 1;
+  ev.amt_lo = w[3];
+  ev.amt_hi = 0;
+  ev.ledger = w[4];
+  ev.timeout = 0;
+  return ev;
+}
+
+// K1's ladder: the static precedence ladder then overflows_timeout.
+__device__ __forceinline__ uint32_t ladder_orderfree(const Event& ev, const uint32_t* meta,
+                                                     int64_t A, bool active, uint64_t ts_i) {
+  uint32_t r = ladder_normal(ev, meta, A, active);
+  if (r == 0 && ev.timeout != 0) {
+    const uint64_t expires = ts_i + ev.timeout * NS_PER_S;  // wraps mod 2^64
+    if (expires < ts_i) r = OVERFLOWS_TIMEOUT;
+  }
+  return r;
+}
+
 // Claim row `s` for this batch: the first claimer takes the next index
 // k of the touched-row list (the per-slot index rests at -1 between
 // launches, -2 while being claimed) and zeroes its `width` accumulator
@@ -290,7 +328,7 @@ __device__ void write_summary(const int32_t* codes, const uint8_t* applied, int 
   __syncthreads();
 }
 
-// Summary launch of the multi-launch kernels (K1, K6): one block of
+// Summary launch of the multi-launch kernel K6: one block of
 // 1024 threads; ctrl[1] != 0 is the batch's overflow flag, and both
 // batch counters return to zero for the next launch.
 __global__ void summary_kernel(const int32_t* codes, int n, int B, int32_t* ctrl,
@@ -304,7 +342,7 @@ __global__ void summary_kernel(const int32_t* codes, int n, int B, int32_t* ctrl
 
 constexpr int SUMMARY_THREADS = 1024;
 
-// The all-or-nothing write of the multi-launch kernels, after every
+// The all-or-nothing write of the multi-launch kernel K6, after every
 // touched row was admitted (a separate launch, so the flag ctrl[1] is
 // final): new rows written unless the batch overflowed, and each row's
 // per-slot index returned to -1.

@@ -58,12 +58,10 @@ _U64 = ctypes.c_uint64
 
 _SIGNATURES = {
     "orderfree": {
-        # table, meta, A, ring_row, pk, mode, n, B, ts_base, slot_idx,
-        # codes, touched, acc, newrows, ctrl, stream
-        "tb_orderfree": [
-            _P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _P, _P, _P, _P,
-            _P, _P,
-        ],
+        # table, meta, A, ring_row, pk, mode, n, B, ts_base, words,
+        # cap (the scratch's batch), threads (0: the kernel's own),
+        # stamps (nullable), stream
+        "tb_orderfree": [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I, _I, _P, _P],
     },
     "commitment": {
         # balances, meta, rows, A, row_hash (nullable), fold_out, stream
@@ -204,13 +202,17 @@ def _ptr(t):
 
 
 def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch,
-              count_as="orderfree"):
+              count_as="orderfree", stamps=None, threads=0):
+    """K1; `scratch` holds `words` (its hash table) made for a batch of
+    `scratch.batch` >= pk.shape[0] events; `stamps` a zeroed CUDA int64
+    tensor of orderfree_stamps() words for the stage stamps of a
+    measurement, or None; `threads` a block size to force (the probes'
+    comparison; 0 takes the kernel's own)."""
     _launch(
         "orderfree", "tb_orderfree", count_as, table.get_device(),
         table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(),
-        mode, n, pk.shape[0], ts_base_u64, scratch.slot_idx.data_ptr(),
-        scratch.codes.data_ptr(), scratch.touched.data_ptr(), scratch.acc.data_ptr(),
-        scratch.newrows.data_ptr(), scratch.ctrl.data_ptr(),
+        mode, n, pk.shape[0], ts_base_u64, scratch.words.data_ptr(), scratch.batch, threads,
+        _ptr(stamps),
     )
 
 
@@ -234,8 +236,8 @@ def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch, count_as="two_
 
 
 def scratch_words(lib: str, batch: int) -> int:
-    """u64 words of K5's or K6's scratch buffer for a `batch`-event
-    bucket (the layout is the kernel source's)."""
+    """u64 words of K1's, K5's or K6's scratch buffer for a
+    `batch`-event bucket (the layout is the kernel source's)."""
     fn = _FNS.get(lib + ".words")
     if fn is None:
         from tigerbeetle_tpu_torch.kernels import build
@@ -343,17 +345,27 @@ def exact_finalize(table, batch, scratch_words, hist_fix, out):
     )
 
 
-def linked_stamps() -> int:
-    """Words of K5's stage-stamp buffer."""
-    fn = _FNS.get("tb_linked_stamps")
+def _stamps(lib: str) -> int:
+    symbol = f"tb_{lib}_stamps"
+    fn = _FNS.get(symbol)
     if fn is None:
         from tigerbeetle_tpu_torch.kernels import build
 
-        fn = build.load("linked").tb_linked_stamps
+        fn = getattr(build.load(lib), symbol)
         fn.argtypes = []
         fn.restype = _I
-        _FNS["tb_linked_stamps"] = fn
+        _FNS[symbol] = fn
     return int(fn())
+
+
+def linked_stamps() -> int:
+    """Words of K5's stage-stamp buffer."""
+    return _stamps("linked")
+
+
+def orderfree_stamps() -> int:
+    """Words of K1's stage-stamp buffer."""
+    return _stamps("orderfree")
 
 
 def _geometry(lib: str, symbol: str, size: int, width: int) -> tuple[int, ...]:
@@ -368,6 +380,13 @@ def _geometry(lib: str, symbol: str, size: int, width: int) -> tuple[int, ...]:
     geom = (_I * width)()
     fn(size, geom)
     return tuple(geom)
+
+
+def orderfree_geometry(B: int) -> tuple[int, int, int]:
+    """K1's launch for a B-event batch on the current card: (blocks of
+    its cooperative grid, threads per block, dynamic shared-memory
+    bytes)."""
+    return _geometry("orderfree", "tb_orderfree_geometry", B, 3)
 
 
 def linked_geometry(B: int) -> tuple[int, int, int]:

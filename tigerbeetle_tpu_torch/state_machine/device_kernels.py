@@ -730,27 +730,21 @@ def two_phase_plain(table, meta, ring, ring_at, pk, n, ts_base, lo_only=False,
 
 
 class OrderfreeScratch:
-    """Device scratch K1 reuses across launches: a per-slot index that
-    rests at -1 (one int32 per table row: touched rows claim it and the
-    apply launch returns it to -1, so no launch clears the whole
-    table), and per-batch codes, touched-row list, limb accumulators,
-    candidate rows and the two batch counters (resting at 0)."""
+    """Device scratch K1 reuses across launches: its hash table of the
+    batch's rows (keys and column sums, which every launch leaves at
+    zero) and the blocks' totals, one u64 word buffer zeroed once (the
+    layout is the kernel source's).  Sized by the batch, not the table:
+    it serves any table, a compact one included, and any batch of at
+    most `batch` events."""
 
-    def __init__(self, rows: int, batch: int, device) -> None:
-        i32, i64 = torch.int32, torch.int64
-        self.rows, self.batch = rows, batch
-        self.slot_idx = torch.full((rows,), -1, dtype=i32, device=device)
-        self.codes = torch.empty(batch, dtype=i32, device=device)
-        self.touched = torch.empty(2 * batch, dtype=i32, device=device)
-        self.acc = torch.empty((2 * batch, 16), dtype=i64, device=device)
-        self.newrows = torch.empty((2 * batch, 8), dtype=i64, device=device)
-        self.ctrl = torch.zeros(2, dtype=i32, device=device)
+    def __init__(self, batch: int, device) -> None:
+        self.batch = batch
+        self.words = torch.zeros(
+            kernels.scratch_words("orderfree", batch), dtype=torch.int64, device=device
+        )
 
     def fits(self, rows: int, batch: int) -> bool:
-        # A launch touches slot_idx only below its table's row count,
-        # so a scratch made for more rows serves a smaller (compact)
-        # table too.
-        return self.rows >= rows and self.batch >= batch
+        return batch <= self.batch
 
 
 def _check_batch(table, meta, ring, ring_at, pk, n, want):
@@ -792,8 +786,13 @@ def orderfree(table, meta, ring, ring_at, pk, n, ts_base, mode=MODE_FULL,
     _check_batch(table, meta, ring, ring_at, pk, n, want)
     if table.device.type == "cpu":
         return orderfree_plain(table, meta, ring, ring_at, pk, n, ts_base, mode)
+    if pk.shape[0] > 8192:
+        raise ValueError("the order-free kernel takes batches of at most 8192 events")
+    if table.data_ptr() % 16:
+        raise ValueError("the order-free kernel moves rows in 16-byte pieces: the table "
+                         "must be 16-byte aligned")
     if scratch is None or not scratch.fits(table.shape[0], pk.shape[0]):
-        scratch = OrderfreeScratch(table.shape[0], pk.shape[0], table.device)
+        scratch = OrderfreeScratch(pk.shape[0], table.device)
     kernels.orderfree(
         table, meta, _ring_row(ring, ring_at), pk, mode, int(n),
         int(ts_base) & ((1 << 64) - 1), scratch, count_as,
@@ -885,7 +884,7 @@ PLAIN = _launchers(
 def new_scratch(family: str, rows: int, device):
     """The scratch of one kernel family for a `rows`-row table."""
     if family == "orderfree":
-        return OrderfreeScratch(rows, B, device)
+        return OrderfreeScratch(B, device)
     return WordScratch(family, rows, B, device)
 
 

@@ -1,6 +1,6 @@
-"""The serial kernels' floors and times on the card: K8's barrier, K8
-over its chain shapes, K3 over its segment lengths, and where one K3
-event's time goes.
+"""The redesigned kernels' floors and times on the card: K8's barrier,
+K8 over its chain shapes, K3 over its segment lengths, where one K3
+event's time goes; K5, K7, K1 and K13 admit beside an earlier tree's.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
         [--parent DIR] [--k7-lanes K,...]
@@ -39,16 +39,34 @@ kernels of the port) and drives the port's own wrappers:
   the kernel's own launch and at every shape of ``k7_shapes(K)``
   (clusters and cooperative grids, 8-256 lanes a block).
 
+* ``k1``: K1 on its three timed cases (``k1_cases``: the tight batch of
+  ``chip_smoke.py``'s shape, gen_zipf's skew, a compact 2^18-row table):
+  device microseconds and kernels per call (the profiler, over every
+  kernel the call launches), the bits against the plain version, the
+  cycles of each stage from ``clock64()`` stamps in a stamped launch
+  (each block's thread 0: block 0's, and the most and least over the
+  blocks); K1 at the block sizes of ``K1_THREADS`` (its own is 64); and
+  the alternative design, ``tools/k1_cluster.cu`` (one thread-block
+  cluster of 16 blocks owning the rows in shared memory), on the same
+  inputs.
+* ``k13``: K13 admit on chip_smoke.py's 8190-event slice and on the
+  sharded_apply phase's 4095-event slice: device microseconds per call.
+* ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
+  checks from the parent's tree and from this one, in turns (parent,
+  change, change, parent), one process each: what each tree's checks
+  measure (µs/call, device µs, host µs, plain µs, bound).
+
 ``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
 ``git archive`` under ``build/``) adds, in the same process and on the
-same inputs, that tree's K5 and K7 (built from its ``csrc``; its K5
-also built with stamps patched in between its stages) to ``k5`` and
-``k7``.
+same inputs, that tree's K1, K5, K7 and K13 admit (built from its
+``csrc``; its K5 also built with stamps patched in between its stages)
+to ``k1``, ``k5``, ``k7`` and ``k13``; for K1, the split of its time
+over the kernels it launches.
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
-``k8``, ``k3``, ``k5`` and ``k7`` build nothing of their own but the
-parent's, so they run on any tree with the wrappers); ``chip_smoke.py``
-prints the barrier, k8, k3, k5 and k7 parts.
+``k8``, ``k3``, ``k5``, ``k7`` and ``k13`` build nothing of their own
+but the parent's, so they run on any tree with the wrappers);
+``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
 
 from __future__ import annotations
@@ -57,6 +75,7 @@ import argparse
 import ctypes
 import json
 import re
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -67,7 +86,7 @@ from tigerbeetle_tpu_torch.kernels import build
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
-from tigerbeetle_tpu_torch.testing import semantic_cases, wave_cases
+from tigerbeetle_tpu_torch.testing import orderfree_cases, semantic_cases, wave_cases
 
 LIB = "serial_probes"
 A_ROWS = 1 << 20
@@ -124,10 +143,11 @@ def _event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def device_us(fn, reset=None, names=(), reps: int = 20) -> float | None:
-    """Device microseconds per call of `fn`: the profiler's CUDA kernel
-    time of the kernels whose name holds one of `names`, over `reps`
-    calls (`reset()` before each, its copies not counted)."""
+def device_split(fn, reset=None, names=(), reps: int = 20) -> dict:
+    """Per device function whose name holds one of `names`: its
+    microseconds and launches per call of `fn` (the profiler's CUDA
+    kernel time over `reps` calls, `reset()` before each, its copies
+    not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,12 +161,20 @@ def device_us(fn, reset=None, names=(), reps: int = 20) -> float | None:
                 reset()
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and any(k in e.key for k in names):
-            total += getattr(e, "self_device_time_total", None) or getattr(
+            us = getattr(e, "self_device_time_total", None) or getattr(
                 e, "self_cuda_time_total", 0.0)
-    return total / reps if total > 0 else None
+            out[e.key] = {"us": us / reps, "launches": e.count / reps}
+    return out
+
+
+def device_us(fn, reset=None, names=(), reps: int = 20) -> float | None:
+    """Device microseconds per call of `fn`: device_split's times summed
+    (None when the profiler saw none)."""
+    total = sum(v["us"] for v in device_split(fn, reset, names, reps).values())
+    return total if total > 0 else None
 
 
 def barrier_sweep(dev) -> dict:
@@ -509,22 +537,250 @@ def k7_sweep(dev, lanes=K7_LANES, parent=None) -> list:
     return out
 
 
+# ---- K1 and K13 admit, the change against an earlier tree's kernels.
+
+K1_STAGES = ("ladder", "combine", "probe", "claim", "sync_claim", "totals", "admit",
+             "sync_admit", "apply")
+# The five launches of K1 before its redesign (PRs 1-11).
+K1_PARENT = ("of_ladder", "of_accum", "of_admit", "apply_rows_kernel", "summary_kernel")
+K1_EVENTS = workload.BATCH
+K1_THREADS = (32, 128, 256)  # block sizes K1 is also timed at (its own: 64)
+
+
+def k1_cases():
+    """K1's timed cases as numpy (name, table, meta, pk, n), all in the
+    tight format at B = 8192: "tight" (chip_smoke.py's shape: uniform
+    debit rows of 1,000,000 accounts on 2^20 rows, credit = debit + 1,
+    100 failures), "skewed" (gen_zipf's 100 accounts on 2^20 rows) and
+    "compact" (a compact table of one 2^18-row shard)."""
+    rng = np.random.default_rng(2060)
+    table, meta = orderfree_cases.tables(rng, A_ROWS)
+    pk, meta = orderfree_cases.tight(rng, B, K1_EVENTS, 1_000_000, meta)
+    yield "tight", table, meta, pk, K1_EVENTS
+    yield ("skewed",) + orderfree_cases.skewed(2061, B, K1_EVENTS, A_ROWS)
+    yield ("compact",) + orderfree_cases.compact(2062, B, K1_EVENTS)
+
+
+def _old_orderfree(lib, t, m, ring_row, pk, mode, n, ts, olds):
+    fn = lib.tb_orderfree
+    fn.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _P, _P, _P, _P, _P, _P]
+    rc = fn(t.data_ptr(), m.data_ptr(), t.shape[0], ring_row, pk.data_ptr(), mode, n,
+            pk.shape[0], ts, *(x.data_ptr() for x in olds), _stream())
+    if rc:
+        raise RuntimeError(f"parent tb_orderfree: {lib.tb_error_string(rc).decode()}")
+
+
+def _old_orderfree_scratch(A, B, dev):
+    """The parent's K1 scratch: per-slot index (resting at -1), codes,
+    touched list, limb accumulators, candidate rows, two counters."""
+    i32, i64 = torch.int32, torch.int64
+    return (torch.full((A,), -1, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev),
+            torch.empty(2 * B, dtype=i32, device=dev),
+            torch.empty((2 * B, 16), dtype=i64, device=dev),
+            torch.empty((2 * B, 8), dtype=i64, device=dev), torch.zeros(2, dtype=i32, device=dev))
+
+
+def _k1_cluster_lib():
+    """The alternative design of K1 (tools/k1_cluster.cu)."""
+    lib = build.load("k1_cluster", build.TOOLS)
+    lib.tb_k1_cluster.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I, _P, _P]
+    lib.tb_k1_cluster.restype = _I
+    lib.tb_k1_cluster_scratch_words.argtypes = [_I]
+    lib.tb_k1_cluster_scratch_words.restype = _I64
+    lib.tb_error_string.argtypes = [_I]
+    lib.tb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def k1_sweep(dev, parent=None) -> dict:
+    """K1 on each of k1_cases: device microseconds and kernel launches
+    per call (the profiler, over every kernel the call launches; the
+    table restored between calls), the bits against the plain version,
+    and the cycles per stage of a stamped launch; with `parent`, that
+    tree's K1 on the same inputs: its time, its split into its five
+    launches, and its bits against the change's."""
+    khz = _lib().tb_sm_clock_khz()
+    old = _parent_lib(parent, "orderfree") if parent is not None else None
+    out = {"sm_clock_khz": khz, "geometry": kernels.orderfree_geometry(B)}
+    blocks = out["geometry"][0]
+    mode, ts = dk.MODE_TIGHT, 1 << 40
+    for name, table, meta, pk, n in k1_cases():
+        t = torch.from_numpy(table.view(np.int64)).to(dev)
+        m = torch.from_numpy(meta.view(np.int32)).to(dev)
+        p = torch.from_numpy(pk.view(np.int32)).to(dev)
+        saved = t.clone()
+        reset = lambda t=t, s=saved: t.copy_(s)  # noqa: E731
+        ring = torch.zeros((4, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+        scratch = dk.OrderfreeScratch(B, dev)
+        run = lambda: kernels.orderfree(t, m, ring[1].data_ptr(), p, mode, n, ts,  # noqa: E731
+                                        scratch, count_as=None)
+        split = device_split(run, reset, names=("orderfree_kernel",))
+        row = {"events": n, "rows": t.shape[0], "device_us": sum(v["us"] for v in split.values()),
+               "kernels_per_call": sum(v["launches"] for v in split.values())}
+        reset()
+        run()
+        t_new = t.clone()
+        t_p, r_p = saved.clone(), torch.zeros_like(ring)
+        dk.orderfree_plain(t_p, m, r_p, 1, p, n, ts, mode=mode)
+        row["plain_equal"] = bool(torch.equal(t_new, t_p) and torch.equal(ring[1], r_p[1]))
+        st = torch.zeros(kernels.orderfree_stamps(), dtype=torch.int64, device=dev)
+        reset()
+        kernels.orderfree(t, m, ring[1].data_ptr(), p, mode, n, ts, scratch, count_as=None,
+                          stamps=st)
+        c = st.cpu().numpy().astype(np.float64).reshape(-1, len(K1_STAGES) + 1)[:blocks]
+        d = np.diff(c, axis=1)  # (blocks, stages): each block's thread 0
+        row["stage_cycles"] = {s: d[0, k] for k, s in enumerate(K1_STAGES)}
+        row["stage_cycles_max"] = {s: d[:, k].max() for k, s in enumerate(K1_STAGES)}
+        row["stage_cycles_min"] = {s: d[:, k].min() for k, s in enumerate(K1_STAGES)}
+        row["stage_cycles_p50"] = {s: float(np.median(d[:, k])) for k, s in enumerate(K1_STAGES)}
+        row["stage_cycles_p90"] = {s: float(np.percentile(d[:, k], 90))
+                                   for k, s in enumerate(K1_STAGES)}
+        row["stamped_us"] = (c[0, -1] - c[0, 0]) / khz * 1e3
+        for threads in K1_THREADS:
+            row[f"threads_{threads}_device_us"] = device_us(
+                lambda threads=threads: kernels.orderfree(t, m, ring[1].data_ptr(), p, mode, n,
+                                                          ts, scratch, count_as=None,
+                                                          threads=threads),
+                reset, names=("orderfree_kernel",))
+        # The alternative design (tools/k1_cluster.cu): one cluster.
+        alt = _k1_cluster_lib()
+        aw = torch.zeros(alt.tb_k1_cluster_scratch_words(B), dtype=torch.int64, device=dev)
+
+        def arun():
+            rc = alt.tb_k1_cluster(t.data_ptr(), m.data_ptr(), t.shape[0], ring[3].data_ptr(),
+                                   p.data_ptr(), mode, n, B, ts, aw.data_ptr(), B, None,
+                                   _stream())
+            if rc:
+                raise RuntimeError(f"tb_k1_cluster: {alt.tb_error_string(rc).decode()}")
+
+        row["cluster_device_us"] = device_us(arun, reset, names=("orderfree_kernel",))
+        reset()
+        arun()
+        torch.cuda.synchronize()
+        row["cluster_equal"] = bool(torch.equal(t, t_new) and torch.equal(ring[3], ring[1]))
+        if old is not None:
+            olds = _old_orderfree_scratch(t.shape[0], B, dev)
+            orun = lambda: _old_orderfree(old, t, m, ring[2].data_ptr(), p, mode, n, ts,  # noqa: E731
+                                          olds)
+            psplit = device_split(orun, reset, names=K1_PARENT)
+            row["parent_device_us"] = sum(v["us"] for v in psplit.values())
+            row["parent_kernels_per_call"] = sum(v["launches"] for v in psplit.values())
+            row["parent_split_us"] = {next((k for k in K1_PARENT if k in key), key): v["us"]
+                                      for key, v in psplit.items()}
+            reset()
+            orun()
+            torch.cuda.synchronize()
+            row["parent_equal"] = bool(torch.equal(t, t_new) and torch.equal(ring[2], ring[1]))
+        reset()
+        out[name] = row
+    return out
+
+
+def k13_cases(dev):
+    """K13 admit's timed cases on the card, (name, local table, acc,
+    row0, dr, cr): chip_smoke.py's (an 8190-event slice onto shard 1 of
+    a 2^20-row table split in 4, 64 rows within 2^40 of 2^128) and the
+    sharded_apply phase's slice (4095 events, the dp half of a batch,
+    onto shard 1 of 2; the same seeded rows)."""
+    from tigerbeetle_tpu_torch.parallel import sharded
+    from tigerbeetle_tpu_torch.testing import shard_cases
+
+    balances, *events = shard_cases.apply_events(2040, A_ROWS, workload.BATCH, near_ceiling=64)
+    for name, shards, dp in (("slice_8190", 4, 1), ("phase_slice", 2, 2)):
+        mesh = sharded.make_mesh([dev] * (shards * dp), dp=dp)
+        ev = [x[0] for x in sharded.shard_events(mesh, *events)]
+        local = A_ROWS // shards
+        table = sharded.shard_balances(sharded.make_row_mesh([dev] * shards), balances)[1]
+        acc = sharded.accumulate(local, local, *ev)
+        yield name, table, acc, local, ev[0], ev[1]
+
+
+def k13_sweep(dev, parent=None) -> dict:
+    """K13 admit on each of k13_cases: device microseconds per call,
+    the events and the rejects; with `parent`, that tree's K13 admit on
+    the same inputs, and whether its reject bytes equal the change's."""
+    old = _parent_lib(parent, "shard_apply") if parent is not None else None
+    out = {}
+    for name, table, acc, row0, dr, cr in k13_cases(dev):
+        E = dr.shape[0]
+        rej = torch.empty(E, dtype=torch.uint8, device=dev)
+        run = lambda: kernels.shard_admit(table, acc, row0, dr, cr, rej)  # noqa: E731
+        row = {"events": E, "local_rows": table.shape[0],
+               "device_us": device_us(run, names=("shard_admit",))}
+        run()
+        torch.cuda.synchronize()
+        row["rejected"] = int(rej.sum())
+        if old is not None:
+            fn = old.tb_shard_admit
+            fn.argtypes = [_P, _P, _I64, _I64, _P, _P, _I64, _P, _P]
+            orej = torch.empty_like(rej)
+            orun = lambda: fn(table.data_ptr(), acc.data_ptr(), table.shape[0],  # noqa: E731
+                              row0, dr.data_ptr(), cr.data_ptr(), E, orej.data_ptr(), _stream())
+            row["parent_device_us"] = device_us(orun, names=("shard_admit",))
+            orun()
+            torch.cuda.synchronize()
+            row["parent_equal"] = bool(torch.equal(orej, rej))
+        out[name] = row
+    return out
+
+
+# One tree's chip_smoke.py K1 and shard-kernel checks, run from its
+# root; the report's orderfree and shard_admit entries on one line.
+_TURN = """
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from tigerbeetle_tpu_torch.kernels import build
+build.build_all()
+rep = {}
+c.check_orderfree(np.random.default_rng(2026), torch.device("cuda", 0), rep)
+c.check_shard_kernels(torch.device("cuda", 0), rep)
+print("TURN " + json.dumps({k: rep[k] for k in ("orderfree", "shard_admit")}, default=float))
+"""
+
+
+def turns(dev, parent=None) -> dict:
+    """chip_smoke.py's own K1 and K13 checks from `parent`'s tree and
+    from this one, in turns (parent, change, change, parent), each in a
+    process of its own: every K1 case's and K13 admit's µs/call, device
+    µs and host µs as that tree's chip_smoke.py measures them."""
+    import subprocess
+
+    if parent is None:
+        raise SystemExit("serial_probes: the turns part needs --parent")
+    here = Path(__file__).resolve().parents[2]
+    out = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        root = Path(parent).resolve() if who == "parent" else here
+        run = subprocess.run([sys.executable, "-c", _TURN], cwd=root, capture_output=True,
+                             text=True, timeout=600)
+        line = [ln for ln in run.stdout.splitlines() if ln.startswith("TURN ")]
+        if run.returncode or not line:
+            raise RuntimeError(f"turn in {root}: rc {run.returncode}\n{run.stderr[-3000:]}")
+        out[who].append(json.loads(line[0][5:]))
+    return out
+
+
+# "turns" runs only when asked for.
 PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
-         "k5": k5_sweep, "k7": k7_sweep}
+         "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "turns": turns}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON object to this file")
-    ap.add_argument("--parts", default=",".join(PARTS),
+    ap.add_argument("--parts", default=",".join(p for p in PARTS if p != "turns"),
                     help="comma-separated subset of " + ",".join(PARTS))
-    ap.add_argument("--parent", help="an earlier tree whose K5 and K7 run beside these")
+    ap.add_argument("--parent",
+                    help="an earlier tree whose K1, K5, K7 and K13 admit run beside these")
     ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serial_probes: needs a CUDA card")
     dev = torch.device("cuda", 0)
-    extra = {"k5": {"parent": args.parent},
+    extra = {"k5": {"parent": args.parent}, "k1": {"parent": args.parent},
+             "k13": {"parent": args.parent}, "turns": {"parent": args.parent},
              "k7": {"parent": args.parent,
                     "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
                                                     if k})}}
