@@ -18,8 +18,8 @@
 // batch (the admission sees every sum, the apply every row's verdict).
 // Claims and sums are atomics.  An SM's shared-memory atomics are slow
 // at 64 bits (a CAS loop), so a cluster of 16 SMs that owns the rows in
-// shared memory spends ~10 us on them (tools/serial_probes.py, part k1,
-// times that design, tools/k1_cluster.cu, beside this one), while L2's
+// shared memory spent ~10 us on them when it was measured beside this
+// one (PERF.md, the K1 design notes), while L2's
 // atomic units take them from every SM at once; what bounds this design
 // is their rate (a claim's CAS waits ~3 us in a uniform batch of 16k
 // rows) and the two grid barriers, each waiting for the slowest block.
@@ -506,27 +506,20 @@ extern "C" int tb_orderfree_stamps() { return N_STAMPS * MAX_BLOCKS; }
 
 // One batch: one cooperative launch on `stream`, no host
 // synchronisation.  B <= 8192 and <= `cap`, the batch the scratch
-// `words` was made for; the table 16-byte aligned; `threads` 0 (the
-// geometry above) or a block size to force.  `stamps` is null,
+// `words` was made for; the table 16-byte aligned.  `stamps` is null,
 // or N_STAMPS x blocks u64 words for clock64 stage stamps.  Returns the
 // first non-zero CUDA status (a grid the card cannot hold at once
 // included), or 0.
 extern "C" int tb_orderfree(void* table, const void* meta, int64_t A, void* ring_row,
                             const void* pk, int mode, int n, int B, uint64_t ts_base, void* words,
-                            int cap, int threads, void* stamps, void* stream) {
+                            int cap, void* stamps, void* stream) {
   if (B < 0 || B > MAX_B || B > cap || mode < MODE_FULL || mode > MODE_TIGHT ||
-      (reinterpret_cast<uintptr_t>(table) & 15) != 0 || threads < 0 || threads > MAX_THREADS ||
-      threads % 32 != 0)
+      (reinterpret_cast<uintptr_t>(table) & 15) != 0)
     return (int)cudaErrorInvalidValue;
   int sms = 0, G, T;
   const int err = sm_count(sms);
   if (err) return err;
   geometry(B, sms, G, T);
-  if (threads) {  // a forced block size (the probes' comparison)
-    T = threads;
-    G = (B + T - 1) / T;
-    G = G < 1 ? 1 : G;
-  }
   Scratch X = scratch_of(words, cap);
   // Per device: the dynamic shared-memory limit a 256-thread block
   // needs (the geometry takes one on a card of fewer than 64 SMs).

@@ -59,9 +59,8 @@ _U64 = ctypes.c_uint64
 _SIGNATURES = {
     "orderfree": {
         # table, meta, A, ring_row, pk, mode, n, B, ts_base, words,
-        # cap (the scratch's batch), threads (0: the kernel's own),
-        # stamps (nullable), stream
-        "tb_orderfree": [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I, _I, _P, _P],
+        # cap (the scratch's batch), stamps (nullable), stream
+        "tb_orderfree": [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I, _P, _P],
     },
     "commitment": {
         # balances, meta, rows, A, row_hash (nullable), fold_out, stream
@@ -202,16 +201,15 @@ def _ptr(t):
 
 
 def orderfree(table, meta, ring_row_ptr, pk, mode, n, ts_base_u64, scratch,
-              count_as="orderfree", stamps=None, threads=0):
+              count_as="orderfree", stamps=None):
     """K1; `scratch` holds `words` (its hash table) made for a batch of
     `scratch.batch` >= pk.shape[0] events; `stamps` a zeroed CUDA int64
     tensor of orderfree_stamps() words for the stage stamps of a
-    measurement, or None; `threads` a block size to force (the probes'
-    comparison; 0 takes the kernel's own)."""
+    measurement, or None."""
     _launch(
         "orderfree", "tb_orderfree", count_as, table.get_device(),
         table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(),
-        mode, n, pk.shape[0], ts_base_u64, scratch.words.data_ptr(), scratch.batch, threads,
+        mode, n, pk.shape[0], ts_base_u64, scratch.words.data_ptr(), scratch.batch,
         _ptr(stamps),
     )
 

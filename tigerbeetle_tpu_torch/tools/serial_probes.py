@@ -45,10 +45,7 @@ kernels of the port) and drives the port's own wrappers:
   kernel the call launches), the bits against the plain version, the
   cycles of each stage from ``clock64()`` stamps in a stamped launch
   (each block's thread 0: block 0's, and the most and least over the
-  blocks); K1 at the block sizes of ``K1_THREADS`` (its own is 64); and
-  the alternative design, ``tools/k1_cluster.cu`` (one thread-block
-  cluster of 16 blocks owning the rows in shared memory), on the same
-  inputs.
+  blocks).
 * ``k13``: K13 admit on chip_smoke.py's 8190-event slice and on the
   sharded_apply phase's 4095-event slice: device microseconds per call.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
@@ -544,7 +541,6 @@ K1_STAGES = ("ladder", "combine", "probe", "claim", "sync_claim", "totals", "adm
 # The five launches of K1 before its redesign (PRs 1-11).
 K1_PARENT = ("of_ladder", "of_accum", "of_admit", "apply_rows_kernel", "summary_kernel")
 K1_EVENTS = workload.BATCH
-K1_THREADS = (32, 128, 256)  # block sizes K1 is also timed at (its own: 64)
 
 
 def k1_cases():
@@ -578,18 +574,6 @@ def _old_orderfree_scratch(A, B, dev):
             torch.empty(2 * B, dtype=i32, device=dev),
             torch.empty((2 * B, 16), dtype=i64, device=dev),
             torch.empty((2 * B, 8), dtype=i64, device=dev), torch.zeros(2, dtype=i32, device=dev))
-
-
-def _k1_cluster_lib():
-    """The alternative design of K1 (tools/k1_cluster.cu)."""
-    lib = build.load("k1_cluster", build.TOOLS)
-    lib.tb_k1_cluster.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I, _P, _P]
-    lib.tb_k1_cluster.restype = _I
-    lib.tb_k1_cluster_scratch_words.argtypes = [_I]
-    lib.tb_k1_cluster_scratch_words.restype = _I64
-    lib.tb_error_string.argtypes = [_I]
-    lib.tb_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def k1_sweep(dev, parent=None) -> dict:
@@ -636,28 +620,6 @@ def k1_sweep(dev, parent=None) -> dict:
         row["stage_cycles_p90"] = {s: float(np.percentile(d[:, k], 90))
                                    for k, s in enumerate(K1_STAGES)}
         row["stamped_us"] = (c[0, -1] - c[0, 0]) / khz * 1e3
-        for threads in K1_THREADS:
-            row[f"threads_{threads}_device_us"] = device_us(
-                lambda threads=threads: kernels.orderfree(t, m, ring[1].data_ptr(), p, mode, n,
-                                                          ts, scratch, count_as=None,
-                                                          threads=threads),
-                reset, names=("orderfree_kernel",))
-        # The alternative design (tools/k1_cluster.cu): one cluster.
-        alt = _k1_cluster_lib()
-        aw = torch.zeros(alt.tb_k1_cluster_scratch_words(B), dtype=torch.int64, device=dev)
-
-        def arun():
-            rc = alt.tb_k1_cluster(t.data_ptr(), m.data_ptr(), t.shape[0], ring[3].data_ptr(),
-                                   p.data_ptr(), mode, n, B, ts, aw.data_ptr(), B, None,
-                                   _stream())
-            if rc:
-                raise RuntimeError(f"tb_k1_cluster: {alt.tb_error_string(rc).decode()}")
-
-        row["cluster_device_us"] = device_us(arun, reset, names=("orderfree_kernel",))
-        reset()
-        arun()
-        torch.cuda.synchronize()
-        row["cluster_equal"] = bool(torch.equal(t, t_new) and torch.equal(ring[3], ring[1]))
         if old is not None:
             olds = _old_orderfree_scratch(t.shape[0], B, dev)
             orun = lambda: _old_orderfree(old, t, m, ring[2].data_ptr(), p, mode, n, ts,  # noqa: E731
