@@ -1402,7 +1402,9 @@ LINKED_CHECKS = [("spread", "linked_small"), ("limits", "linked_small"), ("limit
 TWO_PHASE_CHECKS = [("mixed", "two_phase_lo"), ("mixed", "two_phase"), ("inbatch", "two_phase_lo"),
                     ("durable", "two_phase_lo"), ("races", "two_phase"), ("wide", "two_phase"),
                     ("overflow", "two_phase_lo"), ("underflow", "two_phase"),
-                    ("padding", "two_phase_lo")]
+                    ("padding", "two_phase_lo"), ("contended", "two_phase_lo"),
+                    ("target_static", "two_phase"), ("hot", "two_phase_lo"),
+                    ("distinct", "two_phase")]
 
 
 def _slots_of(pk, n, cols):
@@ -1454,8 +1456,7 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
             def reset(t):
                 return lambda: t.index_copy_(0, idx, saved)
 
-            kernel_names = ("linked_kernel",) if name == "linked" else (
-                "tp_", "apply_rows_kernel", "summary_kernel")
+            kernel_names = ("linked_kernel",) if name == "linked" else ("two_phase_kernel",)
             ms, dev_ms, host = kernel_ms(
                 lambda: fn(t_k, m, r_k, 7, p, n, 1 << 40, scratch=scratch, **variant),
                 reset=reset(t_k), names=kernel_names,
@@ -1487,6 +1488,11 @@ def check_semantic(dev, report, name, checks, gen, l2_ns=None):
                          f"{r['barrier_floor_ms'] * 1e3:.2f} us = {s['iters']} iters x "
                          f"{K5_BARRIERS_PER_ITER} x {sync_us:.3f} us; {entries} limit rows; "
                          f"one cluster of {blocks} blocks")
+            else:
+                blocks, threads, _smem = kernels.two_phase_geometry(dk.B)
+                r["rows"] = rows_n
+                line += (f"; {rows_n} rows; one cooperative grid of {blocks} blocks x "
+                         f"{threads} threads")
             report[name] = r
         print(line)
     if name == "linked":
@@ -1748,6 +1754,26 @@ def check_waves(dev, report, l2_ns):
                                     timed_case=f"B={B}, {n_fix} snapshots rewritten")
     print(f"K3 exact_finalize (B={B}, {n_fix} rewritten): bit-exact; {ms * 1e3:.1f} us, "
           f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
+
+    # Finalize alone on seeded carries: an odd B that is no multiple of
+    # the kernel's tile, no row / every row / a third fixed, rewrites at
+    # created slots that clip, a compact table, and a carry one word off
+    # 16-byte alignment.
+    for fb, fa, off in ((203, 37, 0), (B, A_ROWS, 1), (97, 5000, 1)):
+        for mode in wave_cases.FIX_MODES:
+            f_table, f_words, f_fix = wave_cases.finalize_case(fb + fa + off, fb, fa, mode)
+            f_t = torch.from_numpy(f_table.view(np.int64)).to(dev)
+            f_w = torch.zeros(f_words.size + off, dtype=torch.int64, device=dev)[off:]
+            f_w.copy_(torch.from_numpy(f_words.view(np.int64)))
+            f_hf = None if f_fix is None else torch.from_numpy(f_fix.astype(np.uint8)).to(dev)
+            f_err = max_abs_err(k3.finalize(f_t, f_w, fb, f_hf), k3.finalize_plain(f_t, f_w, fb, f_hf))
+            check(f_err == 0, f"K3 exact_finalize (B={fb}, A={fa}, fix {mode}, carry offset {off}): "
+                              "kernel differs from the plain version")
+    blocks, threads = kernels.exact_finalize_geometry(B)
+    print(f"K3 exact_finalize on seeded carries (B = 203, 8192, 97; fix none / all / a third; "
+          f"clipped slots; carry offsets 0, 1 word): bit-exact; {blocks} blocks x {threads} "
+          f"threads at B = {B}")
+    report["exact_finalize"]["geometry"] = [blocks, threads]
 
     ds = torch.from_numpy(dstat.view(np.int32)).to(dev)
     w_k = torch.empty(k3.scratch_words(B), dtype=torch.int64, device=dev)

@@ -389,6 +389,51 @@ def test_semantic_kernels_above_2_17_rows(card, kind):
                                        A=A, rows=rows))
 
 
+@pytest.mark.parametrize("kind", ["two_phase", "two_phase_lo"])
+def test_two_phase_kernel_one_scratch_rests(card, kind):
+    """K6 over every scenario in turn with ONE scratch, flagged batches
+    among them: each batch equals the plain version bit for bit, and
+    after each the hash table (keys, sums, marks) and the target
+    segments are back at zero (only the blocks' totals, the last 3 x
+    1024 int32, are written anew).  One cooperative grid of at most one
+    block per SM."""
+    blocks, threads, _smem = kernels.two_phase_geometry(dk.B)
+    assert blocks * threads >= dk.B
+    assert blocks <= torch.cuda.get_device_properties(card).multi_processor_count
+    scratch = dk.TwoPhaseScratch(dk.B, card)
+    rest = scratch.words.numel() - 3 * 1024 // 2
+    for i, scenario in enumerate(semantic_cases.TWO_PHASE_SCENARIOS):
+        table, meta, pk, n = semantic_cases.two_phase_case(650 + i, dk.B, scenario, A=1 << 15)
+        t = torch.from_numpy(table.view(np.int64).copy())
+        m = torch.from_numpy(meta.view(np.int32).copy())
+        pk_t = torch.from_numpy(pk.view(np.int64).copy())
+        ring = torch.zeros((8, dk.SUMMARY_WORDS), dtype=torch.int64)
+        t_p, r_p = t.clone(), ring.clone()
+        dk.two_phase(t_p, m, r_p, 2, pk_t, n, 1 << 40, lo_only=kind == "two_phase_lo")
+        t_k, r_k = t.to(card), ring.to(card)
+        dk.two_phase(t_k, m.to(card), r_k, 2, pk_t.to(card), n, 1 << 40,
+                     lo_only=kind == "two_phase_lo", scratch=scratch)
+        torch.cuda.synchronize()
+        assert torch.equal(r_k.cpu(), r_p), scenario
+        assert torch.equal(t_k.cpu(), t_p), scenario
+        assert not scratch.words[:rest].any(), f"{scenario}: scratch not at rest"
+
+
+def test_two_phase_kernel_refuses_what_it_does_not_take(card):
+    """Above 8192 events, or a table off 16-byte alignment, the wrapper
+    raises before any launch."""
+    table, meta, pk, n = semantic_cases.two_phase_case(660, dk.B, "mixed", A=4096)
+    m = torch.from_numpy(meta.view(np.int32)).to(card)
+    ring = torch.zeros((2, dk.SUMMARY_WORDS), dtype=torch.int64, device=card)
+    big = torch.from_numpy(np.concatenate([pk, pk]).view(np.int64)).to(card)
+    t = torch.from_numpy(table.view(np.int64)).to(card)
+    with pytest.raises(ValueError, match="8192"):
+        dk.two_phase(t, m, ring, 0, big, n, 1 << 40)
+    off = torch.zeros(table.size + 1, dtype=torch.int64, device=card)[1:].view(-1, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        dk.two_phase(off, m, ring, 0, big[:dk.B], n, 1 << 40)
+
+
 def _entries(meta, pk, n):
     """Limit entries of a batch (events whose debit / credit account
     carries a limit flag), before the static ladder."""
@@ -528,6 +573,29 @@ def _run_plan(card, case):
     torch.cuda.synchronize()
     assert torch.equal(out_k, out_p)
     return plan
+
+
+@pytest.mark.parametrize("fix", wave_cases.FIX_MODES)
+@pytest.mark.parametrize("B,A,offset", [(203, 37, 0), (8192, 1 << 20, 0), (8192, 4096, 1),
+                                        (97, 5000, 1)])
+def test_finalize_kernel_matches_plain(card, B, A, offset, fix):
+    """K3 finalize alone on seeded carries (wave_cases.finalize_case):
+    batches that are odd or a multiple of the 32-row tile, no row /
+    every row / a third fixed, rewrites at created slots that clip, a
+    compact table, and a carry one word off 16-byte alignment (the
+    snapshots then move in 8-byte pieces); one launch, bit for bit."""
+    table, words, hist_fix = wave_cases.finalize_case(B + A + offset, B, A, fix)
+    t = torch.from_numpy(table.view(np.int64)).to(card)
+    w = torch.zeros(words.size + offset, dtype=torch.int64, device=card)[offset:]
+    w.copy_(torch.from_numpy(words.view(np.int64)))
+    hf = None if hist_fix is None else torch.from_numpy(hist_fix.astype(np.uint8)).to(card)
+    assert kernels.exact_finalize_geometry(B) == (-(-B // 32), 128)
+    before = kernels.launches["exact_finalize"]
+    out = k3.finalize(t, w, B, hf)
+    want = k3.finalize_plain(t, w, B, hf)
+    torch.cuda.synchronize()
+    assert kernels.launches["exact_finalize"] == before + 1
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("cls", scan_cases.CLASSES)

@@ -52,10 +52,11 @@
 //                      chain_start, chain_broken and last_applied from
 //                      the carry; a failed linked chain is rolled back
 //                      by the walker from the undo log
-//   tb_exact_finalize  one thread per row: rows named by hist_fix whose
-//                      result is 0 take the batch-final table rows of
-//                      their created record's accounts as snapshots,
-//                      then the packed (B, 37) output
+//   tb_exact_finalize  the packed (B, 37) output, a tile of FIN_ROWS
+//                      consecutive rows a block (below): rows named by
+//                      hist_fix whose result is 0 take the batch-final
+//                      table rows of their created record's accounts as
+//                      snapshots
 //   tb_exact_scan      one batch whole, in one launch of one block:
 //                      init, the walk over i = 0 .. B-1, the pack (no
 //                      snapshot rewrite) — the host exact lane's K3
@@ -83,6 +84,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tb_hash.cuh"
 #include "tb_scan.cuh"
 #include "tb_walk.cuh"
 
@@ -374,12 +376,9 @@ __device__ void walk(uint64_t* __restrict__ table, int64_t A,
   }
 }
 
-// One row of the packed (B, 37) output (_pack_outputs).  With `fix`
-// (finalize's hist_fix), a row whose result is 0 takes the current
-// table rows of its created record's accounts as its snapshots.
-__device__ void pack_row(const uint64_t* __restrict__ table, int64_t A, int64_t Bn,
-                         const Carry& cy, int64_t i, const uint8_t* __restrict__ fix,
-                         uint64_t* __restrict__ out) {
+// One row of the packed (B, 37) output (_pack_outputs), for the whole
+// scan's pack.
+__device__ void pack_row(const Carry& cy, int64_t Bn, int64_t i, uint64_t* __restrict__ out) {
   uint64_t* row = out + i * NOUT;
   row[0] = cy.results[i];
   row[1] = cy.cmask[i];
@@ -389,15 +388,9 @@ __device__ void pack_row(const uint64_t* __restrict__ table, int64_t A, int64_t 
   row[18] = cy.pulse_c[i];
   row[19] = cy.pulse_r[i];
   row[20] = i == 0 ? cy.scalars[2] + 1 : 0;
-  const uint64_t* hd = cy.hist_dr + i * 8;
-  const uint64_t* hc = cy.hist_cr + i * 8;
-  if (fix != nullptr && fix[i] && cy.results[i] == 0) {
-    hd = table + clip((int64_t)cy.created[C_DR * Bn + i], A - 1) * 8;
-    hc = table + clip((int64_t)cy.created[C_CR * Bn + i], A - 1) * 8;
-  }
   for (int c = 0; c < 8; ++c) {
-    row[21 + c] = hd[c];
-    row[29 + c] = hc[c];
+    row[21 + c] = cy.hist_dr[i * 8 + c];
+    row[29 + c] = cy.hist_cr[i * 8 + c];
   }
 }
 
@@ -413,7 +406,7 @@ exact_scan(uint64_t* __restrict__ table, int64_t A,
   __syncthreads();
   walk(table, A, ev, Bn, nullptr, Bn, n, ts_base, cy, ring);
   __syncthreads();
-  for (int64_t i = threadIdx.x; i < Bn; i += THREADS) pack_row(table, A, Bn, cy, i, nullptr, out);
+  for (int64_t i = threadIdx.x; i < Bn; i += THREADS) pack_row(cy, Bn, i, out);
 }
 
 __global__ void init_kernel(uint64_t* __restrict__ s, int B,
@@ -431,11 +424,107 @@ segment_kernel(uint64_t* __restrict__ table, int64_t A, const uint64_t* __restri
   walk(table, A, ev, B, rows, L, n, ts_base, carry_of(s, B), ring);
 }
 
-__global__ void finalize_kernel(const uint64_t* __restrict__ table, int64_t A, int B,
-                                uint64_t* __restrict__ s, const uint8_t* __restrict__ fix,
-                                uint64_t* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < B) pack_row(table, A, B, carry_of(s, B), i, fix, out);
+// Finalize (waves.py _finalize_body) as a pack that fills the card and
+// writes coalesced.  The work is ~4.8 MB at B = 8192 (the carry's 21
+// scalar columns and two 64-byte snapshots a row read, 296 bytes a row
+// written): ~1.5 us at 3.35 TB/s, so what bounds it is latency: a
+// block's loads, then its stores, in as few dependent trips as the
+// rewritten rows allow.  A block packs a tile of FIN_ROWS consecutive
+// rows (256 blocks at B = 8192): its snapshots, two contiguous runs of
+// FIN_ROWS x 64 bytes, copied to shared memory in 16-byte pieces
+// (cp.async) while its scalar columns are read coalesced along i and
+// each row whose hist_fix is set and whose result is 0 reads its two
+// batch-final table rows at its created record's clipped slots (a quad
+// of lanes a row and 16 bytes a lane, one dependent trip more), which
+// then replace the copied snapshots; then the tile's output, one
+// contiguous run of FIN_ROWS x 296 bytes (16-byte aligned: FIN_ROWS is
+// even), leaves in 16-byte stores by consecutive lanes.  A carry, table or output that is not 16-byte aligned (an odd
+// B puts the snapshot regions at 8 bytes) moves in 8-byte pieces.
+constexpr int FIN_ROWS = 32;
+constexpr int FIN_THREADS = 128;
+constexpr int NSCAL = 21;  // output columns 0..20: the scalar ones
+constexpr int FIX_PASSES = 2;  // a thread's (row, side, quarter) lanes of the rewrite
+
+// The carry region of scalar output column c < 20 (column 20 is
+// last_applied + 1 on row 0).
+__device__ __forceinline__ int64_t scalar_region(int c) {
+  return c == 0 ? 14 : c == 1 ? 15 : c < 16 ? c - 2 : c == 16 ? 17 : c == 17 ? 18 : c + 5;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__global__ void __launch_bounds__(FIN_THREADS)
+finalize_kernel(const uint64_t* __restrict__ table, int64_t A, int B,
+                uint64_t* __restrict__ s, const uint8_t* __restrict__ fix,
+                uint64_t* __restrict__ out) {
+  __shared__ uint64_t sc[FIN_ROWS * NSCAL];                 // [r][c]
+  __shared__ __align__(16) uint64_t hist[2][FIN_ROWS * 8];  // snapshots, dr then cr
+  const int64_t Bn = B, i0 = (int64_t)blockIdx.x * FIN_ROWS;
+  const int rows = (int)(Bn - i0 < FIN_ROWS ? Bn - i0 : FIN_ROWS), t = threadIdx.x;
+  const Carry cy = carry_of(s, Bn);
+  const uint64_t* hsrc[2] = {cy.hist_dr + i0 * 8, cy.hist_cr + i0 * 8};
+  if (aligned16(hsrc[0]) && aligned16(hsrc[1])) {
+    for (int j = t; j < 8 * rows; j += FIN_THREADS) {
+      const int side = j >= 4 * rows, q = j - side * 4 * rows;
+      tb::copy16_async(&hist[side][2 * q], hsrc[side] + 2 * q);
+    }
+  } else {
+    for (int j = t; j < 16 * rows; j += FIN_THREADS) {
+      const int side = j >= 8 * rows, q = j - side * 8 * rows;
+      hist[side][q] = hsrc[side][q];
+    }
+  }
+  for (int j = t; j < NSCAL * rows; j += FIN_THREADS) {
+    const int c = j / rows, r = j - c * rows;
+    const int64_t i = i0 + r;
+    sc[r * NSCAL + c] = c == NSCAL - 1 ? (i == 0 ? cy.scalars[2] + 1 : 0)
+                                       : s[scalar_region(c) * Bn + i];
+  }
+  // A rewritten row's table rows, a quad of lanes a row and side: its
+  // fix byte, result and created slot read in the same round as the
+  // above, then the row, held in registers until the snapshots land.
+  static_assert(8 * FIN_ROWS == FIX_PASSES * FIN_THREADS, "a lane per row, side and quarter");
+  ulonglong2 row[FIX_PASSES];
+  bool take[FIX_PASSES];
+#pragma unroll
+  for (int k = 0; k < FIX_PASSES; ++k) {
+    const int j = t + k * FIN_THREADS, r = j >> 3, side = (j >> 2) & 1, q = j & 3;
+    const int64_t i = i0 + r;
+    take[k] = fix != nullptr && r < rows && fix[i] && cy.results[i] == 0;
+    if (take[k]) {
+      const int64_t slot = clip((int64_t)cy.created[(side ? C_CR : C_DR) * Bn + i], A - 1);
+      const uint64_t* src = table + slot * 8 + 2 * q;
+      row[k] = aligned16(table) ? __ldg(reinterpret_cast<const ulonglong2*>(src))
+                                : make_ulonglong2(src[0], src[1]);
+    }
+  }
+  tb::wait_async();
+  __syncthreads();
+  if (fix != nullptr) {
+#pragma unroll
+    for (int k = 0; k < FIX_PASSES; ++k) {
+      const int j = t + k * FIN_THREADS, r = j >> 3, side = (j >> 2) & 1, q = j & 3;
+      if (!take[k]) continue;
+      hist[side][r * 8 + 2 * q] = row[k].x;
+      hist[side][r * 8 + 2 * q + 1] = row[k].y;
+    }
+    __syncthreads();
+  }
+  uint64_t* dst = out + i0 * NOUT;
+  const int words = rows * NOUT;
+  auto word = [&](int w) -> uint64_t {
+    const int r = w / NOUT, c = w - r * NOUT;
+    return c < NSCAL ? sc[r * NSCAL + c] : hist[c >= 29][r * 8 + (c - (c >= 29 ? 29 : 21))];
+  };
+  if (aligned16(dst)) {
+    for (int v = t; v < words / 2; v += FIN_THREADS)
+      reinterpret_cast<ulonglong2*>(dst)[v] = make_ulonglong2(word(2 * v), word(2 * v + 1));
+    if ((words & 1) && t == 0) dst[words - 1] = word(words - 1);
+  } else {
+    for (int w = t; w < words; w += FIN_THREADS) dst[w] = word(w);
+  }
 }
 
 // K3's serial floor, measured: one thread follows a random single-cycle
@@ -495,11 +584,19 @@ extern "C" int tb_exact_segment(void* table, int64_t A, const void* ev, int B,
   return (int)cudaGetLastError();
 }
 
+// Finalize's launch for a B-row batch: blocks and threads per block,
+// into geom[0..1].
+extern "C" int tb_exact_finalize_geometry(int B, int* geom) {
+  geom[0] = (B + FIN_ROWS - 1) / FIN_ROWS;
+  geom[1] = FIN_THREADS;
+  return 0;
+}
+
 // The packed (B, 37) output of the carry; hist_fix (B,) u8 or null.
 extern "C" int tb_exact_finalize(const void* table, int64_t A, int B, void* scratch,
                                  const void* hist_fix, void* out, void* stream) {
-  const int blocks = (B + FLAT_THREADS - 1) / FLAT_THREADS;
-  finalize_kernel<<<blocks, FLAT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (B + FIN_ROWS - 1) / FIN_ROWS;
+  finalize_kernel<<<blocks, FIN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(table), A, B, static_cast<uint64_t*>(scratch),
       static_cast<const uint8_t*>(hist_fix), static_cast<uint64_t*>(out));
   return (int)cudaGetLastError();

@@ -71,6 +71,7 @@
 #include <cooperative_groups.h>
 
 #include "tb_common.cuh"
+#include "tb_hash.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -78,12 +79,10 @@ namespace {
 
 using namespace tb;
 
-constexpr int THREADS = 64;  // a block's threads, unless the card has too few SMs
-constexpr int MAX_THREADS = 256;
+constexpr int MAX_THREADS = COOP_MAX_THREADS;
 constexpr int MAX_B = 8192;
 constexpr int MAX_BLOCKS = 1024;
 constexpr int ROW_BATCH = 8;  // rows a lane quad admits: 2T rows, T / 4 quads
-constexpr uint64_t HASH_MUL = 0x9E3779B97F4A7C15ull;
 constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 
 // Stage stamps when the caller passes a zeroed buffer (the measurement
@@ -92,10 +91,8 @@ constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
 enum { ST_START, ST_LADDER, ST_COMBINE, ST_PROBE, ST_CLAIM, ST_SYNC_CLAIM, ST_TOTALS,
        ST_ADMIT, ST_SYNC_ADMIT, ST_APPLY, N_STAMPS };
 
-// The global scratch: the hash table, at rest (zero) between launches,
-// and the blocks' totals, written anew.  The table's capacity SP, a
-// power of two >= 8x the scratch's batch, keeps its load at or below a
-// quarter; its keys are read eight at a time (a 32-byte bucket).
+// The global scratch: the hash table (tb_hash.cuh), at rest (zero)
+// between launches, and the blocks' totals, written anew.
 struct Scratch {
   unsigned long long* acc;  // (SP, 16) column sums: 4 x NL limbs used
   uint32_t* keys;           // (SP,) slot + 1, 0 = empty
@@ -103,14 +100,6 @@ struct Scratch {
   uint32_t mask;            // SP - 1
   int shift;                // 64 - log2(SP): a key's home is the top bits of its hash
 };
-
-constexpr int BUCKET = 8;  // keys a 32-byte read
-
-size_t table_slots(int cap) {
-  size_t sp = 64;
-  while (sp < 8 * (size_t)cap) sp <<= 1;
-  return sp;
-}
 
 size_t words_for(int cap) {
   const size_t sp = table_slots(cap);
@@ -129,102 +118,10 @@ Scratch scratch_of(void* words, int cap) {
   return X;
 }
 
-// The launch: G blocks of T threads, one event a thread, G at most the
-// card's SMs (a cooperative launch must fit the card at once).
-void geometry(int B, int sms, int& G, int& T) {
-  T = THREADS;
-  while ((B + T - 1) / T > sms && T < MAX_THREADS) T *= 2;
-  G = (B + T - 1) / T;
-  G = G < 1 ? 1 : G;
-}
-
 // Shared memory of a T-thread block: the hash positions and the table
 // slots of the rows it claimed, their rows (old, then the new columns
 // in place), and each thread's limbs for its warp's combining.
 size_t smem_bytes(int T) { return (size_t)2 * T * 8 + (size_t)2 * T * 64 + (size_t)T * 32; }
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void wait_async() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// An add into global memory whose result nobody waits for.
-__device__ __forceinline__ void red_add(unsigned long long* p, unsigned long long v) {
-  asm volatile("red.global.add.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
-}
-
-// A key's home bucket (the top bits of key x HASH_MUL) and its offset
-// in it (the next three bits).
-__device__ __forceinline__ void home_of(const Scratch& X, uint32_t key, uint32_t& p,
-                                        unsigned& o) {
-  const uint64_t h = (uint64_t)key * HASH_MUL;
-  p = (uint32_t)(h >> X.shift) & ~(uint32_t)(BUCKET - 1);
-  o = (unsigned)(h >> (X.shift - 3)) & (BUCKET - 1);
-}
-
-// One bucket snapshot of `key`'s sequence (offset o): the first slot
-// that holds the key or is empty, or -1 when the bucket is full of
-// other keys; `is_key` says which.
-__device__ __forceinline__ int scan_bucket(uint32_t key, unsigned o, uint4 a, uint4 b,
-                                           bool& is_key) {
-  const uint32_t k[BUCKET] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  unsigned m_key = 0, m_end = 0;  // slots holding the key; holding it or empty
-#pragma unroll
-  for (int j = 0; j < BUCKET; ++j) {
-    m_key |= (k[j] == key ? 1u : 0u) << j;
-    m_end |= (k[j] == key || k[j] == 0u ? 1u : 0u) << j;
-  }
-  if (m_end == 0u) return -1;
-  const unsigned rot = ((m_end >> o) | (m_end << (BUCKET - o))) & 0xFFu;
-  const int j = (int)(((unsigned)__ffs(rot) - 1 + o) & (BUCKET - 1));
-  is_key = (m_key >> j & 1u) != 0;
-  return j;
-}
-
-__device__ __forceinline__ void load_bucket(const Scratch& X, uint32_t p, uint4& a, uint4& b) {
-  a = __ldcg(reinterpret_cast<const uint4*>(X.keys + p));
-  b = __ldcg(reinterpret_cast<const uint4*>(X.keys + p + 4));
-}
-
-// The row of `key` (slot + 1) in the hash table: found, or claimed
-// (`won`) by a CAS on an empty slot.  Open addressing, a 32-byte bucket
-// of eight keys read at a time: the key's own sequence runs through its
-// home bucket from its own offset, wrapping within the bucket, then
-// through the next buckets alike.  A key sits at the first slot of its
-// sequence that was empty when it came, and slots only fill, so the
-// first slot of its sequence that holds it or is empty ends the search;
-// a row already claimed costs no atomic, and keys of one bucket start
-// at different slots, so their CASes seldom collide.  At most 2B keys
-// in >= 8B slots: it ends.
-__device__ uint32_t claim(const Scratch& X, uint32_t key, bool& won) {
-  uint32_t p;
-  unsigned o;
-  home_of(X, key, p, o);
-  for (;;) {
-    uint4 a, b;
-    load_bucket(X, p, a, b);
-    bool is_key;
-    const int j = scan_bucket(key, o, a, b, is_key);
-    if (j < 0) {
-      p = (p + BUCKET) & X.mask;
-      continue;
-    }
-    const uint32_t old = is_key ? key : atomicCAS(X.keys + p + j, 0u, key);
-    if (old == 0u || old == key) {
-      won = old == 0u;
-      return p + j;
-    }
-    // Another key took the slot: read the bucket again.
-  }
-}
 
 template <int W>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -468,13 +365,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   if (stamp) stamps[ST_APPLY] = clock64();
 }
 
-int sm_count(int& sms) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return (int)err;
-}
-
 }  // namespace
 
 extern "C" const char* tb_error_string(int err) {
@@ -493,7 +383,7 @@ extern "C" int tb_orderfree_geometry(int B, int* geom) {
   int sms = 0, G, T;
   const int err = sm_count(sms);
   if (err) return err;
-  geometry(B, sms, G, T);
+  coop_geometry(B, sms, G, T);
   geom[0] = G;
   geom[1] = T;
   geom[2] = (int)smem_bytes(T);
@@ -519,7 +409,7 @@ extern "C" int tb_orderfree(void* table, const void* meta, int64_t A, void* ring
   int sms = 0, G, T;
   const int err = sm_count(sms);
   if (err) return err;
-  geometry(B, sms, G, T);
+  coop_geometry(B, sms, G, T);
   Scratch X = scratch_of(words, cap);
   // Per device: the dynamic shared-memory limit a 256-thread block
   // needs (the geometry takes one on a card of fewer than 64 SMs).

@@ -1,10 +1,11 @@
 // Device code shared by the semantic kernels K1 (orderfree.cu), K5
 // (linked.cu) and K6 (two_phase.cu): the packed input layout (K1's
 // three formats), the static precedence ladder, the per-slot row claim
-// (K5, K6), the u128 overflow test and the failure-sparse summary row
-// (K6; K5 and K1 write theirs from every block).  Counterparts of
-// tigerbeetle_tpu/state_machine/device_kernels.py _unpack :157,
-// _static_ladder_normal :180, _admit_apply :311 and _summary :344.
+// (K5), the u128 limb sums and overflow tests and the summary row's
+// constants (each kernel writes its summary from every block).
+// Counterparts of tigerbeetle_tpu/state_machine/device_kernels.py
+// _unpack :157, _static_ladder_normal :180, _admit_apply :311 and
+// _summary :344.
 //
 // kernels/build.py hashes this header into every library's name, so a
 // change here rebuilds all three.
@@ -259,104 +260,6 @@ __device__ __forceinline__ bool tot_ov(uint64_t lo_a, uint64_t hi_a, uint64_t lo
                                        uint64_t hi_b) {
   uint64_t lo, hi;
   return add128(lo_a, hi_a, lo_b, hi_b, lo, hi);
-}
-
-// The summary row, written by one whole block (blockDim.x a multiple of
-// 32): [n_fail, flags (| FLAG_CAP), last_applied + 1, n_active, the
-// first FAIL_CAP failures as (event << 32 | code) in event order].
-// last_applied is the last active event with `applied` set, or, when
-// `applied` is null, with code 0.
-__device__ void write_summary(const int32_t* codes, const uint8_t* applied, int n, int B,
-                              uint64_t flags, uint64_t* ring_row) {
-  __shared__ int warp_count[32];
-  __shared__ long long warp_last[32];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int per = (B + blockDim.x - 1) / blockDim.x;
-  const int lo = t * per;
-  const int hi = min(lo + per, B);
-  int count = 0;
-  long long last = -1;
-  for (int e = lo; e < hi && e < n; ++e) {
-    if (codes[e] != 0) ++count;
-    if (applied ? applied[e] != 0 : codes[e] == 0) last = e;
-  }
-  for (int i = t; i < FAIL_CAP; i += blockDim.x) ring_row[4 + i] = 0ull;
-
-  // Block-wide prefix sum of failure counts (event order) and the
-  // block maximum of the last applied event.
-  int incl = count;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += y;
-  }
-  long long m = last;
-  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xFFFFFFFFu, m, o));
-  if (lane == 31) warp_count[warp] = incl;
-  if (lane == 0) warp_last[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < nwarps ? warp_count[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += y;
-    }
-    warp_count[lane] = w;
-    long long wm = lane < nwarps ? warp_last[lane] : -1;
-    for (int o = 16; o > 0; o >>= 1) wm = max(wm, __shfl_xor_sync(0xFFFFFFFFu, wm, o));
-    if (lane == 0) warp_last[0] = wm;
-  }
-  __syncthreads();
-  int pos = incl - count + (warp > 0 ? warp_count[warp - 1] : 0);
-  for (int e = lo; e < hi && e < n && pos < FAIL_CAP; ++e) {
-    const int32_t r = codes[e];
-    if (r != 0) {
-      ring_row[4 + pos] = ((uint64_t)e << 32) | (uint32_t)r;
-      ++pos;
-    }
-  }
-  if (t == 0) {
-    const uint64_t n_fail = (uint64_t)warp_count[31];
-    if (n_fail > (uint64_t)FAIL_CAP) flags |= FLAG_CAP;
-    ring_row[0] = n_fail;
-    ring_row[1] = flags;
-    ring_row[2] = (uint64_t)(warp_last[0] + 1);
-    ring_row[3] = (uint64_t)(n < 0 ? 0 : (n > B ? B : n));
-  }
-  __syncthreads();
-}
-
-// Summary launch of the multi-launch kernel K6: one block of
-// 1024 threads; ctrl[1] != 0 is the batch's overflow flag, and both
-// batch counters return to zero for the next launch.
-__global__ void summary_kernel(const int32_t* codes, int n, int B, int32_t* ctrl,
-                               uint64_t* ring_row) {
-  write_summary(codes, nullptr, n, B, ctrl[1] ? FLAG_OVERFLOW : 0ull, ring_row);
-  if (threadIdx.x == 0) {
-    ctrl[0] = 0;
-    ctrl[1] = 0;
-  }
-}
-
-constexpr int SUMMARY_THREADS = 1024;
-
-// The all-or-nothing write of the multi-launch kernel K6, after every
-// touched row was admitted (a separate launch, so the flag ctrl[1] is
-// final): new rows written unless the batch overflowed, and each row's
-// per-slot index returned to -1.
-__global__ void apply_rows_kernel(uint64_t* table, const int32_t* touched,
-                                  const uint64_t* newrows, int32_t* slot_idx,
-                                  const int32_t* ctrl) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= ctrl[0]) return;
-  const int64_t s = touched[k];
-  if (!ctrl[1]) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) table[s * 8 + j] = newrows[(size_t)k * 8 + j];
-  }
-  slot_idx[s] = -1;
 }
 
 }  // namespace tb

@@ -130,8 +130,9 @@ _SIGNATURES = {
         "tb_linked": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     },
     "two_phase": {
-        # table, meta, A, ring_row, pk, n, B, lo_only, slot_idx, words, stream
-        "tb_two_phase": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P],
+        # table, meta, A, ring_row, pk, n, B, lo_only, words, cap (the
+        # scratch's batch), stream
+        "tb_two_phase": [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _I, _P],
     },
 }
 
@@ -226,10 +227,12 @@ def linked(table, meta, ring_row_ptr, pk, n, small, scratch, count_as="linked", 
 
 
 def two_phase(table, meta, ring_row_ptr, pk, n, lo_only, scratch, count_as="two_phase"):
+    """K6; `scratch` holds `words` (its hash table and target segments)
+    made for a batch of `scratch.batch` >= pk.shape[0] events."""
     _launch(
         "two_phase", "tb_two_phase", count_as, table.get_device(),
         table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row_ptr, pk.data_ptr(), n,
-        pk.shape[0], int(lo_only), scratch.slot_idx.data_ptr(), scratch.words.data_ptr(),
+        pk.shape[0], int(lo_only), scratch.words.data_ptr(), scratch.batch,
     )
 
 
@@ -385,6 +388,19 @@ def orderfree_geometry(B: int) -> tuple[int, int, int]:
     its cooperative grid, threads per block, dynamic shared-memory
     bytes)."""
     return _geometry("orderfree", "tb_orderfree_geometry", B, 3)
+
+
+def exact_finalize_geometry(B: int) -> tuple[int, int]:
+    """K3 finalize's launch for a B-row batch: (blocks, threads per
+    block)."""
+    return _geometry("exact_scan", "tb_exact_finalize_geometry", B, 2)
+
+
+def two_phase_geometry(B: int) -> tuple[int, int, int]:
+    """K6's launch for a B-event batch on the current card: (blocks of
+    its cooperative grid, threads per block, dynamic shared-memory
+    bytes)."""
+    return _geometry("two_phase", "tb_two_phase_geometry", B, 3)
 
 
 def linked_geometry(B: int) -> tuple[int, int, int]:

@@ -729,22 +729,33 @@ def two_phase_plain(table, meta, ring, ring_at, pk, n, ts_base, lo_only=False,
 # K1 wrapper.
 
 
-class OrderfreeScratch:
-    """Device scratch K1 reuses across launches: its hash table of the
-    batch's rows (keys and column sums, which every launch leaves at
-    zero) and the blocks' totals, one u64 word buffer zeroed once (the
-    layout is the kernel source's).  Sized by the batch, not the table:
-    it serves any table, a compact one included, and any batch of at
-    most `batch` events."""
+class HashScratch:
+    """Device scratch K1 or K6 reuses across launches: its hash table of
+    the batch's rows (keys and column sums; K6's also its rows' marks and
+    its target segments), which every launch leaves at zero, and the
+    blocks' totals, one u64 word buffer zeroed once (the layout is the
+    kernel source's).  Sized by the batch, not the table: it serves any
+    table, a compact one included, and any batch of at most `batch`
+    events."""
+
+    kernel = ""
 
     def __init__(self, batch: int, device) -> None:
         self.batch = batch
         self.words = torch.zeros(
-            kernels.scratch_words("orderfree", batch), dtype=torch.int64, device=device
+            kernels.scratch_words(self.kernel, batch), dtype=torch.int64, device=device
         )
 
     def fits(self, rows: int, batch: int) -> bool:
         return batch <= self.batch
+
+
+class OrderfreeScratch(HashScratch):
+    kernel = "orderfree"
+
+
+class TwoPhaseScratch(HashScratch):
+    kernel = "two_phase"
 
 
 def _check_batch(table, meta, ring, ring_at, pk, n, want):
@@ -773,6 +784,16 @@ def _check_batch(table, meta, ring, ring_at, pk, n, want):
             raise ValueError("tensors must be contiguous")
 
 
+def _check_hash_batch(name, table, pk):
+    """Raise on what K1 and K6 (one cooperative launch over a hash table
+    of the batch's rows) do not take."""
+    if pk.shape[0] > 8192:
+        raise ValueError(f"the {name} kernel takes batches of at most 8192 events")
+    if table.data_ptr() % 16:
+        raise ValueError(f"the {name} kernel moves rows in 16-byte pieces: the table "
+                         "must be 16-byte aligned")
+
+
 def _ring_row(ring, ring_at) -> int:
     return ring.data_ptr() + ring_at * SUMMARY_WORDS * 8
 
@@ -786,11 +807,7 @@ def orderfree(table, meta, ring, ring_at, pk, n, ts_base, mode=MODE_FULL,
     _check_batch(table, meta, ring, ring_at, pk, n, want)
     if table.device.type == "cpu":
         return orderfree_plain(table, meta, ring, ring_at, pk, n, ts_base, mode)
-    if pk.shape[0] > 8192:
-        raise ValueError("the order-free kernel takes batches of at most 8192 events")
-    if table.data_ptr() % 16:
-        raise ValueError("the order-free kernel moves rows in 16-byte pieces: the table "
-                         "must be 16-byte aligned")
+    _check_hash_batch("order-free", table, pk)
     if scratch is None or not scratch.fits(table.shape[0], pk.shape[0]):
         scratch = OrderfreeScratch(pk.shape[0], table.device)
     kernels.orderfree(
@@ -805,12 +822,11 @@ def orderfree(table, meta, ring, ring_at, pk, n, ts_base, mode=MODE_FULL,
 
 
 class WordScratch:
-    """Device scratch K5 or K6 reuses across launches: the per-slot
-    index that rests at -1 (as K1's) and one zeroed u64 word buffer
-    holding the kernel's global arrays (K5: only the admission's
-    accumulators and touched-row list; its layout, and which words rest
-    at zero between launches, are the kernel source's; the library
-    reports the size)."""
+    """Device scratch K5 reuses across launches: the per-slot index that
+    rests at -1 and one zeroed u64 word buffer holding the kernel's
+    global arrays (only the admission's accumulators and touched-row
+    list; its layout, and which words rest at zero between launches, are
+    the kernel source's; the library reports the size)."""
 
     def __init__(self, kernel: str, rows: int, batch: int, device) -> None:
         self.rows, self.batch = rows, batch
@@ -841,7 +857,7 @@ def linked(table, meta, ring, ring_at, pk, n, ts_base, small=False,
 
 
 def two_phase(table, meta, ring, ring_at, pk, n, ts_base, lo_only=False,
-              scratch: WordScratch | None = None, count_as: str = "two_phase"):
+              scratch: TwoPhaseScratch | None = None, count_as: str = "two_phase"):
     """One pending-create + post/void batch, in place on `table` and
     `ring[ring_at]`.  CUDA tensors launch K6 (raising on any CUDA
     error), counted in kernels.launches[count_as]; CPU tensors run
@@ -849,8 +865,9 @@ def two_phase(table, meta, ring, ring_at, pk, n, ts_base, lo_only=False,
     _check_batch(table, meta, ring, ring_at, pk, n, (N_COLS_TP, torch.int64))
     if table.device.type == "cpu":
         return two_phase_plain(table, meta, ring, ring_at, pk, n, ts_base, lo_only)
+    _check_hash_batch("two-phase", table, pk)
     if scratch is None or not scratch.fits(table.shape[0], pk.shape[0]):
-        scratch = WordScratch("two_phase", table.shape[0], pk.shape[0], table.device)
+        scratch = TwoPhaseScratch(pk.shape[0], table.device)
     kernels.two_phase(table, meta, _ring_row(ring, ring_at), pk, int(n), bool(lo_only), scratch,
                       count_as)
     return table, ring
@@ -885,6 +902,8 @@ def new_scratch(family: str, rows: int, device):
     """The scratch of one kernel family for a `rows`-row table."""
     if family == "orderfree":
         return OrderfreeScratch(B, device)
+    if family == "two_phase":
+        return TwoPhaseScratch(B, device)
     return WordScratch(family, rows, B, device)
 
 

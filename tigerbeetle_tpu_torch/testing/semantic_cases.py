@@ -23,6 +23,7 @@ LINKED_SCENARIOS = (
 )
 TWO_PHASE_SCENARIOS = (
     "mixed", "inbatch", "durable", "races", "wide", "overflow", "underflow", "padding",
+    "contended", "target_static", "hot", "distinct",
 )
 
 
@@ -192,12 +193,26 @@ def two_phase_case(seed, B, scenario, A=1024, rows=None, n=None):
     (TWO_PHASE_SCENARIOS).  Post/voids name in-batch creators (earlier
     events), later events (not a target) or one of a few durable
     pendings, so first-wins races are common; the pv ladder's rungs are
-    reached by perturbing a share of the finalizers."""
+    reached by perturbing a share of the finalizers.
+
+    The later scenarios stress a kernel that claims a batch's rows and
+    picks each target's winner across the whole batch: "contended"
+    (five targets, each with hundreds of candidates spread over the
+    batch, so the winner and its losers lie far apart), "target_static"
+    (in-batch targets whose own static code fails, so their finalizers
+    find nothing), "hot" (every event on the same two accounts) and
+    "distinct" (every event on two rows of its own, 2B rows in all: it
+    takes them from `rows` when that holds 2B, else spreads them over
+    the table, which it widens to 2B rows when A is smaller)."""
     rng = np.random.default_rng(seed)
     rows = np.arange(A) if rows is None else np.asarray(rows)
     if n is None:
         n = B - 29 if scenario == "padding" else B
     wide = scenario == "wide"
+    distinct = scenario == "distinct"
+    if distinct and len(rows) < 2 * B:
+        A = max(A, 2 * B)
+        rows = np.sort(rng.choice(A, 2 * B, replace=False))
     table, meta = _tables(rng, A, rows, 0.0)
     table[rows, 0] += np.uint64(1 << 20)    # pending balances cover releases
     table[rows, 4] += np.uint64(1 << 20)
@@ -207,7 +222,7 @@ def two_phase_case(seed, B, scenario, A=1024, rows=None, n=None):
 
     amt_pool = [1, 5, 40, 300, 1000]
     iota = np.arange(B)
-    pv_p = {"inbatch": 0.5, "durable": 0.5, "races": 0.6}.get(scenario, 0.4)
+    pv_p = {"inbatch": 0.5, "durable": 0.5, "races": 0.6, "contended": 0.7}.get(scenario, 0.4)
     r = rng.random(B)
     kind = np.where(r < pv_p / 2, dk.F_POST, np.where(r < pv_p, dk.F_VOID, 0))
     kind = np.where((kind == 0) & (rng.random(B) < 0.6), dk.F_PENDING, kind)
@@ -220,6 +235,11 @@ def two_phase_case(seed, B, scenario, A=1024, rows=None, n=None):
 
     dr = rows[rng.integers(0, len(rows), B)]
     cr = rows[(np.searchsorted(rows, dr) + 1 + rng.integers(0, 7, B)) % len(rows)]
+    if scenario == "hot":
+        meta[rows[:2], 1] = 1
+        dr, cr = np.full(B, rows[0]), np.full(B, rows[1])
+    elif distinct:
+        dr, cr = rows[0:2 * B:2].copy(), rows[1:2 * B:2].copy()
     amt = np.asarray(amt_pool, np.uint64)[rng.integers(0, len(amt_pool), B)]
     amt_hi = np.where(rng.random(B) < 0.3, rng.integers(1, 4, B), 0).astype(np.uint64) \
         if wide else np.zeros(B, np.uint64)
@@ -227,10 +247,15 @@ def two_phase_case(seed, B, scenario, A=1024, rows=None, n=None):
     ledger = meta[dr, 1].copy()
     timeout = np.where(rng.random(B) < 0.01, 5, 0).astype(np.uint64)
 
-    # Durable pendings: a few, so several finalizers race for each.
-    D = {"races": 3, "durable": 12}.get(scenario, 8)
+    # Durable pendings: a few, so several finalizers race for each ("distinct":
+    # one for each event, on its own rows).
+    D = {"races": 3, "durable": 12, "contended": 2, "distinct": B}.get(scenario, 8)
     d_dr = rows[rng.integers(0, len(rows), D)]
     d_cr = rows[(np.searchsorted(rows, d_dr) + 1) % len(rows)]
+    if scenario == "hot":
+        d_dr, d_cr = np.full(D, rows[0]), np.full(D, rows[1])
+    elif distinct:
+        d_dr, d_cr = dr.copy(), cr.copy()
     d_amt = np.asarray(amt_pool, np.uint64)[rng.integers(0, len(amt_pool), D)]
     d_amt_hi = np.where(rng.random(D) < 0.5, 2, 0).astype(np.uint64) if wide \
         else np.zeros(D, np.uint64)
@@ -244,23 +269,32 @@ def two_phase_case(seed, B, scenario, A=1024, rows=None, n=None):
     if scenario == "overflow":
         table[dr[:8], 2] = np.uint64(M64 - 3)
         table[dr[:8], 3] = np.uint64(M64)
+    if distinct:
+        d_flags[:] = dk.F_PENDING
+        d_status[:] = 1
+    creators = np.flatnonzero((flags & dk.F_PENDING) != 0)
+    if scenario == "contended":
+        creators = creators[:3]
+    elif scenario == "target_static":
+        code[creators[rng.random(len(creators)) < 0.4]] = 0  # code_must_not_be_zero
 
     tgt_ev = np.full(B, -1, np.int64)
     p_tgt = np.full(B, -1, np.int64)
     p_found = np.zeros(B, bool)
-    in_p = {"inbatch": 0.9, "durable": 0.1}.get(scenario, 0.5)
+    in_p = {"inbatch": 0.9, "durable": 0.1, "target_static": 0.9, "distinct": 0.0}.get(
+        scenario, 0.5)
     for j in np.flatnonzero(is_pv):
         u = rng.random()
         if u < in_p and j > 0:
             # In-batch: an earlier pending creator, mostly.
-            cands = np.flatnonzero((flags[:j] & dk.F_PENDING) != 0)
+            cands = creators[:np.searchsorted(creators, j)]
             k = int(cands[rng.integers(0, len(cands))]) if len(cands) and rng.random() < 0.9 \
                 else int(rng.integers(0, j))
             tgt_ev[j] = k
             src_dr, src_cr, src_amt, src_hi = dr[k], cr[k], amt[k], amt_hi[k]
             src_code, src_ledger = code[k], ledger[k]
         elif u < 0.95:
-            t = int(rng.integers(0, D))
+            t = j if distinct else int(rng.integers(0, D))
             p_tgt[j] = t
             p_found[j] = True
             if rng.random() < 0.1:

@@ -17,6 +17,9 @@ speculative conflicts, K3 segments and finalize).
   and pending transfers over shared accounts, post/voids of distinct
   durable pendings, balancing and limit readers on accounts nobody else
   touches, durable duplicates.
+- ``finalize_case``: a table and a seeded carry image for K3's finalize
+  alone, at any B (odd ones too), with no row, every row or a share of
+  the rows fixed, created slots that clip (-1 and >= A) among them.
 """
 
 from __future__ import annotations
@@ -184,3 +187,31 @@ def wide_case(seed, B, A, rows=None, n=None):
     plan = _plan(ev, n)
     assert [k for k, _ in plan.segments] == ["wave"], [k for k, _ in plan.segments]
     return table, ev, dstat, n, TS_BASE, plan
+
+
+FIX_MODES = ("none", "all", "some")
+
+
+def finalize_case(seed, B, A, fix):
+    """(table (A, 8) u64, carry image (scratch_words(B),) u64, hist_fix
+    (B,) bool or None) for finalize: every carry word drawn at random
+    (in its field's range: the image is carry_from_dict of its own
+    carry_to_dict), about half the results 0, a quarter of the created
+    records' account slots outside [0, A) (-1 and A .. A + 3, which the
+    rewrite clips), last_applied anywhere in [-1, B).  `fix` is one of
+    FIX_MODES: None, all set, or a random third set."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 1 << 64, (A, 8), dtype=np.uint64)
+    w = rng.integers(0, 1 << 64, k3.scratch_words(B), dtype=np.uint64)
+    carry = k3.carry_to_dict(w, B)
+    carry["results"] = np.where(rng.random(B) < 0.5, 0, rng.integers(1, 56, B)).astype(
+        carry["results"].dtype)
+    for name in ("dr_slot", "cr_slot"):
+        slots = rng.integers(0, A, B)
+        odd = rng.random(B)
+        slots = np.where(odd < 0.12, -1, np.where(odd < 0.25, A + rng.integers(0, 4, B), slots))
+        carry["created"][name] = slots.astype(carry["created"][name].dtype)
+    carry["last_applied"] = int(rng.integers(-1, B))
+    words = k3.carry_from_dict(carry)
+    hist_fix = {"none": None, "all": np.ones(B, bool), "some": rng.random(B) < 0.33}[fix]
+    return table, words, hist_fix

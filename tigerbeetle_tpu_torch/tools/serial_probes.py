@@ -1,6 +1,7 @@
 """The redesigned kernels' floors and times on the card: K8's barrier,
 K8 over its chain shapes, K3 over its segment lengths, where one K3
-event's time goes; K5, K7, K1 and K13 admit beside an earlier tree's.
+event's time goes; K5, K7, K1, K13 admit, K6 and K3 finalize beside an
+earlier tree's.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
         [--parent DIR] [--k7-lanes K,...]
@@ -48,20 +49,37 @@ kernels of the port) and drives the port's own wrappers:
   blocks).
 * ``k13``: K13 admit on chip_smoke.py's 8190-event slice and on the
   sharded_apply phase's 4095-event slice: device microseconds per call.
+* ``k6``: K6 on three of chip_smoke.py's batches (``K6_CASES``: its
+  timed case, ``two_phase_lo`` on "mixed", and the "races" and
+  "durable" scenarios, 8192 events on 2^20 rows): device microseconds
+  and kernels per call, the split over the kernels a call launches (the
+  seven of the multi-launch design by their names), the bits against
+  the plain version.
+* ``fin``: K3 finalize at B = 8192 on ``finalize_case`` (chip_smoke.py's
+  carry) with its hist_fix, with none and with every row fixed: device
+  microseconds and kernels per call, the bits against the plain
+  version.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
   checks from the parent's tree and from this one, in turns (parent,
   change, change, parent), one process each: what each tree's checks
   measure (µs/call, device µs, host µs, plain µs, bound).
+* ``phases`` (needs ``--parent``): chip_smoke.py's two_phase and
+  waves_host streams from either tree in the same turns: events/s, the
+  profiled run's busy share and top items, K6's and K3 finalize's
+  device ms.
 
 ``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
 ``git archive`` under ``build/``) adds, in the same process and on the
-same inputs, that tree's K1, K5, K7 and K13 admit (built from its
-``csrc``; its K5 also built with stamps patched in between its stages)
-to ``k1``, ``k5``, ``k7`` and ``k13``; for K1, the split of its time
-over the kernels it launches.
+same inputs, that tree's K1, K5, K7, K13 admit, K6 and K3 finalize
+(built from its ``csrc``; its K5 also built with stamps patched in
+between its stages) to ``k1``, ``k5``, ``k7``, ``k13``, ``k6`` and
+``fin``; for K1 and K6, the split of its time over the kernels it
+launches.  ``k6`` and ``fin`` take the two trees' device times in
+turns (parent, change, change, parent) and their CUDA-event times per
+call alternating (``paired_event_us``).
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
-``k8``, ``k3``, ``k5``, ``k7`` and ``k13`` build nothing of their own
+``k8``, ``k3``, ``k5``, ``k7``, ``k13``, ``k6`` and ``fin`` build nothing of their own
 but the parent's, so they run on any tree with the wrappers);
 ``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
@@ -163,7 +181,8 @@ def device_split(fn, reset=None, names=(), reps: int = 20) -> dict:
         if e.device_type == DeviceType.CUDA and any(k in e.key for k in names):
             us = getattr(e, "self_device_time_total", None) or getattr(
                 e, "self_cuda_time_total", 0.0)
-            out[e.key] = {"us": us / reps, "launches": e.count / reps}
+            out[e.key] = {"us": us / reps, "launches": e.count / reps,
+                          "us_launch": us / max(e.count, 1)}
     return out
 
 
@@ -538,8 +557,10 @@ def k7_sweep(dev, lanes=K7_LANES, parent=None) -> list:
 
 K1_STAGES = ("ladder", "combine", "probe", "claim", "sync_claim", "totals", "admit",
              "sync_admit", "apply")
-# The five launches of K1 before its redesign (PRs 1-11).
-K1_PARENT = ("of_ladder", "of_accum", "of_admit", "apply_rows_kernel", "summary_kernel")
+# The five launches of K1's multi-launch design, and its one cooperative
+# launch.
+K1_PARENT = ("of_ladder", "of_accum", "of_admit", "apply_rows_kernel", "summary_kernel",
+             "orderfree_kernel")
 K1_EVENTS = workload.BATCH
 
 
@@ -557,19 +578,37 @@ def k1_cases():
     yield ("compact",) + orderfree_cases.compact(2062, B, K1_EVENTS)
 
 
+def _cooperative(lib) -> bool:
+    """Whether an earlier tree's K1 is the one cooperative launch (its
+    library reports a geometry), not the multi-launch design."""
+    return hasattr(lib, "tb_orderfree_geometry")
+
+
 def _old_orderfree(lib, t, m, ring_row, pk, mode, n, ts, olds):
     fn = lib.tb_orderfree
-    fn.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _P, _P, _P, _P, _P, _P]
-    rc = fn(t.data_ptr(), m.data_ptr(), t.shape[0], ring_row, pk.data_ptr(), mode, n,
-            pk.shape[0], ts, *(x.data_ptr() for x in olds), _stream())
+    if _cooperative(lib):
+        fn.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _I, _P, _P]
+        rc = fn(t.data_ptr(), m.data_ptr(), t.shape[0], ring_row, pk.data_ptr(), mode, n,
+                pk.shape[0], ts, olds[0].data_ptr(), pk.shape[0], None, _stream())
+    else:
+        fn.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _U64, _P, _P, _P, _P, _P, _P, _P]
+        rc = fn(t.data_ptr(), m.data_ptr(), t.shape[0], ring_row, pk.data_ptr(), mode, n,
+                pk.shape[0], ts, *(x.data_ptr() for x in olds), _stream())
     if rc:
         raise RuntimeError(f"parent tb_orderfree: {lib.tb_error_string(rc).decode()}")
 
 
-def _old_orderfree_scratch(A, B, dev):
-    """The parent's K1 scratch: per-slot index (resting at -1), codes,
-    touched list, limb accumulators, candidate rows, two counters."""
+def _old_orderfree_scratch(lib, A, B, dev):
+    """The parent's K1 scratch: for the cooperative K1 its zeroed word
+    buffer; for the multi-launch one the per-slot index (resting at -1),
+    codes, touched list, limb accumulators, candidate rows, two
+    counters."""
     i32, i64 = torch.int32, torch.int64
+    if _cooperative(lib):
+        fn = lib.tb_orderfree_scratch_words
+        fn.argtypes = [_I]
+        fn.restype = _I64
+        return (torch.zeros(int(fn(B)), dtype=i64, device=dev),)
     return (torch.full((A,), -1, dtype=i32, device=dev), torch.empty(B, dtype=i32, device=dev),
             torch.empty(2 * B, dtype=i32, device=dev),
             torch.empty((2 * B, 16), dtype=i64, device=dev),
@@ -621,7 +660,7 @@ def k1_sweep(dev, parent=None) -> dict:
                                    for k, s in enumerate(K1_STAGES)}
         row["stamped_us"] = (c[0, -1] - c[0, 0]) / khz * 1e3
         if old is not None:
-            olds = _old_orderfree_scratch(t.shape[0], B, dev)
+            olds = _old_orderfree_scratch(old, t.shape[0], B, dev)
             orun = lambda: _old_orderfree(old, t, m, ring[2].data_ptr(), p, mode, n, ts,  # noqa: E731
                                           olds)
             psplit = device_split(orun, reset, names=K1_PARENT)
@@ -629,6 +668,18 @@ def k1_sweep(dev, parent=None) -> dict:
             row["parent_kernels_per_call"] = sum(v["launches"] for v in psplit.values())
             row["parent_split_us"] = {next((k for k in K1_PARENT if k in key), key): v["us"]
                                       for key, v in psplit.items()}
+            turns = _split_in_turns(run, orun, reset, K1_PARENT)
+            row["device_us_turns"] = [_sum_us([s]) for s in turns["change"]]
+            row["parent_device_us_turns"] = [_sum_us([s]) for s in turns["parent"]]
+            if _cooperative(old):
+                # The parent on the change's own scratch (the same layout):
+                # the hash table's address held equal.
+                same = lambda: _old_orderfree(old, t, m, ring[2].data_ptr(), p, mode,  # noqa: E731
+                                              n, ts, (scratch.words,))
+                turns = _split_in_turns(run, same, reset, K1_PARENT)
+                row["same_scratch_device_us_turns"] = [_sum_us([s]) for s in turns["change"]]
+                row["same_scratch_parent_device_us_turns"] = [_sum_us([s])
+                                                              for s in turns["parent"]]
             reset()
             orun()
             torch.cuda.synchronize()
@@ -707,16 +758,271 @@ def turns(dev, parent=None) -> dict:
     from this one, in turns (parent, change, change, parent), each in a
     process of its own: every K1 case's and K13 admit's µs/call, device
     µs and host µs as that tree's chip_smoke.py measures them."""
+    return _in_turns(_TURN, parent, 600)
+
+
+# ---- K6 and K3 finalize, the change against an earlier tree's kernels.
+
+# The device functions of K6 in either design: the seven launches of the
+# multi-launch design (tp_static, tp_ladder, tp_winner, tp_accum,
+# tp_admit, apply_rows_kernel, summary_kernel) and the one cooperative
+# launch.
+K6_NAMES = ("tp_", "apply_rows_kernel", "summary_kernel", "two_phase_kernel")
+K6_SPLIT = ("tp_static", "tp_ladder", "tp_winner", "tp_accum", "tp_admit", "apply_rows_kernel",
+            "summary_kernel", "two_phase_kernel")
+FIN_NAMES = ("finalize_kernel",)
+# chip_smoke.py's TWO_PHASE_CHECKS cases timed here: (scenario, kind,
+# seed); the first is chip_smoke.py's timed case.
+K6_CASES = (("mixed", "two_phase_lo", 900), ("races", "two_phase", 904),
+            ("durable", "two_phase_lo", 903))
+TURN_REPS = 50  # CUDA-event calls of each tree in paired_event_us
+
+
+def paired_event_us(fns, reset) -> list:
+    """Median CUDA-event microseconds per call of each of `fns`, taken in
+    turns (fns[0], fns[1], ..., then again; TURN_REPS calls each),
+    `reset()` before every call, outside the timed events."""
+    for f in fns:
+        reset()
+        f()
+    times = [[] for _ in fns]
+    for _ in range(TURN_REPS):
+        for k, f in enumerate(fns):
+            reset()
+            times[k].append(_event_ms(f) * 1e3)
+    return [float(np.median(t)) for t in times]
+
+
+def _split_in_turns(run, orun, reset, names):
+    """device_split of the change (`run`) and the parent (`orun`) in
+    turns: parent, change, change, parent."""
+    out = {"change": [], "parent": []}
+    for who in ("parent", "change", "change", "parent"):
+        out[who].append(device_split(run if who == "change" else orun, reset, names))
+    return out
+
+
+def _sum_us(splits) -> float:
+    """Device microseconds of a call that launches each kernel once: the
+    kernels' times per launch summed (the profiler may miss a launch of
+    the window), averaged over the splits."""
+    return float(np.mean([sum(v["us_launch"] for v in s.values()) for s in splits]))
+
+
+def _named(splits, names) -> dict:
+    """Each kernel's microseconds per launch, averaged over the splits."""
+    keys = {k for s in splits for k in s}
+    return {next((n for n in names if n in k), k):
+            float(np.mean([s[k]["us_launch"] for s in splits if k in s])) for k in keys}
+
+
+def k6_case(dev, scenario, kind, seed):
+    """chip_smoke.check_semantic's K6 batch `scenario` on the card:
+    (table, meta, pk, n, lo_only, the rows it names)."""
+    rows = np.sort(np.random.default_rng(2029).choice(A_ROWS, B, replace=False))
+    table, meta, pk, n = semantic_cases.two_phase_case(seed, dk.B, scenario, A=A_ROWS, rows=rows)
+    w = pk[:n, [dk.COL_SLOTS, dk.COL_TP_SLOTS]].reshape(-1)
+    s = np.concatenate([(w & np.uint64(0xFFFFFFFF)).astype(np.int64),
+                        (w >> np.uint64(32)).astype(np.int64)]) - 1
+    to = lambda a, dt: torch.from_numpy(a.view(dt).copy()).to(dev)  # noqa: E731
+    return (to(table, np.int64), to(meta, np.int32), to(pk, np.int64), n,
+            kind == "two_phase_lo", torch.from_numpy(np.unique(s[s >= 0])).to(dev))
+
+
+def _old_two_phase(lib, table, meta, ring_row, pk, n, lo_only, olds):
+    """The multi-launch K6: seven launches over a per-slot index and a word
+    scratch."""
+    fn = lib.tb_two_phase
+    fn.argtypes = [_P, _P, _I64, _P, _P, _I, _I, _I, _P, _P, _P]
+    rc = fn(table.data_ptr(), meta.data_ptr(), table.shape[0], ring_row, pk.data_ptr(), n,
+            pk.shape[0], int(lo_only), olds[0].data_ptr(), olds[1].data_ptr(), _stream())
+    if rc:
+        raise RuntimeError(f"parent tb_two_phase: {lib.tb_error_string(rc).decode()}")
+
+
+def _old_two_phase_scratch(lib, A, Bn, dev):
+    fn = lib.tb_two_phase_scratch_words
+    fn.argtypes = [_I]
+    fn.restype = _I64
+    return (torch.full((A,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(int(fn(Bn)), dtype=torch.int64, device=dev))
+
+
+def k6_sweep(dev, parent=None) -> dict:
+    """K6 on K6_CASES: device microseconds and kernels per call (the
+    profiler; the batch's rows restored between calls), the split over
+    the kernels a call launches, and the bits against the plain version;
+    with `parent`, that tree's K6 on the same inputs, in turns with the
+    change (device time: parent, change, change, parent; CUDA-event time
+    per call alternating), and its bits against the change's."""
+    old = _parent_lib(parent, "two_phase") if parent is not None else None
+    out = {}
+    for scenario, kind, seed in K6_CASES:
+        t, m, p, n, lo, rows = k6_case(dev, scenario, kind, seed)
+        saved = t[rows].clone()
+        t0 = t.clone()
+        reset = lambda t=t, rows=rows, s=saved: t.index_copy_(0, rows, s)  # noqa: E731
+        ring = torch.zeros((4, dk.SUMMARY_WORDS), dtype=torch.int64, device=dev)
+        scratch = dk.new_scratch("two_phase", t.shape[0], dev)
+        run = lambda: dk.two_phase(t, m, ring, 1, p, n, 1 << 40, lo_only=lo,  # noqa: E731
+                                   scratch=scratch, count_as=None)
+        row = {"case": f"{kind}[{scenario}]", "events": n, "rows": int(rows.numel())}
+        reset()
+        run()
+        t_new = t.clone()
+        t_p, r_p = t0.clone(), torch.zeros_like(ring)
+        dk.two_phase_plain(t_p, m, r_p, 1, p, n, 1 << 40, lo_only=lo)
+        row["plain_equal"] = bool(torch.equal(t_new, t_p) and torch.equal(ring[1], r_p[1]))
+        if old is None:
+            split = [device_split(run, reset, K6_NAMES)]
+        else:
+            olds = _old_two_phase_scratch(old, t.shape[0], dk.B, dev)
+            orun = lambda: _old_two_phase(old, t, m, ring[2].data_ptr(), p, n, lo,  # noqa: E731
+                                          olds)
+            turns = _split_in_turns(run, orun, reset, K6_NAMES)
+            split = turns["change"]
+            row["parent_device_us"] = _sum_us(turns["parent"])
+            row["parent_device_us_turns"] = [_sum_us([s]) for s in turns["parent"]]
+            row["device_us_turns"] = [_sum_us([s]) for s in turns["change"]]
+            row["parent_kernels_per_call"] = sum(v["launches"] for v in turns["parent"][0].values())
+            row["parent_split_us"] = _named(turns["parent"], K6_SPLIT)
+            bind = lambda: kernels.two_phase(t, m, ring[1].data_ptr(), p, n, lo,  # noqa: E731
+                                             scratch, count_as=None)
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us((bind, orun), reset)
+            reset()
+            orun()
+            torch.cuda.synchronize()
+            row["parent_equal"] = bool(torch.equal(t, t_new) and torch.equal(ring[2], ring[1]))
+        row["device_us"] = _sum_us(split)
+        row["kernels_per_call"] = sum(v["launches"] for v in split[0].values())
+        row["split_us"] = _named(split, K6_SPLIT)
+        reset()
+        out[scenario] = row
+    return out
+
+
+def finalize_case(dev):
+    """chip_smoke.check_waves' finalize input: the linked-class batch's
+    plan run on the card up to and through its longest scan segment
+    after the first wave, (table, carry words, B, the wave mask as
+    hist_fix)."""
+    table, ev, dstat, n, ts_base, plan = _linked_case()
+    t, pk, _ds, w = _pair(dev, table, ev, dstat)
+    first_wave = next(k for k, (kind, _) in enumerate(plan.segments) if kind == "wave")
+    seg_at = max((k for k, (kind, _) in enumerate(plan.segments)
+                  if kind == "scan" and k > first_wave),
+                 key=lambda k: len(plan.segments[k][1]))
+    for kind, ix in plan.segments[:seg_at + 1]:
+        ixt = torch.from_numpy(np.asarray(ix, np.int32)).to(dev)
+        if kind == "wave":
+            waves.wave_step(t, pk, w, ixt, n, ts_base)
+        else:
+            k3.scan_segment(t, pk, w, ixt, n, ts_base)
+    fix = torch.zeros(B, dtype=torch.uint8)
+    fix[:n] = torch.from_numpy(plan.wave_mask.astype(np.uint8))
+    return t, w, B, fix.to(dev)
+
+
+def fin_sweep(dev, parent=None) -> dict:
+    """K3 finalize at B = 8192 with chip_smoke.py's hist_fix, with none
+    and with every row fixed: device microseconds and kernels per call,
+    and the bits against the plain version; with `parent`, that tree's
+    finalize in turns with the change, and its bits against the
+    change's."""
+    old = _parent_lib(parent, "exact_scan") if parent is not None else None
+    t, w, Bn, fix = finalize_case(dev)
+    out = {}
+    for name, hf in (("chip_smoke", fix), ("none", None),
+                     ("all", torch.ones(Bn, dtype=torch.uint8, device=dev))):
+        run = lambda hf=hf: k3.finalize(t, w, Bn, hf)  # noqa: E731
+        res = k3.carry_views(w, Bn)["results"]
+        row = {"fixed": 0 if hf is None else int(hf.sum()),
+               "rewritten": 0 if hf is None else int(((hf != 0) & (res == 0)).sum())}
+        got = run()
+        row["plain_equal"] = bool(torch.equal(got, k3.finalize_plain(t, w, Bn, hf)))
+        if old is None:
+            split = [device_split(run, None, FIN_NAMES)]
+        else:
+            fn = old.tb_exact_finalize
+            fn.argtypes = [_P, _I64, _I, _P, _P, _P, _P]
+            o_out = torch.empty_like(got)
+
+            def orun(hf=hf):
+                rc = fn(t.data_ptr(), t.shape[0], Bn, w.data_ptr(),
+                        None if hf is None else hf.data_ptr(), o_out.data_ptr(), _stream())
+                if rc:
+                    raise RuntimeError(f"parent tb_exact_finalize: "
+                                       f"{old.tb_error_string(rc).decode()}")
+            turns = _split_in_turns(run, orun, None, FIN_NAMES)
+            split = turns["change"]
+            row["parent_device_us"] = _sum_us(turns["parent"])
+            row["parent_device_us_turns"] = [_sum_us([s]) for s in turns["parent"]]
+            row["device_us_turns"] = [_sum_us([s]) for s in turns["change"]]
+            k_out = torch.empty_like(got)
+            bind = lambda hf=hf: kernels.exact_finalize(t, Bn, w, hf, k_out)  # noqa: E731
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us((bind, orun),
+                                                                            lambda: None)
+            orun()
+            torch.cuda.synchronize()
+            row["parent_equal"] = bool(torch.equal(o_out, got))
+        row["device_us"] = _sum_us(split)
+        row["kernels_per_call"] = sum(v["launches"] for v in split[0].values())
+        out[name] = row
+    return out
+
+
+# One tree's two_phase and waves_host phases (chip_smoke.py's streams),
+# run from its root: each phase's main-path run (events/s, launches) and
+# a profiled run (busy share, the top device items, K6's and K3
+# finalize's device ms), on one line.
+_PHASES = """
+import json, sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke as c
+from tigerbeetle_tpu_torch import workload
+from tigerbeetle_tpu_torch.kernels import build
+build.build_all()
+named = ("two_phase_kernel", "tp_", "apply_rows_kernel", "summary_kernel", "finalize_kernel")
+out = {}
+for name, engine in (("two_phase", "device"), ("waves_host", "host")):
+    if name == "two_phase":
+        setup, timed, sizing = workload.gen_two_phase(c.N_EXACT, n_accounts=c.N_ACCOUNTS)
+    else:
+        setup, timed, sizing = workload.gen_waves_host(c.WAVE_BATCHES * workload.BATCH,
+                                                       n_accounts=c.N_ACCOUNTS)
+    cap = c.transfer_events(setup + timed) + 1024
+    sm, replies, elapsed, launches, _ = c.run_stream(setup, timed, sizing[0], cap, False, engine)
+    root = sm.state_root().hex()
+    del sm
+    torch.cuda.empty_cache()
+    p_sm, p_replies, p_elapsed, _, trace = c.run_stream(setup, timed, sizing[0], cap, False,
+                                                         engine, profile=True, named=named)
+    del p_sm
+    torch.cuda.empty_cache()
+    busy_ms, top, ms = trace if trace is not None else (None, None, {})
+    out[name] = dict(events_per_s=c.transfer_events(timed) / elapsed,
+                     replies_equal=p_replies == replies, root=root, busy_ms=busy_ms,
+                     busy_share=None if busy_ms is None else busy_ms / 1e3 / p_elapsed,
+                     top=top, named_ms=ms, launches={k: v for k, v in launches.items() if v})
+print("TURN " + json.dumps(out, default=str))
+"""
+
+
+def _in_turns(code, parent, timeout) -> dict:
+    """`code` run from `parent`'s root and from this tree's, in turns
+    (parent, change, change, parent), a process each; each run's TURN
+    line."""
     import subprocess
 
     if parent is None:
-        raise SystemExit("serial_probes: the turns part needs --parent")
+        raise SystemExit("serial_probes: the turns and phases parts need --parent")
     here = Path(__file__).resolve().parents[2]
     out = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         root = Path(parent).resolve() if who == "parent" else here
-        run = subprocess.run([sys.executable, "-c", _TURN], cwd=root, capture_output=True,
-                             text=True, timeout=600)
+        run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                             text=True, timeout=timeout)
         line = [ln for ln in run.stdout.splitlines() if ln.startswith("TURN ")]
         if run.returncode or not line:
             raise RuntimeError(f"turn in {root}: rc {run.returncode}\n{run.stderr[-3000:]}")
@@ -724,18 +1030,28 @@ def turns(dev, parent=None) -> dict:
     return out
 
 
-# "turns" runs only when asked for.
+def phases(dev, parent=None) -> dict:
+    """chip_smoke.py's two_phase and waves_host streams from `parent`'s
+    tree and from this one, in turns, each in a process of its own:
+    events/s of the main-path run, the profiled run's busy share and
+    top items, and K6's and K3 finalize's device ms."""
+    return _in_turns(_PHASES, parent, 900)
+
+
+# "turns" and "phases" run only when asked for.
 PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
-         "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "turns": turns}
+         "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "k6": k6_sweep,
+         "fin": fin_sweep, "turns": turns, "phases": phases}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the JSON object to this file")
-    ap.add_argument("--parts", default=",".join(p for p in PARTS if p != "turns"),
+    ap.add_argument("--parts", default=",".join(p for p in PARTS if p not in ("turns", "phases")),
                     help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--parent",
-                    help="an earlier tree whose K1, K5, K7 and K13 admit run beside these")
+                    help="an earlier tree whose K1, K3 finalize, K5, K6, K7 and K13 admit "
+                         "run beside these")
     ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -743,6 +1059,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     extra = {"k5": {"parent": args.parent}, "k1": {"parent": args.parent},
              "k13": {"parent": args.parent}, "turns": {"parent": args.parent},
+             "k6": {"parent": args.parent}, "fin": {"parent": args.parent},
+             "phases": {"parent": args.parent},
              "k7": {"parent": args.parent,
                     "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
                                                     if k})}}
