@@ -155,7 +155,7 @@ import time
 import numpy as np
 import torch
 
-from tigerbeetle_tpu_torch import envcheck, kernels
+from tigerbeetle_tpu_torch import kernels
 from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.kernels import build
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
@@ -809,7 +809,6 @@ def check_tier_kernels(dev, report):
 # copies between shards are device-local, and no time is a multi-GPU one.
 
 SHARDS = 4              # the kernel checks' and sharded_waves' shard count
-SHARD_GATHER_K = 16_380  # a batch's debit and credit slots
 K12_OPS_PER_EVENT = 30   # per event: the limbs, two ownership tests, 8 atomics
 K13_OPS_PER_CELL = 12    # per (row, column): limb carries, the u128 add, the test
 
@@ -820,7 +819,7 @@ def check_shard_kernels(dev, report):
     shapes: an 8190-event slice onto shard 1 of a 2^20-row table split
     in 4 (2^18 local rows; 64 rows of the table within 2^40 of 2^128,
     so events reject); K14 at W = 8, 2 and 1 on K = 16,380 slots (a wave
-    batch's) and on a window unit's rows (window_unit_rows).  K12 is
+    batch's) and on a window unit's rows (serial_probes.k14_cases).  K12 is
     timed beside Tensor.index_put_(accumulate=True), K14 gather beside
     index_select + where and its scatter beside index_copy_."""
     local = A_ROWS // SHARDS
@@ -933,30 +932,15 @@ def check_shard_kernels(dev, report):
     print(f"K13 shard_apply ({local} local rows): bit-exact; {ms * 1e3:.1f} us, "
           f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
-    rng = np.random.default_rng(2041)
-    batch = torch.from_numpy(np.sort(rng.choice(A_ROWS, SHARD_GATHER_K, replace=False))).to(dev)
-    window = torch.from_numpy(window_unit_rows(rng)).to(dev)
-    for key, slots in (("widths", batch), ("window_unit", window)):
-        for W in (8, 2, 1):
-            t = table if W == 8 else torch.from_numpy(
-                rng.integers(-(1 << 63), (1 << 63) - 1, (local, W))).to(dev)
-            gather, scatter = k14_case(t, slots, shard, rng)
-            if key == "widths" and W == 8:
-                # The headline: the wave executor's batch at the balances' width.
-                report["shard_gather"], report["shard_scatter"] = gather, scatter
-            else:
-                report["shard_gather"].setdefault(key, {})[W] = gather
-                report["shard_scatter"].setdefault(key, {})[W] = scatter
-
-
-def window_unit_rows(rng) -> np.ndarray:
-    """The rows one window unit of sharded_engine/simple gathers: the
-    compact rows (sharded.compact_rows) of a window of gen_simple
-    batches on the 2^20-row table, each event debiting a uniform account
-    d of N_ACCOUNTS and crediting d % N_ACCOUNTS + 1 (~780,000 rows at
-    the default window of 96 batches)."""
-    d = rng.integers(0, N_ACCOUNTS, envcheck.dev_window() * workload.BATCH)
-    return sharded.compact_rows(np.concatenate([d, (d + 1) % N_ACCOUNTS]), A_ROWS)
+    rng = np.random.default_rng(2042)
+    for key, W, t, slots in serial_probes.k14_cases(dev, table):
+        gather, scatter = k14_case(t, slots, shard, rng)
+        if key == "widths" and W == 8:
+            # The headline: the wave executor's batch at the balances' width.
+            report["shard_gather"], report["shard_scatter"] = gather, scatter
+        else:
+            report["shard_gather"].setdefault(key, {})[W] = gather
+            report["shard_scatter"].setdefault(key, {})[W] = scatter
 
 
 def k14_case(table, slots, shard, rng):
@@ -1783,14 +1767,34 @@ def check_waves(dev, report, l2_ns):
     torch.cuda.synchronize()
     err = max_abs_err(w_k, w_p)
     check(err == 0, "K3 exact_init: kernel differs from the plain version")
+    # The 8-byte path: an odd batch, and carries one word off 16-byte
+    # alignment; the words past the carry keep their sentinel.
+    init_rng = np.random.default_rng(2043)
+    for ib, off in ((4097, 0), (B, 1), (4097, 1)):
+        n_w = k3.scratch_words(ib)
+        ids = torch.from_numpy(init_rng.integers(-(1 << 31), 1 << 31, ib, dtype=np.int64)
+                               .astype(np.int32)).to(dev)
+        base = torch.full((n_w + off + 1,), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64, device=dev)
+        k3.exact_init(base[off:off + n_w], ids)
+        want = k3.make_carry(torch.empty(n_w, dtype=torch.int64, device=dev), ids)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(base[off:off + n_w], want))
+        check(err == 0 and int(base[-1]) == 0x5A5A5A5A5A5A5A5A,
+              f"K3 exact_init (B={ib}, carry offset {off}): kernel differs from the plain "
+              "version or wrote past the carry")
     ms, dev_ms, host = kernel_ms(lambda: k3.exact_init(w_k, ds), names=("init_kernel",))
     plain_ms = time_ms(lambda: k3.make_carry(w_p, ds), reps=5, warm=1)
+    # Yardstick, not the same function: zero_() of the same words.
+    z_ms, z_dev, z_host = kernel_ms(w_p.zero_)
     bound_ms, bound_by = bound(B * 4 + k3.scratch_words(B) * 8, k3.scratch_words(B))
     report["exact_init"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
                                 plain_ms=plain_ms, bound_ms=bound_ms,
-                                bound_by=bound_by, max_abs_err=err, timed_case=f"B={B}")
-    print(f"K3 exact_init (B={B}): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} "
-          f"{_vs(plain_ms, bound_ms)}")
+                                bound_by=bound_by, max_abs_err=err, timed_case=f"B={B}",
+                                yardstick=dict(call="zero_ of the carry's words", ms=z_ms,
+                                               device_ms=z_dev, host_ms=z_host))
+    print(f"K3 exact_init (B={B}; also B=4097 and carries one word off alignment): "
+          f"bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}; "
+          f"zero_() of the same words {z_ms * 1e3:.1f} us, {_dev(z_dev, z_host)}")
 
 
 def k7_lanes(dev, report, main_lanes):
@@ -2835,7 +2839,7 @@ def main() -> int:
                     "plain_on", "iters", "timed_case", "k128", "meta",
                     "library_device_ms", "library_host_ms", "widths", "window_unit", "row0",
                     "us_per_batch", "host_split", "library_full",
-                    "by_kind", "cases", "phase_slice"):
+                    "by_kind", "cases", "phase_slice", "yardstick"):
             if key in r:
                 row[key] = r[key]
         rows.append(row)

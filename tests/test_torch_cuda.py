@@ -575,6 +575,29 @@ def _run_plan(card, case):
     return plan
 
 
+@pytest.mark.parametrize("B,offset", [(8192, 0), (8191, 0), (1, 0), (8192, 1), (4097, 1)])
+def test_exact_init_kernel_matches_plain(card, B, offset):
+    """K3 init alone: the wave batch, an odd B (8-byte words), one row,
+    and carries one word off 16-byte alignment (8-byte words too); a
+    scratch left by an earlier batch comes out as make_carry's, the
+    words past the carry keep their sentinel; one launch a call."""
+    rng = np.random.default_rng(B + offset)
+    n = k3.scratch_words(B)
+    ds = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, B, dtype=np.int64)
+                          .astype(np.int32)).to(card)
+    base = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n + offset + 3)).to(card)
+    tail = base[offset + n:].clone()
+    w = base[offset:offset + n]
+    assert (w.data_ptr() % 16 == 0) == (offset == 0)
+    before = kernels.launches["exact_init"]
+    k3.exact_init(w, ds)
+    want = k3.make_carry(torch.empty_like(w), ds)
+    torch.cuda.synchronize()
+    assert kernels.launches["exact_init"] == before + 1
+    assert torch.equal(w, want)
+    assert torch.equal(base[offset + n:], tail)
+
+
 @pytest.mark.parametrize("fix", wave_cases.FIX_MODES)
 @pytest.mark.parametrize("B,A,offset", [(203, 37, 0), (8192, 1 << 20, 0), (8192, 4096, 1),
                                         (97, 5000, 1)])
@@ -1218,6 +1241,43 @@ def test_shard_scatter_drops_what_it_does_not_own(card, width, side_stream):
     got = _on_side_stream(launch) if side_stream else launch().cpu()
     assert kernels.launches["shard_scatter"] == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("K", [1, 1001, 300_001])
+@pytest.mark.parametrize("width", [1, 2, 8])
+def test_shard_gather_edges_match_plain(card, width, K, aligned):
+    """K14 gather at W = 1, 2 and 8 from shard 2 of 4 (row0 != 0): one
+    slot, an odd K, and more pieces than the grid has threads (each
+    thread then keeps several in flight); slots owned, owned by other
+    shards, -1 and past every shard; a table and an output one word off
+    16-byte alignment (8-byte words); one launch a call."""
+    rng = np.random.default_rng(width * 7 + K + aligned)
+    local, shard, shards = 1 << 16, 2, 4
+    A = local * shards
+    table = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (local, width)))
+    edges = np.array([shard * local + 5, -1, A, A + 1, 1 << 40, shard * local,
+                      (shard + 1) * local - 1, shard * local - 1, (shard + 1) * local])
+    slots = rng.integers(0, A, K)
+    slots[:min(K, len(edges))] = edges[:K]
+    slots = torch.from_numpy(rng.permutation(slots))
+    want = sharded.gather_part_plain(table, slots, shard)
+
+    def placed(t):  # t's values at an aligned pointer, or one word past one
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        view = flat[int(not aligned):][:t.numel()].view(t.shape)
+        view.copy_(t.to(card))
+        assert (view.data_ptr() % 16 == 0) == aligned
+        return view
+
+    t, sl = placed(table), slots.to(card)
+    before = kernels.launches["shard_gather"]
+    got = sharded.gather_part(t, sl, shard)
+    assert kernels.launches["shard_gather"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    out = placed(torch.full((K, width), 7, dtype=torch.int64))
+    kernels.shard_gather(t, shard * local, sl, out)
+    assert torch.equal(out.cpu(), want)
 
 
 def test_row_kernels_on_unaligned_views_match_plain(card):

@@ -45,8 +45,9 @@
 // (clearing the carry, packing the outputs) take every thread.  Four C
 // entry points over ONE carry, the scratch buffer below:
 //
-//   tb_exact_init      all threads: the initial carry (make_carry, the
-//                      durable statuses dstat_init)
+//   tb_exact_init      the initial carry (make_carry, the durable
+//                      statuses dstat_init): one flat pass of 16-byte
+//                      stores over several blocks on every SM (below)
 //   tb_exact_segment   the walk over a list of global event indices (a
 //                      scan segment of a wave plan), resuming
 //                      chain_start, chain_broken and last_applied from
@@ -98,23 +99,75 @@ using namespace tbs;
 constexpr int THREADS = 256;
 // The segment block: the walking warp and the producer warp.
 constexpr int SEG_THREADS = 64;
-// The initial carry, filled by `nthreads` threads starting at `t`.
-__device__ void init_carry(uint64_t* s, int64_t Bn, const int32_t* dstat_init, int64_t t,
-                           int64_t nthreads) {
-  for (int region = 0; region < CARRY_REGIONS; ++region) {
-    const uint64_t fill =
-        (region == 16 || region == 19 || region == 20) ? U64_MAX : 0;  // -1
-    uint64_t* dst = s + region * Bn;
-    for (int64_t i = t; i < Bn; i += nthreads)
-      dst[i] = region == 18 ? (uint64_t)(uint32_t)dstat_init[i] : fill;
+// The initial carry (kernel.make_carry): every one of its 57 B + 4 words
+// is written, since finalize packs every row's hist and scalar words,
+// padding rows included, and a rollback reads the undo rows.  Word w's
+// fill follows from where w lies, by compares against region bounds
+// (no loop over regions, no per-region branch chain): -1 in
+// group_creator, u_dr_slot and u_cr_slot (regions 16, 19 and 20), the
+// durable statuses widened from u32 in region 18, the scalars -1, 0,
+// -1, 0, and 0 everywhere else.  The bytes (3.7 MB at B = 8192, 32 KB
+// of statuses read) would take ~1.1 us at 3.35 TB/s, so what bounds the
+// pass is how fast the SMs issue its stores: it is flat, a 16-byte
+// piece a thread (ulonglong2, the store width Hopper serves best), and
+// several blocks on every SM.  For an even B and a 16-byte aligned scratch a
+// piece never straddles two regions (each starts at an even word); an
+// odd B or an unaligned scratch takes 8-byte words.  Default stores:
+// the next launch (a segment, a wave, finalize) reads the carry, and
+// 3.7 MB sits in the 50 MB L2.
+constexpr int INIT_THREADS = 256;
+constexpr int INIT_BLOCKS_PER_SM = 8;  // 2048 threads: a full SM
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// -1 (all ones) where word w lies in regions 16, 19 or 20, else 0; w
+// below the scalars and outside region 18.
+__device__ __forceinline__ uint64_t carry_fill(int64_t w, int64_t Bn) {
+  const bool minus1 = (uint64_t)(w - 16 * Bn) < (uint64_t)Bn ||
+                      (uint64_t)(w - 19 * Bn) < (uint64_t)(2 * Bn);
+  return minus1 ? U64_MAX : 0;
+}
+
+// Word w of the initial carry.
+__device__ __forceinline__ uint64_t carry_word(int64_t w, int64_t Bn,
+                                               const int32_t* __restrict__ dstat) {
+  const int64_t sc = w - CARRY_REGIONS * Bn, d = w - 18 * Bn;
+  if (sc >= 0) return (sc & 1) ? 0 : U64_MAX;  // chain_start, chain_broken, last_applied, 0
+  if ((uint64_t)d < (uint64_t)Bn) return (uint64_t)(uint32_t)dstat[d];
+  return carry_fill(w, Bn);
+}
+
+// Words w and w + 1 of the initial carry, w even and B even (both in
+// one region).
+__device__ __forceinline__ ulonglong2 carry_piece(int64_t w, int64_t Bn,
+                                                  const int32_t* __restrict__ dstat) {
+  const int64_t d = w - 18 * Bn;
+  if (w >= CARRY_REGIONS * Bn) return make_ulonglong2(U64_MAX, 0);  // the scalars, twice
+  if ((uint64_t)d < (uint64_t)Bn)
+    return make_ulonglong2((uint32_t)dstat[d], (uint32_t)dstat[d + 1]);
+  const uint64_t f = carry_fill(w, Bn);
+  return make_ulonglong2(f, f);
+}
+
+// The initial carry's 16-byte pieces (WIDE: B even, scratch aligned) or
+// 8-byte words, filled by `nthreads` threads starting at `t`.
+template <bool WIDE>
+__device__ __forceinline__ void fill_carry(uint64_t* __restrict__ s, int64_t Bn,
+                                           const int32_t* __restrict__ dstat, int64_t t,
+                                           int64_t nthreads) {
+  const int64_t words = CARRY_REGIONS * Bn + 4;
+  if constexpr (WIDE) {
+    ulonglong2* p = reinterpret_cast<ulonglong2*>(s);
+    for (int64_t i = t; i < words / 2; i += nthreads) p[i] = carry_piece(2 * i, Bn, dstat);
+  } else {
+    for (int64_t i = t; i < words; i += nthreads) s[i] = carry_word(i, Bn, dstat);
   }
-  if (t == 0) {
-    uint64_t* scalars = s + CARRY_REGIONS * Bn;
-    scalars[0] = U64_MAX;  // chain_start -1
-    scalars[1] = 0;        // chain_broken
-    scalars[2] = U64_MAX;  // last_applied -1
-    scalars[3] = 0;
-  }
+}
+
+__host__ __device__ __forceinline__ bool carry_wide(const void* s, int64_t Bn) {
+  return !(Bn & 1) && aligned16(s);
 }
 
 // The walker over one chunk of `cnt` planned events in ring slot `slot`
@@ -402,17 +455,19 @@ exact_scan(uint64_t* __restrict__ table, int64_t A,
   __shared__ Ring ring;
   const int64_t Bn = B;
   const Carry cy = carry_of(s, Bn);
-  init_carry(s, Bn, dstat_init, threadIdx.x, THREADS);
+  if (carry_wide(s, Bn)) fill_carry<true>(s, Bn, dstat_init, threadIdx.x, THREADS);
+  else fill_carry<false>(s, Bn, dstat_init, threadIdx.x, THREADS);
   __syncthreads();
   walk(table, A, ev, Bn, nullptr, Bn, n, ts_base, cy, ring);
   __syncthreads();
   for (int64_t i = threadIdx.x; i < Bn; i += THREADS) pack_row(cy, Bn, i, out);
 }
 
-__global__ void init_kernel(uint64_t* __restrict__ s, int B,
-                            const int32_t* __restrict__ dstat_init) {
-  init_carry(s, B, dstat_init, (int64_t)blockIdx.x * blockDim.x + threadIdx.x,
-             (int64_t)gridDim.x * blockDim.x);
+template <bool WIDE>
+__global__ void __launch_bounds__(INIT_THREADS, INIT_BLOCKS_PER_SM)
+init_kernel(uint64_t* __restrict__ s, int B, const int32_t* __restrict__ dstat_init) {
+  fill_carry<WIDE>(s, B, dstat_init, (int64_t)blockIdx.x * INIT_THREADS + threadIdx.x,
+                   (int64_t)gridDim.x * INIT_THREADS);
 }
 
 // The walking warp and the producer warp.
@@ -449,10 +504,6 @@ constexpr int FIX_PASSES = 2;  // a thread's (row, side, quarter) lanes of the r
 // last_applied + 1 on row 0).
 __device__ __forceinline__ int64_t scalar_region(int c) {
   return c == 0 ? 14 : c == 1 ? 15 : c < 16 ? c - 2 : c == 16 ? 17 : c == 17 ? 18 : c + 5;
-}
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 __global__ void __launch_bounds__(FIN_THREADS)
@@ -538,8 +589,6 @@ __global__ void l2_chase(const uint32_t* __restrict__ next, int64_t steps,
   *sink = i;
 }
 
-constexpr int FLAT_THREADS = 256;
-
 }  // namespace
 
 extern "C" int tb_l2_chase(const void* next, int64_t steps, void* sink,
@@ -565,11 +614,22 @@ extern "C" int tb_exact_scan(void* table, int64_t A, const void* ev, int B,
   return (int)cudaGetLastError();
 }
 
-// The initial carry of a B-row batch in the scratch (57 * B + 4 words).
+// The initial carry of a B-row batch in the scratch (57 * B + 4 words):
+// enough blocks for one piece (or word) a thread, at most
+// INIT_BLOCKS_PER_SM on every SM of the card, grid-stride past that.
 extern "C" int tb_exact_init(void* scratch, int B, const void* dstat_init, void* stream) {
-  const int blocks = (B + FLAT_THREADS - 1) / FLAT_THREADS;
-  init_kernel<<<blocks, FLAT_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint64_t*>(scratch), B, static_cast<const int32_t*>(dstat_init));
+  int sms = 0;
+  const int err = tb::sm_count(sms);
+  if (err) return err;
+  const bool wide = carry_wide(scratch, B);
+  const int64_t units = ((int64_t)CARRY_REGIONS * B + 4) / (wide ? 2 : 1);
+  int64_t blocks = (units + INIT_THREADS - 1) / INIT_THREADS;
+  if (blocks > (int64_t)sms * INIT_BLOCKS_PER_SM) blocks = (int64_t)sms * INIT_BLOCKS_PER_SM;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uint64_t* words = static_cast<uint64_t*>(scratch);
+  const int32_t* dstat = static_cast<const int32_t*>(dstat_init);
+  if (wide) init_kernel<true><<<(int)blocks, INIT_THREADS, 0, s>>>(words, B, dstat);
+  else init_kernel<false><<<(int)blocks, INIT_THREADS, 0, s>>>(words, B, dstat);
   return (int)cudaGetLastError();
 }
 

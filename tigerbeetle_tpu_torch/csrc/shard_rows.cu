@@ -18,21 +18,42 @@
 //
 // What bounds them on the H100: bytes.  Each entry costs its 8-byte
 // slot; the gather reads an owned row and writes 8W bytes per entry,
-// the scatter reads 8W bytes per entry and writes the owned rows.  The
-// gather: one thread per (entry, word), neighbouring threads on
-// neighbouring words of a row, each width compiled as a constant.  The
-// scatter: one thread per 16-byte piece (ulonglong2, the load width
-// Hopper serves fastest) at W = 2 and 8, per word at W = 1 (or where a
-// pointer is not 16-byte aligned), each (piece type, pieces per row)
-// compiled as a constant, so a piece's entry is a shift.  Any other
-// width is refused with cudaErrorInvalidValue.
+// the scatter reads 8W bytes per entry and writes the owned rows.  Both
+// move 16-byte pieces (ulonglong2, the width Hopper serves best) at
+// W = 2 and 8, 8-byte words at W = 1 (or where a pointer is not 16-byte
+// aligned), each (piece type, pieces per row) compiled as a constant, so
+// a piece's entry is a shift of its index.  Any other width is refused
+// with cudaErrorInvalidValue.
+//
+// The gather writes every entry's row, three quarters of them zeros at
+// the engine's shapes (a window unit: 50.7 MB out of 70 MB moved), so a
+// non-owned entry stores its zeros without touching the table.  Its
+// grid is sized from the card's SMs (GATHER_BLOCKS_PER_SM resident
+// blocks each), and where the pieces outnumber its threads each thread
+// keeps GATHER_UNROLL pieces in flight (their slots, then their rows,
+// then their stores), so a small call is one piece a thread and a large
+// one overlaps its dependent slot-then-row loads.  Piece indices are 32
+// bits where the pieces fit.  From STREAM_FROM_BYTES of output up, the
+// stores are streaming (st.global.cs): evicting such an output first
+// keeps the slots and rows in the 50 MB L2.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tb_hash.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int GATHER_BLOCKS_PER_SM = 4;
+constexpr int GATHER_UNROLL = 4;
+// Pieces a thread takes before the grid grows (up to the card's fill).
+constexpr int GATHER_MIN_PIECES = 1;
+// Streaming stores from a 24 MiB output up (about half of L2), measured
+// faster there: a window unit's W = 8 output (50.7 MB) 27.2 -> 24.8 us;
+// no faster at a W = 2 one (12.7 MB), slower at W = 1 (6.3 MB) and no
+// different at a wave batch (tools/serial_probes.py --parts k14).
+constexpr int64_t STREAM_FROM_BYTES = int64_t{24} << 20;
 
 __host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
 
@@ -43,16 +64,40 @@ int grid_for(int64_t n) {
   return g < 1 ? 1 : (int)g;
 }
 
-template <int W>
-__global__ void shard_gather(const uint64_t* __restrict__ table, int64_t local_rows, int64_t row0,
-                             const int64_t* __restrict__ slots, int64_t k,
-                             uint64_t* __restrict__ out) {
-  const int64_t total = k * W;
-  for (int64_t e = (int64_t)blockIdx.x * THREADS + threadIdx.x; e < total;
-       e += (int64_t)gridDim.x * THREADS) {
-    const int64_t entry = e / W;
-    const int64_t rel = slots[entry] - row0;
-    out[e] = (rel >= 0 && rel < local_rows) ? table[rel * W + (e - entry * W)] : 0ull;
+template <typename V, bool STREAM>
+__device__ __forceinline__ void store(V* p, const V& v) {
+  if constexpr (STREAM) __stcs(p, v);
+  else *p = v;
+}
+
+// PER_ROW pieces of type V make one row; I is the piece index type.
+template <typename V, int PER_ROW, typename I, bool STREAM>
+__global__ void __launch_bounds__(THREADS, GATHER_BLOCKS_PER_SM)
+shard_gather(const V* __restrict__ table, int64_t local_rows, int64_t row0,
+             const int64_t* __restrict__ slots, I total, V* __restrict__ out) {
+  constexpr int SHIFT = log2_of(PER_ROW);
+  static_assert((1 << SHIFT) == PER_ROW, "PER_ROW must be a power of two");
+  const I stride = (I)gridDim.x * THREADS;
+  for (I e0 = (I)blockIdx.x * THREADS + threadIdx.x; e0 < total; e0 += GATHER_UNROLL * stride) {
+    int64_t rel[GATHER_UNROLL];
+#pragma unroll
+    for (int j = 0; j < GATHER_UNROLL; ++j) {
+      const I e = e0 + j * stride;
+      rel[j] = e < total ? slots[e >> SHIFT] - row0 : -1;
+    }
+    V v[GATHER_UNROLL];
+#pragma unroll
+    for (int j = 0; j < GATHER_UNROLL; ++j) {
+      const I e = e0 + j * stride;
+      v[j] = V{};
+      if ((uint64_t)rel[j] < (uint64_t)local_rows)  // owned: 0 <= rel < local_rows
+        v[j] = table[((uint64_t)rel[j] << SHIFT) | (uint64_t)(e & (PER_ROW - 1))];
+    }
+#pragma unroll
+    for (int j = 0; j < GATHER_UNROLL; ++j) {
+      const I e = e0 + j * stride;
+      if (e < total) store<V, STREAM>(out + e, v[j]);
+    }
   }
 }
 
@@ -74,12 +119,36 @@ __global__ void shard_scatter(V* __restrict__ table, int64_t local_rows, int64_t
   }
 }
 
-template <int W>
-void launch_gather(const void* table, int64_t local_rows, int64_t row0, const void* slots,
-                   int64_t k, void* out, cudaStream_t s) {
-  shard_gather<W><<<grid_for(k * W), THREADS, 0, s>>>(
-      static_cast<const uint64_t*>(table), local_rows, row0, static_cast<const int64_t*>(slots),
-      k, static_cast<uint64_t*>(out));
+template <typename V, int PER_ROW>
+int launch_gather(const void* table, int64_t local_rows, int64_t row0, const void* slots,
+                  int64_t k, void* out, cudaStream_t s) {
+  int sms = 0;
+  const int err = tb::sm_count(sms);
+  if (err) return err;
+  const int64_t total = k * PER_ROW;
+  int64_t blocks = (total + THREADS * GATHER_MIN_PIECES - 1) / (THREADS * GATHER_MIN_PIECES);
+  if (blocks > (int64_t)sms * GATHER_BLOCKS_PER_SM) blocks = (int64_t)sms * GATHER_BLOCKS_PER_SM;
+  // 32-bit piece indices while the last one, one unrolled stride past
+  // the end included, stays below 2^31.
+  const bool narrow = total + (int64_t)GATHER_UNROLL * blocks * THREADS < ((int64_t)1 << 31);
+  const bool stream = total * (int64_t)sizeof(V) >= STREAM_FROM_BYTES;
+  const V* t = static_cast<const V*>(table);
+  const int64_t* sl = static_cast<const int64_t*>(slots);
+  V* o = static_cast<V*>(out);
+  const int g = (int)blocks;
+  if (narrow && stream)
+    shard_gather<V, PER_ROW, uint32_t, true><<<g, THREADS, 0, s>>>(t, local_rows, row0, sl,
+                                                                   (uint32_t)total, o);
+  else if (narrow)
+    shard_gather<V, PER_ROW, uint32_t, false><<<g, THREADS, 0, s>>>(t, local_rows, row0, sl,
+                                                                    (uint32_t)total, o);
+  else if (stream)
+    shard_gather<V, PER_ROW, uint64_t, true><<<g, THREADS, 0, s>>>(t, local_rows, row0, sl,
+                                                                   (uint64_t)total, o);
+  else
+    shard_gather<V, PER_ROW, uint64_t, false><<<g, THREADS, 0, s>>>(t, local_rows, row0, sl,
+                                                                    (uint64_t)total, o);
+  return 0;
 }
 
 template <typename V, int PER_ROW>
@@ -105,15 +174,24 @@ extern "C" int tb_shard_gather(const void* table, int64_t local_rows, int64_t ro
                                const void* slots, int64_t k, int64_t w, void* out,
                                void* stream) {
   if (w != 1 && w != 2 && w != 8) return (int)cudaErrorInvalidValue;
+  int err = 0;
   if (k > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (w) {
-      case 1: launch_gather<1>(table, local_rows, row0, slots, k, out, s); break;
-      case 2: launch_gather<2>(table, local_rows, row0, slots, k, out, s); break;
-      default: launch_gather<8>(table, local_rows, row0, slots, k, out, s); break;
+    using U = unsigned long long;
+    // 16-byte pieces where the row holds them and both pointers are
+    // aligned to them; 8-byte words otherwise.
+    const bool wide = aligned16(table, out);
+    if (w == 1) {
+      err = launch_gather<U, 1>(table, local_rows, row0, slots, k, out, s);
+    } else if (w == 2) {
+      err = wide ? launch_gather<ulonglong2, 1>(table, local_rows, row0, slots, k, out, s)
+                 : launch_gather<U, 2>(table, local_rows, row0, slots, k, out, s);
+    } else {
+      err = wide ? launch_gather<ulonglong2, 4>(table, local_rows, row0, slots, k, out, s)
+                 : launch_gather<U, 8>(table, local_rows, row0, slots, k, out, s);
     }
   }
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
 }
 
 // table: (local_rows, w) u64; slots: (k,) i64 distinct global rows;

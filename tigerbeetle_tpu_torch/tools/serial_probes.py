@@ -1,10 +1,10 @@
 """The redesigned kernels' floors and times on the card: K8's barrier,
 K8 over its chain shapes, K3 over its segment lengths, where one K3
-event's time goes; K5, K7, K1, K13 admit, K6 and K3 finalize beside an
-earlier tree's.
+event's time goes; K5, K7, K1, K13 admit, K6, K3 finalize and init
+and K14 gather beside an earlier tree's.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
-        [--parent DIR] [--k7-lanes K,...]
+        [--parent DIR] [--k7-lanes K,...] [--phases NAME,...]
 
 Needs a CUDA card.  Builds ``tools/serial_probes.cu`` (probes, not
 kernels of the port) and drives the port's own wrappers:
@@ -59,27 +59,40 @@ kernels of the port) and drives the port's own wrappers:
   carry) with its hist_fix, with none and with every row fixed: device
   microseconds and kernels per call, the bits against the plain
   version.
+* ``init``: K3 init on ``INIT_CASES`` (B = 8192, 8190, an odd B, and
+  8192 on a carry one word off 16-byte alignment): device microseconds
+  per call in turns with ``zero_()`` of the same words (a yardstick: the
+  same bytes stored, not the same function), the bits against
+  ``make_carry``, the word past the carry left as it was.
+* ``k14``: K14 gather at W = 8, 2 and 1 on chip_smoke.py's two shapes
+  (``k14_cases``: a wave batch's 16,380 slots, a window unit's rows):
+  device microseconds per call in turns with index_select + where and,
+  where the source chooses its store kind by size, with this tree's
+  gather built (``variant_lib``) with streaming stores and with default
+  ones at every size, and at the launch shapes of ``K14_SHAPES``; the
+  bits against the plain version.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
   checks from the parent's tree and from this one, in turns (parent,
   change, change, parent), one process each: what each tree's checks
   measure (µs/call, device µs, host µs, plain µs, bound).
-* ``phases`` (needs ``--parent``): chip_smoke.py's two_phase and
-  waves_host streams from either tree in the same turns: events/s, the
-  profiled run's busy share and top items, K6's and K3 finalize's
-  device ms.
+* ``phases`` (needs ``--parent``): chip_smoke.py's streams (``--phases``,
+  default every one of ``PHASES``) from either tree in the same turns:
+  events/s, launches, windows or flushes, the profiled run's busy share
+  and top items, the device ms of K6, K3 init and finalize and K14.
 
 ``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
 ``git archive`` under ``build/``) adds, in the same process and on the
-same inputs, that tree's K1, K5, K7, K13 admit, K6 and K3 finalize
-(built from its ``csrc``; its K5 also built with stamps patched in
-between its stages) to ``k1``, ``k5``, ``k7``, ``k13``, ``k6`` and
-``fin``; for K1 and K6, the split of its time over the kernels it
-launches.  ``k6`` and ``fin`` take the two trees' device times in
-turns (parent, change, change, parent) and their CUDA-event times per
-call alternating (``paired_event_us``).
+same inputs, that tree's K1, K5, K7, K13 admit, K6, K3 finalize and
+init and K14 gather (built from its ``csrc``; its K5 also built with
+stamps patched in between its stages) to ``k1``, ``k5``, ``k7``,
+``k13``, ``k6``, ``fin``, ``init`` and ``k14``; for K1 and K6, the
+split of its time over the kernels it launches.  ``k6``, ``fin``,
+``init`` and ``k14`` take the two trees' device times in turns (parent,
+change, change, parent) and their CUDA-event times per call
+alternating (``paired_event_us``).
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
-``k8``, ``k3``, ``k5``, ``k7``, ``k13``, ``k6`` and ``fin`` build nothing of their own
+``k8``, ``k3``, ``k5``, ``k7``, ``k13``, ``k6``, ``fin`` and ``init`` build nothing of their own
 but the parent's, so they run on any tree with the wrappers);
 ``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
@@ -971,48 +984,371 @@ def fin_sweep(dev, parent=None) -> dict:
     return out
 
 
-# One tree's two_phase and waves_host phases (chip_smoke.py's streams),
-# run from its root: each phase's main-path run (events/s, launches) and
-# a profiled run (busy share, the top device items, K6's and K3
-# finalize's device ms), on one line.
+# ---- K3 init and K14 gather, the change against an earlier tree's kernels.
+
+INIT_NAMES = ("init_kernel",)
+# K3 init's cases: (B, the carry's offset in words past a 16-byte
+# aligned pointer): the wave batch, an even B that is not a multiple of
+# 256, an odd B and the wave batch one word off alignment (both 8-byte
+# words).
+INIT_CASES = ((8192, 0), (8190, 0), (4097, 0), (8192, 1))
+SENTINEL = 0x5A5A5A5A5A5A5A5A
+# Where variant_lib builds copies of this tree's sources with other
+# compile-time constants (measurements, not kernels of the port).
+VARIANT_DIR = build.BUILD_DIR.parent / "probe_src"
+
+
+def variant_lib(name, tag, consts):
+    """This tree's library `name` built with `consts` ({constant: C++
+    value}) in place of the source's own ``constexpr <type> NAME = ...;``
+    lines, in a directory of its own (VARIANT_DIR / tag) beside copies
+    of the shared headers."""
+    import shutil
+
+    text = (build.CSRC / f"{name}.cu").read_text()
+    for const, value in consts.items():
+        text, hits = re.subn(rf"(constexpr [\w:]+ {const} = )[^;]+;", rf"\g<1>{value};", text)
+        if hits != 1:
+            raise ValueError(f"{name}.cu: no single constexpr {const}")
+    src = VARIANT_DIR / tag
+    src.mkdir(parents=True, exist_ok=True)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, src / header.name)
+    (src / f"{name}.cu").write_text(text)
+    build.build_all((name,), src)
+    lib = ctypes.CDLL(str(build.library_path(name, src)))
+    lib.tb_error_string.argtypes = [_I]
+    lib.tb_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raw(lib, symbol, argtypes, *args):
+    """A call of `symbol` in `lib` on the current stream; raises on a
+    CUDA status."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = _I
+
+    def run():
+        rc = fn(*args, _stream())
+        if rc:
+            raise RuntimeError(f"{symbol}: {lib.tb_error_string(rc).decode()}")
+    return run
+
+
+def device_turns(fns, names) -> dict:
+    """Device microseconds per call of each of `fns` ({who: fn}), the
+    profiler's, taken in turns: every fn in order, then in the reverse
+    order (parent, change, change, parent for two); `names[who]` the
+    device functions counted (every one where `names` has no entry)."""
+    order = list(fns) + list(fns)[::-1]
+    out = {who: [] for who in fns}
+    for who in order:
+        split = {}
+        for _ in range(3):  # a profile that saw none of the kernels is taken again
+            split = device_split(fns[who], None, names.get(who, ("",)))
+            if split:
+                break
+        out[who].append(_sum_us([split]) if split else None)
+    return out
+
+
+def _turns_into(row, turns) -> None:
+    """device_turns' microseconds into `row`: each side's turns and
+    their mean (None where the profiler saw no kernel)."""
+    for who, us in turns.items():
+        seen = [u for u in us if u is not None]
+        row[f"{who}_device_us_turns"] = us
+        row[f"{who}_device_us"] = float(np.mean(seen)) if seen else None
+    print(json.dumps(row), file=sys.stderr)
+
+
+def init_sweep(dev, parent=None) -> dict:
+    """K3 init on INIT_CASES: device microseconds per call in turns with
+    `w.zero_()` over the same 57 * B + 4 words (a store pass of that
+    size, not the same function) and, with `parent`, that tree's K3
+    init; CUDA-event microseconds per call alternating; the bits against
+    make_carry and the parent's, and the word past the carry left as it
+    was."""
+    old = _parent_lib(parent, "exact_scan") if parent is not None else None
+    rng = np.random.default_rng(2070)
+    out = {}
+    for Bn, off in INIT_CASES:
+        n = k3.scratch_words(Bn)
+        ds = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, Bn, dtype=np.int64)
+                              .astype(np.int32)).to(dev)
+        base = torch.full((n + off + 1,), SENTINEL, dtype=torch.int64, device=dev)
+        w = base[off:off + n]
+        run = lambda w=w, ds=ds: kernels.exact_init(w, ds)  # noqa: E731
+        fns = {"change": run, "zero_": w.zero_}
+        if old is not None:
+            fns["parent"] = _raw(old, "tb_exact_init", [_P, _I, _P, _P], w.data_ptr(), Bn,
+                                 ds.data_ptr())
+        run()
+        torch.cuda.synchronize()
+        row = {"B": Bn, "offset_words": off, "words": n, "bytes": n * 8 + Bn * 4,
+               "bound_us": (n * 8 + Bn * 4) / 3.35e12 * 1e6,
+               "plain_equal": bool(torch.equal(w, k3.make_carry(torch.empty_like(w), ds))),
+               "sentinel_kept": int(base[off + n]) == SENTINEL}
+        got = w.clone()
+        if old is not None:
+            w.fill_(-7)
+            fns["parent"]()
+            torch.cuda.synchronize()
+            row["parent_equal"] = bool(torch.equal(w, got))
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
+                (run, fns["parent"]), lambda: None)
+        _turns_into(row, device_turns(fns, {"change": INIT_NAMES, "parent": INIT_NAMES}))
+        out[f"B={Bn},offset={off}"] = row
+    return out
+
+
+K14_SHARDS, K14_SHARD = 4, 1
+K14_BATCH_K = 16_380  # a wave batch's debit and credit slots
+K14_NAMES = ("shard_gather",)
+# The gather's store kind, measured both ways at every shape: streaming
+# stores (st.global.cs) at every size, and at none.
+K14_STORES = {"streaming": {"STREAM_FROM_BYTES": "0"},
+              "default": {"STREAM_FROM_BYTES": "INT64_MAX"}}
+# Launch shapes beside the source's own: (blocks an SM, pieces a thread
+# keeps in flight, threads a block), stores chosen as the source chooses.
+K14_SHAPES = {"b8u2": {"GATHER_BLOCKS_PER_SM": "8", "GATHER_UNROLL": "2"},
+              "b8u4": {"GATHER_BLOCKS_PER_SM": "8", "GATHER_UNROLL": "4"},
+              "b2u8": {"GATHER_BLOCKS_PER_SM": "2", "GATHER_UNROLL": "8"},
+              "t128b8u4": {"THREADS": "128", "GATHER_BLOCKS_PER_SM": "8",
+                           "GATHER_UNROLL": "4"},
+              "m2": {"GATHER_MIN_PIECES": "2"}, "m4": {"GATHER_MIN_PIECES": "4"}}
+
+
+def window_unit_rows(rng) -> np.ndarray:
+    """The rows one window unit of sharded_engine/simple gathers: the
+    compact rows (sharded.compact_rows) of a window of gen_simple
+    batches on the 2^20-row table, each event debiting a uniform account
+    d of chip_smoke.py's 1,000,000 and crediting d % 1,000,000 + 1
+    (~780,000 rows at the default window of 96 batches)."""
+    from tigerbeetle_tpu_torch import envcheck
+    from tigerbeetle_tpu_torch.parallel import sharded
+
+    n_accounts = 1_000_000
+    d = rng.integers(0, n_accounts, envcheck.dev_window() * workload.BATCH)
+    return sharded.compact_rows(np.concatenate([d, (d + 1) % n_accounts]), A_ROWS)
+
+
+def k14_cases(dev, table=None):
+    """chip_smoke.py's K14 inputs: [(shape, W, shard table, global
+    slots)] for shard K14_SHARD of a 2^20-row table split in
+    K14_SHARDS, at W = 8, 2 and 1, on a wave batch's K14_BATCH_K sorted
+    distinct slots and on a window unit's rows.  `table`: the W = 8
+    shard table (default: the balances of chip_smoke.py's K12 case)."""
+    from tigerbeetle_tpu_torch.parallel import sharded
+    from tigerbeetle_tpu_torch.testing import shard_cases
+
+    local = A_ROWS // K14_SHARDS
+    if table is None:
+        balances = shard_cases.apply_events(2040, A_ROWS, workload.BATCH, near_ceiling=64)[0]
+        table = sharded.shard_balances(sharded.make_row_mesh([dev] * K14_SHARDS),
+                                       balances)[K14_SHARD]
+    rng = np.random.default_rng(2041)
+    batch = np.sort(rng.choice(A_ROWS, K14_BATCH_K, replace=False))
+    shapes = (("widths", batch), ("window_unit", window_unit_rows(rng)))
+    out = []
+    for key, slots in shapes:
+        for W in (8, 2, 1):
+            t = table if W == 8 else torch.from_numpy(
+                rng.integers(-(1 << 63), (1 << 63) - 1, (local, W))).to(dev)
+            out.append((key, W, t, torch.from_numpy(slots).to(dev)))
+    return out
+
+
+def k14_sweep(dev, parent=None) -> dict:
+    """K14 gather on k14_cases: device microseconds per call in turns
+    with index_select + where (the same function in PyTorch, from
+    own_rows' mask and clipped indices), with this tree's gather built
+    with streaming stores and with default ones at every size and at
+    the launch shapes of K14_SHAPES (where the source chooses its
+    stores), and with `parent`'s gather;
+    CUDA-event microseconds per call of the change and the parent
+    alternating; the bits against the plain version and the others'."""
+    from tigerbeetle_tpu_torch.parallel import sharded
+
+    old = _parent_lib(parent, "shard_rows") if parent is not None else None
+    stores = {}
+    if "STREAM_FROM_BYTES" in (build.CSRC / "shard_rows.cu").read_text():
+        stores = {kind: variant_lib("shard_rows", f"k14_{kind}", c)
+                  for kind, c in {**K14_STORES, **K14_SHAPES}.items()}
+    args = [_P, _I64, _I64, _P, _I64, _I64, _P, _P]  # ..., out, stream
+    out = {}
+    for key, W, t, slots in k14_cases(dev):
+        local, K = t.shape[0], slots.shape[0]
+        row0 = K14_SHARD * local
+        own, rel = sharded.own_rows(slots, local, K14_SHARD)
+        owned = int(own.sum())
+        got = torch.empty((K, W), dtype=torch.int64, device=dev)
+        run = lambda t=t, s=slots, got=got: kernels.shard_gather(t, row0, s, got)  # noqa: E731
+        run()
+        n_bytes = K * 8 + owned * 8 * W + K * 8 * W
+        row = {"K": K, "owned": owned, "W": W, "bound_us": n_bytes / 3.35e12 * 1e6,
+               "plain_equal": bool(torch.equal(
+                   got, sharded.gather_part_plain(t, slots, K14_SHARD)))}
+        own2 = own[:, None]
+        fns = {"change": run,
+               "library": lambda t=t, own2=own2, rel=rel: torch.where(
+                   own2, t.index_select(0, rel), 0)}
+        others = {}
+        for who, lib in ([("parent", old)] if old is not None else []) + list(stores.items()):
+            o = torch.empty_like(got)
+            fns[who] = _raw(lib, "tb_shard_gather", args, t.data_ptr(), local, row0,
+                            slots.data_ptr(), K, W, o.data_ptr())
+            others[who] = o
+        for who, o in others.items():
+            o.fill_(-7)
+            fns[who]()
+            torch.cuda.synchronize()
+            row[f"{who}_equal"] = bool(torch.equal(o, got))
+        if old is not None:
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
+                (run, fns["parent"]), lambda: None)
+        _turns_into(row, device_turns(fns, {who: K14_NAMES for who in fns if who != "library"}))
+        out[f"{key},W={W}"] = row
+    return out
+
+
+# One tree's phases (chip_smoke.py's streams, named on the command line),
+# run from its root: each phase's main-path run (events/s, launches,
+# windows or flushes) and a profiled run (busy share, the top device
+# items, the device ms of the NAMED kernels), on one line.
 _PHASES = """
-import json, sys
+import contextlib, json, sys, time
 import torch
 sys.path.insert(0, ".")
 import chip_smoke as c
-from tigerbeetle_tpu_torch import workload
+from tigerbeetle_tpu_torch import kernels, workload
 from tigerbeetle_tpu_torch.kernels import build
+from tigerbeetle_tpu_torch.parallel import sharded
+from tigerbeetle_tpu_torch.state_machine import waves
+from tigerbeetle_tpu_torch.testing import shard_cases
 build.build_all()
-named = ("two_phase_kernel", "tp_", "apply_rows_kernel", "summary_kernel", "finalize_kernel")
-out = {}
-for name, engine in (("two_phase", "device"), ("waves_host", "host")):
+named = ("two_phase_kernel", "tp_", "apply_rows_kernel", "summary_kernel", "finalize_kernel",
+         "init_kernel", "shard_gather", "shard_scatter")
+dev = torch.device("cuda", 0)
+B = workload.BATCH
+# The (slots, width) of every K14 gather launch, by the wrapper's own
+# arguments.
+gathers = []
+launch_gather = kernels.shard_gather
+
+
+def recording(table, row0, slots, out):
+    gathers.append((slots.shape[0], table.shape[1]))
+    return launch_gather(table, row0, slots, out)
+
+
+kernels.shard_gather = recording
+
+
+def stream(name):
+    # (setup, timed, account capacity, engine, devices, knobs)
+    shards = [c.CARD] * c.SHARDS
     if name == "two_phase":
         setup, timed, sizing = workload.gen_two_phase(c.N_EXACT, n_accounts=c.N_ACCOUNTS)
-    else:
-        setup, timed, sizing = workload.gen_waves_host(c.WAVE_BATCHES * workload.BATCH,
+        return setup, timed, sizing[0], "device", None, {}
+    if name == "waves_host":
+        setup, timed, sizing = workload.gen_waves_host(c.WAVE_BATCHES * B,
                                                        n_accounts=c.N_ACCOUNTS)
-    cap = c.transfer_events(setup + timed) + 1024
-    sm, replies, elapsed, launches, _ = c.run_stream(setup, timed, sizing[0], cap, False, engine)
-    root = sm.state_root().hex()
-    del sm
-    torch.cuda.empty_cache()
-    p_sm, p_replies, p_elapsed, _, trace = c.run_stream(setup, timed, sizing[0], cap, False,
-                                                         engine, profile=True, named=named)
-    del p_sm
+        return setup, timed, sizing[0], "host", None, {}
+    if name == "offkernel":
+        setup, timed, _ = workload.gen_offkernel(c.WAVE_BATCHES * B,
+                                                 n_accounts=c.OFFKERNEL_ACCOUNTS)
+        return setup, timed, c.A_ROWS, "device", None, {}
+    if name == "sharded_engine/simple":
+        setup, timed, _ = workload.gen_simple(c.N_TRANSFERS, n_accounts=c.N_ACCOUNTS)
+        return setup, timed, c.A_ROWS, "device", shards, {}
+    if name == "sharded_engine/pv":
+        setup, timed = shard_cases.pv_balancing_stream(2060, c.WAVE_BATCHES, B, c.N_ACCOUNTS,
+                                                       c.PV_HISTORY)
+        return setup, timed, c.A_ROWS, "device", shards, {"TB_DEV_WAVES": "1"}
+    if name == "sharded_host":
+        setup, timed, sizing = workload.gen_simple(c.N_TRANSFERS, n_accounts=c.N_ACCOUNTS)
+        timed = timed + [c.linked_exact_batch(c.N_ACCOUNTS, workload.TID0 + c.N_TRANSFERS)]
+        return setup, timed, sizing[0], "host", shards, {}
+    raise SystemExit(f"no phase {name}")
+
+
+def sharded_waves(profile):
+    mesh = sharded.make_row_mesh([dev] * c.SHARDS)
+    table, batches = shard_cases.wave_stream(c.WAVE_SHARD_SEED, c.WAVE_BATCHES, B, c.A_ROWS)
+    fixes = [shard_cases.hist_fix(p, n, B) for _e, _d, n, _t, p in batches]
+    scratch = waves.WaveScratch(dev)
+    tables = sharded.shard_balances(mesh, table)
+    outs = []
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    prof = c.device_profiler() if profile else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        for (ev, dstat, n, ts_base, plan), fix in zip(batches, fixes):
+            tables, packed = waves._execute_plan_sharded(tables, ev, dstat, n, ts_base, plan,
+                                                         fix, mesh, scratch=scratch)
+            outs.append(packed)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    trace = c.device_busy(prof) if profile else None
+    if trace is not None:
+        trace = trace + (c.device_named_ms(prof, named),)
+    joined = torch.cat(tables).cpu()
+    return (sum(n for _e, _d, n, _t, _p in batches), [joined] + [o.cpu() for o in outs],
+            elapsed, launches, trace, len(batches))
+
+
+out = {}
+for name in sys.argv[1:]:
+    gathers.clear()
+    if name == "sharded_waves":
+        events, res, elapsed, launches, _, units = sharded_waves(False)
+        main_gathers = list(gathers)
+        _, p_res, p_elapsed, _, trace, _ = sharded_waves(True)
+        equal = all(torch.equal(a, b) for a, b in zip(res, p_res))
+        root = None
+    else:
+        setup, timed, cap, engine, devices, env = stream(name)
+        tc = c.transfer_events(setup + timed) + 1024
+        events = c.transfer_events(timed)
+        with c.knobs(**env):
+            sm, replies, elapsed, launches, _ = c.run_stream(
+                setup, timed, cap, tc, False, engine, devices=devices,
+                checkpoint=engine == "host" and devices is not None)
+            main_gathers = list(gathers)
+            units = sm._dev.stat_windows if engine == "device" else sm._dev.stat_flushes
+            root = sm.state_root().hex()
+            del sm
+            torch.cuda.empty_cache()
+            p_sm, p_replies, p_elapsed, _, trace = c.run_stream(
+                setup, timed, cap, tc, False, engine, profile=True, devices=devices,
+                checkpoint=engine == "host" and devices is not None, named=named)
+            equal = p_replies == replies and p_sm.state_root().hex() == root
+            del p_sm
     torch.cuda.empty_cache()
     busy_ms, top, ms = trace if trace is not None else (None, None, {})
-    out[name] = dict(events_per_s=c.transfer_events(timed) / elapsed,
-                     replies_equal=p_replies == replies, root=root, busy_ms=busy_ms,
-                     busy_share=None if busy_ms is None else busy_ms / 1e3 / p_elapsed,
-                     top=top, named_ms=ms, launches={k: v for k, v in launches.items() if v})
+    share = None if busy_ms is None else busy_ms / 1e3 / p_elapsed
+    counts = {}
+    for k, w in main_gathers:
+        counts[f"K={k},W={w}"] = counts.get(f"K={k},W={w}", 0) + 1
+    out[name] = dict(events_per_s=events / elapsed, profiled_equal=equal, root=root,
+                     busy_ms=busy_ms, busy_share=share,
+                     top=top, named_ms=ms, windows_or_flushes=units,
+                     launches={k: v for k, v in launches.items() if v}, gathers=counts)
 print("TURN " + json.dumps(out, default=str))
 """
+# The phases part's default phases.
+PHASES = ("two_phase", "waves_host", "offkernel", "sharded_waves", "sharded_engine/simple",
+          "sharded_engine/pv", "sharded_host")
 
 
-def _in_turns(code, parent, timeout) -> dict:
-    """`code` run from `parent`'s root and from this tree's, in turns
-    (parent, change, change, parent), a process each; each run's TURN
-    line."""
+def _in_turns(code, parent, timeout, argv=()) -> dict:
+    """`code` run (with the arguments `argv`) from `parent`'s root and
+    from this tree's, in turns (parent, change, change, parent), a
+    process each; each run's TURN line."""
     import subprocess
 
     if parent is None:
@@ -1021,7 +1357,7 @@ def _in_turns(code, parent, timeout) -> dict:
     out = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         root = Path(parent).resolve() if who == "parent" else here
-        run = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+        run = subprocess.run([sys.executable, "-c", code, *argv], cwd=root, capture_output=True,
                              text=True, timeout=timeout)
         line = [ln for ln in run.stdout.splitlines() if ln.startswith("TURN ")]
         if run.returncode or not line:
@@ -1030,18 +1366,20 @@ def _in_turns(code, parent, timeout) -> dict:
     return out
 
 
-def phases(dev, parent=None) -> dict:
-    """chip_smoke.py's two_phase and waves_host streams from `parent`'s
-    tree and from this one, in turns, each in a process of its own:
-    events/s of the main-path run, the profiled run's busy share and
-    top items, and K6's and K3 finalize's device ms."""
-    return _in_turns(_PHASES, parent, 900)
+def phases(dev, parent=None, names=PHASES) -> dict:
+    """chip_smoke.py's streams `names` (of PHASES) from `parent`'s tree
+    and from this one, in turns, each tree's in a process of its own:
+    events/s of the main-path run, its launches and windows (device
+    engine) or flushes (host engine), the profiled run's busy share, top
+    items and the device ms of K6, K3 init and finalize and K14."""
+    return _in_turns(_PHASES, parent, 1200, names)
 
 
 # "turns" and "phases" run only when asked for.
 PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
          "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "k6": k6_sweep,
-         "fin": fin_sweep, "turns": turns, "phases": phases}
+         "fin": fin_sweep, "init": init_sweep, "k14": k14_sweep, "turns": turns,
+         "phases": phases}
 
 
 def main(argv=None) -> int:
@@ -1050,9 +1388,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default=",".join(p for p in PARTS if p not in ("turns", "phases")),
                     help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--parent",
-                    help="an earlier tree whose K1, K3 finalize, K5, K6, K7 and K13 admit "
-                         "run beside these")
+                    help="an earlier tree whose K1, K3 init and finalize, K5, K6, K7, K13 "
+                         "admit and K14 gather run beside these")
     ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="the phases part's streams, a comma-separated subset of "
+                         + ",".join(PHASES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("serial_probes: needs a CUDA card")
@@ -1060,7 +1401,8 @@ def main(argv=None) -> int:
     extra = {"k5": {"parent": args.parent}, "k1": {"parent": args.parent},
              "k13": {"parent": args.parent}, "turns": {"parent": args.parent},
              "k6": {"parent": args.parent}, "fin": {"parent": args.parent},
-             "phases": {"parent": args.parent},
+             "init": {"parent": args.parent}, "k14": {"parent": args.parent},
+             "phases": {"parent": args.parent, "names": args.phases.split(",")},
              "k7": {"parent": args.parent,
                     "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
                                                     if k})}}
