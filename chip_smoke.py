@@ -166,7 +166,8 @@ from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import orderfree_cases as of_cases
-from tigerbeetle_tpu_torch.testing import scan_cases, semantic_cases, shard_cases, wave_cases
+from tigerbeetle_tpu_torch.testing import (flush_cases, scan_cases, semantic_cases,
+                                          shard_cases, wave_cases)
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
@@ -657,17 +658,9 @@ def check_apply(dev, report):
     a 2^20-row table: full 64-bit deltas, so carries from lo into hi and
     wraps past 2^128 are common, and 4,096 padding entries (slot >= A)
     that must be dropped."""
-    rng = np.random.default_rng(2028)
-    table, _ = _tables(rng, A_ROWS, dev)
-    K, live = 32_768, 32_768 - 4096
-    keys = rng.choice(A_ROWS * 4, live, replace=False)
-    packed = np.zeros((4, K), np.int64)
-    packed[0, :live] = keys // 4
-    packed[1, :live] = keys % 4
-    packed[2, :live] = rng.integers(-(1 << 63), (1 << 63) - 1, live)
-    packed[3, :live] = rng.integers(-(1 << 63), (1 << 63) - 1, live)
-    packed[0, live:] = A_ROWS + np.arange(K - live)
-    packed[2, live:] = 99
+    table, packed = flush_cases.timed_case(A_ROWS)
+    K, live = packed.shape[1], int((packed[0] < A_ROWS).sum())
+    table = torch.from_numpy(table).to(dev)
     pk = torch.from_numpy(packed).to(dev)
     t_k = dk.apply_deltas(table.clone(), pk)
     t_p = dk.apply_deltas_plain(table.clone(), pk)
@@ -677,11 +670,32 @@ def check_apply(dev, report):
     ms, dev_ms, host = kernel_ms(lambda: dk.apply_deltas(t_k, pk))
     plain_ms = time_ms(lambda: dk.apply_deltas_plain(t_p, pk), reps=10)
     bound_ms, bound_by = bound(K * 32 + live * 32, live * K4_OPS_PER_ENTRY)
+    # A sharded_host flush: its launches on the compact table of the
+    # flushed rows (flush_cases), each against the plain version; the
+    # first (32,768 entries) timed.
+    c_table, chunks = flush_cases.flush_case(2029, A_ROWS, N_ACCOUNTS, compact=True)
+    c_k = torch.from_numpy(c_table).to(dev)
+    c_p = c_k.clone()
+    for packed in chunks:
+        c_pk = torch.from_numpy(packed).to(dev)
+        dk.apply_deltas(c_k, c_pk)
+        dk.apply_deltas_plain(c_p, c_pk)
+    torch.cuda.synchronize()
+    c_err = max_abs_err(c_k, c_p)
+    check(c_err == 0, "K4 differs from the plain version on a compact table")
+    c_pk = torch.from_numpy(chunks[0]).to(dev)
+    c_ms, c_dev_ms, _ = kernel_ms(lambda: dk.apply_deltas(c_k, c_pk))
+    n_c = c_pk.shape[1]
+    compact = dict(rows=c_table.shape[0], entries=[int(p.shape[1]) for p in chunks], ms=c_ms,
+                   device_ms=c_dev_ms, bound_ms=bound(n_c * 64, n_c * K4_OPS_PER_ENTRY)[0])
     report["apply_deltas"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
                                   plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, max_abs_err=err)
+                                  bound_by=bound_by, max_abs_err=max(err, c_err),
+                                  cases={"compact_flush": compact})
     print(f"K4 apply_deltas ({live} entries + {K - live} padding): bit-exact; "
-          f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
+          f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}; "
+          f"a compact-table flush ({compact['rows']} rows, launches of {compact['entries']} "
+          f"entries): bit-exact, the first {c_ms * 1e3:.1f} us, {_dev(c_dev_ms)}")
 
 
 def check_tier_kernels(dev, report):
@@ -1598,6 +1612,33 @@ def check_waves(dev, report, l2_ns):
     torch.cuda.synchronize()
     err = max_abs_err(f_k.long(), f_p.long())
     check(err == 0, "K9 spec_conflicts: kernel differs from the plain version")
+
+    def spec_pair(ev_x, n_x, ser_x):
+        """K9 on `scratch` and the plain version (on the card) of one
+        batch's n_x lanes: (kernel flags, plain flags, packed, idx, serial)."""
+        pk_x = torch.from_numpy(k3.pack_events(ev_x).view(np.int64)).to(dev)
+        idx_x = torch.arange(n_x, dtype=torch.int32, device=dev)
+        s_x = torch.from_numpy(np.ascontiguousarray(ser_x[:n_x])).to(dev)
+        got = waves.spec_conflicts(pk_x, idx_x, s_x, n_x, A_ROWS, scratch=scratch)
+        want = waves.spec_conflicts_plain(pk_x, idx_x, s_x, n_x, A_ROWS).to(torch.uint8)
+        torch.cuda.synchronize()
+        return got, want, pk_x, idx_x, s_x
+
+    # Seven batches of seven classes over the same rows, back to back on
+    # the one scratch, then a batch whose slots, groups and targets are
+    # all distinct (no conflict but the serial mask's), timed.
+    for ev_s, n_s, ser_s in wave_cases.spec_stream(2034, 7, 8192, A_ROWS, rows=pool[:8192]):
+        got, want = spec_pair(ev_s, n_s, ser_s)[:2]
+        err = max(err, max_abs_err(got.long(), want.long()))
+        check(err == 0, "K9 spec_conflicts: a back-to-back call differs from the plain version")
+    ev_d, n_d, ser_d = wave_cases.distinct_spec_case(2033, 8192, A_ROWS, n=8190)
+    got, want, pk_d, idx_d, s_d = spec_pair(ev_d, n_d, ser_d)
+    err = max(err, max_abs_err(got.long(), want.long()))
+    check(err == 0 and torch.equal(got, s_d),
+          "K9 spec_conflicts: the distinct-slot batch differs from the plain version")
+    d_ms, d_dev_ms, _ = kernel_ms(lambda: waves.spec_conflicts(pk_d, idx_d, s_d, n_d, A_ROWS,
+                                                               scratch=scratch),
+                                  names=("spec_",))
     spec = []
     for plain_fns in (False, True):
         t = torch.from_numpy(table.view(np.int64).copy()).to(dev)
@@ -1616,10 +1657,13 @@ def check_waves(dev, report, l2_ns):
     report["spec_conflicts"] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
                                     max_abs_err=max(err, err_s),
-                                    timed_case=f"{n}-event batch, {int(f_k.sum())} conflicted")
+                                    timed_case=f"{n}-event batch, {int(f_k.sum())} conflicted",
+                                    cases={"distinct": dict(events=n_d, ms=d_ms,
+                                                            device_ms=d_dev_ms)})
     print(f"K9 spec_conflicts ({n} events, {int(f_k.sum())} conflicted; then K7 with the "
-          f"commit mask): bit-exact; {ms * 1e3:.1f} us, {_dev(dev_ms, host)} "
-          f"{_vs(plain_ms, bound_ms)}")
+          f"commit mask; seven batches back to back on one scratch; a distinct-slot batch "
+          f"{d_ms * 1e3:.1f} us, {_dev(d_dev_ms)}): bit-exact; {ms * 1e3:.1f} us, "
+          f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
 
     # K8: 8 positions x 4096 chains (hub accounts credited by many
     # chains, chains that die), and a 7-member shape.

@@ -19,7 +19,7 @@ A = 64
 K = 256
 
 
-def make_case(seed, padded):
+def make_case(seed, padded, K=K):
     rng = np.random.default_rng(seed)
     table = rng.integers(0, 1 << 63, (A, 8), dtype=np.uint64) << np.uint64(1)
     table[:5, 0::2] = M64            # lo limbs at max: every add carries
@@ -54,6 +54,18 @@ def test_plain_apply_matches_both_references(seed, padded):
     want_kf = np.asarray(ref_kf._flush_impl(jnp.asarray(table), jnp.asarray(packed)))
     np.testing.assert_array_equal(want_dk, want_kf)
     np.testing.assert_array_equal(port(table, packed), want_dk)
+
+
+@pytest.mark.parametrize("k", [1, 2, 255, 257])
+def test_plain_apply_uneven_counts_match_both_references(k):
+    """One entry, and counts that are no multiple of the kernel's entries
+    a thread (a live entry, or padding, last)."""
+    table, packed = make_case(30 + k, k > 2, K=k)
+    want_dk = np.asarray(ref_dk.apply_deltas(jnp.asarray(table), jnp.asarray(packed)))
+    want_kf = np.asarray(ref_kf._flush_impl(jnp.asarray(table), jnp.asarray(packed)))
+    np.testing.assert_array_equal(want_dk, want_kf)
+    np.testing.assert_array_equal(port(table, packed), want_dk)
+    assert (want_dk != table).any()
 
 
 def test_negative_deltas_release_exactly():

@@ -21,7 +21,7 @@ from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import (
-    orderfree_cases, scan_cases, semantic_cases, shard_cases, wave_cases,
+    flush_cases, orderfree_cases, scan_cases, semantic_cases, shard_cases, wave_cases,
 )
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
@@ -313,6 +313,59 @@ def test_apply_deltas_kernel_matches_plain(card, padded):
     torch.cuda.synchronize()
     assert kernels.launches["apply_deltas"] == before + 1
     assert torch.equal(t_k.cpu(), t_p)
+
+
+def _k4_vs_plain(card, table, pk, offset=0):
+    """K4 on a copy of `table` on the card (`offset` int64 words past a
+    16-byte aligned allocation) against the plain version on the CPU,
+    one launch."""
+    t_p = dk.apply_deltas(table.clone(), pk)
+    base = torch.empty(table.numel() + offset, dtype=torch.int64, device=card)
+    t_k = base[offset:].view(table.shape)
+    t_k.copy_(table.to(card))
+    assert (t_k.data_ptr() % 16 == 0) == (offset % 2 == 0)
+    before = kernels.launches["apply_deltas"]
+    dk.apply_deltas(t_k, pk.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["apply_deltas"] == before + (pk.shape[1] > 0)
+    assert torch.equal(t_k.cpu(), t_p)
+
+
+def _k4_entries(rng, A, k, padding=0):
+    keys = rng.choice(A * 4, size=k - padding, replace=False)
+    packed = np.zeros((4, k), np.int64)
+    packed[0, : len(keys)] = keys // 4
+    packed[1, : len(keys)] = keys % 4
+    packed[2:, : len(keys)] = rng.integers(-(1 << 63), (1 << 63) - 1, (2, len(keys)))
+    packed[0, len(keys):] = A + np.arange(padding)
+    packed[2, len(keys):] = 5
+    return torch.from_numpy(packed)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 127, 4097, 32_767])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_apply_deltas_kernel_uneven_counts_match_plain(card, k, offset):
+    """One entry, counts that no thread's share of entries divides (the
+    last live or padding), on a 16-byte aligned table and on a view one
+    word off it (the 8-byte path)."""
+    rng = np.random.default_rng(k + offset)
+    table, _ = _tables(rng, 1 << 14)
+    _k4_vs_plain(card, table, _k4_entries(rng, 1 << 14, k, padding=k // 3), offset)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_apply_deltas_kernel_flush_shapes_match_plain(card, compact):
+    """A simple_host flush on a 2^20-row table, and a sharded_host flush
+    on its compact table (the flushed rows only), launch by launch."""
+    table, chunks = flush_cases.flush_case(31, 1 << 20, 1_000_000, compact=compact)
+    t = torch.from_numpy(table)
+    t_k = t.to(card)
+    for packed in chunks:
+        pk = torch.from_numpy(packed)
+        dk.apply_deltas(t, pk)
+        dk.apply_deltas(t_k, pk.to(card))
+    torch.cuda.synchronize()
+    assert len(chunks) == 3 and torch.equal(t_k.cpu(), t)
 
 
 @pytest.mark.parametrize("engine", ["device", "host"])
@@ -905,6 +958,69 @@ def test_speculative_step_matches_plain(card, cls):
     assert torch.equal(out[0][2], out[1][2])
     assert torch.equal(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
     assert 0 < int(out[0][2].sum()) < n
+
+
+def _k9_vs_plain(card, ev, n, serial, A, scratch, idx=None):
+    """K9 on the card through `scratch` against the plain version (on the
+    CPU) of the same lanes: their flags, one launch, a fresh output."""
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64))
+    idx = torch.arange(n, dtype=torch.int32) if idx is None else idx
+    ser = torch.from_numpy(np.asarray(serial, np.uint8)[: idx.numel()].copy())
+    want = waves.spec_conflicts(pk, idx, ser, n, A)
+    before = kernels.launches["spec_conflicts"]
+    got = waves.spec_conflicts(pk.to(card), idx.to(card), ser.to(card), n, A, scratch=scratch)
+    torch.cuda.synchronize()
+    assert kernels.launches["spec_conflicts"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+def test_spec_conflicts_back_to_back_on_one_scratch(card):
+    """Fourteen batches of seven classes over one row pool, back to back
+    through one WaveScratch: each call's entries must lose to the next
+    call's and read as absent, so every call equals the plain version."""
+    scratch = waves.WaveScratch(card)
+    rows = np.arange(0, 1 << 17, 13)
+    for ev, n, serial in wave_cases.spec_stream(21, 14, 8192, 1 << 17, rows=rows):
+        want = _k9_vs_plain(card, ev, n, serial, 1 << 17, scratch)
+        assert 0 < int(want.sum()) < n
+
+
+def test_spec_conflicts_across_the_tag_wrap(card):
+    """Calls on one scratch from three tags below the top: the call after
+    the top takes tag 1 and fills every entry back at rest first; the
+    calls on either side equal the plain version."""
+    scratch = waves.WaveScratch(card, spec_tag=waves.SPEC_TAG_TOP - 2)
+    rows = np.arange(0, 1 << 16, 7)
+    tags = []
+    for ev, n, serial in wave_cases.spec_stream(22, 6, 8192, 1 << 16, rows=rows):
+        tags.append(scratch._spec.tag)
+        _k9_vs_plain(card, ev, n, serial, 1 << 16, scratch)
+    assert tags == [waves.SPEC_TAG_TOP - 2, waves.SPEC_TAG_TOP - 1, waves.SPEC_TAG_TOP, 1, 2, 3]
+
+
+@pytest.mark.parametrize("K", [1, 4097, 8190, 40_000])
+def test_spec_conflicts_lane_counts_match_plain(card, K):
+    """K lanes of an 8190-event batch in a random order, duplicates and
+    padding lanes (indices -1 and B) among them; 40,000 lanes exceed the
+    cooperative grid's threads, so lanes loop."""
+    ev, n, serial = wave_cases.spec_stream(23 + K, 1, 8192, 1 << 17,
+                                           rows=np.arange(0, 1 << 17, 11))[0]
+    rng = np.random.default_rng(K)
+    idx = rng.permutation(8192)[:K] if K <= 8192 else rng.integers(0, 8192, K)
+    if K > 2:
+        idx[rng.choice(K, 2, replace=False)] = [-1, 8192]
+    ser = rng.random(K) < 0.05
+    _k9_vs_plain(card, ev, n, ser, 1 << 17, waves.WaveScratch(card),
+                 idx=torch.from_numpy(idx.astype(np.int32)))
+
+
+def test_spec_conflicts_distinct_slots_match_plain(card):
+    """Every slot, group and target distinct on a 2^20-row table: only
+    the serial mask blocks."""
+    ev, n, serial = wave_cases.distinct_spec_case(24, 8192, 1 << 20, n=8190)
+    want = _k9_vs_plain(card, ev, n, serial, 1 << 20, waves.WaveScratch(card))
+    assert torch.equal(want, torch.from_numpy(serial[:n].astype(np.uint8)))
 
 
 def test_offkernel_on_card_matches_plain(card):

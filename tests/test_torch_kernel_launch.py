@@ -62,7 +62,8 @@ CALLS = {
     "chain_wave": ("chain_wave", "tb_chain_wave",
                    lambda: kernels.chain_wave(T, PK, PK, 5, 7, V)),
     "spec_conflicts": ("spec_conflicts", "tb_spec_conflicts",
-                       lambda: kernels.spec_conflicts(PK, V, None, 5, 16, V, V, V, V, V)),
+                       lambda: kernels.spec_conflicts(PK, V, None, 5, 16, V, V, V, V, 3, True,
+                                                      V)),
     "shard_accumulate": ("shard_apply", "tb_shard_accumulate",
                          lambda: kernels.shard_accumulate(T, 0, V, V, V, V, V, None)),
     "shard_admit": ("shard_apply", "tb_shard_admit",
@@ -227,3 +228,40 @@ def test_cuda_lookups_wait_for_the_first_launch():
     out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_k9_passes_its_arrays_lengths_tag_and_fill(fake_cuda):
+    """K9 takes its four minima arrays with their lengths, the call's tag
+    and whether to fill them back at rest first; no output buffer of
+    the scratch (the wrapper's fresh tensor)."""
+    ev, idx, serial, out = _z((16, 52)), _z(7, torch.int32), _z(7, torch.uint8), _z(7)
+    tok, tgt, a_min, r_min = _z(16), _z(16), _z(40), _z(40)
+    kernels.spec_conflicts(ev, idx, serial, 12, 33, tok, tgt, a_min, r_min, 5, False, out)
+    kernels.spec_conflicts(ev, idx, None, 12, 33, tok, tgt, a_min, r_min, 1, True, out)
+    head = (ev.data_ptr(), 16, idx.data_ptr(), 7)
+    mid = (12, 33, tok.data_ptr(), tgt.data_ptr(), 16, a_min.data_ptr(), r_min.data_ptr(), 40)
+    assert [a for _, a in fake_cuda.calls] == [
+        head + (serial.data_ptr(),) + mid + (5, 0, out.data_ptr(), STREAM - 1),
+        head + (None,) + mid + (1, 1, out.data_ptr(), STREAM - 1),
+    ]
+    assert kernels.launches["spec_conflicts"] == 2
+
+
+def test_spec_scratch_tags_advance_and_wrap_with_one_fill():
+    """Each K9 call takes the next tag; past SPEC_TAG_TOP the tag starts
+    again at 1 and that call fills the arrays back at rest first; arrays
+    made or grown start at rest and keep the tag running."""
+    from tigerbeetle_tpu_torch.state_machine import waves
+
+    top = waves.SPEC_TAG_TOP
+    scratch = waves.WaveScratch(torch.device("cpu"), spec_tag=top - 1)
+    taken = [scratch.spec(64, 100)[4:] for _ in range(4)]
+    assert taken == [(top - 1, False), (top, False), (1, True), (2, False)]
+    tok, tgt, a_min, r_min = scratch.spec(64, 100)[:4]
+    assert tok.numel() == tgt.numel() == 8192 and a_min.numel() == r_min.numel() == 100
+    assert all(bool((a == waves.SPEC_REST).all()) for a in (tok, tgt, a_min, r_min))
+    grown = scratch.spec(64, 5000)
+    assert grown[2].numel() == 5000 and grown[4:] == (4, False)
+    assert scratch.spec(64, 10)[2] is grown[2]  # a smaller table reuses them
+    with pytest.raises(ValueError):
+        waves.WaveScratch(torch.device("cpu"), spec_tag=top + 1)

@@ -196,6 +196,42 @@ def test_speculative_step_matches_jax(cls):
     pair.finalize(fix)
 
 
+def _spec_against_jax(ev, n, serial, A):
+    """K9's plain version (through the wrapper, CPU tensors) and the
+    reference's _spec_conflicts on one batch: both flags."""
+    seg = rw._gather_events(jax_events(ev), np.arange(n), B, B)
+    want = np.asarray(rw._spec_conflicts(seg, jnp.asarray(serial.astype(bool)), jnp.int32(n),
+                                         A, B))[:n]
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64))
+    got = waves.spec_conflicts(pk, torch.arange(n, dtype=torch.int32),
+                               torch.from_numpy(serial[:n].copy()), n, A)
+    return got.numpy().astype(bool), want
+
+
+def test_spec_conflicts_stream_matches_jax():
+    """Consecutive K9 batches of seven classes over one row pool, each
+    reusing the slots, groups and targets of the batches before it (the
+    card test runs the same stream back to back through one scratch):
+    the plain version against _spec_conflicts, batch by batch."""
+    A = 61
+    blocked = []
+    for ev, n, serial in wave_cases.spec_stream(11, 7, B, A):
+        got, want = _spec_against_jax(ev, n, serial, A)
+        np.testing.assert_array_equal(got, want)
+        blocked.append(int(want.sum()))
+    assert all(0 < b for b in blocked)
+
+
+def test_spec_conflicts_distinct_slots_match_jax():
+    """A batch whose slots, groups and targets are all distinct: only
+    the serial mask blocks a lane."""
+    A = 4 * B + 3
+    ev, n, serial = wave_cases.distinct_spec_case(12, B, A)
+    got, want = _spec_against_jax(ev, n, serial, A)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(want, serial[:n].astype(bool))
+
+
 def test_carry_image_round_trip():
     """carry_to_dict(carry_from_dict(c)) == c for a mid-batch carry, in
     the reference's dtypes."""

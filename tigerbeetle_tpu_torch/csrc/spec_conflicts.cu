@@ -15,142 +15,312 @@
 //   - spec_serial force-blocks what the wave step does not model (chain
 //     members, history events, serialized post/voids).
 //
-// Segmented minima by atomicMin into four int32 arrays — tokens (B),
-// targets (B), all touchers (A) and readers (A) — that REST at INT_MAX
-// between calls, then a read pass, then a reset pass that returns every
-// entry this batch touched to INT_MAX (as K6's first-wins array is
-// reset).  Clearing the two 2^20-entry slot arrays per batch would move
-// 8 MiB (~2.5 us at 3.35 TB/s plus a launch); the reset touches at most
-// 6 entries per lane.  Three launches: the minima must be complete
-// before any lane reads them, and read before any is reset.
+// What bounds it: latency.  Each lane reads 12 of its event's 52
+// columns and makes up to 7 atomics and 7 reads on the minima arrays:
+// ~0.25 us of bytes at 3.35 TB/s for 8192 lanes, far under the chain of
+// dependent steps that every lane must pass (its index, its event row,
+// the minima, a barrier where every lane's minima are complete, its
+// reads, its flag).  So the batch runs as ONE cooperative launch (grid
+// from the SM count, one lane a thread; K1's and K6's geometry): each
+// lane decodes its entries once and keeps them in registers, takes its
+// minima by atomicMin, meets every other lane at one grid barrier, reads
+// and stores its flag.  A touch of a slot the lane also writes is the
+// same address and value as the write's own (a reader writes its slot),
+// so the touchers' minima take only the two writes.
 //
-// What bounds it: bytes — each lane reads ~10 of its event's 52 columns
-// and does up to 9 atomics and 9 reads on the arrays; ~0.2 us at
-// 3.35 TB/s for 8192 lanes, well under the launches' own cost.
+// No reset pass.  Segmented minima live in four u32 arrays — tokens and
+// targets (one per batch row), touchers and readers (one per table row)
+// — whose entries carry the call's tag: an entry is ((TAG_TOP - tag) <<
+// LANE_BITS) | i, the tag advancing once a call from 1 to TAG_TOP, and a
+// lane's test is one unsigned compare against its own encoding.  An
+// entry of an earlier call is larger than any of this call's, so it
+// loses every atomicMin and reads as absent, as the resting value
+// (all ones) does; the reads that can meet one are the readers' minima
+// at the lane's written slots (the other reads see the lane's own
+// atomics).  When the tag wraps the wrapper asks for a fill: every entry
+// back at rest, then one more grid barrier, in the same launch.
+// Clearing the two 2^20-entry slot arrays every call would move 8 MiB.
+//
+// Measured the other ways (PERF.md, the K9 row; the switches below build
+// them): an in-launch reset behind a second grid barrier, warp-combined
+// atomics, event rows staged through shared memory, the columns loaded
+// as 16-byte pieces, and 128- or 256-lane blocks were each slower on
+// the main path's batches or no faster.
 
-#include <climits>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tb_hash.cuh"
 #include "tb_scan.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace tbs;
 
-constexpr int THREADS = 256;
-constexpr int32_t REST = INT_MAX;
+constexpr uint32_t REST = 0xFFFFFFFFu;
+constexpr int LANE_BITS = 13;  // an event index below 8192
+constexpr int MAX_LANES = 1 << LANE_BITS;
+constexpr uint32_t TAG_TOP = (1u << (32 - LANE_BITS)) - 1;
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+// A warp's equal addresses combined (__match_any_sync, then the group's
+// minimum by __reduce_min_sync) before one atomic.
+constexpr bool COMBINE = false;
+// A block whose lanes are consecutive event rows stages them through
+// shared memory in 16-byte pieces; otherwise each lane loads its columns.
+constexpr bool STAGE_ROWS = false;
+// The arrays reset in the launch behind a second grid barrier (every
+// entry this call wrote back at rest) as well as tagged.
+constexpr bool RESET_PASS = false;
+// A lane loads its columns as the ten 16-byte pieces that hold them
+// (a 16-byte aligned event matrix), not as twelve 8-byte words.
+constexpr bool PAIR_LOADS = false;
+constexpr int THREADS = 64;  // a block's lanes, more only past one block an SM
+constexpr int MAX_THREADS = 256;
+constexpr int ROW_PIECES = NEV / 2;  // 16-byte pieces of an event row
 
 // One lane's conflict entries.
 struct Entries {
-  int32_t i;
-  int64_t idg, pgc, ptc;      // clipped token / target indices
-  bool pgm, ptm;
-  bool read_dr, read_cr, wm0, wm1;
-  int64_t dr_c, cr_c, w0_c, w1_c;
+  uint32_t enc;                // ((TAG_TOP - tag) << LANE_BITS) | i
+  int32_t idg, pgc, ptc;       // clipped token / target indices
+  int32_t dr_c, cr_c, w0_c, w1_c;
+  bool pgm, ptm, read_dr, read_cr, wm0, wm1, serial;
 };
 
-// False for a padding or inactive lane.
-__device__ inline bool entries(const uint64_t* __restrict__ ev, int64_t Bn,
-                               const int32_t* __restrict__ idx, int k, int n, int64_t A,
-                               Entries& x) {
-  const int64_t row = idx[k];
-  if (row < 0 || row >= Bn) return false;
-  const uint64_t* e = ev + row * NEV;
-  const int64_t i = s32(e[E_I]);
+// The lane's entries from its event row `e` (columns by index); false
+// for a padding or inactive lane.
+template <class Row>
+__device__ __forceinline__ bool decode(const Row& e, int64_t Bn, int n, int64_t A, uint32_t hi,
+                                       Entries& x) {
+  const int64_t i = s32(e(E_I));
   if (i < 0 || i >= n) return false;
-  x.i = (int32_t)i;
+  x.enc = hi | (uint32_t)i;
   const int64_t Bm = Bn - 1, Am = A - 1;
-  const uint32_t flags = (uint32_t)e[E_FLAGS];
+  const uint32_t flags = (uint32_t)e(E_FLAGS);
   const bool is_pv = flags & (F_POST | F_VOID);
-  x.idg = clip(s32(e[E_ID_GROUP]), Bm);
-  const int64_t pg = s32(e[E_P_GROUP]);
+  x.idg = (int32_t)clip(s32(e(E_ID_GROUP)), Bm);
+  const int64_t pg = s32(e(E_P_GROUP));
   x.pgm = pg >= 0;
-  x.pgc = clip(pg, Bm);
-  const int64_t pt = s32(e[E_P_TGT]);
+  x.pgc = (int32_t)clip(pg, Bm);
+  const int64_t pt = s32(e(E_P_TGT));
   x.ptm = pt >= 0;
-  x.ptc = clip(pt, Bm);
-  const int64_t dr = s32(e[E_DR]), cr = s32(e[E_CR]);
+  x.ptc = (int32_t)clip(pt, Bm);
+  const int64_t dr = s32(e(E_DR)), cr = s32(e(E_CR));
   x.read_dr = !is_pv && dr >= 0 &&
-              ((flags & F_BAL_DR) || ((uint32_t)e[E_DR_FLAGS] & AF_DR_LIMIT));
+              ((flags & F_BAL_DR) || ((uint32_t)e(E_DR_FLAGS) & AF_DR_LIMIT));
   x.read_cr = !is_pv && cr >= 0 &&
-              ((flags & F_BAL_CR) || ((uint32_t)e[E_CR_FLAGS] & AF_CR_LIMIT));
-  const bool pf = e[E_P_FOUND] != 0;
-  const int64_t w0 = is_pv ? (pf ? s32(e[E_P_DR]) : -1) : dr;
-  const int64_t w1 = is_pv ? (pf ? s32(e[E_P_CR]) : -1) : cr;
+              ((flags & F_BAL_CR) || ((uint32_t)e(E_CR_FLAGS) & AF_CR_LIMIT));
+  const bool pf = e(E_P_FOUND) != 0;
+  const int64_t w0 = is_pv ? (pf ? s32(e(E_P_DR)) : -1) : dr;
+  const int64_t w1 = is_pv ? (pf ? s32(e(E_P_CR)) : -1) : cr;
   x.wm0 = w0 >= 0;
   x.wm1 = w1 >= 0;
-  x.dr_c = clip(dr, Am);
-  x.cr_c = clip(cr, Am);
-  x.w0_c = clip(w0, Am);
-  x.w1_c = clip(w1, Am);
+  x.dr_c = (int32_t)clip(dr, Am);
+  x.cr_c = (int32_t)clip(cr, Am);
+  x.w0_c = (int32_t)clip(w0, Am);
+  x.w1_c = (int32_t)clip(w1, Am);
   return true;
 }
 
-__global__ void spec_min(const uint64_t* __restrict__ ev, int B, const int32_t* __restrict__ idx,
-                         int K, int n, int64_t A, int32_t* tok, int32_t* tgt, int32_t* a_min,
-                         int32_t* r_min) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  Entries x;
-  if (k >= K || !entries(ev, B, idx, k, n, A, x)) return;
-  atomicMin(&tok[x.idg], x.i);
-  if (x.pgm) atomicMin(&tok[x.pgc], x.i);
-  if (x.ptm) atomicMin(&tgt[x.ptc], x.i);
-  if (x.read_dr) {
-    atomicMin(&a_min[x.dr_c], x.i);
-    atomicMin(&r_min[x.dr_c], x.i);
-  }
-  if (x.read_cr) {
-    atomicMin(&a_min[x.cr_c], x.i);
-    atomicMin(&r_min[x.cr_c], x.i);
-  }
-  if (x.wm0) atomicMin(&a_min[x.w0_c], x.i);
-  if (x.wm1) atomicMin(&a_min[x.w1_c], x.i);
-}
+struct GlobalRow {
+  const unsigned long long* w;
+  __device__ explicit GlobalRow(const uint64_t* row)
+      : w(reinterpret_cast<const unsigned long long*>(row)) {}
+  __device__ uint64_t operator()(int c) const { return __ldg(w + c); }
+};
 
-__global__ void spec_read(const uint64_t* __restrict__ ev, int B, const int32_t* __restrict__ idx,
-                          int K, int n, int64_t A, const int32_t* __restrict__ tok,
-                          const int32_t* __restrict__ tgt, const int32_t* __restrict__ a_min,
-                          const int32_t* __restrict__ r_min, const uint8_t* __restrict__ serial,
-                          uint8_t* __restrict__ out) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= K) return;
-  Entries x;
-  if (!entries(ev, B, idx, k, n, A, x)) {
-    out[k] = 0;
+// The ten 16-byte pieces of a row that hold K9's columns.
+struct PairRow {
+  ulonglong2 a0, a7, a8, a9, a10, a11, a18, a19, a20, a25;
+  __device__ explicit PairRow(const uint64_t* row) {
+    const ulonglong2* r = reinterpret_cast<const ulonglong2*>(row);
+    a0 = __ldg(r);
+    a7 = __ldg(r + 7);
+    a8 = __ldg(r + 8);
+    a9 = __ldg(r + 9);
+    a10 = __ldg(r + 10);
+    a11 = __ldg(r + 11);
+    a18 = __ldg(r + 18);
+    a19 = __ldg(r + 19);
+    a20 = __ldg(r + 20);
+    a25 = __ldg(r + 25);
+  }
+  __device__ uint64_t operator()(int c) const {
+    const ulonglong2& q = c < 2    ? a0
+                          : c < 16 ? a7
+                          : c < 18 ? a8
+                          : c < 20 ? a9
+                          : c < 22 ? a10
+                          : c < 24 ? a11
+                          : c < 38 ? a18
+                          : c < 40 ? a19
+                          : c < 42 ? a20
+                                   : a25;
+    return (c & 1) ? q.y : q.x;
+  }
+};
+
+struct SharedRow {
+  const uint64_t* w;
+  __device__ explicit SharedRow(const uint64_t* row) : w(row) {}
+  __device__ uint64_t operator()(int c) const { return w[c]; }
+};
+
+// atomicMin of `v` into a[ix] where `on`; with COMBINE, one atomic for
+// each group of the warp's lanes naming one index (every lane of the
+// warp calls it).
+__device__ __forceinline__ void min_into(uint32_t* a, int32_t ix, uint32_t v, bool on) {
+  if (!COMBINE) {
+    if (on) atomicMin(a + ix, v);
     return;
   }
-  bool blk = x.i > tok[x.idg];
-  blk |= x.pgm && x.i > tok[x.pgc];
-  blk |= x.ptm && x.i > tgt[x.ptc];
-  blk |= x.read_dr && x.i > a_min[x.dr_c];
-  blk |= x.read_cr && x.i > a_min[x.cr_c];
-  blk |= x.wm0 && x.i > r_min[x.w0_c];
-  blk |= x.wm1 && x.i > r_min[x.w1_c];
-  blk |= serial != nullptr && serial[k] != 0;
-  out[k] = blk;
+  const unsigned act = __ballot_sync(FULL_MASK, on);
+  if (!on) return;
+  const unsigned grp = __match_any_sync(act, ix);
+  const uint32_t m = __reduce_min_sync(grp, v);
+  if ((threadIdx.x & 31) == (unsigned)(__ffs(grp) - 1)) atomicMin(a + ix, m);
 }
 
-__global__ void spec_reset(const uint64_t* __restrict__ ev, int B, const int32_t* __restrict__ idx,
-                           int K, int n, int64_t A, int32_t* tok, int32_t* tgt, int32_t* a_min,
-                           int32_t* r_min) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  Entries x;
-  if (k >= K || !entries(ev, B, idx, k, n, A, x)) return;
-  tok[x.idg] = REST;
-  if (x.pgm) tok[x.pgc] = REST;
-  if (x.ptm) tgt[x.ptc] = REST;
-  if (x.read_dr) {
-    a_min[x.dr_c] = REST;
-    r_min[x.dr_c] = REST;
-  }
-  if (x.read_cr) {
-    a_min[x.cr_c] = REST;
-    r_min[x.cr_c] = REST;
-  }
-  if (x.wm0) a_min[x.w0_c] = REST;
-  if (x.wm1) a_min[x.w1_c] = REST;
+struct Arrays {
+  uint32_t* tok;
+  uint32_t* tgt;
+  uint32_t* a_min;
+  uint32_t* r_min;
+  int64_t tok_n, a_n;  // entries of tok / tgt and of a_min / r_min
+};
+
+__device__ void fill_rest(const Arrays& X, int64_t t, int64_t stride) {
+  for (int64_t j = t; j < X.tok_n; j += stride) X.tok[j] = X.tgt[j] = REST;
+  for (int64_t j = t; j < X.a_n; j += stride) X.a_min[j] = X.r_min[j] = REST;
 }
+
+// Lane k's entries decoded again (a lane past the grid's threads).
+__device__ __forceinline__ void again(const uint64_t* __restrict__ ev, int64_t Bn,
+                                      const int32_t* __restrict__ idx, int64_t k, int n,
+                                      int64_t A, const uint8_t* __restrict__ serial, uint32_t hi,
+                                      Entries& x, bool& have) {
+  const int64_t row = idx[k];
+  x = Entries{};
+  x.serial = serial != nullptr && serial[k] != 0;
+  have = row >= 0 && row < Bn && decode(GlobalRow(ev + row * NEV), Bn, n, A, hi, x);
+}
+
+// The cooperative launch: lane k = kb + threadIdx.x for the block's
+// bases kb = blockIdx.x * blockDim.x, + the grid's threads, ...: every
+// thread of a block takes each loop the same number of times, as
+// COMBINE's warp intrinsics and STAGE_ROWS's block barriers need.
+__global__ void spec_kernel(const uint64_t* __restrict__ ev, int Bn,
+                            const int32_t* __restrict__ idx, int K, int n, int64_t A,
+                            const uint8_t* __restrict__ serial, Arrays X, uint32_t tag,
+                            int fill, uint8_t* __restrict__ out) {
+  extern __shared__ uint4 stage[];
+  cg::grid_group grid = cg::this_grid();
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x;
+  if (fill) {
+    fill_rest(X, first + threadIdx.x, stride);
+    grid.sync();
+  }
+  const uint32_t hi = (TAG_TOP - tag) << LANE_BITS;
+  // The thread's first lane keeps its entries across the barrier; any
+  // later lane (K above the grid's threads) decodes them again.
+  Entries x0{};
+  bool have0 = false;
+  for (int64_t kb = first; kb < K; kb += stride) {
+    const int64_t k = kb + threadIdx.x;
+    Entries x{};
+    bool have = false;
+    int64_t row = -1;
+    if (k < K) {
+      row = idx[k];
+      x.serial = serial != nullptr && serial[k] != 0;
+    }
+    bool staged = false;
+    if (STAGE_ROWS) {
+      // The block's rows, when its lanes are consecutive event rows.
+      const int64_t r0 = idx[kb];
+      const int span = (int)min((int64_t)blockDim.x, (int64_t)K - kb);
+      staged = __syncthreads_and(k >= K || row == r0 + (k - kb)) && r0 >= 0 &&
+               r0 + span <= Bn && (reinterpret_cast<uintptr_t>(ev) & 15) == 0;
+      if (staged) {
+        const uint4* src = reinterpret_cast<const uint4*>(ev + r0 * NEV);
+        for (int p = threadIdx.x; p < span * ROW_PIECES; p += blockDim.x) stage[p] = src[p];
+        __syncthreads();
+        if (k < K)
+          have = decode(SharedRow(reinterpret_cast<const uint64_t*>(stage) +
+                                  (size_t)threadIdx.x * NEV), Bn, n, A, hi, x);
+        __syncthreads();
+      }
+    }
+    if (!staged && k < K && row >= 0 && row < Bn)
+      have = PAIR_LOADS && (reinterpret_cast<uintptr_t>(ev) & 15) == 0
+                 ? decode(PairRow(ev + row * NEV), Bn, n, A, hi, x)
+                 : decode(GlobalRow(ev + row * NEV), Bn, n, A, hi, x);
+    min_into(X.tok, x.idg, x.enc, have);
+    min_into(X.tok, x.pgc, x.enc, have && x.pgm);
+    min_into(X.tgt, x.ptc, x.enc, have && x.ptm);
+    min_into(X.a_min, x.w0_c, x.enc, have && x.wm0);
+    min_into(X.a_min, x.w1_c, x.enc, have && x.wm1);
+    min_into(X.r_min, x.dr_c, x.enc, have && x.read_dr);
+    min_into(X.r_min, x.cr_c, x.enc, have && x.read_cr);
+    if (kb == first) {
+      x0 = x;
+      have0 = have;
+    }
+  }
+  grid.sync();
+  for (int64_t kb = first; kb < K; kb += stride) {
+    const int64_t k = kb + threadIdx.x;
+    if (k >= K) break;
+    Entries x = x0;
+    bool have = have0;
+    if (kb != first) again(ev, Bn, idx, k, n, A, serial, hi, x, have);
+    bool blk = false;
+    if (have) {
+      const uint32_t v = x.enc;
+      blk = __ldcg(X.tok + x.idg) < v;
+      blk |= x.pgm && __ldcg(X.tok + x.pgc) < v;
+      blk |= x.ptm && __ldcg(X.tgt + x.ptc) < v;
+      blk |= x.read_dr && __ldcg(X.a_min + x.dr_c) < v;
+      blk |= x.read_cr && __ldcg(X.a_min + x.cr_c) < v;
+      blk |= x.wm0 && __ldcg(X.r_min + x.w0_c) < v;
+      blk |= x.wm1 && __ldcg(X.r_min + x.w1_c) < v;
+      blk |= x.serial;
+    }
+    out[k] = blk;
+  }
+  if (!RESET_PASS) return;
+  grid.sync();
+  for (int64_t kb = first; kb < K; kb += stride) {
+    const int64_t k = kb + threadIdx.x;
+    if (k >= K) break;
+    Entries x = x0;
+    bool have = have0;
+    if (kb != first) again(ev, Bn, idx, k, n, A, serial, hi, x, have);
+    if (!have) continue;
+    X.tok[x.idg] = REST;
+    if (x.pgm) X.tok[x.pgc] = REST;
+    if (x.ptm) X.tgt[x.ptc] = REST;
+    if (x.wm0) X.a_min[x.w0_c] = REST;
+    if (x.wm1) X.a_min[x.w1_c] = REST;
+    if (x.read_dr) X.r_min[x.dr_c] = REST;
+    if (x.read_cr) X.r_min[x.cr_c] = REST;
+  }
+}
+
+// The cooperative grid of a K-lane call: THREADS-lane blocks, more
+// threads (up to MAX_THREADS) only past one block an SM, at most one
+// block an SM; lanes past the grid's threads loop.
+void geometry(int K, int sms, int& G, int& T) {
+  T = THREADS;
+  while ((K + T - 1) / T > sms && T < MAX_THREADS) T *= 2;
+  G = (K + T - 1) / T;
+  G = G < 1 ? 1 : (G > sms ? sms : G);
+}
+
+size_t smem_bytes(int T) { return STAGE_ROWS ? (size_t)T * ROW_PIECES * sizeof(uint4) : 0; }
 
 }  // namespace
 
@@ -158,29 +328,51 @@ extern "C" const char* tb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// K9's launch for K lanes on the current card: blocks of its cooperative
+// grid and threads a block, into geom[0..1]; a CUDA status.
+extern "C" int tb_spec_conflicts_geometry(int K, int* geom) {
+  int sms = 0;
+  const int err = tb::sm_count(sms);
+  if (err) return err;
+  geometry(K, sms, geom[0], geom[1]);
+  return 0;
+}
+
 // Conflict flags of K lanes (global event indices idx, int32) into out
-// (K,) u8; serial (K,) u8 or null.  tok and tgt hold B int32, a_min and
-// r_min A int32, all at INT_MAX on entry and on return.
+// (K,) u8; serial (K,) u8 or null.  tok and tgt hold tok_n u32 entries
+// (tok_n >= B), a_min and r_min a_n (>= A); every entry rests at all
+// ones or holds an earlier call's tag.  `tag` in 1 .. TAG_TOP, above
+// every tag these arrays hold since they were last at rest; `fill` puts
+// every entry back at rest first (the wrapper asks for it when its tag
+// wraps).  B <= 8192 and n <= 8192.  One cooperative launch on
+// `stream`; a CUDA status.
 extern "C" int tb_spec_conflicts(const void* ev, int B, const void* idx, int K,
                                  const void* serial, int n, int64_t A, void* tok, void* tgt,
-                                 void* a_min, void* r_min, void* out, void* stream) {
+                                 int64_t tok_n, void* a_min, void* r_min, int64_t a_n, int tag,
+                                 int fill, void* out, void* stream) {
+  if (B < 1 || B > MAX_LANES || n > MAX_LANES || tok_n < B || a_n < A || tag < 1 ||
+      (uint32_t)tag > TAG_TOP || A < 1)
+    return (int)cudaErrorInvalidValue;
   if (K <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int blocks = (K + THREADS - 1) / THREADS;
+  int sms = 0, G, T;
+  const int err = tb::sm_count(sms);
+  if (err) return err;
+  geometry(K, sms, G, T);
+  if (STAGE_ROWS) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        spec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(T));
+    if (rc != cudaSuccess) return (int)rc;
+  }
   const uint64_t* e = static_cast<const uint64_t*>(ev);
   const int32_t* ix = static_cast<const int32_t*>(idx);
-  int32_t* t = static_cast<int32_t*>(tok);
-  int32_t* g = static_cast<int32_t*>(tgt);
-  int32_t* a = static_cast<int32_t*>(a_min);
-  int32_t* r = static_cast<int32_t*>(r_min);
-  spec_min<<<blocks, THREADS, 0, st>>>(e, B, ix, K, n, A, t, g, a, r);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  spec_read<<<blocks, THREADS, 0, st>>>(e, B, ix, K, n, A, t, g, a, r,
-                                        static_cast<const uint8_t*>(serial),
-                                        static_cast<uint8_t*>(out));
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  spec_reset<<<blocks, THREADS, 0, st>>>(e, B, ix, K, n, A, t, g, a, r);
-  return (int)cudaGetLastError();
+  const uint8_t* s = static_cast<const uint8_t*>(serial);
+  Arrays X{static_cast<uint32_t*>(tok), static_cast<uint32_t*>(tgt),
+           static_cast<uint32_t*>(a_min), static_cast<uint32_t*>(r_min), tok_n, a_n};
+  uint32_t tg = (uint32_t)tag;
+  uint8_t* o = static_cast<uint8_t*>(out);
+  void* args[] = {&e, &B, &ix, &K, &n, &A, &s, &X, &tg, &fill, &o};
+  const cudaError_t rc = cudaLaunchCooperativeKernel((const void*)spec_kernel, dim3(G), dim3(T),
+                                                     args, smem_bytes(T),
+                                                     static_cast<cudaStream_t>(stream));
+  return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
 }

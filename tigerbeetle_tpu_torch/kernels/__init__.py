@@ -116,9 +116,10 @@ _SIGNATURES = {
         "tb_chain_wave": [_P, _I64, _P, _I, _P, _I, _I, _I, _U64, _P, _P],
     },
     "spec_conflicts": {
-        # ev, B, idx, K, serial (nullable), n, A, tok, tgt, a_min, r_min,
-        # out, stream
-        "tb_spec_conflicts": [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _P, _P, _P, _P],
+        # ev, B, idx, K, serial (nullable), n, A, tok, tgt, tok_n, a_min,
+        # r_min, a_n, tag, fill, out, stream
+        "tb_spec_conflicts": [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _I64, _P, _P, _I64, _I, _I,
+                              _P, _P],
     },
     "apply_deltas": {
         # table, A, packed, k, stride, stream
@@ -301,6 +302,12 @@ def exact_scan(table, events, dstat_init, n, ts_base_u64, scratch_words, out):
     )
 
 
+def apply_deltas_geometry(k: int) -> tuple[int, int]:
+    """K4's launch for k entries on the current card: (blocks, threads
+    per block)."""
+    return _geometry("apply_deltas", "tb_apply_deltas_geometry", k, 2)
+
+
 def apply_deltas(table, packed):
     _launch(
         "apply_deltas", "tb_apply_deltas", "apply_deltas", table.get_device(),
@@ -443,12 +450,22 @@ def chain_wave_geometry(C: int) -> tuple[int, int]:
     return _geometry("chain_wave", "tb_chain_wave_geometry", C, 2)
 
 
-def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, out):
+def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, tag, fill, out):
+    """K9: one cooperative launch; `tok` / `tgt` and `a_min` / `r_min`
+    its tagged minima arrays (int32, read as u32), `tag` this call's,
+    `fill` true to put every entry back at rest first."""
     _launch(
         "spec_conflicts", "tb_spec_conflicts", "spec_conflicts", events.get_device(),
         events.data_ptr(), events.shape[0], idx.data_ptr(), idx.shape[0], _ptr(serial), n, A,
-        tok.data_ptr(), tgt.data_ptr(), a_min.data_ptr(), r_min.data_ptr(), out.data_ptr(),
+        tok.data_ptr(), tgt.data_ptr(), tok.shape[0], a_min.data_ptr(), r_min.data_ptr(),
+        a_min.shape[0], tag, int(fill), out.data_ptr(),
     )
+
+
+def spec_conflicts_geometry(K: int) -> tuple[int, int]:
+    """K9's launch for K lanes: (blocks of its cooperative grid, threads
+    per block)."""
+    return _geometry("spec_conflicts", "tb_spec_conflicts_geometry", K, 2)
 
 
 def shard_accumulate(acc, row0, dr, cr, lo, hi, pending, mask):

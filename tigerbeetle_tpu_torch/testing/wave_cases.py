@@ -20,6 +20,11 @@ speculative conflicts, K3 segments and finalize).
 - ``finalize_case``: a table and a seeded carry image for K3's finalize
   alone, at any B (odd ones too), with no row, every row or a share of
   the rows fixed, created slots that clip (-1 and >= A) among them.
+- ``spec_stream``: K9 batches to run back to back on one scratch, each
+  of another class over one row pool, so each reuses the slots and the
+  groups of the batches before it.
+- ``distinct_spec_case``: a K9 batch whose slots, groups and targets
+  are all distinct (no conflict but the serial mask's).
 """
 
 from __future__ import annotations
@@ -215,3 +220,49 @@ def finalize_case(seed, B, A, fix):
     words = k3.carry_from_dict(carry)
     hist_fix = {"none": None, "all": np.ones(B, bool), "some": rng.random(B) < 0.33}[fix]
     return table, words, hist_fix
+
+
+SPEC_CLASSES = ("mixed", "post_void", "balancing", "limits", "exists", "linked", "history")
+
+
+def _spec_serial(rng, ev, n, B):
+    """The engine's serial mask (chain members) plus a few more, as
+    uint8 over B lanes."""
+    serial = np.zeros(B, np.uint8)
+    meta = resolve.spec_meta_from_events(ev, n, False)
+    serial[:n] = meta["chain_member"] | (rng.random(n) < 0.05)
+    return serial
+
+
+def spec_stream(seed, count, B, A, rows=None):
+    """`count` K9 batches, [(ev, n, serial (B,) uint8)]: scan_cases
+    batches of SPEC_CLASSES in turn, all over `rows` (default: every row
+    of the A-row table) and one group space, so each batch reuses the
+    slots, groups and targets of those before it."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for j in range(count):
+        cls = SPEC_CLASSES[j % len(SPEC_CLASSES)]
+        _t, ev, _d, n, _ts = scan_cases.make_case(seed * 1000 + j, B, cls, A=A, rows=rows)
+        out.append((ev, n, _spec_serial(rng, ev, n, B)))
+    return out
+
+
+def distinct_spec_case(seed, B, A, n=None):
+    """(ev, n, serial) of a K9 batch in which no two lanes share a slot,
+    a token or a target: a "mixed" scan_cases batch whose four slot
+    columns take 4 B distinct rows of the A-row table (A >= 4 B), whose
+    id groups are distinct, with no pending group and distinct durable
+    targets and no linked event.  Its only conflicts are the serial
+    mask's."""
+    rng = np.random.default_rng(seed)
+    # The batch's other columns over a few rows (its slots are replaced).
+    _t, ev, _d, n, _ts = scan_cases.make_case(seed, B, "mixed", A=A, n=n, rows=np.arange(8))
+    rows = rng.choice(A, 4 * B, replace=False).astype(np.int32)
+    for j, name in enumerate(("dr_slot", "cr_slot", "p_dr_slot", "p_cr_slot")):
+        ev[name] = rows[j * B:(j + 1) * B]
+    ev["id_group"] = np.arange(B, dtype=np.int32)
+    ev["p_group"] = np.full(B, -1, np.int32)
+    ev["p_tgt"] = np.where(ev["p_found"], np.arange(B), -1).astype(np.int32)
+    ev["flags"] = ev["flags"] & np.uint32(~F_LINKED & 0xFFFFFFFF)
+    return ev, n, _spec_serial(rng, ev, n, B)

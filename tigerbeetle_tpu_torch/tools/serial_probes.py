@@ -1,7 +1,7 @@
 """The redesigned kernels' floors and times on the card: K8's barrier,
 K8 over its chain shapes, K3 over its segment lengths, where one K3
-event's time goes; K5, K7, K1, K13 admit, K6, K3 finalize and init
-and K14 gather beside an earlier tree's.
+event's time goes; K5, K7, K1, K13 admit, K6, K3 finalize and init,
+K14 gather, K4 and K9 beside an earlier tree's.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
         [--parent DIR] [--k7-lanes K,...] [--phases NAME,...]
@@ -71,6 +71,24 @@ kernels of the port) and drives the port's own wrappers:
   gather built (``variant_lib``) with streaming stores and with default
   ones at every size, and at the launch shapes of ``K14_SHAPES``; the
   bits against the plain version.
+* ``k4``: K4 on ``k4_cases`` (chip_smoke.py's timed call, the same on
+  a table one word off 16-byte alignment, a simple_host flush's first
+  and last launches on a 2^20-row table and a sharded_host flush's on
+  its compact table; ``testing/flush_cases.py``): device microseconds
+  per call in turns with ``index_select`` of the same live cells (one
+  dependent random trip over the same reads: a yardstick, not the same
+  function) and with this tree's K4 built with ``K4_VARIANTS`` (entries
+  a thread, launch shape), and cold (L2 flushed before each call, as
+  the main path finds a 2^20-row table) beside the parent; the bits
+  against the plain version.
+* ``k9``: K9 on ``k9_cases`` (chip_smoke.py's timed "mixed" batch, a
+  batch whose slots, groups and targets are all distinct, the offkernel
+  phase's first speculative batch captured from the state machine's own
+  launch): device microseconds per call in turns with this tree's K9
+  built with ``K9_VARIANTS`` (warp-combined atomics, event rows staged
+  through shared memory, an in-launch reset pass, 16-byte column loads,
+  128- and 256-lane blocks), and cold beside the parent; the conflicted
+  lanes and the bits against the plain version.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
   checks from the parent's tree and from this one, in turns (parent,
   change, change, parent), one process each: what each tree's checks
@@ -78,22 +96,25 @@ kernels of the port) and drives the port's own wrappers:
 * ``phases`` (needs ``--parent``): chip_smoke.py's streams (``--phases``,
   default every one of ``PHASES``) from either tree in the same turns:
   events/s, launches, windows or flushes, the profiled run's busy share
-  and top items, the device ms of K6, K3 init and finalize and K14.
+  and top items, the device ms of K6, K3 init and finalize, K14, K4 and
+  K9, and the entries of every K4 launch of the main-path run.
 
 ``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
 ``git archive`` under ``build/``) adds, in the same process and on the
 same inputs, that tree's K1, K5, K7, K13 admit, K6, K3 finalize and
-init and K14 gather (built from its ``csrc``; its K5 also built with
-stamps patched in between its stages) to ``k1``, ``k5``, ``k7``,
-``k13``, ``k6``, ``fin``, ``init`` and ``k14``; for K1 and K6, the
-split of its time over the kernels it launches.  ``k6``, ``fin``,
-``init`` and ``k14`` take the two trees' device times in turns (parent,
-change, change, parent) and their CUDA-event times per call
-alternating (``paired_event_us``).
+init, K14 gather, K4 and K9 (built from its ``csrc``; its K5 also built
+with stamps patched in between its stages) to ``k1``, ``k5``, ``k7``,
+``k13``, ``k6``, ``fin``, ``init``, ``k14``, ``k4`` and ``k9``; for K1
+and K6, the split of its time over the kernels it launches.  ``k6``,
+``fin``, ``init``, ``k14``, ``k4`` and ``k9`` take the two trees'
+device times in turns (parent, change, change, parent) and their
+CUDA-event times per call alternating (``paired_event_us``).
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
 ``k8``, ``k3``, ``k5``, ``k7``, ``k13``, ``k6``, ``fin`` and ``init`` build nothing of their own
-but the parent's, so they run on any tree with the wrappers);
+but the parent's, so they run on any tree with the wrappers, and ``k4``
+and ``k9`` build their variants only from a source that has their
+constants);
 ``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
 
@@ -114,7 +135,7 @@ from tigerbeetle_tpu_torch.kernels import build
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
-from tigerbeetle_tpu_torch.testing import orderfree_cases, semantic_cases, wave_cases
+from tigerbeetle_tpu_torch.testing import orderfree_cases, scan_cases, semantic_cases, wave_cases
 
 LIB = "serial_probes"
 A_ROWS = 1 << 20
@@ -1036,31 +1057,41 @@ def _raw(lib, symbol, argtypes, *args):
     return run
 
 
-def device_turns(fns, names) -> dict:
+def device_turns(fns, names, reset=None) -> dict:
     """Device microseconds per call of each of `fns` ({who: fn}), the
     profiler's, taken in turns: every fn in order, then in the reverse
     order (parent, change, change, parent for two); `names[who]` the
-    device functions counted (every one where `names` has no entry)."""
+    device functions counted (every one where `names` has no entry);
+    `reset()` before every call."""
     order = list(fns) + list(fns)[::-1]
     out = {who: [] for who in fns}
     for who in order:
         split = {}
         for _ in range(3):  # a profile that saw none of the kernels is taken again
-            split = device_split(fns[who], None, names.get(who, ("",)))
+            split = device_split(fns[who], reset, names.get(who, ("",)))
             if split:
                 break
         out[who].append(_sum_us([split]) if split else None)
     return out
 
 
-def _turns_into(row, turns) -> None:
+def _turns_into(row, turns, prefix="") -> None:
     """device_turns' microseconds into `row`: each side's turns and
-    their mean (None where the profiler saw no kernel)."""
+    their mean (None where the profiler saw no kernel), under keys that
+    start with `prefix`."""
     for who, us in turns.items():
         seen = [u for u in us if u is not None]
-        row[f"{who}_device_us_turns"] = us
-        row[f"{who}_device_us"] = float(np.mean(seen)) if seen else None
+        row[f"{prefix}{who}_device_us_turns"] = us
+        row[f"{prefix}{who}_device_us"] = float(np.mean(seen)) if seen else None
     print(json.dumps(row), file=sys.stderr)
+
+
+def l2_flusher(dev):
+    """A reset that leaves nothing of a call's data in the card's 50 MB
+    L2: 128 MiB stored over (its kernel is not counted where device
+    functions are named)."""
+    scrub = torch.empty(1 << 24, dtype=torch.int64, device=dev)
+    return scrub.zero_
 
 
 def init_sweep(dev, parent=None) -> dict:
@@ -1213,6 +1244,237 @@ def k14_sweep(dev, parent=None) -> dict:
     return out
 
 
+# ---- K4 and K9, the change against an earlier tree's kernels.
+
+K4_NAMES = ("apply_deltas",)
+# This tree's K4 built with other constants (where its source has them):
+# entries a thread; blocks halved while any SM lacks one (FILL 1), or
+# never (256-thread blocks, the parent's launch shape).
+K4_VARIANTS = {"e2": {"ENTRIES": "2"}, "e4": {"ENTRIES": "4"}, "fill1": {"FILL": "1"},
+               "t256": {"MIN_THREADS": "256"}}
+
+
+def k4_cases():
+    """[(name, table (R, 8) int64, packed (4, k) int64, offset words)]:
+    chip_smoke.py's timed call, the same one word off 16-byte alignment
+    (the 8-byte path), and a simple_host and a sharded_host flush's
+    first (32,768 entries) and last launches, on a 2^20-row table and on
+    the compact table of the flushed rows."""
+    from tigerbeetle_tpu_torch.testing import flush_cases
+
+    table, packed = flush_cases.timed_case(A_ROWS)
+    out = [("chip_smoke", table, packed, 0), ("chip_smoke_unaligned", table, packed, 1)]
+    for name, compact in (("simple_host", False), ("sharded_host", True)):
+        t, chunks = flush_cases.flush_case(2029, A_ROWS, 1_000_000, compact=compact)
+        out += [(f"{name}_first", t, chunks[0], 0), (f"{name}_last", t, chunks[-1], 0)]
+    return out
+
+
+def k4_sweep(dev, parent=None) -> dict:
+    """K4 on k4_cases: device microseconds per call in turns with the
+    yardstick ``index_select`` of the same live cells from
+    ``table.view(-1, 2)`` (one dependent random trip, the same reads: not
+    the same function), with this tree's K4 built with K4_VARIANTS and
+    with `parent`'s; CUDA-event microseconds per call of the change and
+    the parent alternating; the bits against the plain version and the
+    others'."""
+    old = _parent_lib(parent, "apply_deltas") if parent is not None else None
+    variants = {}
+    if "ENTRIES" in (build.CSRC / "apply_deltas.cu").read_text():
+        variants = {tag: variant_lib("apply_deltas", f"k4_{tag}", c)
+                    for tag, c in K4_VARIANTS.items()}
+    args = [_P, _I64, _P, _I64, _I64, _P]  # table, A, packed, k, stride, stream
+    flush = l2_flusher(dev)
+    out = {}
+    for name, table, packed, off in k4_cases():
+        R, k = table.shape[0], packed.shape[1]
+        base = torch.empty(R * 8 + off, dtype=torch.int64, device=dev)
+        t = base[off:].view(R, 8)
+        t0 = torch.from_numpy(table).to(dev)
+        pk = torch.from_numpy(packed).to(dev)
+        live = (pk[0] >= 0) & (pk[0] < R)
+        cells = (pk[0] * 4 + pk[1])[live]
+        n_live = int(live.sum())
+        t.copy_(t0)
+        dk.apply_deltas(t, pk)
+        torch.cuda.synchronize()
+        got = t.clone()
+        row = {"entries": k, "live": n_live, "rows": R, "offset_words": off,
+               "bound_us": (k * 32 + n_live * 32) / 3.35e12 * 1e6,
+               "plain_equal": bool(torch.equal(got, dk.apply_deltas_plain(t0.clone(), pk)))}
+        if hasattr(kernels, "apply_deltas_geometry"):
+            row["geometry"] = list(kernels.apply_deltas_geometry(k))
+        fns = {"change": lambda t=t, pk=pk: dk.apply_deltas(t, pk),
+               "index_select": lambda t=t, c=cells: t.view(-1, 2).index_select(0, c)}
+        for who, lib in ([("parent", old)] if old is not None else []) + list(variants.items()):
+            fns[who] = _raw(lib, "tb_apply_deltas", args, t.data_ptr(), R, pk.data_ptr(), k, k)
+            t.copy_(t0)
+            fns[who]()
+            torch.cuda.synchronize()
+            row[f"{who}_equal"] = bool(torch.equal(t, got))
+        if old is not None:
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
+                (fns["change"], fns["parent"]), lambda: None)
+        _turns_into(row, device_turns(fns, {who: K4_NAMES for who in fns
+                                            if who != "index_select"}))
+        # Cold, as the main path finds the table: L2 flushed before each
+        # call (not on the compact table, which a flush's K14 gather has
+        # just written).
+        if not name.startswith("sharded"):
+            cold = {who: fns[who] for who in ("change", "parent") if who in fns}
+            _turns_into(row, device_turns(cold, {who: K4_NAMES for who in cold},
+                                          reset=flush), prefix="cold_")
+        out[name] = row
+    return out
+
+
+K9_NAMES = ("spec_",)
+# This tree's K9 built with each design choice the other way: warp-
+# combined atomics, event rows staged through shared memory, the
+# in-launch reset behind a second grid barrier, the columns loaded as
+# 16-byte pieces, 128- and 256-lane blocks.
+K9_VARIANTS = {"combine": {"COMBINE": "true"}, "stage_rows": {"STAGE_ROWS": "true"},
+               "reset_pass": {"RESET_PASS": "true"}, "pairs": {"PAIR_LOADS": "true"},
+               "t128": {"THREADS": "128"}, "t256": {"THREADS": "256"}}
+
+
+def offkernel_spec_batch(dev):
+    """(events, idx, serial, n, A) of the K9 launch of the first
+    speculative batch of chip_smoke.py's offkernel phase (gen_offkernel,
+    1,000,001 accounts on the device engine), as the engine launched
+    it."""
+    from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+    from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
+
+    setup, timed, sizing = workload.gen_offkernel(32 * workload.BATCH, n_accounts=1_000_001)
+    seen = []
+    launch = waves.spec_conflicts
+
+    def capture(events, idx, serial, n, A, scratch=None):
+        seen.append((events.clone(), idx.clone(), None if serial is None else serial.clone(),
+                     n, A))
+        return launch(events, idx, serial, n, A, scratch=scratch)
+
+    waves.spec_conflicts = capture
+    waves._KERNEL_FNS["spec"] = capture
+    try:
+        sm = TorchStateMachine(account_capacity=A_ROWS, transfer_capacity=sizing[1] + 1024,
+                               engine="device", devices=[dev])
+        h = SingleNodeHarness(sm)
+        for op, body in setup:
+            h.submit(op, body)
+        sm._dev.drain()
+        for op, body, *_ in timed:
+            h.submit(op, body)
+            if seen:
+                break
+        sm._dev.drain()
+        torch.cuda.synchronize()
+    finally:
+        waves.spec_conflicts = launch
+        waves._KERNEL_FNS["spec"] = launch
+    if not seen:
+        raise RuntimeError("the offkernel phase launched no K9")
+    return seen[0]
+
+
+def k9_cases(dev):
+    """[(name, events, idx, serial, n, A)] on the card: chip_smoke.py's
+    timed batch (8190 "mixed" events over 8192 rows of a 2^20-row
+    table), a batch whose slots, groups and targets are all distinct,
+    and the offkernel phase's first speculative batch."""
+    from tigerbeetle_tpu_torch.state_machine import resolve
+
+    pool = np.sort(np.random.default_rng(2030).choice(A_ROWS, 200_000, replace=False))
+    out = []
+    _t, ev, _d, n, _ts = scan_cases.make_case(2031, B, "mixed", A=A_ROWS, rows=pool[:B], n=8190)
+    serial = resolve.spec_meta_from_events(ev, n, False)["chain_member"].astype(np.uint8)
+    out.append(("chip_smoke", ev, serial, n))
+    ev, n, serial = wave_cases.distinct_spec_case(2033, B, A_ROWS, n=8190)
+    out.append(("distinct", ev, serial, n))
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    cases = [(name, to(k3.pack_events(ev).view(np.int64)),
+              torch.arange(n, dtype=torch.int32, device=dev), to(serial[:n]), n, A_ROWS)
+             for name, ev, serial, n in out]
+    return cases + [("offkernel",) + offkernel_spec_batch(dev)]
+
+
+def _old_spec_scratch(B_rows, A, dev):
+    full = lambda m: torch.full((m,), (1 << 31) - 1, dtype=torch.int32,  # noqa: E731
+                                device=dev)
+    return full(B_rows), full(B_rows), full(A), full(A)
+
+
+def k9_sweep(dev, parent=None) -> dict:
+    """K9 on k9_cases: device microseconds per call (every kernel a call
+    launches, the profiler's) in turns with this tree's K9 built with
+    K9_VARIANTS and with `parent`'s three-launch K9 on its own resting
+    arrays; CUDA-event microseconds per call of the change and the parent
+    alternating; the conflicted lanes and the bits against the plain
+    version and the others'."""
+    old = _parent_lib(parent, "spec_conflicts") if parent is not None else None
+    text = (build.CSRC / "spec_conflicts.cu").read_text()
+    variants = {}
+    if "RESET_PASS" in text:
+        variants = {tag: variant_lib("spec_conflicts", f"k9_{tag}", c)
+                    for tag, c in K9_VARIANTS.items()}
+    new_args = [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _I64, _P, _P, _I64, _I, _I, _P, _P]
+    flush = l2_flusher(dev)
+    out = {}
+    for name, pk, idx, serial, n, A in k9_cases(dev):
+        K, Bn = idx.shape[0], pk.shape[0]
+        scratch = waves.WaveScratch(dev)
+        got = waves.spec_conflicts(pk, idx, serial, n, A, scratch=scratch)
+        want = waves.spec_conflicts_plain(pk, idx, serial, n, A).to(torch.uint8)
+        torch.cuda.synchronize()
+        row = {"lanes": K, "events": n, "rows": A, "conflicted": int(want.sum()),
+               "bound_us": K * (12 * 8 + 4 + 1 + 1) / 3.35e12 * 1e6,
+               "plain_equal": bool(torch.equal(got, want))}
+        if hasattr(kernels, "spec_conflicts_geometry"):
+            row["geometry"] = list(kernels.spec_conflicts_geometry(K))
+        fns = {"change": lambda pk=pk, idx=idx, s=serial, n=n, A=A, sc=scratch:
+               waves.spec_conflicts(pk, idx, s, n, A, scratch=sc)}
+        outs = {}
+        for tag, lib in variants.items():
+            fn = getattr(lib, "tb_spec_conflicts")
+            fn.argtypes, fn.restype = new_args, _I
+            spec = waves.SpecScratch(dev)
+            o = torch.empty(K, dtype=torch.uint8, device=dev)
+
+            def run(fn=fn, spec=spec, o=o, pk=pk, idx=idx, s=serial, n=n, A=A, lib=lib):
+                tok, tgt, a_min, r_min, tag, fill = spec.take(Bn, A)
+                rc = fn(pk.data_ptr(), Bn, idx.data_ptr(), K, s.data_ptr(), n, A,
+                        tok.data_ptr(), tgt.data_ptr(), tok.numel(), a_min.data_ptr(),
+                        r_min.data_ptr(), a_min.numel(), tag, int(fill), o.data_ptr(),
+                        _stream())
+                if rc:
+                    raise RuntimeError(f"tb_spec_conflicts: {lib.tb_error_string(rc).decode()}")
+            fns[tag], outs[tag] = run, o
+        if old is not None:
+            o = torch.empty(K, dtype=torch.uint8, device=dev)
+            arrays = _old_spec_scratch(max(Bn, B), A, dev)
+            fns["parent"] = _raw(old, "tb_spec_conflicts",
+                                 [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _P, _P, _P, _P],
+                                 pk.data_ptr(), Bn, idx.data_ptr(), K, serial.data_ptr(), n, A,
+                                 *(a.data_ptr() for a in arrays), o.data_ptr())
+            outs["parent"] = o
+        for who, o in outs.items():
+            for _ in range(3):  # a few calls back to back, then the bits
+                o.fill_(7)
+                fns[who]()
+            torch.cuda.synchronize()
+            row[f"{who}_equal"] = bool(torch.equal(o, got))
+        if old is not None:
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
+                (fns["change"], fns["parent"]), lambda: None)
+        _turns_into(row, device_turns(fns, {who: K9_NAMES for who in fns}))
+        cold = {who: fns[who] for who in ("change", "parent") if who in fns}
+        _turns_into(row, device_turns(cold, {who: K9_NAMES for who in cold}, reset=flush),
+                    prefix="cold_")
+        out[name] = row
+    return out
+
+
 # One tree's phases (chip_smoke.py's streams, named on the command line),
 # run from its root: each phase's main-path run (events/s, launches,
 # windows or flushes) and a profiled run (busy share, the top device
@@ -1229,13 +1491,15 @@ from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.testing import shard_cases
 build.build_all()
 named = ("two_phase_kernel", "tp_", "apply_rows_kernel", "summary_kernel", "finalize_kernel",
-         "init_kernel", "shard_gather", "shard_scatter")
+         "init_kernel", "shard_gather", "shard_scatter", "apply_deltas", "spec_")
 dev = torch.device("cuda", 0)
 B = workload.BATCH
-# The (slots, width) of every K14 gather launch, by the wrapper's own
-# arguments.
+# The (slots, width) of every K14 gather launch and the entries of every
+# K4 launch, by the wrappers' own arguments.
 gathers = []
+applies = []
 launch_gather = kernels.shard_gather
+launch_apply = kernels.apply_deltas
 
 
 def recording(table, row0, slots, out):
@@ -1243,7 +1507,13 @@ def recording(table, row0, slots, out):
     return launch_gather(table, row0, slots, out)
 
 
+def recording_apply(table, packed):
+    applies.append(packed.shape[1])
+    return launch_apply(table, packed)
+
+
 kernels.shard_gather = recording
+kernels.apply_deltas = recording_apply
 
 
 def stream(name):
@@ -1271,6 +1541,24 @@ def stream(name):
         setup, timed, sizing = workload.gen_simple(c.N_TRANSFERS, n_accounts=c.N_ACCOUNTS)
         timed = timed + [c.linked_exact_batch(c.N_ACCOUNTS, workload.TID0 + c.N_TRANSFERS)]
         return setup, timed, sizing[0], "host", shards, {}
+    if name == "simple_host":
+        setup, timed, sizing = workload.gen_simple(c.N_TRANSFERS, n_accounts=c.N_ACCOUNTS)
+        return setup, timed, sizing[0], "host", None, {}
+    if name == "linked":
+        setup, timed, sizing = workload.gen_linked(c.N_EXACT)
+        return setup, timed, sizing[0], "device", None, {}
+    if name == "expiry":
+        setup, timed = c.expiry_stream(8, B, c.N_ACCOUNTS)
+        return setup, timed, c.A_ROWS, "device", None, {}
+    if name == "tiered_host":
+        # chip_smoke.py's tiered_host arm: the accounts and the warm-up
+        # sweep as setup, the timed batches asynchronously here.
+        warm = c.head_sweep(c.TIER_WARM, B, c.TIER_HEAD, workload.WARM0)
+        timed = workload.gen_tiering(c.TIER_TIMED, B, c.TIER_ACCOUNTS, c.TIER_HEAD, c.TIER_TAIL,
+                                     workload.TID0)
+        cap, _ = workload._sizing(c.TIER_ACCOUNTS, 0)
+        return (list(c.tier_accounts()) + list(warm), list(timed), cap, "host", None,
+                {"TB_HOT_CAPACITY": str(c.TIER_HOT)})
     raise SystemExit(f"no phase {name}")
 
 
@@ -1304,9 +1592,10 @@ def sharded_waves(profile):
 out = {}
 for name in sys.argv[1:]:
     gathers.clear()
+    applies.clear()
     if name == "sharded_waves":
         events, res, elapsed, launches, _, units = sharded_waves(False)
-        main_gathers = list(gathers)
+        main_gathers, main_applies = list(gathers), list(applies)
         _, p_res, p_elapsed, _, trace, _ = sharded_waves(True)
         equal = all(torch.equal(a, b) for a, b in zip(res, p_res))
         root = None
@@ -1319,6 +1608,7 @@ for name in sys.argv[1:]:
                 setup, timed, cap, tc, False, engine, devices=devices,
                 checkpoint=engine == "host" and devices is not None)
             main_gathers = list(gathers)
+            main_applies = list(applies)
             units = sm._dev.stat_windows if engine == "device" else sm._dev.stat_flushes
             root = sm.state_root().hex()
             del sm
@@ -1337,12 +1627,13 @@ for name in sys.argv[1:]:
     out[name] = dict(events_per_s=events / elapsed, profiled_equal=equal, root=root,
                      busy_ms=busy_ms, busy_share=share,
                      top=top, named_ms=ms, windows_or_flushes=units,
-                     launches={k: v for k, v in launches.items() if v}, gathers=counts)
+                     launches={k: v for k, v in launches.items() if v}, gathers=counts,
+                     apply_entries=main_applies)
 print("TURN " + json.dumps(out, default=str))
 """
 # The phases part's default phases.
 PHASES = ("two_phase", "waves_host", "offkernel", "sharded_waves", "sharded_engine/simple",
-          "sharded_engine/pv", "sharded_host")
+          "sharded_engine/pv", "sharded_host", "simple_host", "tiered_host", "expiry", "linked")
 
 
 def _in_turns(code, parent, timeout, argv=()) -> dict:
@@ -1378,8 +1669,8 @@ def phases(dev, parent=None, names=PHASES) -> dict:
 # "turns" and "phases" run only when asked for.
 PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
          "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "k6": k6_sweep,
-         "fin": fin_sweep, "init": init_sweep, "k14": k14_sweep, "turns": turns,
-         "phases": phases}
+         "fin": fin_sweep, "init": init_sweep, "k14": k14_sweep, "k4": k4_sweep,
+         "k9": k9_sweep, "turns": turns, "phases": phases}
 
 
 def main(argv=None) -> int:
@@ -1388,8 +1679,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default=",".join(p for p in PARTS if p not in ("turns", "phases")),
                     help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--parent",
-                    help="an earlier tree whose K1, K3 init and finalize, K5, K6, K7, K13 "
-                         "admit and K14 gather run beside these")
+                    help="an earlier tree whose K1, K3 init and finalize, K4, K5, K6, K7, K9, "
+                         "K13 admit and K14 gather run beside these")
     ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="the phases part's streams, a comma-separated subset of "
@@ -1402,6 +1693,7 @@ def main(argv=None) -> int:
              "k13": {"parent": args.parent}, "turns": {"parent": args.parent},
              "k6": {"parent": args.parent}, "fin": {"parent": args.parent},
              "init": {"parent": args.parent}, "k14": {"parent": args.parent},
+             "k4": {"parent": args.parent}, "k9": {"parent": args.parent},
              "phases": {"parent": args.parent, "names": args.phases.split(",")},
              "k7": {"parent": args.parent,
                     "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
