@@ -987,16 +987,54 @@ def test_spec_conflicts_back_to_back_on_one_scratch(card):
 
 
 def test_spec_conflicts_across_the_tag_wrap(card):
-    """Calls on one scratch from three tags below the top: the call after
-    the top takes tag 1 and fills every entry back at rest first; the
+    """Calls on one scratch from three calls below the end of a tag
+    cycle: the call that takes tag 1 fills every entry back at rest
+    first (the cycle's last tag's entries would win every minimum); the
     calls on either side equal the plain version."""
-    scratch = waves.WaveScratch(card, spec_tag=waves.SPEC_TAG_TOP - 2)
+    cycle = kernels.spec_conflicts_cycle()
+    scratch = waves.WaveScratch(card, spec_calls=cycle - 3)
     rows = np.arange(0, 1 << 16, 7)
-    tags = []
+    counts = []
     for ev, n, serial in wave_cases.spec_stream(22, 6, 8192, 1 << 16, rows=rows):
-        tags.append(scratch._spec.tag)
+        counts.append(scratch._spec.calls % cycle + 1)  # the call's tag
         _k9_vs_plain(card, ev, n, serial, 1 << 16, scratch)
-    assert tags == [waves.SPEC_TAG_TOP - 2, waves.SPEC_TAG_TOP - 1, waves.SPEC_TAG_TOP, 1, 2, 3]
+    assert counts == [cycle - 2, cycle - 1, cycle, 1, 2, 3]
+
+
+def test_spec_conflicts_wrap_survives_an_empty_and_a_failed_call(card):
+    """The call after the cycle's last tag is empty, then fails the
+    library's checks (n above 8192): neither counts, so the next call
+    still takes tag 1 and fills; it equals the plain version."""
+    cycle = kernels.spec_conflicts_cycle()
+    scratch = waves.WaveScratch(card, spec_calls=cycle - 1)
+    stream = wave_cases.spec_stream(25, 2, 8192, 1 << 16, rows=np.arange(0, 1 << 16, 5))
+    ev, n, serial = stream[0]
+    _k9_vs_plain(card, ev, n, serial, 1 << 16, scratch)
+    pk = torch.from_numpy(k3.pack_events(ev).view(np.int64)).to(card)
+    before = kernels.launches["spec_conflicts"]
+    empty = waves.spec_conflicts(pk, torch.zeros(0, dtype=torch.int32, device=card), None, n,
+                                 1 << 16, scratch=scratch)
+    assert empty.shape == (0,) and kernels.launches["spec_conflicts"] == before
+    with pytest.raises(RuntimeError):
+        waves.spec_conflicts(pk, torch.arange(n, dtype=torch.int32, device=card), None, 9000,
+                             1 << 16, scratch=scratch)
+    assert scratch._spec.calls == cycle
+    ev, n, serial = stream[1]
+    _k9_vs_plain(card, ev, n, serial, 1 << 16, scratch)
+
+
+def test_spec_conflicts_empty_call_at_the_wrap_still_fills(card):
+    """The library itself: a call of no lanes that takes tag 1 (or finds
+    its arrays new) still puts every entry at rest."""
+    cycle = kernels.spec_conflicts_cycle()
+    pk = torch.zeros((64, 52), dtype=torch.int64, device=card)
+    idx = torch.zeros(0, dtype=torch.int32, device=card)
+    out = torch.empty(0, dtype=torch.uint8, device=card)
+    for calls, fresh in ((cycle, False), (5, True)):
+        arrays = [torch.zeros(m, dtype=torch.int32, device=card) for m in (64, 64, 300, 300)]
+        kernels.spec_conflicts(pk, idx, None, 10, 300, *arrays, calls, fresh, out)
+        torch.cuda.synchronize()
+        assert all(bool((a == -1).all()) for a in arrays)
 
 
 @pytest.mark.parametrize("K", [1, 4097, 8190, 40_000])

@@ -230,38 +230,43 @@ def test_cuda_lookups_wait_for_the_first_launch():
     assert out.returncode == 0, out.stderr
 
 
-def test_k9_passes_its_arrays_lengths_tag_and_fill(fake_cuda):
-    """K9 takes its four minima arrays with their lengths, the call's tag
-    and whether to fill them back at rest first; no output buffer of
-    the scratch (the wrapper's fresh tensor)."""
+def test_k9_passes_its_arrays_lengths_call_count_and_freshness(fake_cuda):
+    """K9 takes its four minima arrays with their lengths, the calls made
+    on them before (a 64-bit count: the library derives the tag) and
+    whether they are new; no output buffer of the scratch (the wrapper's
+    fresh tensor)."""
     ev, idx, serial, out = _z((16, 52)), _z(7, torch.int32), _z(7, torch.uint8), _z(7)
     tok, tgt, a_min, r_min = _z(16), _z(16), _z(40), _z(40)
     kernels.spec_conflicts(ev, idx, serial, 12, 33, tok, tgt, a_min, r_min, 5, False, out)
-    kernels.spec_conflicts(ev, idx, None, 12, 33, tok, tgt, a_min, r_min, 1, True, out)
+    kernels.spec_conflicts(ev, idx, None, 12, 33, tok, tgt, a_min, r_min, 1 << 40, True, out)
     head = (ev.data_ptr(), 16, idx.data_ptr(), 7)
     mid = (12, 33, tok.data_ptr(), tgt.data_ptr(), 16, a_min.data_ptr(), r_min.data_ptr(), 40)
     assert [a for _, a in fake_cuda.calls] == [
         head + (serial.data_ptr(),) + mid + (5, 0, out.data_ptr(), STREAM - 1),
-        head + (None,) + mid + (1, 1, out.data_ptr(), STREAM - 1),
+        head + (None,) + mid + (1 << 40, 1, out.data_ptr(), STREAM - 1),
     ]
     assert kernels.launches["spec_conflicts"] == 2
 
 
-def test_spec_scratch_tags_advance_and_wrap_with_one_fill():
-    """Each K9 call takes the next tag; past SPEC_TAG_TOP the tag starts
-    again at 1 and that call fills the arrays back at rest first; arrays
-    made or grown start at rest and keep the tag running."""
+def test_spec_scratch_counts_launched_calls_and_marks_new_arrays_fresh():
+    """The scratch counts only the calls that launched; arrays made or
+    grown are fresh (the kernel fills them) until a call launches on
+    them, and the count runs on across a growth."""
     from tigerbeetle_tpu_torch.state_machine import waves
 
-    top = waves.SPEC_TAG_TOP
-    scratch = waves.WaveScratch(torch.device("cpu"), spec_tag=top - 1)
-    taken = [scratch.spec(64, 100)[4:] for _ in range(4)]
-    assert taken == [(top - 1, False), (top, False), (1, True), (2, False)]
-    tok, tgt, a_min, r_min = scratch.spec(64, 100)[:4]
+    scratch = waves.WaveScratch(torch.device("cpu"), spec_calls=41)
+    spec = scratch._spec
+    first = spec.take(64, 100)
+    assert first[4:] == (41, True)
+    assert spec.take(64, 100)[4:] == (41, True)  # a take that did not launch counts nothing
+    tok, tgt, a_min, r_min = first[:4]
     assert tok.numel() == tgt.numel() == 8192 and a_min.numel() == r_min.numel() == 100
-    assert all(bool((a == waves.SPEC_REST).all()) for a in (tok, tgt, a_min, r_min))
-    grown = scratch.spec(64, 5000)
-    assert grown[2].numel() == 5000 and grown[4:] == (4, False)
-    assert scratch.spec(64, 10)[2] is grown[2]  # a smaller table reuses them
-    with pytest.raises(ValueError):
-        waves.WaveScratch(torch.device("cpu"), spec_tag=top + 1)
+    assert all(a.dtype == torch.int32 for a in (tok, tgt, a_min, r_min))
+    spec.launched()
+    assert spec.take(64, 100)[4:] == (42, False)
+    spec.launched()
+    grown = spec.take(64, 5000)
+    assert grown[2].numel() == 5000 and grown[4:] == (43, True)
+    spec.launched()
+    again = spec.take(64, 10)
+    assert again[2] is grown[2] and again[4:] == (44, False)  # a smaller table reuses them

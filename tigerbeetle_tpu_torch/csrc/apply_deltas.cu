@@ -13,18 +13,18 @@
 // and rewrites the whole table; the sum is the same bits (absent entries
 // add zero), so this kernel touches only the listed cells, and what is
 // left is one chain of dependent trips: the entry, then its cell, then
-// the store.  So a thread issues its entries' packed loads (neighbouring
-// threads on neighbouring entries, streaming: __ldcs, read once), then
-// their cell loads, before its first add or store; a cell (slot * 64 +
-// col * 16 bytes in) moves as one 16-byte load and one 16-byte store
-// when the table is 16-byte aligned, as two 8-byte words when it is not.
-// Entries are unique (compact_deltas), so no two threads touch one cell
-// and nothing needs an atomic or an order.  The grid is taken from the
+// the store.  So a thread reads its entry's four packed words
+// (neighbouring threads on neighbouring entries, streaming: __ldcs, read
+// once), then its cell, then adds and stores; a cell (slot * 64 + col *
+// 16 bytes in) moves as one 16-byte load and one 16-byte store when the
+// table is 16-byte aligned, as two 8-byte words when it is not.  Entries
+// are unique (compact_deltas), so no two threads touch one cell and
+// nothing needs an atomic or an order.  The grid is taken from the
 // card's SM count: 256-thread blocks, halved while the grid would fill
 // at most half the SMs (a small flush spread over more SMs), grid-stride
-// past full residency.  Measured (PERF.md, the K4 row): one entry a thread
-// beats two or four (ENTRIES), and halving the blocks until every SM has
-// one (FILL 1) does not pay at 32,768 entries.
+// past full residency.  Measured (PERF.md, the K4 row): one entry a
+// thread beats two or four in flight, and halving the blocks until every
+// SM has one (FILL 1) does not pay at 32,768 entries.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,7 +33,6 @@
 
 namespace {
 
-constexpr int ENTRIES = 1;        // entries a thread keeps in flight
 constexpr int MAX_THREADS = 256;  // a block's threads at large flushes
 constexpr int MIN_THREADS = 32;   // ... and at small ones
 constexpr int FILL = 2;           // blocks halve while the grid fills 1 / FILL of the SMs
@@ -48,47 +47,29 @@ __global__ void __launch_bounds__(MAX_THREADS)
                  int64_t k, int64_t stride) {
   const int64_t span = (int64_t)gridDim.x * blockDim.x;
   const unsigned long long* pk = reinterpret_cast<const unsigned long long*>(packed);
-  for (int64_t j0 = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j0 < k;
-       j0 += span * ENTRIES) {
-    uint64_t slot[ENTRIES], col[ENTRIES], d_lo[ENTRIES], d_hi[ENTRIES];
-#pragma unroll
-    for (int e = 0; e < ENTRIES; ++e) {
-      const int64_t j = j0 + e * span;
-      const bool live = j < k;
-      slot[e] = live ? __ldcs(pk + j) : A;
-      col[e] = live ? __ldcs(pk + stride + j) : 0;
-      d_lo[e] = live ? __ldcs(pk + 2 * stride + j) : 0;
-      d_hi[e] = live ? __ldcs(pk + 3 * stride + j) : 0;
+  for (int64_t j = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; j < k; j += span) {
+    const uint64_t slot = __ldcs(pk + j);
+    const uint64_t col = __ldcs(pk + stride + j);
+    const uint64_t d_lo = __ldcs(pk + 2 * stride + j);
+    const uint64_t d_hi = __ldcs(pk + 3 * stride + j);
+    if (slot >= A || col >= 4) continue;
+    uint64_t* cell = table + slot * 8 + col * 2;
+    uint64_t old_lo, old_hi;
+    if (WIDE) {
+      const ulonglong2 c = *reinterpret_cast<const ulonglong2*>(cell);
+      old_lo = c.x;
+      old_hi = c.y;
+    } else {
+      old_lo = cell[0];
+      old_hi = cell[1];
     }
-    bool keep[ENTRIES];
-    uint64_t old_lo[ENTRIES], old_hi[ENTRIES];
-#pragma unroll
-    for (int e = 0; e < ENTRIES; ++e) {
-      keep[e] = slot[e] < A && col[e] < 4;
-      old_lo[e] = old_hi[e] = 0;
-      if (!keep[e]) continue;
-      const uint64_t* cell = table + slot[e] * 8 + col[e] * 2;
-      if (WIDE) {
-        const ulonglong2 c = *reinterpret_cast<const ulonglong2*>(cell);
-        old_lo[e] = c.x;
-        old_hi[e] = c.y;
-      } else {
-        old_lo[e] = cell[0];
-        old_hi[e] = cell[1];
-      }
-    }
-#pragma unroll
-    for (int e = 0; e < ENTRIES; ++e) {
-      if (!keep[e]) continue;
-      uint64_t* cell = table + slot[e] * 8 + col[e] * 2;
-      const uint64_t lo = old_lo[e] + d_lo[e];
-      const uint64_t hi = old_hi[e] + d_hi[e] + (lo < old_lo[e] ? 1ull : 0ull);
-      if (WIDE) {
-        *reinterpret_cast<ulonglong2*>(cell) = make_ulonglong2(lo, hi);
-      } else {
-        cell[0] = lo;
-        cell[1] = hi;
-      }
+    const uint64_t lo = old_lo + d_lo;
+    const uint64_t hi = old_hi + d_hi + (lo < old_lo ? 1ull : 0ull);
+    if (WIDE) {
+      *reinterpret_cast<ulonglong2*>(cell) = make_ulonglong2(lo, hi);
+    } else {
+      cell[0] = lo;
+      cell[1] = hi;
     }
   }
 }
@@ -97,10 +78,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
 // halved from MAX_THREADS while the grid fills at most 1 / FILL of the
 // SMs, the grid capped at full residency (grid-stride past it).
 void geometry(int64_t k, int sms, int& G, int& T) {
-  const int64_t threads = (k + ENTRIES - 1) / ENTRIES;
   T = MAX_THREADS;
-  while (T > MIN_THREADS && (threads + T - 1) / T * FILL <= sms) T /= 2;
-  int64_t g = (threads + T - 1) / T;
+  while (T > MIN_THREADS && (k + T - 1) / T * FILL <= sms) T /= 2;
+  int64_t g = (k + T - 1) / T;
   const int64_t cap = (int64_t)sms * (SM_THREADS / T);
   G = (int)(g > cap ? cap : (g < 1 ? 1 : g));
 }

@@ -31,21 +31,24 @@
 // No reset pass.  Segmented minima live in four u32 arrays — tokens and
 // targets (one per batch row), touchers and readers (one per table row)
 // — whose entries carry the call's tag: an entry is ((TAG_TOP - tag) <<
-// LANE_BITS) | i, the tag advancing once a call from 1 to TAG_TOP, and a
-// lane's test is one unsigned compare against its own encoding.  An
-// entry of an earlier call is larger than any of this call's, so it
-// loses every atomicMin and reads as absent, as the resting value
-// (all ones) does; the reads that can meet one are the readers' minima
-// at the lane's written slots (the other reads see the lane's own
-// atomics).  When the tag wraps the wrapper asks for a fill: every entry
-// back at rest, then one more grid barrier, in the same launch.
-// Clearing the two 2^20-entry slot arrays every call would move 8 MiB.
+// LANE_BITS) | i, and a lane's test is one unsigned compare against its
+// own encoding.  The caller counts the calls made on the arrays; call c
+// takes tag c % TAG_TOP + 1, so the tag rises once a call from 1 to
+// TAG_TOP.  An entry of an earlier call is larger than any of this
+// call's, so it loses every atomicMin and reads as absent, as the
+// resting value (all ones) does; the reads that can meet one are the
+// readers' minima at the lane's written slots (the other reads see the
+// lane's own atomics).  A call that takes tag 1, and the first call on
+// arrays just made, fills every entry at rest first, then meets the
+// other lanes at one more grid barrier, in the same launch.  Clearing
+// the two 2^20-entry slot arrays every call would move 8 MiB.  This file
+// alone knows the encoding: the caller passes the call count.
 //
-// Measured the other ways (PERF.md, the K9 row; the switches below build
-// them): an in-launch reset behind a second grid barrier, warp-combined
-// atomics, event rows staged through shared memory, the columns loaded
-// as 16-byte pieces, and 128- or 256-lane blocks were each slower on
-// the main path's batches or no faster.
+// Measured the other ways (PERF.md, the K9 row): an in-launch reset
+// behind a second grid barrier, warp-combined atomics, event rows staged
+// through shared memory, the columns loaded as 16-byte pieces, and 128-
+// or 256-lane blocks were each slower on the main path's batches or no
+// faster.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -64,22 +67,8 @@ constexpr uint32_t REST = 0xFFFFFFFFu;
 constexpr int LANE_BITS = 13;  // an event index below 8192
 constexpr int MAX_LANES = 1 << LANE_BITS;
 constexpr uint32_t TAG_TOP = (1u << (32 - LANE_BITS)) - 1;
-constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
-// A warp's equal addresses combined (__match_any_sync, then the group's
-// minimum by __reduce_min_sync) before one atomic.
-constexpr bool COMBINE = false;
-// A block whose lanes are consecutive event rows stages them through
-// shared memory in 16-byte pieces; otherwise each lane loads its columns.
-constexpr bool STAGE_ROWS = false;
-// The arrays reset in the launch behind a second grid barrier (every
-// entry this call wrote back at rest) as well as tagged.
-constexpr bool RESET_PASS = false;
-// A lane loads its columns as the ten 16-byte pieces that hold them
-// (a 16-byte aligned event matrix), not as twelve 8-byte words.
-constexpr bool PAIR_LOADS = false;
 constexpr int THREADS = 64;  // a block's lanes, more only past one block an SM
 constexpr int MAX_THREADS = 256;
-constexpr int ROW_PIECES = NEV / 2;  // 16-byte pieces of an event row
 
 // One lane's conflict entries.
 struct Entries {
@@ -89,98 +78,46 @@ struct Entries {
   bool pgm, ptm, read_dr, read_cr, wm0, wm1, serial;
 };
 
-// The lane's entries from its event row `e` (columns by index); false
+// Lane k's entries from its event row (columns by index); `have` false
 // for a padding or inactive lane.
-template <class Row>
-__device__ __forceinline__ bool decode(const Row& e, int64_t Bn, int n, int64_t A, uint32_t hi,
-                                       Entries& x) {
-  const int64_t i = s32(e(E_I));
-  if (i < 0 || i >= n) return false;
+__device__ __forceinline__ void decode(const uint64_t* __restrict__ ev, int64_t Bn,
+                                       const int32_t* __restrict__ idx, int64_t k, int n,
+                                       int64_t A, const uint8_t* __restrict__ serial,
+                                       uint32_t hi, Entries& x, bool& have) {
+  x = Entries{};
+  x.serial = serial != nullptr && serial[k] != 0;
+  have = false;
+  const int64_t row = idx[k];
+  if (row < 0 || row >= Bn) return;
+  const unsigned long long* e = reinterpret_cast<const unsigned long long*>(ev + row * NEV);
+  const int64_t i = s32(__ldg(e + E_I));
+  if (i < 0 || i >= n) return;
+  have = true;
   x.enc = hi | (uint32_t)i;
   const int64_t Bm = Bn - 1, Am = A - 1;
-  const uint32_t flags = (uint32_t)e(E_FLAGS);
+  const uint32_t flags = (uint32_t)__ldg(e + E_FLAGS);
   const bool is_pv = flags & (F_POST | F_VOID);
-  x.idg = (int32_t)clip(s32(e(E_ID_GROUP)), Bm);
-  const int64_t pg = s32(e(E_P_GROUP));
+  x.idg = (int32_t)clip(s32(__ldg(e + E_ID_GROUP)), Bm);
+  const int64_t pg = s32(__ldg(e + E_P_GROUP));
   x.pgm = pg >= 0;
   x.pgc = (int32_t)clip(pg, Bm);
-  const int64_t pt = s32(e(E_P_TGT));
+  const int64_t pt = s32(__ldg(e + E_P_TGT));
   x.ptm = pt >= 0;
   x.ptc = (int32_t)clip(pt, Bm);
-  const int64_t dr = s32(e(E_DR)), cr = s32(e(E_CR));
+  const int64_t dr = s32(__ldg(e + E_DR)), cr = s32(__ldg(e + E_CR));
   x.read_dr = !is_pv && dr >= 0 &&
-              ((flags & F_BAL_DR) || ((uint32_t)e(E_DR_FLAGS) & AF_DR_LIMIT));
+              ((flags & F_BAL_DR) || ((uint32_t)__ldg(e + E_DR_FLAGS) & AF_DR_LIMIT));
   x.read_cr = !is_pv && cr >= 0 &&
-              ((flags & F_BAL_CR) || ((uint32_t)e(E_CR_FLAGS) & AF_CR_LIMIT));
-  const bool pf = e(E_P_FOUND) != 0;
-  const int64_t w0 = is_pv ? (pf ? s32(e(E_P_DR)) : -1) : dr;
-  const int64_t w1 = is_pv ? (pf ? s32(e(E_P_CR)) : -1) : cr;
+              ((flags & F_BAL_CR) || ((uint32_t)__ldg(e + E_CR_FLAGS) & AF_CR_LIMIT));
+  const bool pf = __ldg(e + E_P_FOUND) != 0;
+  const int64_t w0 = is_pv ? (pf ? s32(__ldg(e + E_P_DR)) : -1) : dr;
+  const int64_t w1 = is_pv ? (pf ? s32(__ldg(e + E_P_CR)) : -1) : cr;
   x.wm0 = w0 >= 0;
   x.wm1 = w1 >= 0;
   x.dr_c = (int32_t)clip(dr, Am);
   x.cr_c = (int32_t)clip(cr, Am);
   x.w0_c = (int32_t)clip(w0, Am);
   x.w1_c = (int32_t)clip(w1, Am);
-  return true;
-}
-
-struct GlobalRow {
-  const unsigned long long* w;
-  __device__ explicit GlobalRow(const uint64_t* row)
-      : w(reinterpret_cast<const unsigned long long*>(row)) {}
-  __device__ uint64_t operator()(int c) const { return __ldg(w + c); }
-};
-
-// The ten 16-byte pieces of a row that hold K9's columns.
-struct PairRow {
-  ulonglong2 a0, a7, a8, a9, a10, a11, a18, a19, a20, a25;
-  __device__ explicit PairRow(const uint64_t* row) {
-    const ulonglong2* r = reinterpret_cast<const ulonglong2*>(row);
-    a0 = __ldg(r);
-    a7 = __ldg(r + 7);
-    a8 = __ldg(r + 8);
-    a9 = __ldg(r + 9);
-    a10 = __ldg(r + 10);
-    a11 = __ldg(r + 11);
-    a18 = __ldg(r + 18);
-    a19 = __ldg(r + 19);
-    a20 = __ldg(r + 20);
-    a25 = __ldg(r + 25);
-  }
-  __device__ uint64_t operator()(int c) const {
-    const ulonglong2& q = c < 2    ? a0
-                          : c < 16 ? a7
-                          : c < 18 ? a8
-                          : c < 20 ? a9
-                          : c < 22 ? a10
-                          : c < 24 ? a11
-                          : c < 38 ? a18
-                          : c < 40 ? a19
-                          : c < 42 ? a20
-                                   : a25;
-    return (c & 1) ? q.y : q.x;
-  }
-};
-
-struct SharedRow {
-  const uint64_t* w;
-  __device__ explicit SharedRow(const uint64_t* row) : w(row) {}
-  __device__ uint64_t operator()(int c) const { return w[c]; }
-};
-
-// atomicMin of `v` into a[ix] where `on`; with COMBINE, one atomic for
-// each group of the warp's lanes naming one index (every lane of the
-// warp calls it).
-__device__ __forceinline__ void min_into(uint32_t* a, int32_t ix, uint32_t v, bool on) {
-  if (!COMBINE) {
-    if (on) atomicMin(a + ix, v);
-    return;
-  }
-  const unsigned act = __ballot_sync(FULL_MASK, on);
-  if (!on) return;
-  const unsigned grp = __match_any_sync(act, ix);
-  const uint32_t m = __reduce_min_sync(grp, v);
-  if ((threadIdx.x & 31) == (unsigned)(__ffs(grp) - 1)) atomicMin(a + ix, m);
 }
 
 struct Arrays {
@@ -191,36 +128,18 @@ struct Arrays {
   int64_t tok_n, a_n;  // entries of tok / tgt and of a_min / r_min
 };
 
-__device__ void fill_rest(const Arrays& X, int64_t t, int64_t stride) {
-  for (int64_t j = t; j < X.tok_n; j += stride) X.tok[j] = X.tgt[j] = REST;
-  for (int64_t j = t; j < X.a_n; j += stride) X.a_min[j] = X.r_min[j] = REST;
-}
-
-// Lane k's entries decoded again (a lane past the grid's threads).
-__device__ __forceinline__ void again(const uint64_t* __restrict__ ev, int64_t Bn,
-                                      const int32_t* __restrict__ idx, int64_t k, int n,
-                                      int64_t A, const uint8_t* __restrict__ serial, uint32_t hi,
-                                      Entries& x, bool& have) {
-  const int64_t row = idx[k];
-  x = Entries{};
-  x.serial = serial != nullptr && serial[k] != 0;
-  have = row >= 0 && row < Bn && decode(GlobalRow(ev + row * NEV), Bn, n, A, hi, x);
-}
-
-// The cooperative launch: lane k = kb + threadIdx.x for the block's
-// bases kb = blockIdx.x * blockDim.x, + the grid's threads, ...: every
-// thread of a block takes each loop the same number of times, as
-// COMBINE's warp intrinsics and STAGE_ROWS's block barriers need.
+// The cooperative launch: the thread's lanes are its index in the grid,
+// + the grid's threads, ...
 __global__ void spec_kernel(const uint64_t* __restrict__ ev, int Bn,
                             const int32_t* __restrict__ idx, int K, int n, int64_t A,
                             const uint8_t* __restrict__ serial, Arrays X, uint32_t tag,
-                            int fill, uint8_t* __restrict__ out) {
-  extern __shared__ uint4 stage[];
+                            bool fill, uint8_t* __restrict__ out) {
   cg::grid_group grid = cg::this_grid();
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t first = (int64_t)blockIdx.x * blockDim.x;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (fill) {
-    fill_rest(X, first + threadIdx.x, stride);
+    for (int64_t j = t; j < X.tok_n; j += stride) X.tok[j] = X.tgt[j] = REST;
+    for (int64_t j = t; j < X.a_n; j += stride) X.a_min[j] = X.r_min[j] = REST;
     grid.sync();
   }
   const uint32_t hi = (TAG_TOP - tag) << LANE_BITS;
@@ -228,85 +147,41 @@ __global__ void spec_kernel(const uint64_t* __restrict__ ev, int Bn,
   // later lane (K above the grid's threads) decodes them again.
   Entries x0{};
   bool have0 = false;
-  for (int64_t kb = first; kb < K; kb += stride) {
-    const int64_t k = kb + threadIdx.x;
-    Entries x{};
-    bool have = false;
-    int64_t row = -1;
-    if (k < K) {
-      row = idx[k];
-      x.serial = serial != nullptr && serial[k] != 0;
+  for (int64_t k = t; k < K; k += stride) {
+    Entries x;
+    bool have;
+    decode(ev, Bn, idx, k, n, A, serial, hi, x, have);
+    if (have) {
+      atomicMin(X.tok + x.idg, x.enc);
+      if (x.pgm) atomicMin(X.tok + x.pgc, x.enc);
+      if (x.ptm) atomicMin(X.tgt + x.ptc, x.enc);
+      if (x.wm0) atomicMin(X.a_min + x.w0_c, x.enc);
+      if (x.wm1) atomicMin(X.a_min + x.w1_c, x.enc);
+      if (x.read_dr) atomicMin(X.r_min + x.dr_c, x.enc);
+      if (x.read_cr) atomicMin(X.r_min + x.cr_c, x.enc);
     }
-    bool staged = false;
-    if (STAGE_ROWS) {
-      // The block's rows, when its lanes are consecutive event rows.
-      const int64_t r0 = idx[kb];
-      const int span = (int)min((int64_t)blockDim.x, (int64_t)K - kb);
-      staged = __syncthreads_and(k >= K || row == r0 + (k - kb)) && r0 >= 0 &&
-               r0 + span <= Bn && (reinterpret_cast<uintptr_t>(ev) & 15) == 0;
-      if (staged) {
-        const uint4* src = reinterpret_cast<const uint4*>(ev + r0 * NEV);
-        for (int p = threadIdx.x; p < span * ROW_PIECES; p += blockDim.x) stage[p] = src[p];
-        __syncthreads();
-        if (k < K)
-          have = decode(SharedRow(reinterpret_cast<const uint64_t*>(stage) +
-                                  (size_t)threadIdx.x * NEV), Bn, n, A, hi, x);
-        __syncthreads();
-      }
-    }
-    if (!staged && k < K && row >= 0 && row < Bn)
-      have = PAIR_LOADS && (reinterpret_cast<uintptr_t>(ev) & 15) == 0
-                 ? decode(PairRow(ev + row * NEV), Bn, n, A, hi, x)
-                 : decode(GlobalRow(ev + row * NEV), Bn, n, A, hi, x);
-    min_into(X.tok, x.idg, x.enc, have);
-    min_into(X.tok, x.pgc, x.enc, have && x.pgm);
-    min_into(X.tgt, x.ptc, x.enc, have && x.ptm);
-    min_into(X.a_min, x.w0_c, x.enc, have && x.wm0);
-    min_into(X.a_min, x.w1_c, x.enc, have && x.wm1);
-    min_into(X.r_min, x.dr_c, x.enc, have && x.read_dr);
-    min_into(X.r_min, x.cr_c, x.enc, have && x.read_cr);
-    if (kb == first) {
+    if (k == t) {
       x0 = x;
       have0 = have;
     }
   }
   grid.sync();
-  for (int64_t kb = first; kb < K; kb += stride) {
-    const int64_t k = kb + threadIdx.x;
-    if (k >= K) break;
+  for (int64_t k = t; k < K; k += stride) {
     Entries x = x0;
     bool have = have0;
-    if (kb != first) again(ev, Bn, idx, k, n, A, serial, hi, x, have);
+    if (k != t) decode(ev, Bn, idx, k, n, A, serial, hi, x, have);
     bool blk = false;
     if (have) {
       const uint32_t v = x.enc;
-      blk = __ldcg(X.tok + x.idg) < v;
+      blk = x.serial || __ldcg(X.tok + x.idg) < v;
       blk |= x.pgm && __ldcg(X.tok + x.pgc) < v;
       blk |= x.ptm && __ldcg(X.tgt + x.ptc) < v;
       blk |= x.read_dr && __ldcg(X.a_min + x.dr_c) < v;
       blk |= x.read_cr && __ldcg(X.a_min + x.cr_c) < v;
       blk |= x.wm0 && __ldcg(X.r_min + x.w0_c) < v;
       blk |= x.wm1 && __ldcg(X.r_min + x.w1_c) < v;
-      blk |= x.serial;
     }
     out[k] = blk;
-  }
-  if (!RESET_PASS) return;
-  grid.sync();
-  for (int64_t kb = first; kb < K; kb += stride) {
-    const int64_t k = kb + threadIdx.x;
-    if (k >= K) break;
-    Entries x = x0;
-    bool have = have0;
-    if (kb != first) again(ev, Bn, idx, k, n, A, serial, hi, x, have);
-    if (!have) continue;
-    X.tok[x.idg] = REST;
-    if (x.pgm) X.tok[x.pgc] = REST;
-    if (x.ptm) X.tgt[x.ptc] = REST;
-    if (x.wm0) X.a_min[x.w0_c] = REST;
-    if (x.wm1) X.a_min[x.w1_c] = REST;
-    if (x.read_dr) X.r_min[x.dr_c] = REST;
-    if (x.read_cr) X.r_min[x.cr_c] = REST;
   }
 }
 
@@ -319,8 +194,6 @@ void geometry(int K, int sms, int& G, int& T) {
   G = (K + T - 1) / T;
   G = G < 1 ? 1 : (G > sms ? sms : G);
 }
-
-size_t smem_bytes(int T) { return STAGE_ROWS ? (size_t)T * ROW_PIECES * sizeof(uint4) : 0; }
 
 }  // namespace
 
@@ -338,41 +211,41 @@ extern "C" int tb_spec_conflicts_geometry(int K, int* geom) {
   return 0;
 }
 
+// The calls a tag cycle lasts: call c on the arrays takes tag c % this
+// + 1, and the call that takes tag 1 fills them at rest first.
+extern "C" int tb_spec_conflicts_cycle() { return (int)TAG_TOP; }
+
 // Conflict flags of K lanes (global event indices idx, int32) into out
 // (K,) u8; serial (K,) u8 or null.  tok and tgt hold tok_n u32 entries
-// (tok_n >= B), a_min and r_min a_n (>= A); every entry rests at all
-// ones or holds an earlier call's tag.  `tag` in 1 .. TAG_TOP, above
-// every tag these arrays hold since they were last at rest; `fill` puts
-// every entry back at rest first (the wrapper asks for it when its tag
-// wraps).  B <= 8192 and n <= 8192.  One cooperative launch on
-// `stream`; a CUDA status.
+// (tok_n >= B), a_min and r_min a_n (>= A).  `calls` counts the calls
+// made on these arrays before this one; `fresh` says they hold nothing
+// of this kernel's (just made), so this call fills them at rest first,
+// as the call that takes tag 1 does.  B <= 8192 and n <= 8192.  One
+// cooperative launch on `stream` (none for K = 0 unless it fills); a
+// CUDA status.
 extern "C" int tb_spec_conflicts(const void* ev, int B, const void* idx, int K,
                                  const void* serial, int n, int64_t A, void* tok, void* tgt,
-                                 int64_t tok_n, void* a_min, void* r_min, int64_t a_n, int tag,
-                                 int fill, void* out, void* stream) {
-  if (B < 1 || B > MAX_LANES || n > MAX_LANES || tok_n < B || a_n < A || tag < 1 ||
-      (uint32_t)tag > TAG_TOP || A < 1)
+                                 int64_t tok_n, void* a_min, void* r_min, int64_t a_n,
+                                 int64_t calls, int fresh, void* out, void* stream) {
+  if (B < 1 || B > MAX_LANES || n > MAX_LANES || tok_n < B || a_n < A || A < 1 || K < 0 ||
+      calls < 0)
     return (int)cudaErrorInvalidValue;
-  if (K <= 0) return 0;
+  uint32_t tag = (uint32_t)(calls % TAG_TOP) + 1;
+  bool fill = fresh || tag == 1;
+  if (K == 0 && !fill) return 0;
   int sms = 0, G, T;
   const int err = tb::sm_count(sms);
   if (err) return err;
-  geometry(K, sms, G, T);
-  if (STAGE_ROWS) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        spec_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes(T));
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  // A fill spreads over the whole grid, whatever the lanes.
+  geometry(fill && K < MAX_LANES ? MAX_LANES : K, sms, G, T);
   const uint64_t* e = static_cast<const uint64_t*>(ev);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   const uint8_t* s = static_cast<const uint8_t*>(serial);
   Arrays X{static_cast<uint32_t*>(tok), static_cast<uint32_t*>(tgt),
            static_cast<uint32_t*>(a_min), static_cast<uint32_t*>(r_min), tok_n, a_n};
-  uint32_t tg = (uint32_t)tag;
   uint8_t* o = static_cast<uint8_t*>(out);
-  void* args[] = {&e, &B, &ix, &K, &n, &A, &s, &X, &tg, &fill, &o};
+  void* args[] = {&e, &B, &ix, &K, &n, &A, &s, &X, &tag, &fill, &o};
   const cudaError_t rc = cudaLaunchCooperativeKernel((const void*)spec_kernel, dim3(G), dim3(T),
-                                                     args, smem_bytes(T),
-                                                     static_cast<cudaStream_t>(stream));
+                                                     args, 0, static_cast<cudaStream_t>(stream));
   return (int)(rc != cudaSuccess ? rc : cudaGetLastError());
 }

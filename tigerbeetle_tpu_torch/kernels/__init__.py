@@ -117,9 +117,9 @@ _SIGNATURES = {
     },
     "spec_conflicts": {
         # ev, B, idx, K, serial (nullable), n, A, tok, tgt, tok_n, a_min,
-        # r_min, a_n, tag, fill, out, stream
-        "tb_spec_conflicts": [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _I64, _P, _P, _I64, _I, _I,
-                              _P, _P],
+        # r_min, a_n, calls, fresh, out, stream
+        "tb_spec_conflicts": [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _I64, _P, _P, _I64, _I64,
+                              _I, _P, _P],
     },
     "apply_deltas": {
         # table, A, packed, k, stride, stream
@@ -450,15 +450,15 @@ def chain_wave_geometry(C: int) -> tuple[int, int]:
     return _geometry("chain_wave", "tb_chain_wave_geometry", C, 2)
 
 
-def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, tag, fill, out):
+def spec_conflicts(events, idx, serial, n, A, tok, tgt, a_min, r_min, calls, fresh, out):
     """K9: one cooperative launch; `tok` / `tgt` and `a_min` / `r_min`
-    its tagged minima arrays (int32, read as u32), `tag` this call's,
-    `fill` true to put every entry back at rest first."""
+    its tagged minima arrays (int32, read as u32), `calls` the calls
+    made on them before, `fresh` true when they hold nothing of K9's."""
     _launch(
         "spec_conflicts", "tb_spec_conflicts", "spec_conflicts", events.get_device(),
         events.data_ptr(), events.shape[0], idx.data_ptr(), idx.shape[0], _ptr(serial), n, A,
         tok.data_ptr(), tgt.data_ptr(), tok.shape[0], a_min.data_ptr(), r_min.data_ptr(),
-        a_min.shape[0], tag, int(fill), out.data_ptr(),
+        a_min.shape[0], calls, int(fresh), out.data_ptr(),
     )
 
 
@@ -466,6 +466,19 @@ def spec_conflicts_geometry(K: int) -> tuple[int, int]:
     """K9's launch for K lanes: (blocks of its cooperative grid, threads
     per block)."""
     return _geometry("spec_conflicts", "tb_spec_conflicts_geometry", K, 2)
+
+
+def spec_conflicts_cycle() -> int:
+    """The K9 calls a tag cycle lasts: call c on a scratch takes tag
+    c % cycle + 1, and the call that takes tag 1 fills its arrays."""
+    fn = _FNS.get("tb_spec_conflicts_cycle")
+    if fn is None:
+        from tigerbeetle_tpu_torch.kernels import build
+
+        fn = build.load("spec_conflicts").tb_spec_conflicts_cycle
+        fn.argtypes, fn.restype = [], _I
+        _FNS["tb_spec_conflicts_cycle"] = fn
+    return fn()
 
 
 def shard_accumulate(acc, row0, dr, cr, lo, hi, pending, mask):

@@ -1457,69 +1457,58 @@ def spec_conflicts_plain(events, idx, serial, n, A) -> torch.Tensor:
 # Kernel wrappers: CUDA tensors launch K7 / K8 / K9 (raising on any CUDA
 # error), CPU tensors run the plain versions.
 
-# K9's tagged minima (csrc/spec_conflicts.cu): an entry is ((TAG_TOP -
-# tag) << 13) | i, the tag advancing once a call from 1 to SPEC_TAG_TOP;
-# every entry rests at all ones (-1 as int32).  Event indices and the
-# batch's rows must stay below SPEC_MAX_ROWS.
-SPEC_MAX_ROWS = 1 << 13
-SPEC_TAG_TOP = (1 << (32 - 13)) - 1
-SPEC_REST = -1
-
-
 class SpecScratch:
     """K9's four minima arrays (tokens and targets: one entry per batch
-    row; slot minima: one per table row), made at first use and grown,
-    at rest, when a call needs more; and the tag of the next call.  An
-    entry of an earlier call loses to this call's and reads as absent, so
-    nothing is reset between calls; when the tag wraps past SPEC_TAG_TOP
-    the next call fills every entry back at rest first."""
+    row; slot minima: one per table row), made at first use and made
+    anew, larger, when a call needs more; and the count of K9 calls made
+    on them.  The kernel takes each call's tag from that count and fills
+    the arrays when they are new or the tag wraps (csrc/spec_conflicts.cu
+    alone knows the encoding), so nothing is reset between calls."""
 
-    def __init__(self, device, tag: int = 1) -> None:
-        if not 1 <= tag <= SPEC_TAG_TOP:
-            raise ValueError(f"a K9 tag lies in [1, {SPEC_TAG_TOP}]")
+    def __init__(self, device, calls: int = 0) -> None:
         self.device = device
-        self.tag = tag
-        self.fill = False
+        self.calls = calls
+        self.fresh = True
         self.arrays = None
 
     def take(self, B: int, A: int):
-        """(tok, tgt, a_min, r_min, tag, fill) for one call on a B-row
-        batch and an A-row table; advances the tag."""
+        """(tok, tgt, a_min, r_min, calls, fresh) for one call on a B-row
+        batch and an A-row table: `fresh` when the arrays hold nothing
+        of K9's yet."""
         s = self.arrays
         if s is None or s[0].numel() < B or s[2].numel() < A:
             rows = max(B, kernel.BATCH_BUCKETS[-1])
-            full = lambda m: torch.full((m,), SPEC_REST, dtype=torch.int32,  # noqa: E731
-                                        device=self.device)
-            s = self.arrays = (full(rows), full(rows), full(A), full(A))
-            self.fill = False  # at rest already
-        tag, fill = self.tag, self.fill
-        self.tag, self.fill = (1, True) if tag == SPEC_TAG_TOP else (tag + 1, False)
-        return s + (tag, fill)
+            empty = lambda m: torch.empty((m,), dtype=torch.int32,  # noqa: E731
+                                          device=self.device)
+            s = self.arrays = (empty(rows), empty(rows), empty(A), empty(A))
+            self.fresh = True
+        return s + (self.calls, self.fresh)
+
+    def launched(self) -> None:
+        """Counts a call that launched on the arrays of the last take."""
+        self.calls += 1
+        self.fresh = False
 
 
 class WaveScratch:
     """The wave kernels' device buffers, made at first use and reused:
     the carry (K3's scratch at the largest batch bucket) and K9's tagged
-    minima (SpecScratch; `spec_tag` its first call's tag).  K7 and K8
+    minima (a SpecScratch; `spec_calls` the calls it counts as made
+    before the first).  K7 and K8
     need none: K7's lane records stay in its blocks' shared memory, each
     K8 chain's state in its thread, and K8's dead-chain repair reads the
     carry."""
 
-    def __init__(self, device, spec_tag: int = 1) -> None:
+    def __init__(self, device, spec_calls: int = 0) -> None:
         self.device = device
         self._carry = None
-        self._spec = SpecScratch(device, spec_tag)
+        self._spec = SpecScratch(device, spec_calls)
 
     def carry(self) -> torch.Tensor:
         if self._carry is None:
             self._carry = torch.empty(kernel.scratch_words(kernel.BATCH_BUCKETS[-1]),
                                       dtype=torch.int64, device=self.device)
         return self._carry
-
-    def spec(self, B: int, A: int):
-        """(tok, tgt, a_min, r_min, tag, fill) for a B-row batch and an
-        A-row table (SpecScratch.take)."""
-        return self._spec.take(B, A)
 
 
 def _check_index(idx, device, dims=1):
@@ -1581,11 +1570,12 @@ def spec_conflicts(events, idx, serial, n, A, scratch=None) -> torch.Tensor:
         raise ValueError("serial must be a uint8 tensor shaped like idx")
     if events.device.type == "cpu":
         return spec_conflicts_plain(events, idx, serial, n, A).to(torch.uint8)
-    if B > SPEC_MAX_ROWS or n > SPEC_MAX_ROWS:
-        raise ValueError(f"K9 takes batches of at most {SPEC_MAX_ROWS} rows and events")
-    scratch = scratch or WaveScratch(events.device)
     out = torch.empty(idx.shape[0], dtype=torch.uint8, device=events.device)
-    kernels.spec_conflicts(events, idx, serial, int(n), A, *scratch.spec(B, A), out)
+    if out.numel() == 0:
+        return out
+    spec = (scratch or WaveScratch(events.device))._spec
+    kernels.spec_conflicts(events, idx, serial, int(n), A, *spec.take(B, A), out)
+    spec.launched()
     return out
 
 

@@ -77,18 +77,15 @@ kernels of the port) and drives the port's own wrappers:
   its compact table; ``testing/flush_cases.py``): device microseconds
   per call in turns with ``index_select`` of the same live cells (one
   dependent random trip over the same reads: a yardstick, not the same
-  function) and with this tree's K4 built with ``K4_VARIANTS`` (entries
-  a thread, launch shape), and cold (L2 flushed before each call, as
-  the main path finds a 2^20-row table) beside the parent; the bits
-  against the plain version.
+  function), and cold (L2 flushed before each call, as the main path
+  finds a 2^20-row table) beside the parent; the bits against the plain
+  version.
 * ``k9``: K9 on ``k9_cases`` (chip_smoke.py's timed "mixed" batch, a
   batch whose slots, groups and targets are all distinct, the offkernel
   phase's first speculative batch captured from the state machine's own
-  launch): device microseconds per call in turns with this tree's K9
-  built with ``K9_VARIANTS`` (warp-combined atomics, event rows staged
-  through shared memory, an in-launch reset pass, 16-byte column loads,
-  128- and 256-lane blocks), and cold beside the parent; the conflicted
-  lanes and the bits against the plain version.
+  launch): device microseconds per call, warm and cold, in turns with
+  the parent; the conflicted lanes and the bits against the plain
+  version.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
   checks from the parent's tree and from this one, in turns (parent,
   change, change, parent), one process each: what each tree's checks
@@ -1247,13 +1244,6 @@ def k14_sweep(dev, parent=None) -> dict:
 # ---- K4 and K9, the change against an earlier tree's kernels.
 
 K4_NAMES = ("apply_deltas",)
-# This tree's K4 built with other constants (where its source has them):
-# entries a thread; blocks halved while any SM lacks one (FILL 1), or
-# never (256-thread blocks, the parent's launch shape).
-K4_VARIANTS = {"e2": {"ENTRIES": "2"}, "e4": {"ENTRIES": "4"}, "fill1": {"FILL": "1"},
-               "t256": {"MIN_THREADS": "256"}}
-
-
 def k4_cases():
     """[(name, table (R, 8) int64, packed (4, k) int64, offset words)]:
     chip_smoke.py's timed call, the same one word off 16-byte alignment
@@ -1274,15 +1264,10 @@ def k4_sweep(dev, parent=None) -> dict:
     """K4 on k4_cases: device microseconds per call in turns with the
     yardstick ``index_select`` of the same live cells from
     ``table.view(-1, 2)`` (one dependent random trip, the same reads: not
-    the same function), with this tree's K4 built with K4_VARIANTS and
-    with `parent`'s; CUDA-event microseconds per call of the change and
+    the same function) and with `parent`'s; CUDA-event microseconds per call of the change and
     the parent alternating; the bits against the plain version and the
     others'."""
     old = _parent_lib(parent, "apply_deltas") if parent is not None else None
-    variants = {}
-    if "ENTRIES" in (build.CSRC / "apply_deltas.cu").read_text():
-        variants = {tag: variant_lib("apply_deltas", f"k4_{tag}", c)
-                    for tag, c in K4_VARIANTS.items()}
     args = [_P, _I64, _P, _I64, _I64, _P]  # table, A, packed, k, stride, stream
     flush = l2_flusher(dev)
     out = {}
@@ -1306,13 +1291,13 @@ def k4_sweep(dev, parent=None) -> dict:
             row["geometry"] = list(kernels.apply_deltas_geometry(k))
         fns = {"change": lambda t=t, pk=pk: dk.apply_deltas(t, pk),
                "index_select": lambda t=t, c=cells: t.view(-1, 2).index_select(0, c)}
-        for who, lib in ([("parent", old)] if old is not None else []) + list(variants.items()):
-            fns[who] = _raw(lib, "tb_apply_deltas", args, t.data_ptr(), R, pk.data_ptr(), k, k)
-            t.copy_(t0)
-            fns[who]()
-            torch.cuda.synchronize()
-            row[f"{who}_equal"] = bool(torch.equal(t, got))
         if old is not None:
+            fns["parent"] = _raw(old, "tb_apply_deltas", args, t.data_ptr(), R, pk.data_ptr(),
+                                 k, k)
+            t.copy_(t0)
+            fns["parent"]()
+            torch.cuda.synchronize()
+            row["parent_equal"] = bool(torch.equal(t, got))
             row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
                 (fns["change"], fns["parent"]), lambda: None)
         _turns_into(row, device_turns(fns, {who: K4_NAMES for who in fns
@@ -1329,13 +1314,6 @@ def k4_sweep(dev, parent=None) -> dict:
 
 
 K9_NAMES = ("spec_",)
-# This tree's K9 built with each design choice the other way: warp-
-# combined atomics, event rows staged through shared memory, the
-# in-launch reset behind a second grid barrier, the columns loaded as
-# 16-byte pieces, 128- and 256-lane blocks.
-K9_VARIANTS = {"combine": {"COMBINE": "true"}, "stage_rows": {"STAGE_ROWS": "true"},
-               "reset_pass": {"RESET_PASS": "true"}, "pairs": {"PAIR_LOADS": "true"},
-               "t128": {"THREADS": "128"}, "t256": {"THREADS": "256"}}
 
 
 def offkernel_spec_batch(dev):
@@ -1407,18 +1385,11 @@ def _old_spec_scratch(B_rows, A, dev):
 
 def k9_sweep(dev, parent=None) -> dict:
     """K9 on k9_cases: device microseconds per call (every kernel a call
-    launches, the profiler's) in turns with this tree's K9 built with
-    K9_VARIANTS and with `parent`'s three-launch K9 on its own resting
-    arrays; CUDA-event microseconds per call of the change and the parent
-    alternating; the conflicted lanes and the bits against the plain
-    version and the others'."""
+    launches, the profiler's) in turns with `parent`'s three-launch K9
+    on its own resting arrays; CUDA-event microseconds per call of the
+    change and the parent alternating; the conflicted lanes and the bits
+    against the plain version and the parent's."""
     old = _parent_lib(parent, "spec_conflicts") if parent is not None else None
-    text = (build.CSRC / "spec_conflicts.cu").read_text()
-    variants = {}
-    if "RESET_PASS" in text:
-        variants = {tag: variant_lib("spec_conflicts", f"k9_{tag}", c)
-                    for tag, c in K9_VARIANTS.items()}
-    new_args = [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _I64, _P, _P, _I64, _I, _I, _P, _P]
     flush = l2_flusher(dev)
     out = {}
     for name, pk, idx, serial, n, A in k9_cases(dev):
@@ -1434,22 +1405,6 @@ def k9_sweep(dev, parent=None) -> dict:
             row["geometry"] = list(kernels.spec_conflicts_geometry(K))
         fns = {"change": lambda pk=pk, idx=idx, s=serial, n=n, A=A, sc=scratch:
                waves.spec_conflicts(pk, idx, s, n, A, scratch=sc)}
-        outs = {}
-        for tag, lib in variants.items():
-            fn = getattr(lib, "tb_spec_conflicts")
-            fn.argtypes, fn.restype = new_args, _I
-            spec = waves.SpecScratch(dev)
-            o = torch.empty(K, dtype=torch.uint8, device=dev)
-
-            def run(fn=fn, spec=spec, o=o, pk=pk, idx=idx, s=serial, n=n, A=A, lib=lib):
-                tok, tgt, a_min, r_min, tag, fill = spec.take(Bn, A)
-                rc = fn(pk.data_ptr(), Bn, idx.data_ptr(), K, s.data_ptr(), n, A,
-                        tok.data_ptr(), tgt.data_ptr(), tok.numel(), a_min.data_ptr(),
-                        r_min.data_ptr(), a_min.numel(), tag, int(fill), o.data_ptr(),
-                        _stream())
-                if rc:
-                    raise RuntimeError(f"tb_spec_conflicts: {lib.tb_error_string(rc).decode()}")
-            fns[tag], outs[tag] = run, o
         if old is not None:
             o = torch.empty(K, dtype=torch.uint8, device=dev)
             arrays = _old_spec_scratch(max(Bn, B), A, dev)
@@ -1457,20 +1412,16 @@ def k9_sweep(dev, parent=None) -> dict:
                                  [_P, _I, _P, _I, _P, _I, _I64, _P, _P, _P, _P, _P, _P],
                                  pk.data_ptr(), Bn, idx.data_ptr(), K, serial.data_ptr(), n, A,
                                  *(a.data_ptr() for a in arrays), o.data_ptr())
-            outs["parent"] = o
-        for who, o in outs.items():
             for _ in range(3):  # a few calls back to back, then the bits
                 o.fill_(7)
-                fns[who]()
+                fns["parent"]()
             torch.cuda.synchronize()
-            row[f"{who}_equal"] = bool(torch.equal(o, got))
-        if old is not None:
+            row["parent_equal"] = bool(torch.equal(o, got))
             row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
                 (fns["change"], fns["parent"]), lambda: None)
-        _turns_into(row, device_turns(fns, {who: K9_NAMES for who in fns}))
-        cold = {who: fns[who] for who in ("change", "parent") if who in fns}
-        _turns_into(row, device_turns(cold, {who: K9_NAMES for who in cold}, reset=flush),
-                    prefix="cold_")
+        names = {who: K9_NAMES for who in fns}
+        _turns_into(row, device_turns(fns, names))
+        _turns_into(row, device_turns(fns, names, reset=flush), prefix="cold_")
         out[name] = row
     return out
 
