@@ -1,7 +1,7 @@
 """State commitment of the port (tigerbeetle_tpu_torch/state_machine/
 commitment.py): the pinned golden digest, and the rebuild / update /
 probe plain versions of kernel K2 against the JAX device_fns() — bit
-for bit, -1 padding included."""
+for bit, -1 padding and slots past the table included."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +14,7 @@ jax.config.update("jax_enable_x64", True)
 from tigerbeetle_tpu.state_machine import commitment as ref
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
+from tigerbeetle_tpu_torch.testing import commit_cases
 
 
 def _fixture_table():
@@ -91,6 +92,64 @@ def test_update_matches_jax_with_padding(n_touched):
     assert np.array_equal(to_u64(trh), np.asarray(jrh2))
     assert np.array_equal(to_u64(tdg), np.asarray(jdg2))
     assert np.array_equal(to_u64(tdg), cm.table_digest(bal2, meta2))
+
+
+_PAST = sorted(commit_cases.PAST_CASES)
+
+
+def _update_both(bal, meta, row_hash, digest, slots, rows):
+    """The reference's update and the port's on copies of one input:
+    ((row_hash, digest) of JAX, (row_hash, digest) of the port)."""
+    j = ref.device_fns()["update"](
+        jnp.asarray(bal), jnp.asarray(meta), jnp.asarray(row_hash), jnp.asarray(digest),
+        jnp.asarray(slots), jnp.asarray(rows),
+    )
+    t = cm.update(from_u64(bal), _meta_t(meta), from_u64(row_hash.copy()),
+                  from_u64(digest.copy()), torch.from_numpy(slots), from_u64(rows))
+    return [np.asarray(a) for a in j], [to_u64(a) for a in t]
+
+
+@pytest.mark.parametrize("A", [13, 301])
+@pytest.mark.parametrize("case", _PAST)
+def test_update_past_the_table_matches_jax(case, A):
+    """Slots past the table are live in the reference: row A-1's
+    balances, meta and stored hash as they were before the call, hashed
+    under the lane's own logical id; nothing is stored; with and
+    without a lane that owns row A-1 in the same call."""
+    inputs = commit_cases.update_case(commit_cases.past_slots(case, A), A,
+                                      11 * A + _PAST.index(case))
+    (j_rh, j_dg), (t_rh, t_dg) = _update_both(*inputs)
+    assert np.array_equal(t_rh, j_rh)
+    assert np.array_equal(t_dg, j_dg)
+
+
+def test_update_one_slot_past_the_table_worked_example():
+    """A = 8, slots [1, 9, -1] (the reference's result, where the port
+    once raised IndexError): lane 9 hashes row 7's columns under its
+    own logical id against row 7's stored hash; rows other than 1 keep
+    their hashes."""
+    A = 8
+    bal, meta = _random_tables(8, A)
+    row_hash = np.array([[100 + 2 * i, 101 + 2 * i] for i in range(A)], np.uint64)
+    slots = np.array([1, 9, -1], np.int64)
+    rows = np.array([1, 9, 0], np.uint64)
+    (j_rh, j_dg), (t_rh, t_dg) = _update_both(bal, meta, row_hash, np.zeros(2, np.uint64),
+                                              slots, rows)
+    lo, hi = cm.rows_hash(rows[:2], bal[[1, 7]], meta[[1, 7]])
+    want = np.array([lo[0] - np.uint64(102) + lo[1] - np.uint64(114),
+                     hi[0] - np.uint64(103) + hi[1] - np.uint64(115)], np.uint64)
+    assert np.array_equal(t_dg, want) and np.array_equal(j_dg, want)
+    keep = np.arange(A) != 1
+    assert np.array_equal(t_rh[keep], row_hash[keep])
+    assert np.array_equal(t_rh, j_rh)
+
+
+def test_update_refuses_empty_tables():
+    z = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="the tables have no rows"):
+        cm.update(torch.zeros((0, 8), dtype=torch.int64), torch.zeros((0, 2), dtype=torch.int32),
+                  torch.zeros((0, 2), dtype=torch.int64), torch.zeros(2, dtype=torch.int64),
+                  z, z)
 
 
 def test_probe_matches_jax():

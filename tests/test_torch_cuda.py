@@ -21,7 +21,8 @@ from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import (
-    flush_cases, orderfree_cases, scan_cases, semantic_cases, shard_cases, wave_cases,
+    commit_cases, flush_cases, orderfree_cases, scan_cases, semantic_cases, shard_cases,
+    wave_cases,
 )
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 
@@ -1119,6 +1120,116 @@ def test_commit_admit_kernel_matches_plain(card):
     torch.cuda.synchronize()
     assert kernels.launches["commit_admit"] == before + 1
     assert torch.equal(rh_k.cpu(), rh_p) and torch.equal(dg_k.cpu(), dg_p)
+
+
+def _admit_on_card(card, row_hash, digest, slots, new_lo, new_hi, offset=0):
+    """K2 admit on the card (row_hash in a view `offset` words into its
+    buffer) and its plain version on the CPU, from u64 numpy inputs:
+    ((row_hash, digest) of the kernel, of the plain version)."""
+    from tigerbeetle_tpu_torch.ops.u128 import from_u64
+
+    rh, dg, lo, hi = (from_u64(a) for a in (row_hash, digest, new_lo, new_hi))
+    sl = torch.from_numpy(np.asarray(slots, np.int64))
+    want = cm.admit_plain(rh.clone(), dg.clone(), sl, lo, hi)
+    H = rh.shape[0]
+    buf = torch.empty(H * 2 + offset, dtype=torch.int64, device=card)
+    rh_k = buf[offset:].view(H, 2)
+    rh_k.copy_(rh)
+    before = kernels.launches["commit_admit"]
+    got = cm.admit(rh_k, dg.to(card), sl.to(card), lo.to(card), hi.to(card))
+    torch.cuda.synchronize()
+    assert kernels.launches["commit_admit"] == before + (len(sl) > 0)
+    return tuple(t.cpu() for t in got), want
+
+
+@pytest.mark.parametrize("H", [13, 1_000_003])
+@pytest.mark.parametrize("case", sorted(commit_cases.PAST_CASES))
+def test_commit_admit_past_the_table_matches_plain(card, case, H):
+    """Slots past the table: old is row H-1 before the call, nothing is
+    stored, also when a lane of the call owns row H-1."""
+    inputs = commit_cases.admit_case(commit_cases.past_slots(case, H), H, H % 97)
+    (rh_k, dg_k), (rh_p, dg_p) = _admit_on_card(card, *inputs)
+    assert torch.equal(rh_k, rh_p) and torch.equal(dg_k, dg_p)
+
+
+@pytest.mark.parametrize("k", [130, 16_380, 16_384])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_commit_admit_main_path_shapes_match_plain(card, k, offset):
+    """K2 admit at a timed admission's ~130 slots and a warm-up's
+    16,380 (padded with -1 to 16,384) and at 16,384 slots of a 2^20-row
+    table, on a 16-byte-aligned row_hash and one 8 bytes off."""
+    rng = np.random.default_rng(k + offset)
+    A = 1 << 20
+    slots = rng.choice(A, k, replace=False).astype(np.int64)
+    if k == 16_380:
+        slots = cm.pad_slots(slots)
+    inputs = commit_cases.admit_case(slots, A, k)
+    (rh_k, dg_k), (rh_p, dg_p) = _admit_on_card(card, *inputs, offset=offset)
+    assert torch.equal(rh_k, rh_p) and torch.equal(dg_k, dg_p)
+
+
+@pytest.mark.parametrize("owner_first", [True, False])
+def test_commit_admit_past_the_table_across_blocks(card, owner_first):
+    """16,384 slots over many blocks: 2,000 of them past the table, one
+    owning row H-1, at the front or the back of the call."""
+    rng = np.random.default_rng(3 + owner_first)
+    H = 300_001
+    live = rng.choice(H - 1, 14_383, replace=False)
+    past = H + rng.choice(10 * H, 2_000, replace=False)
+    slots = rng.permutation(np.concatenate([live, past])).astype(np.int64)
+    slots = np.concatenate([[H - 1], slots] if owner_first else [slots, [H - 1]])
+    inputs = commit_cases.admit_case(slots, H, 5)
+    for offset in (0, 1):
+        (rh_k, dg_k), (rh_p, dg_p) = _admit_on_card(card, *inputs, offset=offset)
+        assert torch.equal(rh_k, rh_p) and torch.equal(dg_k, dg_p)
+
+
+def _update_on_card(card, bal, meta, row_hash, digest, slots, rows):
+    from tigerbeetle_tpu_torch.ops.u128 import from_u64
+
+    b, rh, dg, r = (from_u64(a) for a in (bal, row_hash, digest, rows))
+    m = torch.from_numpy(np.ascontiguousarray(meta).view(np.int32))
+    sl = torch.from_numpy(np.asarray(slots, np.int64))
+    want = cm.update_plain(b, m, rh.clone(), dg.clone(), sl, r)
+    got = cm.update(b.to(card), m.to(card), rh.to(card), dg.to(card), sl.to(card), r.to(card))
+    torch.cuda.synchronize()
+    return tuple(t.cpu() for t in got), want
+
+
+@pytest.mark.parametrize("A", [13, 100_003])
+@pytest.mark.parametrize("case", sorted(commit_cases.PAST_CASES))
+def test_commit_update_past_the_table_matches_plain(card, case, A):
+    """K2 update at slots past the table: row A-1's columns hashed under
+    the lane's own id against row A-1's old hash, nothing stored past
+    the table, also when a lane of the call owns row A-1."""
+    inputs = commit_cases.update_case(commit_cases.past_slots(case, A), A, A % 89)
+    (rh_k, dg_k), (rh_p, dg_p) = _update_on_card(card, *inputs)
+    assert torch.equal(rh_k, rh_p) and torch.equal(dg_k, dg_p)
+
+
+def test_commit_update_past_the_table_across_blocks(card):
+    """A padded window of touched slots over many blocks with 1,000 past
+    the table and the owner of row A-1 among them; a sentinel after the
+    table's hashes stays as it was (no store past the table)."""
+    from tigerbeetle_tpu_torch.ops.u128 import from_u64
+
+    rng = np.random.default_rng(17)
+    A = 200_003
+    slots = np.concatenate([rng.choice(A - 1, 20_000, replace=False), [A - 1],
+                            A + rng.choice(A, 1_000, replace=False)])
+    slots = cm.pad_slots(rng.permutation(slots).astype(np.int64))
+    bal, meta, row_hash, digest, _, rows = commit_cases.update_case(slots, A, 4)
+    (rh_k, dg_k), (rh_p, dg_p) = _update_on_card(card, bal, meta, row_hash, digest, slots, rows)
+    assert torch.equal(rh_k, rh_p) and torch.equal(dg_k, dg_p)
+    buf = torch.full((A * 2 + 2 * 1024,), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64, device=card)
+    rh = buf[: A * 2].view(A, 2)
+    rh.copy_(from_u64(row_hash))
+    m = torch.from_numpy(np.ascontiguousarray(meta).view(np.int32)).to(card)
+    cm.update(from_u64(bal).to(card), m, rh, from_u64(digest).to(card),
+              torch.from_numpy(slots).to(card), from_u64(rows).to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(rh.cpu(), rh_p)
+    assert (buf[A * 2:] == 0x5A5A5A5A5A5A5A5A).all()
 
 
 @pytest.mark.parametrize("rows,cols,dtype", [(1, 8, torch.int64), (100_003, 8, torch.int64),

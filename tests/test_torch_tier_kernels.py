@@ -4,7 +4,8 @@ JAX package's functions, bit for bit:
 - K10 ``device_kernels.tier_set_rows`` vs device_engine._TIER_SET, with
   the reference's distinct out-of-range padding;
 - K2 admit ``commitment.admit`` vs commitment.device_fns()["admit"],
-  with -1 padding slots;
+  with -1 padding slots and slots past the table (``testing/
+  commit_cases.py``);
 - K11 ``device_kernels.checksum`` vs device_kernels.checksum (balances)
   and mirror.digest_columns (meta words >= 2^31, zero-extended);
 - the host digests ``mirror.digest_columns`` / ``checksum8`` and
@@ -26,6 +27,7 @@ from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import mirror
+from tigerbeetle_tpu_torch.testing import commit_cases
 
 
 def _u64(rng, shape):
@@ -131,6 +133,56 @@ def test_admit_matches_jax(H, k):
     assert np.array_equal(to_u64(t_rh), np.asarray(j_rh))
     assert np.array_equal(to_u64(t_dg), np.asarray(j_dg))
     assert "admit" in cm.PLAIN_FNS and cm.device_fns()["admit"] is cm.admit
+
+
+_PAST = sorted(commit_cases.PAST_CASES)
+
+
+@pytest.mark.parametrize("H", [13, 301])
+@pytest.mark.parametrize("case", _PAST)
+def test_admit_past_the_table_matches_jax(case, H):
+    """Slots past the table are live in the reference: old is row H-1
+    as it was before the call, nothing is stored; with and without a
+    lane that owns row H-1 in the same call."""
+    row_hash, digest, slots, new_lo, new_hi = commit_cases.admit_case(
+        commit_cases.past_slots(case, H), H, 7 * H + _PAST.index(case))
+    j_rh, j_dg = ref_cm.device_fns()["admit"](
+        jnp.asarray(row_hash), jnp.asarray(digest), jnp.asarray(slots),
+        jnp.asarray(new_lo), jnp.asarray(new_hi),
+    )
+    t_rh, t_dg = cm.admit(from_u64(row_hash.copy()), from_u64(digest.copy()),
+                          torch.from_numpy(slots), from_u64(new_lo), from_u64(new_hi))
+    assert np.array_equal(to_u64(t_rh), np.asarray(j_rh))
+    assert np.array_equal(to_u64(t_dg), np.asarray(j_dg))
+
+
+def test_admit_one_slot_past_the_table_worked_example():
+    """H = 8, row i holding (100 + 2i, 101 + 2i), slots [1, 9, -1]: the
+    digest moves by (5 - 102) + (7 - 114) in each lane, 114 being row
+    7's; only row 1 changes."""
+    H = 8
+    row_hash = np.array([[100 + 2 * i, 101 + 2 * i] for i in range(H)], np.uint64)
+    slots = np.array([1, 9, -1], np.int64)
+    new_lo, new_hi = np.array([5, 7, 11], np.uint64), np.array([6, 8, 12], np.uint64)
+    t_rh, t_dg = cm.admit(from_u64(row_hash.copy()), torch.zeros(2, dtype=torch.int64),
+                          torch.from_numpy(slots), from_u64(new_lo), from_u64(new_hi))
+    want = row_hash.copy()
+    want[1] = (5, 6)
+    assert np.array_equal(to_u64(t_rh), want)
+    assert to_u64(t_dg).tolist() == [(1 << 64) - 204] * 2
+    j_rh, j_dg = ref_cm.device_fns()["admit"](
+        jnp.asarray(row_hash), jnp.zeros(2, jnp.uint64), jnp.asarray(slots),
+        jnp.asarray(new_lo), jnp.asarray(new_hi),
+    )
+    assert np.array_equal(np.asarray(j_rh), want)
+    assert np.array_equal(np.asarray(j_dg), to_u64(t_dg))
+
+
+def test_admit_refuses_an_empty_table():
+    z = torch.zeros(1, dtype=torch.int64)
+    with pytest.raises(ValueError, match="row_hash has no rows"):
+        cm.admit(torch.zeros((0, 2), dtype=torch.int64), torch.zeros(2, dtype=torch.int64),
+                 z, z, z)
 
 
 def test_admit_keeps_the_partial_exact():

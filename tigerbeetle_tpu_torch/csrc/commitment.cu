@@ -14,6 +14,23 @@
 // block sums its rows and adds the pair with one atomicAdd, and the
 // result is bit-exact in any order.
 //
+// Slots of update and admit: distinct; -1 is padding.  A slot past the
+// table (s >= H, the table's rows) is live, as in the reference (its
+// gather clamps, its scatter drops): it takes row H-1 as that row was
+// before the call (its balances and meta for update, its stored hash as
+// old), moves the digest by new - old and stores nothing.  A lane of the
+// same call may own row H-1 and store its new hash there during the
+// launch, so that lane first publishes the old pair in a record tagged
+// with the call (g_last, a ring of RING records picked by the tag; the
+// tag counts the library's calls), and a lane past the table reads the
+// row, then the record:
+//   owner:  record.old = old; fence; record.tag = tag; fence; row = new
+//   past:   v = row; fence; t = record.tag; fence; old = t == tag ? record.old : v
+// A past lane whose v holds any word of the new pair sees the tag (the
+// owner wrote it before the row, both sides fence: message passing), so
+// one that sees no tag read the old pair.  Only the owner of row H-1
+// writes a record; a call with no slot past the table never reads one.
+//
 // What bounds it on the H100: bytes.  A row costs 72 bytes of table and
 // meta plus 8 of row binding read and 16 of hash written; the eleven
 // 64-bit mixes per row (~150 integer operations) stay far below the
@@ -22,6 +39,7 @@
 // registers until one atomic per block.  Admit is bytes-bound too: per
 // slot its index and new hash read, the old hash read and overwritten.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -60,6 +78,51 @@ __device__ __forceinline__ void hash_row(uint64_t r, const uint64_t* bal,
   }
   lo = nonzero ? mix64(acc ^ rs ^ C_LO) : 0ull;
   hi = nonzero ? mix64(acc ^ rs ^ C_HI) : 0ull;
+}
+
+// ---- Row H-1 for the slots past the table (see the top of the file).
+
+struct LastRow {
+  unsigned long long tag, lo, hi, pad;
+};
+constexpr int RING = 256;  // calls running at once on one card that never share a record
+__device__ LastRow g_last[RING];
+
+std::atomic<unsigned long long> g_calls{0};  // tags: this library's calls, from 1
+
+__device__ __forceinline__ void fence() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
+
+__device__ __forceinline__ void store_volatile(uint64_t* p, uint64_t lo, uint64_t hi) {
+  volatile unsigned long long* v = reinterpret_cast<volatile unsigned long long*>(p);
+  v[0] = lo;
+  v[1] = hi;
+}
+
+// The owner of row H-1: publish its old pair for this call's tag, then
+// store the new pair.
+__device__ __noinline__ void store_last(uint64_t* last, uint64_t tag, uint64_t old_lo,
+                                        uint64_t old_hi, uint64_t lo, uint64_t hi) {
+  LastRow* r = &g_last[tag % RING];
+  store_volatile(reinterpret_cast<uint64_t*>(&r->lo), old_lo, old_hi);
+  fence();
+  *reinterpret_cast<volatile unsigned long long*>(&r->tag) = tag;
+  fence();
+  store_volatile(last, lo, hi);
+}
+
+// Row H-1's pair as it was before this call.
+__device__ __noinline__ void old_last(const uint64_t* last, uint64_t tag, uint64_t& lo,
+                                      uint64_t& hi) {
+  const volatile unsigned long long* v = reinterpret_cast<const volatile unsigned long long*>(last);
+  lo = v[0];
+  hi = v[1];
+  fence();
+  const volatile LastRow* r = &g_last[tag % RING];
+  if (r->tag == tag) {
+    fence();
+    lo = r->lo;
+    hi = r->hi;
+  }
 }
 
 // Sum (lo, hi) over the block and add it to out[0..1] with one atomic
@@ -108,46 +171,69 @@ __global__ void cm_hash_all(const uint64_t* bal, const uint32_t* meta,
   block_fold(sum_lo, sum_hi, fold_out);
 }
 
-// Deduplicated touched slots; -1 entries are padding and contribute
-// nothing.  Each slot is owned by exactly one thread, so the gather of
-// the old hash and the store of the new one cannot race.
-__global__ void cm_update(const uint64_t* bal, const uint32_t* meta,
+// Touched slots of a table of A rows; each in-range slot is owned by
+// exactly one thread, so the gather of the old hash and the store of
+// the new one cannot race.  A slot past the table hashes row A-1's
+// columns under its own logical id against row A-1's old hash.
+__global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
                           uint64_t* row_hash, unsigned long long* digest,
                           const int64_t* slots, const uint64_t* rows,
-                          int64_t k) {
+                          int64_t k, uint64_t tag) {
   uint64_t d_lo = 0, d_hi = 0;
   for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
        i += (int64_t)gridDim.x * THREADS) {
     const int64_t s = slots[i];
     if (s < 0) continue;
-    uint64_t lo, hi;
-    hash_row(rows[i], bal + s * 8, meta + s * 2, lo, hi);
-    d_lo += lo - row_hash[s * 2];
-    d_hi += hi - row_hash[s * 2 + 1];
-    row_hash[s * 2] = lo;
-    row_hash[s * 2 + 1] = hi;
+    const int64_t at = s < A ? s : A - 1;
+    uint64_t lo, hi, o_lo, o_hi;
+    hash_row(rows[i], bal + at * 8, meta + at * 2, lo, hi);
+    if (s >= A) {
+      old_last(row_hash + at * 2, tag, o_lo, o_hi);
+    } else {
+      o_lo = row_hash[s * 2];
+      o_hi = row_hash[s * 2 + 1];
+      if (s == A - 1) {
+        store_last(row_hash + s * 2, tag, o_lo, o_hi, lo, hi);
+      } else {
+        row_hash[s * 2] = lo;
+        row_hash[s * 2 + 1] = hi;
+      }
+    }
+    d_lo += lo - o_lo;
+    d_hi += hi - o_hi;
   }
   block_fold(d_lo, d_hi, digest);
 }
 
-// Tiered admission: at each hot slot (distinct; -1 or >= H is padding)
-// the stored hash becomes (new_lo, new_hi), supplied by the host twin,
-// and the digest moves by new - old.  A thread owns its slot, so the
-// read of old and the store of new cannot race; the differences meet in
-// the block fold (wrapping sums: any order gives the same digest).
+// Tiered admission: at each hot slot (distinct; -1 is padding) the
+// stored hash becomes (new_lo, new_hi), supplied by the host twin, and
+// the digest moves by new - old.  A thread owns its slot, so the read of
+// old and the store of new cannot race; the differences meet in the
+// block fold (wrapping sums: any order gives the same digest).
 __global__ void cm_admit(uint64_t* row_hash, int64_t H,
                          unsigned long long* digest, const int64_t* slots,
                          const uint64_t* new_lo, const uint64_t* new_hi,
-                         int64_t k) {
+                         int64_t k, uint64_t tag) {
   uint64_t d_lo = 0, d_hi = 0;
   for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
        i += (int64_t)gridDim.x * THREADS) {
     const int64_t s = slots[i];
-    if (s < 0 || s >= H) continue;
-    d_lo += new_lo[i] - row_hash[s * 2];
-    d_hi += new_hi[i] - row_hash[s * 2 + 1];
-    row_hash[s * 2] = new_lo[i];
-    row_hash[s * 2 + 1] = new_hi[i];
+    if (s < 0) continue;
+    uint64_t o_lo, o_hi;
+    if (s >= H) {
+      old_last(row_hash + (H - 1) * 2, tag, o_lo, o_hi);
+    } else {
+      o_lo = row_hash[s * 2];
+      o_hi = row_hash[s * 2 + 1];
+      if (s == H - 1) {
+        store_last(row_hash + s * 2, tag, o_lo, o_hi, new_lo[i], new_hi[i]);
+      } else {
+        row_hash[s * 2] = new_lo[i];
+        row_hash[s * 2 + 1] = new_hi[i];
+      }
+    }
+    d_lo += new_lo[i] - o_lo;
+    d_hi += new_hi[i] - o_hi;
   }
   block_fold(d_lo, d_hi, digest);
 }
@@ -177,26 +263,29 @@ extern "C" int tb_commit_hash_all(const void* balances, const void* meta,
   return (int)cudaGetLastError();
 }
 
-extern "C" int tb_commit_update(const void* balances, const void* meta,
+// A: the table's rows (balances, meta and row_hash); at least 1 when k > 0.
+extern "C" int tb_commit_update(const void* balances, const void* meta, int64_t A,
                                 void* row_hash, void* digest,
                                 const void* slots, const void* rows,
                                 int64_t k, void* stream) {
+  if (k > 0 && A < 1) return (int)cudaErrorInvalidValue;
   cm_update<<<grid_for(k), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(balances),
-      static_cast<const uint32_t*>(meta), static_cast<uint64_t*>(row_hash),
+      static_cast<const uint32_t*>(meta), A, static_cast<uint64_t*>(row_hash),
       static_cast<unsigned long long*>(digest),
       static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(rows),
-      k);
+      k, ++g_calls);
   return (int)cudaGetLastError();
 }
 
 extern "C" int tb_commit_admit(void* row_hash, int64_t H, void* digest,
                                const void* slots, const void* new_lo,
                                const void* new_hi, int64_t k, void* stream) {
+  if (k > 0 && H < 1) return (int)cudaErrorInvalidValue;
   cm_admit<<<grid_for(k), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint64_t*>(row_hash), H,
       static_cast<unsigned long long*>(digest),
       static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(new_lo),
-      static_cast<const uint64_t*>(new_hi), k);
+      static_cast<const uint64_t*>(new_hi), k, ++g_calls);
   return (int)cudaGetLastError();
 }

@@ -65,8 +65,8 @@ _SIGNATURES = {
     "commitment": {
         # balances, meta, rows, A, row_hash (nullable), fold_out, stream
         "tb_commit_hash_all": [_P, _P, _P, _I64, _P, _P, _P],
-        # balances, meta, row_hash, digest, slots, rows, k, stream
-        "tb_commit_update": [_P, _P, _P, _P, _P, _P, _I64, _P],
+        # balances, meta, A, row_hash, digest, slots, rows, k, stream
+        "tb_commit_update": [_P, _P, _I64, _P, _P, _P, _P, _I64, _P],
         # row_hash, H, digest, slots, new_lo, new_hi, k, stream
         "tb_commit_admit": [_P, _I64, _P, _P, _P, _P, _I64, _P],
     },
@@ -262,8 +262,8 @@ def commit_hash_all(balances, meta, rows, row_hash, fold_out, count_as):
 def commit_update(balances, meta, row_hash, digest, slots, rows):
     _launch(
         "commitment", "tb_commit_update", "commit_update", balances.get_device(),
-        balances.data_ptr(), meta.data_ptr(), row_hash.data_ptr(), digest.data_ptr(),
-        slots.data_ptr(), rows.data_ptr(), slots.shape[0],
+        balances.data_ptr(), meta.data_ptr(), balances.shape[0], row_hash.data_ptr(),
+        digest.data_ptr(), slots.data_ptr(), rows.data_ptr(), slots.shape[0],
     )
 
 

@@ -217,28 +217,40 @@ def rebuild_plain(balances, meta, rows):
 
 
 def update_plain(balances, meta, row_hash, digest, slots, rows):
+    """Plain version of K2 update, the reference's ``_update``: -1 is
+    padding; a slot past the table (s >= A) is read as row A-1 was
+    before the call (its balances, meta and stored hash: the reference's
+    clamped gather), moves the digest by new - old and stores nothing.
+    Slots are distinct.  In place."""
+    A = balances.shape[0]
     valid = slots >= 0
-    idx = torch.where(valid, slots, 0)
+    idx = torch.where(valid, slots, 0).clamp(max=A - 1)
     r = torch.where(valid, rows, 0)
     lo, hi = rows_hash_plain(r, balances[idx], meta[idx])
     new = torch.stack([lo, hi], dim=-1)
     new = torch.where(valid[:, None], new, 0)
     old = torch.where(valid[:, None], row_hash[idx], 0)
     digest += (new - old).sum(dim=0)
-    row_hash[idx[valid]] = new[valid]
+    keep = valid & (slots < A)
+    row_hash[slots[keep]] = new[keep]
     return row_hash, digest
 
 
 def admit_plain(row_hash, digest, slots, new_lo, new_hi):
-    """Plain version of K2 admit: at each hot slot (-1 and any slot
-    outside [0, H) are padding) replace the stored row hash with (new_lo,
-    new_hi) and move the digest by new - old.  Slots are distinct.  In
-    place."""
-    valid = (slots >= 0) & (slots < row_hash.shape[0])
-    idx = slots[valid]
-    new = torch.stack([new_lo[valid], new_hi[valid]], dim=-1)
-    digest += (new - row_hash[idx]).sum(dim=0)
-    row_hash[idx] = new
+    """Plain version of K2 admit, the reference's ``_admit``: at each hot
+    slot replace the stored row hash with (new_lo, new_hi) and move the
+    digest by new - old.  -1 is padding; a slot past the table (s >= H)
+    takes as old row H-1's hash as it was before the call (the
+    reference's clamped gather) and stores nothing.  Slots are distinct.
+    In place."""
+    H = row_hash.shape[0]
+    valid = slots >= 0
+    idx = torch.where(valid, slots, 0).clamp(max=H - 1)
+    new = torch.where(valid[:, None], torch.stack([new_lo, new_hi], dim=-1), 0)
+    old = torch.where(valid[:, None], row_hash[idx], 0)
+    digest += (new - old).sum(dim=0)
+    keep = valid & (slots < H)
+    row_hash[slots[keep]] = new[keep]
     return row_hash, digest
 
 
@@ -281,9 +293,10 @@ def rebuild(balances, meta, rows):
 
 
 def update(balances, meta, row_hash, digest, slots, rows):
-    """Absorb deduplicated touched `slots` (-1 = padding) hashed under
-    logical ids `rows`.  Updates `row_hash` and `digest` IN PLACE (the
-    reference returns new arrays) and returns them.  K2 on CUDA."""
+    """Absorb deduplicated touched `slots` (-1 = padding; a slot past the
+    table reads row A-1 and stores nothing, as in the reference) hashed
+    under logical ids `rows`.  Updates `row_hash` and `digest` IN PLACE
+    (the reference returns new arrays) and returns them.  K2 on CUDA."""
     _check_tables(balances, meta, rows, k=slots.shape[0])
     A = balances.shape[0]
     _check_digest(balances, digest)
@@ -293,6 +306,8 @@ def update(balances, meta, row_hash, digest, slots, rows):
         raise ValueError("row_hash must be contiguous on the tables' device")
     if slots.dtype != torch.int64 or slots.device != balances.device or not slots.is_contiguous():
         raise ValueError("slots must be contiguous int64 on the tables' device")
+    if A == 0 and slots.shape[0]:
+        raise ValueError("the tables have no rows")
     if balances.device.type == "cpu":
         return update_plain(balances, meta, row_hash, digest, slots, rows)
     kernels.commit_update(balances, meta, row_hash, digest, slots, rows)
@@ -305,8 +320,9 @@ def admit(row_hash, digest, slots, new_lo, new_hi):
     twin hashes (new_lo, new_hi), and the hot-partial digest moves by
     new - old.  Exact because the admitted device rows are uploaded from
     the very mirror rows the twin hashed.  `slots` are distinct; -1 is
-    padding.  Updates `row_hash` and `digest` IN PLACE and returns them.
-    K2 admit on CUDA."""
+    padding; a slot past the table takes row H-1's hash as old and
+    stores nothing, as in the reference.  Updates `row_hash` and
+    `digest` IN PLACE and returns them.  K2 admit on CUDA."""
     H = row_hash.shape[0]
     if row_hash.dtype != torch.int64 or row_hash.shape != (H, 2):
         raise ValueError(f"row_hash must be (H, 2) int64, got {tuple(row_hash.shape)}")
@@ -318,6 +334,8 @@ def admit(row_hash, digest, slots, new_lo, new_hi):
     for t in (row_hash, slots, new_lo, new_hi):
         if t.device != row_hash.device or not t.is_contiguous():
             raise ValueError("tensors must be contiguous and on one device")
+    if H == 0 and k:
+        raise ValueError("row_hash has no rows")
     if row_hash.device.type == "cpu":
         return admit_plain(row_hash, digest, slots, new_lo, new_hi)
     if k:
