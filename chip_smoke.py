@@ -20,7 +20,8 @@ more chain shapes), K9 over an
 init and finalize, all on a 2^20-row table, and K3 segments of 1, 8, 59
 and 512 events for its fixed and per-event cost; K10 at 128 and 16,384 rows
 into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
-slots, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
+and 130 slots (each beside an empty kernel of its launch shape) and
+with slots past the table, K2 update with slots past the table, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
 holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
 local rows of a 2^20-row table split in 4 (K13 admit also at the
 sharded_apply phase's 4095-event slice of 2^19 rows), K14 gather and scatter at
@@ -71,8 +72,9 @@ and the launcher probes in two more:
                accounts: bench's tiering stream (head 786,432 accounts,
                tail mass 0.008), 48 warm-up batches sweeping the head,
                then 64 timed batches submitted one at a time (K1 on hot
-               slots, K10 + K2 admit per admission); replies and root
-               equal the plain-version run and an all-resident control
+               slots, K10 + K2 admit per admission; the slots of every
+               K2 admit launch: the census); replies and root equal the
+               plain-version run and an all-resident control
   tiered_host  host engine, the same stream (K10 admissions, K4 flushes;
                its run ends with the checkpoint tripwire, K11)
   sharded_apply  parallel.sharded.build_apply_step on a 2 x 2 (dp, shard)
@@ -144,6 +146,7 @@ device or on any failed check.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import importlib
 import json
@@ -569,6 +572,17 @@ def check_commitment(rng, dev, report):
           f"{_dev(dev_ms, host)} "
           f"{_vs(plain_ms, bound_ms)}")
 
+    # Slots past the table (live in the reference: row A-1 before the
+    # call), one of them beside the lane that owns row A-1.
+    past = torch.tensor([A_ROWS + 5, 17, A_ROWS - 1, A_ROWS, -1], device=dev)
+    got = cm.update(table, meta, rh_k.clone(), dg_k.clone(), past, past.abs())
+    want = cm.update_plain(table, meta, rh_k.clone(), dg_k.clone(), past, past.abs())
+    torch.cuda.synchronize()
+    err_past = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    check(err_past == 0, "K2 update with slots past the table differs from the plain version")
+    report["commit_update"]["max_abs_err"] = max(err_u, err_past)
+    print("K2 update (slots past the table beside the owner of row A-1): bit-exact")
+
     p_k = cm.probe(table, meta, dg_k, rows)
     p_p = cm.probe_plain(table, meta, dg_k, rows)
     torch.cuda.synchronize()
@@ -704,8 +718,10 @@ def check_tier_kernels(dev, report):
     (a timed batch's and a warm-up batch's admissions) into a 2^20-row
     balance table, with distinct out-of-range padding, and into the meta
     table; timed beside Tensor.index_copy_, the one PyTorch call that
-    computes the same function.  K2 admit: 16,384 slots of a 2^20-row
-    hash table.  K11: a (2^20, 8) balance table and a (2^20, 2) meta
+    computes the same function.  K2 admit: 16,384 and 130 slots of a
+    2^20-row hash table (a warm-up's and a timed admission's), each
+    beside an empty kernel of its launch shape, and a call that holds
+    slots past the table and row H-1.  K11: a (2^20, 8) balance table and a (2^20, 2) meta
     table holding words >= 2^31."""
     rng = np.random.default_rng(2035)
     table, meta = _tables(rng, A_ROWS, dev)
@@ -747,27 +763,48 @@ def check_tier_kernels(dev, report):
                                    k128=timed[128], host_split=split)
     print("K10 host path, us per call (tools/launch_split.py, k=16384): " + json.dumps(split))
 
-    k = 16_384
+    # K2 admit at a warm-up admission's 16,384 slots and a timed one's
+    # ~130 (the tiered phase's census), each beside an empty kernel of the
+    # same launch shape; then slots past the table with row H-1 owned.
     rh = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (A_ROWS, 2))).to(dev)
     dg = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 2)).to(dev)
-    slots = torch.from_numpy(cm.pad_slots(rng.choice(A_ROWS, k, replace=False))).to(dev)
+    errs, timed = [], {}
+    for k in (16_384, 130):
+        slots = torch.from_numpy(rng.choice(A_ROWS, k, replace=False).astype(np.int64)).to(dev)
+        new_lo, new_hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, len(slots)))
+                          .to(dev) for _ in range(2))
+        rh_k, dg_k = cm.admit(rh.clone(), dg.clone(), slots, new_lo, new_hi)
+        rh_p, dg_p = cm.admit_plain(rh.clone(), dg.clone(), slots, new_lo, new_hi)
+        torch.cuda.synchronize()
+        errs.append(max(max_abs_err(rh_k, rh_p), max_abs_err(dg_k, dg_p)))
+        check(errs[-1] == 0, f"K2 admit (k={k}) differs from the plain version")
+        ms, dev_ms, host = kernel_ms(lambda: cm.admit(rh_k, dg_k, slots, new_lo, new_hi),
+                                     names=("cm_admit",))
+        plain_ms = time_ms(lambda: cm.admit_plain(rh_p, dg_p, slots, new_lo, new_hi), reps=10)
+        G, T = kernels.commit_admit_geometry(len(slots))
+        empty_ms = device_ms(lambda: kernels.commit_empty(dev.index, G, T), names=("cm_empty",))
+        bound_ms, bound_by = bound(k * (8 + 16 + 16 + 16) + 32, k * 6)
+        timed[k] = dict(ms=ms, device_ms=dev_ms, host_ms=host, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by, geometry=[G, T],
+                        empty_device_ms=empty_ms, timed_case=f"k={k} slots of 2^20")
+        print(f"K2 admit ({k} slots, {G} blocks x {T}): bit-exact; "
+              f"{ms * 1e3:.1f} us, {_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}; an empty "
+              f"kernel of that launch {_dev_us(None if empty_ms is None else empty_ms * 1e3)} "
+              f"on the device")
+    H = A_ROWS
+    past = np.concatenate([rng.choice(H - 1, 15_000, replace=False), [H - 1],
+                           H + rng.choice(H, 1_383, replace=False)])
+    slots = torch.from_numpy(rng.permutation(past).astype(np.int64)).to(dev)
     new_lo, new_hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, len(slots)))
                       .to(dev) for _ in range(2))
     rh_k, dg_k = cm.admit(rh.clone(), dg.clone(), slots, new_lo, new_hi)
     rh_p, dg_p = cm.admit_plain(rh.clone(), dg.clone(), slots, new_lo, new_hi)
     torch.cuda.synchronize()
-    err = max(max_abs_err(rh_k, rh_p), max_abs_err(dg_k, dg_p))
-    check(err == 0, "K2 admit differs from the plain version")
-    ms, dev_ms, host = kernel_ms(lambda: cm.admit(rh_k, dg_k, slots, new_lo, new_hi),
-                                 names=("cm_admit",))
-    plain_ms = time_ms(lambda: cm.admit_plain(rh_p, dg_p, slots, new_lo, new_hi), reps=10)
-    bound_ms, bound_by = bound(len(slots) * 8 + k * (16 + 16 + 16) + 32, k * 6)
-    report["commit_admit"] = dict(ms=ms, device_ms=dev_ms, host_ms=host,
-                                  plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, max_abs_err=err,
-                                  timed_case=f"k={k} slots ({len(slots)} padded) of 2^20")
-    print(f"K2 admit ({k} slots, {len(slots) - k} padding): bit-exact; {ms * 1e3:.1f} us, "
-          f"{_dev(dev_ms, host)} {_vs(plain_ms, bound_ms)}")
+    errs.append(max(max_abs_err(rh_k, rh_p), max_abs_err(dg_k, dg_p)))
+    check(errs[-1] == 0, "K2 admit with slots past the table differs from the plain version")
+    print(f"K2 admit ({len(slots)} slots, {int((slots >= H).sum())} past the table, row H-1 "
+          f"among them): bit-exact")
+    report["commit_admit"] = dict(timed[16_384], max_abs_err=max(errs), k130=timed[130])
 
     errs = []
     for name, tab in (("balances", table), ("meta", meta)):
@@ -2799,8 +2836,26 @@ def main() -> int:
     warm = head_sweep(TIER_WARM, workload.BATCH, TIER_HEAD, workload.WARM0)
     timed = workload.gen_tiering(TIER_TIMED, workload.BATCH, TIER_ACCOUNTS, TIER_HEAD,
                                  TIER_TAIL, workload.TID0)
+    # K2 admit's slots per launch on the tiered phase's main path (the
+    # census): every launch records its k; the phase's first launches are
+    # its main-path run's.
+    admit_k = []
+    launch_k2a = kernels.commit_admit
+
+    def recording_admit(row_hash, digest, slots, *args):
+        admit_k.append(slots.shape[0])
+        return launch_k2a(row_hash, digest, slots, *args)
+
+    kernels.commit_admit = recording_admit
     phases["tiered"] = run_tiering_phase(
         "tiered", "device", warm, timed, must=("orderfree", "tier_set_rows", "commit_admit"))
+    kernels.commit_admit = launch_k2a
+    census = admit_k[:phases["tiered"][0]["commit_admit"]]
+    report["commit_admit"]["census"] = {
+        "launches": len(census), "k_by_launch": census,
+        "k_counts": {str(k): n for k, n in sorted(collections.Counter(census).items())}}
+    print(f"K2 admit census (tiered phase, main-path run): {len(census)} launches, slots per "
+          f"launch {report['commit_admit']['census']['k_counts']}")
     phases["tiered_host"] = run_tiering_phase(
         "tiered_host", "host", warm, timed, must=("apply_deltas", "tier_set_rows", "checksum"))
     phases["sharded_apply"] = run_sharded_apply_phase(dev)
@@ -2882,7 +2937,8 @@ def main() -> int:
         for key in ("serial_floor_ms", "barrier_floor_ms", "barriers", "sweep",
                     "plain_on", "iters", "timed_case", "k128", "meta",
                     "library_device_ms", "library_host_ms", "widths", "window_unit", "row0",
-                    "us_per_batch", "host_split", "library_full",
+                    "us_per_batch", "host_split", "library_full", "k130", "census",
+                    "geometry", "empty_device_ms",
                     "by_kind", "cases", "phase_slice", "yardstick"):
             if key in r:
                 row[key] = r[key]

@@ -145,18 +145,22 @@ def test_k10_and_k14_scatter_pass_pointers_and_sizes(fake_cuda):
 
 def test_k2_update_passes_the_table_rows_and_admit_its_hash_rows(fake_cuda):
     """K2 update takes the table's rows (a slot past them reads row A-1)
-    beside its pointers; admit the hash table's rows."""
+    beside its pointers; admit the hash table's rows; the empty kernel
+    (a measurement) counts nothing."""
     bal, meta, rh = _z((37, 8)), _z((37, 2), torch.int32), _z((37, 2))
     dg, slots, rows = _z(2), _z(5), _z(5)
     kernels.commit_update(bal, meta, rh, dg, slots, rows)
     kernels.commit_admit(rh, dg, slots, rows, rows)
+    kernels.commit_empty(-1, 4, 64)
     assert [a for _, a in fake_cuda.calls] == [
         (bal.data_ptr(), meta.data_ptr(), 37, rh.data_ptr(), dg.data_ptr(), slots.data_ptr(),
          rows.data_ptr(), 5, STREAM - 1),
         (rh.data_ptr(), 37, dg.data_ptr(), slots.data_ptr(), rows.data_ptr(), rows.data_ptr(),
          5, STREAM - 1),
+        (4, 64, STREAM - 1),
     ]
     assert kernels.launches["commit_update"] == 1 and kernels.launches["commit_admit"] == 1
+    assert sum(kernels.launches.values()) == 2
 
 
 def test_k8_and_k3_segment_pass_pointers_and_sizes(fake_cuda):

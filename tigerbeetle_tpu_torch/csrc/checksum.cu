@@ -28,6 +28,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tb_hash.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -71,13 +73,6 @@ __global__ void checksum_kernel(const T* __restrict__ table, int64_t R, int64_t 
   }
 }
 
-int grid_for(int64_t n) {
-  int64_t g = (n + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride past it
-  if (g > cap) g = cap;
-  return g < 1 ? 1 : (int)g;
-}
-
 }  // namespace
 
 extern "C" const char* tb_error_string(int err) {
@@ -96,7 +91,8 @@ extern "C" int tb_checksum(const void* table, int64_t R, int64_t row0, int C,
     return (int)cudaErrorInvalidValue;
   }
   if (R > 0) {
-    const int grid = grid_for(R * C);
+    int grid;
+    if (const int err = tb::grid_for(R * C, THREADS, grid)) return err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     auto* o = static_cast<unsigned long long*>(out);
     if (word_bytes == 8) {

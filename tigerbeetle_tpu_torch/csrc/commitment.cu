@@ -36,12 +36,28 @@
 // 64-bit mixes per row (~150 integer operations) stay far below the
 // card's integer rate.  The design reads each row once with
 // neighbouring threads on neighbouring rows and keeps the fold in
-// registers until one atomic per block.  Admit is bytes-bound too: per
-// slot its index and new hash read, the old hash read and overwritten.
+// registers until one atomic per block.
+//
+// Admit is bytes-bound in name only: per slot 8 bytes of index and 16 of
+// new hash read, the old hash read and overwritten (56 bytes), ~0.3 us of
+// HBM at the 16,384 slots of a warm-up admission and ~0.002 us at the
+// ~130 of a timed one, against a launch of ~2 us: a launch and one
+// dependent trip (the slot, then its row).  So a thread takes one slot:
+// the slot and its new pair by streaming loads (read once), issued
+// together, then the old pair as one 16-byte load and the new one as one
+// 16-byte store when row_hash is 16-byte aligned (8-byte words when it
+// is not).  The grid is taken from the card's SM count: ADMIT_THREADS a
+// block, halved while the grid fills at most 1 / ADMIT_FILL of the SMs;
+// a call of at most ADMIT_SINGLE slots is one block, which adds its sum
+// to the digest with plain loads and stores.  The fold: each warp's sum
+// by shuffles, then (ADMIT_FOLD 0) the block's by shared memory and one
+// atomic a lane a block, or (ADMIT_FOLD 1) one atomic a lane a warp.
 
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "tb_hash.cuh"
 
 namespace {
 
@@ -55,6 +71,15 @@ constexpr uint64_t C_LO = 0x8BADF00D5CA1AB1Eull;
 constexpr uint64_t C_HI = 0xFACEFEED0DDBA11Dull;
 
 constexpr int THREADS = 256;
+
+constexpr int ADMIT_THREADS = 256;   // a block's threads at large calls
+constexpr int ADMIT_MIN_THREADS = 32;
+constexpr int ADMIT_FILL = 2;        // blocks halve while the grid fills 1 / ADMIT_FILL of the SMs
+constexpr int ADMIT_FOLD = 0;        // 0: an atomic a lane a block; 1: a lane a warp
+constexpr int ADMIT_SINGLE = 0;      // calls of at most this many slots: one block, plain add
+constexpr int ADMIT_LOADS = 0;       // slots and new pairs: 0 streaming, 1 default, 2 read-only
+constexpr int LAST_FENCE_SC = 0;     // row H-1's record: 0 fence.acq_rel, 1 fence.sc
+constexpr int SM_THREADS = 2048;     // resident threads an SM (H100)
 
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 33;
@@ -90,7 +115,12 @@ __device__ LastRow g_last[RING];
 
 std::atomic<unsigned long long> g_calls{0};  // tags: this library's calls, from 1
 
-__device__ __forceinline__ void fence() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
+__device__ __forceinline__ void fence() {
+  if (LAST_FENCE_SC)
+    asm volatile("fence.sc.gpu;\n" ::: "memory");
+  else
+    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void store_volatile(uint64_t* p, uint64_t lo, uint64_t hi) {
   volatile unsigned long long* v = reinterpret_cast<volatile unsigned long long*>(p);
@@ -126,15 +156,23 @@ __device__ __noinline__ void old_last(const uint64_t* last, uint64_t tag, uint64
 }
 
 // Sum (lo, hi) over the block and add it to out[0..1] with one atomic
-// per lane.
-__device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi,
-                                           unsigned long long* out) {
+// per lane (a block of one warp skips the shared-memory stage), or with
+// a plain load and store (`plain`: the grid's only block).
+__device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned long long* out,
+                                           bool plain = false) {
   __shared__ unsigned long long s_lo[THREADS / 32], s_hi[THREADS / 32];
   for (int o = 16; o > 0; o >>= 1) {
     lo += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)lo, o);
     hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)hi, o);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (blockDim.x == 32 && !plain) {
+    if (lane == 0) {
+      tb::red_add(&out[0], lo);
+      tb::red_add(&out[1], hi);
+    }
+    return;
+  }
   if (lane == 0) {
     s_lo[warp] = lo;
     s_hi[warp] = hi;
@@ -142,12 +180,17 @@ __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi,
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long a = 0, b = 0;
-    for (int w = 0; w < THREADS / 32; ++w) {
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
       a += s_lo[w];
       b += s_hi[w];
     }
-    atomicAdd(&out[0], a);
-    atomicAdd(&out[1], b);
+    if (plain) {
+      out[0] += a;
+      out[1] += b;
+    } else {
+      tb::red_add(&out[0], a);
+      tb::red_add(&out[1], b);
+    }
   }
 }
 
@@ -205,45 +248,90 @@ __global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
   block_fold(d_lo, d_hi, digest);
 }
 
-// Tiered admission: at each hot slot (distinct; -1 is padding) the
-// stored hash becomes (new_lo, new_hi), supplied by the host twin, and
-// the digest moves by new - old.  A thread owns its slot, so the read of
-// old and the store of new cannot race; the differences meet in the
-// block fold (wrapping sums: any order gives the same digest).
-__global__ void cm_admit(uint64_t* row_hash, int64_t H,
-                         unsigned long long* digest, const int64_t* slots,
-                         const uint64_t* new_lo, const uint64_t* new_hi,
-                         int64_t k, uint64_t tag) {
+// Tiered admission: at each hot slot the stored hash becomes (new_lo,
+// new_hi), supplied by the host twin, and the digest moves by new - old.
+// WIDE: row_hash is 16-byte aligned (a pair moves as one ulonglong2).
+template <bool WIDE>
+__global__ void __launch_bounds__(ADMIT_THREADS)
+    cm_admit(uint64_t* row_hash, int64_t H, unsigned long long* digest,
+             const int64_t* __restrict__ slots, const uint64_t* __restrict__ new_lo,
+             const uint64_t* __restrict__ new_hi, int64_t k, uint64_t tag) {
+  const long long* sl = reinterpret_cast<const long long*>(slots);
+  const unsigned long long* nl = reinterpret_cast<const unsigned long long*>(new_lo);
+  const unsigned long long* nh = reinterpret_cast<const unsigned long long*>(new_hi);
+  const int64_t span = (int64_t)gridDim.x * blockDim.x;
   uint64_t d_lo = 0, d_hi = 0;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
-       i += (int64_t)gridDim.x * THREADS) {
-    const int64_t s = slots[i];
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < k; i += span) {
+    int64_t s;
+    uint64_t n_lo, n_hi;
+    if (ADMIT_LOADS == 0) {
+      s = __ldcs(sl + i);
+      n_lo = __ldcs(nl + i);
+      n_hi = __ldcs(nh + i);
+    } else if (ADMIT_LOADS == 1) {
+      s = sl[i];
+      n_lo = nl[i];
+      n_hi = nh[i];
+    } else {
+      s = __ldg(sl + i);
+      n_lo = __ldg(nl + i);
+      n_hi = __ldg(nh + i);
+    }
     if (s < 0) continue;
     uint64_t o_lo, o_hi;
-    if (s >= H) {
-      old_last(row_hash + (H - 1) * 2, tag, o_lo, o_hi);
-    } else {
-      o_lo = row_hash[s * 2];
-      o_hi = row_hash[s * 2 + 1];
-      if (s == H - 1) {
-        store_last(row_hash + s * 2, tag, o_lo, o_hi, new_lo[i], new_hi[i]);
+    if (s < H) {
+      uint64_t* cell = row_hash + 2 * s;
+      if (WIDE) {
+        const ulonglong2 c = *reinterpret_cast<const ulonglong2*>(cell);
+        o_lo = c.x;
+        o_hi = c.y;
       } else {
-        row_hash[s * 2] = new_lo[i];
-        row_hash[s * 2 + 1] = new_hi[i];
+        o_lo = cell[0];
+        o_hi = cell[1];
       }
+      if (s == H - 1) {
+        store_last(cell, tag, o_lo, o_hi, n_lo, n_hi);
+      } else if (WIDE) {
+        *reinterpret_cast<ulonglong2*>(cell) = make_ulonglong2(n_lo, n_hi);
+      } else {
+        cell[0] = n_lo;
+        cell[1] = n_hi;
+      }
+    } else {
+      old_last(row_hash + 2 * (H - 1), tag, o_lo, o_hi);
     }
-    d_lo += new_lo[i] - o_lo;
-    d_hi += new_hi[i] - o_hi;
+    d_lo += n_lo - o_lo;
+    d_hi += n_hi - o_hi;
   }
-  block_fold(d_lo, d_hi, digest);
+  if (ADMIT_FOLD == 1 && gridDim.x > 1) {
+    for (int o = 16; o > 0; o >>= 1) {
+      d_lo += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_lo, o);
+      d_hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_hi, o);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      tb::red_add(&digest[0], d_lo);
+      tb::red_add(&digest[1], d_hi);
+    }
+    return;
+  }
+  block_fold(d_lo, d_hi, digest, ADMIT_SINGLE > 0 && gridDim.x == 1);
 }
 
-int grid_for(int64_t n) {
-  int64_t g = (n + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride past it
-  if (g > cap) g = cap;
-  return g < 1 ? 1 : (int)g;
+// The launch of a k-slot admit on a card of `sms` SMs.
+void admit_geometry(int64_t k, int sms, int& G, int& T) {
+  if (k <= ADMIT_SINGLE) {
+    G = 1;
+    T = (int)((k + 31) / 32 * 32);
+    return;
+  }
+  T = ADMIT_THREADS;
+  while (T > ADMIT_MIN_THREADS && (k + T - 1) / T * ADMIT_FILL <= sms) T /= 2;
+  const int64_t g = (k + T - 1) / T;
+  const int64_t cap = (int64_t)sms * (SM_THREADS / T);
+  G = (int)(g > cap ? cap : (g < 1 ? 1 : g));
 }
+
+__global__ void cm_empty() {}
 
 }  // namespace
 
@@ -255,7 +343,9 @@ extern "C" int tb_commit_hash_all(const void* balances, const void* meta,
                                   const void* rows, int64_t A,
                                   void* row_hash, void* fold_out,
                                   void* stream) {
-  cm_hash_all<<<grid_for(A), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int grid;
+  if (const int err = tb::grid_for(A, THREADS, grid)) return err;
+  cm_hash_all<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(balances),
       static_cast<const uint32_t*>(meta), static_cast<const uint64_t*>(rows),
       A, static_cast<uint64_t*>(row_hash),
@@ -269,7 +359,9 @@ extern "C" int tb_commit_update(const void* balances, const void* meta, int64_t 
                                 const void* slots, const void* rows,
                                 int64_t k, void* stream) {
   if (k > 0 && A < 1) return (int)cudaErrorInvalidValue;
-  cm_update<<<grid_for(k), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int grid;
+  if (const int err = tb::grid_for(k, THREADS, grid)) return err;
+  cm_update<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(balances),
       static_cast<const uint32_t*>(meta), A, static_cast<uint64_t*>(row_hash),
       static_cast<unsigned long long*>(digest),
@@ -278,14 +370,41 @@ extern "C" int tb_commit_update(const void* balances, const void* meta, int64_t 
   return (int)cudaGetLastError();
 }
 
+// The launch K2 admit makes for k slots on the current card: blocks and
+// threads a block, into geom[0..1]; a CUDA status.
+extern "C" int tb_commit_admit_geometry(int k, int* geom) {
+  int sms = 0;
+  const int err = tb::sm_count(sms);
+  if (err) return err;
+  admit_geometry(k, sms, geom[0], geom[1]);
+  return 0;
+}
+
 extern "C" int tb_commit_admit(void* row_hash, int64_t H, void* digest,
                                const void* slots, const void* new_lo,
                                const void* new_hi, int64_t k, void* stream) {
-  if (k > 0 && H < 1) return (int)cudaErrorInvalidValue;
-  cm_admit<<<grid_for(k), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint64_t*>(row_hash), H,
-      static_cast<unsigned long long*>(digest),
-      static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(new_lo),
-      static_cast<const uint64_t*>(new_hi), k, ++g_calls);
+  if (k <= 0) return 0;
+  if (H < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0, G, T;
+  const int err = tb::sm_count(sms);
+  if (err) return err;
+  admit_geometry(k, sms, G, T);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  uint64_t* rh = static_cast<uint64_t*>(row_hash);
+  auto* dg = static_cast<unsigned long long*>(digest);
+  const auto* sl = static_cast<const int64_t*>(slots);
+  const auto* lo = static_cast<const uint64_t*>(new_lo);
+  const auto* hi = static_cast<const uint64_t*>(new_hi);
+  if ((reinterpret_cast<uintptr_t>(row_hash) & 15) == 0)
+    cm_admit<true><<<G, T, 0, st>>>(rh, H, dg, sl, lo, hi, k, ++g_calls);
+  else
+    cm_admit<false><<<G, T, 0, st>>>(rh, H, dg, sl, lo, hi, k, ++g_calls);
+  return (int)cudaGetLastError();
+}
+
+// An empty kernel of `blocks` x `threads`: the floor a small launch
+// stands on (a measurement; no wrapper of the port calls it).
+extern "C" int tb_commit_empty(int blocks, int threads, void* stream) {
+  cm_empty<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

@@ -39,17 +39,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tb_hash.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr uint64_t M32 = 0xFFFFFFFFull;
-
-int grid_for(int64_t n) {
-  int64_t g = (n + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride past it
-  if (g > cap) g = cap;
-  return g < 1 ? 1 : (int)g;
-}
 
 __global__ void shard_accumulate(unsigned long long* __restrict__ acc, int64_t local_rows,
                                  int64_t row0, const int32_t* __restrict__ dr,
@@ -164,7 +159,9 @@ extern "C" int tb_shard_accumulate(void* acc, int64_t local_rows, int64_t row0, 
   cudaError_t rc = cudaMemsetAsync(acc, 0, (size_t)local_rows * 16 * sizeof(uint64_t), s);
   if (rc != cudaSuccess) return (int)rc;
   if (E > 0) {
-    shard_accumulate<<<grid_for(E), THREADS, 0, s>>>(
+    int grid;
+    if (const int err = tb::grid_for(E, THREADS, grid)) return err;
+    shard_accumulate<<<grid, THREADS, 0, s>>>(
         static_cast<unsigned long long*>(acc), local_rows, row0,
         static_cast<const int32_t*>(dr), static_cast<const int32_t*>(cr),
         static_cast<const uint64_t*>(lo), static_cast<const uint64_t*>(hi),
@@ -192,7 +189,9 @@ extern "C" int tb_shard_admit(const void* table, const void* acc, int64_t local_
 
 extern "C" int tb_shard_apply(void* table, const void* acc, int64_t local_rows, void* stream) {
   if (local_rows > 0) {
-    shard_apply<<<grid_for(local_rows * 4), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    int grid;
+    if (const int err = tb::grid_for(local_rows * 4, THREADS, grid)) return err;
+    shard_apply<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<uint64_t*>(table), static_cast<const uint64_t*>(acc), local_rows);
   }
   return (int)cudaGetLastError();

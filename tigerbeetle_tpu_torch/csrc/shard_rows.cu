@@ -57,13 +57,6 @@ constexpr int64_t STREAM_FROM_BYTES = int64_t{24} << 20;
 
 __host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n / 2); }
 
-int grid_for(int64_t n) {
-  int64_t g = (n + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride past it
-  if (g > cap) g = cap;
-  return g < 1 ? 1 : (int)g;
-}
-
 template <typename V, bool STREAM>
 __device__ __forceinline__ void store(V* p, const V& v) {
   if constexpr (STREAM) __stcs(p, v);
@@ -152,11 +145,14 @@ int launch_gather(const void* table, int64_t local_rows, int64_t row0, const voi
 }
 
 template <typename V, int PER_ROW>
-void launch_scatter(void* table, int64_t local_rows, int64_t row0, const void* slots, int64_t k,
-                    const void* rows, cudaStream_t s) {
-  shard_scatter<V, PER_ROW><<<grid_for(k * PER_ROW), THREADS, 0, s>>>(
+int launch_scatter(void* table, int64_t local_rows, int64_t row0, const void* slots, int64_t k,
+                   const void* rows, cudaStream_t s) {
+  int grid;
+  if (const int err = tb::grid_for(k * PER_ROW, THREADS, grid)) return err;
+  shard_scatter<V, PER_ROW><<<grid, THREADS, 0, s>>>(
       static_cast<V*>(table), local_rows, row0, static_cast<const int64_t*>(slots), k,
       static_cast<const V*>(rows));
+  return 0;
 }
 
 bool aligned16(const void* a, const void* b) {
@@ -205,15 +201,19 @@ extern "C" int tb_shard_scatter(void* table, int64_t local_rows, int64_t row0,
     // 16-byte pieces (ulonglong2) where the row holds them and both
     // pointers are aligned to them; 8-byte words otherwise.
     const bool wide = aligned16(table, rows);
+    int err;
     if (w == 1) {
-      launch_scatter<unsigned long long, 1>(table, local_rows, row0, slots, k, rows, s);
+      err = launch_scatter<unsigned long long, 1>(table, local_rows, row0, slots, k, rows, s);
     } else if (w == 2) {
-      if (wide) launch_scatter<ulonglong2, 1>(table, local_rows, row0, slots, k, rows, s);
-      else launch_scatter<unsigned long long, 2>(table, local_rows, row0, slots, k, rows, s);
+      err = wide ? launch_scatter<ulonglong2, 1>(table, local_rows, row0, slots, k, rows, s)
+                 : launch_scatter<unsigned long long, 2>(table, local_rows, row0, slots, k, rows,
+                                                         s);
     } else {
-      if (wide) launch_scatter<ulonglong2, 4>(table, local_rows, row0, slots, k, rows, s);
-      else launch_scatter<unsigned long long, 8>(table, local_rows, row0, slots, k, rows, s);
+      err = wide ? launch_scatter<ulonglong2, 4>(table, local_rows, row0, slots, k, rows, s)
+                 : launch_scatter<unsigned long long, 8>(table, local_rows, row0, slots, k, rows,
+                                                         s);
     }
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 // and sum its rows in a global hash table — K1 (orderfree.cu) and K6
 // (two_phase.cu): their launch geometry, the hash table, and the
 // asynchronous copies and prefetches they and K3's finalize
-// (exact_scan.cu) use.
+// (exact_scan.cu) use; and the card's SM count and the grid of a
+// grid-stride kernel that the other kernels take from it.
 //
 // The hash table: a power-of-two array of u32 keys (a row's slot + 1, 0
 // = empty) beside each kernel's own per-key sums, at rest (zero)
@@ -50,6 +51,21 @@ inline int sm_count(int& sms) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return (int)err;
+}
+
+// The grid of a grid-stride kernel over n items in blocks of `threads`:
+// a block per `threads` items, at most GRID_BLOCKS_PER_SM blocks on each
+// of the current card's SMs, at least one; a CUDA status.
+constexpr int GRID_BLOCKS_PER_SM = 16;
+
+inline int grid_for(int64_t n, int threads, int& grid) {
+  int sms = 0;
+  const int err = sm_count(sms);
+  if (err) return err;
+  const int64_t g = (n + threads - 1) / threads;
+  const int64_t cap = (int64_t)sms * GRID_BLOCKS_PER_SM;
+  grid = (int)(g > cap ? cap : (g < 1 ? 1 : g));
+  return 0;
 }
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {

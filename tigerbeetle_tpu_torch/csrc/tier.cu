@@ -27,6 +27,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tb_hash.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -48,19 +50,15 @@ __global__ void set_rows(V* __restrict__ table, int64_t H, const int64_t* __rest
   }
 }
 
-int grid_for(int64_t n) {
-  int64_t g = (n + THREADS - 1) / THREADS;
-  const int64_t cap = 132 * 16;  // SMs x resident blocks; grid-stride past it
-  if (g > cap) g = cap;
-  return g < 1 ? 1 : (int)g;
-}
-
 template <typename V, int PER_ROW>
-void launch(void* table, int64_t H, const void* idx, const void* src, int64_t k,
-            cudaStream_t s) {
-  set_rows<V, PER_ROW><<<grid_for(k * PER_ROW), THREADS, 0, s>>>(
+int launch(void* table, int64_t H, const void* idx, const void* src, int64_t k,
+           cudaStream_t s) {
+  int grid;
+  if (const int err = tb::grid_for(k * PER_ROW, THREADS, grid)) return err;
+  set_rows<V, PER_ROW><<<grid, THREADS, 0, s>>>(
       static_cast<V*>(table), H, static_cast<const int64_t*>(idx), static_cast<const V*>(src),
       k);
+  return 0;
 }
 
 bool aligned(const void* a, const void* b, uintptr_t to) {
@@ -80,17 +78,19 @@ extern "C" int tb_tier_set_rows(void* table, int64_t H, int row_bytes, const voi
   if (row_bytes != 64 && row_bytes != 8) return (int)cudaErrorInvalidValue;
   if (k > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    int err;
     if (row_bytes == 64) {
       if (aligned(table, src, 16)) {
-        launch<ulonglong2, 4>(table, H, idx, src, k, s);
+        err = launch<ulonglong2, 4>(table, H, idx, src, k, s);
       } else {
-        launch<unsigned long long, 8>(table, H, idx, src, k, s);
+        err = launch<unsigned long long, 8>(table, H, idx, src, k, s);
       }
     } else if (aligned(table, src, 8)) {
-      launch<unsigned long long, 1>(table, H, idx, src, k, s);
+      err = launch<unsigned long long, 1>(table, H, idx, src, k, s);
     } else {
-      launch<unsigned int, 2>(table, H, idx, src, k, s);
+      err = launch<unsigned int, 2>(table, H, idx, src, k, s);
     }
+    if (err) return err;
   }
   return (int)cudaGetLastError();
 }

@@ -69,6 +69,8 @@ _SIGNATURES = {
         "tb_commit_update": [_P, _P, _I64, _P, _P, _P, _P, _I64, _P],
         # row_hash, H, digest, slots, new_lo, new_hi, k, stream
         "tb_commit_admit": [_P, _I64, _P, _P, _P, _P, _I64, _P],
+        # blocks, threads, stream
+        "tb_commit_empty": [_I, _I, _P],
     },
     "tier": {
         # table, H, row_bytes, idx, src, k, stream
@@ -273,6 +275,19 @@ def commit_admit(row_hash, digest, slots, new_lo, new_hi):
         row_hash.data_ptr(), row_hash.shape[0], digest.data_ptr(), slots.data_ptr(),
         new_lo.data_ptr(), new_hi.data_ptr(), slots.shape[0],
     )
+
+
+def commit_admit_geometry(k: int) -> tuple[int, int]:
+    """K2 admit's launch for k slots on the current card: (blocks,
+    threads per block)."""
+    return _geometry("commitment", "tb_commit_admit_geometry", k, 2)
+
+
+def commit_empty(device: int, blocks: int, threads: int) -> None:
+    """An empty kernel of `blocks` x `threads` on CUDA device `device`:
+    the launch floor K2 admit is measured against (a measurement, not a
+    kernel of the port: not counted)."""
+    _launch("commitment", "tb_commit_empty", None, device, blocks, threads)
 
 
 def tier_set_rows(table, idx, src):

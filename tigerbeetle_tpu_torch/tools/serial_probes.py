@@ -1,7 +1,7 @@
 """The redesigned kernels' floors and times on the card: K8's barrier,
 K8 over its chain shapes, K3 over its segment lengths, where one K3
 event's time goes; K5, K7, K1, K13 admit, K6, K3 finalize and init,
-K14 gather, K4 and K9 beside an earlier tree's.
+K14 gather, K4, K9 and K2 admit beside an earlier tree's.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
         [--parent DIR] [--k7-lanes K,...] [--phases NAME,...]
@@ -86,10 +86,18 @@ kernels of the port) and drives the port's own wrappers:
   launch): device microseconds per call, warm and cold, in turns with
   the parent; the conflicted lanes and the bits against the plain
   version.
-* ``turns`` (needs ``--parent``): chip_smoke.py's own K1 and shard-kernel
-  checks from the parent's tree and from this one, in turns (parent,
-  change, change, parent), one process each: what each tree's checks
-  measure (µs/call, device µs, host µs, plain µs, bound).
+* ``k2a``: K2 admit on ``k2a_cases`` (the tiered phase's census shapes,
+  ~130 and 16,380 slots, chip_smoke.py's 16,384, the same one word off
+  16-byte alignment, a ``pad_slots``-padded call with -1 lanes, a call
+  that holds row H-1 with and without 1,000 slots past the table, on a
+  2^20-row hash table): device microseconds per call, warm and cold, in
+  turns with an empty kernel of the same launch shape, the parent and
+  the ``K2A_VARIANTS`` builds of this tree's source; the bits against
+  the plain version and theirs.
+* ``turns`` (needs ``--parent``): chip_smoke.py's own K1, K2, K10, K11
+  and K12-K14 checks from the parent's tree and from this one, in turns
+  (parent, change, change, parent), one process each: what each tree's
+  checks measure (µs/call, device µs, host µs, plain µs, bound).
 * ``phases`` (needs ``--parent``): chip_smoke.py's streams (``--phases``,
   default every one of ``PHASES``) from either tree in the same turns:
   events/s, launches, windows or flushes, the profiled run's busy share
@@ -99,19 +107,19 @@ kernels of the port) and drives the port's own wrappers:
 ``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
 ``git archive`` under ``build/``) adds, in the same process and on the
 same inputs, that tree's K1, K5, K7, K13 admit, K6, K3 finalize and
-init, K14 gather, K4 and K9 (built from its ``csrc``; its K5 also built
-with stamps patched in between its stages) to ``k1``, ``k5``, ``k7``,
-``k13``, ``k6``, ``fin``, ``init``, ``k14``, ``k4`` and ``k9``; for K1
-and K6, the split of its time over the kernels it launches.  ``k6``,
-``fin``, ``init``, ``k14``, ``k4`` and ``k9`` take the two trees'
-device times in turns (parent, change, change, parent) and their
+init, K14 gather, K4, K9 and K2 admit (built from its ``csrc``; its K5
+also built with stamps patched in between its stages) to ``k1``,
+``k5``, ``k7``, ``k13``, ``k6``, ``fin``, ``init``, ``k14``, ``k4``,
+``k9`` and ``k2a``; for K1 and K6, the split of its time over the
+kernels it launches.  ``k6``, ``fin``, ``init``, ``k14``, ``k4``,
+``k9`` and ``k2a`` take the two trees' device times in turns (parent, change, change, parent) and their
 CUDA-event times per call alternating (``paired_event_us``).
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
 ``k8``, ``k3``, ``k5``, ``k7``, ``k13``, ``k6``, ``fin`` and ``init`` build nothing of their own
-but the parent's, so they run on any tree with the wrappers, and ``k4``
-and ``k9`` build their variants only from a source that has their
-constants);
+but the parent's, so they run on any tree with the wrappers, and ``k4``,
+``k9`` and ``k2a`` build their variants only from a source that has
+their constants);
 ``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
 
@@ -768,8 +776,11 @@ def k13_sweep(dev, parent=None) -> dict:
     return out
 
 
-# One tree's chip_smoke.py K1 and shard-kernel checks, run from its
-# root; the report's orderfree and shard_admit entries on one line.
+# One tree's chip_smoke.py K1, K2, tiering and shard-kernel checks, run
+# from its root; the report's entries of TURN_KERNELS on one line.
+TURN_KERNELS = ("orderfree", "commit_rebuild", "commit_update", "commit_probe", "tier_set_rows",
+                "commit_admit", "checksum", "shard_accumulate", "shard_admit", "shard_apply",
+                "shard_gather", "shard_scatter")
 _TURN = """
 import json, sys
 import numpy as np, torch
@@ -778,17 +789,21 @@ import chip_smoke as c
 from tigerbeetle_tpu_torch.kernels import build
 build.build_all()
 rep = {}
-c.check_orderfree(np.random.default_rng(2026), torch.device("cuda", 0), rep)
-c.check_shard_kernels(torch.device("cuda", 0), rep)
-print("TURN " + json.dumps({k: rep[k] for k in ("orderfree", "shard_admit")}, default=float))
-"""
+dev = torch.device("cuda", 0)
+c.check_orderfree(np.random.default_rng(2026), dev, rep)
+c.check_commitment(np.random.default_rng(2026), dev, rep)
+c.check_tier_kernels(dev, rep)
+c.check_shard_kernels(dev, rep)
+print("TURN " + json.dumps({k: rep[k] for k in %r}, default=float))
+""" % (TURN_KERNELS,)
 
 
 def turns(dev, parent=None) -> dict:
-    """chip_smoke.py's own K1 and K13 checks from `parent`'s tree and
-    from this one, in turns (parent, change, change, parent), each in a
-    process of its own: every K1 case's and K13 admit's µs/call, device
-    µs and host µs as that tree's chip_smoke.py measures them."""
+    """chip_smoke.py's own K1, K2, K10, K11 and K12-K14 checks from
+    `parent`'s tree and from this one, in turns (parent, change, change,
+    parent), each in a process of its own: every TURN_KERNELS entry's
+    µs/call, device µs and host µs as that tree's chip_smoke.py measures
+    them."""
     return _in_turns(_TURN, parent, 600)
 
 
@@ -1426,6 +1441,103 @@ def k9_sweep(dev, parent=None) -> dict:
     return out
 
 
+# ---- K2 admit, the change against an earlier tree's kernel.
+
+K2A_NAMES = ("cm_admit",)
+# This tree's commitment.cu built with other constants (variant_lib):
+# the choices the source makes, each measured against its alternative.
+K2A_VARIANTS = {"warp_fold": {"ADMIT_FOLD": "1"}, "single_block": {"ADMIT_SINGLE": "256"},
+                "default_loads": {"ADMIT_LOADS": "1"}, "readonly_loads": {"ADMIT_LOADS": "2"},
+                "fence_sc": {"LAST_FENCE_SC": "1"}, "fill_every_sm": {"ADMIT_FILL": "1"},
+                "blocks_256": {"ADMIT_MIN_THREADS": "256"}}
+
+
+def k2a_cases():
+    """[(name, H, slots, offset words)]: the tiered phase's census shapes
+    on a 2^20-row hash table (a timed admission's ~130 slots, a warm-up's
+    16,380), chip_smoke.py's 16,384, the same one word off 16-byte
+    alignment, 130 slots padded by ``pad_slots`` to 256 with -1 lanes, and
+    16,384 slots that hold row H-1 with 1,000 slots past the table and
+    without them."""
+    from tigerbeetle_tpu_torch.state_machine import commitment as cm
+
+    rng = np.random.default_rng(16)
+    H = A_ROWS
+    draw = lambda k: rng.choice(H - 1, k, replace=False).astype(np.int64)  # noqa: E731
+    full = draw(16_384)
+    past = np.concatenate([draw(15_383), [H - 1], H + rng.choice(H, 1_000, replace=False)])
+    return [("timed_130", H, draw(130), 0), ("warm_16380", H, draw(16_380), 0),
+            ("chip_smoke_16384", H, full, 0), ("unaligned_16384", H, full, 1),
+            ("padded_130", H, cm.pad_slots(draw(130)), 0),
+            ("last_row_16384", H, np.concatenate([draw(16_383), [H - 1]]), 0),
+            ("past_16384", H, rng.permutation(past), 0)]
+
+
+def k2a_sweep(dev, parent=None) -> dict:
+    """K2 admit on k2a_cases: device microseconds per call in turns with
+    an empty kernel of the same launch shape, with `parent`'s and with
+    the K2A_VARIANTS builds of this tree's source, warm and cold (L2
+    flushed before each call); CUDA-event microseconds per call of the
+    change and the parent alternating; the bits against the plain
+    version, the parent's and the variants'."""
+    from tigerbeetle_tpu_torch.ops.u128 import from_u64
+    from tigerbeetle_tpu_torch.state_machine import commitment as cm
+    from tigerbeetle_tpu_torch.testing import commit_cases
+
+    args = [_P, _I64, _P, _P, _P, _P, _I64, _P]  # row_hash, H, digest, slots, lo, hi, k, stream
+    libs = {} if parent is None else {"parent": _parent_lib(parent, "commitment")}
+    src = build.CSRC / "commitment.cu"
+    for tag, consts in K2A_VARIANTS.items():
+        if all(f"constexpr int {c} = " in src.read_text() for c in consts):
+            libs[tag] = variant_lib("commitment", f"k2a_{tag}", consts)
+    flush = l2_flusher(dev)
+    out = {}
+    for name, H, slots, off in k2a_cases():
+        k = len(slots)
+        rh0, dg0, sl_np, lo_np, hi_np = commit_cases.admit_case(slots, H, k)
+        base = torch.empty(H * 2 + off, dtype=torch.int64, device=dev)
+        rh = base[off:].view(H, 2)
+        rh_c, dg_c = from_u64(rh0), from_u64(dg0)
+        sl = torch.from_numpy(sl_np).to(dev)
+        lo, hi = from_u64(lo_np).to(dev), from_u64(hi_np).to(dev)
+        want = cm.admit_plain(rh_c.clone(), dg_c.clone(), sl.cpu(), lo.cpu(), hi.cpu())
+        dg = torch.empty(2, dtype=torch.int64, device=dev)
+
+        def fresh():
+            rh.copy_(rh_c)
+            dg.copy_(dg_c)
+
+        fresh()
+        cm.admit(rh, dg, sl, lo, hi)
+        torch.cuda.synchronize()
+        live = int((sl >= 0).sum())
+        G, T = kernels.commit_admit_geometry(k)
+        row = {"slots": k, "live": live, "past": int((sl >= H).sum()), "rows": H,
+               "offset_words": off, "geometry": [G, T],
+               "bound_us": (k * 8 + live * 48 + 32) / 3.35e12 * 1e6,
+               "plain_equal": bool(torch.equal(rh.cpu(), want[0])
+                                   and torch.equal(dg.cpu(), want[1]))}
+        fns = {"change": lambda: cm.admit(rh, dg, sl, lo, hi),
+               "empty": lambda G=G, T=T: kernels.commit_empty(dev.index, G, T)}
+        for who, lib in libs.items():
+            fns[who] = _raw(lib, "tb_commit_admit", args, rh.data_ptr(), H, dg.data_ptr(),
+                            sl.data_ptr(), lo.data_ptr(), hi.data_ptr(), k)
+            fresh()
+            fns[who]()
+            torch.cuda.synchronize()
+            row[f"{who}_equal"] = bool(torch.equal(rh.cpu(), want[0])
+                                       and torch.equal(dg.cpu(), want[1]))
+        if "parent" in fns:
+            row["us_per_call"], row["parent_us_per_call"] = paired_event_us(
+                (fns["change"], fns["parent"]), lambda: None)
+        names = {who: ("cm_empty",) if who == "empty" else K2A_NAMES for who in fns}
+        _turns_into(row, device_turns(fns, names))
+        cold = {who: fns[who] for who in ("change", "parent", "empty") if who in fns}
+        _turns_into(row, device_turns(cold, names, reset=flush), prefix="cold_")
+        out[name] = row
+    return out
+
+
 # One tree's phases (chip_smoke.py's streams, named on the command line),
 # run from its root: each phase's main-path run (events/s, launches,
 # windows or flushes) and a profiled run (busy share, the top device
@@ -1621,7 +1733,7 @@ def phases(dev, parent=None, names=PHASES) -> dict:
 PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
          "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "k6": k6_sweep,
          "fin": fin_sweep, "init": init_sweep, "k14": k14_sweep, "k4": k4_sweep,
-         "k9": k9_sweep, "turns": turns, "phases": phases}
+         "k9": k9_sweep, "k2a": k2a_sweep, "turns": turns, "phases": phases}
 
 
 def main(argv=None) -> int:
@@ -1630,8 +1742,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default=",".join(p for p in PARTS if p not in ("turns", "phases")),
                     help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--parent",
-                    help="an earlier tree whose K1, K3 init and finalize, K4, K5, K6, K7, K9, "
-                         "K13 admit and K14 gather run beside these")
+                    help="an earlier tree whose K1, K2 admit, K3 init and finalize, K4, K5, K6, "
+                         "K7, K9, K13 admit and K14 gather run beside these")
     ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="the phases part's streams, a comma-separated subset of "
@@ -1645,6 +1757,7 @@ def main(argv=None) -> int:
              "k6": {"parent": args.parent}, "fin": {"parent": args.parent},
              "init": {"parent": args.parent}, "k14": {"parent": args.parent},
              "k4": {"parent": args.parent}, "k9": {"parent": args.parent},
+             "k2a": {"parent": args.parent},
              "phases": {"parent": args.parent, "names": args.phases.split(",")},
              "k7": {"parent": args.parent,
                     "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
