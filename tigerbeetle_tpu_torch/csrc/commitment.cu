@@ -23,13 +23,15 @@
 // launch, so that lane first publishes the old pair in a record tagged
 // with the call (g_last, a ring of RING records picked by the tag; the
 // tag counts the library's calls), and a lane past the table reads the
-// row, then the record:
+// row, then the record (last_row):
 //   owner:  record.old = old; fence; record.tag = tag; fence; row = new
 //   past:   v = row; fence; t = record.tag; fence; old = t == tag ? record.old : v
 // A past lane whose v holds any word of the new pair sees the tag (the
 // owner wrote it before the row, both sides fence: message passing), so
 // one that sees no tag read the old pair.  Only the owner of row H-1
 // writes a record; a call with no slot past the table never reads one.
+// The owner's two fences cost a call that admits row H-1 ~0.8 us
+// (PERF.md, K2 admit row).
 //
 // What bounds it on the H100: bytes.  A row costs 72 bytes of table and
 // meta plus 8 of row binding read and 16 of hash written; the eleven
@@ -39,19 +41,20 @@
 // registers until one atomic per block.
 //
 // Admit is bytes-bound in name only: per slot 8 bytes of index and 16 of
-// new hash read, the old hash read and overwritten (56 bytes), ~0.3 us of
-// HBM at the 16,384 slots of a warm-up admission and ~0.002 us at the
-// ~130 of a timed one, against a launch of ~2 us: a launch and one
-// dependent trip (the slot, then its row).  So a thread takes one slot:
-// the slot and its new pair by streaming loads (read once), issued
+// new hash read, the old hash read and overwritten (56 bytes), ~0.27 us
+// of HBM at the 16,384 slots of a warm-up admission and ~0.002 us at the
+// ~130 of a timed one, against ~0.87 us of an empty kernel's launch: a
+// launch and one dependent trip (the slot, then its row) and the fold.
+// So a thread takes one slot: the slot and its new pair by loads issued
 // together, then the old pair as one 16-byte load and the new one as one
 // 16-byte store when row_hash is 16-byte aligned (8-byte words when it
 // is not).  The grid is taken from the card's SM count: ADMIT_THREADS a
-// block, halved while the grid fills at most 1 / ADMIT_FILL of the SMs;
-// a call of at most ADMIT_SINGLE slots is one block, which adds its sum
-// to the digest with plain loads and stores.  The fold: each warp's sum
-// by shuffles, then (ADMIT_FOLD 0) the block's by shared memory and one
-// atomic a lane a block, or (ADMIT_FOLD 1) one atomic a lane a warp.
+// block, halved while the grid fills at most 1 / ADMIT_FILL of the SMs
+// (128 x 128 at 16,384 slots, 5 x 32 at 130); each block's sum meets the
+// digest in one atomic a lane.  Measured (PERF.md, the K2 admit row):
+// streaming loads, an atomic a lane a warp, one block with a plain add
+// of the digest at small calls, one block of 256 and a grid that fills
+// every SM were each as fast or slower.
 
 #include <atomic>
 #include <cstdint>
@@ -75,11 +78,17 @@ constexpr int THREADS = 256;
 constexpr int ADMIT_THREADS = 256;   // a block's threads at large calls
 constexpr int ADMIT_MIN_THREADS = 32;
 constexpr int ADMIT_FILL = 2;        // blocks halve while the grid fills 1 / ADMIT_FILL of the SMs
-constexpr int ADMIT_FOLD = 0;        // 0: an atomic a lane a block; 1: a lane a warp
-constexpr int ADMIT_SINGLE = 0;      // calls of at most this many slots: one block, plain add
-constexpr int ADMIT_LOADS = 0;       // slots and new pairs: 0 streaming, 1 default, 2 read-only
-constexpr int LAST_FENCE_SC = 0;     // row H-1's record: 0 fence.acq_rel, 1 fence.sc
 constexpr int SM_THREADS = 2048;     // resident threads an SM (H100)
+constexpr int UPDATE_LOADS = 0;  // update: 0 loads where the hash needs them, 1 all first,
+                                 // 2 all first, 16-byte pieces on aligned tables
+constexpr int UPDATE_RARE = 0;   // update's lanes at row A-1 or past: 0 in the loop, 1 after it,
+                                 // 2 dropped (a measurement of the loop alone), 3 a second
+                                 // kernel of one block, flagged by the first after its loop,
+                                 // 4 the same flagged in the loop, 5 a second kernel over
+                                 // every slot (the record protocol), no flag
+constexpr int RARE_THREADS = 1024;
+constexpr int FOLD_RED = 1;      // block fold: 1 red.add (one-warp blocks skip shared memory),
+                                 // 0 atomicAdd of the block's sum only
 
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 33;
@@ -87,6 +96,22 @@ __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 29;
   x *= M2;
   return x ^ (x >> 32);
+}
+
+// The row hash of row id r over its 10 columns v (8 balance limbs, 2
+// meta words).
+__device__ __forceinline__ void hash_cols(uint64_t r, const uint64_t (&v)[10], uint64_t& lo,
+                                          uint64_t& hi) {
+  const uint64_t rs = r * GAMMA;
+  uint64_t acc = 0;
+  bool nonzero = false;
+#pragma unroll
+  for (int j = 0; j < 10; ++j) {
+    nonzero |= v[j] != 0;
+    acc ^= mix64(v[j] ^ rs ^ ((uint64_t)(j + 1) * K_COL));
+  }
+  lo = nonzero ? mix64(acc ^ rs ^ C_LO) : 0ull;
+  hi = nonzero ? mix64(acc ^ rs ^ C_HI) : 0ull;
 }
 
 __device__ __forceinline__ void hash_row(uint64_t r, const uint64_t* bal,
@@ -112,15 +137,11 @@ struct LastRow {
 };
 constexpr int RING = 256;  // calls running at once on one card that never share a record
 __device__ LastRow g_last[RING];
+__device__ unsigned long long g_rare[RING];  // UPDATE_RARE 3: the tags of calls with such lanes
 
 std::atomic<unsigned long long> g_calls{0};  // tags: this library's calls, from 1
 
-__device__ __forceinline__ void fence() {
-  if (LAST_FENCE_SC)
-    asm volatile("fence.sc.gpu;\n" ::: "memory");
-  else
-    asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-}
+__device__ __forceinline__ void fence() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
 
 __device__ __forceinline__ void store_volatile(uint64_t* p, uint64_t lo, uint64_t hi) {
   volatile unsigned long long* v = reinterpret_cast<volatile unsigned long long*>(p);
@@ -128,45 +149,49 @@ __device__ __forceinline__ void store_volatile(uint64_t* p, uint64_t lo, uint64_
   v[1] = hi;
 }
 
-// The owner of row H-1: publish its old pair for this call's tag, then
-// store the new pair.
-__device__ __noinline__ void store_last(uint64_t* last, uint64_t tag, uint64_t old_lo,
-                                        uint64_t old_hi, uint64_t lo, uint64_t hi) {
-  LastRow* r = &g_last[tag % RING];
-  store_volatile(reinterpret_cast<uint64_t*>(&r->lo), old_lo, old_hi);
-  fence();
-  *reinterpret_cast<volatile unsigned long long*>(&r->tag) = tag;
-  fence();
-  store_volatile(last, lo, hi);
+// A lane at row H-1 (`owner`) or past the table: row H-1's pair as it was
+// before this call.  The owner publishes it for this call's tag and then
+// stores its new pair (lo, hi); a lane past the table reads the row, then
+// the record.  Update inlines it (a call in its loop spread the loop's
+// loads: 97 us against 43 at a window); admit calls it out of line
+// (inlined it cost admit 0.07-0.1 us).
+__device__ __forceinline__ ulonglong2 last_row(uint64_t* last, uint64_t tag, bool owner,
+                                              uint64_t lo, uint64_t hi) {
+  volatile unsigned long long* row = reinterpret_cast<volatile unsigned long long*>(last);
+  volatile LastRow* r = &g_last[tag % RING];
+  ulonglong2 old = make_ulonglong2(row[0], row[1]);
+  if (owner) {
+    r->lo = old.x;
+    r->hi = old.y;
+    fence();
+    r->tag = tag;
+    fence();
+    store_volatile(last, lo, hi);
+  } else {
+    fence();
+    if (r->tag == tag) {
+      fence();
+      old = make_ulonglong2(r->lo, r->hi);
+    }
+  }
+  return old;
 }
 
-// Row H-1's pair as it was before this call.
-__device__ __noinline__ void old_last(const uint64_t* last, uint64_t tag, uint64_t& lo,
-                                      uint64_t& hi) {
-  const volatile unsigned long long* v = reinterpret_cast<const volatile unsigned long long*>(last);
-  lo = v[0];
-  hi = v[1];
-  fence();
-  const volatile LastRow* r = &g_last[tag % RING];
-  if (r->tag == tag) {
-    fence();
-    lo = r->lo;
-    hi = r->hi;
-  }
+__device__ __noinline__ ulonglong2 last_row_call(uint64_t* last, uint64_t tag, bool owner,
+                                                 uint64_t lo, uint64_t hi) {
+  return last_row(last, tag, owner, lo, hi);
 }
 
 // Sum (lo, hi) over the block and add it to out[0..1] with one atomic
-// per lane (a block of one warp skips the shared-memory stage), or with
-// a plain load and store (`plain`: the grid's only block).
-__device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned long long* out,
-                                           bool plain = false) {
+// per lane (a block of one warp skips the shared-memory stage).
+__device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned long long* out) {
   __shared__ unsigned long long s_lo[THREADS / 32], s_hi[THREADS / 32];
   for (int o = 16; o > 0; o >>= 1) {
     lo += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)lo, o);
     hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)hi, o);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (blockDim.x == 32 && !plain) {
+  if (FOLD_RED && blockDim.x == 32) {
     if (lane == 0) {
       tb::red_add(&out[0], lo);
       tb::red_add(&out[1], hi);
@@ -184,12 +209,12 @@ __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned lo
       a += s_lo[w];
       b += s_hi[w];
     }
-    if (plain) {
-      out[0] += a;
-      out[1] += b;
-    } else {
+    if (FOLD_RED) {
       tb::red_add(&out[0], a);
       tb::red_add(&out[1], b);
+    } else {
+      atomicAdd(&out[0], a);
+      atomicAdd(&out[1], b);
     }
   }
 }
@@ -217,35 +242,169 @@ __global__ void cm_hash_all(const uint64_t* bal, const uint32_t* meta,
 // Touched slots of a table of A rows; each in-range slot is owned by
 // exactly one thread, so the gather of the old hash and the store of
 // the new one cannot race.  A slot past the table hashes row A-1's
-// columns under its own logical id against row A-1's old hash.
+// columns under its own logical id against row A-1's old hash.  WIDE:
+// balances and row_hash are 16-byte aligned.
+// The new and old hash of touched slot s (row `at`, s clamped to the
+// table), its columns read as UPDATE_LOADS says.
+template <bool WIDE>
+__device__ __forceinline__ void update_lane(const uint64_t* bal, const uint32_t* meta,
+                                            const uint64_t* row_hash, int64_t at, uint64_t r,
+                                            uint64_t& lo, uint64_t& hi, uint64_t& o_lo,
+                                            uint64_t& o_hi) {
+  if (UPDATE_LOADS == 0) {
+    o_lo = row_hash[at * 2];
+    o_hi = row_hash[at * 2 + 1];
+    hash_row(r, bal + at * 8, meta + at * 2, lo, hi);
+    return;
+  }
+  uint64_t v[10];
+  if (UPDATE_LOADS == 2 && WIDE) {
+    const ulonglong2* b = reinterpret_cast<const ulonglong2*>(bal + at * 8);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const ulonglong2 p = b[j];
+      v[2 * j] = p.x;
+      v[2 * j + 1] = p.y;
+    }
+    const ulonglong2 o = *reinterpret_cast<const ulonglong2*>(row_hash + at * 2);
+    o_lo = o.x;
+    o_hi = o.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = bal[at * 8 + j];
+    o_lo = row_hash[at * 2];
+    o_hi = row_hash[at * 2 + 1];
+  }
+  v[8] = meta[at * 2];
+  v[9] = meta[at * 2 + 1];
+  hash_cols(r, v, lo, hi);
+}
+
+// Touched slots of a table of A rows; each in-range slot is owned by
+// exactly one thread, so the gather of the old hash and the store of
+// the new one cannot race.  A slot past the table hashes row A-1's
+// columns under its own logical id against row A-1's old hash.  WIDE:
+// balances and row_hash are 16-byte aligned.
+template <bool WIDE>
 __global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
                           uint64_t* row_hash, unsigned long long* digest,
                           const int64_t* slots, const uint64_t* rows,
                           int64_t k, uint64_t tag) {
+  const int64_t first = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  const int64_t span = (int64_t)gridDim.x * THREADS;
   uint64_t d_lo = 0, d_hi = 0;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
-       i += (int64_t)gridDim.x * THREADS) {
+  bool rare = false;
+  for (int64_t i = first; i < k; i += span) {
     const int64_t s = slots[i];
+    if (UPDATE_RARE >= 2) {
+      if ((uint64_t)s >= (uint64_t)(UPDATE_RARE == 2 ? A : A - 1)) {
+        if (UPDATE_RARE == 3) rare |= s >= A - 1;
+        if (UPDATE_RARE == 4 && s >= A - 1) g_rare[tag % RING] = tag;
+        continue;
+      }
+      uint64_t lo, hi;
+      hash_row(rows[i], bal + s * 8, meta + s * 2, lo, hi);
+      d_lo += lo - row_hash[s * 2];
+      d_hi += hi - row_hash[s * 2 + 1];
+      row_hash[s * 2] = lo;
+      row_hash[s * 2 + 1] = hi;
+      continue;
+    }
     if (s < 0) continue;
+    if (UPDATE_RARE == 1 && s >= A - 1) {
+      rare = true;
+      continue;
+    }
     const int64_t at = s < A ? s : A - 1;
     uint64_t lo, hi, o_lo, o_hi;
-    hash_row(rows[i], bal + at * 8, meta + at * 2, lo, hi);
-    if (s >= A) {
-      old_last(row_hash + at * 2, tag, o_lo, o_hi);
+    update_lane<WIDE>(bal, meta, row_hash, at, rows[i], lo, hi, o_lo, o_hi);
+    if (UPDATE_RARE == 1 || s < A - 1) {
+      row_hash[s * 2] = lo;
+      row_hash[s * 2 + 1] = hi;
     } else {
-      o_lo = row_hash[s * 2];
-      o_hi = row_hash[s * 2 + 1];
-      if (s == A - 1) {
-        store_last(row_hash + s * 2, tag, o_lo, o_hi, lo, hi);
-      } else {
-        row_hash[s * 2] = lo;
-        row_hash[s * 2 + 1] = hi;
-      }
+      const ulonglong2 old = last_row(row_hash + at * 2, tag, s == A - 1, lo, hi);
+      o_lo = old.x;
+      o_hi = old.y;
     }
     d_lo += lo - o_lo;
     d_hi += hi - o_hi;
   }
+  if (UPDATE_RARE == 3 && rare) g_rare[tag % RING] = tag;
+  if (UPDATE_RARE == 1 && rare) {
+    for (int64_t i = first; i < k; i += span) {
+      const int64_t s = slots[i];
+      if (s < A - 1) continue;
+      uint64_t lo, hi, o_lo, o_hi;
+      update_lane<WIDE>(bal, meta, row_hash, A - 1, rows[i], lo, hi, o_lo, o_hi);
+      const ulonglong2 old = last_row(row_hash + (A - 1) * 2, tag, s == A - 1, lo, hi);
+      d_lo += lo - old.x;
+      d_hi += hi - old.y;
+    }
+  }
   block_fold(d_lo, d_hi, digest);
+}
+
+// UPDATE_RARE 3: the lanes at row A-1 or past the table of a call whose
+// first kernel flagged them, after it (row A-1 is as it was before the
+// call: the first kernel skipped it).  One block: row A-1's old pair is
+// read before the owner's store, which waits for the block's barrier.
+__global__ void cm_update_rare(const uint64_t* bal, const uint32_t* meta, int64_t A,
+                               uint64_t* row_hash, unsigned long long* digest,
+                               const int64_t* slots, const uint64_t* rows, int64_t k,
+                               uint64_t tag) {
+  if (*reinterpret_cast<volatile unsigned long long*>(&g_rare[tag % RING]) != tag) return;
+  const uint64_t o_lo = row_hash[(A - 1) * 2], o_hi = row_hash[(A - 1) * 2 + 1];
+  uint64_t d_lo = 0, d_hi = 0, own_lo = 0, own_hi = 0;
+  bool owner = false;
+  for (int64_t i = threadIdx.x; i < k; i += blockDim.x) {
+    const int64_t s = slots[i];
+    if (s < A - 1) continue;
+    uint64_t lo, hi;
+    hash_row(rows[i], bal + (A - 1) * 8, meta + (A - 1) * 2, lo, hi);
+    d_lo += lo - o_lo;
+    d_hi += hi - o_hi;
+    if (s == A - 1) {
+      owner = true;
+      own_lo = lo;
+      own_hi = hi;
+    }
+  }
+  __syncthreads();
+  if (owner) {
+    row_hash[(A - 1) * 2] = own_lo;
+    row_hash[(A - 1) * 2 + 1] = own_hi;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    d_lo += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_lo, o);
+    d_hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_hi, o);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    tb::red_add(&digest[0], d_lo);
+    tb::red_add(&digest[1], d_hi);
+  }
+}
+
+// UPDATE_RARE 5: every slot again, the lanes at row A-1 or past the table
+// by the record protocol (row A-1 is as it was before the call: the first
+// kernel skipped it).
+__global__ void cm_update_scan(const uint64_t* bal, const uint32_t* meta, int64_t A,
+                               uint64_t* row_hash, unsigned long long* digest,
+                               const int64_t* slots, const uint64_t* rows, int64_t k,
+                               uint64_t tag) {
+  uint64_t d_lo = 0, d_hi = 0;
+  bool had = false;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
+       i += (int64_t)gridDim.x * THREADS) {
+    const int64_t s = slots[i];
+    if (s < A - 1) continue;
+    uint64_t lo, hi;
+    hash_row(rows[i], bal + (A - 1) * 8, meta + (A - 1) * 2, lo, hi);
+    const ulonglong2 old = last_row(row_hash + (A - 1) * 2, tag, s == A - 1, lo, hi);
+    d_lo += lo - old.x;
+    d_hi += hi - old.y;
+    had = true;
+  }
+  if (__syncthreads_or(had)) block_fold(d_lo, d_hi, digest);
 }
 
 // Tiered admission: at each hot slot the stored hash becomes (new_lo,
@@ -254,76 +413,42 @@ __global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
 template <bool WIDE>
 __global__ void __launch_bounds__(ADMIT_THREADS)
     cm_admit(uint64_t* row_hash, int64_t H, unsigned long long* digest,
-             const int64_t* __restrict__ slots, const uint64_t* __restrict__ new_lo,
-             const uint64_t* __restrict__ new_hi, int64_t k, uint64_t tag) {
-  const long long* sl = reinterpret_cast<const long long*>(slots);
-  const unsigned long long* nl = reinterpret_cast<const unsigned long long*>(new_lo);
-  const unsigned long long* nh = reinterpret_cast<const unsigned long long*>(new_hi);
+             const int64_t* slots, const uint64_t* new_lo, const uint64_t* new_hi, int64_t k,
+             uint64_t tag) {
   const int64_t span = (int64_t)gridDim.x * blockDim.x;
   uint64_t d_lo = 0, d_hi = 0;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < k; i += span) {
-    int64_t s;
-    uint64_t n_lo, n_hi;
-    if (ADMIT_LOADS == 0) {
-      s = __ldcs(sl + i);
-      n_lo = __ldcs(nl + i);
-      n_hi = __ldcs(nh + i);
-    } else if (ADMIT_LOADS == 1) {
-      s = sl[i];
-      n_lo = nl[i];
-      n_hi = nh[i];
-    } else {
-      s = __ldg(sl + i);
-      n_lo = __ldg(nl + i);
-      n_hi = __ldg(nh + i);
-    }
+    const int64_t s = slots[i];
+    const uint64_t n_lo = new_lo[i];
+    const uint64_t n_hi = new_hi[i];
     if (s < 0) continue;
     uint64_t o_lo, o_hi;
-    if (s < H) {
+    if (s < H - 1) {
       uint64_t* cell = row_hash + 2 * s;
       if (WIDE) {
         const ulonglong2 c = *reinterpret_cast<const ulonglong2*>(cell);
+        *reinterpret_cast<ulonglong2*>(cell) = make_ulonglong2(n_lo, n_hi);
         o_lo = c.x;
         o_hi = c.y;
       } else {
         o_lo = cell[0];
         o_hi = cell[1];
-      }
-      if (s == H - 1) {
-        store_last(cell, tag, o_lo, o_hi, n_lo, n_hi);
-      } else if (WIDE) {
-        *reinterpret_cast<ulonglong2*>(cell) = make_ulonglong2(n_lo, n_hi);
-      } else {
         cell[0] = n_lo;
         cell[1] = n_hi;
       }
     } else {
-      old_last(row_hash + 2 * (H - 1), tag, o_lo, o_hi);
+      const ulonglong2 old = last_row_call(row_hash + 2 * (H - 1), tag, s == H - 1, n_lo, n_hi);
+      o_lo = old.x;
+      o_hi = old.y;
     }
     d_lo += n_lo - o_lo;
     d_hi += n_hi - o_hi;
   }
-  if (ADMIT_FOLD == 1 && gridDim.x > 1) {
-    for (int o = 16; o > 0; o >>= 1) {
-      d_lo += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_lo, o);
-      d_hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_hi, o);
-    }
-    if ((threadIdx.x & 31) == 0) {
-      tb::red_add(&digest[0], d_lo);
-      tb::red_add(&digest[1], d_hi);
-    }
-    return;
-  }
-  block_fold(d_lo, d_hi, digest, ADMIT_SINGLE > 0 && gridDim.x == 1);
+  block_fold(d_lo, d_hi, digest);
 }
 
 // The launch of a k-slot admit on a card of `sms` SMs.
 void admit_geometry(int64_t k, int sms, int& G, int& T) {
-  if (k <= ADMIT_SINGLE) {
-    G = 1;
-    T = (int)((k + 31) / 32 * 32);
-    return;
-  }
   T = ADMIT_THREADS;
   while (T > ADMIT_MIN_THREADS && (k + T - 1) / T * ADMIT_FILL <= sms) T /= 2;
   const int64_t g = (k + T - 1) / T;
@@ -361,12 +486,28 @@ extern "C" int tb_commit_update(const void* balances, const void* meta, int64_t 
   if (k > 0 && A < 1) return (int)cudaErrorInvalidValue;
   int grid;
   if (const int err = tb::grid_for(k, THREADS, grid)) return err;
-  cm_update<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(balances),
-      static_cast<const uint32_t*>(meta), A, static_cast<uint64_t*>(row_hash),
-      static_cast<unsigned long long*>(digest),
-      static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(rows),
-      k, ++g_calls);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned long long tag = ++g_calls;
+  const auto* b = static_cast<const uint64_t*>(balances);
+  const auto* m = static_cast<const uint32_t*>(meta);
+  auto* rh = static_cast<uint64_t*>(row_hash);
+  auto* dg = static_cast<unsigned long long*>(digest);
+  const auto* sl = static_cast<const int64_t*>(slots);
+  const auto* r = static_cast<const uint64_t*>(rows);
+  if (((reinterpret_cast<uintptr_t>(balances) | reinterpret_cast<uintptr_t>(row_hash)) & 15) == 0)
+    cm_update<true><<<grid, THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
+  else
+    cm_update<false><<<grid, THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
+  if (UPDATE_RARE == 3 || UPDATE_RARE == 4) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    cm_update_rare<<<1, RARE_THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
+  }
+  if (UPDATE_RARE == 5) {
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    cm_update_scan<<<grid, THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -91,9 +91,8 @@ kernels of the port) and drives the port's own wrappers:
   16-byte alignment, a ``pad_slots``-padded call with -1 lanes, a call
   that holds row H-1 with and without 1,000 slots past the table, on a
   2^20-row hash table): device microseconds per call, warm and cold, in
-  turns with an empty kernel of the same launch shape, the parent and
-  the ``K2A_VARIANTS`` builds of this tree's source; the bits against
-  the plain version and theirs.
+  turns with an empty kernel of the same launch shape and the parent;
+  the bits against the plain version and the parent's.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1, K2, K10, K11
   and K12-K14 checks from the parent's tree and from this one, in turns
   (parent, change, change, parent), one process each: what each tree's
@@ -117,9 +116,9 @@ CUDA-event times per call alternating (``paired_event_us``).
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
 ``k8``, ``k3``, ``k5``, ``k7``, ``k13``, ``k6``, ``fin`` and ``init`` build nothing of their own
-but the parent's, so they run on any tree with the wrappers, and ``k4``,
-``k9`` and ``k2a`` build their variants only from a source that has
-their constants);
+but the parent's, so they run on any tree with the wrappers, and
+``k14`` builds its variants only from a source that has their
+constants);
 ``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
 
@@ -1444,12 +1443,23 @@ def k9_sweep(dev, parent=None) -> dict:
 # ---- K2 admit, the change against an earlier tree's kernel.
 
 K2A_NAMES = ("cm_admit",)
+K2U_NAMES = ("cm_update",)
 # This tree's commitment.cu built with other constants (variant_lib):
-# the choices the source makes, each measured against its alternative.
-K2A_VARIANTS = {"warp_fold": {"ADMIT_FOLD": "1"}, "single_block": {"ADMIT_SINGLE": "256"},
-                "default_loads": {"ADMIT_LOADS": "1"}, "readonly_loads": {"ADMIT_LOADS": "2"},
-                "fence_sc": {"LAST_FENCE_SC": "1"}, "fill_every_sm": {"ADMIT_FILL": "1"},
-                "blocks_256": {"ADMIT_MIN_THREADS": "256"}}
+# K2 update's loads all issued first, in 8- or 16-byte pieces, and its
+# lanes at row A-1 or past the table in the loop or after it.
+K2_VARIANTS = {"update_loads_first_wide": {"UPDATE_LOADS": "2"},
+               "update_rare_after": {"UPDATE_RARE": "1"},
+               "update_loop_alone": {"UPDATE_RARE": "2"},
+               "update_rare_kernel": {"UPDATE_RARE": "3"},
+               "update_rare_kernel_flag_in_loop": {"UPDATE_RARE": "4"},
+               "update_scan_kernel": {"UPDATE_RARE": "5"}}
+
+
+def _k2_variant_libs():
+    src = (build.CSRC / "commitment.cu").read_text()
+    return {tag: variant_lib("commitment", f"k2_{tag}", consts)
+            for tag, consts in K2_VARIANTS.items()
+            if all(f"constexpr int {c} = " in src for c in consts)}
 
 
 def k2a_cases():
@@ -1475,21 +1485,17 @@ def k2a_cases():
 
 def k2a_sweep(dev, parent=None) -> dict:
     """K2 admit on k2a_cases: device microseconds per call in turns with
-    an empty kernel of the same launch shape, with `parent`'s and with
-    the K2A_VARIANTS builds of this tree's source, warm and cold (L2
-    flushed before each call); CUDA-event microseconds per call of the
-    change and the parent alternating; the bits against the plain
-    version, the parent's and the variants'."""
+    an empty kernel of the same launch shape and with `parent`'s, warm
+    and cold (L2 flushed before each call); CUDA-event microseconds per
+    call of the change and the parent alternating; the bits against the
+    plain version and the parent's."""
     from tigerbeetle_tpu_torch.ops.u128 import from_u64
     from tigerbeetle_tpu_torch.state_machine import commitment as cm
     from tigerbeetle_tpu_torch.testing import commit_cases
 
     args = [_P, _I64, _P, _P, _P, _P, _I64, _P]  # row_hash, H, digest, slots, lo, hi, k, stream
     libs = {} if parent is None else {"parent": _parent_lib(parent, "commitment")}
-    src = build.CSRC / "commitment.cu"
-    for tag, consts in K2A_VARIANTS.items():
-        if all(f"constexpr int {c} = " in src.read_text() for c in consts):
-            libs[tag] = variant_lib("commitment", f"k2a_{tag}", consts)
+    libs.update(_k2_variant_libs())
     flush = l2_flusher(dev)
     out = {}
     for name, H, slots, off in k2a_cases():
@@ -1536,6 +1542,76 @@ def k2a_sweep(dev, parent=None) -> dict:
         _turns_into(row, device_turns(cold, names, reset=flush), prefix="cold_")
         out[name] = row
     return out
+
+
+def k2u_sweep(dev, parent=None) -> dict:
+    """K2 update at chip_smoke.py's window shape (the touched rows of 96
+    batches x 2 x 8190 draws over 1,000,000 accounts of a 2^20-row table,
+    padded with -1 to 2^20 slots): device microseconds per call in turns
+    with `parent`'s and the K2_VARIANTS builds of this tree's source; the
+    bits against the plain version and theirs."""
+    from tigerbeetle_tpu_torch.state_machine import commitment as cm
+
+    rng = np.random.default_rng(2026)
+    A = A_ROWS
+    lo = rng.integers(-(1 << 63), (1 << 63) - 1, (A, 4), dtype=np.int64)
+    hi = rng.integers(0, 1 << 40, (A, 4), dtype=np.int64)
+    table = torch.from_numpy(np.stack([lo, hi], -1).reshape(A, 8)).to(dev)
+    meta = torch.ones((A, 2), dtype=torch.int32, device=dev)
+    rows = torch.arange(A, dtype=torch.int64, device=dev)
+    rh0, dg0 = cm.rebuild(table, meta, rows)
+    touched = np.unique(rng.integers(0, 1_000_000, 96 * 2 * 8190))
+    slots = torch.from_numpy(cm.pad_slots(touched)).to(dev)
+    t_idx = torch.from_numpy(touched).to(dev)
+    table[t_idx, 3] += 12345
+    want = cm.update_plain(table, meta, rh0.clone(), dg0.clone(), slots, slots)
+    rh, dg = rh0.clone(), dg0.clone()
+
+    def fresh():
+        rh.copy_(rh0)
+        dg.copy_(dg0)
+
+    fns = {"change": lambda: cm.update(table, meta, rh, dg, slots, slots)}
+    k = slots.shape[0]
+    ptrs = (rh.data_ptr(), dg.data_ptr(), slots.data_ptr(), slots.data_ptr(), k)
+    if parent is not None:  # the signature before the row count A
+        fns["parent"] = _raw(_parent_lib(parent, "commitment"), "tb_commit_update",
+                             [_P, _P, _P, _P, _P, _P, _I64, _P], table.data_ptr(),
+                             meta.data_ptr(), *ptrs)
+    for tag, lib in _k2_variant_libs().items():
+        fns[tag] = _raw(lib, "tb_commit_update", [_P, _P, _I64, _P, _P, _P, _P, _I64, _P],
+                        table.data_ptr(), meta.data_ptr(), A, *ptrs)
+    row = {"slots": k, "live": len(touched), "rows": A}
+    for who, fn in fns.items():
+        fresh()
+        fn()
+        torch.cuda.synchronize()
+        row[f"{who}_equal"] = bool(torch.equal(rh, want[0]) and torch.equal(dg, want[1]))
+    _turns_into(row, device_turns(fns, {who: K2U_NAMES for who in fns}))
+    # The bits of a call with slots past the table and the owner of row A-1.
+    from tigerbeetle_tpu_torch.ops.u128 import from_u64
+    from tigerbeetle_tpu_torch.testing import commit_cases
+
+    P = 100_003
+    past = np.concatenate([rng.choice(P - 1, 20_000, replace=False), [P - 1],
+                           P + rng.choice(P, 1_000, replace=False)])
+    b_np, m_np, rh_np, dg_np, sl_np, r_np = commit_cases.update_case(rng.permutation(past), P, 7)
+    b, rh_p, dg_p, r_p = (from_u64(a).to(dev) for a in (b_np, rh_np, dg_np, r_np))
+    m = torch.from_numpy(np.ascontiguousarray(m_np).view(np.int32)).to(dev)
+    sl_p = torch.from_numpy(sl_np).to(dev)
+    want_p = cm.update_plain(b, m, rh_p.clone(), dg_p.clone(), sl_p, r_p)
+    runs = {"change": lambda x, y: cm.update(b, m, x, y, sl_p, r_p)}
+    for tag, lib in _k2_variant_libs().items():
+        runs[tag] = lambda x, y, lib=lib: _raw(
+            lib, "tb_commit_update", [_P, _P, _I64, _P, _P, _P, _P, _I64, _P], b.data_ptr(),
+            m.data_ptr(), P, x.data_ptr(), y.data_ptr(), sl_p.data_ptr(), r_p.data_ptr(),
+            len(sl_np))()
+    for who, run in runs.items():
+        x, y = rh_p.clone(), dg_p.clone()
+        run(x, y)
+        torch.cuda.synchronize()
+        row[f"{who}_past_equal"] = bool(torch.equal(x, want_p[0]) and torch.equal(y, want_p[1]))
+    return {"window": row}
 
 
 # One tree's phases (chip_smoke.py's streams, named on the command line),
@@ -1733,7 +1809,8 @@ def phases(dev, parent=None, names=PHASES) -> dict:
 PARTS = {"barrier": barrier_sweep, "k8": k8_sweep, "k3": k3_sweep, "split": walk_split,
          "k5": k5_sweep, "k7": k7_sweep, "k1": k1_sweep, "k13": k13_sweep, "k6": k6_sweep,
          "fin": fin_sweep, "init": init_sweep, "k14": k14_sweep, "k4": k4_sweep,
-         "k9": k9_sweep, "k2a": k2a_sweep, "turns": turns, "phases": phases}
+         "k9": k9_sweep, "k2a": k2a_sweep, "k2u": k2u_sweep, "turns": turns,
+         "phases": phases}
 
 
 def main(argv=None) -> int:
@@ -1757,7 +1834,7 @@ def main(argv=None) -> int:
              "k6": {"parent": args.parent}, "fin": {"parent": args.parent},
              "init": {"parent": args.parent}, "k14": {"parent": args.parent},
              "k4": {"parent": args.parent}, "k9": {"parent": args.parent},
-             "k2a": {"parent": args.parent},
+             "k2a": {"parent": args.parent}, "k2u": {"parent": args.parent},
              "phases": {"parent": args.parent, "names": args.phases.split(",")},
              "k7": {"parent": args.parent,
                     "lanes": sorted(set(K7_LANES) | {int(k) for k in args.k7_lanes.split(",")
