@@ -79,16 +79,6 @@ constexpr int ADMIT_THREADS = 256;   // a block's threads at large calls
 constexpr int ADMIT_MIN_THREADS = 32;
 constexpr int ADMIT_FILL = 2;        // blocks halve while the grid fills 1 / ADMIT_FILL of the SMs
 constexpr int SM_THREADS = 2048;     // resident threads an SM (H100)
-constexpr int UPDATE_LOADS = 0;  // update: 0 loads where the hash needs them, 1 all first,
-                                 // 2 all first, 16-byte pieces on aligned tables
-constexpr int UPDATE_RARE = 0;   // update's lanes at row A-1 or past: 0 in the loop, 1 after it,
-                                 // 2 dropped (a measurement of the loop alone), 3 a second
-                                 // kernel of one block, flagged by the first after its loop,
-                                 // 4 the same flagged in the loop, 5 a second kernel over
-                                 // every slot (the record protocol), no flag
-constexpr int RARE_THREADS = 1024;
-constexpr int FOLD_RED = 1;      // block fold: 1 red.add (one-warp blocks skip shared memory),
-                                 // 0 atomicAdd of the block's sum only
 
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 33;
@@ -96,22 +86,6 @@ __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 29;
   x *= M2;
   return x ^ (x >> 32);
-}
-
-// The row hash of row id r over its 10 columns v (8 balance limbs, 2
-// meta words).
-__device__ __forceinline__ void hash_cols(uint64_t r, const uint64_t (&v)[10], uint64_t& lo,
-                                          uint64_t& hi) {
-  const uint64_t rs = r * GAMMA;
-  uint64_t acc = 0;
-  bool nonzero = false;
-#pragma unroll
-  for (int j = 0; j < 10; ++j) {
-    nonzero |= v[j] != 0;
-    acc ^= mix64(v[j] ^ rs ^ ((uint64_t)(j + 1) * K_COL));
-  }
-  lo = nonzero ? mix64(acc ^ rs ^ C_LO) : 0ull;
-  hi = nonzero ? mix64(acc ^ rs ^ C_HI) : 0ull;
 }
 
 __device__ __forceinline__ void hash_row(uint64_t r, const uint64_t* bal,
@@ -137,7 +111,6 @@ struct LastRow {
 };
 constexpr int RING = 256;  // calls running at once on one card that never share a record
 __device__ LastRow g_last[RING];
-__device__ unsigned long long g_rare[RING];  // UPDATE_RARE 3: the tags of calls with such lanes
 
 std::atomic<unsigned long long> g_calls{0};  // tags: this library's calls, from 1
 
@@ -191,7 +164,7 @@ __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned lo
     hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)hi, o);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (FOLD_RED && blockDim.x == 32) {
+  if (blockDim.x == 32) {
     if (lane == 0) {
       tb::red_add(&out[0], lo);
       tb::red_add(&out[1], hi);
@@ -209,13 +182,8 @@ __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned lo
       a += s_lo[w];
       b += s_hi[w];
     }
-    if (FOLD_RED) {
-      tb::red_add(&out[0], a);
-      tb::red_add(&out[1], b);
-    } else {
-      atomicAdd(&out[0], a);
-      atomicAdd(&out[1], b);
-    }
+    tb::red_add(&out[0], a);
+    tb::red_add(&out[1], b);
   }
 }
 
@@ -244,81 +212,24 @@ __global__ void cm_hash_all(const uint64_t* bal, const uint32_t* meta,
 // the new one cannot race.  A slot past the table hashes row A-1's
 // columns under its own logical id against row A-1's old hash.  WIDE:
 // balances and row_hash are 16-byte aligned.
-// The new and old hash of touched slot s (row `at`, s clamped to the
-// table), its columns read as UPDATE_LOADS says.
-template <bool WIDE>
-__device__ __forceinline__ void update_lane(const uint64_t* bal, const uint32_t* meta,
-                                            const uint64_t* row_hash, int64_t at, uint64_t r,
-                                            uint64_t& lo, uint64_t& hi, uint64_t& o_lo,
-                                            uint64_t& o_hi) {
-  if (UPDATE_LOADS == 0) {
-    o_lo = row_hash[at * 2];
-    o_hi = row_hash[at * 2 + 1];
-    hash_row(r, bal + at * 8, meta + at * 2, lo, hi);
-    return;
-  }
-  uint64_t v[10];
-  if (UPDATE_LOADS == 2 && WIDE) {
-    const ulonglong2* b = reinterpret_cast<const ulonglong2*>(bal + at * 8);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const ulonglong2 p = b[j];
-      v[2 * j] = p.x;
-      v[2 * j + 1] = p.y;
-    }
-    const ulonglong2 o = *reinterpret_cast<const ulonglong2*>(row_hash + at * 2);
-    o_lo = o.x;
-    o_hi = o.y;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = bal[at * 8 + j];
-    o_lo = row_hash[at * 2];
-    o_hi = row_hash[at * 2 + 1];
-  }
-  v[8] = meta[at * 2];
-  v[9] = meta[at * 2 + 1];
-  hash_cols(r, v, lo, hi);
-}
-
 // Touched slots of a table of A rows; each in-range slot is owned by
 // exactly one thread, so the gather of the old hash and the store of
 // the new one cannot race.  A slot past the table hashes row A-1's
-// columns under its own logical id against row A-1's old hash.  WIDE:
-// balances and row_hash are 16-byte aligned.
-template <bool WIDE>
+// columns under its own logical id against row A-1's old hash.
 __global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
                           uint64_t* row_hash, unsigned long long* digest,
                           const int64_t* slots, const uint64_t* rows,
                           int64_t k, uint64_t tag) {
-  const int64_t first = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  const int64_t span = (int64_t)gridDim.x * THREADS;
   uint64_t d_lo = 0, d_hi = 0;
-  bool rare = false;
-  for (int64_t i = first; i < k; i += span) {
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
+       i += (int64_t)gridDim.x * THREADS) {
     const int64_t s = slots[i];
-    if (UPDATE_RARE >= 2) {
-      if ((uint64_t)s >= (uint64_t)(UPDATE_RARE == 2 ? A : A - 1)) {
-        if (UPDATE_RARE == 3) rare |= s >= A - 1;
-        if (UPDATE_RARE == 4 && s >= A - 1) g_rare[tag % RING] = tag;
-        continue;
-      }
-      uint64_t lo, hi;
-      hash_row(rows[i], bal + s * 8, meta + s * 2, lo, hi);
-      d_lo += lo - row_hash[s * 2];
-      d_hi += hi - row_hash[s * 2 + 1];
-      row_hash[s * 2] = lo;
-      row_hash[s * 2 + 1] = hi;
-      continue;
-    }
     if (s < 0) continue;
-    if (UPDATE_RARE == 1 && s >= A - 1) {
-      rare = true;
-      continue;
-    }
     const int64_t at = s < A ? s : A - 1;
-    uint64_t lo, hi, o_lo, o_hi;
-    update_lane<WIDE>(bal, meta, row_hash, at, rows[i], lo, hi, o_lo, o_hi);
-    if (UPDATE_RARE == 1 || s < A - 1) {
+    uint64_t o_lo = row_hash[at * 2], o_hi = row_hash[at * 2 + 1];
+    uint64_t lo, hi;
+    hash_row(rows[i], bal + at * 8, meta + at * 2, lo, hi);
+    if (s < A - 1) {
       row_hash[s * 2] = lo;
       row_hash[s * 2 + 1] = hi;
     } else {
@@ -329,82 +240,7 @@ __global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
     d_lo += lo - o_lo;
     d_hi += hi - o_hi;
   }
-  if (UPDATE_RARE == 3 && rare) g_rare[tag % RING] = tag;
-  if (UPDATE_RARE == 1 && rare) {
-    for (int64_t i = first; i < k; i += span) {
-      const int64_t s = slots[i];
-      if (s < A - 1) continue;
-      uint64_t lo, hi, o_lo, o_hi;
-      update_lane<WIDE>(bal, meta, row_hash, A - 1, rows[i], lo, hi, o_lo, o_hi);
-      const ulonglong2 old = last_row(row_hash + (A - 1) * 2, tag, s == A - 1, lo, hi);
-      d_lo += lo - old.x;
-      d_hi += hi - old.y;
-    }
-  }
   block_fold(d_lo, d_hi, digest);
-}
-
-// UPDATE_RARE 3: the lanes at row A-1 or past the table of a call whose
-// first kernel flagged them, after it (row A-1 is as it was before the
-// call: the first kernel skipped it).  One block: row A-1's old pair is
-// read before the owner's store, which waits for the block's barrier.
-__global__ void cm_update_rare(const uint64_t* bal, const uint32_t* meta, int64_t A,
-                               uint64_t* row_hash, unsigned long long* digest,
-                               const int64_t* slots, const uint64_t* rows, int64_t k,
-                               uint64_t tag) {
-  if (*reinterpret_cast<volatile unsigned long long*>(&g_rare[tag % RING]) != tag) return;
-  const uint64_t o_lo = row_hash[(A - 1) * 2], o_hi = row_hash[(A - 1) * 2 + 1];
-  uint64_t d_lo = 0, d_hi = 0, own_lo = 0, own_hi = 0;
-  bool owner = false;
-  for (int64_t i = threadIdx.x; i < k; i += blockDim.x) {
-    const int64_t s = slots[i];
-    if (s < A - 1) continue;
-    uint64_t lo, hi;
-    hash_row(rows[i], bal + (A - 1) * 8, meta + (A - 1) * 2, lo, hi);
-    d_lo += lo - o_lo;
-    d_hi += hi - o_hi;
-    if (s == A - 1) {
-      owner = true;
-      own_lo = lo;
-      own_hi = hi;
-    }
-  }
-  __syncthreads();
-  if (owner) {
-    row_hash[(A - 1) * 2] = own_lo;
-    row_hash[(A - 1) * 2 + 1] = own_hi;
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    d_lo += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_lo, o);
-    d_hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)d_hi, o);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    tb::red_add(&digest[0], d_lo);
-    tb::red_add(&digest[1], d_hi);
-  }
-}
-
-// UPDATE_RARE 5: every slot again, the lanes at row A-1 or past the table
-// by the record protocol (row A-1 is as it was before the call: the first
-// kernel skipped it).
-__global__ void cm_update_scan(const uint64_t* bal, const uint32_t* meta, int64_t A,
-                               uint64_t* row_hash, unsigned long long* digest,
-                               const int64_t* slots, const uint64_t* rows, int64_t k,
-                               uint64_t tag) {
-  uint64_t d_lo = 0, d_hi = 0;
-  bool had = false;
-  for (int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x; i < k;
-       i += (int64_t)gridDim.x * THREADS) {
-    const int64_t s = slots[i];
-    if (s < A - 1) continue;
-    uint64_t lo, hi;
-    hash_row(rows[i], bal + (A - 1) * 8, meta + (A - 1) * 2, lo, hi);
-    const ulonglong2 old = last_row(row_hash + (A - 1) * 2, tag, s == A - 1, lo, hi);
-    d_lo += lo - old.x;
-    d_hi += hi - old.y;
-    had = true;
-  }
-  if (__syncthreads_or(had)) block_fold(d_lo, d_hi, digest);
 }
 
 // Tiered admission: at each hot slot the stored hash becomes (new_lo,
@@ -486,28 +322,10 @@ extern "C" int tb_commit_update(const void* balances, const void* meta, int64_t 
   if (k > 0 && A < 1) return (int)cudaErrorInvalidValue;
   int grid;
   if (const int err = tb::grid_for(k, THREADS, grid)) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned long long tag = ++g_calls;
-  const auto* b = static_cast<const uint64_t*>(balances);
-  const auto* m = static_cast<const uint32_t*>(meta);
-  auto* rh = static_cast<uint64_t*>(row_hash);
-  auto* dg = static_cast<unsigned long long*>(digest);
-  const auto* sl = static_cast<const int64_t*>(slots);
-  const auto* r = static_cast<const uint64_t*>(rows);
-  if (((reinterpret_cast<uintptr_t>(balances) | reinterpret_cast<uintptr_t>(row_hash)) & 15) == 0)
-    cm_update<true><<<grid, THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
-  else
-    cm_update<false><<<grid, THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
-  if (UPDATE_RARE == 3 || UPDATE_RARE == 4) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    cm_update_rare<<<1, RARE_THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
-  }
-  if (UPDATE_RARE == 5) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    cm_update_scan<<<grid, THREADS, 0, st>>>(b, m, A, rh, dg, sl, r, k, tag);
-  }
+  cm_update<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(balances), static_cast<const uint32_t*>(meta), A,
+      static_cast<uint64_t*>(row_hash), static_cast<unsigned long long*>(digest),
+      static_cast<const int64_t*>(slots), static_cast<const uint64_t*>(rows), k, ++g_calls);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 """The redesigned kernels' floors and times on the card: K8's barrier,
 K8 over its chain shapes, K3 over its segment lengths, where one K3
 event's time goes; K5, K7, K1, K13 admit, K6, K3 finalize and init,
-K14 gather, K4, K9 and K2 admit beside an earlier tree's.
+K14 gather, K4, K9 and K2 admit and update beside an earlier tree's.
 
     python -m tigerbeetle_tpu_torch.tools.serial_probes [--out FILE] [--parts k8,k3]
         [--parent DIR] [--k7-lanes K,...] [--phases NAME,...]
@@ -93,6 +93,10 @@ kernels of the port) and drives the port's own wrappers:
   2^20-row hash table): device microseconds per call, warm and cold, in
   turns with an empty kernel of the same launch shape and the parent;
   the bits against the plain version and the parent's.
+* ``k2u``: K2 update at chip_smoke.py's window shape (792,201 touched
+  rows of a 2^20-row table in 2^20 padded slots): device microseconds
+  per call in turns with the parent; the bits against the plain version
+  and the parent's, and of a call with slots past the table.
 * ``turns`` (needs ``--parent``): chip_smoke.py's own K1, K2, K10, K11
   and K12-K14 checks from the parent's tree and from this one, in turns
   (parent, change, change, parent), one process each: what each tree's
@@ -106,12 +110,13 @@ kernels of the port) and drives the port's own wrappers:
 ``--parent DIR`` (a checkout of an earlier tree, say one unpacked with
 ``git archive`` under ``build/``) adds, in the same process and on the
 same inputs, that tree's K1, K5, K7, K13 admit, K6, K3 finalize and
-init, K14 gather, K4, K9 and K2 admit (built from its ``csrc``; its K5
-also built with stamps patched in between its stages) to ``k1``,
-``k5``, ``k7``, ``k13``, ``k6``, ``fin``, ``init``, ``k14``, ``k4``,
-``k9`` and ``k2a``; for K1 and K6, the split of its time over the
-kernels it launches.  ``k6``, ``fin``, ``init``, ``k14``, ``k4``,
-``k9`` and ``k2a`` take the two trees' device times in turns (parent, change, change, parent) and their
+init, K14 gather, K4, K9 and K2 admit and update (built from its
+``csrc``; its K5 also built with stamps patched in between its stages)
+to ``k1``, ``k5``, ``k7``, ``k13``, ``k6``, ``fin``, ``init``, ``k14``,
+``k4``, ``k9``, ``k2a`` and ``k2u``; for K1 and K6, the split of its
+time over the kernels it launches.  ``k6``, ``fin``, ``init``, ``k14``,
+``k4``, ``k9``, ``k2a`` and ``k2u`` take the two trees' device times
+in turns (parent, change, change, parent), and all but ``k2u`` their
 CUDA-event times per call alternating (``paired_event_us``).
 
 ``main`` prints one JSON object of the parts asked for (``--parts``;
@@ -1444,23 +1449,6 @@ def k9_sweep(dev, parent=None) -> dict:
 
 K2A_NAMES = ("cm_admit",)
 K2U_NAMES = ("cm_update",)
-# This tree's commitment.cu built with other constants (variant_lib):
-# K2 update's loads all issued first, in 8- or 16-byte pieces, and its
-# lanes at row A-1 or past the table in the loop or after it.
-K2_VARIANTS = {"update_loads_first_wide": {"UPDATE_LOADS": "2"},
-               "update_rare_after": {"UPDATE_RARE": "1"},
-               "update_loop_alone": {"UPDATE_RARE": "2"},
-               "update_rare_kernel": {"UPDATE_RARE": "3"},
-               "update_rare_kernel_flag_in_loop": {"UPDATE_RARE": "4"},
-               "update_scan_kernel": {"UPDATE_RARE": "5"}}
-
-
-def _k2_variant_libs():
-    src = (build.CSRC / "commitment.cu").read_text()
-    return {tag: variant_lib("commitment", f"k2_{tag}", consts)
-            for tag, consts in K2_VARIANTS.items()
-            if all(f"constexpr int {c} = " in src for c in consts)}
-
 
 def k2a_cases():
     """[(name, H, slots, offset words)]: the tiered phase's census shapes
@@ -1495,7 +1483,6 @@ def k2a_sweep(dev, parent=None) -> dict:
 
     args = [_P, _I64, _P, _P, _P, _P, _I64, _P]  # row_hash, H, digest, slots, lo, hi, k, stream
     libs = {} if parent is None else {"parent": _parent_lib(parent, "commitment")}
-    libs.update(_k2_variant_libs())
     flush = l2_flusher(dev)
     out = {}
     for name, H, slots, off in k2a_cases():
@@ -1548,9 +1535,12 @@ def k2u_sweep(dev, parent=None) -> dict:
     """K2 update at chip_smoke.py's window shape (the touched rows of 96
     batches x 2 x 8190 draws over 1,000,000 accounts of a 2^20-row table,
     padded with -1 to 2^20 slots): device microseconds per call in turns
-    with `parent`'s and the K2_VARIANTS builds of this tree's source; the
-    bits against the plain version and theirs."""
+    with `parent`'s; the bits against the plain version and the
+    parent's, and of a call with slots past the table and the owner of
+    row A-1 against the plain version."""
+    from tigerbeetle_tpu_torch.ops.u128 import from_u64
     from tigerbeetle_tpu_torch.state_machine import commitment as cm
+    from tigerbeetle_tpu_torch.testing import commit_cases
 
     rng = np.random.default_rng(2026)
     A = A_ROWS
@@ -1578,9 +1568,6 @@ def k2u_sweep(dev, parent=None) -> dict:
         fns["parent"] = _raw(_parent_lib(parent, "commitment"), "tb_commit_update",
                              [_P, _P, _P, _P, _P, _P, _I64, _P], table.data_ptr(),
                              meta.data_ptr(), *ptrs)
-    for tag, lib in _k2_variant_libs().items():
-        fns[tag] = _raw(lib, "tb_commit_update", [_P, _P, _I64, _P, _P, _P, _P, _I64, _P],
-                        table.data_ptr(), meta.data_ptr(), A, *ptrs)
     row = {"slots": k, "live": len(touched), "rows": A}
     for who, fn in fns.items():
         fresh()
@@ -1589,9 +1576,6 @@ def k2u_sweep(dev, parent=None) -> dict:
         row[f"{who}_equal"] = bool(torch.equal(rh, want[0]) and torch.equal(dg, want[1]))
     _turns_into(row, device_turns(fns, {who: K2U_NAMES for who in fns}))
     # The bits of a call with slots past the table and the owner of row A-1.
-    from tigerbeetle_tpu_torch.ops.u128 import from_u64
-    from tigerbeetle_tpu_torch.testing import commit_cases
-
     P = 100_003
     past = np.concatenate([rng.choice(P - 1, 20_000, replace=False), [P - 1],
                            P + rng.choice(P, 1_000, replace=False)])
@@ -1600,17 +1584,9 @@ def k2u_sweep(dev, parent=None) -> dict:
     m = torch.from_numpy(np.ascontiguousarray(m_np).view(np.int32)).to(dev)
     sl_p = torch.from_numpy(sl_np).to(dev)
     want_p = cm.update_plain(b, m, rh_p.clone(), dg_p.clone(), sl_p, r_p)
-    runs = {"change": lambda x, y: cm.update(b, m, x, y, sl_p, r_p)}
-    for tag, lib in _k2_variant_libs().items():
-        runs[tag] = lambda x, y, lib=lib: _raw(
-            lib, "tb_commit_update", [_P, _P, _I64, _P, _P, _P, _P, _I64, _P], b.data_ptr(),
-            m.data_ptr(), P, x.data_ptr(), y.data_ptr(), sl_p.data_ptr(), r_p.data_ptr(),
-            len(sl_np))()
-    for who, run in runs.items():
-        x, y = rh_p.clone(), dg_p.clone()
-        run(x, y)
-        torch.cuda.synchronize()
-        row[f"{who}_past_equal"] = bool(torch.equal(x, want_p[0]) and torch.equal(y, want_p[1]))
+    got = cm.update(b, m, rh_p.clone(), dg_p.clone(), sl_p, r_p)
+    torch.cuda.synchronize()
+    row["past_equal"] = bool(torch.equal(got[0], want_p[0]) and torch.equal(got[1], want_p[1]))
     return {"window": row}
 
 
@@ -1819,8 +1795,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parts", default=",".join(p for p in PARTS if p not in ("turns", "phases")),
                     help="comma-separated subset of " + ",".join(PARTS))
     ap.add_argument("--parent",
-                    help="an earlier tree whose K1, K2 admit, K3 init and finalize, K4, K5, K6, "
-                         "K7, K9, K13 admit and K14 gather run beside these")
+                    help="an earlier tree whose K1, K2 admit and update, K3 init and finalize, "
+                         "K4, K5, K6, K7, K9, K13 admit and K14 gather run beside these")
     ap.add_argument("--k7-lanes", default="", help="more wave widths for the k7 part")
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="the phases part's streams, a comma-separated subset of "
