@@ -20,7 +20,7 @@ more chain shapes), K9 over an
 init and finalize, all on a 2^20-row table, and K3 segments of 1, 8, 59
 and 512 events for its fixed and per-event cost; K10 at 128 and 16,384 rows
 into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
-and 130 slots (each beside an empty kernel of its launch shape) and
+and 80 slots (each beside an empty kernel of its launch shape) and
 with slots past the table, K2 update with slots past the table, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
 holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
 local rows of a 2^20-row table split in 4 (K13 admit also at the
@@ -718,7 +718,7 @@ def check_tier_kernels(dev, report):
     (a timed batch's and a warm-up batch's admissions) into a 2^20-row
     balance table, with distinct out-of-range padding, and into the meta
     table; timed beside Tensor.index_copy_, the one PyTorch call that
-    computes the same function.  K2 admit: 16,384 and 130 slots of a
+    computes the same function.  K2 admit: 16,384 and 80 slots of a
     2^20-row hash table (a warm-up's and a timed admission's), each
     beside an empty kernel of its launch shape, and a call that holds
     slots past the table and row H-1.  K11: a (2^20, 8) balance table and a (2^20, 2) meta
@@ -763,13 +763,14 @@ def check_tier_kernels(dev, report):
                                    k128=timed[128], host_split=split)
     print("K10 host path, us per call (tools/launch_split.py, k=16384): " + json.dumps(split))
 
-    # K2 admit at a warm-up admission's 16,384 slots and a timed one's
-    # ~130 (the tiered phase's census), each beside an empty kernel of the
-    # same launch shape; then slots past the table with row H-1 owned.
+    # K2 admit at a warm-up admission's 16,384 slots and a timed one's 80
+    # (the tiered phase's census: 48 launches of 16,380 slots, 64 of
+    # 59-116, median 80), each beside an empty kernel of the same launch
+    # shape; then slots past the table with row H-1 owned.
     rh = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, (A_ROWS, 2))).to(dev)
     dg = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, 2)).to(dev)
     errs, timed = [], {}
-    for k in (16_384, 130):
+    for k in (16_384, 80):
         slots = torch.from_numpy(rng.choice(A_ROWS, k, replace=False).astype(np.int64)).to(dev)
         new_lo, new_hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, len(slots)))
                           .to(dev) for _ in range(2))
@@ -804,7 +805,7 @@ def check_tier_kernels(dev, report):
     check(errs[-1] == 0, "K2 admit with slots past the table differs from the plain version")
     print(f"K2 admit ({len(slots)} slots, {int((slots >= H).sum())} past the table, row H-1 "
           f"among them): bit-exact")
-    report["commit_admit"] = dict(timed[16_384], max_abs_err=max(errs), k130=timed[130])
+    report["commit_admit"] = dict(timed[16_384], max_abs_err=max(errs), k80=timed[80])
 
     errs = []
     for name, tab in (("balances", table), ("meta", meta)):
@@ -2937,7 +2938,7 @@ def main() -> int:
         for key in ("serial_floor_ms", "barrier_floor_ms", "barriers", "sweep",
                     "plain_on", "iters", "timed_case", "k128", "meta",
                     "library_device_ms", "library_host_ms", "widths", "window_unit", "row0",
-                    "us_per_batch", "host_split", "library_full", "k130", "census",
+                    "us_per_batch", "host_split", "library_full", "k80", "census",
                     "geometry", "empty_device_ms",
                     "by_kind", "cases", "phase_slice", "yardstick"):
             if key in r:

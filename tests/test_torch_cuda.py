@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from tigerbeetle_tpu_torch import kernels, workload
+from tigerbeetle_tpu_torch.ops.u128 import from_u64
 from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
@@ -1126,8 +1127,6 @@ def _admit_on_card(card, row_hash, digest, slots, new_lo, new_hi, offset=0):
     """K2 admit on the card (row_hash in a view `offset` words into its
     buffer) and its plain version on the CPU, from u64 numpy inputs:
     ((row_hash, digest) of the kernel, of the plain version)."""
-    from tigerbeetle_tpu_torch.ops.u128 import from_u64
-
     rh, dg, lo, hi = (from_u64(a) for a in (row_hash, digest, new_lo, new_hi))
     sl = torch.from_numpy(np.asarray(slots, np.int64))
     want = cm.admit_plain(rh.clone(), dg.clone(), sl, lo, hi)
@@ -1152,10 +1151,10 @@ def test_commit_admit_past_the_table_matches_plain(card, case, H):
     assert torch.equal(rh_k, rh_p) and torch.equal(dg_k, dg_p)
 
 
-@pytest.mark.parametrize("k", [130, 16_380, 16_384])
+@pytest.mark.parametrize("k", [80, 130, 16_380, 16_384])
 @pytest.mark.parametrize("offset", [0, 1])
 def test_commit_admit_main_path_shapes_match_plain(card, k, offset):
-    """K2 admit at a timed admission's ~130 slots and a warm-up's
+    """K2 admit at a timed admission's 80-130 slots and a warm-up's
     16,380 (padded with -1 to 16,384) and at 16,384 slots of a 2^20-row
     table, on a 16-byte-aligned row_hash and one 8 bytes off."""
     rng = np.random.default_rng(k + offset)
@@ -1185,8 +1184,6 @@ def test_commit_admit_past_the_table_across_blocks(card, owner_first):
 
 
 def _update_on_card(card, bal, meta, row_hash, digest, slots, rows):
-    from tigerbeetle_tpu_torch.ops.u128 import from_u64
-
     b, rh, dg, r = (from_u64(a) for a in (bal, row_hash, digest, rows))
     m = torch.from_numpy(np.ascontiguousarray(meta).view(np.int32))
     sl = torch.from_numpy(np.asarray(slots, np.int64))
@@ -1211,8 +1208,6 @@ def test_commit_update_past_the_table_across_blocks(card):
     """A padded window of touched slots over many blocks with 1,000 past
     the table and the owner of row A-1 among them; a sentinel after the
     table's hashes stays as it was (no store past the table)."""
-    from tigerbeetle_tpu_torch.ops.u128 import from_u64
-
     rng = np.random.default_rng(17)
     A = 200_003
     slots = np.concatenate([rng.choice(A - 1, 20_000, replace=False), [A - 1],

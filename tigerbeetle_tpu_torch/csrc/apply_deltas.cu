@@ -20,11 +20,12 @@
 // table is 16-byte aligned, as two 8-byte words when it is not.  Entries
 // are unique (compact_deltas), so no two threads touch one cell and
 // nothing needs an atomic or an order.  The grid is taken from the
-// card's SM count: 256-thread blocks, halved while the grid would fill
-// at most half the SMs (a small flush spread over more SMs), grid-stride
-// past full residency.  Measured (PERF.md, the K4 row): one entry a
-// thread beats two or four in flight, and halving the blocks until every
-// SM has one (FILL 1) does not pay at 32,768 entries.
+// card's SM count (tb::spread_geometry): 256-thread blocks, halved while
+// the grid would fill at most half the SMs (a small flush spread over
+// more SMs), grid-stride past full residency.  Measured (PERF.md, the K4
+// row): one entry a thread beats two or four in flight, and halving the
+// blocks until every SM has one (SPREAD_FILL 1) does not pay at 32,768
+// entries.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -33,16 +34,11 @@
 
 namespace {
 
-constexpr int MAX_THREADS = 256;  // a block's threads at large flushes
-constexpr int MIN_THREADS = 32;   // ... and at small ones
-constexpr int FILL = 2;           // blocks halve while the grid fills 1 / FILL of the SMs
-constexpr int SM_THREADS = 2048;  // resident threads an SM (H100)
-
 // packed: (4, stride) u64 rows [slot, col, delta_lo, delta_hi]; the
 // first k entries of each row are live.  WIDE: the table is 16-byte
 // aligned (cells move as ulonglong2).
 template <bool WIDE>
-__global__ void __launch_bounds__(MAX_THREADS)
+__global__ void __launch_bounds__(tb::SPREAD_THREADS)
     apply_deltas(uint64_t* __restrict__ table, uint64_t A, const uint64_t* __restrict__ packed,
                  int64_t k, int64_t stride) {
   const int64_t span = (int64_t)gridDim.x * blockDim.x;
@@ -74,17 +70,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-// The launch of a k-entry call on a card of `sms` SMs: threads a block
-// halved from MAX_THREADS while the grid fills at most 1 / FILL of the
-// SMs, the grid capped at full residency (grid-stride past it).
-void geometry(int64_t k, int sms, int& G, int& T) {
-  T = MAX_THREADS;
-  while (T > MIN_THREADS && (k + T - 1) / T * FILL <= sms) T /= 2;
-  int64_t g = (k + T - 1) / T;
-  const int64_t cap = (int64_t)sms * (SM_THREADS / T);
-  G = (int)(g > cap ? cap : (g < 1 ? 1 : g));
-}
-
 }  // namespace
 
 extern "C" const char* tb_error_string(int err) {
@@ -97,7 +82,7 @@ extern "C" int tb_apply_deltas_geometry(int k, int* geom) {
   int sms = 0;
   const int err = tb::sm_count(sms);
   if (err) return err;
-  geometry(k, sms, geom[0], geom[1]);
+  tb::spread_geometry(k, sms, geom[0], geom[1]);
   return 0;
 }
 
@@ -107,7 +92,7 @@ extern "C" int tb_apply_deltas(void* table, int64_t A, const void* packed, int64
   int sms = 0, G, T;
   const int err = tb::sm_count(sms);
   if (err) return err;
-  geometry(k, sms, G, T);
+  tb::spread_geometry(k, sms, G, T);
   uint64_t* t = static_cast<uint64_t*>(table);
   const uint64_t* p = static_cast<const uint64_t*>(packed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

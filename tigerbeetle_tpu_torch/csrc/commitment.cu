@@ -30,8 +30,10 @@
 // owner wrote it before the row, both sides fence: message passing), so
 // one that sees no tag read the old pair.  Only the owner of row H-1
 // writes a record; a call with no slot past the table never reads one.
-// The owner's two fences cost a call that admits row H-1 ~0.8 us
-// (PERF.md, K2 admit row).
+// The owner's two fences cost a call that admits row H-1 ~1.1 us of
+// ~1.95 (PERF.md, K2 admit row); the rare lanes' code in update's loop
+// costs every update ~6 us of ~37 at a window, even with none of them
+// (PERF.md, K2 update row: no other placement measured faster).
 //
 // What bounds it on the H100: bytes.  A row costs 72 bytes of table and
 // meta plus 8 of row binding read and 16 of hash written; the eleven
@@ -42,16 +44,15 @@
 //
 // Admit is bytes-bound in name only: per slot 8 bytes of index and 16 of
 // new hash read, the old hash read and overwritten (56 bytes), ~0.27 us
-// of HBM at the 16,384 slots of a warm-up admission and ~0.002 us at the
-// ~130 of a timed one, against ~0.87 us of an empty kernel's launch: a
+// of HBM at the 16,380 slots of a warm-up admission and ~0.001 us at the
+// ~80 of a timed one, against ~0.87 us of an empty kernel's launch: a
 // launch and one dependent trip (the slot, then its row) and the fold.
 // So a thread takes one slot: the slot and its new pair by loads issued
 // together, then the old pair as one 16-byte load and the new one as one
 // 16-byte store when row_hash is 16-byte aligned (8-byte words when it
-// is not).  The grid is taken from the card's SM count: ADMIT_THREADS a
-// block, halved while the grid fills at most 1 / ADMIT_FILL of the SMs
-// (128 x 128 at 16,384 slots, 5 x 32 at 130); each block's sum meets the
-// digest in one atomic a lane.  Measured (PERF.md, the K2 admit row):
+// is not).  The grid is K4's, from the card's SM count (tb::
+// spread_geometry: 128 x 128 at 16,384 slots, 3 x 32 at 80); each
+// block's sum meets the digest in one atomic a lane.  Measured (PERF.md, the K2 admit row):
 // streaming loads, an atomic a lane a warp, one block with a plain add
 // of the digest at small calls, one block of 256 and a grid that fills
 // every SM were each as fast or slower.
@@ -75,10 +76,6 @@ constexpr uint64_t C_HI = 0xFACEFEED0DDBA11Dull;
 
 constexpr int THREADS = 256;
 
-constexpr int ADMIT_THREADS = 256;   // a block's threads at large calls
-constexpr int ADMIT_MIN_THREADS = 32;
-constexpr int ADMIT_FILL = 2;        // blocks halve while the grid fills 1 / ADMIT_FILL of the SMs
-constexpr int SM_THREADS = 2048;     // resident threads an SM (H100)
 
 __device__ __forceinline__ uint64_t mix64(uint64_t x) {
   x ^= x >> 33;
@@ -116,12 +113,6 @@ std::atomic<unsigned long long> g_calls{0};  // tags: this library's calls, from
 
 __device__ __forceinline__ void fence() { asm volatile("fence.acq_rel.gpu;\n" ::: "memory"); }
 
-__device__ __forceinline__ void store_volatile(uint64_t* p, uint64_t lo, uint64_t hi) {
-  volatile unsigned long long* v = reinterpret_cast<volatile unsigned long long*>(p);
-  v[0] = lo;
-  v[1] = hi;
-}
-
 // A lane at row H-1 (`owner`) or past the table: row H-1's pair as it was
 // before this call.  The owner publishes it for this call's tag and then
 // stores its new pair (lo, hi); a lane past the table reads the row, then
@@ -139,7 +130,8 @@ __device__ __forceinline__ ulonglong2 last_row(uint64_t* last, uint64_t tag, boo
     fence();
     r->tag = tag;
     fence();
-    store_volatile(last, lo, hi);
+    row[0] = lo;
+    row[1] = hi;
   } else {
     fence();
     if (r->tag == tag) {
@@ -156,7 +148,10 @@ __device__ __noinline__ ulonglong2 last_row_call(uint64_t* last, uint64_t tag, b
 }
 
 // Sum (lo, hi) over the block and add it to out[0..1] with one atomic
-// per lane (a block of one warp skips the shared-memory stage).
+// per lane.  ANY_WIDTH: a block of any multiple of 32 threads up to
+// THREADS (K2 admit), one of a single warp adding its sum without the
+// shared stage (~0.15 us of a timed admission's ~1.5); else THREADS.
+template <bool ANY_WIDTH = false>
 __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned long long* out) {
   __shared__ unsigned long long s_lo[THREADS / 32], s_hi[THREADS / 32];
   for (int o = 16; o > 0; o >>= 1) {
@@ -164,7 +159,7 @@ __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned lo
     hi += __shfl_xor_sync(0xFFFFFFFFu, (unsigned long long)hi, o);
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (blockDim.x == 32) {
+  if (ANY_WIDTH && blockDim.x == 32) {
     if (lane == 0) {
       tb::red_add(&out[0], lo);
       tb::red_add(&out[1], hi);
@@ -178,7 +173,8 @@ __device__ __forceinline__ void block_fold(uint64_t lo, uint64_t hi, unsigned lo
   __syncthreads();
   if (threadIdx.x == 0) {
     unsigned long long a = 0, b = 0;
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+    const int warps = ANY_WIDTH ? (int)(blockDim.x >> 5) : THREADS / 32;
+    for (int w = 0; w < warps; ++w) {
       a += s_lo[w];
       b += s_hi[w];
     }
@@ -247,7 +243,7 @@ __global__ void cm_update(const uint64_t* bal, const uint32_t* meta, int64_t A,
 // new_hi), supplied by the host twin, and the digest moves by new - old.
 // WIDE: row_hash is 16-byte aligned (a pair moves as one ulonglong2).
 template <bool WIDE>
-__global__ void __launch_bounds__(ADMIT_THREADS)
+__global__ void __launch_bounds__(tb::SPREAD_THREADS)
     cm_admit(uint64_t* row_hash, int64_t H, unsigned long long* digest,
              const int64_t* slots, const uint64_t* new_lo, const uint64_t* new_hi, int64_t k,
              uint64_t tag) {
@@ -280,16 +276,7 @@ __global__ void __launch_bounds__(ADMIT_THREADS)
     d_lo += n_lo - o_lo;
     d_hi += n_hi - o_hi;
   }
-  block_fold(d_lo, d_hi, digest);
-}
-
-// The launch of a k-slot admit on a card of `sms` SMs.
-void admit_geometry(int64_t k, int sms, int& G, int& T) {
-  T = ADMIT_THREADS;
-  while (T > ADMIT_MIN_THREADS && (k + T - 1) / T * ADMIT_FILL <= sms) T /= 2;
-  const int64_t g = (k + T - 1) / T;
-  const int64_t cap = (int64_t)sms * (SM_THREADS / T);
-  G = (int)(g > cap ? cap : (g < 1 ? 1 : g));
+  block_fold<true>(d_lo, d_hi, digest);
 }
 
 __global__ void cm_empty() {}
@@ -335,7 +322,7 @@ extern "C" int tb_commit_admit_geometry(int k, int* geom) {
   int sms = 0;
   const int err = tb::sm_count(sms);
   if (err) return err;
-  admit_geometry(k, sms, geom[0], geom[1]);
+  tb::spread_geometry(k, sms, geom[0], geom[1]);
   return 0;
 }
 
@@ -347,7 +334,7 @@ extern "C" int tb_commit_admit(void* row_hash, int64_t H, void* digest,
   int sms = 0, G, T;
   const int err = tb::sm_count(sms);
   if (err) return err;
-  admit_geometry(k, sms, G, T);
+  tb::spread_geometry(k, sms, G, T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   uint64_t* rh = static_cast<uint64_t*>(row_hash);
   auto* dg = static_cast<unsigned long long*>(digest);

@@ -53,6 +53,25 @@ inline int sm_count(int& sms) {
   return (int)err;
 }
 
+// The launch of a kernel of one item a thread over k items that each
+// cost a dependent trip to memory (K4, K2 admit) on a card of `sms` SMs:
+// SPREAD_THREADS a block, halved (to SPREAD_MIN_THREADS) while the grid
+// fills at most 1 / SPREAD_FILL of the SMs, so a small call spreads over
+// more SMs; the grid capped at the SMs' resident threads (grid-stride
+// past it).
+constexpr int SPREAD_THREADS = 256;
+constexpr int SPREAD_MIN_THREADS = 32;
+constexpr int SPREAD_FILL = 2;
+constexpr int SM_THREADS = 2048;  // resident threads an SM (H100)
+
+inline void spread_geometry(int64_t k, int sms, int& G, int& T) {
+  T = SPREAD_THREADS;
+  while (T > SPREAD_MIN_THREADS && (k + T - 1) / T * SPREAD_FILL <= sms) T /= 2;
+  const int64_t g = (k + T - 1) / T;
+  const int64_t cap = (int64_t)sms * (SM_THREADS / T);
+  G = (int)(g > cap ? cap : (g < 1 ? 1 : g));
+}
+
 // The grid of a grid-stride kernel over n items in blocks of `threads`:
 // a block per `threads` items, at most GRID_BLOCKS_PER_SM blocks on each
 // of the current card's SMs, at least one; a CUDA status.
