@@ -21,8 +21,9 @@ init and finalize, all on a 2^20-row table, and K3 segments of 1, 8, 59
 and 512 events for its fixed and per-event cost; K10 at 128 and 16,384 rows
 into a 2^20-row table beside Tensor.index_copy_, K2 admit at 16,384
 and 80 slots (each beside an empty kernel of its launch shape) and
-with slots past the table, K2 update with slots past the table, K11 over a (2^20, 8) balance table and a (2^20, 2) meta table
-holding words >= 2^31; K12 and K13 over an 8190-event slice onto 2^18
+with slots past the table, K2 update with slots past the table, K11
+over a (2^20, 8) balance table and a (2^20, 2) meta table holding words
+>= 2^31; K12 and K13 over an 8190-event slice onto 2^18
 local rows of a 2^20-row table split in 4 (K13 admit also at the
 sharded_apply phase's 4095-event slice of 2^19 rows), K14 gather and scatter at
 row widths 8, 2 and 1 on 16,380 slots (a wave batch) and on the
@@ -721,8 +722,8 @@ def check_tier_kernels(dev, report):
     computes the same function.  K2 admit: 16,384 and 80 slots of a
     2^20-row hash table (a warm-up's and a timed admission's), each
     beside an empty kernel of its launch shape, and a call that holds
-    slots past the table and row H-1.  K11: a (2^20, 8) balance table and a (2^20, 2) meta
-    table holding words >= 2^31."""
+    slots past the table and row H-1.  K11: a (2^20, 8) balance table
+    and a (2^20, 2) meta table holding words >= 2^31."""
     rng = np.random.default_rng(2035)
     table, meta = _tables(rng, A_ROWS, dev)
     meta_np = rng.integers(0, 1 << 32, (A_ROWS, 2), dtype=np.uint64).astype(np.uint32)

@@ -142,6 +142,7 @@ __device__ __forceinline__ ulonglong2 last_row(uint64_t* last, uint64_t tag, boo
   return old;
 }
 
+// last_row out of line (K2 admit).
 __device__ __noinline__ ulonglong2 last_row_call(uint64_t* last, uint64_t tag, bool owner,
                                                  uint64_t lo, uint64_t hi) {
   return last_row(last, tag, owner, lo, hi);
@@ -203,11 +204,6 @@ __global__ void cm_hash_all(const uint64_t* bal, const uint32_t* meta,
   block_fold(sum_lo, sum_hi, fold_out);
 }
 
-// Touched slots of a table of A rows; each in-range slot is owned by
-// exactly one thread, so the gather of the old hash and the store of
-// the new one cannot race.  A slot past the table hashes row A-1's
-// columns under its own logical id against row A-1's old hash.  WIDE:
-// balances and row_hash are 16-byte aligned.
 // Touched slots of a table of A rows; each in-range slot is owned by
 // exactly one thread, so the gather of the old hash and the store of
 // the new one cannot race.  A slot past the table hashes row A-1's
