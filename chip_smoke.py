@@ -33,8 +33,10 @@ launchers scan_of, for every kind at G = 4, and staged, for the five
 *_staged names at g = 0, G - 1, G and -1, on full batches over a
 2^20-row table, against their plain loops and one launch per batch),
 measures one dependent L2 hit (K3's and K5's serial floors), then
-drives the port's create_transfers loop through SingleNodeHarness on
-TorchStateMachine in eleven phases, the two row-sharded entry points
+builds the host engine's native library (g++, csrc/host/; its path,
+digest and build seconds on a line of their own), then drives the
+port's create_transfers loop through SingleNodeHarness on
+TorchStateMachine in fourteen phases, the two row-sharded entry points
 in two more, the row-sharded engines in two more, and the graft entry
 and the launcher probes in two more:
 
@@ -44,10 +46,15 @@ and the launcher probes in two more:
                transfers (K1)
   failures     device engine, more than 60 invalid events per batch, so
                every batch is flagged and exact recovery runs, and a
-               last batch whose re-execution ranks overflow codes (K3)
+               last batch whose re-execution ranks overflow codes (K3;
+               TB_FASTPATH_DISABLE=1, or the native lanes would re-execute);
+               a native-on arm (the default route: recovery re-executes
+               in the native lanes) flags the same batches, and its
+               replies, root, tripwire and digest equal the main path's
   linked       device engine, bench's gen_linked: 1,000 accounts, half
                debit-limited and funded, chains of 1-7, 250,000 transfers
-               (K5 per batch; the funding batch takes K3)
+               (K5 per batch; the funding batch, on limit accounts,
+               rides a window wave record)
   two_phase    device engine, gen_two_phase widened to 1,000,000
                accounts: pending -> post | void pairs, 250,000 transfers
                (K6 per batch)
@@ -56,19 +63,37 @@ and the launcher probes in two more:
                commit mask, the posts' residue as one K7 wave) and
                3-member chains that start with a pending (one K8 chain
                wave), 32 batches; replies and root equal a
-               TB_DEV_WAVES=0 run (every batch drained to K3)
+               TB_DEV_WAVES=0 run (every batch drained to the host path's
+               wave plans) and a TB_DEV_WAVES=0 TB_WAVES=scan run (K3), both
+               under TB_FASTPATH_DISABLE=1, and a TB_DEV_WAVES=0 run with
+               the native library on (its serial exact engine)
   expiry       device engine, 8 batches of 8190 pendings with timeouts
                of 1-8 s on 1,000,000 accounts (K1), then the realtime
                moves past every expiry and the pulses release them all
                (write-behind lane, K4)
   simple_host  host engine, gen_simple at 1,000,000 accounts and
-               1,000,000 transfers (mirror admission + K4 flushes)
-  waves_host   host engine, TB_WAVES=auto, gen_waves_host: per batch
+               1,000,000 transfers: the native order-free lane, every
+               batch through its hot tail, K4 flushes; replies and root
+               equal a TB_FASTPATH_DISABLE=1 run (mirror admission)
+  waves_host   host engine, TB_WAVES=exact, TB_FASTPATH_DISABLE=1
+               (the native and Python linked lanes would take its
+               batches), gen_waves_host: per batch
                ~90 % transfers between random pairs of 1,000,000
                accounts around 8 runs of limit-reading chains over 1,000
                funded accounts, 32 batches: every batch a wave plan (K7
                waves, K3 segments for the chain runs); replies and root
                equal a TB_WAVES=scan run
+  linked_host  host engine, the linked phase's stream: the native
+               linked lane takes every chain batch, K4 flushes
+  two_phase_host  host engine, the two_phase phase's stream: the native
+               two-phase lane takes every post / void batch
+  exact_host   host engine, the offkernel phase's stream: its balancing
+               riders keep every timed batch off the resolvers, so the
+               native serial exact engine takes them.  Each of these
+               three prints its host split (the native calls, the
+               flushes, the rest) and holds its replies and root to a
+               TB_FASTPATH_DISABLE=1 run (the Python lanes and the exact
+               path on the card) and a TB_WAVES=scan run (K3)
   tiered       device engine, TB_HOT_CAPACITY=2^20 under 10,485,760
                accounts: bench's tiering stream (head 786,432 accounts,
                tail mass 0.008), 48 warm-up batches sweeping the head,
@@ -76,8 +101,9 @@ and the launcher probes in two more:
                slots, K10 + K2 admit per admission; the slots of every
                K2 admit launch: the census); replies and root equal the
                plain-version run and an all-resident control
-  tiered_host  host engine, the same stream (K10 admissions, K4 flushes;
-               its run ends with the checkpoint tripwire, K11)
+  tiered_host  host engine, the same stream on the native lanes (K10
+               admissions, K4 flushes; its run ends with the checkpoint
+               tripwire, K11), plus a TB_FASTPATH_DISABLE=1 arm
   sharded_apply  parallel.sharded.build_apply_step on a 2 x 2 (dp, shard)
                mesh of the one card over a 2^20-row table: gen_simple's
                1,000,000 transfers at 1,000,000 accounts decoded to slot
@@ -98,13 +124,17 @@ and the launcher probes in two more:
                shard), then 32 full batches of pending / post pairs with
                balancing riders under TB_DEV_WAVES=1 (wave records
                through the sharded executor; two batches with a pending
-               between history accounts decline "shard_plan"); no
+               between history accounts decline "shard_plan" and drain to
+               the native exact engine; a TB_FASTPATH_DISABLE=1 arm takes
+               them through K3 on the joined table and write_back, its
+               replies, root, tables and K11 digest equal); no
                speculation.  Each stream timed three times; replies,
                lookups, root, tables and the K11 digest equal the
                unsharded engine's and a plain-version sharded run's
-  sharded_host  host engine on the same mesh: gen_simple's stream (K4
-               flushes on compact rows) and one linked batch (the exact
-               path on the joined table, written back onto the shards),
+  sharded_host  host engine on the same mesh, TB_FASTPATH_DISABLE=1:
+               gen_simple's stream (K4 flushes on compact rows) and one
+               batch of chains opened by pendings (the exact path on the
+               joined table, written back onto the shards),
                ending with the checkpoint tripwire (K11 per shard);
                timed three times, held as sharded_engine is
   graft_entry  graft_entry.entry() (K3 on the reference's example),
@@ -124,13 +154,15 @@ Each phase's main-path run starts with every launch count at 0 (set
 just before the state machine is built) and its counts are read as soon
 as the stream has drained, before any check launches anything.  After
 each phase: K3 launches == exact batches, K5 and K6 launches == the
-batches the router sent them, K3's finalize launches == the wave and
+batches the device engine's router sent them (the linked and two-phase
+batches the host path's lanes took launch neither), K3's finalize launches == the wave and
 speculative batches executed, every event was resolved (no exception),
 the device table equals the host mirror, the device digest
 equals its from-scratch recompute and the host root, and replies, root
 and tables equal a second run of the same stream with the plain
 versions on the card.  A third run, under torch.profiler, gives the
-device's busy time: the union of its kernel and copy intervals.
+device's busy time: the union of its kernel and copy intervals, and how
+many of its K4 launches the trace holds.
 
 Each kernel is timed three ways: CUDA events around one call (`ms`, the
 host's launch work included), the profiler's device time (`device_ms`)
@@ -165,6 +197,7 @@ from tigerbeetle_tpu_torch.kernels import build
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.ops.u128 import to_u64
 from tigerbeetle_tpu_torch.parallel import sharded
+from tigerbeetle_tpu_torch.runtime import fastpath
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
@@ -1981,13 +2014,69 @@ def expiry_stream(n_batches: int, batch: int, n_accounts: int):
     return setup, timed
 
 
+class HostSplit:
+    """Host seconds of a host-engine run's timed batches by part: each
+    native lane's calls into the library, the write-behind flushes (the
+    queue's compaction and the K4 launches), and the rest (decode,
+    joins, store and reply bookkeeping in Python), as the difference to
+    the timed run's wall clock."""
+
+    NATIVE = ("commit_transfers", "commit_linked", "commit_two_phase", "commit_exact")
+
+    def __init__(self):
+        self.seconds = collections.Counter()
+
+    def _wrap(self, obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.seconds[key] += time.perf_counter() - t0
+
+        setattr(obj, name, timed)
+
+    def attach(self, sm):
+        if sm._native is not None:
+            for name in self.NATIVE:
+                self._wrap(sm._native, name, name)
+        self._wrap(sm._dev, "flush", "flush")
+
+    def line(self, elapsed: float) -> str:
+        parts = {k: v for k, v in self.seconds.items() if v}
+        rest = elapsed - sum(parts.values())
+        return " ".join(f"{k}={v:.3f}s" for k, v in sorted(parts.items())) + f" rest={rest:.3f}s"
+
+
+def semantic_routed(sm) -> dict:
+    """{"linked": batches the device engine's router sent to K5,
+    "two_phase": to K6} (the host engine sends none); stat_linked_batches
+    and stat_two_phase_batches also count the host path's lanes, as the
+    reference's counters do."""
+    kinds = getattr(sm._dev, "stat_semantic_batches", {})
+    return {"linked": kinds.get("linked", 0) + kinds.get("linked_small", 0),
+            "two_phase": kinds.get("two_phase", 0) + kinds.get("two_phase_lo", 0)}
+
+
+def native_counters(sm) -> str:
+    """The host path's lane counters: whether the native library is on,
+    the events the fast lanes took (stat_device_events: the order-free,
+    linked and two-phase lanes, native or Python), the batches each
+    native bookkeeping tail took, and the exact path's events."""
+    return (f"native {'on' if sm._native is not None else 'off'}: fast-lane events "
+            f"{sm.stat_device_events}, hot / slow tail batches {sm.stat_hot_tail_batches} / "
+            f"{sm.stat_slow_tail_batches}, exact-path events {sm.stat_exact_events}")
+
+
 def _submit(h, item):
     op, body = item[0], item[1]
     return h.submit_async(op, body, realtime=item[2] if len(item) > 2 else None)
 
 
 def run_stream(setup, timed, account_capacity, transfer_capacity, plain, engine,
-               profile=False, devices=None, checkpoint=False, named=()):
+               profile=False, devices=None, checkpoint=False, named=(), split=None):
     """Drive one stream through the harness.  The launch counts are set
     to 0 just before the state machine is built and read just after the
     stream has drained (device engine) or flushed (host engine), and
@@ -1996,15 +2085,21 @@ def run_stream(setup, timed, account_capacity, transfer_capacity, plain, engine,
     visible card, as a user's call).  Returns (machine, replies, seconds
     of the timed batches, launches, device trace or None); the trace
     carries a third item, {key: device ms} of the device functions whose
-    names hold each key of `named`, when `named` is given."""
+    names hold each key of `named`, when `named` is given, and a fourth,
+    {key: their count}.  A HostSplit `split` times the host engine's
+    parts over the timed batches."""
     kernels.reset_launches()
     sm = TorchStateMachine(
         account_capacity=account_capacity, transfer_capacity=transfer_capacity,
         plain=plain, engine=engine, devices=devices,
     )
+    if split is not None:
+        split.attach(sm)
     h = SingleNodeHarness(sm)
     replies = [h.submit(op, body) for op, body in setup]
     torch.cuda.synchronize()
+    if split is not None:
+        split.seconds.clear()
     for timer in ENGINE_TIMERS:  # count the timed batches only
         if hasattr(sm._dev, timer):
             setattr(sm._dev, timer, 0.0)
@@ -2024,7 +2119,7 @@ def run_stream(setup, timed, account_capacity, transfer_capacity, plain, engine,
     launches = dict(kernels.launches)
     trace = device_busy(prof) if profile else None
     if trace is not None and named:
-        trace = trace + (device_named_ms(prof, named),)
+        trace = trace + (device_named_ms(prof, named), device_named_count(prof, named))
     return sm, replies, elapsed, launches, trace
 
 
@@ -2070,6 +2165,18 @@ def device_named_ms(prof, keys) -> dict:
     return out
 
 
+def device_named_count(prof, keys) -> dict:
+    """{key: the trace's device functions whose name holds key}."""
+    from torch.autograd import DeviceType
+
+    out = dict.fromkeys(keys, 0)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            for key in keys:
+                out[key] += key in e.name
+    return out
+
+
 # Host wall-clock split of the engine (upload + launch enqueue, ring
 # fetch = the one device synchronisation per window, host bookkeeping).
 # stat_t_rows and stat_t_remap are the sharded engine's parts of h2d.
@@ -2111,23 +2218,27 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
     """Run one phase: the main-path run, its checks, the plain-version
     run on the card, and a profiled run.  `must` names the kernels the
     main path has to launch; `extra(sm, replies)` adds phase checks.
-    Returns (main-path launches, check launches)."""
+    The host engine's main-path run also gives its host split.  Returns
+    (main-path launches, check launches)."""
     transfer_capacity = transfer_events(setup + timed) + 1024
+    host_split = HostSplit() if engine == "host" else None
     sm, replies, elapsed, launches, _ = run_stream(
-        setup, timed, account_capacity, transfer_capacity, False, engine
+        setup, timed, account_capacity, transfer_capacity, False, engine, split=host_split
     )
     for kname in must:
         check(launches[kname] > 0, f"{name}: {kname} was not launched")
     check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
     check(launches["exact_scan"] == sm.stat_exact_batches,
           f"{name}: {launches['exact_scan']} K3 launches != {sm.stat_exact_batches} exact batches")
-    # K5 and K6 launch once per batch the router sent them (a flagged
-    # batch is launched and re-executed exactly, and recovery launches
-    # the window's later batches again: then at least once).
-    for kname, stat in (("linked", "stat_linked_batches"), ("two_phase", "stat_two_phase_batches")):
-        routed = getattr(sm, stat)
-        same = launches[kname] == routed if sm.stat_fallback_events == 0 else launches[kname] >= routed
-        check(same, f"{name}: {launches[kname]} {kname} launches != {routed} routed batches")
+    # K5 and K6 launch once per batch the device engine's router sent
+    # them (a flagged batch is launched and re-executed exactly, and
+    # recovery launches the window's later batches again: then at least
+    # once); the batches the host path's lanes took launch neither.
+    routed = semantic_routed(sm)
+    for kname in ("linked", "two_phase"):
+        same = (launches[kname] == routed[kname] if sm.stat_fallback_events == 0
+                else launches[kname] >= routed[kname])
+        check(same, f"{name}: {launches[kname]} {kname} launches != {routed[kname]} routed batches")
     # Every wave or speculative execution initialises and finalizes one
     # carry: host wave batches once, window records once (again when
     # exact recovery re-runs a window's later records).
@@ -2164,10 +2275,13 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
     check_launches = dict(kernels.launches)
     split = engine_split(dev)
     exact = (f"exact batches {sm.stat_exact_batches} ({sm.stat_exact_events} events); "
-             f"K5 batches {sm.stat_linked_batches} (mean fixpoint iterations "
-             f"{sm.stat_resolve_iters / max(sm.stat_linked_batches, 1):.2f}); "
-             f"K6 batches {sm.stat_two_phase_batches}; "
-             f"fallback events {sm.stat_fallback_events}; {wave_counters(sm)}")
+             f"linked batches {sm.stat_linked_batches} (sent to K5 {routed['linked']}; fixpoint "
+             f"iterations {sm.stat_resolve_iters}); two-phase batches "
+             f"{sm.stat_two_phase_batches} (sent to K6 {routed['two_phase']}); "
+             f"fallback events {sm.stat_fallback_events}; {wave_counters(sm)}; "
+             f"{native_counters(sm)}")
+    if host_split is not None:
+        exact += f"; host split {host_split.line(elapsed)}"
     tables = tables_of(sm)
     del sm, dev
     torch.cuda.empty_cache()
@@ -2182,18 +2296,8 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
     del ref
     torch.cuda.empty_cache()
 
-    prof_sm, prof_replies, prof_elapsed, _, trace = run_stream(
-        setup, timed, account_capacity, transfer_capacity, False, engine, profile=True
-    )
-    check(prof_replies == replies, f"{name}: replies differ in the profiled run")
-    del prof_sm
-    torch.cuda.empty_cache()
-    busy = "not measured (no device activity in the trace)"
-    if trace is not None:
-        busy_ms, top = trace
-        busy = (f"{busy_ms:.3f} ms of the profiled run's {prof_elapsed:.3f} s "
-                f"(busy share {busy_ms / 1e3 / prof_elapsed:.6f}; "
-                f"{n_timed / prof_elapsed:.0f} events/s under the profiler); top {top}")
+    busy = profiled_busy(name, setup, timed, account_capacity, transfer_capacity, engine,
+                         replies, n_timed)
     print(
         f"phase {name} ({engine} engine): {n_timed} timed events in {elapsed:.3f} s = "
         f"{n_timed / elapsed:.0f} events/s "
@@ -2202,6 +2306,27 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
         f"device busy {busy}; engine split {split}; root {root.hex()}; checks passed"
     )
     return launches, check_launches
+
+
+def profiled_busy(name, setup, timed, account_capacity, transfer_capacity, engine, replies,
+                  n_timed) -> str:
+    """The phase's profiled run: its device busy time and share, and how
+    many of the run's K4 launches its trace holds (a trace short of them
+    undercounts the busy time)."""
+    prof_sm, prof_replies, prof_elapsed, prof_launches, trace = run_stream(
+        setup, timed, account_capacity, transfer_capacity, False, engine, profile=True,
+        named=("apply_deltas",))
+    check(prof_replies == replies, f"{name}: replies differ in the profiled run")
+    del prof_sm
+    torch.cuda.empty_cache()
+    held = trace[3]["apply_deltas"] if trace is not None else 0
+    k4 = f"the trace holds {held} of its {prof_launches['apply_deltas']} K4 launches"
+    if trace is None:
+        return f"not measured (no device activity in the trace; {k4})"
+    busy_ms, top = trace[:2]
+    return (f"{busy_ms:.3f} ms of the profiled run's {prof_elapsed:.3f} s "
+            f"(busy share {busy_ms / 1e3 / prof_elapsed:.6f}; "
+            f"{n_timed / prof_elapsed:.0f} events/s under the profiler; {k4}); top {top}")
 
 
 def wave_counters(sm) -> str:
@@ -2221,9 +2346,14 @@ def wave_counters(sm) -> str:
 
 @contextlib.contextmanager
 def knobs(**values):
-    """Environment knobs for a control run, restored after it."""
+    """Environment knobs for a control run, restored after it (None:
+    the knob unset)."""
     saved = {k: os.environ.get(k) for k in values}
-    os.environ.update(values)
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -2245,8 +2375,45 @@ def control_run(name, setup, timed, account_capacity, sm, replies, engine, **val
     check(ctl.state_root() == sm.state_root(), f"{name}: root differs from the {values} run")
     rate = transfer_events(timed) / elapsed
     print(f"  {name} control {values}: {rate:.0f} events/s; exact batches "
-          f"{ctl.stat_exact_batches}; {wave_counters(ctl)}; replies and root equal")
+          f"{ctl.stat_exact_batches}; {wave_counters(ctl)}; {native_counters(ctl)}; "
+          f"replies and root equal")
     del ctl
+    torch.cuda.empty_cache()
+    return rate
+
+
+def native_arm(name, setup, timed, account_capacity, sm, replies, engine, extra=None):
+    """The same stream with the native library on (the default route),
+    beside a phase whose main-path run is under TB_FASTPATH_DISABLE=1
+    to keep its kernels on the host path: replies and root equal that
+    run's, the device mirror's tripwire passes and the device digest
+    (host engine: of the device table) equals the root.
+    `extra(arm, launches)` adds checks.  Returns its events/s."""
+    transfer_capacity = transfer_events(setup + timed) + 1024
+    with knobs(TB_FASTPATH_DISABLE=None):
+        arm, arm_replies, elapsed, launches, _ = run_stream(
+            setup, timed, account_capacity, transfer_capacity, False, engine)
+    check(arm._native is not None, f"{name}: the native-on arm has no native library")
+    check(arm_replies == replies, f"{name}: replies differ from the native-on arm")
+    root = sm.state_root()
+    check(arm.state_root() == root, f"{name}: root differs from the native-on arm")
+    if extra is not None:
+        extra(arm, launches)
+    arm.verify_device_mirror()
+    if engine == "device":
+        pair = arm._dev.commit_probe()
+        check(cm.root_bytes(pair[0]) == root and cm.root_bytes(pair[1]) == root,
+              f"{name}: the native-on arm's device digest != host root")
+    else:
+        check(cm.root_bytes(host_digest(arm)) == root,
+              f"{name}: the native-on arm's device table digest != host root")
+    rate = transfer_events(timed) / elapsed
+    print(f"  {name} native-on arm: {rate:.0f} events/s; exact batches {arm.stat_exact_batches}; "
+          f"fallback batches {getattr(arm._dev, 'stat_fallback_batches', 0)} (events "
+          f"{arm.stat_fallback_events}); {native_counters(arm)}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }; replies, root, tripwire and digest "
+          f"equal")
+    del arm
     torch.cuda.empty_cache()
     return rate
 
@@ -2379,6 +2546,8 @@ def run_tiering_phase(name, engine, warm, timed, must):
           f"{name}: hit rate {st['hit_rate']} below 0.90")
     if not host:
         check(sm.stat_dev_wave_batches == 0, f"{name}: a wave record ran under tiering")
+    else:
+        check(sm._native is not None, f"{name}: the native library is off")
     kernels.reset_launches()
     if not host:
         sm.verify_device_mirror()
@@ -2390,7 +2559,7 @@ def run_tiering_phase(name, engine, warm, timed, must):
     root = sm.state_root()
     tables = tables_of(sm)
     counters = (f"exact batches {sm.stat_exact_batches}; wave declines "
-                f"{sm.stat_dev_wave_decline_reasons}")
+                f"{sm.stat_dev_wave_decline_reasons}; {native_counters(sm)}")
     del sm
     torch.cuda.empty_cache()
 
@@ -2411,6 +2580,17 @@ def run_tiering_phase(name, engine, warm, timed, must):
     ctl.verify_device_mirror()
     del ctl
     torch.cuda.empty_cache()
+    native_ctl = ""
+    if host:
+        # The Python lanes under TB_FASTPATH_DISABLE=1 (tiered).
+        with knobs(TB_FASTPATH_DISABLE="1"):
+            py, py_replies, py_st, _, _ = tiering_arm(engine, TIER_HOT, False, warm, timed)
+        check(py._native is None, f"{name}: TB_FASTPATH_DISABLE=1 left the library on")
+        check(py_replies == replies, f"{name}: replies differ from the TB_FASTPATH_DISABLE=1 run")
+        check(py.state_root() == root, f"{name}: root differs from the TB_FASTPATH_DISABLE=1 run")
+        native_ctl = f"; TB_FASTPATH_DISABLE=1 control {_arm_line(py_st)} ({native_counters(py)})"
+        del py
+        torch.cuda.empty_cache()
 
     prof_sm, prof_replies, prof_st, _, trace = tiering_arm(engine, TIER_HOT, False, warm, timed,
                                                            profile=True)
@@ -2427,7 +2607,7 @@ def run_tiering_phase(name, engine, warm, timed, must):
         f"phase {name} ({engine} engine, TB_HOT_CAPACITY={TIER_HOT}, {TIER_ACCOUNTS} accounts, "
         f"{len(timed)} timed batches after {len(warm)} warm-up batches): tiered "
         f"{_arm_line(st)}; plain-version run {_arm_line(ref_st)}; all-resident control "
-        f"{_arm_line(ctl_st)}; {counters}; main-path launches {launches}; check launches "
+        f"{_arm_line(ctl_st)}{native_ctl}; {counters}; main-path launches {launches}; check launches "
         f"{check_launches}; device busy {busy}; root {root.hex()}; checks passed"
     )
     return launches, check_launches
@@ -2442,14 +2622,19 @@ PV_HISTORY = (7, 23)   # batches with a pending between history accounts
 CARD = torch.device("cuda", 0)  # the card every shard lies on
 
 
-def sharded_stream(name, setup, timed, capacity, engine, must, extra=None):
+def sharded_stream(name, setup, timed, capacity, engine, must, extra=None, disabled_exact=None):
     """One stream on the row-sharded engine: SHARDED_RUNS timed runs (the
     first is the main path's, its launch counts read after the drain, and
     after the checkpoint tripwire on the host engine), the checks, an
     unsharded control run (profiled) and a plain-version sharded run
     (replies, root, tables and the K11 table digest equal), and a
     profiled sharded run (busy share, K14 device time per window).
-    Returns (main-path launches, check launches)."""
+    `disabled_exact`, when given, is the number of batches that drain to
+    the host path: a sharded run under TB_FASTPATH_DISABLE=1 then takes
+    each through K3 on the joined table and write_back onto the shards
+    (its launch counts set to 0 before it and read after it, and added
+    to the main path's), with replies, root, tables and K11 digest equal
+    the main-path run's.  Returns (main-path launches, check launches)."""
     devices = [CARD] * SHARDS
     tc = transfer_events(setup + timed) + 1024
     n_timed = transfer_events(timed)
@@ -2502,11 +2687,36 @@ def sharded_stream(name, setup, timed, capacity, engine, must, extra=None):
     check_launches = dict(kernels.launches)
     windows = dev.stat_windows if engine == "device" else dev.stat_flushes
     split = engine_split(dev)
-    counters = (f"K3 batches {sm.stat_exact_batches}; K5 batches {sm.stat_linked_batches}; "
-                f"K6 batches {sm.stat_two_phase_batches}; {wave_counters(sm)}; "
-                f"stat_wave_sharded {getattr(dev, 'stat_wave_sharded', 0)}")
+    routed = semantic_routed(sm)
+    counters = (f"K3 batches {sm.stat_exact_batches}; K5 batches {routed['linked']}; "
+                f"K6 batches {routed['two_phase']}; {wave_counters(sm)}; "
+                f"stat_wave_sharded {getattr(dev, 'stat_wave_sharded', 0)}; {native_counters(sm)}")
     del sm, dev
     torch.cuda.empty_cache()
+    if disabled_exact is not None:
+        with knobs(TB_FASTPATH_DISABLE="1"):
+            arm, arm_replies, arm_s, arm_launches, _ = run_stream(
+                setup, timed, capacity, tc, False, engine, devices=devices,
+                checkpoint=engine == "host")
+        check(arm._native is None and isinstance(arm._dev.balances, sharded.ShardedTable),
+              f"{name}: the TB_FASTPATH_DISABLE=1 arm is not the sharded engine without the "
+              f"library")
+        check(arm_launches["exact_scan"] == arm.stat_exact_batches == disabled_exact,
+              f"{name}: TB_FASTPATH_DISABLE=1 arm: {arm_launches['exact_scan']} K3 launches, "
+              f"{arm.stat_exact_batches} exact batches, want {disabled_exact}")
+        check(arm_replies == replies, f"{name}: replies differ from the TB_FASTPATH_DISABLE=1 arm")
+        check(arm.state_root() == root, f"{name}: root differs from the TB_FASTPATH_DISABLE=1 arm")
+        arm_digest = arm._dev.checksum() if engine == "device" else arm._dev.device_checksum()
+        check((arm_digest == digest).all(),
+              f"{name}: K11 digest differs from the TB_FASTPATH_DISABLE=1 arm's")
+        check(all((a == b).all() for a, b in zip(tables, tables_of(arm))),
+              f"{name}: tables differ from the TB_FASTPATH_DISABLE=1 arm's")
+        counters += (f"; TB_FASTPATH_DISABLE=1 arm {n_timed / arm_s:.0f} events/s, K3 "
+                     f"{arm_launches['exact_scan']} launches, {wave_counters(arm)}, launches "
+                     f"{ {k: v for k, v in arm_launches.items() if v} }")
+        launches = {k: launches[k] + arm_launches[k] for k in launches}
+        del arm
+        torch.cuda.empty_cache()
 
     ctl, ctl_replies, ctl_s, _, ctl_trace = run_stream(
         setup, timed, capacity, tc, False, engine, profile=True, devices=devices[:1],
@@ -2597,21 +2807,28 @@ def run_sharded_engine_phase():
         check(sm.stat_dev_wave_batches == sm._dev.stat_wave_sharded == waved,
               f"sharded_engine/pv: {sm._dev.stat_wave_sharded} sharded wave records of {waved}")
 
+    # The declined batches drain to the host path: the native serial
+    # exact engine by default; the TB_FASTPATH_DISABLE=1 arm takes them
+    # through K3 on the joined sharded table.
     with knobs(TB_DEV_WAVES="1"):
         pv = sharded_stream("sharded_engine/pv", setup, timed, A_ROWS, "device",
-                            must=("wave_step",), extra=routed)
+                            must=("wave_step",), extra=routed, disabled_exact=len(PV_HISTORY))
     return _sum_launches([simple[0], pv[0]]), _sum_launches([simple[1], pv[1]])
 
 
 def linked_exact_batch(n_accounts, tid0):
     """One create_transfers batch of 2,730 three-member linked chains
-    between random accounts: the host engine's exact path (read, a wave
-    plan or K3 on the joined table, write_back)."""
+    between random accounts, each opened by a pending transfer (which
+    keeps the batch off the host's linked and two-phase lanes): the host
+    engine's exact path (read, a wave plan or K3 on the joined table,
+    write_back)."""
     rng = np.random.default_rng(2061)
     B = workload.BATCH
     dr = rng.integers(1, n_accounts + 1, B).astype(np.uint64)
     cr = dr % np.uint64(n_accounts) + np.uint64(1)
-    flags = np.where(np.arange(B) % 3 < 2, int(TransferFlags.linked), 0).astype(np.uint16)
+    pos = np.arange(B) % 3
+    flags = (np.where(pos < 2, int(TransferFlags.linked), 0)
+             | np.where(pos == 0, int(TransferFlags.pending), 0)).astype(np.uint16)
     return (Operation.create_transfers, workload.transfers_bytes(
         np.arange(tid0, tid0 + B, dtype=np.uint64), dr, cr,
         rng.integers(1, 100, B).astype(np.uint64), flags=flags))
@@ -2631,8 +2848,11 @@ def run_sharded_host_phase():
         check(launches["checksum"] == SHARDS, f"sharded_host: {launches['checksum']} K11 "
                                               f"launches at the checkpoint, want {SHARDS}")
 
-    return sharded_stream("sharded_host", setup, timed, sizing[0], "host",
-                          must=("apply_deltas", "checksum"), extra=exact_ran)
+    # TB_FASTPATH_DISABLE=1: the native linked lane would take the linked
+    # batch off the exact path on the joined table.
+    with knobs(TB_FASTPATH_DISABLE="1"):
+        return sharded_stream("sharded_host", setup, timed, sizing[0], "host",
+                              must=("apply_deltas", "checksum"), extra=exact_ran)
 
 
 GRAFT_MUST = ("exact_scan", "shard_accumulate", "shard_admit", "shard_apply", "shard_gather",
@@ -2719,6 +2939,41 @@ def run_probes_phase(dev):
           f"table and ring equal a batch-by-batch run; checks passed")
     return launches, check_launches
 
+def batches_with(ops, flags) -> tuple[int, int]:
+    """(create_transfers batches holding an event with any of `flags`,
+    their events)."""
+    n_batches = n_events = 0
+    for item in ops:
+        if item[0] != Operation.create_transfers:
+            continue
+        ev = np.frombuffer(item[1], TRANSFER_DTYPE)
+        if (ev["flags"] & np.uint16(flags)).any():
+            n_batches += 1
+            n_events += len(ev)
+    return n_batches, n_events
+
+
+def run_native_host_phase(name, setup, timed, rows, routed):
+    """A host-engine phase on the native library's lanes (the
+    reference's default route): no batch reaches K3 or a wave plan, K4
+    flushes the deltas; `routed(sm)` checks the lane counters; replies
+    and root equal a TB_FASTPATH_DISABLE=1 run (the Python lanes and the
+    exact path on the card) and a TB_WAVES=scan run (K3 for every
+    batch)."""
+    def extra(sm, replies):
+        check(sm._native is not None, f"{name}: the native library is off")
+        check(sm.stat_exact_batches == sm.stat_wave_batches == 0,
+              f"{name}: a batch reached K3 or a wave plan")
+        check(sm.stat_device_events + sm.stat_exact_events == transfer_events(setup + timed),
+              f"{name}: an event took no lane")
+        routed(sm)
+        control_run(name, setup, timed, rows, sm, replies, "host", TB_FASTPATH_DISABLE="1")
+        control_run(name, setup, timed, rows, sm, replies, "host", TB_WAVES="scan")
+
+    return run_phase(name, setup, timed, rows, engine="host", must=("apply_deltas",),
+                     extra=extra)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2733,6 +2988,11 @@ def main() -> int:
         for line in build.log_path(name).read_text().splitlines() if built else []:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    fastpath.load()  # the host engine's native library (g++, csrc/host/)
+    info = fastpath.build_info
+    print(f"native library {info['path']} (digest {info['digest']}): compiled in "
+          f"{info['seconds']:.1f} s (0.0: found built), loaded in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
 
@@ -2767,15 +3027,33 @@ def main() -> int:
     setup, timed, sizing = workload.gen_zipf(N_TRANSFERS)
     phases["zipf"] = run_phase("zipf", setup, timed, sizing[0], must=("orderfree",))
 
+    setup, timed = failure_stream(24, workload.BATCH)
+
     def overflow_ranked(sm, replies):
         check(reply_codes(replies[-1]) & {47, 48, 49, 50, 51, 52},
               "failures: the overflow batch's re-execution ranked no overflow code")
 
-    setup, timed = failure_stream(24, workload.BATCH)
-    phases["failures"] = run_phase(
-        "failures", setup, timed, A_ROWS, must=("orderfree", "exact_scan"),
-        expect_fallbacks=True, extra=overflow_ranked,
-    )
+        # The default route: every flagged window's exact recovery
+        # re-executes in the native lanes, the mirror changed in place
+        # while enqueue is suppressed, then the re-upload.
+        def same_recovery(arm, launches):
+            check(arm._dev.stat_fallback_batches == sm._dev.stat_fallback_batches
+                  and arm.stat_fallback_events == sm.stat_fallback_events,
+                  f"failures: the native-on arm flagged {arm._dev.stat_fallback_batches} "
+                  f"batches ({arm.stat_fallback_events} events), the main path "
+                  f"{sm._dev.stat_fallback_batches} ({sm.stat_fallback_events})")
+            check(arm.stat_exact_batches == launches["exact_scan"] == 0,
+                  "failures: the native-on arm's recovery reached K3")
+
+        native_arm("failures", setup, timed, A_ROWS, sm, replies, "device", same_recovery)
+
+    # TB_FASTPATH_DISABLE=1 here and below where a phase's kernels run on
+    # the host path: the native lanes would take that work to C++.
+    with knobs(TB_FASTPATH_DISABLE="1"):
+        phases["failures"] = run_phase(
+            "failures", setup, timed, A_ROWS, must=("orderfree", "exact_scan"),
+            expect_fallbacks=True, extra=overflow_ranked,
+        )
     setup, timed, sizing = workload.gen_linked(N_EXACT)
     phases["linked"] = run_phase("linked", setup, timed, sizing[0], must=("linked",))
     setup, timed, sizing = workload.gen_two_phase(N_EXACT, n_accounts=N_ACCOUNTS)
@@ -2793,9 +3071,14 @@ def main() -> int:
         # Drained to the host path, which plans waves there; and the
         # whole scan K3 for every batch (TB_WAVES=scan too).
         control_run("offkernel", setup, timed, A_ROWS, sm, replies, "device",
+                    TB_DEV_WAVES="0", TB_FASTPATH_DISABLE="1")
+        # The same drain with the native library on: the serial exact
+        # engine takes every batch (balancing riders keep them off the
+        # resolvers).
+        control_run("offkernel", setup, timed, A_ROWS, sm, replies, "device",
                     TB_DEV_WAVES="0")
         control_run("offkernel", setup, timed, A_ROWS, sm, replies, "device",
-                    TB_DEV_WAVES="0", TB_WAVES="scan")
+                    TB_DEV_WAVES="0", TB_WAVES="scan", TB_FASTPATH_DISABLE="1")
 
     wave_lanes.clear()
     phases["offkernel"] = run_phase(
@@ -2815,8 +3098,17 @@ def main() -> int:
     phases["expiry"] = run_phase("expiry", setup, timed, A_ROWS,
                                  must=("orderfree", "apply_deltas"), extra=all_released)
     setup, timed, sizing = workload.gen_simple(N_TRANSFERS, n_accounts=N_ACCOUNTS)
+    n_simple = sum(1 for op, _ in setup + timed if op == Operation.create_transfers)
+
+    def simple_native(sm, replies):
+        check(sm._native is not None, "simple_host: the native library is off")
+        check(sm.stat_hot_tail_batches == n_simple,
+              f"simple_host: {sm.stat_hot_tail_batches} hot-tail batches of {n_simple}")
+        control_run("simple_host", setup, timed, sizing[0], sm, replies, "host",
+                    TB_FASTPATH_DISABLE="1")
+
     phases["simple_host"] = run_phase("simple_host", setup, timed, sizing[0], engine="host",
-                                      must=("apply_deltas",))
+                                      must=("apply_deltas",), extra=simple_native)
     setup, timed, sizing = workload.gen_waves_host(WAVE_BATCHES * workload.BATCH,
                                                    n_accounts=N_ACCOUNTS)
     check(sizing[0] == A_ROWS, "waves_host phase: table is not 2^20 rows")
@@ -2828,12 +3120,56 @@ def main() -> int:
         control_run("waves_host", setup, timed, sizing[0], sm, replies, "host", TB_WAVES="scan")
 
     wave_lanes.clear()
-    phases["waves_host"] = run_phase("waves_host", setup, timed, sizing[0], engine="host",
-                                     must=("wave_step", "exact_segment"),
-                                     extra=every_batch_waved)
+    # TB_WAVES=exact: the Python linked lane would take these batches
+    # under auto; exact keeps the plans' admission and profitability
+    # gates (tests/test_torch_waves_host.py runs the stream so too).
+    with knobs(TB_FASTPATH_DISABLE="1", TB_WAVES="exact"):
+        phases["waves_host"] = run_phase("waves_host", setup, timed, sizing[0], engine="host",
+                                         must=("wave_step", "exact_segment"),
+                                         extra=every_batch_waved)
     main_lanes["waves_host"] = wave_lanes[:phases["waves_host"][0]["wave_step"]]
     kernels.wave_step = launch_k7
     k7_lanes(dev, report, main_lanes)
+    # The host engine's native lanes at full size.
+    setup, timed, sizing = workload.gen_linked(N_EXACT)
+    n_linked, _ = batches_with(setup + timed, TransferFlags.linked)
+    n_batches = sum(1 for op, _ in setup + timed if op == Operation.create_transfers)
+
+    def linked_routed(sm):
+        # Every batch took the order-free or the linked lane (each ends in
+        # one of the two native tails), every chain batch the linked one.
+        tails = sm.stat_hot_tail_batches + sm.stat_slow_tail_batches
+        check(tails == n_batches and sm.stat_linked_batches >= n_linked
+              and sm.stat_exact_events == 0,
+              f"linked_host: {sm.stat_linked_batches} linked-lane batches ({n_linked} chain "
+              f"batches), {tails} native tails of {n_batches}, {sm.stat_exact_events} exact events")
+
+    phases["linked_host"] = run_native_host_phase("linked_host", setup, timed, sizing[0],
+                                                  linked_routed)
+    setup, timed, sizing = workload.gen_two_phase(N_EXACT, n_accounts=N_ACCOUNTS)
+    n_pv, _ = batches_with(setup + timed, TransferFlags.post_pending_transfer
+                           | TransferFlags.void_pending_transfer)
+
+    def two_phase_routed(sm):
+        check(sm.stat_two_phase_batches == n_pv and sm.stat_exact_events == 0,
+              f"two_phase_host: {sm.stat_two_phase_batches} two-phase-lane batches of {n_pv}, "
+              f"{sm.stat_exact_events} exact events")
+
+    phases["two_phase_host"] = run_native_host_phase("two_phase_host", setup, timed, sizing[0],
+                                                     two_phase_routed)
+    # Balancing riders keep every offkernel batch off the resolvers: the
+    # serial exact engine takes them.
+    setup, timed, _ = workload.gen_offkernel(WAVE_BATCHES * workload.BATCH,
+                                             n_accounts=OFFKERNEL_ACCOUNTS)
+    n_bal, _ = batches_with(timed, TransferFlags.balancing_debit | TransferFlags.balancing_credit)
+
+    def exact_routed(sm):
+        check(n_bal > 0 and sm.stat_exact_events == transfer_events(timed),
+              f"exact_host: {sm.stat_exact_events} exact events, want every timed one "
+              f"({n_bal} timed batches hold balancing riders)")
+
+    phases["exact_host"] = run_native_host_phase("exact_host", setup, timed, A_ROWS,
+                                                 exact_routed)
     # Hot/cold tiering: one stream for both engines.
     warm = head_sweep(TIER_WARM, workload.BATCH, TIER_HEAD, workload.WARM0)
     timed = workload.gen_tiering(TIER_TIMED, workload.BATCH, TIER_ACCOUNTS, TIER_HEAD,

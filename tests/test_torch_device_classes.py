@@ -202,6 +202,31 @@ def test_two_phase_cross_batch_durable_targets(jax_device):
     assert sm.stat_two_phase_batches == 1 and sm.stat_exact_events == 0
 
 
+def test_semantic_batches_counted_by_kind(jax_device):
+    """The device engine counts the batches its router sends each kernel
+    (stat_semantic_batches, by record kind): order-free batches to K1, a
+    chain batch to K5, a post batch to K6.  No batch takes a host lane
+    here, so the linked and two-phase counters equal K5's and K6's."""
+    ops = [(Operation.create_accounts, accounts([1, 2, 3]))]
+    ops.append((Operation.create_transfers, transfers([
+        dict(id=10, debit_account_id=1, credit_account_id=2, amount=7),
+        dict(id=11, debit_account_id=2, credit_account_id=3, amount=5)])))
+    ops.append((Operation.create_transfers, transfers([
+        dict(id=20, debit_account_id=1, credit_account_id=2, amount=3, flags=int(TF.linked)),
+        dict(id=21, debit_account_id=2, credit_account_id=3, amount=2)])))
+    ops.append((Operation.create_transfers, transfers([
+        dict(id=30, debit_account_id=1, credit_account_id=3, amount=9, flags=int(TF.pending))])))
+    ops.append((Operation.create_transfers, transfers([
+        dict(id=31, pending_id=30, flags=int(TF.post_pending_transfer))])))
+    ops.append((Operation.lookup_accounts, hz.ids_bytes([1, 2, 3])))
+    sm, _ = run_three(ops, jax_device)
+    kinds = sm._dev.stat_semantic_batches
+    assert kinds["linked"] + kinds["linked_small"] == sm.stat_linked_batches == 1
+    assert kinds["two_phase"] + kinds["two_phase_lo"] == sm.stat_two_phase_batches == 1
+    assert sum(n for kind, n in kinds.items() if kind.startswith("orderfree")) == 2
+    assert sm.stat_fallback_events == 0
+
+
 @pytest.fixture
 def bench400(monkeypatch):
     """The repository's bench generators at BENCH_BATCH=400."""

@@ -240,7 +240,10 @@ def test_history_accounts_match_jax(engine, jax_scan):
 def test_overflow_recovery_on_host_engine(jax_scan, monkeypatch):
     """Host engine: the mirror's admission refuses the ~2^127 pair, so
     the batch runs the scan, which ranks the overflow codes (the port
-    with its default routing: the wave admission refuses the pair too)."""
+    with its default wave routing and without its native library, whose
+    serial exact engine would take the batch instead: the wave admission
+    refuses the pair too)."""
+    monkeypatch.setenv("TB_FASTPATH_DISABLE", "1")
     big = (1 << 127) + 5
     ops = [(Operation.create_accounts, hz.pack([hz.account(i) for i in (1, 2, 3)]))]
     ops.append((Operation.create_transfers, hz.pack([
@@ -258,6 +261,35 @@ def test_overflow_recovery_on_host_engine(jax_scan, monkeypatch):
     assert got == want and got[1] != b""
     assert sm_t.stat_exact_batches == 1
     assert_same_state(sm_t, sm_j, h_t, h_j, (1, 2, 3), (10, 11, 12))
+
+
+def test_overflow_ranked_by_native_exact_engine(monkeypatch):
+    """The same stream with the native library on both sides (the
+    reference's default host routing): the order-free lane refuses the
+    ~2^127 pair, and the native linked resolver (which ranks the overflow
+    codes in its serial walk) takes the batch; nothing reaches K3."""
+    monkeypatch.delenv("TB_FASTPATH_DISABLE", raising=False)
+    monkeypatch.delenv("TB_WAVES", raising=False)
+    big = (1 << 127) + 5
+    ops = [(Operation.create_accounts, hz.pack([hz.account(i) for i in (1, 2, 3)]))]
+    ops.append((Operation.create_transfers, hz.pack([
+        hz.transfer(10, debit_account_id=1, credit_account_id=2, amount=big),
+        hz.transfer(11, debit_account_id=1, credit_account_id=3, amount=big),
+    ])))
+    ops.append((Operation.create_transfers, hz.pack(
+        [hz.transfer(12, debit_account_id=1, credit_account_id=3, amount=7)])))
+    sm_t = TorchStateMachine(account_capacity=ACCT_ROWS, device="cpu", engine="host")
+    sm_j = TpuStateMachine(account_capacity=ACCT_ROWS, engine="host")
+    assert sm_t._native is not None and sm_j._native is not None
+    h_t, got = run(sm_t, ops)
+    h_j, want = run(sm_j, ops, ref_hz)
+    assert got == want and got[1] != b""
+    assert sm_t.stat_exact_batches == 0 and sm_t.stat_linked_batches == 1
+    for stat in ("stat_linked_batches", "stat_exact_events", "stat_device_events",
+                 "stat_slow_tail_batches", "stat_hot_tail_batches"):
+        assert getattr(sm_t, stat) == getattr(sm_j, stat), stat
+    assert_same_state(sm_t, sm_j, h_t, h_j, (1, 2, 3), (10, 11, 12))
+    sm_t.verify_device_mirror()
 
 
 def test_engine_knob(monkeypatch):

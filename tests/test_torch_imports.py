@@ -60,3 +60,51 @@ def test_port_sources_name_no_jax_import():
                 continue
             offenders += [f"{path.name}:{node.lineno} {n}" for n in names if _forbidden(n)]
     assert not offenders, offenders
+
+
+def test_runtime_subpackage_imports_without_jax():
+    """The runtime subpackage (the native library's bindings) imports
+    and loads its library in a fresh interpreter without JAX or the JAX
+    package."""
+    code = (
+        "import sys\n"
+        "from tigerbeetle_tpu_torch.runtime import fastpath\n"
+        "assert fastpath.available()\n"
+        "nf = fastpath.NativeFastpath(16)\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print(fastpath.build_info['path'])\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env.pop("TB_FASTPATH_DISABLE", None)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert Path(out.stdout.strip()).parent == REPO / "build" / "native"
+
+
+def test_native_build_reads_only_the_port_sources():
+    """The native library is built from csrc/host/ of the port and
+    nothing else: the compile command names only that directory's main
+    file, the digest covers exactly its files, and no source there
+    includes a file from elsewhere (the reference's native/ included)."""
+    import re
+
+    from tigerbeetle_tpu_torch.kernels import host_build
+
+    src = PORT / "csrc" / "host"
+    assert host_build.HOST_SRC == src
+    cmd = host_build.command(Path("/dev/null"))
+    paths = [a for a in cmd[1:] if "/" in a and a != "/dev/null"]
+    assert paths == [str(src / host_build.MAIN)], paths
+    names = {p.name for p in host_build.sources()}
+    assert names == {"tb_fastpath.cpp", "tb_exact.inc", "tb_linked.inc", "tb_two_phase.inc"}
+    for path in host_build.sources():
+        for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
+            assert "/" not in inc and (src / inc).is_file(), (path.name, inc)
+    text = (PORT / "kernels" / "host_build.py").read_text()
+    assert "native/" not in text.replace("build/native/", "")

@@ -13,11 +13,11 @@ tests/test_sharded.py: the host engine's sharded flush), then growth
 that keeps and that drops the sharding, and tiered tables whose hot rows
 divide by 8.
 
-A batch the wave router declines takes the host path, where the
-reference would hand plain linked and two-phase batches to host-only
-resolvers the port does not have; both machines run that path with
-TB_WAVES=exact (as tests/test_torch_waves_device.py does), and the
-reference without its native library."""
+A batch the wave router declines takes the host path.  Most cases run
+it with TB_WAVES=exact (as tests/test_torch_waves_device.py does) and
+both machines without their native libraries; test_sharded_native_lanes
+runs both engines with the libraries on both sides and the default
+routing, where the host path is the native lanes."""
 
 import numpy as np
 import pytest
@@ -61,10 +61,12 @@ def accounts(ids, flags=0):
     return hz.pack([hz.account(i, flags=flags) for i in ids])
 
 
-def machines(engine, rows=ROWS):
+def machines(engine, rows=ROWS, native=False):
     sm_t = TorchStateMachine(account_capacity=rows, device="cpu", devices=SHARDS, engine=engine)
     sm_j = TpuStateMachine(account_capacity=rows, engine=engine)
-    sm_j._native = None
+    if not native:
+        sm_j._native = None
+    assert (sm_t._native is not None) == (sm_j._native is not None) == native
     return sm_t, sm_j
 
 
@@ -84,10 +86,10 @@ def spec_counters(sm_t, sm_j):
             {k: (ref[k].value if k in ref else 0) for k in SPEC})
 
 
-def run_both(ops, engine="device", rows=ROWS, between=None):
+def run_both(ops, engine="device", rows=ROWS, between=None, native=False):
     """The sharded port, the sharded reference and the oracle on one
     stream; returns (port, reference, replies)."""
-    sm_t, sm_j = machines(engine, rows)
+    sm_t, sm_j = machines(engine, rows, native)
     got = replay(sm_t, ops, hz, between)
     want = replay(sm_j, ops, ref_hz, between)
     h_c = ref_hz.SingleNodeHarness(CpuStateMachine())
@@ -374,3 +376,34 @@ def test_pv_balancing_stream_declines_exactly_its_scan_batches(knobs):
     sm_t, _, _ = run_both(ops)
     assert sm_t.stat_dev_wave_decline_reasons == {"shard_plan": 2}
     assert sm_t.stat_dev_wave_batches == 3 and sm_t._dev.stat_wave_sharded == 3
+
+
+NATIVE_ROUTING = ("stat_device_events", "stat_hot_tail_batches", "stat_slow_tail_batches",
+                  "stat_resolve_iters")
+
+
+@pytest.mark.parametrize("stream", ["mixed", "grow"])
+@pytest.mark.parametrize("engine", ["device", "host"])
+def test_sharded_native_lanes(engine, stream, knobs):
+    """Both engines with the native libraries on both sides and the
+    default routing (TB_WAVES unset): the host path's batches take the
+    native lanes (order-free, linked, two-phase, the serial exact engine)
+    on either machine, their deltas flush to the shards, and replies,
+    roots and every routing counter stay equal.  "grow" widens the
+    tables mid-stream (2^10 to 2^11 rows, still sharded): the native
+    object is rebuilt and the mirror re-pointed on both machines."""
+    knobs.delenv("TB_FASTPATH_DISABLE")
+    knobs.delenv("TB_WAVES")
+    if stream == "mixed":
+        ops = _fuzz_stream(np.random.default_rng(5))
+        ops += _plain_stream(60, 3, np.random.default_rng(6), tid=50_000)[1:]
+        sm_t, sm_j, _ = run_both(ops, engine=engine, native=True)
+    else:
+        ops = _plain_stream(1100, 3, np.random.default_rng(3))
+        sm_t, sm_j, _ = run_both(ops, engine=engine, rows=1 << 10, native=True)
+        assert sm_t._dev.capacity == sm_t._native.capacity == 1 << 11
+    assert is_sharded(sm_t)
+    for stat in NATIVE_ROUTING:
+        assert getattr(sm_t, stat) == getattr(sm_j, stat), stat
+    if engine == "host":
+        assert sm_t.stat_device_events > 0 and sm_t.stat_wave_batches == 0

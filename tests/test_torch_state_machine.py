@@ -274,7 +274,10 @@ def test_overflow_admission_raises_after_device_flag(monkeypatch):
     """The reference's test_fallback_overflow_orderfree: K1 flags the
     batch (two ~2^127 debits on one account), and its exact
     re-execution ranks the overflow codes through K3 while the mirror
-    holds the truth; a later clean batch is exact after the recovery."""
+    holds the truth; a later clean batch is exact after the recovery.
+    The port runs without its native library, whose serial exact engine
+    would take the re-execution instead of K3."""
+    monkeypatch.setenv("TB_FASTPATH_DISABLE", "1")
     big = (1 << 127) + 5
     ops = [(Operation.create_accounts, accounts([1, 2, 3]))]
     ops.append((Operation.create_transfers, transfers([
@@ -338,3 +341,73 @@ def test_no_cuda_raises(monkeypatch):
         TorchStateMachine()
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchStateMachine(device="cuda")
+
+
+NATIVE_ROUTING = ("stat_linked_batches", "stat_two_phase_batches", "stat_exact_events",
+                  "stat_device_events", "stat_hot_tail_batches", "stat_slow_tail_batches",
+                  "stat_fallback_events", "stat_host_semantic_events")
+
+
+def _native_pair(monkeypatch, engine, rows):
+    """The port and the reference with their native libraries and the
+    default routing; the capacity does not divide by 8, so neither
+    shards."""
+    monkeypatch.delenv("TB_FASTPATH_DISABLE", raising=False)
+    monkeypatch.delenv("TB_WAVES", raising=False)
+    sm_t = TorchStateMachine(account_capacity=rows, device="cpu", engine=engine)
+    sm_j = TpuStateMachine(account_capacity=rows, engine=engine)
+    assert sm_t._native is not None and sm_j._native is not None
+    return sm_t, sm_j
+
+
+def _native_equal(sm_t, sm_j):
+    assert sm_t.state_root() == sm_j.state_root()
+    for stat in NATIVE_ROUTING:
+        assert getattr(sm_t, stat) == getattr(sm_j, stat), stat
+    sm_t.verify_device_mirror()
+
+
+def test_overflow_recovery_native_lanes(monkeypatch):
+    """The device-flag overflow stream with the native libraries on both
+    sides: the exact re-execution of the flagged batch reaches the host
+    path's native lanes (which rank the overflow codes) on both machines,
+    and K3 never runs."""
+    big = (1 << 127) + 5
+    ops = [(Operation.create_accounts, accounts([1, 2, 3]))]
+    ops.append((Operation.create_transfers, transfers([
+        dict(id=10, debit_account_id=1, credit_account_id=2, amount=big),
+        dict(id=11, debit_account_id=1, credit_account_id=3, amount=big),
+    ])))
+    ops.append((Operation.create_transfers, transfers(
+        [dict(id=12, debit_account_id=1, credit_account_id=3, amount=7)])))
+    ops.append((Operation.lookup_accounts, hz.ids_bytes([1, 2, 3])))
+    sm_t, sm_j = _native_pair(monkeypatch, "device", (1 << 12) + 3)
+    got = replay(sm_t, ops)
+    assert got == replay(sm_j, ops, ref_hz) == oracle(ops)
+    assert np.frombuffer(got[1], "<u4")[1::2].tolist() == [int(gpu.CTR.overflows_debits_posted)]
+    assert sm_t._dev.stat_fallback_batches == 1 and sm_t.stat_exact_batches == 0
+    _native_equal(sm_t, sm_j)
+
+
+@pytest.mark.parametrize("engine", ["host", "device"])
+@pytest.mark.parametrize("config", ["linked", "two_phase", "offkernel"])
+def test_native_lanes_match_reference(config, engine, monkeypatch):
+    """The port's copies of bench's linked, two_phase and offkernel
+    streams at 400 events per batch, both machines with their native
+    libraries and the default routing: on the host engine every batch
+    takes a native lane (the offkernel batches' balancing riders the
+    serial exact engine), on the device engine the window's kernels take
+    their classes and the rest drains to the same native lanes.  Replies,
+    lookups, roots and routing counters equal; K3 never runs on the
+    host engine."""
+    setup, timed, sizing = getattr(workload, "gen_" + config)(1600, batch=400)
+    rows = sizing[0] + 3
+    ops = setup + timed + [(Operation.lookup_accounts, hz.ids_bytes(list(range(1, 401))))]
+    sm_t, sm_j = _native_pair(monkeypatch, engine, rows)
+    assert replay(sm_t, ops) == replay(sm_j, ops, ref_hz) == oracle(ops)
+    _native_equal(sm_t, sm_j)
+    if engine == "host":
+        assert sm_t.stat_exact_batches == sm_t.stat_wave_batches == 0
+        lane = {"linked": sm_t.stat_linked_batches, "two_phase": sm_t.stat_two_phase_batches,
+                "offkernel": sm_t.stat_exact_events}[config]
+        assert lane > 0

@@ -14,14 +14,13 @@ port's own all-resident machine, in both engines.
   tripwire without the commitment, and a corrupted hot row named by its
   logical id.
 
-The reference runs without its native library (TB_FASTPATH_DISABLE=1,
-_native dropped), as the other parity tests run it.  In the host engine
-its host-only linked and two-phase resolvers (not ported: the port takes
-the exact path, with the same results) send their deltas through the
-tier while the port's exact path writes the table back, so the host
-engine's tier counters are compared on order-free streams, where both
-route alike.  Hot budgets do not divide by 8: the suite's conftest makes
-8 virtual CPU devices, and the reference shards a table whose rows
+Both sides run without their native libraries (TB_FASTPATH_DISABLE=1,
+the reference's _native dropped), and the random-stream differential
+also with both libraries on: the host engine then routes every batch
+as the reference does (the native lanes send their deltas through the
+tier), so its tier counters and maps are compared over the whole
+stream.  Hot budgets do not divide by 8: the suite's conftest makes 8
+virtual CPU devices, and the reference shards a table whose rows
 divide among them."""
 
 import numpy as np
@@ -43,17 +42,22 @@ COUNTERS = ("hits", "misses", "evicts", "prefetches")
 
 @pytest.fixture
 def make(monkeypatch):
-    """make(engine, hot) -> (port harness, reference harness, port
-    all-resident harness); the port machines on the CPU."""
+    """make(engine, hot, native=False) -> (port harness, reference
+    harness, port all-resident harness); the port machines on the CPU,
+    every machine with its native library when `native`, else none."""
     monkeypatch.setenv("TB_FASTPATH_DISABLE", "1")
 
-    def build(engine, hot, rows=ROWS):
+    def build(engine, hot, rows=ROWS, native=False):
+        if native:
+            monkeypatch.delenv("TB_FASTPATH_DISABLE")
         monkeypatch.delenv("TB_HOT_CAPACITY", raising=False)
         flat = TorchStateMachine(account_capacity=rows, device="cpu", engine=engine)
         monkeypatch.setenv("TB_HOT_CAPACITY", str(hot))
         port = TorchStateMachine(account_capacity=rows, device="cpu", engine=engine)
         ref = TpuStateMachine(account_capacity=rows, engine=engine)
-        ref._native = None
+        if not native:
+            ref._native = None
+        assert (port._native is not None) == (ref._native is not None) == native
         assert flat._dev.hot is None
         assert port._dev.hot.hot_rows == ref._dev.hot.hot_rows == hot
         assert tuple(port._dev.balances.shape) == (hot, 8)
@@ -126,7 +130,21 @@ def test_tiny_hot_capacity_differential(engine, seed, make):
     """A hot set of 4 rows under 30 accounts forces admission and
     eviction on nearly every device batch (the reference's
     test_tiny_hot_capacity_differential, on the port)."""
-    port, ref, flat = make(engine, 4)
+    _tiny_hot_stream(*make(engine, 4), engine, seed, native=False)
+
+
+@pytest.mark.parametrize("engine", ["host", "device"])
+@pytest.mark.parametrize("seed", [7, 42])
+def test_tiny_hot_capacity_native(engine, seed, make):
+    """The same differential with the native libraries on both sides:
+    the host engine's native lanes (order-free, linked, two-phase, the
+    serial exact engine) feed the tier as the reference's do, so the
+    tier counters, maps and routing counters are equal at the end of
+    the whole stream."""
+    _tiny_hot_stream(*make(engine, 4, native=True), engine, seed, native=True)
+
+
+def _tiny_hot_stream(port, ref, flat, engine, seed, native):
     hs = [port, ref, flat]
     rng = np.random.default_rng(seed)
     account_ids = list(range(1, 25))
@@ -164,8 +182,9 @@ def test_tiny_hot_capacity_differential(engine, seed, make):
             _lookups_equal(hs, [int(rng.choice(account_ids)) for _ in range(6)])
         _roots_equal(hs)
     if engine == "host":
-        # Only pulses' releases reached the tier so far (the reference's
-        # resolvers take no batch of the random stream): equal counters.
+        # Without the libraries only pulses' releases reached the tier so
+        # far (the Python resolvers take no batch of the random stream);
+        # with them every lane routes as the reference's: equal counters.
         assert _tier_state(port) == _tier_state(ref)
 
     # The device-eligible batches: order-free, linked and two-phase
@@ -178,6 +197,12 @@ def test_tiny_hot_capacity_differential(engine, seed, make):
     assert got[0] == got[1] == got[2]
     tier = port.sm._dev.hot
     assert tier.misses > 0 and tier.evicts > 0
+    if engine == "host" and native:
+        assert _tier_state(port) == _tier_state(ref)
+        _maps_equal(port, ref)
+        for stat in ("stat_linked_batches", "stat_two_phase_batches", "stat_exact_events",
+                     "stat_device_events", "stat_hot_tail_batches", "stat_slow_tail_batches"):
+            assert getattr(port.sm, stat) == getattr(ref.sm, stat), stat
     if engine == "device":
         assert _tier_state(port) == _tier_state(ref)
         _maps_equal(port, ref)

@@ -8,12 +8,11 @@ the decline reasons and the speculative counters (the reference's
 dev_wave.spec.*, timings aside) must be equal.  Then a window whose
 wave records straddle an exact recovery.
 
-A batch the wave router declines drains to the exact host path.  There
-the reference would hand plain linked and two-phase batches to its
-host-only resolvers, which the port does not have (those batches take
-the exact path in the port, with the same results), so both machines
-run that path with TB_WAVES=exact: the exact path with its wave plans,
-gates kept."""
+A batch the wave router declines drains to the host path.  Both
+machines run it with TB_WAVES=exact and without their native libraries,
+so the declined batches reach the exact path with its wave plans, gates
+kept, rather than the host lanes (the native and the numpy linked /
+two-phase resolvers, held to the reference in test_torch_resolve.py)."""
 
 import numpy as np
 import pytest

@@ -7,10 +7,10 @@ of limit-reading chains), a stream over history accounts and a random
 fuzz (tests/test_waves.py's batches).  Replies, state_root, the
 looked-up rows and the routing counters must be equal.
 
-The reference's native library takes its exact path whenever it loads;
-the port has none, so the reference runs without it
-(TB_FASTPATH_DISABLE=1, and _native dropped as tests/test_waves.py
-does): its exact path is then the one the port copies."""
+Both machines run without their native libraries (TB_FASTPATH_DISABLE=1,
+and the reference's _native dropped as tests/test_waves.py does): the
+native serial engine would otherwise take the exact path's batches
+(TB_WAVES=exact, 1 and scan bypass it anyway)."""
 
 import numpy as np
 import pytest

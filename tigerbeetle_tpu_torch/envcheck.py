@@ -56,6 +56,21 @@ def env_choice(name: str, default: str, choices: tuple[str, ...]) -> str:
     return raw
 
 
+def env_is_set(name: str) -> bool:
+    """True when the variable is present and non-empty (toggles whose
+    value is not read)."""
+    return bool(os.environ.get(name))
+
+
+def fastpath_disabled() -> bool:
+    """TB_FASTPATH_DISABLE: any non-empty value runs the host engine
+    without its native library (runtime/fastpath.py): every host-path
+    batch then takes the Python lanes (mirror admission, the numpy
+    linked / two-phase resolvers, the exact path on the device).  Unset,
+    the library is built at first use and a failed build raises."""
+    return env_is_set("TB_FASTPATH_DISABLE")
+
+
 def engine() -> str:
     """TB_ENGINE: the create_transfers execution authority, "host"
     (default: host resolvers compute the codes, the device table is a

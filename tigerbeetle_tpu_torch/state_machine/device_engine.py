@@ -79,6 +79,7 @@ seam and chaos shim, the degraded lifecycle and scrubs.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time as _time
 
@@ -276,6 +277,10 @@ class DeviceEngine:
         self.spec_stats = {name: 0 for name in SPEC_COUNTERS}
         # Stat counters (the reference's names).
         self.stat_semantic_events = 0
+        # Semantic batches submitted, by kind: each record launches its
+        # kernel (K1, K5 or K6) once, and again only when exact recovery
+        # re-runs a window's later records.
+        self.stat_semantic_batches: collections.Counter = collections.Counter()
         self.stat_fallback_batches = 0
         self.stat_fetches = 0
         self.stat_commit_updates = 0
@@ -525,6 +530,7 @@ class DeviceEngine:
         `finish(summary) -> bytes` runs at materialization; `fallback()
         -> bytes` re-executes the batch exactly on the host; `bound` is
         the batch's amount bound (the wave admission's in-flight term)."""
+        self.stat_semantic_batches[kind] += 1
         return self._submit_record(
             lambda fut: _InFlight(kind, fut, finish, pk=pk, n=n, ts_base=ts_base,
                                   fallback=fallback, id_keys=id_keys, bound=bound)
@@ -1253,13 +1259,20 @@ class DeviceEngine:
     # ------------------------------------------------------------------
     # Write-behind lane and the host path's table access.
 
-    def enqueue(self, slots, cols, add_lo, add_hi) -> None:
-        """Queue host-resolved (slot, col, u128 delta) modular adds.  They
-        come from the mirror's own methods, which already refreshed the
-        commitment twin.  During exact recovery they are dropped: the
-        re-upload from the mirror that follows carries them."""
+    def enqueue(self, slots, cols, add_lo, add_hi, refresh_twin: bool = True) -> None:
+        """Queue host-resolved (slot, col, u128 delta) modular adds.  The
+        native library mutates the mirror in place and feeds its deltas
+        only through here, so the mutation stamp is bumped for every call
+        (suppressed ones included) and, by default, the commitment twin
+        refreshes the touched rows; `refresh_twin=False` when the deltas
+        came through the mirror's own methods, which already did.  During
+        exact recovery they are dropped: the re-upload from the mirror
+        that follows carries them."""
         if len(slots) == 0:
             return
+        self.mirror.version += 1
+        if refresh_twin and self.mirror.commitment is not None:
+            self.mirror.commitment.refresh(np.asarray(slots, np.int64), self.mirror)
         if self._suppress_enqueue:
             return
         # Host-path deltas only arrive after a drain, so they never

@@ -9,14 +9,21 @@ diffable bit for bit; method names follow the reference.
 Two execution authorities, as in the reference (``engine``, or
 ``TB_ENGINE``, default "host"):
 
-- "host": the host resolves every create_transfers batch.  Order-free
-  batches are admitted and applied on the balance mirror and reach the
-  device table through the write-behind lane (kernel K4); every other
-  batch takes the exact path against the device table: a wave plan
-  (TB_WAVES, ``waves.py``: parallel wave steps K7, chain waves K8 and
-  K3 scan segments over one carry) when admitted and profitable, else
-  the whole sequential scan K3; the mirror is rebuilt from the row
-  snapshots either way.
+- "host": the host resolves every create_transfers batch, first in the
+  native library (``runtime/fastpath.py``, C++ built at first use):
+  order-free batches (``commit_transfers``), linked chains
+  (``commit_linked``) and post/void batches (``commit_two_phase``) each
+  in one call, the exact remainder in its serial engine
+  (``commit_exact``).  The library owns the balance mirror's memory and
+  mutates it in place; the deltas reach the device table through the
+  write-behind lane (kernel K4).  Under TB_FASTPATH_DISABLE the Python
+  lanes take these batches instead: the mirror's admission, the numpy
+  linked / two-phase resolvers (``resolve.py``) and the exact path
+  against the device table.  TB_WAVES=1/exact/scan sends every batch to
+  that exact path with the library on too: a wave plan (``waves.py``:
+  parallel wave steps K7, chain waves K8 and K3 scan segments over one
+  carry) when admitted and profitable, else the whole sequential scan
+  K3; the mirror is rebuilt from the row snapshots either way.
 - "device": the device-authoritative engine (DeviceEngine) computes the
   codes on the device inside pipelined windows, routed as the
   reference routes them: order-free batches to kernel K1, linked-chain
@@ -38,10 +45,8 @@ mirror.  Hot/cold tiering (TB_HOT_CAPACITY, ``hot_tier.py``) keeps only
 a hot set of rows on the card in either engine, with the mirror as the
 cold tier: the device engine prefetches each batch's accounts before
 packing it with hot slots (``_tier_translate``), the host engine admits
-them as its deltas arrive.  Not ported (ROADMAP): the native library,
-the device engine's degraded state, the host-only linked / two-phase
-fast paths (those batches take the exact path, with the same results),
-the query operations.
+them as its deltas arrive.  Not ported (ROADMAP): the device engine's
+degraded state, the query operations, checkpoint snapshot / restore.
 
 Row sharding (``devices``, the reference's ``jax.devices()``): with
 several devices whose count divides the device table's rows, either
@@ -65,6 +70,7 @@ from tigerbeetle_tpu_torch import envcheck, types
 from tigerbeetle_tpu_torch.device import resolve_device
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.parallel import sharded
+from tigerbeetle_tpu_torch.runtime import fastpath
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel, resolve, waves
@@ -282,9 +288,17 @@ class TorchStateMachine:
         self.stat_exact_batches = 0
         self.stat_host_semantic_events = 0
         self.stat_fallback_events = 0
-        self.stat_linked_batches = 0      # batches resolved by K5
-        self.stat_two_phase_batches = 0   # batches routed to K6
-        self.stat_resolve_iters = 0       # K5 fixpoint iterations
+        # Linked and two-phase batches: the device engine's K5 / K6 and
+        # the host path's lanes (native or Python) alike, as the
+        # reference counts them; fixpoint iterations of K5 and of
+        # resolve.linked_resolve.
+        self.stat_linked_batches = 0
+        self.stat_two_phase_batches = 0
+        self.stat_resolve_iters = 0
+        # Which bookkeeping tail a native-lane batch took: the one-C-pass
+        # hot tail (every event applied, no timeouts) or the general one.
+        self.stat_hot_tail_batches = 0
+        self.stat_slow_tail_batches = 0
         # Wave execution of the host exact path (TB_WAVES) and wave /
         # speculative dispatch inside the device window (TB_DEV_WAVES).
         self.stat_wave_batches = 0
@@ -321,6 +335,15 @@ class TorchStateMachine:
         else:
             self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain,
                                     devices=devices)
+        # The native fast path (runtime/fastpath.py): the balance mirror
+        # is re-pointed at the library's memory so both sides share one
+        # copy.  A failed build raises; TB_FASTPATH_DISABLE runs the
+        # Python lanes instead.
+        self._native = None
+        if fastpath.available():
+            self._native = fastpath.NativeFastpath(account_capacity)
+            self._mirror.lo = self._native.lo
+            self._mirror.hi = self._native.hi
         self._exact_scratch = None
         self._wave_scratch = None
         self._tdir = RunIndex(_dir_capacity(transfer_capacity))
@@ -563,6 +586,10 @@ class TorchStateMachine:
             self._acct_dir.remove(
                 self._attrs["id_lo"][scope_slots], self._attrs["id_hi"][scope_slots]
             )
+            if self._native is not None:
+                self._native.remove_accounts(
+                    self._attrs["id_lo"][scope_slots], self._attrs["id_hi"][scope_slots]
+                )
             self._attrs.truncate(min(scope_slots))
             scope_slots.clear()
 
@@ -614,6 +641,19 @@ class TorchStateMachine:
                         np.array([row["id_hi"]], np.uint64),
                         np.array([slot], np.uint64),
                     )
+                    if self._native is not None:
+                        # A capacity rebuild re-registers every account
+                        # of _attrs (this one included).
+                        native = self._native
+                        self._ensure_balance_capacity(self._attrs.count)
+                        if self._native is native:
+                            native.add_accounts(
+                                np.array([row["id_lo"]], np.uint64),
+                                np.array([row["id_hi"]], np.uint64),
+                                np.array([row["flags"]], np.uint32),
+                                np.array([row["ledger"]], np.uint32),
+                                base_slot=slot,
+                            )
                     if chain is not None:
                         scope_slots.append(slot)
                     self.commit_timestamp = timestamp - n + index + 1
@@ -697,7 +737,11 @@ class TorchStateMachine:
         assert rows[0] == base
         self._acct_dir.insert(id_lo, id_hi, rows.astype(np.uint64))
         self.commit_timestamp = timestamp
+        native = self._native
         self._ensure_balance_capacity(self._attrs.count)
+        # A capacity rebuild already re-registered every account.
+        if native is not None and self._native is native:
+            native.add_accounts(id_lo, id_hi, flags, events["ledger"], base_slot=base)
         return b""
 
     def _create_account_checked(self, row, ev, exists_ladder) -> int:
@@ -734,7 +778,31 @@ class TorchStateMachine:
         while cap < slots:
             cap *= 2
         self._dev.grow(cap)
-        self._mirror.grow(cap)
+        if self._native is not None:
+            self._rebuild_native(cap)
+        else:
+            self._mirror.grow(cap)
+
+    def _rebuild_native(self, capacity: int) -> None:
+        """Recreate the native fast path at a new capacity: copy the
+        balances, re-point the shared mirror, re-register the id
+        directories (reference: tpu.py:1289).  Every other holder reads
+        the arrays through the mirror, so it sees the new ones."""
+        old_lo, old_hi = self._mirror.lo, self._mirror.hi
+        native = fastpath.NativeFastpath(capacity)
+        native.lo[: len(old_lo)] = old_lo
+        native.hi[: len(old_hi)] = old_hi
+        if self._attrs.count:
+            native.add_accounts(
+                self._attrs.col("id_lo"), self._attrs.col("id_hi"),
+                self._attrs.col("flags"), self._attrs.col("ledger"), base_slot=0,
+            )
+        if self._store.count:  # every row in RAM: global row = physical row
+            native.add_transfer_ids(self._store.col("id_lo"), self._store.col("id_hi"), 0)
+        self._native = native
+        self._mirror.lo = native.lo
+        self._mirror.hi = native.hi
+        self._mirror.version += 1
 
     # ------------------------------------------------------------------
     # Device-authoritative create_transfers (engine == "device").
@@ -1336,6 +1404,30 @@ class TorchStateMachine:
             return b""
         self.stat_host_semantic_events += n
         ts_base = timestamp - n + 1
+        # The native lanes first (reference: tpu.py:2266-2298): each
+        # covers decode, ladder, account resolution, duplicates and
+        # admission in one call, and None means it mutated nothing.
+        # TB_WAVES=1/exact/scan bypasses them, so the exact path on the
+        # device sees the whole stream.
+        if self._native is not None and waves.mode() not in ("1", "exact", "scan"):
+            native_out = self._native.commit_transfers(input_bytes, n, ts_base)
+            if native_out is not None:
+                self.stat_device_events += n
+                return self._finish_native_fast(events, n, ts_base, *native_out)
+            nl = self._native.commit_linked(input_bytes, n, ts_base)
+            if nl is not None:
+                results, dr_slot, cr_slot, deltas, last_applied = nl
+                self.stat_device_events += n
+                self.stat_linked_batches += 1
+                return self._finish_native_fast(
+                    events, n, ts_base, results, dr_slot, cr_slot, deltas,
+                    last_applied=last_applied,
+                )
+            reply = self._try_native_two_phase(input_bytes, events, n, ts_base)
+            if reply is not None:
+                self.stat_device_events += n
+                self.stat_two_phase_batches += 1
+                return reply
         d = decoded if decoded is not None else self._decode_static(events, n)
         return self._commit_transfers_resolved(
             n, ts_base, events, d["id_lo"], d["id_hi"], d["pend_lo"],
@@ -1451,18 +1543,23 @@ class TorchStateMachine:
         flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi,
         ledger, code, static, is_pv, dr_flags, cr_flags, dr_zero, cr_zero,
     ) -> bytes:
-        """Order-free batches apply through the mirror's admission
-        (_commit_fast); every other batch, and one whose admission cannot
-        rule out an overflow, runs the exact path: a wave plan when
-        TB_WAVES admits one, else the whole scan K3 (reference:
-        tpu.py:2445-2656, without the native library and the host-only
-        linked and two-phase resolvers, whose batches take the exact
-        path with the same results)."""
+        """The Python lanes and the exact path (reference:
+        tpu.py:2445-2656): order-free batches apply through the mirror's
+        admission (_commit_fast), linked chains of plain posted transfers
+        through linked_resolve (_commit_linked_fast) and post/void
+        batches through two_phase_resolve (_try_two_phase_fast); the
+        rest, and a batch a lane declines, runs the exact path: the
+        native serial engine when the library is loaded, else a wave
+        plan when TB_WAVES admits one, else the whole scan K3."""
         wave_mode = waves.mode()
-        # "1" / "exact" / "scan" route every batch to the exact path;
-        # "1" also forces the plan past its profitability gate.
+        # "1" / "exact" / "scan" route every batch to the exact path on
+        # the device; "1" also forces the plan past its profitability
+        # gate.
         wave_force = wave_mode in ("1", "exact", "scan")
-        B = next(b for b in _BATCH_BUCKETS if b >= n)
+        native_exact = self._native is not None and not wave_force
+        # The native engine takes any length; K3 and the waves take the
+        # batch buckets.
+        B = n if native_exact else next(b for b in _BATCH_BUCKETS if b >= n)
         e_found, e_row = self._tdir.lookup(id_lo, id_hi)
         order_free = not (
             flags
@@ -1477,15 +1574,21 @@ class TorchStateMachine:
                 | ((id_hi[1:] == id_hi[:-1]) & (id_lo[1:] > id_lo[:-1]))
             ).all()
         )
-        if order_free and not e_found.any() and not wave_force:
+        # The resolvers exclude only balancing batches (order_free already
+        # implies none).  In-batch duplicates: ascending ids prove
+        # uniqueness, else a 64-bit key mix (a collision only costs the
+        # exact path).
+        route_candidate = not (flags & np.uint32(TF.balancing_debit | TF.balancing_credit)).any()
+        ids_unique = False
+        if route_candidate:
             ids_unique = ascending
             if not ids_unique:
                 id_mix = id_lo * np.uint64(0x9E3779B97F4A7C15) + id_hi * np.uint64(
                     0xC2B2AE3D27D4EB4F
                 )
                 ids_unique = len(np.unique(id_mix)) == n
-            limit_hist = ((dr_flags | cr_flags) & _LIMH).any()
-            if ids_unique and not limit_hist:
+        if order_free and ids_unique and not e_found.any() and not wave_force:
+            if not ((dr_flags | cr_flags) & _LIMH).any():
                 reply = self._commit_fast(
                     n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi,
                     flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi,
@@ -1495,15 +1598,66 @@ class TorchStateMachine:
                     self.stat_device_events += n
                     return reply
 
+        # Linked chains and limit accounts over plain posted transfers (a
+        # chain-free batch is chains of length 1): exact verdicts from the
+        # fixpoint resolver, then the mirror's admission.
+        if (
+            ids_unique
+            and not wave_force
+            and not (
+                flags
+                & np.uint32(
+                    TF.pending | TF.post_pending_transfer | TF.void_pending_transfer
+                    | TF.balancing_debit | TF.balancing_credit
+                )
+            ).any()
+            and not e_found.any()
+            and not ((dr_flags | cr_flags) & np.uint32(AF.history)).any()
+        ):
+            reply = self._commit_linked_fast(
+                n, ts_base, events, id_lo, id_hi, flags, timeout,
+                dr_slot, cr_slot, amount_lo, amount_hi, ledger, code,
+                static, dr_flags, cr_flags,
+            )
+            if reply is not None:
+                self.stat_device_events += n
+                self.stat_linked_batches += 1
+                return reply
+
         j = self._exact_joins(
             n, B, id_lo, id_hi, pend_lo, pend_hi, is_pv, ascending, e_found, e_row,
         )
+        # Post/void batches whose verdicts do not depend on balances: one
+        # closed-form pass (pendings, first-wins finalization, adds).
+        if is_pv.any() and ids_unique and not e_found.any() and not wave_force:
+            reply = self._try_two_phase_fast(
+                n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi, flags,
+                timeout, dr_slot, cr_slot, amount_lo, amount_hi, code,
+                static, is_pv, dr_flags, cr_flags, j,
+            )
+            if reply is not None:
+                self.stat_device_events += n
+                self.stat_two_phase_batches += 1
+                return reply
         ev = self._build_scan_events(
             n, B, events, flags, static, amount_lo, amount_hi, pend_lo, pend_hi,
             timeout, ledger, code, dr_slot, cr_slot, dr_flags, cr_flags,
             dr_zero, cr_zero, e_found, j,
         )
         self.stat_exact_events += n
+        if native_exact:
+            # The serial exact engine in C++ (csrc/host/tb_exact.inc):
+            # the scan's inputs and packed outputs; it mutates the shared
+            # mirror in place, and its deltas (copied: the buffers are
+            # reused per call) ride the write-behind lane.
+            packed_np, deltas = self._native.commit_exact(
+                ev, kernel.EVENT_FIELDS, j["dstat_init"], B, n, ts_base
+            )
+            self._dev.enqueue(*[d.copy() for d in deltas])
+            return self._finish_exact_outputs(
+                kernel.unpack_outputs(packed_np), n, ts_base, id_lo, id_hi, flags,
+                timeout, j["uniq_rows"], j["dstat_init"], mirror_from_hist=False,
+            )
         wave_plan = None
         if wave_mode not in ("0", "scan"):
             wave_plan = self._plan_wave_execution(
@@ -1727,7 +1881,7 @@ class TorchStateMachine:
         segments ("shard_plan": the sharded executor runs wave and chain
         segments only), and never speculates.  The reference's
         "degraded" decline cannot arise here: the degraded state is not
-        ported (ROADMAP queue 1, item 6)."""
+        ported (ROADMAP queue 1, item 2: the engine lifecycle)."""
         dev = self._dev
         dm = waves.dev_mode()
         if dm == "0" or n == 0 or n > _BATCH_BUCKETS[-1]:
@@ -1835,10 +1989,12 @@ class TorchStateMachine:
         ), None
 
     def _finish_exact_outputs(self, out, n, ts_base, id_lo, id_hi, flags, timeout,
-                              uniq_rows, dstat_init) -> bytes:
+                              uniq_rows, dstat_init, mirror_from_hist: bool = True) -> bytes:
         """Exact-path bookkeeping from the unpacked scan outputs: the
-        mirror rebuilt from the applied events' row snapshots, the store,
-        statuses, expiry, pulses and history (reference: tpu.py:2677)."""
+        mirror rebuilt from the applied events' row snapshots (unless
+        `mirror_from_hist` is False: the native engine updated it), the
+        store, statuses, expiry, pulses and history (reference:
+        tpu.py:2677)."""
         results = out["results"][:n]
         created_mask = out["created_mask"][:n]
         created = {f: out["created"][f][:n] for f in kernel.CREATED_FIELDS}
@@ -1850,7 +2006,7 @@ class TorchStateMachine:
         # failed chain members) carry post-apply snapshots of both rows;
         # interleaved in event order, the last write wins.
         ok_idx = np.flatnonzero(results == 0)
-        if len(ok_idx):
+        if mirror_from_hist and len(ok_idx):
             slots2 = np.empty(2 * len(ok_idx), np.int64)
             slots2[0::2] = created["dr_slot"][ok_idx]
             slots2[1::2] = created["cr_slot"][ok_idx]
@@ -1923,8 +2079,9 @@ class TorchStateMachine:
         dstat_init = np.zeros(B, np.uint32)
         dstat_init[: len(uniq_rows)] = uniq_status
         return dict(
-            id_group=id_group, p_group=p_group, p_found=p_found, gather_e=gather_e,
-            gather_p=gather_p, uniq_rows=uniq_rows, p_tgt=p_tgt, dstat_init=dstat_init,
+            unique_ids=unique_ids, id_group=id_group, p_group=p_group, p_found=p_found,
+            gather_e=gather_e, gather_p=gather_p, uniq_rows=uniq_rows,
+            uniq_status=uniq_status, p_tgt=p_tgt, dstat_init=dstat_init,
         )
 
     def _build_scan_events(self, n, B, events, flags, static, amount_lo, amount_hi,
@@ -1957,6 +2114,343 @@ class TorchStateMachine:
         return {name: _pad(np.asarray(ev[name]).astype(dtypes[name]), B)
                 for name in dtypes}
 
+    # ------------------------------------------------------------------
+    # The native lanes' tails and the Python resolvers (reference:
+    # tpu.py:3046-3530).
+
+    def _try_native_two_phase(self, input_bytes, events, n, ts_base) -> bytes | None:
+        """Two-phase batch via the native serial resolver
+        (csrc/host/tb_two_phase.inc).  Python gathers the durable pending
+        targets' columns and finishes the store and expiry bookkeeping;
+        the resolver owns decode, ladders, reference resolution and the
+        balance effects."""
+        flags16 = np.asarray(events["flags"])
+        pv_mask = (flags16 & np.uint16(TF.post_pending_transfer | TF.void_pending_transfer)) != 0
+        if not pv_mask.any():
+            return None
+        # Cheap shape gate before the durable join (the resolver would
+        # refuse these too, after the join).
+        if (flags16 & np.uint16(TF.linked)).any():
+            return None
+        pv_idx = np.flatnonzero(pv_mask)
+        found, rows = self._tdir.lookup(
+            np.asarray(events["pending_id_lo"])[pv_idx], np.asarray(events["pending_id_hi"])[pv_idx]
+        )
+        join = None
+        if found.any():
+            hit = pv_idx[found]
+            hit_rows = rows[found].astype(np.int64)
+            fields = (
+                ("flags", np.uint32), ("dr_slot", np.int32), ("cr_slot", np.int32),
+                ("amount_lo", np.uint64), ("amount_hi", np.uint64), ("ledger", np.uint32),
+                ("code", np.uint32), ("ud128_lo", np.uint64), ("ud128_hi", np.uint64),
+                ("ud64", np.uint64), ("ud32", np.uint32), ("timeout", np.uint32),
+                ("status", np.uint32),
+            )
+            got = self._store.gather_many([f for f, _ in fields], hit_rows)
+            join = {"row": np.full(n, -1, np.int64)}
+            join["row"][hit] = hit_rows
+            for f, dt in fields:
+                arr = np.zeros(n, dt)
+                arr[hit] = got[f].astype(dt)
+                join[f] = arr
+        r = self._native.commit_two_phase(input_bytes, n, ts_base, join)
+        if r is None:
+            return None
+        self._dev.enqueue(*[d.copy() for d in r["deltas"]])
+        # Durable finalizations: status bytes (the resolver takes only
+        # timeout-free targets, so no expiry entry to deactivate).
+        if len(r["dur_rows"]):
+            self._store["status"][r["dur_rows"].copy()] = r["dur_status"].astype(np.uint8)
+        flags = flags16.astype(np.uint32)
+        timeout = np.asarray(events["timeout"]).astype(np.uint64)
+        created = {
+            "flags": flags,
+            "dr_slot": r["row_dr"], "cr_slot": r["row_cr"],
+            "amount_lo": r["amt_lo"], "amount_hi": r["amt_hi"],
+            "pending_lo": np.asarray(events["pending_id_lo"]),
+            "pending_hi": np.asarray(events["pending_id_hi"]),
+            "ud128_lo": r["ud128_lo"], "ud128_hi": r["ud128_hi"],
+            "ud64": r["ud64"], "ud32": r["ud32"],
+            "timeout": timeout,
+            "ledger": r["ledger"], "code": r["code"],
+        }
+        return self._finish_fast(
+            n, ts_base, np.asarray(events["id_lo"]), np.asarray(events["id_hi"]), flags,
+            timeout, r["results"], created, last_applied=r["last_applied"],
+            inb_status=r["inb_status"],
+        )
+
+    def _finish_native_fast(self, events, n, ts_base, results, dr_slot, cr_slot, deltas,
+                            last_applied: int | None = None) -> bytes:
+        """Bookkeeping after a native order-free or linked apply: the
+        write-behind enqueue, the store, expiry and pulses, the reply.
+        `results` and the slots are views into the library's reusable
+        buffers, consumed before its next call."""
+        # Copies: the lane holds the deltas past this call.
+        self._dev.enqueue(*[d.copy() for d in deltas])
+        timeout = np.asarray(events["timeout"])
+        if not (results != 0).any() and not timeout.any():
+            # Hot tail: every event applied, no timeouts.  One C pass
+            # decodes the wire records into the store's columns; the id
+            # directories and commit_timestamp remain.
+            self.stat_hot_tail_batches += 1
+            st = self._store
+            st._ensure(n)
+            lo = st.count
+            fastpath.decode_store(events, n, ts_base, st._cols, lo)
+            st._cols["dr_slot"][lo : lo + n] = dr_slot
+            st._cols["cr_slot"][lo : lo + n] = cr_slot
+            st.count = lo + n
+            id_lo = st._cols["id_lo"][lo : lo + n]
+            id_hi = st._cols["id_hi"][lo : lo + n]
+            self._tdir.insert(id_lo, id_hi, np.arange(lo, lo + n, dtype=np.uint64))
+            self._native.add_transfer_ids(id_lo, id_hi, lo)
+            self.commit_timestamp = ts_base + n - 1
+            return b""
+        self.stat_slow_tail_batches += 1
+        flags = events["flags"].astype(np.uint32)
+        timeout = timeout.astype(np.uint64)
+        created = {
+            "flags": flags,
+            "dr_slot": dr_slot, "cr_slot": cr_slot,
+            "amount_lo": np.asarray(events["amount_lo"]),
+            "amount_hi": np.asarray(events["amount_hi"]),
+            "pending_lo": np.asarray(events["pending_id_lo"]),
+            "pending_hi": np.asarray(events["pending_id_hi"]),
+            "ud128_lo": np.asarray(events["user_data_128_lo"]),
+            "ud128_hi": np.asarray(events["user_data_128_hi"]),
+            "ud64": np.asarray(events["user_data_64"]),
+            "ud32": np.asarray(events["user_data_32"]),
+            "timeout": timeout,
+            "ledger": np.asarray(events["ledger"]),
+            "code": events["code"].astype(np.uint32),
+        }
+        return self._finish_fast(
+            n, ts_base, np.asarray(events["id_lo"]), np.asarray(events["id_hi"]), flags,
+            timeout, results, created, last_applied=last_applied,
+        )
+
+    def _commit_linked_fast(
+        self, n, ts_base, events, id_lo, id_hi, flags, timeout,
+        dr_slot, cr_slot, amount_lo, amount_hi, ledger, code,
+        static, dr_flags, cr_flags,
+    ) -> bytes | None:
+        """Linked-chain batch via the fixpoint resolver.  The router
+        checked the preconditions (plain posted transfers, unique fresh
+        ids, no history accounts); the superset admission below proves no
+        overflow code can fire for any subset of the batch (the deltas
+        are non-negative), which leaves the limit checks that
+        linked_resolve models exactly."""
+        ts_nonzero = np.asarray(events["timestamp"] != 0)
+        # Every event that could apply (static failures, account not
+        # found included, never touch balances, so these slots are valid).
+        may_apply = (static == 0) & ~ts_nonzero
+        if may_apply.any() and self._mirror.try_apply_adds(
+            dr_slot.astype(np.int64), cr_slot.astype(np.int64),
+            amount_lo, amount_hi, np.zeros(n, bool), may_apply, commit=False,
+        ) is None:
+            return None
+        r = resolve.linked_resolve(
+            static, ts_nonzero, flags, dr_slot, cr_slot,
+            amount_lo, amount_hi, dr_flags, cr_flags, self._mirror,
+        )
+        if r is None:
+            return None
+        results, last_applied, iters = r
+        self.stat_resolve_iters += iters
+        deltas = self._mirror.try_apply_adds(
+            dr_slot.astype(np.int64), cr_slot.astype(np.int64),
+            amount_lo, amount_hi, np.zeros(n, bool), results == 0,
+        )
+        assert deltas is not None  # a subset of the admitted superset
+        self._dev.enqueue(*deltas, refresh_twin=False)
+        created = {
+            "flags": flags,
+            "dr_slot": dr_slot.astype(np.int32),
+            "cr_slot": cr_slot.astype(np.int32),
+            "amount_lo": amount_lo, "amount_hi": amount_hi,
+            "pending_lo": np.zeros(n, np.uint64),
+            "pending_hi": np.zeros(n, np.uint64),
+            "ud128_lo": np.asarray(events["user_data_128_lo"]),
+            "ud128_hi": np.asarray(events["user_data_128_hi"]),
+            "ud64": np.asarray(events["user_data_64"]),
+            "ud32": np.asarray(events["user_data_32"]),
+            "timeout": timeout,
+            "ledger": ledger, "code": code,
+        }
+        return self._finish_fast(
+            n, ts_base, id_lo, id_hi, flags, timeout, results, created,
+            last_applied=last_applied,
+        )
+
+    def _try_two_phase_fast(
+        self, n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi, flags,
+        timeout, dr_slot, cr_slot, amount_lo, amount_hi, code,
+        static, is_pv, dr_flags, cr_flags, j,
+    ) -> bytes | None:
+        """Two-phase batch via the closed-form resolver.  Beyond the
+        router's unique fresh ids: no linked or balancing flags, zero
+        timeouts (the events' and the durable targets'), no limit or
+        history account anywhere (the durable targets' accounts too), and
+        in-batch references that point at pending creates.  Anything else
+        returns None and takes the exact path.  `j`: the exact joins."""
+        if (flags & np.uint32(TF.linked | TF.balancing_debit | TF.balancing_credit)).any():
+            return None
+        if timeout.any():
+            return None
+        if ((dr_flags | cr_flags) & _LIMH).any():
+            return None
+        attrs = self._attrs
+        gather_p, p_found, p_tgt = j["gather_p"], j["p_found"], j["p_tgt"]
+        uniq_status = j["uniq_status"]
+        if p_found.any():
+            if (gather_p["timeout"] != 0).any():
+                return None
+            pj_dr = np.clip(gather_p["dr_slot"].astype(np.int64), 0, None)
+            pj_cr = np.clip(gather_p["cr_slot"].astype(np.int64), 0, None)
+            pj_flags = np.where(
+                p_found, attrs["flags"][pj_dr] | attrs["flags"][pj_cr], 0
+            ).astype(np.uint32)
+            if (pj_flags & _LIMH).any():
+                return None
+
+        # In-batch references: the creator event of each distinct id (ids
+        # are unique, so a permutation).
+        creator = np.empty(len(j["unique_ids"]), np.int64)
+        creator[j["id_group"]] = np.arange(n)
+        p_group = j["p_group"]
+        tgt_ev = np.where(p_group >= 0, creator[np.clip(p_group, 0, None)], -1)
+        ib = is_pv & (tgt_ev >= 0) & (tgt_ev < np.arange(n))
+        if (ib & ((flags[np.clip(tgt_ev, 0, None)] & np.uint32(TF.pending)) == 0)).any():
+            # A reference to a non-pending in-batch row couples the pv
+            # verdicts to each other: the exact engine decides.
+            return None
+
+        ts_nonzero = np.asarray(events["timestamp"] != 0)
+        p_join = {
+            f: gather_p[f]
+            for f in ("flags", "dr_slot", "cr_slot", "amount_lo", "amount_hi", "ledger",
+                      "code", "ud128_lo", "ud128_hi", "ud64", "ud32")
+        }
+        ud128_lo = np.asarray(events["user_data_128_lo"])
+        ud128_hi = np.asarray(events["user_data_128_hi"])
+        ud64 = np.asarray(events["user_data_64"])
+        ud32 = np.asarray(events["user_data_32"]).astype(np.uint32)
+        r = resolve.two_phase_resolve(
+            static, ts_nonzero, flags, is_pv,
+            np.asarray(events["debit_account_id_lo"]),
+            np.asarray(events["debit_account_id_hi"]),
+            np.asarray(events["credit_account_id_lo"]),
+            np.asarray(events["credit_account_id_hi"]),
+            amount_lo, amount_hi, ud128_lo, ud128_hi, ud64, ud32,
+            np.asarray(events["ledger"]), code,
+            tgt_ev, p_found, p_tgt, p_join, uniq_status, attrs,
+        )
+        if r is None:
+            return None
+
+        results = r["results"]
+        ok = r["ok"]
+        winner = r["winner"]
+        post = r["post"]
+        pend_flag = r["pend_flag"]
+        tgt_c = np.clip(tgt_ev, 0, None)
+        in_batch = r["in_batch"]
+        # Target slots: the in-batch event's columns or the durable join.
+        p_drs = np.where(in_batch, dr_slot[tgt_c].astype(np.int64),
+                         np.clip(p_join["dr_slot"].astype(np.int64), 0, None))
+        p_crs = np.where(in_batch, cr_slot[tgt_c].astype(np.int64),
+                         np.clip(p_join["cr_slot"].astype(np.int64), 0, None))
+
+        # Balance deltas: the adds are admission-checked together; a
+        # pending's release cannot underflow (its amount is inside dp/cp).
+        pend_ok = ok & pend_flag
+        plain_ok = ok & ~pend_flag & ~is_pv
+        post_win = winner & post
+        add_slots = np.concatenate([
+            dr_slot[pend_ok].astype(np.int64), cr_slot[pend_ok].astype(np.int64),
+            dr_slot[plain_ok].astype(np.int64), cr_slot[plain_ok].astype(np.int64),
+            p_drs[post_win], p_crs[post_win],
+        ])
+        n_pend = int(pend_ok.sum())
+        n_plain = int(plain_ok.sum())
+        n_post = int(post_win.sum())
+        add_cols = np.concatenate([
+            np.zeros(n_pend, np.int64), np.full(n_pend, 2, np.int64),
+            np.ones(n_plain, np.int64), np.full(n_plain, 3, np.int64),
+            np.ones(n_post, np.int64), np.full(n_post, 3, np.int64),
+        ])
+        add_lo = np.concatenate([
+            amount_lo[pend_ok], amount_lo[pend_ok], amount_lo[plain_ok], amount_lo[plain_ok],
+            r["res_amt_lo"][post_win], r["res_amt_lo"][post_win],
+        ])
+        add_hi = np.concatenate([
+            amount_hi[pend_ok], amount_hi[pend_ok], amount_hi[plain_ok], amount_hi[plain_ok],
+            r["res_amt_hi"][post_win], r["res_amt_hi"][post_win],
+        ])
+        deltas = self._mirror.try_apply_deltas(add_slots, add_cols, add_lo, add_hi)
+        if deltas is None:
+            return None  # overflow codes in play: the exact engine decides
+        n_win = int(winner.sum())
+        if n_win:
+            sub_slots = np.concatenate([p_drs[winner], p_crs[winner]])
+            sub_cols = np.concatenate([np.zeros(n_win, np.int64), np.full(n_win, 2, np.int64)])
+            sub_lo = np.concatenate([r["p_amt_lo"][winner]] * 2)
+            sub_hi = np.concatenate([r["p_amt_hi"][winner]] * 2)
+            self._mirror.apply_subs(sub_slots, sub_cols, sub_lo, sub_hi)
+            zero = np.zeros(2 * n_win, np.uint64)
+            neg_lo, neg_hi, _ = _sub_u128(zero, zero, sub_lo, sub_hi)
+            self._dev.enqueue(
+                np.concatenate([deltas[0], sub_slots]), np.concatenate([deltas[1], sub_cols]),
+                np.concatenate([deltas[2], neg_lo]), np.concatenate([deltas[3], neg_hi]),
+                refresh_twin=False,
+            )
+        else:
+            self._dev.enqueue(*deltas, refresh_twin=False)
+
+        # Durable store rows: zero means inherit for created pv rows
+        # (reference: src/state_machine.zig:1697-1720).
+        ud128_set = (ud128_lo != 0) | (ud128_hi != 0)
+        created = {
+            "flags": flags,
+            "dr_slot": np.where(is_pv, p_drs, dr_slot.astype(np.int64)).astype(np.int32),
+            "cr_slot": np.where(is_pv, p_crs, cr_slot.astype(np.int64)).astype(np.int32),
+            "amount_lo": np.where(is_pv, r["res_amt_lo"], amount_lo),
+            "amount_hi": np.where(is_pv, r["res_amt_hi"], amount_hi),
+            "pending_lo": pend_lo, "pending_hi": pend_hi,
+            "ud128_lo": np.where(is_pv & ~ud128_set, r["p_ud128_lo"], ud128_lo),
+            "ud128_hi": np.where(is_pv & ~ud128_set, r["p_ud128_hi"], ud128_hi),
+            "ud64": np.where(is_pv & (ud64 == 0), r["p_ud64"], ud64),
+            "ud32": np.where(is_pv & (ud32 == 0), r["p_ud32"], ud32),
+            "timeout": np.zeros(n, np.uint64),
+            "ledger": np.where(is_pv, r["p_ledger"], np.asarray(events["ledger"])).astype(np.uint32),
+            "code": np.where(is_pv, r["p_code"], code).astype(np.uint32),
+        }
+        inb_status = np.where(pend_ok, np.uint32(kernel.S_PENDING), np.uint32(0))
+        ib_win = winner & in_batch
+        if ib_win.any():
+            inb_status[tgt_ev[ib_win]] = np.where(
+                post[ib_win], np.uint32(kernel.S_POSTED), np.uint32(kernel.S_VOIDED)
+            )
+        dstat = uniq_status.copy()
+        dur_win = winner & r["durable"]
+        if dur_win.any():
+            dstat[p_tgt[dur_win]] = np.where(
+                post[dur_win], np.uint32(kernel.S_POSTED), np.uint32(kernel.S_VOIDED)
+            )
+        zeros_u64 = np.zeros(n, np.uint64)
+        self._post_process_transfers(
+            n, ts_base, id_lo, id_hi, flags, timeout, results, ok, created, inb_status,
+            uniq_status, dstat, j["uniq_rows"], None, None,
+            r["last_applied"], zeros_u64, zeros_u64, no_history=True,
+        )
+        fail_idx = np.flatnonzero(results != 0)
+        reply = np.zeros(len(fail_idx), dtype=CREATE_RESULT_DTYPE)
+        reply["index"] = fail_idx.astype(np.uint32)
+        reply["result"] = results[fail_idx]
+        return reply.tobytes()
+
     def _commit_fast(
         self, n, ts_base, events, id_lo, id_hi, pend_lo, pend_hi,
         flags, timeout, dr_slot, cr_slot, amount_lo, amount_hi, ledger, code,
@@ -1983,7 +2477,7 @@ class TorchStateMachine:
         )
         if deltas is None:
             return None
-        self._dev.enqueue(*deltas)
+        self._dev.enqueue(*deltas, refresh_twin=False)
         created = {
             "flags": flags,
             "dr_slot": dr_slot.astype(np.int32),
@@ -2000,16 +2494,21 @@ class TorchStateMachine:
         return self._finish_fast(n, ts_base, id_lo, id_hi, flags, timeout, results, created)
 
     def _finish_fast(self, n, ts_base, id_lo, id_hi, flags, timeout, results, created,
-                     last_applied: int | None = None) -> bytes:
-        """Shared fast-path tail: pulse signals, store bookkeeping and
-        the failure reply (reference: tpu.py:3532)."""
+                     last_applied: int | None = None,
+                     inb_status: np.ndarray | None = None) -> bytes:
+        """Shared fast-path tail of the native and Python lanes: pulse
+        signals, store bookkeeping and the failure reply (reference:
+        tpu.py:3532).  `inb_status` overrides the created pendings'
+        statuses when the caller finalized pendings within the batch
+        (the native two-phase resolver)."""
         apply_mask = results == 0
         is_pending = (flags & np.uint32(TF.pending)) != 0
         ts_i = np.uint64(ts_base) + np.arange(n, dtype=np.uint64)
         expires = ts_i + timeout * np.uint64(NS_PER_S)
-        inb_status = np.where(
-            apply_mask & is_pending, np.uint32(kernel.S_PENDING), np.uint32(0)
-        )
+        if inb_status is None:
+            inb_status = np.where(
+                apply_mask & is_pending, np.uint32(kernel.S_PENDING), np.uint32(0)
+            )
         if last_applied is None:
             applied_idx = np.flatnonzero(apply_mask)
             last_applied = int(applied_idx[-1]) if len(applied_idx) else -1
@@ -2060,6 +2559,10 @@ class TorchStateMachine:
                 status=inb_status[idx].astype(np.uint8),
             )
             self._tdir.insert(id_lo[idx], id_hi[idx], rows.astype(np.uint64))
+            if self._native is not None:
+                # The native duplicate-id set in lockstep (rows are
+                # contiguous: base_row + i == row).
+                self._native.add_transfer_ids(id_lo[idx], id_hi[idx], int(rows[0]))
             row_of_event[idx] = rows
 
         # 2. Durable pending-status updates (+ expires index removal).
@@ -2197,7 +2700,7 @@ class TorchStateMachine:
         self._mirror.apply_subs(slots, cols, amt_lo, amt_hi)
         zero = np.zeros(len(slots), np.uint64)
         neg_lo, neg_hi, _ = _sub_u128(zero, zero, amt_lo, amt_hi)
-        self._dev.enqueue(slots, cols, neg_lo, neg_hi)
+        self._dev.enqueue(slots, cols, neg_lo, neg_hi, refresh_twin=False)
         st["status"][rows] = np.uint8(TransferPendingStatus.expired)
         self._exp_deactivate(rows)
         return b""

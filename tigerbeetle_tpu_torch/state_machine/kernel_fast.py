@@ -7,8 +7,10 @@ admission, the rest through the exact scan K3 against this table), and
 the order-free batches' balance updates reach the device as compact
 (slot, column, u128 delta) entries queued here and flushed by kernel K4
 (``device_kernels.apply_deltas``): modular adds, so pending expiry's
-releases ride the same lane as two's-complement deltas.  No host-device
-synchronisation on the commit path.
+releases ride the same lane as two's-complement deltas.  The native
+library (``runtime/fastpath.py``) changes the mirror in place and hands
+its deltas to ``enqueue``, which then refreshes the commitment twin.
+No host-device synchronisation on the commit path.
 
 The exact scan reads the table through ``read()``, a flush barrier, so
 order-dependent batches always see current state.
@@ -158,12 +160,18 @@ class DeviceTable:
             return
         self.balances = self._place(hot_tier.gather_hot(value, self.hot.logical_of))
 
-    def enqueue(self, slots, cols, add_lo, add_hi) -> None:
-        """Queue compact (slot, col, delta) modular adds.  The deltas
-        come from the mirror's own methods, which already refreshed the
-        commitment twin."""
+    def enqueue(self, slots, cols, add_lo, add_hi, refresh_twin: bool = True) -> None:
+        """Queue compact (slot, col, delta) modular adds.
+
+        The native library mutates the mirror's arrays in place and feeds
+        its deltas only through here, so by default this call refreshes
+        the commitment twin's rows as the mirror's own methods do
+        (`refresh_twin=False`: the deltas came through those methods);
+        tiered, `_tier_enqueue` drops the cached full table either way."""
         if len(slots) == 0:
             return
+        if refresh_twin and self.mirror.commitment is not None:
+            self.mirror.commitment.refresh(np.asarray(slots, np.int64), self.mirror)
         if self.hot is not None:
             self._tier_enqueue(slots, cols, add_lo, add_hi)
             return

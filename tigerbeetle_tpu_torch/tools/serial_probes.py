@@ -1643,7 +1643,8 @@ def stream(name):
     if name == "waves_host":
         setup, timed, sizing = workload.gen_waves_host(c.WAVE_BATCHES * B,
                                                        n_accounts=c.N_ACCOUNTS)
-        return setup, timed, sizing[0], "host", None, {}
+        return setup, timed, sizing[0], "host", None, {"TB_FASTPATH_DISABLE": "1",
+                                                       "TB_WAVES": "exact"}
     if name == "offkernel":
         setup, timed, _ = workload.gen_offkernel(c.WAVE_BATCHES * B,
                                                  n_accounts=c.OFFKERNEL_ACCOUNTS)
@@ -1658,7 +1659,7 @@ def stream(name):
     if name == "sharded_host":
         setup, timed, sizing = workload.gen_simple(c.N_TRANSFERS, n_accounts=c.N_ACCOUNTS)
         timed = timed + [c.linked_exact_batch(c.N_ACCOUNTS, workload.TID0 + c.N_TRANSFERS)]
-        return setup, timed, sizing[0], "host", shards, {}
+        return setup, timed, sizing[0], "host", shards, {"TB_FASTPATH_DISABLE": "1"}
     if name == "simple_host":
         setup, timed, sizing = workload.gen_simple(c.N_TRANSFERS, n_accounts=c.N_ACCOUNTS)
         return setup, timed, sizing[0], "host", None, {}
@@ -1737,7 +1738,7 @@ for name in sys.argv[1:]:
             equal = p_replies == replies and p_sm.state_root().hex() == root
             del p_sm
     torch.cuda.empty_cache()
-    busy_ms, top, ms = trace if trace is not None else (None, None, {})
+    busy_ms, top, ms = trace[:3] if trace is not None else (None, None, {})
     share = None if busy_ms is None else busy_ms / 1e3 / p_elapsed
     counts = {}
     for k, w in main_gathers:
