@@ -37,8 +37,9 @@ builds the host engine's native library (g++, csrc/host/; its path,
 digest and build seconds on a line of their own), then drives the
 port's create_transfers loop through SingleNodeHarness on
 TorchStateMachine in fourteen phases, the two row-sharded entry points
-in two more, the row-sharded engines in two more, and the graft entry
-and the launcher probes in two more:
+in two more, the row-sharded engines in two more, the graft entry and
+the launcher probes in two more, and the device engine's lifecycle, the
+queries and checkpoint snapshot / restore in three more:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -146,6 +147,27 @@ and the launcher probes in two more:
   probes       the seven experiments probes at 2^20 rows and their own
                repetitions (scan_of, staged: K1, K5, K6), each ending
                with its table and ring held to a batch-by-batch replay
+  lifecycle    device engine, a 2^20-row table, the service stream
+               (600,000 accounts, 146 of them with history; 24 batches of
+               8190: random transfers (K1), pendings and their posts /
+               voids (K6), batches naming history accounts (speculated));
+               windows of 4 batches: a third healthy, then
+               ChaosLink.kill() with a window in flight, a third degraded
+               (the demotion replays it on the host; no launch on the
+               card), heal(), the rest (tick re-promotes: probe, upload,
+               K2 rebuild, handshake); replies and root equal the
+               port's oracle (CpuStateMachine).
+               Then one wrong word in the card's balance table: the scrub
+               (K2 probe) names the row and heals it, the root unchanged
+  queries      the service stream on each engine, then 154
+               get_account_transfers / get_account_balances queries
+               (history and plain accounts, each direction, reversed,
+               limits, a timestamp window), byte-equal to the oracle
+  snapshot     half the service stream, snapshot, restore into a fresh
+               machine (sized from the account count as the reference
+               does: 2^20 rows), the rest: replies and root equal the
+               oracle's, on the device engine, the host engine and the
+               device engine under TB_HOT_CAPACITY=65536
 
 All the shards of a mesh lie on the one card: copies between shards
 are device-local, and no time here is a multi-GPU one.
@@ -153,7 +175,9 @@ are device-local, and no time here is a multi-GPU one.
 Each phase's main-path run starts with every launch count at 0 (set
 just before the state machine is built) and its counts are read as soon
 as the stream has drained, before any check launches anything.  After
-each phase: K3 launches == exact batches, K5 and K6 launches == the
+each phase: no demotion and no link error outside the lifecycle phase,
+K2 probe launches == the scrubs' cheap compares (one a shard), K3
+launches == exact batches, K5 and K6 launches == the
 batches the device engine's router sent them (the linked and two-phase
 batches the host path's lanes took launch neither), K3's finalize launches == the wave and
 speculative batches executed, every event was resolved (no exception),
@@ -202,12 +226,16 @@ from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+from tigerbeetle_tpu_torch.state_machine.cpu import CpuStateMachine
+from tigerbeetle_tpu_torch.testing.chaos import ChaosLink
 from tigerbeetle_tpu_torch.testing import orderfree_cases as of_cases
 from tigerbeetle_tpu_torch.testing import (flush_cases, scan_cases, semantic_cases,
                                           shard_cases, wave_cases)
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
-from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
+from tigerbeetle_tpu_torch.types import (ACCOUNT_FILTER_DTYPE, TRANSFER_DTYPE,
+                                         AccountFilterFlags, AccountFlags, EngineState,
+                                         Operation, TransferFlags)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
 # The data sheet gives no integer rate outside the tensor cores; the
@@ -252,9 +280,10 @@ N_EXACT = 250_000
 OFFKERNEL_ACCOUNTS = 1_000_001
 WAVE_BATCHES = 32
 RING_ROWS = 256
-# Kernels the main path launches; K2 probe only serves the checks
-# (verify_device_mirror and the engine's commit_probe).
-MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "exact_scan", "apply_deltas",
+# Kernels the main path launches (K2 probe: the device engine's scrub,
+# every TB_DEV_SCRUB_EVERY ring fetches while no record is in flight).
+MAIN_PATH = ("orderfree", "commit_update", "commit_rebuild", "commit_probe", "exact_scan",
+             "apply_deltas",
              "linked", "two_phase", "exact_init", "exact_segment", "exact_finalize",
              "wave_step", "chain_wave", "spec_conflicts", "tier_set_rows", "commit_admit",
              "checksum", "shard_accumulate", "shard_admit", "shard_apply", "shard_gather",
@@ -2213,6 +2242,35 @@ def tables_of(sm):
     return (to_u64(sharded.dense(sm._dev.balances)),)
 
 
+def scrub_line(sm) -> str:
+    dev = sm._dev
+    if sm.engine != "device":
+        return "host engine: no scrub"
+    return (f"scrubs {dev.stat_scrubs} (K2 probe {dev.stat_scrub_cheap}, full fetch "
+            f"{dev.stat_scrub_fallback}, heals {dev.stat_scrub_heals}), demotions "
+            f"{dev.stat_demotions}, link errors {dev.stat_link_errors}")
+
+
+def check_link_quiet(name, sm, launches):
+    """Outside the lifecycle phase nothing demotes or errs on the link,
+    and K2 probe's main-path launches are the scrubs' cheap compares
+    (one a scrub, one a shard sharded; the device-engine runs end
+    without a tripwire before their counts are read).  The host engine
+    launches none: it keeps no device digest, its tripwire is K11."""
+    dev = sm._dev
+    if sm.engine != "device":
+        check(launches["commit_probe"] == 0, f"{name}: the host engine launched K2 probe")
+        return
+    check(dev.stat_demotions == 0 and dev.stat_link_errors == 0,
+          f"{name}: {dev.stat_demotions} demotions, {dev.stat_link_errors} link errors")
+    check(dev.stat_scrub_heals == 0, f"{name}: a scrub healed a divergence")
+    per = len(dev.balances.shards) if dev.sharding is not None else 1
+    want = dev.stat_scrub_cheap * per
+    check(launches["commit_probe"] == want,
+          f"{name}: {launches['commit_probe']} K2 probe launches != {want} "
+          f"({dev.stat_scrub_cheap} cheap scrubs)")
+
+
 def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
               expect_fallbacks=False, extra=None):
     """Run one phase: the main-path run, its checks, the plain-version
@@ -2227,7 +2285,7 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
     )
     for kname in must:
         check(launches[kname] > 0, f"{name}: {kname} was not launched")
-    check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
+    check_link_quiet(name, sm, launches)
     check(launches["exact_scan"] == sm.stat_exact_batches,
           f"{name}: {launches['exact_scan']} K3 launches != {sm.stat_exact_batches} exact batches")
     # K5 and K6 launch once per batch the device engine's router sent
@@ -2274,6 +2332,7 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
               f"{name}: digest of the device table != host root")
     check_launches = dict(kernels.launches)
     split = engine_split(dev)
+    scrub_line_s = scrub_line(sm)
     exact = (f"exact batches {sm.stat_exact_batches} ({sm.stat_exact_events} events); "
              f"linked batches {sm.stat_linked_batches} (sent to K5 {routed['linked']}; fixpoint "
              f"iterations {sm.stat_resolve_iters}); two-phase batches "
@@ -2303,7 +2362,8 @@ def run_phase(name, setup, timed, account_capacity, engine="device", must=(),
         f"{n_timed / elapsed:.0f} events/s "
         f"(plain-version run {n_timed / ref_elapsed:.0f} events/s); {exact}; "
         f"main-path launches {launches}; check launches {check_launches}; "
-        f"device busy {busy}; engine split {split}; root {root.hex()}; checks passed"
+        f"device busy {busy}; engine split {split}; {scrub_line_s}; root {root.hex()}; "
+        f"checks passed"
     )
     return launches, check_launches
 
@@ -2536,7 +2596,7 @@ def run_tiering_phase(name, engine, warm, timed, must):
                                                checkpoint=host)
     for kname in must:
         check(launches[kname] > 0, f"{name}: {kname} was not launched")
-    check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
+    check_link_quiet(name, sm, launches)
     check(launches["exact_scan"] == sm.stat_exact_batches,
           f"{name}: {launches['exact_scan']} K3 launches != {sm.stat_exact_batches} exact batches")
     resolved = sm.stat_device_semantic_events + sm.stat_host_semantic_events
@@ -2665,8 +2725,8 @@ def sharded_stream(name, setup, timed, capacity, engine, must, extra=None, disab
     resolved = sm.stat_device_semantic_events + sm.stat_host_semantic_events
     check(resolved == transfer_events(setup + timed), f"{name}: {resolved} events resolved")
     check(sm.stat_fallback_events == 0, f"{name}: unexpected fallback")
+    check_link_quiet(name, sm, launches)
     if engine == "device":
-        check(launches["commit_probe"] == 0, f"{name}: the main path launched K2 probe")
         check(launches["spec_conflicts"] == 0 and not any(dev.spec_stats.values()),
               f"{name}: a sharded engine speculated")
     if extra is not None:
@@ -2974,6 +3034,305 @@ def run_native_host_phase(name, setup, timed, rows, routed):
                      extra=extra)
 
 
+# ---------------------------------------------------------------------------
+# The device engine's lifecycle, the queries and checkpoint snapshot /
+# restore, on one stream held to the port's oracle.
+
+# More than 2^19 accounts, so that restore, which sizes the table from
+# the account count as the reference does, rebuilds a 2^20-row table.
+SERVICE_ACCOUNTS = 600_000
+SERVICE_BATCHES = 24
+HISTORY_EVERY = 4096        # every 4096th account keeps history (146 of them)
+# Batches per window in the lifecycle phase (the chaos tests' 4): with
+# the default 96 the whole stream fits one window and no record would
+# be in flight at the kill.
+LIFECYCLE_WINDOW = 4
+SERVICE_HOT = 1 << 16       # the snapshot phase's tiered arm: 65,536 hot rows
+
+
+def service_stream(n_batches=SERVICE_BATCHES, n_accounts=SERVICE_ACCOUNTS):
+    """Accounts 1..n_accounts (every HISTORY_EVERY-th with the history
+    flag), then full batches in a cycle of six: three of random
+    transfers between plain accounts (K1), one of pendings (K1), one
+    posting 70 % and voiding the rest of them (K6), and one whose every
+    16th event debits a history account (the host path, history rows)."""
+    rng = np.random.default_rng(2027)
+    B = workload.BATCH
+    ids = np.arange(1, n_accounts + 1, dtype=np.uint64)
+    aflags = np.where(ids % HISTORY_EVERY == 0, int(AccountFlags.history), 0).astype(np.uint16)
+    setup = [(Operation.create_accounts,
+              workload.accounts_bytes(ids[at:at + B], flags=aflags[at:at + B]))
+             for at in range(0, n_accounts, B)]
+    hist = ids[ids % HISTORY_EVERY == 0]
+    plain = ids[ids % HISTORY_EVERY != 0]
+    timed = []
+    tid = workload.TID0
+    pend = None
+    for k in range(n_batches):
+        new = np.arange(tid, tid + B, dtype=np.uint64)
+        tid += B
+        zero = np.zeros(B, np.uint64)
+        if k % 6 == 4:
+            flags = np.where(rng.random(B) < 0.7, int(TransferFlags.post_pending_transfer),
+                             int(TransferFlags.void_pending_transfer)).astype(np.uint16)
+            body = workload.transfers_bytes(new, zero, zero, zero, flags=flags, pending_id=pend)
+        else:
+            i = rng.integers(0, len(plain), B)
+            dr = plain[i]
+            cr = plain[(i + 1 + rng.integers(0, 1000, B)) % len(plain)]
+            if k % 6 == 5:
+                dr[::16] = rng.choice(hist, len(dr[::16]))
+            flags = None
+            if k % 6 == 3:
+                flags = np.full(B, int(TransferFlags.pending), np.uint16)
+                pend = new
+            body = workload.transfers_bytes(new, dr, cr, rng.integers(1, 100, B), flags=flags)
+        timed.append((Operation.create_transfers, body))
+    return setup, timed
+
+
+def service_machine(engine, link=None, hot=None, window=None):
+    with knobs(TB_HOT_CAPACITY=str(hot) if hot else None):
+        sm = TorchStateMachine(account_capacity=A_ROWS,
+                               transfer_capacity=SERVICE_BATCHES * workload.BATCH + 1024,
+                               engine=engine, device_link=link)
+    check((sm._dev.hot is not None) == bool(hot), "service stream: tiering knob not taken")
+    if window is not None:
+        sm._dev.window = window
+    return sm
+
+
+def service_run(setup, timed, engine):
+    """The whole stream on a fresh machine, pipelined; (machine,
+    replies, harness)."""
+    sm = service_machine(engine)
+    h = SingleNodeHarness(sm)
+    replies = [h.submit(op, body) for op, body in setup]
+    futs = [h.submit_async(op, body) for op, body in timed]
+    replies += [f.result() for f in futs]
+    if engine == "device":
+        sm._dev.drain()
+    sm._dev.flush()
+    torch.cuda.synchronize()
+    return sm, replies, h
+
+
+def oracle_run(ops):
+    """The port's oracle (per-event Python, on the CPU) over `ops`."""
+    sm = CpuStateMachine()
+    h = SingleNodeHarness(sm)
+    return sm, [h.submit(op, body) for op, body in ops], h
+
+
+def run_lifecycle_phase(setup, timed, oracle_replies, oracle_root):
+    """Phase lifecycle (device engine, 2^20-row table, the service
+    stream, LIFECYCLE_WINDOW batches a window): a third of the stream
+    healthy, then ChaosLink.kill() with a launched window in flight, a
+    third served degraded (the next ring fetch fails, the engine demotes
+    and replays the window on the host), heal(), and the last third,
+    during which tick re-promotes.  Replies and root equal the oracle's
+    (the queries phase runs the stream without chaos on the device
+    engine); no launch on the card between kill and heal; one demotion, one re-promotion, no future left unresolved.
+    Then the scrub arm: one wrong word written into the card's balance
+    table, scrub names the row and heals it, the root unchanged."""
+    root = oracle_root
+    link = ChaosLink()
+    kernels.reset_launches()
+    sm = service_machine("device", link=link, window=LIFECYCLE_WINDOW)
+    dev = sm._dev
+    h = SingleNodeHarness(sm)
+    replies = [h.submit(op, body) for op, body in setup]
+    third = len(timed) // 3
+    t0 = time.perf_counter()
+    futs = [h.submit_async(op, body) for op, body in timed[:third]]
+    inflight = len(dev._launched)
+    check(inflight > 0, "lifecycle: no window in flight at the kill")
+    at_kill = dict(kernels.launches)
+    link.kill()
+    futs += [h.submit_async(op, body) for op, body in timed[third:2 * third]]
+    check(dev.state is EngineState.degraded and dev.stat_demotions == 1,
+          f"lifecycle: state {dev.state}, {dev.stat_demotions} demotions after the kill")
+    check(dict(kernels.launches) == at_kill, "lifecycle: a kernel launched while degraded")
+    degraded_events = dev.stat_degraded_events
+    link.heal()
+    futs += [h.submit_async(op, body) for op, body in timed[2 * third:]]
+    replies += [f.result() for f in futs]
+    dev.drain()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    check(all(f.done() for f in futs), "lifecycle: a future was left unresolved")
+    check(dev.state is EngineState.healthy and dev.stat_demotions == 1
+          and dev.stat_repromotions == 1,
+          f"lifecycle: state {dev.state}, {dev.stat_demotions} demotions, "
+          f"{dev.stat_repromotions} re-promotions")
+    check(replies == oracle_replies, "lifecycle: replies under chaos differ from the oracle")
+    check(sm.state_root() == root, "lifecycle: root under chaos differs from the oracle")
+    replay_s, rp = dev.last_demotion_replay_s, dev.last_repromotion
+    main = dict(kernels.launches)
+    check(main["commit_probe"] == dev.stat_scrub_cheap,
+          f"lifecycle: {main['commit_probe']} K2 probe launches != {dev.stat_scrub_cheap} scrubs")
+
+    # The scrub arm: a clean scrub's cost, then a seeded wrong word.
+    kernels.reset_launches()
+    t1 = time.perf_counter()
+    check(dev.scrub(), "lifecycle: a scrub of clean tables healed")
+    clean_ms = 1e3 * (time.perf_counter() - t1)
+    row = int(np.frombuffer(timed[0][1], TRANSFER_DTYPE)["debit_account_id_lo"][0]) - 1
+    dev.balances[row, 2] += 1
+    check(list(dev._localize_divergence()) == [row], "lifecycle: the wrong row was not named")
+    heals = dev.stat_scrub_heals
+    t1 = time.perf_counter()
+    check(not dev.scrub(), "lifecycle: the scrub missed the wrong row")
+    heal_ms = 1e3 * (time.perf_counter() - t1)
+    for k, v in kernels.launches.items():
+        main[k] += v
+    check(dev.stat_scrub_heals == heals + 1 == 1, "lifecycle: the scrub did not heal once")
+    check(sm.state_root() == root, "lifecycle: the heal moved the root")
+    sm.verify_device_mirror()
+    pair = dev.commit_probe()
+    check(cm.root_bytes(pair[0]) == root and cm.root_bytes(pair[1]) == root,
+          "lifecycle: device digest != host root after the heal")
+    print(f"phase lifecycle (device engine, 2^20-row table, {SERVICE_ACCOUNTS} accounts, "
+          f"{len(timed)} batches of {workload.BATCH}, {LIFECYCLE_WINDOW} a window): "
+          f"{transfer_events(timed)} events in {elapsed:.3f} s; killed after {third} batches "
+          f"with {inflight} in flight; "
+          f"degraded events {degraded_events}; demotion replay {1e3 * replay_s:.1f} ms; "
+          f"re-promotion probe {1e3 * rp['probe_s']:.2f} ms, upload {1e3 * rp['upload_s']:.2f} ms, "
+          f"K2 rebuild {1e3 * rp['rebuild_s']:.2f} ms, handshake fetch "
+          f"{1e3 * rp['handshake_s']:.2f} ms; probe failures {dev.stat_probe_failures}; "
+          f"card launches between kill and heal 0; {scrub_line(sm)}; scrub of clean tables "
+          f"{clean_ms:.2f} ms, scrub that named row {row} and healed {heal_ms:.2f} ms; replies "
+          f"and root equal the oracle; main-path launches "
+          f"{ {k: v for k, v in main.items() if v} }; checks passed")
+    return main, dict.fromkeys(main, 0)
+
+
+def query_ops(hist, plain):
+    """get_account_transfers and get_account_balances over history and
+    plain accounts and a missing id: both directions, each alone,
+    reversed, limits, a timestamp window."""
+    FF = AccountFilterFlags
+    ops = []
+    for acct in [int(a) for a in hist[:3]] + [int(a) for a in plain[:3]] + [10 ** 9]:
+        for flags in (FF.debits | FF.credits, FF.debits, FF.credits,
+                      FF.debits | FF.credits | FF.reversed, FF.credits | FF.reversed):
+            for limit in (8190, 5):
+                row = np.zeros(1, ACCOUNT_FILTER_DTYPE)[0]
+                row["account_id_lo"] = acct
+                row["limit"] = limit
+                row["flags"] = flags
+                ops.append((Operation.get_account_transfers, row.tobytes()))
+                ops.append((Operation.get_account_balances, row.tobytes()))
+        row = np.zeros(1, ACCOUNT_FILTER_DTYPE)[0]
+        row["account_id_lo"] = acct
+        row["limit"] = 8190
+        row["flags"] = FF.debits | FF.credits
+        row["timestamp_min"] = 2 * SERVICE_ACCOUNTS
+        row["timestamp_max"] = 2 * SERVICE_ACCOUNTS + 8 * workload.BATCH
+        ops.append((Operation.get_account_transfers, row.tobytes()))
+        ops.append((Operation.get_account_balances, row.tobytes()))
+    return ops
+
+
+def run_queries_phase(setup, timed, oracle, oracle_h):
+    """Phase queries: after the service stream, the query batch on the
+    device engine and the host engine (each its own run of the stream),
+    every reply byte-equal to the oracle's."""
+    ids = np.arange(1, SERVICE_ACCOUNTS + 1)
+    qs = query_ops(ids[ids % HISTORY_EVERY == 0], ids[ids % HISTORY_EVERY != 0])
+    want = [oracle_h.submit(op, body) for op, body in qs]
+    check(sum(len(r) for r in want[1::2]) > 0, "queries: no history row in the oracle's replies")
+    totals = {}
+    main = collections.Counter()
+    for engine in ("device", "host"):
+        kernels.reset_launches()
+        sm, replies, h = service_run(setup, timed, engine)
+        t0 = time.perf_counter()
+        got = [h.submit(op, body) for op, body in qs]
+        q_ms = 1e3 * (time.perf_counter() - t0)
+        main.update(kernels.launches)
+        check(got == want, f"queries ({engine} engine): replies differ from the oracle")
+        check(sm.state_root() == oracle.state_root(), f"queries ({engine}): root differs")
+        check_link_quiet(f"queries/{engine}", sm, kernels.launches)
+        totals[engine] = q_ms
+        del sm
+        torch.cuda.empty_cache()
+    rows = sum(len(r) // 128 for r in want)
+    print(f"phase queries ({len(qs)} queries after {len(timed)} batches, {SERVICE_ACCOUNTS} "
+          f"accounts, 2^20-row table): {rows} rows of replies; device engine "
+          f"{totals['device']:.1f} ms, host engine {totals['host']:.1f} ms for the batch; "
+          f"byte-equal to the oracle on both engines; checks passed")
+    return dict(main), dict.fromkeys(main, 0)
+
+
+def run_snapshot_phase(setup, timed, oracle_replies, oracle_root):
+    """Phase snapshot: half the service stream, snapshot, restore into a
+    fresh machine on the card (its table sized from the account count,
+    as the reference's restore does), the rest: replies and root equal
+    the oracle's, on the device engine, the host engine and the device
+    engine under TB_HOT_CAPACITY (an empty hot set after the restore,
+    refilled by admissions)."""
+    half = len(timed) // 2
+    main = collections.Counter()
+    parts = []
+    for engine, hot in (("device", None), ("host", None), ("device", SERVICE_HOT)):
+        name = engine + ("/tiered" if hot else "")
+        kernels.reset_launches()
+        first = service_machine(engine, hot=hot)
+        h = SingleNodeHarness(first)
+        replies = [h.submit(op, body) for op, body in setup]
+        futs = [h.submit_async(op, body) for op, body in timed[:half]]
+        replies += [f.result() for f in futs]
+        t0 = time.perf_counter()
+        blob = first.snapshot()  # the device engine's runs the tripwire (K2 probe)
+        snap_s = time.perf_counter() - t0
+        restored = service_machine(engine, hot=hot)
+        # The restore builds a new engine, which reads TB_HOT_CAPACITY.
+        with knobs(TB_HOT_CAPACITY=str(hot) if hot else None):
+            t0 = time.perf_counter()
+            restored.restore(blob)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        rows = restored._dev.capacity
+        check(rows == A_ROWS, f"snapshot/{name}: restored onto {rows} rows, not 2^20")
+        check((restored._dev.hot is not None) == bool(hot),
+              f"snapshot/{name}: the restored engine's tiering differs")
+        # The restored machine's own blob (its tripwire: the second K2 probe).
+        check(restored.snapshot() == blob, f"snapshot/{name}: a restored machine's blob differs")
+        h2 = SingleNodeHarness(restored)
+        h2.realtime = h.realtime
+        futs = [h2.submit_async(op, body) for op, body in timed[half:]]
+        replies += [f.result() for f in futs]
+        if engine == "device":
+            restored._dev.drain()
+        restored._dev.flush()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        main.update(launches)
+        if engine == "device":
+            for m in (first, restored):
+                check(m._dev.stat_demotions == 0 and m._dev.stat_link_errors == 0,
+                      f"snapshot/{name}: a demotion or link error")
+            want = first._dev.stat_scrub_cheap + restored._dev.stat_scrub_cheap + 2
+        else:
+            want = 0
+        check(launches["commit_probe"] == want,
+              f"snapshot/{name}: {launches['commit_probe']} K2 probe launches != {want}")
+        check(replies == oracle_replies, f"snapshot/{name}: replies differ from the oracle")
+        check(restored.state_root() == oracle_root, f"snapshot/{name}: root differs from the oracle")
+        restored.verify_device_mirror()
+        del first
+        hot_rows = "" if restored._dev.hot is None else f", {restored._dev.hot.hot_rows} hot"
+        parts.append(f"{name}: snapshot {1e3 * snap_s:.1f} ms ({len(blob)} bytes), restore "
+                     f"{1e3 * restore_s:.1f} ms onto {rows} rows{hot_rows}")
+        del restored
+        torch.cuda.empty_cache()
+    print(f"phase snapshot (half of {len(timed)} batches, snapshot, restore, the rest; "
+          f"{SERVICE_ACCOUNTS} accounts, 2^20-row table): {'; '.join(parts)}; replies and root "
+          f"equal the oracle's; checks passed")
+    return dict(main), dict.fromkeys(main, 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3202,6 +3561,14 @@ def main() -> int:
     phases["sharded_host"] = run_sharded_host_phase()
     phases["graft_entry"] = run_graft_entry_phase()
     phases["probes"] = run_probes_phase(dev)
+    setup, timed = service_stream()
+    t0 = time.perf_counter()
+    oracle, oracle_replies, oracle_h = oracle_run(setup + timed)
+    print(f"service stream: {len(setup)} account batches, {len(timed)} transfer batches; the "
+          f"oracle's run {time.perf_counter() - t0:.1f} s")
+    phases["lifecycle"] = run_lifecycle_phase(setup, timed, oracle_replies, oracle.state_root())
+    phases["queries"] = run_queries_phase(setup, timed, oracle, oracle_h)
+    phases["snapshot"] = run_snapshot_phase(setup, timed, oracle_replies, oracle.state_root())
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")

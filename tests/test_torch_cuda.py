@@ -26,6 +26,7 @@ from tigerbeetle_tpu_torch.testing import (
     wave_cases,
 )
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 pytestmark = pytest.mark.cuda
 

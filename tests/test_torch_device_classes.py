@@ -32,6 +32,7 @@ from tigerbeetle_tpu_torch.types import (
     Operation,
     TransferFlags,
 )
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 AF = AccountFlags

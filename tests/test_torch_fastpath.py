@@ -30,6 +30,7 @@ from tigerbeetle_tpu_torch.runtime import fastpath
 from tigerbeetle_tpu_torch.state_machine import resolve
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.types import TRANSFER_DTYPE, Operation, TransferFlags
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 Op = Operation
 TF = TransferFlags

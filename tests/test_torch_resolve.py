@@ -28,6 +28,7 @@ from tigerbeetle_tpu_torch.types import (
     Operation,
     TransferFlags,
 )
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 Op = Operation
 TF = TransferFlags

@@ -24,6 +24,7 @@ from tigerbeetle_tpu_torch.state_machine import gpu
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import harness as hz
 from tigerbeetle_tpu_torch.types import AccountFlags, Operation, TransferFlags
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TF = TransferFlags

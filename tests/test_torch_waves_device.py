@@ -25,6 +25,7 @@ from tigerbeetle_tpu.testing import harness as ref_hz
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import harness as hz
 from tigerbeetle_tpu_torch.types import Operation, TransferFlags
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 TF = TransferFlags
 SPEC = ("attempts", "hits", "plan_skipped", "residue_events", "steps")

@@ -23,6 +23,7 @@ from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import harness as hz
 from tigerbeetle_tpu_torch.types import AccountFlags, Operation
+from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
 
 AF = AccountFlags
 # Odd: the reference shards a device engine whose rows divide among the

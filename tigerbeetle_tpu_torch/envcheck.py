@@ -127,6 +127,77 @@ def env_float(name: str, default: float, *, minimum: float | None = None) -> flo
     return value
 
 
+# ----------------------------------------------------------------------
+# Device-link robustness (state_machine/device_engine.py): bounded retry
+# with exponential backoff on every crossing, the health-probe cadence
+# of re-promotion out of degraded mode, and the healthy-mode scrub
+# cadence (0 disables the scrub).
+
+
+def dev_retries() -> int:
+    """TB_DEV_RETRIES: retries of a transiently failed crossing."""
+    return env_int("TB_DEV_RETRIES", 3, minimum=0)
+
+
+def dev_backoff_ms() -> float:
+    """TB_DEV_BACKOFF_MS: the first retry's backoff (doubling)."""
+    return env_float("TB_DEV_BACKOFF_MS", 5.0, minimum=0.0)
+
+
+def dev_backoff_cap_ms() -> float:
+    """TB_DEV_BACKOFF_CAP_MS: the longest backoff between retries."""
+    return env_float("TB_DEV_BACKOFF_CAP_MS", 200.0, minimum=0.0)
+
+
+def dev_probe_every() -> int:
+    """TB_DEV_PROBE_EVERY: committed operations between re-promotion
+    attempts (health probe + re-upload + handshake) while degraded."""
+    return env_int("TB_DEV_PROBE_EVERY", 8, minimum=1)
+
+
+def dev_scrub_every_set() -> bool:
+    """Whether the operator set TB_DEV_SCRUB_EVERY explicitly."""
+    return env_is_set("TB_DEV_SCRUB_EVERY")
+
+
+def dev_scrub_every() -> int:
+    """TB_DEV_SCRUB_EVERY: ring fetches between healthy-mode scrubs
+    (default: TB_DEV_PROBE_EVERY, the cheap 16-byte digest compare; an
+    engine without the commitment keeps the legacy 256 unless this is
+    set); 0 disables the scrub."""
+    return env_int("TB_DEV_SCRUB_EVERY", dev_probe_every(), minimum=0)
+
+
+def dev_scrub_jitter() -> int:
+    """TB_DEV_SCRUB_JITTER: the largest deterministic per-engine offset
+    of the first scrub, so engines sharing a host do not scrub on the
+    same fetch ordinal; -1 (default) = an eighth of the cadence."""
+    return env_int("TB_DEV_SCRUB_JITTER", -1, minimum=-1)
+
+
+def validate_scrub_jitter(every: int, jitter: int) -> None:
+    if every and jitter >= every:
+        raise EnvVarError(
+            f"TB_DEV_SCRUB_JITTER={jitter} / TB_DEV_SCRUB_EVERY={every} "
+            "invalid: the jitter offset must stay below the scrub "
+            "cadence (TB_DEV_SCRUB_JITTER < TB_DEV_SCRUB_EVERY)"
+        )
+
+
+def scrub_jitter_cap(every: int, jitter: int) -> int:
+    """Effective jitter bound: the explicit knob, or auto = every//8."""
+    if jitter >= 0:
+        return jitter
+    return every // 8 if every else 0
+
+
+def scrub_fallback_every() -> int:
+    """TB_DEV_SCRUB_FALLBACK: run the full-fetch divergence localization
+    every Nth healthy-mode scrub even when the cheap 16-byte digest
+    compare matched (a deep scrub); 0 (default) = only on a mismatch."""
+    return env_int("TB_DEV_SCRUB_FALLBACK", 0, minimum=0, maximum=1 << 20)
+
+
 def waves_speculate() -> str:
     """TB_WAVES_SPECULATE: speculative execution mode of the device
     wave dispatcher (gpu._try_submit_device_waves): "auto" (default)
@@ -165,3 +236,9 @@ def hot_capacity() -> int:
     logical capacity leave the table all-resident.  Read when an engine
     is constructed."""
     return env_int("TB_HOT_CAPACITY", 0, minimum=0, maximum=1 << 31)
+
+
+def ckpt_verify() -> bool:
+    """TB_CKPT_VERIFY=1: the host engine's checkpoint snapshot runs the
+    device/mirror tripwire too (the device engine always does)."""
+    return env_str("TB_CKPT_VERIFY") == "1"

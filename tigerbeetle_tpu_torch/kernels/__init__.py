@@ -10,7 +10,7 @@ names its pointers and sizes to the resolved ctypes function itself;
 ``_launch`` adds the raw handle of the device's current stream and
 switches the current device only when the tensors lie on another
 card.  Nothing here imports or builds anything until the first
-launch.
+launch or load_all().
 """
 
 from __future__ import annotations
@@ -162,6 +162,22 @@ def _fn(lib: str, symbol: str):
         _FNS[symbol] = fn
         _FNS[lib + ".err"] = err
     return fn
+
+
+def load_all() -> None:
+    """Build every kernel library that is missing, load them all and
+    resolve every binding; raises build.KernelBuildError (with nvcc's
+    output) or OSError when one cannot be built or loaded.  A device
+    engine calls it before its first crossing, so a kernel that does not
+    build fails there and never inside a launch."""
+    from tigerbeetle_tpu_torch.kernels import build
+
+    if all(symbol in _FNS for symbols in _SIGNATURES.values() for symbol in symbols):
+        return
+    build.build_all()
+    for lib, symbols in _SIGNATURES.items():
+        for symbol in symbols:
+            _fn(lib, symbol)
 
 
 # The current-device and raw-stream lookups of a CUDA build of torch

@@ -45,8 +45,16 @@ mirror.  Hot/cold tiering (TB_HOT_CAPACITY, ``hot_tier.py``) keeps only
 a hot set of rows on the card in either engine, with the mirror as the
 cold tier: the device engine prefetches each batch's accounts before
 packing it with hot slots (``_tier_translate``), the host engine admits
-them as its deltas arrive.  Not ported (ROADMAP): the device engine's
-degraded state, the query operations, checkpoint snapshot / restore.
+them as its deltas arrive.
+
+The device engine crosses the card through one DeviceLink
+(``device_link``: tests pass the chaos shim of ``testing/chaos.py``); a
+lost link demotes it and every batch is then served exactly by the
+host path on the CPU until ``tick`` (once per committed operation)
+re-promotes it.  The queries (get_account_transfers,
+get_account_balances) read the host stores; ``snapshot`` / ``restore``
+carry the durable state in the reference's blob layout
+(``utils/snapshot.py``).
 
 Row sharding (``devices``, the reference's ``jax.devices()``): with
 several devices whose count divides the device table's rows, either
@@ -76,12 +84,14 @@ from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel, resolve, waves
 from tigerbeetle_tpu_torch.state_machine.device_engine import (
     DeviceEngine,
+    DeviceLostError,
     ReplyFuture,
 )
 from tigerbeetle_tpu_torch.state_machine.hot_tier import mirror_hot_table8
 from tigerbeetle_tpu_torch.state_machine.kernel_fast import DeviceTable
 from tigerbeetle_tpu_torch.state_machine.mirror import BalanceMirror, _sub_u128, digest_columns
 from tigerbeetle_tpu_torch.types import (
+    ACCOUNT_BALANCE_DTYPE,
     ACCOUNT_DTYPE,
     ACCOUNT_FILTER_DTYPE,
     CREATE_RESULT_DTYPE,
@@ -91,14 +101,17 @@ from tigerbeetle_tpu_torch.types import (
     TRANSFER_DTYPE,
     U64_MAX,
     U128_MAX,
+    AccountFilterFlags,
     AccountFlags,
     CreateAccountResult,
     CreateTransferResult,
+    EngineState,
     Operation,
     TransferFlags,
     TransferPendingStatus,
 )
 from tigerbeetle_tpu_torch.utils import RunIndex
+from tigerbeetle_tpu_torch.utils import snapshot as snapcodec
 
 AF = AccountFlags
 TF = TransferFlags
@@ -258,6 +271,7 @@ class TorchStateMachine:
         plain: bool = False,
         engine: str | None = None,
         devices=None,
+        device_link=None,
     ) -> None:
         """`device`: None = the first CUDA card (raises without one);
         "cpu" runs the kernels' plain PyTorch versions on the CPU.
@@ -266,7 +280,10 @@ class TorchStateMachine:
         ["cpu"] * 8); `device`, when named too, must be the first.  With
         neither, every visible CUDA card; with `device` alone, that one.
         `plain` runs the plain versions on `device` (a reference run).
-        `engine`: "host" or "device" (default: TB_ENGINE, else "host")."""
+        `engine`: "host" or "device" (default: TB_ENGINE, else "host").
+        `device_link` (device engine only): the DeviceLink every upload,
+        launch and fetch of the engine crosses (tests pass a seeded
+        chaos shim, testing/chaos.py)."""
         self.config = config
         self.engine = engine or envcheck.engine()
         if self.engine not in ("host", "device"):
@@ -278,6 +295,8 @@ class TorchStateMachine:
             device = devices[0]
         self.device = resolve_device(device)
         self.plain = plain
+        self._devices = devices
+        self._device_link = device_link
         self.prepare_timestamp = 0
         self.commit_timestamp = 0
         self.pulse_next_timestamp = TIMESTAMP_MIN
@@ -330,7 +349,8 @@ class TorchStateMachine:
             self._mirror.commitment = self._commitment
         if self.engine == "device":
             self._dev = DeviceEngine(
-                account_capacity, self._mirror, self.device, plain=plain, devices=devices
+                account_capacity, self._mirror, self.device, plain=plain, devices=devices,
+                link=device_link,
             )
         else:
             self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain,
@@ -403,7 +423,9 @@ class TorchStateMachine:
         against the host's (hot-shaped images under tiering).  Host
         engine: the K11 digest of the flushed device table against the
         mirror's (its hot image under tiering).  The whole tables are
-        fetched only to name the diverged rows."""
+        fetched only to name the diverged rows.  A degraded device engine
+        has nothing to compare (the mirror is the authoritative table);
+        a crossing lost here demotes it."""
         dev = self._dev
         if self.engine == "host":
             dev_sum = dev.device_checksum()
@@ -417,8 +439,18 @@ class TorchStateMachine:
                     f"device={dev_sum.tolist()} host={host_sum.tolist()}"
                 )
             return
+        if dev.state is not EngineState.healthy:
+            return
         dev.drain()
         dev.flush()
+        if dev.state is not EngineState.healthy:
+            return
+        try:
+            self._verify_device_engine(dev)
+        except DeviceLostError as exc:
+            dev._demote(exc)
+
+    def _verify_device_engine(self, dev) -> None:
         if self._commitment is not None and dev.dev_digest is not None:
             pair = dev.commit_probe()
             twin = self._commitment.digest
@@ -433,22 +465,28 @@ class TorchStateMachine:
                 and (twin == host_scratch).all()
             ):
                 return
-            rows = dev._localize_divergence()
             raise AssertionError(
-                "device/mirror commitment divergence: "
-                f"{len(rows)} rows diverged (first: {rows[:8].tolist()}); "
+                f"device/mirror commitment divergence: {self._diverged(dev)}; "
                 f"device(maintained, scratch)={pair.tolist()} "
                 f"twin={twin.tolist()} host_scratch={host_scratch.tolist()}"
             )
         dev_sum = dev._device_health_digest()
         host_sum = dev._host_health_digest()
         if not (dev_sum == host_sum).all():
-            rows = dev._localize_divergence()
             raise AssertionError(
-                "device/mirror table divergence: "
-                f"{len(rows)} rows diverged (first: {rows[:8].tolist()}); "
+                f"device/mirror table divergence: {self._diverged(dev)}; "
                 f"device={dev_sum.tolist()} host={host_sum.tolist()}"
             )
+
+    @staticmethod
+    def _diverged(dev) -> str:
+        """The diverged rows for a tripwire's message (the full-table
+        fetch; a lost link there still leaves the divergence reported)."""
+        try:
+            rows = dev._localize_divergence()
+        except DeviceLostError as exc:
+            return f"localization fetch failed: {exc!r}"
+        return f"{len(rows)} rows diverged (first: {rows[:8].tolist()})"
 
     # ------------------------------------------------------------------
     # Interface plumbing (reference: src/state_machine.zig:543-596).
@@ -497,13 +535,17 @@ class TorchStateMachine:
     def commit_async(self, client: int, op: int, timestamp: int,
                      operation: Operation, input_bytes: bytes):
         """Dispatch one committed operation; returns a ReplyFuture.  On
-        the device engine, create_transfers batches of the order-free
-        class (and lookup_accounts gathers behind in-flight batches)
+        the device engine, create_transfers batches of the kernels'
+        classes (and lookup_accounts gathers behind in-flight batches)
         resolve at the next ring fetch; every other reply resolves
         synchronously."""
         assert op != 0
         assert self.input_valid(operation, input_bytes)
         assert timestamp > self.commit_timestamp
+        if self.engine == "device":
+            # Lifecycle tick on every committed operation: re-promotion
+            # probes while degraded, the scrub cadence while healthy.
+            self._dev.tick()
         if operation == Operation.create_transfers:
             if self.engine == "device":
                 return self._commit_create_transfers_device(timestamp, input_bytes)
@@ -516,12 +558,15 @@ class TorchStateMachine:
             return ReplyFuture(value=self._commit_expire(timestamp))
         if operation == Operation.create_accounts:
             return ReplyFuture(value=self._commit_create_accounts(timestamp, input_bytes))
+        # Store-reading queries: exact only against materialized state.
         self._engine_drain()
         if operation == Operation.lookup_transfers:
             return ReplyFuture(value=self._lookup_transfers(input_bytes))
-        raise NotImplementedError(
-            f"{operation.name} is not ported yet (ROADMAP: query operations)"
-        )
+        if operation == Operation.get_account_transfers:
+            return ReplyFuture(value=self._get_account_transfers(input_bytes))
+        if operation == Operation.get_account_balances:
+            return ReplyFuture(value=self._get_account_balances(input_bytes))
+        raise AssertionError(operation)
 
     # ------------------------------------------------------------------
     # Accounts (cold path: per-event, exact oracle semantics).
@@ -814,7 +859,8 @@ class TorchStateMachine:
         the kernels' classes, to wave or speculative dispatch inside the
         window (_try_submit_device_waves), and on its decline drain the
         stream and take the exact host path (reference:
-        tpu.py:1329-1489, without its degraded state).  Each kernel's
+        tpu.py:1329-1489).  A degraded engine serves every batch through
+        the host path until tick re-promotes it.  Each kernel's
         submit returns None, and the batch takes the host path, when the
         tiered hot set cannot hold its accounts."""
         events = np.frombuffer(input_bytes, dtype=TRANSFER_DTYPE)
@@ -831,6 +877,9 @@ class TorchStateMachine:
             return ReplyFuture(
                 value=self._commit_create_transfers(timestamp, input_bytes, decoded=decoded)
             )
+
+        if self._dev.state is not EngineState.healthy:
+            return host_path()
 
         if n == 0 or n > dk.B:
             return host_path()
@@ -1879,12 +1928,14 @@ class TorchStateMachine:
         table by logical slot.  A row-sharded engine declines a mesh that
         does not divide its capacity ("mesh") and a plan with scan
         segments ("shard_plan": the sharded executor runs wave and chain
-        segments only), and never speculates.  The reference's
-        "degraded" decline cannot arise here: the degraded state is not
-        ported (ROADMAP queue 1, item 2: the engine lifecycle)."""
+        segments only), and never speculates.  A degraded engine
+        declines, and the hazard probe's drain may demote it
+        ("degraded")."""
         dev = self._dev
         dm = waves.dev_mode()
         if dm == "0" or n == 0 or n > _BATCH_BUCKETS[-1]:
+            return None, None
+        if dev.state is not EngineState.healthy:
             return None, None
         if dev.hot is not None:
             self._dev_wave_decline("tier")
@@ -1904,6 +1955,9 @@ class TorchStateMachine:
             probe = np.concatenate([probe, pack_u128(d["pend_lo"][ref], d["pend_hi"][ref])])
         if dev.inflight_ids_hit(probe):
             self._engine_drain()
+            if dev.state is not EngineState.healthy:
+                self._dev_wave_decline("degraded")
+                return None, d
 
         e_found, e_row = self._tdir.lookup(d["id_lo"], d["id_hi"])
         id_lo, id_hi = d["id_lo"], d["id_hi"]
@@ -2777,3 +2831,220 @@ class TorchStateMachine:
             ids["lo"].astype(np.uint64), ids["hi"].astype(np.uint64)
         )
         return self._transfer_rows_to_np(rows[found].astype(np.int64)).tobytes()
+
+    # ------------------------------------------------------------------
+    # Queries (reference: tpu.py:3849-3985; src/state_machine.zig:931-996
+    # for the filter, :1806-1841 for historical balances).
+
+    def _parse_filter(self, input_bytes: bytes):
+        return np.frombuffer(input_bytes, dtype=ACCOUNT_FILTER_DTYPE)[0]
+
+    def _filter_rows(self, filter_row) -> np.ndarray | None:
+        """Validated filter -> matching store rows in timestamp order
+        (None for an invalid filter)."""
+        account_id = types.u128_get(filter_row, "account_id")
+        ts_min = int(filter_row["timestamp_min"])
+        ts_max = int(filter_row["timestamp_max"])
+        limit = int(filter_row["limit"])
+        fflags = int(filter_row["flags"])
+        FF = AccountFilterFlags
+        valid = (
+            account_id != 0
+            and account_id != U128_MAX
+            and ts_min != U64_MAX
+            and ts_max != U64_MAX
+            and (ts_max == 0 or ts_min <= ts_max)
+            and limit != 0
+            and (fflags & (FF.debits | FF.credits))
+            and not (fflags & ~int(FF._valid_mask))
+            and bytes(filter_row["reserved"]) == b"\x00" * 24
+        )
+        if not valid:
+            return None
+        slot = self._account_slot(account_id)
+        if slot is None:
+            return np.zeros(0, np.int64)
+        st = self._store
+        lo = TIMESTAMP_MIN if ts_min == 0 else ts_min
+        hi = TIMESTAMP_MAX if ts_max == 0 else ts_max
+        # The reference first composes its spilled rows through the LSM
+        # ScanBuilder here (eq / union over the (slot, timestamp) index
+        # trees); the TailStore keeps every row in RAM, so that branch
+        # waits for the LSM tier (ROADMAP queue 1, item 5).
+        mask = np.zeros(st.count, bool)
+        if fflags & FF.debits:
+            mask |= st.col("dr_slot") == slot
+        if fflags & FF.credits:
+            mask |= st.col("cr_slot") == slot
+        ts = st.col("timestamp")
+        mask &= (ts >= lo) & (ts <= hi)
+        rows = np.flatnonzero(mask)
+        if fflags & FF.reversed:
+            rows = rows[::-1]
+        return rows
+
+    def _get_account_transfers(self, input_bytes: bytes) -> bytes:
+        filter_row = self._parse_filter(input_bytes)
+        rows = self._filter_rows(filter_row)
+        if rows is None:
+            return b""
+        batch_max = self.config.batch_max(ACCOUNT_FILTER_DTYPE.itemsize, TRANSFER_DTYPE.itemsize)
+        rows = rows[: min(int(filter_row["limit"]), batch_max)]
+        return self._transfer_rows_to_np(rows).tobytes()
+
+    def _get_account_balances(self, input_bytes: bytes) -> bytes:
+        filter_row = self._parse_filter(input_bytes)
+        account_id = types.u128_get(filter_row, "account_id")
+        slot = self._account_slot(account_id)
+        if slot is None or not (int(self._attrs["flags"][slot]) & AF.history):
+            return b""
+        rows = self._filter_rows(filter_row)
+        if rows is None:
+            return b""
+        batch_max = self.config.batch_max(
+            ACCOUNT_FILTER_DTYPE.itemsize, ACCOUNT_BALANCE_DTYPE.itemsize
+        )
+        rows = rows[: min(int(filter_row["limit"]), batch_max)]
+        # Transfer timestamps -> history rows (the same timestamps; the
+        # history rows are in store order too, all in RAM).
+        want_ts = np.asarray(self._store["timestamp"][rows], np.uint64)
+        h = self._history
+        h_ts = h.col("timestamp")
+        bal = np.zeros((len(rows), 8), np.uint64)
+        if len(rows):
+            assert len(h_ts), "history row missing"
+            pos = np.minimum(np.searchsorted(h_ts, want_ts), len(h_ts) - 1)
+            assert (h_ts[pos] == want_ts).all(), "history row missing"
+            is_dr = (h["dr_id_lo"][pos] == np.uint64(account_id & U64_MAX)) & (
+                h["dr_id_hi"][pos] == np.uint64(account_id >> 64)
+            )
+            bal[:] = np.where(is_dr[:, None], h["dr_bal"][pos], h["cr_bal"][pos])
+        out = np.zeros(len(rows), dtype=ACCOUNT_BALANCE_DTYPE)
+        out["debits_pending_lo"], out["debits_pending_hi"] = bal[:, 0], bal[:, 1]
+        out["debits_posted_lo"], out["debits_posted_hi"] = bal[:, 2], bal[:, 3]
+        out["credits_pending_lo"], out["credits_pending_hi"] = bal[:, 4], bal[:, 5]
+        out["credits_posted_lo"], out["credits_posted_hi"] = bal[:, 6], bal[:, 7]
+        out["timestamp"] = want_ts
+        return out.tobytes()
+
+    # ------------------------------------------------------------------
+    # Introspection helpers shared with the reference's machines.
+
+    def _transfer_row(self, id_value: int) -> int | None:
+        found, row = self._tdir.lookup(
+            np.array([id_value & U64_MAX], np.uint64), np.array([id_value >> 64], np.uint64)
+        )
+        return int(row[0]) if found[0] else None
+
+    def transfer_timestamp(self, id_value: int) -> int | None:
+        row = self._transfer_row(id_value)
+        return None if row is None else int(self._store["timestamp"][row])
+
+    def pending_status(self, id_value: int) -> TransferPendingStatus | None:
+        row = self._transfer_row(id_value)
+        if row is None:
+            return None
+        status = int(self._store["status"][row])
+        return None if status == 0 else TransferPendingStatus(status)
+
+    def account_balances_raw(self, id_value: int) -> tuple | None:
+        """(debits_pending, debits_posted, credits_pending,
+        credits_posted) without going through a commit (the engine
+        drained: the mirror then holds every materialized batch)."""
+        slot = self._account_slot(id_value)
+        if slot is None:
+            return None
+        self._engine_drain()
+        row = self._mirror.rows8(np.array([slot]))[0]
+        u = lambda i: int(row[i]) | (int(row[i + 1]) << 64)  # noqa: E731
+        return (u(0), u(2), u(4), u(6))
+
+    # ------------------------------------------------------------------
+    # Checkpoint snapshot / restore (reference: tpu.py:3989-4164), in the
+    # reference's blob layout (utils/snapshot.py: fixed-layout, no
+    # pickle).  The store has no spilled part here: store_base is 0.
+
+    def snapshot(self) -> bytes:
+        """Serialize the durable state: the columnar stores and the
+        balance mirror, which equals the device table once the stream is
+        drained and the write-behind lane flushed.  The checkpoint
+        barrier runs the tripwire (verify_device_mirror) on the device
+        engine, and on the host engine under TB_CKPT_VERIFY=1."""
+        if self.engine == "device":
+            self._dev.drain()
+        self._dev.flush()
+        if self.engine == "device" or envcheck.ckpt_verify():
+            self.verify_device_mirror()
+        count = self._attrs.count
+        state = {
+            "commit_timestamp": self.commit_timestamp,
+            "pulse_next_timestamp": self.pulse_next_timestamp,
+            "exp_dead": self._exp_dead,
+            "store_base": 0,
+            "attrs": {k: self._attrs.col(k) for k in _ATTR_FIELDS},
+            "store": {k: self._store.col(k) for k in _STORE_FIELDS},
+            "exp": {k: self._exp.col(k) for k in ("expires_at", "row", "active")},
+            "history": {k: self._history.col(k) for k in _HISTORY_FIELDS},
+            "mirror_lo": self._mirror.lo[:count],
+            "mirror_hi": self._mirror.hi[:count],
+        }
+        return snapcodec.encode_tree(state)
+
+    def restore(self, data: bytes) -> None:
+        """Replace the whole state from a snapshot blob.  The id
+        directories and the commitment twin are rebuilt from it; the
+        device tables are re-uploaded from the restored mirror (device
+        engine: both tables and the K2 rebuild, a lost link demoting
+        it; host engine: write_back of the logical table), and a tiered
+        table starts from an empty hot set that admissions refill."""
+        state = snapcodec.decode_tree(data)
+        if state.get("store_base", 0) or "forest" in state:
+            raise ValueError("a snapshot with spilled rows needs the LSM tier, not ported")
+        self.commit_timestamp = state["commit_timestamp"]
+        self.pulse_next_timestamp = state["pulse_next_timestamp"]
+        self._exp_dead = state["exp_dead"]
+        self.prepare_timestamp = self.commit_timestamp
+
+        self._attrs = Columns(_ATTR_FIELDS)
+        self._attrs.append(**state["attrs"])
+        self._store = TailStore(_STORE_FIELDS)
+        self._store.append(**state["store"])
+        self._exp = Columns({"expires_at": np.uint64, "row": np.uint32, "active": np.bool_})
+        self._exp.append(**state["exp"])
+        self._history = Columns(_HISTORY_FIELDS)
+        self._history.append(**state["history"])
+
+        n_acct = self._attrs.count
+        self._acct_dir = RunIndex(_dir_capacity(n_acct))
+        self._acct_dir.insert(
+            self._attrs.col("id_lo"), self._attrs.col("id_hi"), np.arange(n_acct, dtype=np.uint64)
+        )
+        self._tdir = RunIndex(_dir_capacity(self._store.count))
+        self._tdir.insert(
+            self._store.col("id_lo"), self._store.col("id_hi"),
+            np.arange(self._store.count, dtype=np.uint64),
+        )
+
+        cap = max(1 << 12, 1 << (n_acct - 1).bit_length() if n_acct else 1)
+        self._mirror = BalanceMirror(cap)
+        self._mirror.lo[:n_acct] = state["mirror_lo"]
+        self._mirror.hi[:n_acct] = state["mirror_hi"]
+        if self._native is not None:
+            self._rebuild_native(cap)
+        if self._commitment is not None:
+            # A fresh twin over the restored mirror and attributes.
+            self._commitment = cm.HostCommitment(cap, meta_fn=self._commit_meta_cols)
+            self._commitment.rebuild(self._mirror)
+            self._mirror.commitment = self._commitment
+        if self.engine == "device":
+            self._dev = DeviceEngine(
+                cap, self._mirror, self.device, plain=self.plain, devices=self._devices,
+                link=self._device_link,
+            )
+            self._dev.restore_tables(self._attrs.col("flags"), self._attrs.col("ledger"))
+        else:
+            self._dev = DeviceTable(cap, self.device, self._mirror, plain=self.plain,
+                                    devices=self._devices)
+            self._dev.write_back(from_u64(self._mirror.table8(cap), self.device))
+        self._inflight_timeouts = False
+        self._expiry_rows = None

@@ -231,6 +231,25 @@ class CreateTransferResult(enum.IntEnum):
     exceeds_debits = 55
 
 
+class EngineState(enum.Enum):
+    """Device-authoritative engine lifecycle
+    (state_machine/device_engine.py):
+
+    - ``healthy``: the device table is authoritative; semantic kernels
+      compute result codes on the device.
+    - ``degraded``: the device link was lost (fatal error or retry
+      budget exhausted); the host mirror is authoritative and every
+      request is served by the exact host engine, bit-identically.
+    - ``repromoting``: a health probe succeeded and the engine is
+      re-uploading the table from the mirror; it becomes healthy only
+      after the checksum handshake passes.
+    """
+
+    healthy = "healthy"
+    degraded = "degraded"
+    repromoting = "repromoting"
+
+
 class Operation(enum.IntEnum):
     """reference: src/state_machine.zig:341-350, src/constants.zig:47"""
 
