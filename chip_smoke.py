@@ -38,8 +38,9 @@ digest and build seconds on a line of their own), then drives the
 port's create_transfers loop through SingleNodeHarness on
 TorchStateMachine in fourteen phases, the two row-sharded entry points
 in two more, the row-sharded engines in two more, the graft entry and
-the launcher probes in two more, and the device engine's lifecycle, the
-queries and checkpoint snapshot / restore in three more:
+the launcher probes in two more, the device engine's lifecycle, the
+queries and checkpoint snapshot / restore in three more, and the durable
+single replica in one more:
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -168,6 +169,30 @@ queries and checkpoint snapshot / restore in three more:
                does: 2^20 rows), the rest: replies and root equal the
                oracle's, on the device engine, the host engine and the
                device engine under TB_HOT_CAPACITY=65536
+  durable      vsr/replica.py over a FileStorage data file (bench.py's
+               durable layout: 2 x 256 MiB snapshot reservations and a
+               1 GiB forest block region; one data file at a time under
+               a temporary directory, each removed after its run, with
+               the bytes each zone holds on disk and the peak temporary
+               disk use printed), the LSM spill tier behind the
+               machine.  durable_host: bench.py's durable row
+               (gen_simple, 1,000,000 transfers over 1,000 accounts,
+               PRODUCTION, the host engine, a checkpoint every 41
+               batches, TB_CKPT_ASYNC's default) with TB_CKPT_VERIFY=1
+               (K4 flushes, K11 at every checkpoint): events/s, commit
+               p50 / p99 / p100, checkpoint stall, fsyncs, WAL and grid
+               bytes, rows spilled, forest blocks, then close(), reopen
+               with a fresh machine (open() timed: superblock, snapshot,
+               the id directories over the spilled rows), the lookup
+               suite; a profiled run of the first 41 batches gives the
+               busy share.  durable_device: the service stream on the
+               device engine through the replica, a checkpoint after
+               every sixth transfer batch from the pending batch on, a
+               restart midway, the lookup suite over spilled rows.  Both
+               arms: rows spilled, two flips or more, no demotion or link
+               error, every reply, the suite and the root equal the
+               port's oracle through a Replica on MemoryStorage (it runs
+               in a spawned CPU process from the script's start)
 
 All the shards of a mesh lie on the one card: copies between shards
 are device-local, and no time here is a multi-GPU one.
@@ -215,6 +240,7 @@ import time
 import numpy as np
 import torch
 
+from tigerbeetle_tpu_torch import constants as cfg
 from tigerbeetle_tpu_torch import kernels
 from tigerbeetle_tpu_torch import workload
 from tigerbeetle_tpu_torch.kernels import build
@@ -236,6 +262,8 @@ from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
 from tigerbeetle_tpu_torch.types import (ACCOUNT_FILTER_DTYPE, TRANSFER_DTYPE,
                                          AccountFilterFlags, AccountFlags, EngineState,
                                          Operation, TransferFlags)
+from tigerbeetle_tpu_torch.vsr import replica as vsr_replica
+from tigerbeetle_tpu_torch.vsr.storage import FileStorage, MemoryStorage, ZoneLayout
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published peak (NVIDIA data sheet)
 # The data sheet gives no integer rate outside the tensor cores; the
@@ -3333,12 +3361,454 @@ def run_snapshot_phase(setup, timed, oracle_replies, oracle_root):
     return dict(main), dict.fromkeys(main, 0)
 
 
+# ----------------------------------------------------------------------
+# The durable single replica: vsr/replica.py over a FileStorage data
+# file, the LSM spill tier behind the machine.
+
+DURABLE_CLUSTER = 0xB
+DURABLE_EVENTS = 1_000_000      # bench's durable row: gen_simple over 1,000 accounts
+DURABLE_FOREST_BLOCKS = 1 << 14  # 16,384 x 64 KiB: a 1 GiB block region
+DURABLE_SERVICE_EVERY = 6       # the device arm's checkpoint cadence, in transfer batches
+
+
+def durable_layout():
+    """bench.py's durable layout: the A/B snapshot reservations and the
+    forest's block region in the grid zone."""
+    return ZoneLayout(config=cfg.PRODUCTION,
+                      grid_size=2 * vsr_replica.SNAPSHOT_SPAN + (DURABLE_FOREST_BLOCKS << 16))
+
+
+def open_durable(path, machine, create=False):
+    """(storage, replica, seconds open() took) over the data file at
+    `path`, formatted first when `create`."""
+    storage = FileStorage(path, durable_layout(), create=create)
+    if create:
+        vsr_replica.format(storage, DURABLE_CLUSTER)
+    r = vsr_replica.Replica(storage, DURABLE_CLUSTER, machine,
+                            forest_block_count=DURABLE_FOREST_BLOCKS)
+    t0 = time.perf_counter()
+    r.open()
+    torch.cuda.synchronize()
+    return storage, r, time.perf_counter() - t0
+
+
+def close_durable(storage, r):
+    r.close()
+    storage.close()
+
+
+def disk_bytes(path) -> int:
+    """Bytes the data file (control and grid files) takes on disk."""
+    return sum(os.stat(p).st_blocks * 512 for p in (path, path + ".grid"))
+
+
+def remove_data_file(path) -> None:
+    for p in (path, path + ".grid"):
+        os.remove(p)
+
+
+def disk_zones(path) -> dict:
+    """Bytes of each zone of the data file at `path` that hold data on
+    disk (SEEK_DATA / SEEK_HOLE; on a file system without holes every
+    byte up to the file's end counts), and each file's size and
+    st_blocks."""
+    layout = durable_layout()
+    span = vsr_replica.SNAPSHOT_SPAN
+    zones = {
+        path: {"superblock": (0, layout.wal_headers_offset),
+               "wal_headers": (layout.wal_headers_offset, layout.wal_prepares_offset),
+               "wal_prepares": (layout.wal_prepares_offset, layout.client_replies_offset),
+               "client_replies": (layout.client_replies_offset, layout.grid_offset)},
+        path + ".grid": {"snapshot_a": (0, span), "snapshot_b": (span, 2 * span),
+                         "forest": (2 * span, layout.grid_size)},
+    }
+    out = {}
+    for file, named in zones.items():
+        fd = os.open(file, os.O_RDONLY)
+        try:
+            size, off, extents = os.fstat(fd).st_size, 0, []
+            while off < size:
+                try:
+                    lo = os.lseek(fd, off, os.SEEK_DATA)
+                except OSError:  # ENXIO: no data past `off`
+                    break
+                off = os.lseek(fd, lo, os.SEEK_HOLE)
+                extents.append((lo, off))
+        finally:
+            os.close(fd)
+        for name, (lo, hi) in named.items():
+            used = sum(max(0, min(b, hi) - max(a, lo)) for a, b in extents)
+            out[name] = used
+        suffix = "grid" if file.endswith(".grid") else "control"
+        out[f"{suffix}_file_st_blocks"] = os.stat(file).st_blocks * 512
+        out[f"{suffix}_file_size"] = os.stat(file).st_size
+    return out
+
+
+def file_system(path) -> str:
+    """The type of the file system that holds `path` (/proc/mounts)."""
+    best, kind = "", "unknown"
+    real = os.path.realpath(path)
+    with open("/proc/mounts") as f:
+        for line in f:
+            fields = line.split()
+            if len(fields) > 2 and (real == fields[1] or real.startswith(fields[1].rstrip("/") + "/")) \
+                    and len(fields[1]) >= len(best):
+                best, kind = fields[1], fields[2]
+    return f"{kind} at {best}"
+
+
+def durable_filter(account, flags, limit) -> bytes:
+    row = np.zeros(1, ACCOUNT_FILTER_DTYPE)[0]
+    row["account_id_lo"] = account
+    row["limit"] = limit
+    row["flags"] = flags
+    return row.tobytes()
+
+
+def lookup_suite(accounts, transfer_ids, filter_accounts, history_account):
+    """tests/test_lsm_spill.py's query suite: lookup_accounts, then
+    lookup_transfers of old (spilled), middle, recent and missing ids,
+    get_account_transfers of each filter account both ways, each way
+    alone and reversed, get_account_balances of a history account."""
+    FF = AccountFilterFlags
+    ops = [(Operation.lookup_accounts, ids_bytes([int(a) for a in accounts])),
+           (Operation.lookup_transfers, ids_bytes([int(t) for t in transfer_ids]))]
+    for acct in filter_accounts:
+        for flags in (FF.debits | FF.credits, FF.debits, FF.credits,
+                      FF.debits | FF.credits | FF.reversed):
+            ops.append((Operation.get_account_transfers, durable_filter(acct, flags, 100)))
+    ops.append((Operation.get_account_balances,
+                durable_filter(history_account, FF.debits | FF.credits, 50)))
+    return ops
+
+
+def durable_host_stream():
+    setup, timed, _ = workload.gen_simple(DURABLE_EVENTS)
+    t, n = workload.TID0, DURABLE_EVENTS
+    queries = lookup_suite(
+        range(1, 1001),
+        [t, t + 1, t + n // 2, t + n - 2, t + n - 1, workload.WARM0, workload.WARM0 + 7,
+         t + n + 999],
+        (1, 500, 1000), 1)
+    return setup, timed, queries
+
+
+def durable_device_queries(timed):
+    """The lookup suite of the service stream: 8190 accounts spread over
+    the table, the first, middle and last transfer ids and a missing
+    one, get_account_transfers of the first batch's first debit and
+    second credit account and of a history account."""
+    ids = np.arange(1, SERVICE_ACCOUNTS + 1)
+    hist = ids[ids % HISTORY_EVERY == 0]
+    first = np.frombuffer(timed[0][1], TRANSFER_DTYPE)
+    t, n = workload.TID0, transfer_events(timed)
+    return lookup_suite(
+        np.linspace(1, SERVICE_ACCOUNTS, workload.BATCH).astype(np.int64),
+        [t, t + 1, t + 2, t + n // 2, t + n - 2, t + n - 1, t + n + 999],
+        (int(first["debit_account_id_lo"][0]), int(first["credit_account_id_lo"][1]),
+         int(hist[0])), int(hist[0]))
+
+
+def oracle_replica(ops, queries):
+    """The port's oracle (CpuStateMachine) through a Replica on
+    MemoryStorage, which assigns the durable run's timestamps: (replies,
+    query replies, state root)."""
+    storage = MemoryStorage(ZoneLayout(config=cfg.PRODUCTION, grid_size=1 << 20))
+    vsr_replica.format(storage, DURABLE_CLUSTER)
+    r = vsr_replica.Replica(storage, DURABLE_CLUSTER, CpuStateMachine())
+    r.open()
+    replies = [r.on_request(int(op), body) for op, body in ops]
+    return replies, [r.on_request(int(op), body) for op, body in queries], r.sm.state_root()
+
+
+def durable_oracles():
+    """The oracle's results for both arms of the durable phase (in a CPU
+    process of its own while the card works): {arm: (replies, query
+    replies, state root)}."""
+    setup, timed, queries = durable_host_stream()
+    host = oracle_replica(setup + timed, queries)
+    setup, timed = service_stream()
+    return {"host": host, "device": oracle_replica(setup + timed, durable_device_queries(timed))}
+
+
+def _durable_oracle_child(conn):
+    import traceback
+
+    try:
+        conn.send(("ok", durable_oracles()))
+    except Exception:  # noqa: BLE001 - the parent reports it and fails
+        conn.send(("error", traceback.format_exc()))
+    conn.close()
+
+
+class DurableOracle:
+    """durable_oracles() in a spawned CPU process: result() waits for
+    it, stop() ends the process whatever its state."""
+
+    def __init__(self) -> None:
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_durable_oracle_child, args=(child,), daemon=True)
+        self._proc.start()
+        child.close()
+        self._value = None
+
+    def result(self):
+        if self._value is None:
+            while not self._conn.poll(1.0):
+                check(self._proc.is_alive(), "durable oracle: its process died")
+            try:
+                kind, value = self._conn.recv()
+            except EOFError:
+                kind, value = "error", f"its process died (exit code {self._proc.exitcode})"
+            self._proc.join()
+            check(kind == "ok", f"durable oracle: {value}")
+            self._value = value
+        return self._value
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+
+
+def durable_io(storage) -> collections.Counter:
+    return collections.Counter(fsyncs=storage.stat_fsyncs, wal_bytes=storage.stat_bytes_wal,
+                               grid_bytes=storage.stat_bytes_grid)
+
+
+def durable_counts(storage, r) -> dict:
+    sm, grid = r.sm, r.forest.grid
+    return {
+        **durable_io(storage), "rows_spilled": sm._store.base,
+        "history_spilled": sm._hspill.base,
+        "forest_blocks": grid.block_count - grid.free_set.count_free(),
+        "flips": int(r.superblock.working["sequence"]) - 1,
+    }
+
+
+def durable_host_run(path, setup, timed, profile=False):
+    """bench.py's durable loop on the host engine: the setup, then the
+    timed batches with a checkpoint every max(4, min(48, n / 3)) of
+    them.  Returns (storage, replica, replies, per-op seconds, checkpoint
+    stalls, elapsed seconds, counts, device trace or None)."""
+    sm = TorchStateMachine(cfg.PRODUCTION, account_capacity=1 << 12,
+                           transfer_capacity=DURABLE_EVENTS + 2 * workload.BATCH + 1024,
+                           engine="host")
+    storage, r, _ = open_durable(path, sm, create=True)
+    replies = [r.on_request(int(op), body) for op, body in setup]
+    sm._dev.read()
+    r.forest.grid.flush_writes()
+    storage.stat_bytes_wal = storage.stat_bytes_grid = storage.stat_bytes_control = 0
+    storage.stat_fsyncs = 0
+    every = max(4, min(48, len(timed) // 3))
+    lat, stall = [], []
+    prof = device_profiler() if profile else contextlib.nullcontext()
+    with prof:
+        t0 = time.perf_counter()
+        for k, (op, body) in enumerate(timed):
+            b0 = time.perf_counter()
+            replies.append(r.on_request(int(op), body))
+            if (k + 1) % every == 0:
+                c0 = time.perf_counter()
+                r.checkpoint()
+                stall.append(time.perf_counter() - c0)
+            lat.append(time.perf_counter() - b0)
+        r._ckpt_join()  # the in-flight flip lands inside the timed window
+        sm._dev.read()
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    r.forest.grid.flush_writes()
+    trace = device_busy(prof) if profile else None
+    return storage, r, replies, lat, stall, elapsed, durable_counts(storage, r), trace
+
+
+def run_durable_host(tmp, oracle):
+    """Arm durable_host: bench.py's durable configuration (gen_simple's
+    1,000,000 transfers over 1,000 accounts, PRODUCTION, the host
+    engine, TB_CKPT_ASYNC's default), with TB_CKPT_VERIFY=1 so every
+    checkpoint runs the host engine's tripwire (K11).  close(), reopen
+    with a fresh machine, the lookup suite; every reply, the suite and
+    the root equal the port's oracle.  Then a profiled run of the first
+    third (to its first checkpoint) gives the device busy share."""
+    setup, timed, queries = durable_host_stream()
+    path = os.path.join(tmp, "host.tigerbeetle")
+    with knobs(TB_CKPT_VERIFY="1"):
+        kernels.reset_launches()
+        storage, r, replies, lat, stall, elapsed, counts, _ = durable_host_run(
+            path, setup, timed)
+        sm = r.sm
+        root = sm.state_root()
+        n_ckpt = len(stall)
+        check(counts["rows_spilled"] > 0, "durable_host: no row spilled")
+        check(counts["flips"] >= 2, f"durable_host: {counts['flips']} checkpoint flips")
+        close_durable(storage, r)
+        del r, sm
+        size = disk_bytes(path)
+        sm2 = TorchStateMachine(cfg.PRODUCTION, account_capacity=1 << 12,
+                                transfer_capacity=DURABLE_EVENTS + 2 * workload.BATCH + 1024,
+                                engine="host")
+        storage2, r2, open_s = open_durable(path, sm2)
+        check(sm2.state_root() == root, "durable_host: the reopened root differs")
+        check(sm2._store.base == counts["rows_spilled"],
+              "durable_host: the reopened store's spill base differs")
+        got = [r2.on_request(int(op), body) for op, body in queries]
+        sm2._dev.read()
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        check_link_quiet("durable_host", sm2, launches)
+        check(launches["checksum"] >= n_ckpt,
+              f"durable_host: {launches['checksum']} K11 launches for {n_ckpt} checkpoints")
+        close_durable(storage2, r2)
+    zones = disk_zones(path)
+    remove_data_file(path)
+    want_replies, want_queries, want_root = oracle.result()["host"]
+    check(replies == want_replies, "durable_host: replies differ from the oracle")
+    check(got == want_queries, "durable_host: the lookup suite differs from the oracle")
+    check(root == want_root, "durable_host: root differs from the oracle")
+    n_timed = transfer_events(timed)
+    ms = np.sort(np.asarray(lat)) * 1e3
+    third = timed[:max(4, min(48, len(timed) // 3))]
+    prof_path = os.path.join(tmp, "profiled.tigerbeetle")
+    p_storage, p_r, _, _, _, p_elapsed, _, trace = durable_host_run(
+        prof_path, setup, third, profile=True)
+    close_durable(p_storage, p_r)
+    p_size = disk_bytes(prof_path)
+    remove_data_file(prof_path)
+    if trace is None:
+        busy = "not measured (no device activity in the trace)"
+    else:
+        busy = (f"{trace[0]:.3f} ms of {p_elapsed:.3f} s (busy share "
+                f"{trace[0] / 1e3 / p_elapsed:.6f}) over the first {len(third)} batches "
+                f"under the profiler; top {trace[1]}")
+    print(f"  durable_host: {n_timed} events in {elapsed:.3f} s = {n_timed / elapsed:.0f} "
+          f"events/s; commit p50 {ms[len(ms) // 2]:.2f} / p99 {ms[int(len(ms) * 0.99)]:.2f} / "
+          f"p100 {ms[-1]:.2f} ms; {n_ckpt} checkpoints, stall p50 "
+          f"{1e3 * float(np.median(stall)):.2f} / p100 {1e3 * max(stall):.2f} ms; fsyncs "
+          f"{counts['fsyncs']}; WAL {counts['wal_bytes']} bytes, grid {counts['grid_bytes']} "
+          f"bytes ({(counts['wal_bytes'] + counts['grid_bytes']) / n_timed:.1f} a event); rows "
+          f"spilled {counts['rows_spilled']}; forest blocks in use {counts['forest_blocks']}; "
+          f"flips {counts['flips']}; data file {size} bytes on disk (bytes by zone {zones}; "
+          f"the profiled run's file {p_size}); open() after close {1e3 * open_s:.1f} ms; "
+          f"device busy {busy}; main-path launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    return launches, max(size, p_size)
+
+
+def run_durable_device(tmp, setup, timed, oracle):
+    """Arm durable_device: the service stream on the device engine (a
+    2^20-row table) through the replica, a checkpoint after every
+    DURABLE_SERVICE_EVERY-th transfer batch from the pending batch on (the
+    posts and voids cross one), a restart midway (close, reopen with a
+    fresh machine: the checkpoint, then the WAL replayed on it), the
+    lookup suite over the spilled rows; replies, the suite and the root
+    equal the port's oracle."""
+    path = os.path.join(tmp, "device.tigerbeetle")
+    ops = setup + timed
+    mid = len(setup) + len(timed) // 2
+    kernels.reset_launches()
+    sm = service_machine("device")
+    storage, r, _ = open_durable(path, sm, create=True)
+    replies, machines, n_ckpt = [], [sm], 0
+    t0 = time.perf_counter()
+    for i, (op, body) in enumerate(ops):
+        replies.append(r.on_request(int(op), body))
+        k = i - len(setup)
+        if k >= 0 and k % DURABLE_SERVICE_EVERY == 3:
+            r.checkpoint()
+            n_ckpt += 1
+        if i == mid:
+            spilled_before = r.sm._store.base
+            close_durable(storage, r)
+            io_before = durable_io(storage)
+            sm = service_machine("device")
+            machines.append(sm)
+            storage, r, open_s = open_durable(path, sm)
+            check(sm._store.base > 0, "durable_device: the restart found no spilled row")
+    r._ckpt_join()
+    elapsed = time.perf_counter() - t0
+    queries = durable_device_queries(timed)
+    got = [r.on_request(int(op), body) for op, body in queries]
+    sm._dev.drain()
+    sm._dev.flush()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    counts = durable_counts(storage, r)
+    counts.update(durable_io(storage) + io_before)  # both storages of the file
+    root = sm.state_root()
+    close_durable(storage, r)
+    size = disk_bytes(path)
+    zones = disk_zones(path)
+    remove_data_file(path)
+    want_replies, want, want_root = oracle.result()["device"]
+    check(replies == want_replies, "durable_device: replies differ from the oracle")
+    check(got == want, "durable_device: the lookup suite differs from the oracle")
+    check(root == want_root, "durable_device: root differs from the oracle")
+    check(counts["rows_spilled"] > 0 and spilled_before > 0, "durable_device: no row spilled")
+    check(counts["flips"] >= 2, f"durable_device: {counts['flips']} checkpoint flips")
+    for m in machines:
+        check(m._dev.stat_demotions == 0 and m._dev.stat_link_errors == 0,
+              "durable_device: a demotion or link error")
+    scrubs = sum(m._dev.stat_scrub_cheap for m in machines)
+    check(launches["commit_probe"] == scrubs + n_ckpt,
+          f"durable_device: {launches['commit_probe']} K2 probe launches != {scrubs} scrubs "
+          f"+ {n_ckpt} checkpoint tripwires")
+    rows = sum(len(g) // 128 for g in got)
+    print(f"  durable_device: {len(ops)} ops ({transfer_events(timed)} transfers after "
+          f"{SERVICE_ACCOUNTS} accounts) in {elapsed:.3f} s with {n_ckpt} checkpoints and a "
+          f"restart after op {mid} (open() {1e3 * open_s:.1f} ms); rows spilled "
+          f"{counts['rows_spilled']} (history {counts['history_spilled']}); forest blocks in "
+          f"use {counts['forest_blocks']}; flips {counts['flips']}; fsyncs {counts['fsyncs']}; "
+          f"WAL {counts['wal_bytes']} bytes, grid {counts['grid_bytes']} bytes; data file "
+          f"{size} bytes on disk (bytes by zone {zones}); lookup suite {len(queries)} queries, "
+          f"{rows} rows; main-path launches { {k: v for k, v in launches.items() if v} }")
+    return launches, size
+
+
+def run_durable_phase(setup, timed, oracle):
+    """Phase durable: the replica over a data file under a temporary
+    directory (removed at the end), arms durable_host and
+    durable_device."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tb_durable_")
+    try:
+        host, host_disk = run_durable_host(tmp, oracle)
+        device, device_disk = run_durable_device(tmp, setup, timed, oracle)
+        main = collections.Counter(host)
+        main.update(device)
+        where = file_system(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase durable (replica over a FileStorage data file, LSM spill tier): arms "
+          f"durable_host and durable_device; replies, lookup suites and roots equal the "
+          f"oracle's; peak temporary disk use {max(host_disk, device_disk)} bytes (one data "
+          f"file at a time, on {where}); wall time {time.perf_counter() - t0:.1f} s; checks "
+          f"passed")
+    return dict(main), dict.fromkeys(main, 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     card = card_line()
     print(card)
+    # The durable phase's oracle runs in a CPU process of its own while
+    # the card works (~1 s a batch of per-event Python).
+    durable_oracle = DurableOracle()
+    try:
+        return run_all(card, durable_oracle)
+    finally:
+        durable_oracle.stop()
+
+
+def run_all(card, durable_oracle) -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     built = build.build_all()
@@ -3569,6 +4039,7 @@ def main() -> int:
     phases["lifecycle"] = run_lifecycle_phase(setup, timed, oracle_replies, oracle.state_root())
     phases["queries"] = run_queries_phase(setup, timed, oracle, oracle_h)
     phases["snapshot"] = run_snapshot_phase(setup, timed, oracle_replies, oracle.state_root())
+    phases["durable"] = run_durable_phase(setup, timed, durable_oracle)
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")

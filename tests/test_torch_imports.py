@@ -102,7 +102,8 @@ def test_native_build_reads_only_the_port_sources():
     paths = [a for a in cmd[1:] if "/" in a and a != "/dev/null"]
     assert paths == [str(src / host_build.MAIN)], paths
     names = {p.name for p in host_build.sources()}
-    assert names == {"tb_fastpath.cpp", "tb_exact.inc", "tb_linked.inc", "tb_two_phase.inc"}
+    assert names == {"tb_fastpath.cpp", "tb_exact.inc", "tb_linked.inc", "tb_two_phase.inc",
+                     "tb_lsm.inc"}
     for path in host_build.sources():
         for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
             assert "/" not in inc and (src / inc).is_file(), (path.name, inc)

@@ -4,10 +4,10 @@
 // native/tb_fastpath.cpp (the Fastpath struct and tb_fp_create ...
 // tb_fp_commit_transfers), with tb_fp_decode_store from its
 // tb_lsm.inc and the serial engines tb_exact.inc, tb_linked.inc and
-// tb_two_phase.inc beside it.  The algorithms are the reference's; the
-// frame verify / finalize and hash-engine entry points, the commit
-// pipeline and the LSM merge are left out (they serve the server, VSR
-// and LSM layers).  Built by tigerbeetle_tpu_torch/kernels/host_build.py
+// tb_two_phase.inc beside it, and the LSM's k-way merge in this
+// directory's tb_lsm.inc.  The algorithms are the reference's; the
+// frame verify / finalize and hash-engine entry points and the commit
+// pipeline are left out (they serve the server and VSR layers).  Built by tigerbeetle_tpu_torch/kernels/host_build.py
 // with g++ into build/native/, loaded by runtime/fastpath.py.
 //
 // The device balance table is authoritative and fed by write-behind
@@ -512,3 +512,4 @@ void tb_fp_decode_store(
 #include "tb_exact.inc"
 #include "tb_linked.inc"
 #include "tb_two_phase.inc"
+#include "tb_lsm.inc"

@@ -242,3 +242,29 @@ def ckpt_verify() -> bool:
     """TB_CKPT_VERIFY=1: the host engine's checkpoint snapshot runs the
     device/mirror tripwire too (the device engine always does)."""
     return env_str("TB_CKPT_VERIFY") == "1"
+
+
+# ----------------------------------------------------------------------
+# The durable replica (vsr/replica.py) and its observability (obs/).
+
+
+def ckpt_async() -> int:
+    """TB_CKPT_ASYNC: 1 (default) runs the checkpoint's disk half
+    (grid writeback join, fdatasync, superblock flip) on a background
+    worker; 0 keeps the whole checkpoint on the commit path."""
+    return env_int("TB_CKPT_ASYNC", 1, minimum=0, maximum=1)
+
+
+def metrics_enabled() -> int:
+    """TB_METRICS: 1 (default) records latency histograms in the obs
+    registry; 0 skips the clock reads (counters stay live: logic and
+    accounting depend on them)."""
+    return env_int("TB_METRICS", 1, minimum=0, maximum=1)
+
+
+def trace_exemplars() -> int:
+    """TB_TRACE_EXEMPLARS: tail-exemplar ring size (obs/anatomy.py):
+    how many slow-request stage timelines each replica retains.  Must
+    be > 0 (the recorder is disabled through TB_METRICS=0, not by an
+    empty ring)."""
+    return env_int("TB_TRACE_EXEMPLARS", 32, minimum=1, maximum=1 << 16)

@@ -4,7 +4,8 @@ Counterpart of ``tigerbeetle_tpu/runtime/fastpath.py``, bound to the
 port's own library (``csrc/host/``, built by ``kernels/host_build.py``
 at first use).  Wire decode, the static ladder, account resolution,
 duplicate detection, u128 overflow admission and the serial linked /
-two-phase / exact engines run in C++; Python keeps orchestration, the
+two-phase / exact engines run in C++, and so does the LSM's k-way merge
+(``kway_merge``, for lsm/tree.py); Python keeps orchestration, the
 columnar stores and the device queue.  The balance mirror's memory is
 OWNED by the native library and wrapped zero-copy as numpy arrays, so
 every host-side mutation is visible to the native admission checks and
@@ -98,6 +99,11 @@ def _register(lib: ctypes.CDLL) -> None:
         ctypes.c_uint64, ctypes.c_uint32,
         _U64P, _I64P, _I64P, _U64P, _U64P, _U32P,
     ]
+    lib.tb_lsm_kway_merge.restype = ctypes.c_int64
+    lib.tb_lsm_kway_merge.argtypes = [
+        ctypes.c_int32, ctypes.POINTER(_U8P), ctypes.POINTER(_U8P),
+        ctypes.POINTER(_U8P), _I64P, ctypes.c_int32, _U8P, _U8P, _U8P,
+    ]
     lib.tb_fp_decode_store.argtypes = [
         _U8P, ctypes.c_uint32, ctypes.c_uint64,
         _U64P, _U64P, _U64P, _U64P, _U64P, _U64P,
@@ -171,6 +177,34 @@ def decode_store(events: np.ndarray, n: int, ts_base: int, cols: dict, lo: int) 
         at("code", _U32P), at("flags", _U32P), at("timestamp", _U64P),
         at("status", _U8P),
     )
+
+
+def kway_merge(streams, value_size: int, lib: ctypes.CDLL | None = None):
+    """Native k-way merge of sorted-unique (keys V16, flags u8, vals
+    (n, value_size) u8) streams, stream 0 newest: a key present in
+    several streams keeps the newest stream's entry.  Returns the merged
+    (keys, flags, vals).  `lib`: the loaded library (default: the
+    port's, built at first use; a failed build raises)."""
+    lib = load() if lib is None else lib
+    k = len(streams)
+    total = sum(len(s[0]) for s in streams)
+    keys_c = [np.ascontiguousarray(s[0]) for s in streams]
+    flags_c = [np.ascontiguousarray(s[1]) for s in streams]
+    vals_c = [np.ascontiguousarray(s[2]) for s in streams]
+    key_ptrs = (_U8P * k)(*[_p(a, _U8P) for a in keys_c])
+    flag_ptrs = (_U8P * k)(*[_p(a, _U8P) for a in flags_c])
+    val_ptrs = (_U8P * k)(*[_p(a, _U8P) for a in vals_c])
+    lens = (ctypes.c_int64 * k)(*[len(s[0]) for s in streams])
+    out_keys = np.empty(total, dtype="V16")
+    out_flags = np.empty(total, np.uint8)
+    out_vals = np.empty((total, value_size), np.uint8)
+    n = lib.tb_lsm_kway_merge(
+        k, key_ptrs, flag_ptrs, val_ptrs, lens, value_size,
+        _p(out_keys, _U8P) if total else None,
+        _p(out_flags, _U8P) if total else None,
+        _p(out_vals, _U8P) if total else None,
+    )
+    return out_keys[:n], out_flags[:n], out_vals[:n]
 
 
 def _p(arr: np.ndarray, ptype):

@@ -41,7 +41,12 @@ State split: the device holds the balance table (and, device engine,
 the account-meta table, the summary ring and the digest); the host
 holds the id directories, immutable account attributes, the columnar
 transfer store, the expires index, the history rows and the balance
-mirror.  Hot/cold tiering (TB_HOT_CAPACITY, ``hot_tier.py``) keeps only
+mirror.  Under a replica (``vsr/replica.py``) the transfer store and the
+history rows spill their oldest rows into the LSM forest on the data
+file's grid (``attach_forest``, ``spill_beat``, ``checkpoint_spill``;
+``state_machine/spill.py``); the store's rows stay global row numbers,
+read through ``TailStore``'s proxy from the RAM tail or the spill.
+Hot/cold tiering (TB_HOT_CAPACITY, ``hot_tier.py``) keeps only
 a hot set of rows on the card in either engine, with the mirror as the
 cold tier: the device engine prefetches each batch's accounts before
 packing it with hot slots (``_tier_translate``), the host engine admits
@@ -76,12 +81,13 @@ import torch
 from tigerbeetle_tpu_torch import constants as cfg
 from tigerbeetle_tpu_torch import envcheck, types
 from tigerbeetle_tpu_torch.device import resolve_device
+from tigerbeetle_tpu_torch.lsm.scan_builder import ScanBuilder
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.runtime import fastpath
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
-from tigerbeetle_tpu_torch.state_machine import kernel, resolve, waves
+from tigerbeetle_tpu_torch.state_machine import kernel, resolve, spill as spill_mod, waves
 from tigerbeetle_tpu_torch.state_machine.device_engine import (
     DeviceEngine,
     DeviceLostError,
@@ -124,6 +130,14 @@ _TIGHT_AMOUNT_LIMIT = 1 << 32
 # Account flags that keep a batch off the order-free and two-phase
 # kernels: the limits (the linked kernel takes them) and history.
 _LIMH = np.uint32(AF.debits_must_not_exceed_credits | AF.credits_must_not_exceed_debits | AF.history)
+
+# Spill beats (spill_beat, once per commit): at most SPILL_BEAT_ROWS of
+# the oldest store rows leave RAM per beat, and a beat keeps at least
+# SPILL_BEAT_KEEP_MIN rows hot even when config.spill_keep_rows is
+# smaller.  A checkpoint (checkpoint_spill) keeps config.spill_keep_rows
+# alone.  Both rules are the reference's, so the spilled bytes are too.
+SPILL_BEAT_ROWS = 8192
+SPILL_BEAT_KEEP_MIN = 16_384
 
 # Columnar transfer-store fields.
 _STORE_FIELDS = {
@@ -223,14 +237,128 @@ class Columns:
         return self._cols[name]
 
 
-class TailStore(Columns):
-    """The transfer store.  The reference spills its oldest rows into an
-    LSM tier; this port keeps every row in RAM (the spill tier is not
-    ported), so global row numbers are physical rows."""
+class _GlobalCol:
+    """Indexing proxy translating GLOBAL rows to the RAM tail or the
+    LSM spill tier (read-only below the spill base)."""
+
+    __slots__ = ("_store", "_name")
+
+    def __init__(self, store: "TailStore", name: str) -> None:
+        self._store = store
+        self._name = name
+
+    def __getitem__(self, rows):
+        return self._store.gather(self._name, rows)
+
+    def __setitem__(self, rows, values) -> None:
+        base = self._store.base
+        if np.isscalar(rows) or isinstance(rows, (int, np.integer)):
+            rows = np.array([rows], np.int64)
+            values = np.asarray([values])
+        else:
+            rows = np.asarray(rows)
+            values = np.broadcast_to(np.asarray(values), rows.shape)
+        in_ram = rows >= base
+        if in_ram.any():
+            self._store.ram[self._name][
+                rows[in_ram] - base + self._store._off
+            ] = values[in_ram]
+        if not in_ram.all():
+            # Spilled objects are immutable EXCEPT the pending status
+            # byte, which post/void/expiry finalize in place.
+            assert self._name == "status", "write to spilled row"
+            self._store.spill.update_status(rows[~in_ram], values[~in_ram])
+
+
+class TailStore:
+    """Columnar store whose rows [0, base) have spilled into an LSM
+    groove (state_machine/spill.py) and whose tail [base, count) stays
+    in RAM — the hot append path never touches the LSM.
+
+    Global row numbers are stable across spills: the id directories,
+    the expiry index, and the native library all keep global rows.
+    """
+
+    def __init__(self, fields: dict, capacity: int = 1024) -> None:
+        self.ram = Columns(fields, capacity)
+        self.base = 0
+        # Dead physical rows at the front of `ram` (already spilled):
+        # drop_prefix advances this offset in O(1) and compacts only
+        # when dead rows dominate — per-beat spills must not pay an
+        # O(tail) memmove on the commit path.
+        self._off = 0
+        self.spill = None  # TransferSpill once a forest is attached
+
+    @property
+    def count(self) -> int:
+        return self.base + self.ram.count - self._off
+
+    def append(self, **arrays) -> np.ndarray:
+        return self.ram.append(**arrays) - self._off + self.base
+
+    def col(self, name: str) -> np.ndarray:
+        """Live RAM-tail view; index 0 corresponds to global row
+        .base."""
+        return self.ram.col(name)[self._off :]
+
+    def tail_count(self) -> int:
+        return self.ram.count - self._off
+
+    def __getitem__(self, name: str) -> _GlobalCol:
+        return _GlobalCol(self, name)
+
+    def _phys(self, rows):
+        return rows - self.base + self._off
+
+    def gather(self, name: str, rows):
+        if np.isscalar(rows) or isinstance(rows, (int, np.integer)):
+            if rows >= self.base:
+                return self.ram[name][self._phys(rows)]
+            obj = self.spill.gather(np.array([rows], np.int64))
+            return spill_mod.unpack_objects(obj)[name][0]
+        rows = np.asarray(rows)
+        if len(rows) == 0 or (self.base == 0 or (rows >= self.base).all()):
+            return self.ram[name][self._phys(rows)]
+        out = np.empty(len(rows), self.ram[name].dtype)
+        in_ram = rows >= self.base
+        out[in_ram] = self.ram[name][self._phys(rows[in_ram])]
+        cold = ~in_ram
+        obj = self.spill.gather(rows[cold])
+        out[cold] = spill_mod.unpack_objects(obj)[name]
+        return out
 
     def gather_many(self, names: list[str], rows: np.ndarray) -> dict:
+        """One spill fetch for many columns (exact-path joins)."""
         rows = np.asarray(rows)
-        return {n: self._cols[n][rows] for n in names}
+        in_ram = rows >= self.base
+        if in_ram.all():
+            phys = self._phys(rows)
+            return {n: self.ram[n][phys] for n in names}
+        cold_rows = rows[~in_ram]
+        cold = spill_mod.unpack_objects(self.spill.gather(cold_rows))
+        phys = np.maximum(self._phys(rows), 0)
+        out = {}
+        for n in names:
+            vals = self.ram[n][phys].copy()
+            vals[~in_ram] = cold[n]
+            out[n] = vals
+        return out
+
+    def drop_prefix(self, n: int) -> None:
+        """Advance base after `n` rows spilled (caller already wrote
+        them to the groove).  O(1); the physical compaction amortizes."""
+        assert n <= self.tail_count()
+        self._off += n
+        self.base += n
+        # Compact when dead >= live: the move cost (live rows) is then
+        # bounded by the rows dropped since the last compaction, i.e.
+        # amortized O(1) per spilled row.
+        if self._off and self._off * 2 >= self.ram.count:
+            keep = self.ram.count - self._off
+            for _name, colarr in self.ram._cols.items():
+                colarr[:keep] = colarr[self._off : self.ram.count]
+            self.ram.count = keep
+            self._off = 0
 
 
 def _dir_capacity(entries: int) -> int:
@@ -368,12 +496,19 @@ class TorchStateMachine:
         self._wave_scratch = None
         self._tdir = RunIndex(_dir_capacity(transfer_capacity))
         self._store = TailStore(_STORE_FIELDS, capacity=max(1024, transfer_capacity))
-        # expires_at index: (expires_at, store row, active).
+        # expires_at index: (expires_at, row, active).  Rows are GLOBAL
+        # store rows; an active entry's pending may have spilled at a
+        # checkpoint (its status byte stays writable in the spill).
         self._exp = Columns(
             {"expires_at": np.uint64, "row": np.uint32, "active": np.bool_}
         )
         self._exp_dead = 0
         self._history = Columns(_HISTORY_FIELDS)
+        # LSM spill tier (attach_forest): None standalone, where every
+        # row stays in RAM; a replica attaches a Forest so durable state
+        # scales past host RAM.
+        self._forest = None
+        self._hspill = None
         self._expiry_rows: np.ndarray | None = None
         # A device-window batch may create timeout-carrying pendings.
         self._inflight_timeouts = False
@@ -487,6 +622,96 @@ class TorchStateMachine:
         except DeviceLostError as exc:
             return f"localization fetch failed: {exc!r}"
         return f"{len(rows)} rows diverged (first: {rows[:8].tolist()})"
+
+    # ------------------------------------------------------------------
+    # LSM spill tier (replica mode).
+
+    def attach_forest(self, forest) -> None:
+        """Wire the LSM forest in: transfers + history grooves back the
+        columnar stores so durable state scales past host RAM
+        (reference: src/lsm/forest.zig:31, groove.zig:136-176)."""
+        assert self._forest is None
+        self._forest = forest
+        transfers = forest.groove(
+            "transfers",
+            object_size=spill_mod.TRANSFER_OBJECT_SIZE,
+            index_fields=["dr_slot", "cr_slot"],
+            index_value_size=8,
+        )
+        # Index entries are 25B vs 161B objects; sealing them 8x less
+        # often keeps their levels shallow (every index run overlaps —
+        # (slot, ts) keys never move-optimize), cutting merge rewrite
+        # volume on the commit path.
+        for tree in transfers.indexes.values():
+            tree.memtable_max *= 8
+        # Object rows arrive one 8k spill beat at a time; sealing every
+        # beat makes level-0 churn (and the GROWTH-way merge cascade)
+        # the dominant durable-path cost.  4x fewer, 4x larger runs cut
+        # the per-event seal+merge work at ~5MB of memtable RAM.
+        transfers.object_tree.memtable_max *= 4
+        history = forest.groove(
+            "account_history",
+            object_size=spill_mod.HISTORY_OBJECT_SIZE,
+            index_fields=[],
+        )
+        self._store.spill = spill_mod.TransferSpill(
+            transfers, attrs_fn=lambda: self._attrs
+        )
+        self._hspill = spill_mod.HistorySpill(history)
+
+    def spill_beat(self) -> int:
+        """Paced spill: move at most SPILL_BEAT_ROWS of the OLDEST
+        RAM-tail rows into the LSM tier, keeping at least
+        SPILL_BEAT_KEEP_MIN (or config.spill_keep_rows, if larger) hot
+        in RAM; checkpoint_spill keeps config.spill_keep_rows alone.
+        Called once per commit by the replica, so the spill cost (and
+        the compaction debt it creates) amortizes across the interval
+        instead of landing inside the checkpoint (reference:
+        src/lsm/compaction.zig — data enters the LSM per beat, not per
+        checkpoint).  Deterministic: state-dependent only."""
+        if self._forest is None:
+            return 0
+        keep_min = max(self.config.spill_keep_rows, SPILL_BEAT_KEEP_MIN)
+        take = min(SPILL_BEAT_ROWS, self._store.tail_count() - keep_min)
+        if take <= 0:
+            return 0
+        self._spill_oldest(take)
+        # History spills at checkpoint only (checkpoint_spill): its
+        # rows are append-only and bounded per interval, and a per-beat
+        # prefix rebuild would cost more copying than it saves.
+        return take
+
+    def checkpoint_spill(self) -> None:
+        """Move the whole RAM tail into the LSM tier — including live
+        pendings, whose status byte stays mutable through
+        TransferSpill.update_status (a stuck pending must not pin every
+        later row in RAM).  Called by the replica at checkpoint —
+        deterministic across replicas (state-dependent only), keeping
+        checkpoint snapshots O(RAM tail), not O(history)
+        (reference: src/vsr/replica.zig:3886-4039 checkpoint_data)."""
+        if self._forest is None:
+            return
+        # Retain the hot tail across checkpoints when configured: the
+        # snapshot blob carries it, so checkpoint cost is O(one beat's
+        # residue) instead of O(interval).
+        limit = self._store.tail_count() - self.config.spill_keep_rows
+        if limit > 0:
+            self._spill_oldest(limit)
+        # History is append-only: spill everything.
+        h = self._history
+        if h.count:
+            self._hspill.spill(
+                {name: h.col(name) for name in _HISTORY_FIELDS}
+            )
+            h.truncate(0)
+        self._forest.checkpoint()
+
+    def _spill_oldest(self, n: int) -> None:
+        """Move the RAM tail's oldest `n` rows into the transfers groove."""
+        st = self._store
+        rows = np.arange(st.base, st.base + n, dtype=np.int64)
+        st.spill.spill(rows, {name: st.col(name)[:n] for name in _STORE_FIELDS}, self._attrs)
+        st.drop_prefix(n)
 
     # ------------------------------------------------------------------
     # Interface plumbing (reference: src/state_machine.zig:543-596).
@@ -842,8 +1067,14 @@ class TorchStateMachine:
                 self._attrs.col("id_lo"), self._attrs.col("id_hi"),
                 self._attrs.col("flags"), self._attrs.col("ledger"), base_slot=0,
             )
-        if self._store.count:  # every row in RAM: global row = physical row
-            native.add_transfer_ids(self._store.col("id_lo"), self._store.col("id_hi"), 0)
+        if self._store.base:
+            for rows, obj in self._store.spill.iter_objects():
+                cols = spill_mod.unpack_objects(obj)
+                native.add_transfer_ids(cols["id_lo"], cols["id_hi"], int(rows[0]))
+        if self._store.tail_count():
+            native.add_transfer_ids(
+                self._store.col("id_lo"), self._store.col("id_hi"), self._store.base
+            )
         self._native = native
         self._mirror.lo = native.lo
         self._mirror.hi = native.hi
@@ -2249,17 +2480,18 @@ class TorchStateMachine:
             # decodes the wire records into the store's columns; the id
             # directories and commit_timestamp remain.
             self.stat_hot_tail_batches += 1
-            st = self._store
-            st._ensure(n)
-            lo = st.count
-            fastpath.decode_store(events, n, ts_base, st._cols, lo)
-            st._cols["dr_slot"][lo : lo + n] = dr_slot
-            st._cols["cr_slot"][lo : lo + n] = cr_slot
-            st.count = lo + n
-            id_lo = st._cols["id_lo"][lo : lo + n]
-            id_hi = st._cols["id_hi"][lo : lo + n]
-            self._tdir.insert(id_lo, id_hi, np.arange(lo, lo + n, dtype=np.uint64))
-            self._native.add_transfer_ids(id_lo, id_hi, lo)
+            ram = self._store.ram
+            ram._ensure(n)
+            lo = ram.count
+            fastpath.decode_store(events, n, ts_base, ram._cols, lo)
+            ram._cols["dr_slot"][lo : lo + n] = dr_slot
+            ram._cols["cr_slot"][lo : lo + n] = cr_slot
+            ram.count = lo + n
+            row0 = self._store.count - n  # the first new global row
+            id_lo = ram._cols["id_lo"][lo : lo + n]
+            id_hi = ram._cols["id_hi"][lo : lo + n]
+            self._tdir.insert(id_lo, id_hi, np.arange(row0, row0 + n, dtype=np.uint64))
+            self._native.add_transfer_ids(id_lo, id_hi, row0)
             self.commit_timestamp = ts_base + n - 1
             return b""
         self.stat_slow_tail_batches += 1
@@ -2867,18 +3099,34 @@ class TorchStateMachine:
         st = self._store
         lo = TIMESTAMP_MIN if ts_min == 0 else ts_min
         hi = TIMESTAMP_MAX if ts_max == 0 else ts_max
-        # The reference first composes its spilled rows through the LSM
-        # ScanBuilder here (eq / union over the (slot, timestamp) index
-        # trees); the TailStore keeps every row in RAM, so that branch
-        # waits for the LSM tier (ROADMAP queue 1, item 5).
-        mask = np.zeros(st.count, bool)
+        # Spilled rows: the query composes through the ScanBuilder, the
+        # expression engine (eq / union over the (slot, timestamp) index
+        # trees) the reference routes queries through (reference:
+        # src/state_machine.zig:931-996 -> src/lsm/scan_builder.zig:529).
+        # Values mode yields the global rows.
+        if st.base:
+            sb = ScanBuilder(st.spill.groove)
+            scans = []
+            if fflags & FF.debits:
+                scans.append(sb.eq("dr_slot", slot))
+            if fflags & FF.credits:
+                scans.append(sb.eq("cr_slot", slot))
+            spilled = sb.evaluate(
+                sb.union(*scans), ts_min=lo, ts_max=hi, return_values=True
+            ).astype(np.int64)
+        else:
+            spilled = np.zeros(0, np.int64)
+        # RAM tail: a vectorised column scan.
+        mask = np.zeros(st.tail_count(), bool)
         if fflags & FF.debits:
             mask |= st.col("dr_slot") == slot
         if fflags & FF.credits:
             mask |= st.col("cr_slot") == slot
         ts = st.col("timestamp")
         mask &= (ts >= lo) & (ts <= hi)
-        rows = np.flatnonzero(mask)
+        # Spilled rows all precede the tail: the concatenation keeps
+        # timestamp order.
+        rows = np.concatenate([spilled, np.flatnonzero(mask) + st.base])
         if fflags & FF.reversed:
             rows = rows[::-1]
         return rows
@@ -2906,19 +3154,28 @@ class TorchStateMachine:
         )
         rows = rows[: min(int(filter_row["limit"]), batch_max)]
         # Transfer timestamps -> history rows (the same timestamps; the
-        # history rows are in store order too, all in RAM).
+        # history rows are in store order too).  The RAM tail serves
+        # recent rows; older rows come from the LSM history groove.
         want_ts = np.asarray(self._store["timestamp"][rows], np.uint64)
         h = self._history
         h_ts = h.col("timestamp")
+        id_lo = np.uint64(account_id & U64_MAX)
+        id_hi = np.uint64(account_id >> 64)
         bal = np.zeros((len(rows), 8), np.uint64)
-        if len(rows):
-            assert len(h_ts), "history row missing"
+        in_ram = np.zeros(len(rows), bool)
+        if len(h_ts):
             pos = np.minimum(np.searchsorted(h_ts, want_ts), len(h_ts) - 1)
-            assert (h_ts[pos] == want_ts).all(), "history row missing"
-            is_dr = (h["dr_id_lo"][pos] == np.uint64(account_id & U64_MAX)) & (
-                h["dr_id_hi"][pos] == np.uint64(account_id >> 64)
-            )
-            bal[:] = np.where(is_dr[:, None], h["dr_bal"][pos], h["cr_bal"][pos])
+            in_ram = h_ts[pos] == want_ts
+            pr = pos[in_ram]
+            is_dr = (h["dr_id_lo"][pr] == id_lo) & (h["dr_id_hi"][pr] == id_hi)
+            bal[in_ram] = np.where(is_dr[:, None], h["dr_bal"][pr], h["cr_bal"][pr])
+        cold = ~in_ram
+        if cold.any():
+            assert self._hspill is not None, "history row missing"
+            found, got = self._hspill.gather_by_ts(want_ts[cold])
+            assert found.all(), "history row missing from the LSM tier"
+            is_dr = (got["dr_id_lo"] == id_lo) & (got["dr_id_hi"] == id_hi)
+            bal[cold] = np.where(is_dr[:, None], got["dr_bal"], got["cr_bal"])
         out = np.zeros(len(rows), dtype=ACCOUNT_BALANCE_DTYPE)
         out["debits_pending_lo"], out["debits_pending_hi"] = bal[:, 0], bal[:, 1]
         out["debits_posted_lo"], out["debits_posted_hi"] = bal[:, 2], bal[:, 3]
@@ -2962,14 +3219,18 @@ class TorchStateMachine:
     # ------------------------------------------------------------------
     # Checkpoint snapshot / restore (reference: tpu.py:3989-4164), in the
     # reference's blob layout (utils/snapshot.py: fixed-layout, no
-    # pickle).  The store has no spilled part here: store_base is 0.
+    # pickle).  With a forest attached the store section holds only the
+    # RAM tail: everything older lives in LSM grid blocks that the
+    # manifest (the blob's "forest" field) references, so the blob is
+    # O(tail + accounts), not O(history).
 
     def snapshot(self) -> bytes:
-        """Serialize the durable state: the columnar stores and the
-        balance mirror, which equals the device table once the stream is
-        drained and the write-behind lane flushed.  The checkpoint
-        barrier runs the tripwire (verify_device_mirror) on the device
-        engine, and on the host engine under TB_CKPT_VERIFY=1."""
+        """Serialize the durable state: the columnar stores (their RAM
+        tails and the spill bases, with a forest) and the balance
+        mirror, which equals the device table once the stream is drained
+        and the write-behind lane flushed.  The checkpoint barrier runs
+        the tripwire (verify_device_mirror) on the device engine, and on
+        the host engine under TB_CKPT_VERIFY=1."""
         if self.engine == "device":
             self._dev.drain()
         self._dev.flush()
@@ -2980,7 +3241,7 @@ class TorchStateMachine:
             "commit_timestamp": self.commit_timestamp,
             "pulse_next_timestamp": self.pulse_next_timestamp,
             "exp_dead": self._exp_dead,
-            "store_base": 0,
+            "store_base": self._store.base,
             "attrs": {k: self._attrs.col(k) for k in _ATTR_FIELDS},
             "store": {k: self._store.col(k) for k in _STORE_FIELDS},
             "exp": {k: self._exp.col(k) for k in ("expires_at", "row", "active")},
@@ -2988,6 +3249,9 @@ class TorchStateMachine:
             "mirror_lo": self._mirror.lo[:count],
             "mirror_hi": self._mirror.hi[:count],
         }
+        if self._forest is not None:
+            state["history_base"] = self._hspill.base
+            state["forest"] = self._forest.manifest_blob()
         return snapcodec.encode_tree(state)
 
     def restore(self, data: bytes) -> None:
@@ -2996,10 +3260,10 @@ class TorchStateMachine:
         device tables are re-uploaded from the restored mirror (device
         engine: both tables and the K2 rebuild, a lost link demoting
         it; host engine: write_back of the logical table), and a tiered
-        table starts from an empty hot set that admissions refill."""
+        table starts from an empty hot set that admissions refill.  A
+        blob with spilled rows reopens the attached forest from its
+        manifest and re-points the spill handles at its grooves."""
         state = snapcodec.decode_tree(data)
-        if state.get("store_base", 0) or "forest" in state:
-            raise ValueError("a snapshot with spilled rows needs the LSM tier, not ported")
         self.commit_timestamp = state["commit_timestamp"]
         self.pulse_next_timestamp = state["pulse_next_timestamp"]
         self._exp_dead = state["exp_dead"]
@@ -3014,15 +3278,35 @@ class TorchStateMachine:
         self._history = Columns(_HISTORY_FIELDS)
         self._history.append(**state["history"])
 
+        base = state.get("store_base", 0)
+        if "forest" in state:
+            assert self._forest is not None, "snapshot requires a forest"
+            self._forest.open(state["forest"])
+            self._store.spill = spill_mod.TransferSpill(
+                self._forest.grooves["transfers"], attrs_fn=lambda: self._attrs
+            )
+            self._store.spill.base = base
+            self._store.base = base
+            self._hspill = spill_mod.HistorySpill(self._forest.grooves["account_history"])
+            self._hspill.base = state["history_base"]
+        else:
+            assert base == 0, "spilled snapshot but no forest attached"
+
         n_acct = self._attrs.count
         self._acct_dir = RunIndex(_dir_capacity(n_acct))
         self._acct_dir.insert(
             self._attrs.col("id_lo"), self._attrs.col("id_hi"), np.arange(n_acct, dtype=np.uint64)
         )
+        # Spilled ids stream back from the object tree once; the RAM
+        # tail's follow at their global rows.
         self._tdir = RunIndex(_dir_capacity(self._store.count))
+        if base:
+            for rows, obj in self._store.spill.iter_objects():
+                cols = spill_mod.unpack_objects(obj)
+                self._tdir.insert(cols["id_lo"], cols["id_hi"], rows.astype(np.uint64))
         self._tdir.insert(
             self._store.col("id_lo"), self._store.col("id_hi"),
-            np.arange(self._store.count, dtype=np.uint64),
+            np.arange(base, base + self._store.tail_count(), dtype=np.uint64),
         )
 
         cap = max(1 << 12, 1 << (n_acct - 1).bit_length() if n_acct else 1)
