@@ -39,8 +39,10 @@ port's create_transfers loop through SingleNodeHarness on
 TorchStateMachine in fourteen phases, the two row-sharded entry points
 in two more, the row-sharded engines in two more, the graft entry and
 the launcher probes in two more, the device engine's lifecycle, the
-queries and checkpoint snapshot / restore in three more, and the durable
-single replica in one more:
+queries and checkpoint snapshot / restore in three more, the durable
+single replica in one more, and the replicated cluster in two more (the
+server's runtime library, csrc/host/tb_runtime.cpp and tb_async.cpp, is
+built beside the host library):
 
   simple       device engine, a 2^20-row table, 1,000,000 accounts,
                1,000,000 transfers in 8190-event batches (K1)
@@ -193,6 +195,28 @@ single replica in one more:
                error, every reply, the suite and the root equal the
                port's oracle through a Replica on MemoryStorage (it runs
                in a spawned CPU process from the script's start)
+  replicated   the deployment, as bench.py's run_replicated: `python -m
+               tigerbeetle_tpu_torch format` then `start` for three
+               replicas of cluster 12 (--cache-accounts=2^20, replica 0
+               with --aof; data files under a temporary directory on the
+               durable phase's file system, logs to files), four Client
+               sessions, 1,000 accounts and bench's stream (rng 47) in
+               8190-event batches: 40 on the host engine (K4 in the
+               replicas), 5 on TB_ENGINE=device (K1, K2 update).  Every reply
+               ok; the three scrape_state_root answers agree at one
+               commit point; replica 0's AOF replayed through the oracle
+               ends at that op and root; each replica's stats scrape
+               shows its machine's events and the launches in it, its
+               log names the engine and the card; after SIGTERM every
+               replica exits 0.  Prints events/s, request p50 / p99,
+               fsyncs per prepare and each replica's resident memory
+  cluster      testing.cluster.Cluster(3) in this process, TEST_MIN:
+               packet loss 0.02, the primary crashed and restarted (a
+               view change), a backup partitioned across three
+               checkpoints rejoins by state sync; on TorchStateMachine
+               on the card (each engine) and on the oracle under the
+               same seed: equal replies, HashLog digests for every op of
+               every replica, state roots
 
 All the shards of a mesh lie on the one card: copies between shards
 are device-local, and no time here is a multi-GPU one.
@@ -243,7 +267,7 @@ import torch
 from tigerbeetle_tpu_torch import constants as cfg
 from tigerbeetle_tpu_torch import kernels
 from tigerbeetle_tpu_torch import workload
-from tigerbeetle_tpu_torch.kernels import build
+from tigerbeetle_tpu_torch.kernels import build, host_build
 from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.ops.u128 import to_u64
 from tigerbeetle_tpu_torch.parallel import sharded
@@ -3793,6 +3817,456 @@ def run_durable_phase(setup, timed, oracle):
     return dict(main), dict.fromkeys(main, 0)
 
 
+
+# ----------------------------------------------------------------------
+# Phase replicated: the deployment.  Three `python -m
+# tigerbeetle_tpu_torch start` processes on the card (VsrReplica over
+# the native TCP bus, TorchStateMachine on cuda:0) and four sessions of
+# the port's Client, in the shape of bench.py's run_replicated.
+
+REPL_CLUSTER = 12
+REPL_REPLICAS = 3
+REPL_SESSIONS = 4
+REPL_ACCOUNTS = 1_000
+# The host engine's stream, full 8190-event batches: past 32 its
+# write-behind queue (~2,000 compacted deltas a batch over 1,000
+# accounts) reaches kernel_fast.FLUSH_THRESHOLD and K4 flushes.
+REPL_BATCHES = 40
+REPL_DEVICE_BATCHES = 5    # the TB_ENGINE=device arm
+REPL_TIMEOUT_MS = 300_000  # a request's timeout (bench.py's)
+REPL_START_S = 300         # a replica's start (CUDA context, 2^20-row tables)
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def replicated_stream(n_batches: int) -> list[bytes]:
+    """bench.py run_replicated's transfer stream: rng 47, debit accounts
+    uniform over 1,000, credit = debit % 1,000 + 1, amounts 1-99, in
+    8190-event batches."""
+    n = n_batches * workload.BATCH
+    rng = np.random.default_rng(47)
+    dr = rng.integers(1, REPL_ACCOUNTS + 1, n, np.uint64)
+    return [body for _op, body in workload.batched({
+        "ids": np.arange(1, n + 1, dtype=np.uint64),
+        "dr": dr,
+        "cr": dr % np.uint64(REPL_ACCOUNTS) + np.uint64(1),
+        "amount": rng.integers(1, 100, n, np.uint64),
+    })]
+
+
+def free_ports(n: int) -> list[int]:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def rss_mib(pid: int) -> float | None:
+    try:
+        with open(f"/proc/{pid}/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) / 1024
+    except OSError:
+        pass
+    return None
+
+
+def stop_processes(procs, timeout: float = 90.0) -> list[int | None]:
+    """SIGTERM every process still running, then wait; returns the exit
+    codes.  One still running after `timeout` seconds gets SIGABRT (a
+    process started with -X faulthandler writes every thread's stack to
+    its log), then is killed; its code is None."""
+    import signal
+
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    deadline = time.monotonic() + timeout
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(0.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            p.send_signal(signal.SIGABRT)
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            codes.append(None)
+    return codes
+
+
+def run_replicated_arm(tmp: str, engine: str, n_batches: int, aof_dir: str):
+    """One cluster of three `start` processes on `engine`: format, start,
+    the accounts and `n_batches` transfer batches from four sessions,
+    then the checks.  Replica 0 writes its AOF under `aof_dir`.  Returns
+    the kernel launches in the replicas and replay_aof's arguments."""
+    import threading
+
+    from tigerbeetle_tpu_torch.client import Client
+    from tigerbeetle_tpu_torch.obs.scrape import scrape_state_root, scrape_stats
+
+    arm = f"replicated/{engine}"
+    ports = free_ports(REPL_REPLICAS)
+    addrs = [f"127.0.0.1:{p}" for p in ports]
+    addresses = ",".join(addrs)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    env["TB_ENGINE"] = engine
+    env["TB_FLIGHT_PATH"] = os.path.join(tmp, "flight_r{replica}.json")
+    env.pop("TB_FASTPATH_DISABLE", None)
+    paths = [os.path.join(tmp, f"0_{i}.tigerbeetle") for i in range(REPL_REPLICAS)]
+    aof_path = os.path.join(aof_dir, f"{engine}_replica0.aof")
+    t0 = time.perf_counter()
+    formats = [subprocess.Popen(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch", "format", f"--cluster={REPL_CLUSTER}",
+         f"--replica={i}", f"--replica-count={REPL_REPLICAS}", path],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for i, path in enumerate(paths)]
+    for i, proc in enumerate(formats):
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{arm}: format of replica {i} failed: {out[-2000:]}")
+    format_s = time.perf_counter() - t0
+    cache_transfers = n_batches * workload.BATCH + 2 * workload.BATCH + 1024
+    procs, log_paths, logs = [], [], []
+    clients = []
+    try:
+        t0 = time.perf_counter()
+        for i, path in enumerate(paths):
+            log_path = os.path.join(tmp, f"replica{i}.log")
+            log_paths.append(log_path)
+            # A file, not a pipe: a replica writing past a pipe's buffer
+            # would block and stall the cluster.
+            log = open(log_path, "w")
+            logs.append(log)
+            cmd = [sys.executable, "-X", "faulthandler", "-m", "tigerbeetle_tpu_torch", "start",
+                   f"--addresses={addresses}", f"--replica={i}", f"--cache-accounts={A_ROWS}",
+                   f"--cache-transfers={cache_transfers}"]
+            if i == 0:
+                cmd.append(f"--aof={aof_path}")
+            procs.append(subprocess.Popen(cmd + [path], stdout=log, stderr=subprocess.STDOUT,
+                                          cwd=REPO, env=env))
+        deadline = time.monotonic() + REPL_START_S
+        for i, lp in enumerate(log_paths):
+            while "listening on port" not in open(lp).read():
+                check(procs[i].poll() is None,
+                      f"{arm}: replica {i} exited rc={procs[i].returncode}:\n"
+                      + open(lp).read()[-3000:])
+                check(time.monotonic() < deadline,
+                      f"{arm}: replica {i} did not start:\n" + open(lp).read()[-3000:])
+                time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        want_line = f"engine {engine}, device cuda:0"
+        for i, lp in enumerate(log_paths):
+            check(want_line in open(lp).read(),
+                  f"{arm}: replica {i} does not name '{want_line}':\n" + open(lp).read()[-2000:])
+        clients = [Client(addresses, REPL_CLUSTER, client_id=0x5E55_0000 + s,
+                          timeout_ms=REPL_TIMEOUT_MS) for s in range(REPL_SESSIONS)]
+        reply = clients[0]._native.request(
+            Operation.create_accounts,
+            workload.accounts_bytes(np.arange(1, REPL_ACCOUNTS + 1, dtype=np.uint64)),
+            REPL_TIMEOUT_MS)
+        check(reply == b"", f"{arm}: the accounts batch failed")
+        bodies = replicated_stream(n_batches)
+        lat = [[] for _ in range(REPL_SESSIONS)]
+        failed = [0] * REPL_SESSIONS
+        errors = []
+
+        def drive(s: int) -> None:
+            try:
+                for body in bodies[s::REPL_SESSIONS]:
+                    b0 = time.perf_counter()
+                    r = clients[s]._native.request(Operation.create_transfers, body,
+                                                   REPL_TIMEOUT_MS)
+                    lat[s].append(time.perf_counter() - b0)
+                    failed[s] += len(r) // 8
+            except Exception as exc:  # noqa: BLE001  (reported and failed below)
+                errors.append(f"session {s}: {exc!r}")
+
+        threads = [threading.Thread(target=drive, args=(s,), daemon=True)
+                   for s in range(REPL_SESSIONS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        elapsed = time.perf_counter() - t0
+        tails = "".join(f"\nreplica {i}: " + open(lp).read()[-1500:]
+                        for i, lp in enumerate(log_paths))
+        check(not errors, f"{arm}: {'; '.join(errors)}{tails}")
+        check(sum(failed) == 0, f"{arm}: {sum(failed)} transfers failed")
+        lat_ms = np.sort(np.concatenate([np.asarray(v) for v in lat])) * 1e3
+        events = n_batches * workload.BATCH
+        print(f"  {arm}: {events} transfers in {n_batches} batches from {REPL_SESSIONS} sessions "
+              f"in {elapsed:.2f} s: {events / elapsed:.1f} events/s, request p50 "
+              f"{lat_ms[len(lat_ms) // 2]:.2f} / p99 {lat_ms[int(len(lat_ms) * 0.99)]:.2f} / "
+              f"p100 {lat_ms[-1]:.2f} ms; format {format_s:.1f} s, start {start_s:.1f} s",
+              flush=True)
+        # The three roots at one commit point: backups commit the
+        # primary's last ops on its next heartbeat.
+        deadline = time.monotonic() + 120
+        while True:
+            roots = [scrape_state_root(a, REPL_CLUSTER) for a in addrs]
+            if len({op for _root, op in roots}) == 1:
+                break
+            check(time.monotonic() < deadline,
+                  f"{arm}: the replicas' commit points never met: {[op for _r, op in roots]}")
+            time.sleep(0.2)
+        commit_min = roots[0][1]
+        check(len({root for root, _op in roots}) == 1,
+              f"{arm}: the replicas' roots differ at op {commit_min}: "
+              f"{[root.hex() for root, _op in roots]}")
+        stats = [scrape_stats(a, REPL_CLUSTER) for a in addrs]
+        memory = [(round(rss_mib(p.pid) or 0, 1),
+                   round(st.get("sm.card.reserved_bytes", 0) / 2**20, 1))
+                  for p, st in zip(procs, stats)]
+    finally:
+        for c in clients:
+            c.close()
+        t0 = time.perf_counter()
+        codes = stop_processes(procs)
+        stop_s = time.perf_counter() - t0
+        for log in logs:
+            log.close()
+    check(codes == [0] * REPL_REPLICAS
+          and all("server closed" in open(lp).read() for lp in log_paths),
+          f"{arm}: exit codes after SIGTERM {codes}"
+          + "".join(f"\nreplica {i}: " + open(lp).read()[-6000:]
+                    for i, lp in enumerate(log_paths)))
+    launches = collections.Counter()
+    for i, st in enumerate(stats):
+        key = "sm.device_events" if engine == "host" else "sm.dev.semantic_events"
+        check(st.get(key, 0) > 0, f"{arm}: replica {i}'s {key} is {st.get(key)}")
+        for name, value in st.items():
+            if name.startswith("sm.launches."):
+                launches[name[len("sm.launches."):]] += int(value)
+    must = ("apply_deltas",) if engine == "host" else ("orderfree", "commit_update")
+    for name in must:
+        check(launches[name] > 0, f"{arm}: no {name} launch in the replicas "
+                                  f"({ {k: v for k, v in launches.items() if v} })")
+    fsyncs = sum(int(st.get("storage.fsyncs", 0)) for st in stats)
+    prepares = sum(int(st.get("vsr.prepares_written", 0)) for st in stats)
+    print(f"  {arm}: {fsyncs} fsyncs / {prepares} prepares written = "
+          f"{fsyncs / max(1, prepares):.3f} fsyncs per prepare; roots equal at op {commit_min}; "
+          f"every replica exited 0 after SIGTERM in {stop_s:.1f} s; memory per replica (host "
+          f"resident MiB, card MiB torch reserved, the CUDA context aside) {memory}; launches "
+          f"in the replicas { {k: v for k, v in launches.items() if v} }", flush=True)
+    return launches, (arm, aof_path, n_batches, commit_min, roots[0][0])
+
+
+def replay_aof(arm: str, aof_path: str, n_batches: int, commit_min: int, root: bytes) -> str:
+    """Replica 0's AOF through the port's oracle: the same ops, the same
+    root.  Returns the line to print."""
+    from tigerbeetle_tpu_torch.vsr import aof as aof_mod
+    from tigerbeetle_tpu_torch.vsr.wire import Command
+
+    t0 = time.perf_counter()
+    oracle = CpuStateMachine(cfg.PRODUCTION)
+    applied = aof_mod.replay(aof_path, oracle, cluster=REPL_CLUSTER)
+    last_op = max(int(h["op"]) for h, _b in aof_mod.iterate(aof_path)
+                  if int(h["command"]) == int(Command.prepare))
+    check(last_op == commit_min, f"{arm}: the AOF ends at op {last_op}, the replicas at "
+                                 f"{commit_min}")
+    check(applied >= n_batches + 1, f"{arm}: the AOF replayed {applied} ops")
+    check(oracle.state_root() == root,
+          f"{arm}: the AOF replayed through the oracle ends at root "
+          f"{oracle.state_root().hex()}, the replicas at {root.hex()}")
+    return (f"  {arm}: replica 0's AOF ({applied} ops to op {last_op}) replayed through the "
+            f"oracle in {time.perf_counter() - t0:.1f} s ends at the replicas' root")
+
+
+def run_replicated_phase():
+    """Phase replicated: the host engine's stream, then the device arm,
+    each on a fresh cluster under a temporary directory (removed after
+    its run; the AOFs under one of their own).  The host arm's AOF is
+    replayed through the oracle in a thread while the device arm runs
+    (the replay is CPU work; the arm waits on its processes)."""
+    import shutil
+    import tempfile
+    import threading
+
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    where = None
+    aof_dir = tempfile.mkdtemp(prefix="tb_replicated_aof_")
+    replays, errors, threads = [], [], []
+
+    def replay(args):
+        try:
+            replays.append(replay_aof(*args))
+        except BaseException as exc:  # noqa: BLE001  (re-raised after the join)
+            errors.append(exc)
+
+    try:
+        for engine, n in (("host", REPL_BATCHES), ("device", REPL_DEVICE_BATCHES)):
+            tmp = tempfile.mkdtemp(prefix=f"tb_replicated_{engine}_")
+            try:
+                where = file_system(tmp)
+                got, args = run_replicated_arm(tmp, engine, n, aof_dir)
+                launches.update(got)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            threads.append(threading.Thread(target=replay, args=(args,)))
+            threads[-1].start()
+    finally:
+        for t in threads:
+            t.join()
+        shutil.rmtree(aof_dir, ignore_errors=True)
+    if errors:
+        raise errors[0]
+    for line in replays:
+        print(line)
+    print(f"phase replicated (three `start` processes, cluster {REPL_CLUSTER}, data files on "
+          f"{where}; {card_line()}): every reply ok, roots equal, AOF replays equal; wall time "
+          f"{time.perf_counter() - t0:.1f} s; checks passed")
+    return {name: launches[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
+
+
+# ----------------------------------------------------------------------
+# Phase cluster: consensus under faults on the card, held to the oracle.
+# testing.cluster.Cluster(3) in this process, replicas on
+# TorchStateMachine on cuda:0 (each engine), then on the port's oracle
+# under the same seed.
+
+CLUSTER_SEED = 20
+CLUSTER_LOSS = 0.02
+CLUSTER_ACCOUNTS = 24  # one TEST_MIN message
+CLUSTER_EVENTS = 24  # a TEST_MIN message holds 30 transfers
+
+
+def cluster_scenario(factory) -> tuple[dict, object]:
+    """Packet loss throughout; the primary crashes and restarts (a view
+    change); a backup partitioned across three checkpoints rejoins by
+    state sync.  Returns the observations (replies, every replica's
+    HashLog digests op by op, roots, commit points) and the cluster."""
+    from tigerbeetle_tpu_torch.testing import cluster as cl
+    from tigerbeetle_tpu_torch.testing.harness import account, pack, transfer
+
+    c = cl.Cluster(3, seed=CLUSTER_SEED, state_machine_factory=factory,
+                   options=cl.PacketOptions(packet_loss_probability=CLUSTER_LOSS))
+    client = c.client(1000)
+    request = cl.SimClient.request
+
+    def pinned(self, *args, **kwargs):
+        # trace_ts is the client's monotonic clock (observability only);
+        # pinned so the runs frame byte-equal prepares.
+        real = time.perf_counter_ns
+        time.perf_counter_ns = lambda: (self.id << 32) | (self.request_number + 1)
+        try:
+            return request(self, *args, **kwargs)
+        finally:
+            time.perf_counter_ns = real
+
+    cl.SimClient.request = pinned
+    install = cl.VsrReplica._install_sync_checkpoint
+    installs = []
+
+    def counted_install(self, *args, **kwargs):
+        installs.append(self.replica)
+        return install(self, *args, **kwargs)
+
+    cl.VsrReplica._install_sync_checkpoint = counted_install
+    try:
+        client.register()
+        c.run_until(lambda: client.registered, max_steps=8000)
+        replies = [c.run_request(client, Operation.create_accounts,
+                                 pack([account(i) for i in range(1, CLUSTER_ACCOUNTS + 1)]),
+                                 max_steps=8000)]
+        rng = np.random.default_rng(CLUSTER_SEED)
+        tid = [1]
+
+        def batch():
+            rows = []
+            for _ in range(CLUSTER_EVENTS):
+                dr, cr = (int(x) for x in rng.choice(np.arange(1, CLUSTER_ACCOUNTS + 3), 2,
+                                                      replace=False))
+                rows.append(transfer(tid[0], debit_account_id=dr, credit_account_id=cr,
+                                     amount=int(rng.integers(1, 1000))))
+                tid[0] += 1
+            return c.run_request(client, Operation.create_transfers, pack(rows),
+                                 max_steps=20000)
+
+        replies += [batch() for _ in range(4)]
+        primary = c.replicas[0].primary_index()
+        c.crash_replica(primary)
+        replies += [batch() for _ in range(4)]
+        views = [r.view for i, r in enumerate(c.replicas) if i != primary]
+        check(all(v > 0 for v in views), f"cluster: no view change after the primary's crash "
+                                         f"(views {views})")
+        c.restart_replica(primary)
+        c.settle(max_steps=20000)
+        lagged = (c.replicas[0].primary_index() + 1) % 3
+        c.network.partition(lagged)
+        interval = c.replicas[0].config.vsr_checkpoint_interval
+        replies += [batch() for _ in range(3 * interval)]
+        behind = c.replicas[lagged].commit_min
+        c.network.heal()
+        c.settle(max_steps=40000)
+        for _ in range(50):
+            c.step()
+        c.check_convergence()
+    finally:
+        cl.SimClient.request = request
+        cl.VsrReplica._install_sync_checkpoint = install
+    check(lagged in installs, f"cluster: the lagged replica {lagged} installed no sync "
+                              f"checkpoint (installs by {installs})")
+    obs = {
+        "replies": replies,
+        "hash_logs": [sorted(h._digests.items()) for h in c.hash_logs],
+        "roots": [r.sm.state_root() for r in c.replicas],
+        "commit_min": [r.commit_min for r in c.replicas],
+        "views": [r.view for r in c.replicas],
+        "behind": behind,
+        "checkpoint": c.replicas[0].checkpoint_op,
+        "installs": installs,
+    }
+    return obs, c
+
+
+def run_cluster_phase():
+    """Phase cluster: the scenario on each engine on the card and on the
+    oracle; replies, HashLog digests and roots equal."""
+    t0 = time.perf_counter()
+    want, _ = cluster_scenario(lambda: CpuStateMachine(cfg.TEST_MIN))
+    oracle_s = time.perf_counter() - t0
+    main = collections.Counter()
+    for engine in ("host", "device"):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got, c = cluster_scenario(lambda: TorchStateMachine(
+            cfg.TEST_MIN, account_capacity=1 << 16, transfer_capacity=1 << 16,
+            device=CARD, engine=engine))
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        for r in c.replicas:
+            r.sm._engine_drain()
+            if engine == "device":
+                check((r.sm._dev.stat_link_errors, r.sm._dev.stat_demotions) == (0, 0),
+                      f"cluster/{engine}: a device engine lost its link")
+        for key in ("replies", "hash_logs", "roots", "commit_min", "installs"):
+            check(got[key] == want[key], f"cluster/{engine}: {key} differ from the oracle's")
+        for name in (("apply_deltas",) if engine == "host" else ("orderfree", "commit_update")):
+            check(launches[name] > 0, f"cluster/{engine}: no {name} launch")
+        main.update(launches)
+        ops = sum(len(h) for h in got["hash_logs"])
+        print(f"  cluster/{engine}: {len(got['replies'])} requests, {ops} (replica, op) digests "
+              f"equal the oracle's, roots equal, views {got['views']}, the lagged replica at op "
+              f"{got['behind']} under checkpoint {got['checkpoint']} state-synced (sync installs by "
+              f"replicas {got['installs']}); "
+              f"{seconds:.1f} s (oracle {oracle_s:.1f} s); launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    print("phase cluster (three VsrReplicas in this process, packet loss "
+          f"{CLUSTER_LOSS}, the primary crashed and restarted, a backup state-synced): replies, "
+          "HashLog digests and roots equal the oracle's on both engines; checks passed")
+    return {name: main[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3821,7 +4295,13 @@ def run_all(card, durable_oracle) -> int:
     fastpath.load()  # the host engine's native library (g++, csrc/host/)
     info = fastpath.build_info
     print(f"native library {info['path']} (digest {info['digest']}): compiled in "
-          f"{info['seconds']:.1f} s (0.0: found built), loaded in {time.perf_counter() - t0:.1f} s")
+          f"{info['seconds']:.1f} s (0.0: found built), loaded in {time.perf_counter() - t0:.1f} s; "
+          f"SHA-256 engine {fastpath.hash_engine_name()}")
+    # The server's runtime library (the epoll loop, the TCP bus, the
+    # client), built here once so the replicas of the replicated phase
+    # find it.
+    runtime_lib, runtime_s = host_build.build(name="runtime")
+    print(f"runtime library {runtime_lib}: compiled in {runtime_s:.1f} s (0.0: found built)")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(2026)
 
@@ -4040,6 +4520,8 @@ def run_all(card, durable_oracle) -> int:
     phases["queries"] = run_queries_phase(setup, timed, oracle, oracle_h)
     phases["snapshot"] = run_snapshot_phase(setup, timed, oracle_replies, oracle.state_root())
     phases["durable"] = run_durable_phase(setup, timed, durable_oracle)
+    phases["replicated"] = run_replicated_phase()
+    phases["cluster"] = run_cluster_phase()
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")

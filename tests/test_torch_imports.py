@@ -100,12 +100,97 @@ def test_native_build_reads_only_the_port_sources():
     assert host_build.HOST_SRC == src
     cmd = host_build.command(Path("/dev/null"))
     paths = [a for a in cmd[1:] if "/" in a and a != "/dev/null"]
-    assert paths == [str(src / host_build.MAIN)], paths
+    assert paths == [str(src / host_build.MAIN), str(src / "tb_pipeline.cpp")], paths
+    cmd = host_build.command(Path("/dev/null"), name="runtime")
+    paths = [a for a in cmd[1:] if "/" in a and a != "/dev/null"]
+    assert paths == [str(src / "tb_runtime.cpp"), str(src / "tb_async.cpp")], paths
     names = {p.name for p in host_build.sources()}
     assert names == {"tb_fastpath.cpp", "tb_exact.inc", "tb_linked.inc", "tb_two_phase.inc",
-                     "tb_lsm.inc"}
+                     "tb_lsm.inc", "tb_pipeline.cpp", "sha256.h", "hash_pool.h",
+                     "tb_runtime.cpp", "tb_async.cpp", "tb_client.h"}
     for path in host_build.sources():
         for inc in re.findall(r'#include\s+"([^"]+)"', path.read_text()):
             assert "/" not in inc and (src / inc).is_file(), (path.name, inc)
-    text = (PORT / "kernels" / "host_build.py").read_text()
-    assert "native/" not in text.replace("build/native/", "")
+    for module in ("kernels/host_build.py", "runtime/native.py", "runtime/fastpath.py"):
+        text = (PORT / module).read_text()
+        assert "native/" not in text.replace("build/native/", ""), module
+
+
+# The modules of the VSR, server, client and CLI slice.
+VSR_SLICE = (
+    "vsr.clock", "vsr.scrubber", "vsr.aof", "vsr.multi", "qos", "testing.hash_log",
+    "testing.cluster", "runtime.native", "runtime.affinity", "obs.flight", "obs.scrape",
+    "runtime.server", "client", "flags", "cli",
+)
+
+
+def test_vsr_slice_loads_nothing_of_native_or_jax(tmp_path):
+    """A fresh interpreter imports the slice's modules, builds and loads
+    both native libraries, opens a bus and serves a request: neither JAX
+    nor the JAX package is loaded, and no shared object of the
+    reference's native/ directory is mapped."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {VSR_SLICE!r}: importlib.import_module('tigerbeetle_tpu_torch.' + m)\n"
+        "from tigerbeetle_tpu_torch import constants as cfg\n"
+        "from tigerbeetle_tpu_torch.runtime import fastpath, native\n"
+        "from tigerbeetle_tpu_torch.runtime.server import ReplicaServer, format_data_file\n"
+        "from tigerbeetle_tpu_torch.state_machine import CpuStateMachine\n"
+        "from tigerbeetle_tpu_torch.vsr import wire\n"
+        "assert fastpath.pipeline_available()\n"
+        "assert native.native_checksum128(b'x') == wire.checksum(b'x')\n"
+        f"p = {str(tmp_path / 'r.tb')!r}\n"
+        "format_data_file(p, cluster=1, config=cfg.TEST_MIN)\n"
+        "s = ReplicaServer(p, cluster=1, addresses=['127.0.0.1:0'], replica_index=0,\n"
+        "                  state_machine_factory=lambda: CpuStateMachine(cfg.TEST_MIN),\n"
+        "                  config=cfg.TEST_MIN)\n"
+        "s.poll_once(1)\n"
+        "s.close()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "assert not bad, bad\n"
+        "maps = open('/proc/self/maps').read()\n"
+        f"assert {str(REPO / 'native')!r} + '/' not in maps\n"
+        "libs = sorted({l.split()[-1] for l in maps.splitlines() if 'libtb_' in l})\n"
+        "print('\\n'.join('LIB ' + l for l in libs))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["TB_FLIGHT_PATH"] = str(tmp_path / "flight.json")
+    env.pop("TB_FASTPATH_DISABLE", None)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr
+    libs = [line[4:] for line in out.stdout.splitlines() if line.startswith("LIB ")]
+    assert {Path(p).name.split("-")[0] for p in libs} == {"libtb_fastpath", "libtb_runtime"}
+    assert all(Path(p).parent == REPO / "build" / "native" for p in libs), libs
+
+
+def test_cli_version_loads_neither_jax_nor_the_jax_package():
+    """`python -m tigerbeetle_tpu_torch version` in a fresh interpreter,
+    with sys.modules checked at exit."""
+    code = (
+        "import atexit, runpy, sys\n"
+        "def check():\n"
+        "    bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "                 or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "    print('BAD', bad) if bad else print('CLEAN')\n"
+        "atexit.register(check)\n"
+        "sys.argv = ['tigerbeetle_tpu_torch', 'version']\n"
+        "runpy.run_module('tigerbeetle_tpu_torch', run_name='__main__')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0.1.0", "CLEAN"], out.stdout
+    plain = subprocess.run(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch", "version"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert plain.returncode == 0 and plain.stdout.strip() == "0.1.0", plain.stderr

@@ -1,0 +1,243 @@
+"""Run a reference test module's cases twice: on the reference and on the port.
+
+The port's cluster, server and client modules are copies of the
+reference's, so a reference test of them is re-pointed by loading its
+source a second time with every ``tigerbeetle_tpu`` module name
+rewritten to ``tigerbeetle_tpu_torch`` (and, where the source names the
+reference's JAX state machine, the port's ``TorchStateMachine`` on the
+CPU in its place).  `run_both` runs one case in each package under a
+recorder that keeps what the case's clusters did: every client reply
+the case asked for, each replica's ``HashLog`` digests op by op, its
+commit point and state root, and the bytes of every ``MemoryStorage``.
+The two recordings must be equal, and each run must pass the case's own
+assertions.
+
+An `arm` picks the state machine every cluster of the case runs:
+"oracle" keeps the case's own (the CPU oracle, by default), "host" and
+"device" put ``TorchStateMachine(device="cpu")`` on that engine in the
+port's run and ``TpuStateMachine`` on it in the reference's.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import importlib
+import importlib.util
+import inspect
+import re
+import sys
+import time
+import types as pytypes
+from pathlib import Path
+
+import pytest
+
+TESTS = Path(__file__).resolve().parent
+PORT, REF = "tigerbeetle_tpu_torch", "tigerbeetle_tpu"
+# Not a multiple of 8: the reference's machine then keeps its device
+# table whole on the suite's eight virtual devices, as the port does.
+CAPACITY = (1 << 10) + 3
+
+
+def _port_source(text: str) -> str:
+    text = re.sub(r"\btigerbeetle_tpu\b", PORT, text)
+    text = text.replace(
+        f"from {PORT}.state_machine.tpu import TpuStateMachine",
+        f"from {PORT}.state_machine.gpu import TorchStateMachine as _Torch\n"
+        "def TpuStateMachine(*a, **kw):\n"
+        "    return _Torch(*a, device='cpu', **kw)\n",
+    )
+    # A module-level import of a module the port does not have yet
+    # (testing/vopr.py, ...) is dropped; the cases that use it are not
+    # re-pointed.
+    text = re.sub(
+        rf"^from ({PORT}[\w.]*) import .*$",
+        lambda m: m.group(0) if importlib.util.find_spec(m.group(1)) else "",
+        text, flags=re.M,
+    )
+    return text
+
+
+_LOADED: dict[tuple[str, str], pytypes.ModuleType] = {}
+
+
+def load(test_file: str, package: str) -> pytypes.ModuleType:
+    """The test module `test_file` (a name under tests/) loaded for
+    `package`, its pytest fixtures unwrapped into plain functions."""
+    key = (test_file, package)
+    mod = _LOADED.get(key)
+    if mod is not None:
+        return mod
+    text = (TESTS / test_file).read_text()
+    if package == PORT:
+        text = _port_source(text)
+    text = re.sub(r"^@pytest\.fixture(\(.*\))?\n", "", text, flags=re.M)
+    # Helpers imported from another reference test module come from
+    # that module loaded for the same package.
+    for dep in sorted(set(re.findall(r"^from (test_\w+) import", text, flags=re.M))):
+        text = text.replace(f"from {dep} import", f"from {load(dep + '.py', package).__name__} import")
+    name = f"_repoint_{package}_{Path(test_file).stem}"
+    mod = pytypes.ModuleType(name)
+    mod.__file__ = str(TESTS / test_file)
+    sys.modules[name] = mod
+    exec(compile(text, str(TESTS / test_file), "exec"), mod.__dict__)
+    _LOADED[key] = mod
+    return mod
+
+
+def case_names(test_file: str) -> list[str]:
+    text = (TESTS / test_file).read_text()
+    return re.findall(r"^def (test_\w+)\(", text, flags=re.M)
+
+
+def _machine_factory(package: str, arm: str, config):
+    if arm == "oracle":
+        return None
+    if package == PORT:
+        from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+
+        return lambda: TorchStateMachine(
+            config, account_capacity=CAPACITY, device="cpu", engine=arm
+        )
+    from tigerbeetle_tpu.state_machine.tpu import TpuStateMachine
+
+    return lambda: TpuStateMachine(config, account_capacity=CAPACITY, engine=arm)
+
+
+class Recorder:
+    """What the clusters of one case did."""
+
+    def __init__(self) -> None:
+        self.clusters: list = []
+        self.replies: list[bytes] = []
+
+    def observations(self) -> list:
+        out = []
+        for c in self.clusters:
+            replicas = []
+            for r in c.replicas:
+                sm = getattr(r, "sm", None)
+                root = sm.state_root() if hasattr(sm, "state_root") else None
+                replicas.append((r.commit_min, root))
+            hash_logs = [sorted(h._digests.items()) for h in c.hash_logs]
+            images = [
+                sorted((k, bytes(v)) for k, v in s._pages.items()) for s in c.storages
+            ]
+            out.append({"replicas": replicas, "hash_logs": hash_logs, "images": images})
+        return [{"replies": self.replies}, *out]
+
+
+@contextlib.contextmanager
+def recording(package: str, arm: str, monkeypatch):
+    cl = importlib.import_module(f"{package}.testing.cluster")
+    rec = Recorder()
+    init = cl.Cluster.__init__
+    run_request = cl.Cluster.run_request
+    request = cl.SimClient.request
+
+    def recording_init(self, *args, **kwargs):
+        config = kwargs.get("config", cl.cfg.TEST_MIN)
+        factory = _machine_factory(package, arm, config)
+        if factory is not None:
+            kwargs["state_machine_factory"] = factory
+        init(self, *args, **kwargs)
+        rec.clusters.append(self)
+
+    def recording_run_request(self, *args, **kwargs):
+        reply = run_request(self, *args, **kwargs)
+        rec.replies.append(reply)
+        return reply
+
+    def pinned_request(self, *args, **kwargs):
+        # A request's trace_ts is the client's monotonic clock
+        # (observability only); pinned to (client, request) here so the
+        # two runs frame byte-equal prepares.
+        with monkeypatch.context() as m:
+            m.setattr(time, "perf_counter_ns", lambda: (self.id << 32) | (self.request_number + 1))
+            return request(self, *args, **kwargs)
+
+    with monkeypatch.context() as m:
+        m.setattr(cl.Cluster, "__init__", recording_init)
+        m.setattr(cl.Cluster, "run_request", recording_run_request)
+        m.setattr(cl.SimClient, "request", pinned_request)
+        yield rec
+
+
+def _call(mod, fn, fixtures: dict, teardown: list):
+    """Call `fn` with its parameters resolved: the given fixtures, or
+    the module's own fixture functions (generators run to their yield,
+    finished in `teardown`)."""
+    kwargs = {}
+    for name in inspect.signature(fn).parameters:
+        if name in fixtures:
+            kwargs[name] = fixtures[name]
+            continue
+        value = _call(mod, getattr(mod, name), fixtures, teardown)
+        if inspect.isgenerator(value):
+            gen = value
+            value = next(gen)
+            teardown.append(gen)
+        fixtures[name] = value
+        kwargs[name] = value
+    return fn(**kwargs)
+
+
+def reference_native_loaded() -> None:
+    """Load the reference's native libraries in this process, retrying
+    after a failed load.  The reference builds them with `make -C
+    native` at first use and caches a failure for the process; its
+    runtime library is not committed, so on a fresh checkout the xdist
+    workers run that make at once and a worker can load a library
+    another worker is still writing.  Here the loads happen under a file
+    lock in build/, and a cached failure is cleared and retried."""
+    import fcntl
+
+    from tigerbeetle_tpu.runtime import fastpath as ref_fastpath
+    from tigerbeetle_tpu.runtime import native as ref_native
+
+    if ref_native._lib is not None and ref_fastpath._lib is not None:
+        return
+    lock_dir = TESTS.parent / "build"
+    lock_dir.mkdir(exist_ok=True)
+    with open(lock_dir / ".reference_native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        for _ in range(3):
+            if ref_native._load() is not None and ref_fastpath._load() is not None:
+                return
+            ref_native._lib_failed = ref_native._make_attempted = False
+            ref_fastpath._lib_failed = False
+            time.sleep(1.0)
+    raise RuntimeError("the reference's native libraries did not load")
+
+
+def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=None):
+    """One run of `case` in `package`; returns its recording.  `extra`:
+    more fixtures by name (capsys, ...)."""
+    if package == REF:
+        reference_native_loaded()
+    mod = load(test_file, package)
+    with pytest.MonkeyPatch.context() as mp:
+        with recording(package, arm, mp) as rec:
+            teardown: list = []
+            fixtures = {"monkeypatch": mp, "tmp_path": tmp_path / package, **(extra or {})}
+            fixtures["tmp_path"].mkdir()
+            try:
+                _call(mod, getattr(mod, case), fixtures, teardown)
+            finally:
+                for gen in reversed(teardown):
+                    with contextlib.suppress(StopIteration):
+                        next(gen)
+    return rec.observations()
+
+
+def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None) -> list:
+    """`case` on the port and on the reference: both pass, and their
+    recordings are equal.  Returns the port's."""
+    got = run_case(test_file, case, PORT, arm, tmp_path, extra)
+    want = run_case(test_file, case, REF, arm, tmp_path, extra)
+    assert len(got) == len(want), "the runs built different numbers of clusters"
+    assert got[0] == want[0], "client replies differ"
+    for i, (g, w) in enumerate(zip(got[1:], want[1:])):
+        for key in ("replicas", "hash_logs", "images"):
+            assert g[key] == w[key], f"cluster {i}: {key} differ"
+    return got

@@ -12,5 +12,9 @@ Entry point: ``state_machine.gpu.TorchStateMachine`` behind the same
 ``prefetch`` / ``commit``) over the 128-byte wire structs, driven by
 ``testing.harness.SingleNodeHarness``.  It runs on CUDA unless the
 caller passes ``device="cpu"``; the hand-written kernels live in
-``csrc/`` and are built by ``kernels/build.py`` at first use.
+``csrc/`` and are built by ``kernels/build.py`` at first use.  Above
+it: the durable replica and VSR consensus (``vsr/``), the TCP server
+(``runtime/server.py``), the client (``client.py``) and the CLI
+(``python -m tigerbeetle_tpu_torch``: ``version``, ``format``,
+``start``).
 """

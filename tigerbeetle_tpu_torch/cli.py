@@ -1,0 +1,175 @@
+"""CLI: version | format | start.
+
+The port's copy of ``tigerbeetle_tpu/cli.py``, with the commands whose
+modules the port has (reference: src/tigerbeetle/cli.zig:106-128).
+``start`` serves ``TorchStateMachine`` on the first CUDA card, or the
+port's CPU oracle under ``--cpu``; without a card and without ``--cpu``
+it exits non-zero and says so.
+"""
+# tbcheck: allow-file(no-print): the CLI's stdout IS its interface
+# (command results, usage, listen-port handshake).
+
+from __future__ import annotations
+
+import sys
+
+from tigerbeetle_tpu_torch import flags
+from tigerbeetle_tpu_torch import constants as cfg
+
+VERSION = "0.1.0"
+
+# Reference Start.cache_accounts/cache_transfers default analog: one
+# value, used by the flag spec, the factory defaults, and the --cpu
+# warning alike.
+CACHE_DEFAULT = 1 << 16
+
+USAGE = """usage: python -m tigerbeetle_tpu_torch <command> [flags]
+
+commands:
+  format     --cluster=<int> --replica=<i> --replica-count=<n> <path>
+  start      --addresses=<host:port,...> --replica=<i> [--cpu]
+             [--cluster=<int>] [--aof=<path>] [--trace=<path>]
+             [--standby-count=<n>] [--cache-accounts=<n>]
+             [--cache-transfers=<n>]
+             <path>
+  version
+"""
+
+NO_CARD = (
+    "start: no CUDA card is visible (torch.cuda.is_available() is "
+    "false); the server runs TorchStateMachine on the card, or the CPU "
+    "oracle under --cpu"
+)
+
+
+def _sm_factory(use_cpu: bool, cache_accounts: int = CACHE_DEFAULT,
+                cache_transfers: int = CACHE_DEFAULT):
+    """Capacities follow the reference's static-allocation design:
+    operator-configured cache sizes pre-size every large buffer
+    (reference: src/tigerbeetle/cli.zig Start.cache_accounts /
+    cache_transfers)."""
+    if use_cpu:
+        from tigerbeetle_tpu_torch.state_machine import CpuStateMachine
+
+        if (cache_accounts, cache_transfers) != (CACHE_DEFAULT, CACHE_DEFAULT):
+            print(
+                "warning: --cache-accounts/--cache-transfers have no "
+                "effect with --cpu (the CPU engine is dict-backed and "
+                "unbounded)",
+                file=sys.stderr,
+            )
+        return lambda: CpuStateMachine(cfg.PRODUCTION)
+    import torch
+
+    if not torch.cuda.is_available():
+        flags.fatal(NO_CARD)
+    from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
+
+    return lambda: TorchStateMachine(
+        cfg.PRODUCTION,
+        account_capacity=cache_accounts,
+        transfer_capacity=cache_transfers,
+        device="cuda:0",
+    )
+
+
+def cmd_format(args: list[str]) -> None:
+    opts, paths = flags.parse(
+        args, {"cluster": None, "replica": 0, "replica_count": 1}
+    )
+    if len(paths) != 1:
+        flags.fatal("format requires exactly one data-file path")
+    from tigerbeetle_tpu_torch.runtime.server import format_data_file
+
+    format_data_file(
+        paths[0], cluster=int(opts["cluster"], 0)
+        if isinstance(opts["cluster"], str) else opts["cluster"],
+        replica_index=opts["replica"], replica_count=opts["replica_count"],
+    )
+    print(f"formatted {paths[0]}")
+
+
+def cmd_start(args: list[str]) -> None:
+    opts, paths = flags.parse(
+        args,
+        {"addresses": None, "replica": 0, "cluster": "", "cpu": False,
+         "aof": "", "trace": "", "standby_count": 0,
+         "cache_accounts": CACHE_DEFAULT, "cache_transfers": CACHE_DEFAULT},
+    )
+    if len(paths) != 1:
+        flags.fatal("start requires exactly one data-file path")
+    from tigerbeetle_tpu_torch.runtime.server import ReplicaServer
+
+    # --cluster is optional: the data file records it at format time
+    # (reference: src/tigerbeetle/main.zig start reads the superblock);
+    # passing it explicitly just adds a consistency check.
+    cluster = None
+    if opts["cluster"]:
+        try:
+            cluster = int(opts["cluster"], 0)
+        except ValueError:
+            flags.fatal(f"--cluster: invalid integer {opts['cluster']!r}")
+    # Core pinning (TB_CPU_AFFINITY): slot = replica index, so a
+    # cluster's replicas spread across cores under "auto".
+    from tigerbeetle_tpu_torch.runtime import affinity
+
+    pinned = affinity.apply(slot=opts["replica"])
+    if pinned is not None:
+        print(f"pinned to cores {list(pinned)}", flush=True)
+    server = ReplicaServer(
+        paths[0], cluster=cluster,
+        addresses=opts["addresses"].split(","), replica_index=opts["replica"],
+        state_machine_factory=_sm_factory(
+            opts["cpu"], cache_accounts=opts["cache_accounts"],
+            cache_transfers=opts["cache_transfers"],
+        ),
+        aof_path=opts["aof"] or None,
+        trace_path=opts["trace"] or None,
+        standby_count=opts["standby_count"],
+    )
+    sm = server.replica.sm
+    print(
+        f"state machine {type(sm).__name__}, engine "
+        f"{getattr(sm, 'engine', 'oracle')}, device {getattr(sm, 'device', 'cpu')}",
+        flush=True,
+    )
+    print(f"listening on port {server.port}", flush=True)
+    # Graceful shutdown on SIGTERM/SIGINT: flush the AOF and write the
+    # trace file (close() is the only writer of --trace output).  The
+    # handler only asks the loop to stop: the reference raises
+    # KeyboardInterrupt from it, which can land inside the replica's
+    # code, holding its locks, and leave close() waiting on them.
+    import signal
+
+    def _stop(signum, frame):
+        server.request_stop()
+
+    signal.signal(signal.SIGTERM, _stop)
+    signal.signal(signal.SIGINT, _stop)
+    try:
+        server.serve_forever()
+    finally:
+        # Crashes flush the trace/AOF too, not just clean shutdowns.
+        server.close()
+        print("server closed", flush=True)
+
+
+def main(argv: list[str] | None = None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print(USAGE)
+        raise SystemExit(1)
+    command, *rest = argv
+    if command == "version":
+        print(VERSION)
+    elif command == "format":
+        cmd_format(rest)
+    elif command == "start":
+        cmd_start(rest)
+    else:
+        print(USAGE)
+        flags.fatal(f"unknown command {command!r}")
+
+
+if __name__ == "__main__":
+    main()

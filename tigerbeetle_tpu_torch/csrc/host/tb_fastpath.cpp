@@ -5,10 +5,11 @@
 // tb_fp_commit_transfers), with tb_fp_decode_store from its
 // tb_lsm.inc and the serial engines tb_exact.inc, tb_linked.inc and
 // tb_two_phase.inc beside it, and the LSM's k-way merge in this
-// directory's tb_lsm.inc.  The algorithms are the reference's; the
-// frame verify / finalize and hash-engine entry points and the commit
-// pipeline are left out (they serve the server and VSR layers).  Built by tigerbeetle_tpu_torch/kernels/host_build.py
-// with g++ into build/native/, loaded by runtime/fastpath.py.
+// directory's tb_lsm.inc, and the server drain's frame verify / reply
+// finalize and the hash pool's controls.  The algorithms are the
+// reference's.  Built with tb_pipeline.cpp (the VSR commit pipeline)
+// by tigerbeetle_tpu_torch/kernels/host_build.py with g++ into
+// build/native/, loaded by runtime/fastpath.py.
 //
 // The device balance table is authoritative and fed by write-behind
 // deltas (kernel K4); the HOST decodes the 8190 x 128-byte wire batch,
@@ -37,6 +38,9 @@
 #include <unordered_map>
 #include <unordered_set>
 #include <vector>
+
+#include "hash_pool.h"
+#include "sha256.h"
 
 typedef unsigned __int128 u128;
 
@@ -463,6 +467,128 @@ int tb_fp_commit_transfers(
     }
     *out_ndeltas = k;
     return 0;
+}
+
+// ----------------------------------------------------------------------
+// Columnar ingest fast path: batch wire verification + batch reply
+// finalize for a whole server drain (runtime/server.py poll_once).
+// Frame layout per tigerbeetle_tpu_torch/vsr/wire.py HEADER_DTYPE.
+
+static constexpr uint32_t WIRE_HEADER_SIZE = 256;
+static constexpr uint32_t WIRE_OFF_CHECKSUM = 0;
+static constexpr uint32_t WIRE_OFF_CHECKSUM_BODY = 16;
+static constexpr uint32_t WIRE_OFF_SIZE = 144;
+static constexpr uint32_t WIRE_OFF_VERSION = 155;
+static constexpr uint8_t WIRE_VERSION = 1;
+
+// Verify one frame — exactly wire.verify_header(header, body).
+// Returns the count of BODY bytes hashed (0 when the frame fails a
+// structural check before the body pass) and, on a fully-verified
+// frame, records the body digest in the drain-scoped digest table so
+// the build seams can reuse it without rehashing.
+static uint64_t fp_verify_one(const uint8_t* frame, uint32_t len,
+                              uint8_t* ok) {
+    *ok = 0;
+    if (len < WIRE_HEADER_SIZE) return 0;
+    uint32_t size;
+    memcpy(&size, frame + WIRE_OFF_SIZE, 4);
+    if (size != len || size < WIRE_HEADER_SIZE) return 0;
+    if (frame[WIRE_OFF_VERSION] != WIRE_VERSION) return 0;
+    uint64_t cs[2];
+    tb::checksum128(frame + 16, WIRE_HEADER_SIZE - 16, cs);
+    if (memcmp(frame + WIRE_OFF_CHECKSUM, cs, 16) != 0) return 0;
+    uint64_t body_len = size - WIRE_HEADER_SIZE;
+    tb::checksum128(frame + WIRE_HEADER_SIZE, body_len, cs);
+    if (memcmp(frame + WIRE_OFF_CHECKSUM_BODY, cs, 16) != 0)
+        return body_len;
+    tb::digest_table().put(frame + WIRE_HEADER_SIZE, body_len, cs[0],
+                           cs[1]);
+    *ok = 1;
+    return body_len;
+}
+
+// One pass over a drain's frames packed in `arena`: per frame, verify
+// the header checksum (bytes [16, 256)), the version byte, the size
+// field against the framed length, and the body checksum.  ok[i] = 1
+// when frame i is valid.  (The uncounted entry point; the drain path
+// calls tb_fp_verify_frames2 below.)
+void tb_fp_verify_frames(const uint8_t* arena, const uint64_t* offsets,
+                         const uint32_t* lens, uint32_t n, uint8_t* ok) {
+    for (uint32_t i = 0; i < n; i++)
+        fp_verify_one(arena + offsets[i], lens[i], &ok[i]);
+}
+
+// The counted verify: same contract plus (a) a new digest-table crossing —
+// the previous drain's cached digests die here, this drain's verified
+// body digests are recorded for the build seams to reuse; (b) frames
+// fan out across the hash pool lanes (each lane verifies whole frames
+// — header hash, body hash, memcmps all off the drain thread); and
+// (c) the return value is the total BODY bytes this crossing hashed,
+// feeding the hash.bytes_hashed counter.
+uint64_t tb_fp_verify_frames2(const uint8_t* arena, const uint64_t* offsets,
+                              const uint32_t* lens, uint32_t n,
+                              uint8_t* ok) {
+    tb::digest_table().invalidate();
+    std::atomic<uint64_t> bytes{0};
+    tb::hash_parallel_for(n, [&](uint32_t i) {
+        uint64_t b = fp_verify_one(arena + offsets[i], lens[i], &ok[i]);
+        if (b) bytes.fetch_add(b, std::memory_order_relaxed);
+    });
+    return bytes.load(std::memory_order_relaxed);
+}
+
+// Batch reply finalize: `headers` is n contiguous 256-byte records
+// with every field but the checksums already set; bodies[i]/body_lens
+// [i] is reply i's body.  Sets size, checksum_body, checksum — one C
+// call replaces 2n hashlib calls + per-reply numpy churn (the "one
+// encode pass + scatter" half of the columnar ingest path).  Replies
+// are independent of each other, so the per-reply finalize (body hash
+// + header hash) fans out across the hash pool — no signature change,
+// the binding gets the lanes for free.
+void tb_fp_finalize_headers(uint8_t* headers, uint32_t n,
+                            const uint8_t* const* bodies,
+                            const uint32_t* body_lens) {
+    tb::hash_parallel_for(n, [&](uint32_t i) {
+        uint8_t* h = headers + uint64_t(i) * WIRE_HEADER_SIZE;
+        uint32_t blen = body_lens[i];
+        uint32_t size = WIRE_HEADER_SIZE + blen;
+        memcpy(h + WIRE_OFF_SIZE, &size, 4);
+        uint64_t cb[2];
+        tb::checksum128(bodies[i], blen, cb);
+        memcpy(h + WIRE_OFF_CHECKSUM_BODY, cb, 16);
+        uint64_t cs[2];
+        tb::checksum128(h + 16, WIRE_HEADER_SIZE - 16, cs);
+        memcpy(h + WIRE_OFF_CHECKSUM, cs, 16);
+    });
+}
+
+// ---- Hash pool + engine control (envcheck-validated knobs are
+// read in Python and pushed down here; C never reads the env) ----
+
+// threads: worker lanes beside the calling thread (0 = inline, the
+// 1-core default); clamped to [0, HASH_THREADS_MAX].  force_engine:
+// 0 = auto-resolve, else a Sha256Engine value for the --hash-only
+// bench grid (forcing an unresolved tier degrades down, same as auto).
+void tb_hash_configure(int32_t threads, int32_t force_engine) {
+    if (threads < 0) threads = 0;
+    if (threads > tb::HASH_THREADS_MAX) threads = tb::HASH_THREADS_MAX;
+    tb::hash_threads_cfg().store(threads, std::memory_order_relaxed);
+    tb::sha256_force() = (int)force_engine;
+}
+
+// Which SHA-256 tier actually resolved (Sha256Engine: 1 = EVP one-shot
+// / SHA-NI dispatch, 2 = legacy SHA256(), 3 = the 225 MB/s scalar
+// core).  The Python side names these in bench rows and raises the
+// one-time scalar-fallback warning.
+int32_t tb_hash_engine(void) { return (int32_t)tb::sha256_engine(); }
+
+// out[0] = jobs executed on pool lanes (lanes_busy numerator);
+// out[1] = digest-table hits; out[2] = configured lane count.
+void tb_hash_stats(uint64_t out[3]) {
+    out[0] = tb::hash_lane_jobs().load(std::memory_order_relaxed);
+    out[1] = tb::hash_table_hits().load(std::memory_order_relaxed);
+    out[2] =
+        (uint64_t)tb::hash_threads_cfg().load(std::memory_order_relaxed);
 }
 
 // ----------------------------------------------------------------------

@@ -268,3 +268,235 @@ def trace_exemplars() -> int:
     be > 0 (the recorder is disabled through TB_METRICS=0, not by an
     empty ring)."""
     return env_int("TB_TRACE_EXEMPLARS", 32, minimum=1, maximum=1 << 16)
+
+
+# ----------------------------------------------------------------------
+# Consensus, server, client and tenant QoS (vsr/multi.py, runtime/,
+# client.py, qos.py).
+
+
+def group_commit_max_us() -> int:
+    """TB_GROUP_COMMIT_MAX_US: longest a replicated ack may wait for
+    its covering WAL fdatasync, in microseconds.  0 disables group
+    commit (one fsync per prepare)."""
+    return env_int(
+        "TB_GROUP_COMMIT_MAX_US", 2000, minimum=0, maximum=10_000_000
+    )
+
+
+def fastpath_decode() -> int:
+    """TB_FASTPATH_DECODE: 1 (default) drains the server bus through
+    the columnar ingest fast path — one arena drain + one batch
+    checksum-verify pass per poll (native tb_fp_verify_frames, or the
+    vectorized Python fallback), headers gathered in one vectorized
+    pass, replies coalesced per drain.  0 forces the legacy per-message
+    decode path end to end, for differential runs (replies must stay
+    bit-identical either way)."""
+    return env_int("TB_FASTPATH_DECODE", 1, minimum=0, maximum=1)
+
+
+def native_pipeline() -> int:
+    """TB_NATIVE_PIPELINE: 1 (default) runs the per-prepare hot loop
+    through csrc/host/tb_pipeline.cpp — prepare/prepare_ok header
+    construction + checksum stamping, journal append framing (sector
+    padding, redundant-ring sector build), the primary's in-flight
+    slot table, and the group-commit gate — falling back to Python
+    when libtb_fastpath is unavailable.  0 forces the pure-Python
+    per-prepare path for differential runs: reply frames, WAL bytes,
+    and commit decisions must be bit-identical either way (the
+    TB_FASTPATH_DECODE contract one layer higher).  The library is
+    built from the package's own sources; a failed build raises."""
+    return env_int("TB_NATIVE_PIPELINE", 1, minimum=0, maximum=1)
+
+
+def native_drain() -> int:
+    """TB_NATIVE_DRAIN: 1 (default) runs a whole poll drain's
+    prepare→ack→commit-decision work through ONE native call per
+    batch seam (csrc/host/tb_pipeline.cpp tb_pl_build_prepares /
+    tb_pl_accept_prepares / tb_pl_on_acks / tb_pl_commit_ready_run,
+    ABI 3) — Python demoted to a per-BATCH orchestrator.  Requires
+    the native pipeline (TB_NATIVE_PIPELINE=1); falls back to the
+    per-item loop otherwise.  0 pins the per-item Python loop over the
+    SAME batch seams for differential runs: consensus and reply frames
+    must be bit-identical either way (the TB_NATIVE_PIPELINE contract
+    extended from per-call to per-drain)."""
+    return env_int("TB_NATIVE_DRAIN", 1, minimum=0, maximum=1)
+
+
+def hash_reuse() -> int:
+    """TB_HASH_REUSE: 1 (default) makes the commit path hash each
+    prepare body at most ONCE per replica role — the ingress verify
+    pass already proved SHA-256(body), so the build seams
+    (tb_pl_build_prepares and the Python mirror in _primary_prepare /
+    finalize_header) consume that digest (the drain-scoped C digest
+    table, falling back to the verified request header's own
+    checksum_body field) instead of rehashing.  0 rehashes everywhere
+    for differential runs: every consensus/reply frame must be
+    bit-identical either way, only hash.bytes_hashed may differ."""
+    return env_int("TB_HASH_REUSE", 1, minimum=0, maximum=1)
+
+
+def hash_threads() -> int:
+    """TB_HASH_THREADS: native hash-pool worker lanes that fan a
+    drain's independent SHA-256 jobs (frame verifies, body digests,
+    reply finalizes) out of the drain thread, inside the existing
+    GIL-released crossings.  0 (default) runs every hash inline on the calling thread; the named
+    constraint is threads <= 16 (lanes beyond the physical cores of
+    any target box only add contention on the submit path)."""
+    value = env_int("TB_HASH_THREADS", 0, minimum=0)
+    if value > 16:
+        _fail(
+            "TB_HASH_THREADS", str(value),
+            "must be <= 16 — hash lanes beyond any target box's "
+            "cores only add submit-path contention",
+        )
+    return value
+
+
+def cpu_affinity() -> str:
+    """TB_CPU_AFFINITY: replica/router/follower core pinning for the
+    multi-process spawn paths (the server CLI):
+
+    - "none" (default): inherit the parent's affinity mask unchanged.
+    - "auto": pin process slot i to core (i mod cpu_count) — spreads a
+      cluster's replicas across cores so their Python VSR loops stop
+      serializing on a shared core.
+    - "0,1,2": explicit core list; slot i takes the (i mod len)'th
+      core of the list.
+
+    Validated here so a typo fails at spawn, not as a bare OSError
+    inside sched_setaffinity; runtime/affinity.py applies it."""
+    raw = env_str("TB_CPU_AFFINITY", "none")
+    if raw in ("none", "auto"):
+        return raw
+    parts = raw.split(",")
+    try:
+        cores = [int(p) for p in parts]
+    except ValueError:
+        _fail("TB_CPU_AFFINITY", raw,
+              'expected "none", "auto", or a comma-separated core '
+              'list like "0,1,2"')
+    if not cores or any(c < 0 for c in cores):
+        _fail("TB_CPU_AFFINITY", raw, "core ids must be >= 0")
+    return raw
+
+
+def drain_batch_max() -> int:
+    """TB_DRAIN_BATCH: cap on events pulled per columnar drain call —
+    bounds the arena scan and the latency of one decode pass under a
+    flood (excess events stay queued in the native bus and drain on
+    the next zero-timeout round).  Must cover at least one pipeline's
+    worth of messages or the drain loop degenerates to per-message
+    rounds."""
+    value = env_int("TB_DRAIN_BATCH", 4096, maximum=1 << 16)
+    if value < 16:
+        _fail(
+            "TB_DRAIN_BATCH", str(value),
+            "must be >= 16 — smaller drain batches degenerate the "
+            "columnar decode into per-message rounds",
+        )
+    return value
+
+
+def trace_backend() -> str:
+    """TB_TRACE: span-tracer backend (utils/tracer.py) for processes
+    that don't pass an explicit --trace path.  `json` writes a Chrome
+    -trace file per process (TB_TRACE_PATH or tb_trace_r<i>.json)."""
+    return env_choice("TB_TRACE", "none", ("none", "json"))
+
+
+def flight_ring() -> int:
+    """TB_FLIGHT_RING: flight-recorder ring capacity (obs/flight.py) —
+    recent trace events kept in memory per replica for the postmortem
+    dump.  Must be > 0."""
+    return env_int("TB_FLIGHT_RING", 4096, minimum=1, maximum=1 << 22)
+
+
+def root_ring() -> int:
+    """TB_ROOT_RING: how many recent commits' state roots a replica
+    retains for the `state_root` at-op query (the follower attestation
+    primitive; 16 bytes + dict entry per op).  0 disables — at-op
+    queries then answer the current root and followers can only attest
+    when exactly caught up."""
+    return env_int("TB_ROOT_RING", 4096, minimum=0, maximum=1 << 20)
+
+
+def busy_backoff_ms() -> float:
+    """TB_BUSY_BACKOFF_MS: client-side base backoff after a typed
+    client_busy — capped exponential (x2 per consecutive busy, 16x
+    cap) plus deterministic seeded jitter, so shed storms don't
+    self-amplify into retransmit storms.  0 disables (the legacy
+    immediate-retransmit-cadence behavior)."""
+    return env_float("TB_BUSY_BACKOFF_MS", 20.0, minimum=0.0)
+
+
+def admit_queue(pipeline_depth: int) -> int:
+    """TB_ADMIT_QUEUE: bound on the primary's client-request queue
+    (runtime/server.py admission control).  Requests beyond it are
+    shed with a typed Command.client_busy instead of growing the tail
+    unboundedly.  Must be >= the prepare pipeline depth — a smaller
+    bound would shed requests the pipeline could already hold."""
+    value = env_int("TB_ADMIT_QUEUE", 1024, minimum=1)
+    if value < pipeline_depth:
+        _fail(
+            "TB_ADMIT_QUEUE", str(value),
+            f"must be >= pipeline depth ({pipeline_depth}) — a smaller "
+            "queue sheds requests the prepare pipeline could hold",
+        )
+    return value
+
+
+def tenant_qos() -> int:
+    """TB_TENANT_QOS: 1 (default) keys admission, scheduling, and
+    shedding by tenant (ledger) — per-tenant token buckets, bounded
+    per-tenant queues, weighted-fair drain, typed busy payloads.
+    0 pins today's single-queue path exactly (bit-identical
+    differential runs)."""
+    return env_int("TB_TENANT_QOS", 1, minimum=0, maximum=1)
+
+
+def tenant_queue(admit_queue: int) -> int:
+    """TB_TENANT_QUEUE: bound on one tenant's queued requests.  0
+    (default) = the global TB_ADMIT_QUEUE bound (no extra per-tenant
+    bound).  Must not exceed the global bound — a per-tenant bound
+    above it could never bind and would silently misrepresent the
+    isolation the operator configured."""
+    value = env_int("TB_TENANT_QUEUE", 0, minimum=0)
+    if value > admit_queue:
+        _fail(
+            "TB_TENANT_QUEUE", str(value),
+            f"must be <= TB_ADMIT_QUEUE ({admit_queue}) — a per-tenant "
+            "bound above the global queue bound can never bind",
+        )
+    return value if value else admit_queue
+
+
+def tenant_rate() -> float:
+    """TB_TENANT_RATE: per-tenant admission rate, requests/second
+    (token bucket, burst = one second's worth).  0 (default) disables
+    rate limiting — QoS-on under non-overload stays bit-identical to
+    QoS-off; the queue bounds still apply."""
+    return env_float("TB_TENANT_RATE", 0.0, minimum=0.0)
+
+
+def tenant_rate_bytes() -> float:
+    """TB_TENANT_RATE_BYTES: per-tenant admission rate in BODY BYTES
+    per second (a second token bucket next to the request-count one).
+    Mixed-size batches cheat a request-count bucket — one tenant's
+    8k-event batches cost the same token as another's single event —
+    so overload protection for byte-bound resources (decode, WAL
+    bandwidth, follower replay) charges by size.  0 (default)
+    disables; both buckets must admit when both are configured."""
+    return env_float("TB_TENANT_RATE_BYTES", 0.0, minimum=0.0)
+
+
+def tenant_weights() -> dict:
+    """TB_TENANT_WEIGHTS: weighted-fair drain shares, e.g. "1:4,7:2"
+    (ledger:weight; unlisted tenants weigh 1)."""
+    from tigerbeetle_tpu_torch import qos
+
+    raw = env_str("TB_TENANT_WEIGHTS", "")
+    try:
+        return qos.parse_weights(raw)
+    except ValueError as exc:
+        _fail("TB_TENANT_WEIGHTS", raw, str(exc))

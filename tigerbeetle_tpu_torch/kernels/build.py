@@ -6,13 +6,19 @@ into a shared library with a plain C interface, loaded with ``ctypes``
 land in ``build/kernels/`` at the repository root, named by a hash of
 their source and of the shared headers (``csrc/*.cuh``), so an edited
 source or header is rebuilt and a stale library is never loaded.  All missing libraries are compiled in parallel, one
-``nvcc`` process per source.  The measurement probes under ``tools/``
-(``src=TOOLS``) build the same way; they are not kernels of the port.
+``nvcc`` process per source, under a file lock in ``build/kernels/``:
+processes that start together on a cold tree (the replicas of a
+cluster, pytest-xdist workers) build each library once, the later ones
+waiting for the first and finding its libraries.  Each ``nvcc`` writes
+a temporary file that is renamed into place.  The measurement probes
+under ``tools/`` (``src=TOOLS``) build the same way; they are not
+kernels of the port.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -71,10 +77,17 @@ def build_all(names=SOURCES, src: Path = CSRC) -> dict[str, float]:
     processes started together.  Returns seconds per compiled source
     (empty when everything was already built); raises KernelBuildError
     with nvcc's output on the first failure."""
-    todo = [n for n in names if not library_path(n, src).is_file()]
-    if not todo:
+    if all(library_path(n, src).is_file() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        # Another process may have built them while this one waited.
+        todo = [n for n in names if not library_path(n, src).is_file()]
+        return _compile(todo, src) if todo else {}
+
+
+def _compile(todo, src: Path) -> dict[str, float]:
     compiler = nvcc()
     procs = {}
     t0 = time.perf_counter()

@@ -1,14 +1,23 @@
-"""Build the host engine's native library at first use.
+"""Build the port's native host libraries at first use.
 
-``csrc/host/tb_fastpath.cpp`` (with the ``.inc`` files it includes) is
-compiled by ``g++`` into ``build/native/libtb_fastpath-<digest>.so`` at
-the repository root, where the digest covers every file of
-``csrc/host/`` and the flags: an edited source gets a library of its
-own and a stale one is never loaded.  The compiler writes a temporary
-file that is renamed into place under a file lock, so processes that
-race for the library (pytest-xdist workers) build it once.  The flags
-are the reference Makefile's, warnings of shadowing and narrowing
-promoted to errors.
+Two libraries come from ``csrc/host/``, each compiled by ``g++`` into
+``build/native/libtb_<name>-<digest>.so`` at the repository root:
+
+- ``fastpath``: ``tb_fastpath.cpp`` (with the ``.inc`` files it
+  includes: the host engine's commit path, the LSM merge, the server
+  drain's frame verify and reply finalize) and ``tb_pipeline.cpp`` (the
+  VSR commit pipeline), with the hash pool of ``hash_pool.h`` /
+  ``sha256.h``;
+- ``runtime``: ``tb_runtime.cpp`` and ``tb_async.cpp`` (the epoll loop,
+  the header-framed TCP bus and the C-ABI client of ``tb_client.h``).
+
+The digest covers every file of ``csrc/host/``, the library's name and
+the flags: an edited source gets a library of its own and a stale one is
+never loaded.  The compiler writes a temporary file that is renamed into
+place under a file lock, so processes that race for a library (pytest-
+xdist workers, replicas started together) build it once.  The flags are
+the reference Makefile's, warnings of shadowing and narrowing promoted
+to errors.
 """
 
 from __future__ import annotations
@@ -25,12 +34,19 @@ _PKG = Path(__file__).resolve().parent.parent
 HOST_SRC = _PKG / "csrc" / "host"
 BUILD_DIR = _PKG.parent / "build" / "native"
 MAIN = "tb_fastpath.cpp"
+# Library name -> its translation units (the includes are resolved
+# beside them).
+LIBRARIES = {
+    "fastpath": (MAIN, "tb_pipeline.cpp"),
+    "runtime": ("tb_runtime.cpp", "tb_async.cpp"),
+}
 
 CXX_FLAGS = (
     "-O3", "-fPIC", "-std=c++17", "-shared", "-pthread",
     "-Wall", "-Wextra", "-Wshadow", "-Wconversion",
     "-Werror=shadow", "-Werror=conversion",
 )
+LINK_FLAGS = ("-ldl",)
 
 
 class NativeBuildError(RuntimeError):
@@ -38,19 +54,20 @@ class NativeBuildError(RuntimeError):
 
 
 def sources(src: Path = HOST_SRC) -> list[Path]:
-    return sorted(p for p in src.iterdir() if p.suffix in (".cpp", ".inc"))
+    return sorted(p for p in src.iterdir() if p.suffix in (".cpp", ".inc", ".h"))
 
 
-def digest(src: Path = HOST_SRC) -> str:
+def digest(src: Path = HOST_SRC, name: str = "fastpath") -> str:
     h = hashlib.sha256()
     for path in sources(src):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
+    h.update(" ".join((name, *CXX_FLAGS, *LINK_FLAGS)).encode())
     return h.hexdigest()[:12]
 
 
-def library_path(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR) -> Path:
-    return out_dir / f"libtb_fastpath-{digest(src)}.so"
+def library_path(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR,
+                 name: str = "fastpath") -> Path:
+    return out_dir / f"libtb_{name}-{digest(src, name)}.so"
 
 
 def compiler() -> str:
@@ -60,18 +77,20 @@ def compiler() -> str:
     return cxx
 
 
-def command(out: Path, src: Path = HOST_SRC) -> list[str]:
-    """The compile command: the sources of `src` only (the includes are
-    resolved beside the main file), into `out`."""
-    return [compiler(), *CXX_FLAGS, "-o", str(out), str(src / MAIN)]
+def command(out: Path, src: Path = HOST_SRC, name: str = "fastpath") -> list[str]:
+    """The compile command of library `name`: its translation units in
+    `src` only (the includes are resolved beside them), into `out`."""
+    units = [str(src / unit) for unit in LIBRARIES[name]]
+    return [compiler(), *CXX_FLAGS, "-o", str(out), *units, *LINK_FLAGS]
 
 
-def build(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR) -> tuple[Path, float]:
-    """The library for the sources of `src`, compiled when missing.
+def build(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR,
+          name: str = "fastpath") -> tuple[Path, float]:
+    """Library `name` for the sources of `src`, compiled when missing.
     Returns (path, seconds spent compiling: 0.0 when it was there);
     raises NativeBuildError with the compiler's output when the build
     fails."""
-    out = library_path(src, out_dir)
+    out = library_path(src, out_dir, name)
     if out.is_file():
         return out, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -82,7 +101,7 @@ def build(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR) -> tuple[Path, float]
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run(command(tmp, src), capture_output=True, text=True)
+            proc = subprocess.run(command(tmp, src, name), capture_output=True, text=True)
         except OSError as exc:
             raise NativeBuildError(f"cannot run the compiler: {exc}") from exc
         seconds = time.perf_counter() - t0
@@ -91,7 +110,7 @@ def build(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR) -> tuple[Path, float]
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise NativeBuildError(
-                f"g++ {src / MAIN} (rc {proc.returncode}):\n{log}"
+                f"g++ {' '.join(LIBRARIES[name])} in {src} (rc {proc.returncode}):\n{log}"
             )
         os.replace(tmp, out)
     return out, seconds

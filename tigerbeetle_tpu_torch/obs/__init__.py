@@ -14,6 +14,9 @@ Knobs (validated in envcheck.py):
 
 - ``TB_METRICS=0|1`` — 1 (default) records latency histograms; 0 skips
   the clock reads (counters stay live: logic and bench depend on them).
+- ``TB_TRACE=none|json`` — promotes the utils/tracer.py span tracer to
+  a first-class backend choice; ``json`` writes a Chrome-trace file per
+  process (``TB_TRACE_PATH`` or ``tb_trace_r<i>.json``).
 """
 
 from tigerbeetle_tpu_torch.obs.registry import (  # noqa: F401

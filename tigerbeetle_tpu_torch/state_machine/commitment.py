@@ -94,6 +94,52 @@ def root_bytes(digest) -> bytes:
     return np.asarray(digest, dtype="<u8").tobytes()
 
 
+# ----------------------------------------------------------------------
+# Wire codec for the read-only `state_root` query (rides the
+# sessionless stats-op shape; obs/scrape.py is the client; the
+# reference's copy is tigerbeetle_tpu/state_machine/commitment.py).  Fixed
+# little-endian layout, safe to decode from untrusted bytes:
+#   shard reply:   root[16] + commit_min u64          (24 bytes)
+#   cluster reply: root[16] + n_shards u64            (24 bytes)
+
+_ROOT_BODY = np.dtype([("root", "V16"), ("aux", "<u8")])
+
+
+def root_body(root: bytes, aux: int) -> bytes:
+    row = np.zeros(1, _ROOT_BODY)[0]
+    row["root"] = root
+    row["aux"] = aux
+    return row.tobytes()
+
+
+def parse_root_body(body: bytes) -> tuple[bytes, int]:
+    if len(body) != _ROOT_BODY.itemsize:
+        raise ValueError(f"state_root body: {len(body)} bytes")
+    row = np.frombuffer(body, _ROOT_BODY)[0]
+    return bytes(row["root"]), int(row["aux"])
+
+
+# At-op query: a `state_root` REQUEST may carry an 8-byte
+# little-endian op — "give me your root as of op N" — answered from
+# the replica's root ring (vsr/replica.py enable_root_ring).  An empty
+# request body keeps the legacy meaning (current root + commit_min);
+# a server without the requested op in its ring answers current too,
+# and the caller detects the op mismatch (unverifiable-at-N, not an
+# error).  The follower attestation loop is the primary client.
+
+
+def root_query_body(op: int) -> bytes:
+    return int(op).to_bytes(8, "little")
+
+
+def parse_root_query(body: bytes) -> int | None:
+    """Requested op of a state_root query body, or None for the
+    legacy empty (current-root) shape / any unknown shape."""
+    if len(body) != 8:
+        return None
+    return int.from_bytes(body, "little")
+
+
 class HostCommitment:
     """Per-row hashes + running fold over the host mirror.
 

@@ -479,6 +479,9 @@ class DeviceEngine:
         self._wave_scratch = None
         self._inflight_bound = 0
         self.spec_stats = {name: 0 for name in SPEC_COUNTERS}
+        # The owning machine's dev_wave.spec.validation_us histogram
+        # (None: not recorded).
+        self.spec_validation_hist = None
         # Stat counters (the reference's names).
         self.stat_semantic_events = 0
         # Semantic batches submitted, by kind: each record launches its
@@ -1274,6 +1277,8 @@ class DeviceEngine:
             st["residue_plan_s"] += plan_s
         st["steps"] += steps
         st["validation_s"] += val_s
+        if self.spec_validation_hist is not None:
+            self.spec_validation_hist.observe(val_s * 1e6)
 
     # ------------------------------------------------------------------
     # Hazard probe: does any probe id match an in-flight batch's ids?

@@ -79,9 +79,10 @@ import numpy as np
 import torch
 
 from tigerbeetle_tpu_torch import constants as cfg
-from tigerbeetle_tpu_torch import envcheck, types
+from tigerbeetle_tpu_torch import envcheck, kernels, obs, types
 from tigerbeetle_tpu_torch.device import resolve_device
 from tigerbeetle_tpu_torch.lsm.scan_builder import ScanBuilder
+from tigerbeetle_tpu_torch.obs import stat_property
 from tigerbeetle_tpu_torch.ops.u128 import from_u64, to_u64
 from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.runtime import fastpath
@@ -89,6 +90,7 @@ from tigerbeetle_tpu_torch.state_machine import commitment as cm
 from tigerbeetle_tpu_torch.state_machine import device_kernels as dk
 from tigerbeetle_tpu_torch.state_machine import kernel, resolve, spill as spill_mod, waves
 from tigerbeetle_tpu_torch.state_machine.device_engine import (
+    SPEC_COUNTERS,
     DeviceEngine,
     DeviceLostError,
     ReplyFuture,
@@ -385,6 +387,29 @@ _JOIN_FIELDS = (
 )
 
 
+# The device engine's counters the machine registry lists under "dev."
+# (the reference engine registry's name, the port engine's attribute).
+_DEV_COUNTERS = (
+    ("semantic_events", "stat_semantic_events"),
+    ("fallback_batches", "stat_fallback_batches"),
+    ("fetches", "stat_fetches"),
+    ("link.retries", "stat_retries"),
+    ("link.errors", "stat_link_errors"),
+    ("demotions", "stat_demotions"),
+    ("repromotions", "stat_repromotions"),
+    ("probe_failures", "stat_probe_failures"),
+    ("degraded_events", "stat_degraded_events"),
+    ("scrubs", "stat_scrubs"),
+    ("scrub_heals", "stat_scrub_heals"),
+    ("commit.updates", "stat_commit_updates"),
+    ("commit.scrub_cheap", "stat_scrub_cheap"),
+    ("commit.scrub_fallback", "stat_scrub_fallback"),
+    ("commit.full_fetches", "stat_full_fetches"),
+    ("commit.repairs", "stat_commit_repairs"),
+    ("wave.sharded", "stat_wave_sharded"),
+)
+
+
 class TorchStateMachine:
     """Accounting state machine whose create_transfers codes are
     computed by the host engine or the device-authoritative engine,
@@ -429,34 +454,59 @@ class TorchStateMachine:
         self.commit_timestamp = 0
         self.pulse_next_timestamp = TIMESTAMP_MIN
 
-        # Work-split counters (the reference's names).
-        self.stat_device_events = 0
-        self.stat_exact_events = 0
+        # Metrics registry (obs/registry.py), the reference's: each
+        # work-split stat_* counter is a registry handle behind a
+        # stat_property (reads, `+=` and resets go through it), and the
+        # owning ReplicaServer grafts the tree in under "sm." for
+        # TB_STATS lines and the `stats` wire scrape.
+        self.metrics = obs.Registry()
+        _c = self.metrics.counter
+        self._stats = {
+            # Events admitted order-free vs resolved by the serial exact
+            # engine; result codes computed on the host.
+            "stat_device_events": _c("device_events"),
+            "stat_exact_events": _c("exact_events"),
+            "stat_host_semantic_events": _c("host_semantic_events"),
+            "stat_fallback_events": _c("fallback_events"),
+            # Linked and two-phase batches: the device engine's K5 / K6
+            # and the host path's lanes (native or Python) alike, as the
+            # reference counts them; fixpoint iterations of K5 and of
+            # resolve.linked_resolve.
+            "stat_linked_batches": _c("linked_batches"),
+            "stat_two_phase_batches": _c("two_phase_batches"),
+            "stat_resolve_iters": _c("resolve_iters"),
+            # Which bookkeeping tail a native-lane batch took: the
+            # one-C-pass hot tail (every event applied, no timeouts) or
+            # the general one.
+            "stat_hot_tail_batches": _c("hot_tail_batches"),
+            "stat_slow_tail_batches": _c("slow_tail_batches"),
+            # Wave execution of the host exact path (TB_WAVES) and wave /
+            # speculative dispatch inside the device window
+            # (TB_DEV_WAVES); the plan's cumulative host seconds.
+            "stat_wave_batches": _c("wave.batches"),
+            "stat_wave_steps": _c("wave.steps"),
+            "stat_wave_events": _c("wave.events"),
+            "stat_wave_parallel_events": _c("wave.parallel_events"),
+            "stat_dev_wave_batches": _c("dev_wave.batches"),
+            "stat_dev_wave_declined": _c("dev_wave.declined"),
+            "stat_dev_wave_steps": _c("dev_wave.steps"),
+            "stat_dev_wave_events": _c("dev_wave.events"),
+            "stat_dev_wave_plan_s": _c("dev_wave.plan_s"),
+        }
+        # Per-batch wave plan time (the cumulative counter hides the
+        # tail; the histogram is scrapeable).
+        self._h_dev_wave_plan = self.metrics.histogram("dev_wave.plan_us")
+        # The process's kernel launches (kernels.launches, shared by
+        # every machine of the process): a replica server's stats
+        # scrape carries them as sm.launches.<kernel>.
+        for name in kernels.launches:
+            self.metrics.gauge_fn("launches." + name, lambda name=name: kernels.launches[name])
+        # The card memory torch's allocator holds for this process (the
+        # CUDA context aside); 0 on the CPU.
+        self.metrics.gauge_fn("card.reserved_bytes", self._card_reserved_bytes)
+        # Whole K3 scans (not a registry counter: the reference has no
+        # such name).
         self.stat_exact_batches = 0
-        self.stat_host_semantic_events = 0
-        self.stat_fallback_events = 0
-        # Linked and two-phase batches: the device engine's K5 / K6 and
-        # the host path's lanes (native or Python) alike, as the
-        # reference counts them; fixpoint iterations of K5 and of
-        # resolve.linked_resolve.
-        self.stat_linked_batches = 0
-        self.stat_two_phase_batches = 0
-        self.stat_resolve_iters = 0
-        # Which bookkeeping tail a native-lane batch took: the one-C-pass
-        # hot tail (every event applied, no timeouts) or the general one.
-        self.stat_hot_tail_batches = 0
-        self.stat_slow_tail_batches = 0
-        # Wave execution of the host exact path (TB_WAVES) and wave /
-        # speculative dispatch inside the device window (TB_DEV_WAVES).
-        self.stat_wave_batches = 0
-        self.stat_wave_steps = 0
-        self.stat_wave_events = 0
-        self.stat_wave_parallel_events = 0
-        self.stat_dev_wave_batches = 0
-        self.stat_dev_wave_declined = 0
-        self.stat_dev_wave_steps = 0
-        self.stat_dev_wave_events = 0
-        self.stat_dev_wave_plan_s = 0.0
         self.stat_dev_wave_decline_reasons: dict = {}
         # Device-engine batches whose touched set the hot set could not
         # take (the reference's dev_tier.punt): they ran the host path.
@@ -480,6 +530,23 @@ class TorchStateMachine:
                 account_capacity, self._mirror, self.device, plain=plain, devices=devices,
                 link=device_link,
             )
+            # The speculation counters ride the machine registry too
+            # (dev_wave.spec.*, the reference's names), read live from
+            # the engine's dict.
+            for name in SPEC_COUNTERS:
+                self.metrics.gauge_fn(
+                    "dev_wave.spec." + name, lambda name=name: self._dev.spec_stats[name]
+                )
+            self._dev.spec_validation_hist = self.metrics.histogram(
+                "dev_wave.spec.validation_us"
+            )
+            # The engine's own counters under "dev.", the reference
+            # engine registry's names, read live from its stat_*
+            # attributes.
+            for name, attr in _DEV_COUNTERS:
+                self.metrics.gauge_fn(
+                    "dev." + name, lambda attr=attr: getattr(self._dev, attr)
+                )
         else:
             self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain,
                                     devices=devices)
@@ -512,6 +579,31 @@ class TorchStateMachine:
         self._expiry_rows: np.ndarray | None = None
         # A device-window batch may create timeout-carrying pendings.
         self._inflight_timeouts = False
+
+    def _card_reserved_bytes(self) -> int:
+        if self.device.type != "cuda":
+            return 0
+        return int(torch.cuda.memory_reserved(self.device))
+
+    # The registry-backed work-split counters (see self._stats).
+    stat_device_events = stat_property("stat_device_events")
+    stat_exact_events = stat_property("stat_exact_events")
+    stat_host_semantic_events = stat_property("stat_host_semantic_events")
+    stat_fallback_events = stat_property("stat_fallback_events")
+    stat_linked_batches = stat_property("stat_linked_batches")
+    stat_two_phase_batches = stat_property("stat_two_phase_batches")
+    stat_resolve_iters = stat_property("stat_resolve_iters")
+    stat_hot_tail_batches = stat_property("stat_hot_tail_batches")
+    stat_slow_tail_batches = stat_property("stat_slow_tail_batches")
+    stat_wave_batches = stat_property("stat_wave_batches")
+    stat_wave_steps = stat_property("stat_wave_steps")
+    stat_wave_events = stat_property("stat_wave_events")
+    stat_wave_parallel_events = stat_property("stat_wave_parallel_events")
+    stat_dev_wave_batches = stat_property("stat_dev_wave_batches")
+    stat_dev_wave_declined = stat_property("stat_dev_wave_declined")
+    stat_dev_wave_steps = stat_property("stat_dev_wave_steps")
+    stat_dev_wave_events = stat_property("stat_dev_wave_events")
+    stat_dev_wave_plan_s = stat_property("stat_dev_wave_plan_s")
 
     @property
     def stat_device_semantic_events(self) -> int:
@@ -1259,6 +1351,7 @@ class TorchStateMachine:
         touched = np.concatenate([np.asarray(a, np.int64).ravel() for a in slot_arrays])
         if not self._dev.tier_prefetch(touched):
             self.stat_tier_punts += 1
+            self.metrics.counter("dev_tier.punt").inc()
             return None
         return tuple(hot.translate(np.asarray(a, np.int64)) for a in slot_arrays)
 
@@ -2132,10 +2225,15 @@ class TorchStateMachine:
     def _observe_plan_time(self, t0: float) -> None:
         """One wave-routing pass's host seconds (decode, joins,
         admission and the partitioner when it ran)."""
-        self.stat_dev_wave_plan_s += _time.perf_counter() - t0
+        plan_dt = _time.perf_counter() - t0
+        self._stats["stat_dev_wave_plan_s"].inc(plan_dt)
+        self._h_dev_wave_plan.observe(plan_dt * 1e6)
 
     def _dev_wave_decline(self, reason: str) -> None:
         self.stat_dev_wave_declined += 1
+        # The cumulative per-reason registry counter (scrapeable) and
+        # the resettable dict.
+        self.metrics.counter("dev_wave.decline." + reason).inc()
         reasons = self.stat_dev_wave_decline_reasons
         reasons[reason] = reasons.get(reason, 0) + 1
 

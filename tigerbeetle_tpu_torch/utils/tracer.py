@@ -156,6 +156,13 @@ class Tracer:
         with open(path, "w") as f:
             f.write(self.dump())
 
+    @classmethod
+    def from_env(cls, process_id: int = 0) -> "Tracer":
+        """Backend from the TB_TRACE knob (envcheck-validated)."""
+        from tigerbeetle_tpu_torch import envcheck
+
+        return cls(envcheck.trace_backend(), process_id=process_id)
+
 
 class _Span:
     __slots__ = ("_tracer", "_event", "_slot", "_args")

@@ -25,11 +25,6 @@ checksum) is walked from the checkpoint op; the head is the last chain
 -connected op.  A faulty slot above the checkpoint either truncates
 the head (if nothing valid follows it) or is reported for repair
 (multi-replica) / fatal (single replica).
-
-Framing has one route here: Python pads each prepare and rebuilds its
-redundant-header sector.  The reference also frames natively
-(``tb_pl_frame_prepare``, part of its pipeline library) and pins that
-route byte-identical to this one, so the disk bytes are the same.
 """
 
 from __future__ import annotations
@@ -81,6 +76,24 @@ class Journal:
 
         self.set_metrics(obs.Registry())
 
+        # Native append framing: sector padding + redundant
+        # ring update + redundant-sector build in one C call, handed
+        # back as ready-to-write scratch buffers.  Byte-identical to
+        # the Python framing below (differential-tested); requires the
+        # ring to be sector-aligned (the C pass reads a whole sector's
+        # worth of ring entries).
+        from tigerbeetle_tpu_torch import envcheck
+        from tigerbeetle_tpu_torch.runtime import fastpath
+
+        self._native_frame = (
+            envcheck.native_pipeline() == 1
+            and fastpath.pipeline_available()
+            and self.slot_count % HEADERS_PER_SECTOR == 0
+        )
+        if self._native_frame:
+            self._scratch_prepare = np.zeros(self._prepare_size(), np.uint8)
+            self._scratch_sector = np.zeros(SECTOR_SIZE, np.uint8)
+
     def set_metrics(self, registry) -> None:
         """Create this journal's handles on `registry` (the owning
         replica's, so one snapshot covers WAL write/sync latency)."""
@@ -117,11 +130,33 @@ class Journal:
         with self.tracer.span(
             "journal_write", op=op, bytes=len(body)
         ), self._h_write.time():
-            msg = header.tobytes() + body
-            padded = msg.ljust(_sectors(len(msg)), b"\x00")
-            self.storage.write(self.layout.prepare_slot_offset(slot), padded)
-            self.headers[slot] = header
-            self._write_header_sector(slot)
+            if self._native_frame:
+                # C builds the padded prepare, updates headers[slot]
+                # in place, and builds the redundant sector — Python
+                # only issues the two storage writes.
+                from tigerbeetle_tpu_torch.runtime import fastpath
+
+                padded_len = fastpath.frame_prepare(
+                    header, body, self.headers, slot,
+                    HEADERS_PER_SECTOR, SECTOR_SIZE,
+                    self._scratch_prepare, self._scratch_sector,
+                )
+                self.storage.write(
+                    self.layout.prepare_slot_offset(slot),
+                    memoryview(self._scratch_prepare)[:padded_len],
+                )
+                sector_index = slot // HEADERS_PER_SECTOR
+                self.storage.write(
+                    self.layout.wal_headers_offset
+                    + sector_index * SECTOR_SIZE,
+                    memoryview(self._scratch_sector),
+                )
+            else:
+                msg = header.tobytes() + body
+                padded = msg.ljust(_sectors(len(msg)), b"\x00")
+                self.storage.write(self.layout.prepare_slot_offset(slot), padded)
+                self.headers[slot] = header
+                self._write_header_sector(slot)
             if sync:
                 # ONE fdatasync of the WAL FILE covers both rings
                 # (device cache flush included — scoped alternatives
@@ -136,6 +171,30 @@ class Journal:
                 # Deferred (group commit): the caller owns the covering
                 # sync_batch() and must not ack this op before it.
                 self.unsynced_writes += 1
+        self.anatomy.stage_h(header, "journal_write")
+
+    def write_prepare_framed(self, header: np.ndarray, body_len: int,
+                             wal_view, slot: int, sector_view,
+                             sector_index: int) -> None:
+        """Append one ALREADY-FRAMED prepare (the native drain loop): the
+        sector-padded prepare buffer and redundant-header sector were
+        built by the batch C call (which also wrote headers[slot] in
+        place) — this issues the same two storage writes, counters,
+        and spans as write_prepare(sync=False), per prepare, so the
+        storage-visible sequence is identical to the per-item path."""
+        assert int(header["command"]) == Command.prepare
+        assert int(header["size"]) == HEADER_SIZE + body_len
+        op = int(header["op"])
+        self._c_writes.inc()
+        with self.tracer.span(
+            "journal_write", op=op, bytes=body_len
+        ), self._h_write.time():
+            self.storage.write(self.layout.prepare_slot_offset(slot), wal_view)
+            self.storage.write(
+                self.layout.wal_headers_offset + sector_index * SECTOR_SIZE,
+                sector_view,
+            )
+            self.unsynced_writes += 1
         self.anatomy.stage_h(header, "journal_write")
 
     def sync_batch(self) -> bool:

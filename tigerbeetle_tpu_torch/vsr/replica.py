@@ -1,12 +1,7 @@
 """Replica: the durable commit pipeline around a state machine.
 
-This package's own copy of ``tigerbeetle_tpu/vsr/replica.py``.  Two
-routes differ, not the bytes: the batched replies' headers are
-finalized in Python (``wire.finalize_headers_py``; the reference's
-native ``tb_fp_finalize_headers`` comes with the VSR slice), and
-``aof`` / ``hash_log`` stay None (``vsr/aof.py`` and
-``testing/hash_log.py`` are not ported yet).  ``vsr/multi.py`` (the
-multi-replica layer) is not ported yet either.
+This package's own copy of ``tigerbeetle_tpu/vsr/replica.py``; the
+multi-replica layer above it is ``vsr/multi.py``.
 
 This module carries the single-replica slice of the reference's
 `ReplicaType` (reference: src/vsr/replica.zig): format, crash
@@ -117,14 +112,28 @@ class Replica:
         self._c_commits = self.metrics.counter("commits")
         self._h_commit = self.metrics.histogram("commit_us")
         self._h_request = self.metrics.histogram("request_us")
-        # hash.bytes_hashed counts BODY bytes SHA-256'd on this replica
-        # (the ingress verify; header hashes are fixed 240-byte costs
-        # and excluded by definition); hash.committed_body_bytes is the
-        # denominator of its ratio.
+        # Hash-once commit path.  hash.bytes_hashed counts BODY bytes
+        # actually SHA-256'd on this replica (ingress verify, build
+        # rehashes under TB_HASH_REUSE=0, and the coalesce finalize —
+        # header hashes are fixed 240-byte costs and excluded by
+        # definition); hash.reuse_hits counts build seams that consumed
+        # a cached digest instead of rehashing; hash.committed_body_bytes
+        # is the ratio's denominator.  hash.dup_body_bytes charges
+        # duplicate DELIVERIES — a retransmitted prepare or request must
+        # be verified before it can be recognized as a duplicate, so its
+        # ingress pass is unavoidable and the exact bound is
+        # bytes_hashed <= committed + dup.  Created here so the
+        # single-replica server scrapes the same vsr.hash.* names the
+        # VSR subclass feeds.
+        from tigerbeetle_tpu_torch import envcheck as _envcheck
+
+        self._hash_reuse = _envcheck.hash_reuse() == 1
         self._c_hash_bytes = self.metrics.counter("hash.bytes_hashed")
+        self._c_hash_reuse = self.metrics.counter("hash.reuse_hits")
         self._c_hash_commit = self.metrics.counter(
             "hash.committed_body_bytes"
         )
+        self._c_hash_dup = self.metrics.counter("hash.dup_body_bytes")
         # Batched-reply encode pass (one vectorized header build + one
         # batch checksum finalize per committed batch).  The owning
         # server re-points this at its own `server.reply_encode_us`
@@ -848,8 +857,12 @@ class Replica:
         """One encode pass for a batched prepare's sub replies: an
         (n,) HEADER_DTYPE array built vectorized (shared fields
         broadcast from the prepare, per-sub client/request scattered
-        in) and finalized in one pass of wire.finalize_headers_py.
-        Field-for-field the same header _store_reply builds per sub."""
+        in) and finalized in one native batch checksum call
+        (runtime/fastpath.py; wire.finalize_headers_py under
+        TB_FASTPATH_DISABLE).  Field-for-field the same header
+        _store_reply builds per sub."""
+        from tigerbeetle_tpu_torch.runtime import fastpath
+
         n = len(subs)
         rh = np.zeros(n, wire.HEADER_DTYPE)
         rh["version"] = wire.VERSION
@@ -877,7 +890,8 @@ class Replica:
             [c >> 64 for c, _r, _n in subs], np.uint64
         )
         rh["request"] = np.array([r for _c, r, _n in subs], np.uint32)
-        wire.finalize_headers_py(rh, pieces)
+        if not fastpath.finalize_headers(rh, pieces):
+            wire.finalize_headers_py(rh, pieces)
         return rh
 
     def _read_reply(self, entry: Session) -> bytes:
