@@ -285,7 +285,7 @@ from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
 from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
 from tigerbeetle_tpu_torch.types import (ACCOUNT_FILTER_DTYPE, TRANSFER_DTYPE,
                                          AccountFilterFlags, AccountFlags, EngineState,
-                                         Operation, TransferFlags)
+                                         Operation, TransferFlags, u128_get)
 from tigerbeetle_tpu_torch.vsr import replica as vsr_replica
 from tigerbeetle_tpu_torch.vsr.storage import FileStorage, MemoryStorage, ZoneLayout
 
@@ -4140,6 +4140,30 @@ CLUSTER_ACCOUNTS = 24  # one TEST_MIN message
 CLUSTER_EVENTS = 24  # a TEST_MIN message holds 30 transfers
 
 
+@contextlib.contextmanager
+def pinned_trace_ts():
+    """A request's trace_ts is the client's monotonic clock
+    (observability only); pinned to (client, request) inside, so runs
+    under one seed frame byte-equal prepares."""
+    from tigerbeetle_tpu_torch.testing import cluster as cl
+
+    request = cl.SimClient.request
+
+    def pinned(self, *args, **kwargs):
+        real = time.perf_counter_ns
+        time.perf_counter_ns = lambda: (self.id << 32) | (self.request_number + 1)
+        try:
+            return request(self, *args, **kwargs)
+        finally:
+            time.perf_counter_ns = real
+
+    cl.SimClient.request = pinned
+    try:
+        yield
+    finally:
+        cl.SimClient.request = request
+
+
 def cluster_scenario(factory) -> tuple[dict, object]:
     """Packet loss throughout; the primary crashes and restarts (a view
     change); a backup partitioned across three checkpoints rejoins by
@@ -4151,19 +4175,6 @@ def cluster_scenario(factory) -> tuple[dict, object]:
     c = cl.Cluster(3, seed=CLUSTER_SEED, state_machine_factory=factory,
                    options=cl.PacketOptions(packet_loss_probability=CLUSTER_LOSS))
     client = c.client(1000)
-    request = cl.SimClient.request
-
-    def pinned(self, *args, **kwargs):
-        # trace_ts is the client's monotonic clock (observability only);
-        # pinned so the runs frame byte-equal prepares.
-        real = time.perf_counter_ns
-        time.perf_counter_ns = lambda: (self.id << 32) | (self.request_number + 1)
-        try:
-            return request(self, *args, **kwargs)
-        finally:
-            time.perf_counter_ns = real
-
-    cl.SimClient.request = pinned
     install = cl.VsrReplica._install_sync_checkpoint
     installs = []
 
@@ -4172,48 +4183,48 @@ def cluster_scenario(factory) -> tuple[dict, object]:
         return install(self, *args, **kwargs)
 
     cl.VsrReplica._install_sync_checkpoint = counted_install
-    try:
-        client.register()
-        c.run_until(lambda: client.registered, max_steps=8000)
-        replies = [c.run_request(client, Operation.create_accounts,
-                                 pack([account(i) for i in range(1, CLUSTER_ACCOUNTS + 1)]),
-                                 max_steps=8000)]
-        rng = np.random.default_rng(CLUSTER_SEED)
-        tid = [1]
+    with pinned_trace_ts():
+        try:
+            client.register()
+            c.run_until(lambda: client.registered, max_steps=8000)
+            replies = [c.run_request(client, Operation.create_accounts,
+                                     pack([account(i) for i in range(1, CLUSTER_ACCOUNTS + 1)]),
+                                     max_steps=8000)]
+            rng = np.random.default_rng(CLUSTER_SEED)
+            tid = [1]
 
-        def batch():
-            rows = []
-            for _ in range(CLUSTER_EVENTS):
-                dr, cr = (int(x) for x in rng.choice(np.arange(1, CLUSTER_ACCOUNTS + 3), 2,
-                                                      replace=False))
-                rows.append(transfer(tid[0], debit_account_id=dr, credit_account_id=cr,
-                                     amount=int(rng.integers(1, 1000))))
-                tid[0] += 1
-            return c.run_request(client, Operation.create_transfers, pack(rows),
-                                 max_steps=20000)
+            def batch():
+                rows = []
+                for _ in range(CLUSTER_EVENTS):
+                    dr, cr = (int(x) for x in rng.choice(np.arange(1, CLUSTER_ACCOUNTS + 3), 2,
+                                                          replace=False))
+                    rows.append(transfer(tid[0], debit_account_id=dr, credit_account_id=cr,
+                                         amount=int(rng.integers(1, 1000))))
+                    tid[0] += 1
+                return c.run_request(client, Operation.create_transfers, pack(rows),
+                                     max_steps=20000)
 
-        replies += [batch() for _ in range(4)]
-        primary = c.replicas[0].primary_index()
-        c.crash_replica(primary)
-        replies += [batch() for _ in range(4)]
-        views = [r.view for i, r in enumerate(c.replicas) if i != primary]
-        check(all(v > 0 for v in views), f"cluster: no view change after the primary's crash "
-                                         f"(views {views})")
-        c.restart_replica(primary)
-        c.settle(max_steps=20000)
-        lagged = (c.replicas[0].primary_index() + 1) % 3
-        c.network.partition(lagged)
-        interval = c.replicas[0].config.vsr_checkpoint_interval
-        replies += [batch() for _ in range(3 * interval)]
-        behind = c.replicas[lagged].commit_min
-        c.network.heal()
-        c.settle(max_steps=40000)
-        for _ in range(50):
-            c.step()
-        c.check_convergence()
-    finally:
-        cl.SimClient.request = request
-        cl.VsrReplica._install_sync_checkpoint = install
+            replies += [batch() for _ in range(4)]
+            primary = c.replicas[0].primary_index()
+            c.crash_replica(primary)
+            replies += [batch() for _ in range(4)]
+            views = [r.view for i, r in enumerate(c.replicas) if i != primary]
+            check(all(v > 0 for v in views), f"cluster: no view change after the primary's crash "
+                                             f"(views {views})")
+            c.restart_replica(primary)
+            c.settle(max_steps=20000)
+            lagged = (c.replicas[0].primary_index() + 1) % 3
+            c.network.partition(lagged)
+            interval = c.replicas[0].config.vsr_checkpoint_interval
+            replies += [batch() for _ in range(3 * interval)]
+            behind = c.replicas[lagged].commit_min
+            c.network.heal()
+            c.settle(max_steps=40000)
+            for _ in range(50):
+                c.step()
+            c.check_convergence()
+        finally:
+            cl.VsrReplica._install_sync_checkpoint = install
     check(lagged in installs, f"cluster: the lagged replica {lagged} installed no sync "
                               f"checkpoint (installs by {installs})")
     obs = {
@@ -4264,6 +4275,336 @@ def run_cluster_phase():
     print("phase cluster (three VsrReplicas in this process, packet loss "
           f"{CLUSTER_LOSS}, the primary crashed and restarted, a backup state-synced): replies, "
           "HashLog digests and roots equal the oracle's on both engines; checks passed")
+    return {name: main[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
+
+
+# ----------------------------------------------------------------------
+# Phase vopr: the port's VOPR (testing/vopr.py; TEST_MIN, three replicas
+# in this process) with its replicas on the card.  (a) Each engine under
+# tests/test_vopr.py::test_vopr_tpu_state_machine_with_faults's settings,
+# held to the port's oracle under the same seed; (b) the device-loss
+# nemesis of tests/test_chaos.py::test_vopr_device_loss_nemesis (the
+# chaos factory's machines on the first CUDA card), held to the same
+# seed on the kernels' plain versions.  Vopr.run() checks linearization,
+# convergence, conservation and restart-replay equivalence each time.
+
+VOPR_SEED = 21
+VOPR_REQUESTS = 40         # packet loss 0.02 and crash probability 0.01, Vopr's defaults
+NEMESIS_REQUESTS = 18      # packet loss and crashes off
+NEMESIS_DEVICE_LOSS = 0.04
+
+
+def vopr_run(requests: int, **kwargs):
+    """Vopr(VOPR_SEED) run under pinned trace timestamps; -> (its
+    observations, the Vopr, seconds).  The observations: every client's
+    replies, each replica's HashLog digests op by op, roots and commit
+    points."""
+    from tigerbeetle_tpu_torch.testing.vopr import Vopr
+
+    t0 = time.perf_counter()
+    with pinned_trace_ts():
+        v = Vopr(VOPR_SEED, requests=requests, **kwargs)
+        v.run()
+    c = v.cluster
+    obs = {
+        "replies": [(cid, list(cl.replies)) for cid, cl in sorted(c.clients.items())],
+        "hash_logs": [sorted(h._digests.items()) for h in c.hash_logs],
+        "roots": [r.sm.state_root() for r in c.replicas],
+        "commit_min": [r.commit_min for r in c.replicas],
+    }
+    return obs, v, time.perf_counter() - t0
+
+
+def _launched(launches) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def run_vopr_phase():
+    """Phase vopr: (a) each engine against the oracle, (b) the nemesis
+    against its plain run."""
+    import functools
+
+    from tigerbeetle_tpu_torch.state_machine import device_engine as de
+    from tigerbeetle_tpu_torch.testing import chaos
+
+    t_phase = time.perf_counter()
+    main = collections.Counter()
+    want, oracle, oracle_s = vopr_run(VOPR_REQUESTS)
+    print(f"  vopr/oracle: seed {VOPR_SEED}, {VOPR_REQUESTS} requests: {oracle_s:.1f} s, "
+          f"commit points {want['commit_min']}, restart check "
+          f"{'skipped' if oracle.restart_check_skipped else 'run'}", flush=True)
+    for engine in ("host", "device"):
+        kernels.reset_launches()
+        got, v, seconds = vopr_run(VOPR_REQUESTS, state_machine_factory=lambda: TorchStateMachine(
+            cfg.TEST_MIN, engine=engine, device=CARD))
+        launches = dict(kernels.launches)
+        if engine == "device":
+            for r in v.cluster.replicas:
+                check((r.sm._dev.stat_link_errors, r.sm._dev.stat_demotions) == (0, 0),
+                      f"vopr/{engine}: a device engine lost its link")
+        for key in ("replies", "hash_logs", "roots", "commit_min"):
+            check(got[key] == want[key], f"vopr/{engine}: {key} differ from the oracle's")
+        for name in ("apply_deltas",) if engine == "host" else ("orderfree", "commit_update"):
+            check(launches[name] > 0, f"vopr/{engine}: no {name} launch ({_launched(launches)})")
+        main.update(launches)
+        ops = sum(len(h) for h in got["hash_logs"])
+        print(f"  vopr/{engine}: {sum(len(r) for _c, r in got['replies'])} replies, {ops} "
+              f"(replica, op) digests and the roots equal the oracle's; restart check "
+              f"{'skipped' if v.restart_check_skipped else 'run'}; {seconds:.1f} s (oracle "
+              f"{oracle_s:.1f} s); launches {_launched(launches)}", flush=True)
+    # (b) The nemesis, with the case's fixture: window 4, no backoff,
+    # probe every 2.
+    saved = (de._WINDOW, de._BACKOFF_MS, de._PROBE_EVERY)
+    factory = chaos.device_chaos_factory
+    de._WINDOW, de._BACKOFF_MS, de._PROBE_EVERY = 4, 0.0, 2
+    try:
+        runs = {}
+        for plain in (False, True):
+            chaos.device_chaos_factory = functools.partial(factory, plain=plain)
+            kernels.reset_launches()
+            obs, v, seconds = vopr_run(NEMESIS_REQUESTS, packet_loss=0.0, crash_probability=0.0,
+                                       device_loss_probability=NEMESIS_DEVICE_LOSS)
+            launches = dict(kernels.launches)
+            devs = [r.sm._dev for r in v.cluster.replicas if r.sm.engine == "device"]
+            check(len(devs) == len(v.cluster.replicas) and all(
+                  r.sm.device == CARD for r in v.cluster.replicas),
+                  "vopr/nemesis: a replica is not a device engine on the card")
+            kills = sum(link.stat_kills for link in v._chaos_links)
+            stats = (kills, sum(d.stat_demotions for d in devs),
+                     sum(d.stat_repromotions for d in devs), sum(d.stat_scrubs for d in devs))
+            check(stats[0] >= 1 and stats[1] >= 1,
+                  f"vopr/nemesis{'/plain' if plain else ''}: {stats[0]} kills, {stats[1]} "
+                  f"demotions")
+            runs[plain] = (obs, launches, stats, seconds)
+        obs, launches, stats, seconds = runs[False]
+        plain_obs, plain_launches, plain_stats, plain_s = runs[True]
+        check(not any(plain_launches.values()),
+              f"vopr/nemesis: the plain run launched {_launched(plain_launches)}")
+        for key in ("replies", "hash_logs", "roots", "commit_min"):
+            check(obs[key] == plain_obs[key], f"vopr/nemesis: {key} differ from the plain run's")
+        for name in ("orderfree", "commit_update") + (("commit_rebuild",) if stats[2] else ()):
+            check(launches[name] > 0, f"vopr/nemesis: no {name} launch ({_launched(launches)})")
+        main.update(launches)
+        print(f"  vopr/nemesis: seed {VOPR_SEED}, {NEMESIS_REQUESTS} requests, device-loss "
+              f"probability {NEMESIS_DEVICE_LOSS}: {stats[0]} link kills, {stats[1]} demotions, "
+              f"{stats[2]} re-promotions, {stats[3]} scrubs (plain run {plain_stats}); replies, "
+              f"{sum(len(h) for h in obs['hash_logs'])} (replica, op) digests and roots equal the "
+              f"plain run's; {seconds:.1f} s (plain {plain_s:.1f} s); launches "
+              f"{_launched(launches)}", flush=True)
+    finally:
+        chaos.device_chaos_factory = factory
+        de._WINDOW, de._BACKOFF_MS, de._PROBE_EVERY = saved
+    print(f"phase vopr (the port's VOPR, TEST_MIN, three replicas in this process; "
+          f"{card_line()}): Vopr's checks passed on both engines and under the device-loss "
+          f"nemesis; equal to the oracle and to the plain run; wall time "
+          f"{time.perf_counter() - t_phase:.1f} s; checks passed", flush=True)
+    return {name: main[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
+
+
+# ----------------------------------------------------------------------
+# Phase benchmark: the CLI's load generator (benchmark.py) at the
+# reference's defaults, 1,000,000 transfers in 8190-event batches over
+# 10,000 accounts (seed 42), PRODUCTION.  (a) The README's command, the
+# replica in the benchmark's own process; (b) against one `start`
+# process, its accounts then read back and held to numpy sums of the
+# generator.  Each on both engines; the data files in temporary
+# directories of the durable phase's file system.
+
+BENCH_TRANSFERS = 1_000_000
+BENCH_ACCOUNTS = 10_000
+BENCH_BATCH = 8190
+BENCH_SEED = 42
+BENCH_CLUSTER = 21
+BENCH_METRICS = ("benchmark.batch_p100_ms", "benchmark.batch_p99_ms",
+                 "benchmark.load_accepted_tx_per_s", "benchmark.query_p100_ms")
+
+
+def bench_expected() -> tuple[np.ndarray, np.ndarray]:
+    """Posted debits and credits of accounts 1..BENCH_ACCOUNTS, from
+    benchmark.py's generator rebuilt from its seed (the account batches
+    draw nothing from it)."""
+    rng = np.random.default_rng(BENCH_SEED)
+    debits = np.zeros(BENCH_ACCOUNTS + 1, np.int64)
+    credits = np.zeros(BENCH_ACCOUNTS + 1, np.int64)
+    remaining = BENCH_TRANSFERS
+    while remaining > 0:
+        n = min(BENCH_BATCH, remaining)
+        dr = rng.integers(1, BENCH_ACCOUNTS + 1, n, np.uint64)
+        cr = dr % np.uint64(BENCH_ACCOUNTS) + np.uint64(1)
+        amount = rng.integers(1, 100, n, np.uint64).astype(np.int64)
+        np.add.at(debits, dr.astype(np.int64), amount)
+        np.add.at(credits, cr.astype(np.int64), amount)
+        remaining -= n
+    return debits[1:], credits[1:]
+
+
+def bench_env(tmp: str, engine: str) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    env["TB_ENGINE"] = engine
+    env["TMPDIR"] = tmp
+    env["TB_FLIGHT_PATH"] = os.path.join(tmp, "flight_r{replica}.json")
+    env.pop("TB_FASTPATH_DISABLE", None)
+    return env
+
+
+def bench_cli(args: list[str], env: dict, what: str, timeout: float = 900) -> str:
+    """`python -m tigerbeetle_tpu_torch <args>`; -> its stdout."""
+    out = subprocess.run([sys.executable, "-X", "faulthandler", "-m", "tigerbeetle_tpu_torch",
+                          *args], cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=timeout)
+    check(out.returncode == 0, f"{what}: rc {out.returncode}:\n{out.stdout[-2000:]}\n"
+                               f"{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def bench_record(stdout: str, what: str) -> dict:
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    check(rec["transfers"] == BENCH_TRANSFERS and rec["batch"] == BENCH_BATCH,
+          f"{what}: record {rec}")
+    return rec
+
+
+def _record_line(rec: dict) -> str:
+    return (f"{rec['transfers_per_second']} transfers/s, batch p50 "
+            f"{rec['batch_latency_p50_ms']} / p99 {rec['batch_latency_p99_ms']} / p100 "
+            f"{rec['batch_latency_p100_ms']} ms, query p100 {rec['query_latency_p100_ms']} ms")
+
+
+def bench_in_process(engine: str) -> dict:
+    """(a) `benchmark --transfers=1000000 --statsd-port=<a socket bound
+    here>`: the README's command."""
+    import shutil
+    import socket
+    import tempfile
+
+    what = f"benchmark/{engine}"
+    tmp = tempfile.mkdtemp(prefix=f"tb_benchmark_{engine}_")
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    sock.bind(("127.0.0.1", 0))
+    sock.settimeout(30)
+    try:
+        t0 = time.perf_counter()
+        stdout = bench_cli(["benchmark", f"--transfers={BENCH_TRANSFERS}",
+                            f"--statsd-port={sock.getsockname()[1]}"],
+                           bench_env(tmp, engine), what)
+        seconds = time.perf_counter() - t0
+        lines = sorted(sock.recv(512).decode() for _ in BENCH_METRICS)
+    finally:
+        sock.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = bench_record(stdout, what)
+    check([line.split(":")[0] for line in lines] == list(BENCH_METRICS),
+          f"{what}: StatsD lines {lines}")
+    print(f"  {what} (the replica in the benchmark's process): {_record_line(rec)}; the "
+          f"command took {seconds:.1f} s; StatsD {lines}", flush=True)
+    print(f"  {what} record {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def bench_served(engine: str, expected) -> collections.Counter:
+    """(b) One `start` process (format --replica-count=1, start
+    --cache-accounts=2^20); `benchmark --addresses=...` against it; every
+    account read back by the port's Client and held to the generator's
+    sums; `repl` prints account 1; the replica's scrape shows its
+    launches; SIGTERM ends it with 0.  -> the replica's launches."""
+    import shutil
+    import tempfile
+
+    from tigerbeetle_tpu_torch.client import Client
+    from tigerbeetle_tpu_torch.obs.scrape import scrape_stats
+
+    what = f"benchmark/{engine}/served"
+    tmp = tempfile.mkdtemp(prefix=f"tb_benchmark_served_{engine}_")
+    env = bench_env(tmp, engine)
+    path = os.path.join(tmp, "0_0.tigerbeetle")
+    proc, log = None, None
+    try:
+        t0 = time.perf_counter()
+        bench_cli(["format", f"--cluster={BENCH_CLUSTER}", "--replica=0", "--replica-count=1",
+                   path], env, f"{what}: format", timeout=600)
+        format_s = time.perf_counter() - t0
+        addr = f"127.0.0.1:{free_ports(1)[0]}"
+        log_path = os.path.join(tmp, "replica0.log")
+        log = open(log_path, "w")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "faulthandler", "-m", "tigerbeetle_tpu_torch", "start",
+             f"--addresses={addr}", "--replica=0", f"--cache-accounts={A_ROWS}", path],
+            stdout=log, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+        deadline = time.monotonic() + REPL_START_S
+        while "listening on port" not in open(log_path).read():
+            check(proc.poll() is None, f"{what}: the replica exited rc={proc.returncode}:\n"
+                                       + open(log_path).read()[-3000:])
+            check(time.monotonic() < deadline, f"{what}: the replica did not start:\n"
+                                               + open(log_path).read()[-3000:])
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        check(f"engine {engine}, device cuda:0" in open(log_path).read(),
+              f"{what}: the replica does not name engine {engine} on cuda:0")
+        rec = bench_record(bench_cli(["benchmark", f"--addresses={addr}",
+                                      f"--cluster={BENCH_CLUSTER}",
+                                      f"--transfers={BENCH_TRANSFERS}"], env, what), what)
+        client = Client(addr, BENCH_CLUSTER, client_id=0xBE_0001, timeout_ms=REPL_TIMEOUT_MS)
+        try:
+            ids = list(range(1, BENCH_ACCOUNTS + 1))
+            rows = [r for at in range(0, len(ids), BENCH_BATCH)
+                    for r in client.lookup_accounts(ids[at:at + BENCH_BATCH])]
+        finally:
+            client.close()
+        debits, credits = expected
+        check(len(rows) == BENCH_ACCOUNTS
+              and [u128_get(r, "id") for r in rows] == ids
+              and [u128_get(r, "debits_posted") for r in rows] == debits.tolist()
+              and [u128_get(r, "credits_posted") for r in rows] == credits.tolist()
+              and not any(u128_get(r, "debits_pending") or u128_get(r, "credits_pending")
+                          for r in rows),
+              f"{what}: the accounts' balances differ from the generator's sums")
+        repl_out = bench_cli(["repl", f"--addresses={addr}", f"--cluster={BENCH_CLUSTER}",
+                              "--command=lookup_accounts id=1"], env, f"{what}: repl",
+                             timeout=300)
+        lines = repl_out.strip().splitlines()
+        row = json.loads(lines[-2])
+        check(lines[-1] == "ok" and (row["id"], row["debits_posted"], row["credits_posted"])
+              == (1, int(debits[0]), int(credits[0])),
+              f"{what}: repl printed {lines[-2:]}, want debits {debits[0]} credits {credits[0]}")
+        stats = scrape_stats(addr, BENCH_CLUSTER)
+    finally:
+        codes = stop_processes([proc]) if proc is not None else [None]
+        if log is not None:
+            log.close()
+        server_log = open(os.path.join(tmp, "replica0.log")).read() if proc else ""
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(codes == [0] and "server closed" in server_log,
+          f"{what}: exit code after SIGTERM {codes}:\n{server_log[-4000:]}")
+    launches = collections.Counter({name[len("sm.launches."):]: int(value)
+                                    for name, value in stats.items()
+                                    if name.startswith("sm.launches.")})
+    for name in ("apply_deltas",) if engine == "host" else ("orderfree", "commit_update"):
+        check(launches[name] > 0, f"{what}: no {name} launch in the replica "
+                                  f"({_launched(launches)})")
+    print(f"  {what} (one `start` process, format {format_s:.1f} s, start {start_s:.1f} s): "
+          f"{_record_line(rec)}; {BENCH_ACCOUNTS} accounts' posted balances equal the "
+          f"generator's numpy sums ({int(debits.sum())} in all); repl printed account 1 "
+          f"(debits {row['debits_posted']}, credits {row['credits_posted']}); exited 0 after "
+          f"SIGTERM; launches in the replica {_launched(launches)}", flush=True)
+    print(f"  {what} record {json.dumps(rec)}", flush=True)
+    return launches
+
+
+def run_benchmark_phase():
+    """Phase benchmark: (a) and (b) on each engine."""
+    t0 = time.perf_counter()
+    expected = bench_expected()
+    main = collections.Counter()
+    for engine in ("host", "device"):
+        bench_in_process(engine)
+        main.update(bench_served(engine, expected))
+    print(f"phase benchmark (`python -m tigerbeetle_tpu_torch benchmark`, PRODUCTION, "
+          f"{BENCH_TRANSFERS} transfers over {BENCH_ACCOUNTS} accounts in {BENCH_BATCH}-event "
+          f"batches, seed {BENCH_SEED}; {card_line()}): every transfer posted, balances equal "
+          f"the generator's sums; wall time {time.perf_counter() - t0:.1f} s; checks passed",
+          flush=True)
     return {name: main[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
 
 
@@ -4522,6 +4863,8 @@ def run_all(card, durable_oracle) -> int:
     phases["durable"] = run_durable_phase(setup, timed, durable_oracle)
     phases["replicated"] = run_replicated_phase()
     phases["cluster"] = run_cluster_phase()
+    phases["vopr"] = run_vopr_phase()
+    phases["benchmark"] = run_benchmark_phase()
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,
               f"kernel {name} was not launched on the main path")

@@ -11,9 +11,6 @@ own assertions and record equal client replies, HashLog digests op by
 op, commit points, state roots and byte-equal MemoryStorage images.
 tests/test_torch_cluster_host.py and _device.py run the same cases on
 TorchStateMachine(device="cpu") against TpuStateMachine.
-
-test_standby.py::test_vopr_with_standby needs testing/vopr.py, which the
-port does not have yet.
 """
 
 import pytest
@@ -24,9 +21,8 @@ FILES = (
     "test_cluster.py", "test_multi.py", "test_clock.py", "test_reconfigure.py",
     "test_standby.py", "test_upgrade.py", "test_cluster_liveness.py",
 )
-NEEDS_VOPR = {("test_standby.py", "test_vopr_with_standby")}
 CASES = [
-    (f, c) for f in FILES for c in rp.case_names(f) if (f, c) not in NEEDS_VOPR
+    (f, c) for f in FILES for c in rp.case_names(f)
 ] + [("test_demuxer.py", "test_cluster_batched_prepare_demuxes_per_client")]
 
 

@@ -19,10 +19,9 @@ FILES = (
     "test_cluster.py", "test_multi.py", "test_clock.py", "test_reconfigure.py",
     "test_standby.py", "test_upgrade.py", "test_block_repair.py",
 )
-NEEDS_VOPR = {("test_standby.py", "test_vopr_with_standby")}
 CASES = [
     (f, c) for f in FILES for c in rp.case_names(f)
-    if (f, c) not in NEEDS_VOPR and not c.startswith("test_marzullo")
+    if not c.startswith("test_marzullo")
     and not c.startswith("test_clock_")
 ] + [
     ("test_demuxer.py", "test_cluster_batched_prepare_demuxes_per_client"),

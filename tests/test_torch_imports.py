@@ -194,3 +194,46 @@ def test_cli_version_loads_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert plain.returncode == 0 and plain.stdout.strip() == "0.1.0", plain.stderr
+
+
+# The modules of the VOPR, fuzzer, soak and CLI tools slice.
+TOOLS_SLICE = (
+    "utils.statsd", "testing.vopr", "testing.fuzz", "testing.soak", "testing.cluster",
+    "repl", "bindings", "benchmark", "cli",
+)
+
+
+def test_tools_slice_runs_without_jax(tmp_path):
+    """A fresh interpreter imports the slice's modules and runs each
+    once: a short VOPR, one fuzzer, the bindings, the trace demo and the
+    in-process benchmark on the oracle.  Neither JAX nor the JAX package
+    is loaded."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {TOOLS_SLICE!r}: importlib.import_module('tigerbeetle_tpu_torch.' + m)\n"
+        "from tigerbeetle_tpu_torch import bindings\n"
+        "from tigerbeetle_tpu_torch.benchmark import run_benchmark\n"
+        "from tigerbeetle_tpu_torch.testing.cluster import trace_demo\n"
+        "from tigerbeetle_tpu_torch.testing.fuzz import FUZZERS\n"
+        "from tigerbeetle_tpu_torch.testing.vopr import Vopr\n"
+        "Vopr(3, requests=10).run()\n"
+        "FUZZERS['journal'](1, 5)\n"
+        f"bindings.generate({str(tmp_path / 'b')!r})\n"
+        f"trace_demo({str(tmp_path / 't.json')!r}, batches=1)\n"
+        "r = run_benchmark(addresses=None, cluster=0, n_transfers=200, n_accounts=20,\n"
+        "                  batch=100, use_cpu=True)\n"
+        "assert r['transfers'] == 200\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["TB_FLIGHT_PATH"] = str(tmp_path / "flight.json")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "CLEAN", out.stdout

@@ -7,20 +7,24 @@ rewritten to ``tigerbeetle_tpu_torch`` (and, where the source names the
 reference's JAX state machine, the port's ``TorchStateMachine`` on the
 CPU in its place).  `run_both` runs one case in each package under a
 recorder that keeps what the case's clusters did: every client reply
-the case asked for, each replica's ``HashLog`` digests op by op, its
-commit point and state root, and the bytes of every ``MemoryStorage``.
+the case asked for, every reply each of its clusters' clients received,
+each replica's ``HashLog`` digests op by op, its commit point and state
+root, and the bytes of every ``MemoryStorage``.
 The two recordings must be equal, and each run must pass the case's own
 assertions.
 
 An `arm` picks the state machine every cluster of the case runs:
 "oracle" keeps the case's own (the CPU oracle, by default), "host" and
 "device" put ``TorchStateMachine(device="cpu")`` on that engine in the
-port's run and ``TpuStateMachine`` on it in the reference's.
+port's run and ``TpuStateMachine`` on it in the reference's.  In the
+port's run the chaos factory (``testing/chaos.device_chaos_factory``,
+the VOPR's device-loss nemesis) builds its machines on the CPU too.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import importlib
 import importlib.util
 import inspect
@@ -41,11 +45,15 @@ CAPACITY = (1 << 10) + 3
 
 def _port_source(text: str) -> str:
     text = re.sub(r"\btigerbeetle_tpu\b", PORT, text)
-    text = text.replace(
-        f"from {PORT}.state_machine.tpu import TpuStateMachine",
-        f"from {PORT}.state_machine.gpu import TorchStateMachine as _Torch\n"
-        "def TpuStateMachine(*a, **kw):\n"
-        "    return _Torch(*a, device='cpu', **kw)\n",
+    # At module level or inside a case (kept at the import's indent).
+    text = re.sub(
+        rf"^( *)from {PORT}\.state_machine\.tpu import TpuStateMachine$",
+        lambda m: (
+            f"{m[1]}from {PORT}.state_machine.gpu import TorchStateMachine as _Torch\n"
+            f"{m[1]}def TpuStateMachine(*a, **kw):\n"
+            f"{m[1]}    return _Torch(*a, device='cpu', **kw)\n"
+        ),
+        text, flags=re.M,
     )
     # A module-level import of a module the port does not have yet
     # (testing/vopr.py, ...) is dropped; the cases that use it are not
@@ -123,7 +131,14 @@ class Recorder:
             images = [
                 sorted((k, bytes(v)) for k, v in s._pages.items()) for s in c.storages
             ]
-            out.append({"replicas": replicas, "hash_logs": hash_logs, "images": images})
+            client_replies = [
+                (cid, list(cl.replies)) for cid, cl in sorted(c.clients.items())
+                if hasattr(cl, "replies")
+            ]
+            out.append({
+                "replicas": replicas, "hash_logs": hash_logs, "images": images,
+                "client_replies": client_replies,
+            })
         return [{"replies": self.replies}, *out]
 
 
@@ -160,6 +175,12 @@ def recording(package: str, arm: str, monkeypatch):
         m.setattr(cl.Cluster, "__init__", recording_init)
         m.setattr(cl.Cluster, "run_request", recording_run_request)
         m.setattr(cl.SimClient, "request", pinned_request)
+        if package == PORT:
+            chaos = importlib.import_module(f"{PORT}.testing.chaos")
+            m.setattr(
+                chaos, "device_chaos_factory",
+                functools.partial(chaos.device_chaos_factory, device="cpu"),
+            )
         yield rec
 
 
@@ -167,19 +188,26 @@ def _call(mod, fn, fixtures: dict, teardown: list):
     """Call `fn` with its parameters resolved: the given fixtures, or
     the module's own fixture functions (generators run to their yield,
     finished in `teardown`)."""
-    kwargs = {}
-    for name in inspect.signature(fn).parameters:
-        if name in fixtures:
-            kwargs[name] = fixtures[name]
-            continue
-        value = _call(mod, getattr(mod, name), fixtures, teardown)
-        if inspect.isgenerator(value):
-            gen = value
-            value = next(gen)
-            teardown.append(gen)
-        fixtures[name] = value
-        kwargs[name] = value
+    kwargs = {
+        name: _fixture(mod, name, fixtures, teardown)
+        for name in inspect.signature(fn).parameters
+    }
     return fn(**kwargs)
+
+
+def _fixture(mod, name: str, fixtures: dict, teardown: list):
+    """The value of fixture `name`: given, or the module's fixture
+    function called once (a generator run to its yield, finished in
+    `teardown`)."""
+    if name in fixtures:
+        return fixtures[name]
+    value = _call(mod, getattr(mod, name), fixtures, teardown)
+    if inspect.isgenerator(value):
+        gen = value
+        value = next(gen)
+        teardown.append(gen)
+    fixtures[name] = value
+    return value
 
 
 def reference_native_loaded() -> None:
@@ -210,9 +238,11 @@ def reference_native_loaded() -> None:
     raise RuntimeError("the reference's native libraries did not load")
 
 
-def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=None):
+def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=None,
+             autouse=()):
     """One run of `case` in `package`; returns its recording.  `extra`:
-    more fixtures by name (capsys, ...)."""
+    more fixtures by name (capsys, ...) or parameter values; `autouse`:
+    names of the module's autouse fixtures to run first."""
     if package == REF:
         reference_native_loaded()
     mod = load(test_file, package)
@@ -222,6 +252,8 @@ def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=
             fixtures = {"monkeypatch": mp, "tmp_path": tmp_path / package, **(extra or {})}
             fixtures["tmp_path"].mkdir()
             try:
+                for name in autouse:
+                    _fixture(mod, name, fixtures, teardown)
                 _call(mod, getattr(mod, case), fixtures, teardown)
             finally:
                 for gen in reversed(teardown):
@@ -230,14 +262,14 @@ def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=
     return rec.observations()
 
 
-def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None) -> list:
+def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None, autouse=()) -> list:
     """`case` on the port and on the reference: both pass, and their
     recordings are equal.  Returns the port's."""
-    got = run_case(test_file, case, PORT, arm, tmp_path, extra)
-    want = run_case(test_file, case, REF, arm, tmp_path, extra)
+    got = run_case(test_file, case, PORT, arm, tmp_path, extra, autouse)
+    want = run_case(test_file, case, REF, arm, tmp_path, extra, autouse)
     assert len(got) == len(want), "the runs built different numbers of clusters"
     assert got[0] == want[0], "client replies differ"
     for i, (g, w) in enumerate(zip(got[1:], want[1:])):
-        for key in ("replicas", "hash_logs", "images"):
+        for key in ("replicas", "hash_logs", "images", "client_replies"):
             assert g[key] == w[key], f"cluster {i}: {key} differ"
     return got

@@ -16,5 +16,6 @@ caller passes ``device="cpu"``; the hand-written kernels live in
 it: the durable replica and VSR consensus (``vsr/``), the TCP server
 (``runtime/server.py``), the client (``client.py``) and the CLI
 (``python -m tigerbeetle_tpu_torch``: ``version``, ``format``,
-``start``).
+``start``, ``repl``, ``benchmark``, ``bindings``, ``trace-demo``), and
+the VOPR, fuzzers and soak under ``testing/``.
 """

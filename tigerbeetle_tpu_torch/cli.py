@@ -1,16 +1,19 @@
-"""CLI: version | format | start.
+"""CLI: version | format | start | repl | benchmark | bindings | trace-demo.
 
 The port's copy of ``tigerbeetle_tpu/cli.py``, with the commands whose
 modules the port has (reference: src/tigerbeetle/cli.zig:106-128).
-``start`` serves ``TorchStateMachine`` on the first CUDA card, or the
-port's CPU oracle under ``--cpu``; without a card and without ``--cpu``
-it exits non-zero and says so.
+``start`` and ``benchmark`` (its in-process replica) serve
+``TorchStateMachine`` on the first CUDA card, or the port's CPU oracle
+under ``--cpu``; without a card and without ``--cpu`` they exit non-zero
+and say so.  ``router``, ``follower`` and ``lint`` come with the port's
+router, follower and tbcheck.
 """
 # tbcheck: allow-file(no-print): the CLI's stdout IS its interface
 # (command results, usage, listen-port handshake).
 
 from __future__ import annotations
 
+import json
 import sys
 
 from tigerbeetle_tpu_torch import flags
@@ -33,12 +36,19 @@ commands:
              [--cache-transfers=<n>]
              <path>
   version
+  repl       --addresses=<host:port> [--cluster=<int>] [--command=<stmts>]
+  benchmark  [--transfers=N] [--accounts=N] [--batch=N] [--addresses=...]
+             [--statsd-port=N] [--cpu]
+  bindings   [--out=<dir>]   (generate C / TypeScript / Go type bindings)
+  trace-demo [--out=<path>] [--replicas=N] [--batches=N]
+             (drive a replicated drain with tracing on and write one
+              merged Perfetto-loadable timeline)
 """
 
 NO_CARD = (
-    "start: no CUDA card is visible (torch.cuda.is_available() is "
-    "false); the server runs TorchStateMachine on the card, or the CPU "
-    "oracle under --cpu"
+    "no CUDA card is visible (torch.cuda.is_available() is false); the "
+    "server runs TorchStateMachine on the card, or the CPU oracle under "
+    "--cpu"
 )
 
 
@@ -154,6 +164,65 @@ def cmd_start(args: list[str]) -> None:
         print("server closed", flush=True)
 
 
+def cmd_repl(args: list[str]) -> None:
+    opts, _ = flags.parse(
+        args, {"addresses": None, "cluster": 0, "command": ""}
+    )
+    from tigerbeetle_tpu_torch.client import Client
+    from tigerbeetle_tpu_torch import repl
+
+    client = Client(opts["addresses"].split(",")[0], opts["cluster"])
+    try:
+        repl.run(client, command=opts["command"] or None)
+    finally:
+        client.close()
+
+
+def cmd_benchmark(args: list[str]) -> None:
+    opts, _ = flags.parse(
+        args,
+        {
+            "addresses": "", "cluster": 0, "transfers": 100_000,
+            "accounts": 10_000, "batch": 8190, "cpu": False,
+            "statsd_port": 0,
+        },
+    )
+    from tigerbeetle_tpu_torch.benchmark import run_benchmark
+
+    result = run_benchmark(
+        addresses=opts["addresses"] or None, cluster=opts["cluster"],
+        n_transfers=opts["transfers"], n_accounts=opts["accounts"],
+        batch=opts["batch"], use_cpu=opts["cpu"],
+        statsd_port=opts["statsd_port"] or None,
+    )
+    print(json.dumps(result))
+
+
+def cmd_trace_demo(args: list[str]) -> None:
+    opts, _ = flags.parse(
+        args, {"out": "tb_trace_merged.json", "replicas": 2, "batches": 8}
+    )
+    from tigerbeetle_tpu_torch.testing.cluster import trace_demo
+
+    result = trace_demo(
+        opts["out"], n_replicas=opts["replicas"], batches=opts["batches"]
+    )
+    print(json.dumps(result))
+    print(
+        f"load {opts['out']} at https://ui.perfetto.dev "
+        "(or chrome://tracing)",
+        file=sys.stderr,
+    )
+
+
+def cmd_bindings(args: list[str]) -> None:
+    opts, _ = flags.parse(args, {"out": "bindings"})
+    from tigerbeetle_tpu_torch import bindings
+
+    for path in bindings.generate(opts["out"]):
+        print(f"wrote {path}")
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -166,6 +235,14 @@ def main(argv: list[str] | None = None) -> None:
         cmd_format(rest)
     elif command == "start":
         cmd_start(rest)
+    elif command == "repl":
+        cmd_repl(rest)
+    elif command == "benchmark":
+        cmd_benchmark(rest)
+    elif command == "bindings":
+        cmd_bindings(rest)
+    elif command == "trace-demo":
+        cmd_trace_demo(rest)
     else:
         print(USAGE)
         flags.fatal(f"unknown command {command!r}")

@@ -410,6 +410,29 @@ _DEV_COUNTERS = (
 )
 
 
+class _PulledCounters(obs.Registry):
+    """Counters read live from the engine's attributes, grafted into the
+    machine registry.  The reference's engine counters are registry
+    counters, so each count bumps the registry's version; here a read
+    that finds any value changed since the last read bumps it, so equal
+    versions still mean nothing changed."""
+
+    def __init__(self, reads: dict) -> None:
+        super().__init__()
+        self._reads = tuple(reads.values())
+        self._last = None
+        self._changes = 0
+        for name, fn in reads.items():
+            self.gauge_fn(name, fn)
+
+    def version(self) -> int:
+        now = tuple(fn() for fn in self._reads)
+        if now != self._last:
+            self._last = now
+            self._changes += 1
+        return self._changes + super().version()
+
+
 class TorchStateMachine:
     """Accounting state machine whose create_transfers codes are
     computed by the host engine or the device-authoritative engine,
@@ -533,20 +556,20 @@ class TorchStateMachine:
             # The speculation counters ride the machine registry too
             # (dev_wave.spec.*, the reference's names), read live from
             # the engine's dict.
-            for name in SPEC_COUNTERS:
-                self.metrics.gauge_fn(
-                    "dev_wave.spec." + name, lambda name=name: self._dev.spec_stats[name]
-                )
+            self.metrics.attach("dev_wave.spec", _PulledCounters({
+                name: lambda name=name: self._dev.spec_stats[name]
+                for name in SPEC_COUNTERS
+            }))
             self._dev.spec_validation_hist = self.metrics.histogram(
                 "dev_wave.spec.validation_us"
             )
             # The engine's own counters under "dev.", the reference
             # engine registry's names, read live from its stat_*
             # attributes.
-            for name, attr in _DEV_COUNTERS:
-                self.metrics.gauge_fn(
-                    "dev." + name, lambda attr=attr: getattr(self._dev, attr)
-                )
+            self.metrics.attach("dev", _PulledCounters({
+                name: lambda attr=attr: getattr(self._dev, attr)
+                for name, attr in _DEV_COUNTERS
+            }))
         else:
             self._dev = DeviceTable(account_capacity, self.device, self._mirror, plain=plain,
                                     devices=devices)

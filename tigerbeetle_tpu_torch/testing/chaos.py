@@ -167,6 +167,7 @@ def device_chaos_factory(
     *,
     account_capacity: int = 1 << 12,
     device=None,
+    plain: bool = False,
     **chaos_kw,
 ):
     """-> (state_machine_factory, links) for a cluster harness.
@@ -176,7 +177,9 @@ def device_chaos_factory(
     ChaosLink, collected in `links` so a nemesis can kill/heal them
     mid-run.  Faults hit replicas at different times, yet the
     degraded-mode lifecycle keeps every reply bit-identical.  `device`:
-    the machines' device (None: the first CUDA card; "cpu" in tests)."""
+    the machines' device (None: the first CUDA card; "cpu" in tests);
+    `plain`: the kernels' plain versions on that device (a reference
+    run)."""
     links: list[ChaosLink] = []
 
     def factory():
@@ -186,7 +189,7 @@ def device_chaos_factory(
         links.append(link)
         return TorchStateMachine(
             engine="device", account_capacity=account_capacity, device=device,
-            device_link=link,
+            plain=plain, device_link=link,
         )
 
     return factory, links

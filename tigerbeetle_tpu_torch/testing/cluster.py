@@ -11,9 +11,10 @@ reproducibly.
 
 This package's own copy of the unsharded part of
 ``tigerbeetle_tpu/testing/cluster.py`` (``PacketSimulator``, ``SimClient``,
-``SimAof``, ``Cluster``); the default state machine is the port's oracle
-``state_machine/cpu.py``.  The follower, router and sharded classes and
-the trace tools come with the port's router and follower.
+``SimAof``, ``Cluster``) and its trace tools (``merge_traces``,
+``trace_demo``); the default state machine is the port's oracle
+``state_machine/cpu.py``.  The follower, router and sharded classes come
+with the port's router and follower.
 """
 
 from __future__ import annotations
@@ -678,3 +679,158 @@ class Cluster:
             )
 
         self.run_until(converged, max_steps)
+
+
+
+
+# ----------------------------------------------------------------------
+# Cross-replica trace merging (observability spine, utils/tracer.py).
+
+
+def merge_traces(trace_paths, out_path: str | None = None,
+                 labels=None) -> dict:
+    """Stitch per-replica Chrome-trace JSON files (utils/tracer.py
+    dumps) into ONE Perfetto-loadable timeline: each input file
+    becomes a named process track (`replica<i>`), so a replicated
+    drain reads left-to-right across replicas — prepare on the
+    primary, journal_write + covering gc sync on every replica,
+    prepare_ok on the backups, commit + reply back on the primary.
+
+    Timestamps are comparable because every tracer samples
+    CLOCK_MONOTONIC (time.perf_counter_ns), whose epoch is shared by
+    all processes on one host — merging traces from different hosts
+    would need an offset pass (the vsr/clock.py sync could provide
+    one; not needed for single-box clusters).
+
+    Robustness: a missing, empty, truncated, or otherwise unparseable
+    per-replica file (a replica killed mid-dump is the common case) is
+    SKIPPED with a warning and listed under otherData.skipped — one
+    bad file must not void a postmortem merge of the survivors.  Any
+    number of inputs merges (>2-replica clusters, flight dumps mixed
+    with live tracer dumps).
+    """
+    import json as _json
+    import warnings
+
+    merged_events: list[dict] = []
+    dropped_total = 0
+    skipped: list[dict] = []
+    for i, path in enumerate(trace_paths):
+        label = labels[i] if labels else f"replica{i}"
+        try:
+            with open(path) as f:
+                data = _json.load(f)
+            if not isinstance(data, dict):
+                raise ValueError(f"expected a trace object, got "
+                                 f"{type(data).__name__}")
+            events = data.get("traceEvents", ())
+            if not isinstance(events, list):
+                raise ValueError("traceEvents is not a list")
+        except (OSError, ValueError) as exc:
+            # ValueError covers json.JSONDecodeError (its subclass):
+            # empty and truncated files land here too.
+            warnings.warn(
+                f"merge_traces: skipping {label} ({path}): {exc}",
+                stacklevel=2,
+            )
+            skipped.append({"label": label, "path": str(path),
+                            "error": str(exc)})
+            continue
+        # Re-key pid per input file: every tracer defaults its own
+        # process_id, and two replicas that both said pid=0 would
+        # otherwise collapse onto one track.
+        for ev in events:
+            if not isinstance(ev, dict):
+                continue
+            ev = dict(ev)
+            ev["pid"] = i
+            merged_events.append(ev)
+        merged_events.append(
+            {
+                "name": "process_name", "ph": "M", "pid": i, "tid": 0,
+                "args": {"name": label},
+            }
+        )
+        other = data.get("otherData", {})
+        if isinstance(other, dict):
+            try:
+                dropped_total += int(other.get("dropped_events", 0))
+            except (TypeError, ValueError):
+                pass
+    merged = {
+        "traceEvents": merged_events,
+        "otherData": {"dropped_events": dropped_total},
+    }
+    if skipped:
+        merged["otherData"]["skipped"] = skipped
+    if out_path:
+        with open(out_path, "w") as f:
+            _json.dump(merged, f)
+    return merged
+
+
+def trace_demo(out_path: str, *, n_replicas: int = 2, batches: int = 8,
+               transfers_per_batch: int = 16, seed: int = 7) -> dict:
+    """One-command Perfetto demo (`tigerbeetle-tpu trace-demo`): drive
+    a replicated drain through a deterministic n-replica cluster with
+    per-replica JSON tracers and group commit live, then merge the
+    traces into `out_path` (load it at https://ui.perfetto.dev).  The
+    timeline shows prepare -> journal_write -> gc_covering_sync ->
+    prepare_ok -> commit -> reply across all replica tracks.
+
+    Returns {"replicas", "ops_committed", "events", "trace_path"}.
+    """
+    import os
+    import tempfile
+
+    from tigerbeetle_tpu_torch.testing.harness import account, pack, transfer
+    from tigerbeetle_tpu_torch.utils.tracer import Tracer
+    from tigerbeetle_tpu_torch.vsr.storage import MemoryStorage
+
+    # Group commit needs a deferred-sync-capable storage; the sim
+    # cluster's MemoryStorage opts in per-class for the demo's scope
+    # (the same opt-in tests/test_multi.py uses).
+    had = MemoryStorage.supports_deferred_sync
+    MemoryStorage.supports_deferred_sync = True
+    try:
+        cluster = Cluster(replica_count=n_replicas, seed=seed)
+        for i, r in enumerate(cluster.replicas):
+            r.set_tracer(Tracer("json", process_id=i))
+        client = cluster.client(1000)
+        client.register()
+        cluster.run_until(lambda: client.registered)
+        accounts = [account(1), account(2)]
+        assert cluster.run_request(
+            client, types.Operation.create_accounts, pack(accounts)
+        ) == b""
+        tid = 100
+        for _ in range(batches):
+            rows = []
+            for _ in range(transfers_per_batch):
+                rows.append(
+                    transfer(
+                        tid, debit_account_id=1, credit_account_id=2,
+                        amount=1,
+                    )
+                )
+                tid += 1
+            assert cluster.run_request(
+                client, types.Operation.create_transfers, pack(rows)
+            ) == b""
+        cluster.settle()
+        tmp = tempfile.mkdtemp(prefix="tb_trace_demo_")
+        paths = []
+        for i, r in enumerate(cluster.replicas):
+            p = os.path.join(tmp, f"replica{i}.json")
+            r.tracer.write(p)
+            paths.append(p)
+        merge_traces(paths, out_path)
+        return {
+            "replicas": n_replicas,
+            "ops_committed": cluster.replicas[0].commit_min,
+            "events": batches * transfers_per_batch,
+            "per_replica_traces": paths,
+            "trace_path": out_path,
+        }
+    finally:
+        MemoryStorage.supports_deferred_sync = had
