@@ -22,8 +22,8 @@ from tigerbeetle_tpu_torch.state_machine import kernel as k3
 from tigerbeetle_tpu_torch.state_machine import waves
 from tigerbeetle_tpu_torch.state_machine.gpu import TorchStateMachine
 from tigerbeetle_tpu_torch.testing import (
-    commit_cases, flush_cases, orderfree_cases, scan_cases, semantic_cases, shard_cases,
-    wave_cases,
+    commit_cases, flush_cases, orderfree_cases, scan_cases, seeded, semantic_cases,
+    shard_cases, wave_cases,
 )
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
 from torch_link_quiet import link_quiet  # noqa: F401  (autouse: no engine lost its link)
@@ -1739,3 +1739,26 @@ def test_probes_on_the_card(card, capsys):
         mod = importlib.import_module(f"tigerbeetle_tpu_torch.experiments.{name}")
         assert mod.main(["--rows", str(1 << 16), "--reps", "1"]) == 0
         assert capsys.readouterr().out.splitlines()[-1].startswith("check: ")
+
+
+@pytest.mark.parametrize("engine", ["host", "device"])
+def test_sharded_vopr_on_the_card_matches_the_oracle(card, engine):
+    """The router's ShardedVopr, 2 shards x 2 replicas, every replica on
+    TorchStateMachine on the card: equal to the same seed on the oracle,
+    and the engine's kernels launched."""
+    import dataclasses
+
+    from tigerbeetle_tpu_torch import constants as cfg
+
+    config = dataclasses.replace(cfg.TEST_MIN, clients_max=16)  # ShardedCluster's
+    seed, params = seeded.SHARDED_VOPR_CASES[0]  # 11, no nemesis
+    _, want = seeded.sharded_vopr_run(seed, params)
+    kernels.reset_launches()
+    v, got = seeded.sharded_vopr_run(
+        seed, params, lambda: TorchStateMachine(config, engine=engine, device=card))
+    launches = dict(kernels.launches)
+    assert v._strict_cross and v.compensations == 0
+    assert all(r.sm.device == card for s in v.cluster.shards for r in s.replicas)
+    assert got == want
+    for name in ("apply_deltas",) if engine == "host" else ("orderfree", "commit_update"):
+        assert launches[name] > 0, launches

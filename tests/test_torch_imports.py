@@ -237,3 +237,71 @@ def test_tools_slice_runs_without_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "CLEAN", out.stdout
+
+
+# The modules of the router slice.
+ROUTER_SLICE = (
+    "types", "envcheck", "state_machine.commitment", "runtime.router", "testing.cluster",
+    "testing.vopr", "cli",
+)
+
+
+def test_router_slice_runs_without_jax(tmp_path):
+    """A fresh interpreter imports the slice's modules, runs a short
+    ShardedVopr (the router core over two shard clusters) and the CLI's
+    `router` usage and flag check, and serves a TCP RouterServer for one
+    poll: neither JAX nor the JAX package is loaded."""
+    code = (
+        "import importlib, io, sys, contextlib\n"
+        f"for m in {ROUTER_SLICE!r}: importlib.import_module('tigerbeetle_tpu_torch.' + m)\n"
+        "from tigerbeetle_tpu_torch import cli\n"
+        "from tigerbeetle_tpu_torch.runtime.router import RouterServer\n"
+        "from tigerbeetle_tpu_torch.testing.vopr import ShardedVopr\n"
+        "v = ShardedVopr(11, requests=6, packet_loss=0.0, crash_probability=0.0,\n"
+        "                fsync_crash_probability=0.0, partition_probability=0.0,\n"
+        "                coordinator_kill_probability=0.0)\n"
+        "v.run()\n"
+        "assert 'router     --listen=' in cli.USAGE\n"
+        "err = io.StringIO()\n"
+        "with contextlib.redirect_stderr(err):\n"
+        "    try:\n"
+        "        cli.main(['router', '--listen=127.0.0.1:0'])\n"
+        "    except SystemExit as exc:\n"
+        "        assert exc.code != 0\n"
+        "assert '--shards' in err.getvalue(), err.getvalue()\n"
+        "r = RouterServer('127.0.0.1:0', ['127.0.0.1:1'], cluster=3, recover=False)\n"
+        "r.poll_once(1)\n"
+        "r.close()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["TB_FLIGHT_PATH"] = str(tmp_path / "flight.json")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "CLEAN", out.stdout
+
+
+def test_cli_usage_and_router_run_without_a_card():
+    """`python -m tigerbeetle_tpu_torch` prints the usage, `router`
+    among its commands, and `router` without --shards exits non-zero
+    naming the flag; neither needs a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    usage = subprocess.run(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert usage.returncode == 1 and "\n  router     --listen=" in usage.stdout, usage.stdout
+    bad = subprocess.run(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch", "router", "--listen=127.0.0.1:0"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert bad.returncode != 0 and "--shards" in bad.stderr, bad.stderr

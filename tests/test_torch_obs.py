@@ -109,7 +109,9 @@ def _comparable(snap, dev_names):
 
 
 @pytest.mark.parametrize("engine", ["host", "device"])
-def test_machine_metrics_equal_reference(engine):
+def test_machine_metrics_equal_reference(engine, monkeypatch):
+    for package in (rp.PORT, rp.REF):
+        rp.first_engine_ordinal(package, monkeypatch)
     sm = TorchStateMachine(account_capacity=CAPACITY, device="cpu", engine=engine)
     ref = TpuStateMachine(account_capacity=CAPACITY, engine=engine)
     _stream(hz.SingleNodeHarness(sm), hz)

@@ -62,9 +62,91 @@ def _reference_native():
     """The reference's native libraries loaded (tests/torch_repoint.py)."""
     rp.reference_native_loaded()
 
+def _await_flips(servers) -> None:
+    """Wait until every server's async checkpoint flip has landed."""
+    for server in servers:
+        job = server.replica._ckpt_job
+        if job is not None:
+            job._done.wait(30)
+
+
+def _flips_land_before_the_scrape(test_file, monkeypatch):
+    """The replicated smoke cases read each replica's fsync, prepare and
+    flush counters twice, through the stats scrape and then live, while
+    the replicas' serve threads keep polling.  TEST_MIN checkpoints at
+    op 24, and the checkpoint's flip (three fsyncs) runs on the replica's
+    `ckpt` worker (TB_CKPT_ASYNC=1, the default): a flip slowed by a busy
+    disk can land between the two reads.  In both packages' runs each
+    stats scrape first waits until every replica's flip has landed; the
+    stream is committed by then, so no counter moves after it."""
+    if test_file != "test_replicated_smoke.py":
+        return
+    for package in (rp.PORT, rp.REF):
+        server_mod = importlib.import_module(f"{package}.runtime.server")
+        scrape_mod = importlib.import_module(f"{package}.obs.scrape")
+        servers = []
+
+        def recording_init(self, *args, _init=server_mod.ReplicaServer.__init__,
+                           _servers=servers, **kwargs):
+            _init(self, *args, **kwargs)
+            _servers.append(self)
+
+        def landed_scrape(*args, _scrape=scrape_mod.scrape_stats, _servers=servers, **kwargs):
+            _await_flips(_servers)
+            return _scrape(*args, **kwargs)
+
+        monkeypatch.setattr(server_mod.ReplicaServer, "__init__", recording_init)
+        monkeypatch.setattr(scrape_mod, "scrape_stats", landed_scrape)
+
+
 @pytest.mark.parametrize("test_file,case", CASES, ids=[f"{f[5:-3]}-{c[5:]}" for f, c in CASES])
-def test_repointed_case_matches_reference(test_file, case, tmp_path, capsys):
+def test_repointed_case_matches_reference(test_file, case, tmp_path, capsys, monkeypatch):
+    _flips_land_before_the_scrape(test_file, monkeypatch)
     rp.run_both(test_file, case, "oracle", tmp_path, {"capsys": capsys})
+
+
+@pytest.mark.parametrize("package", [rp.PORT, rp.REF])
+def test_repointed_smoke_holds_with_a_late_checkpoint_flip(package, tmp_path, monkeypatch):
+    """The race the smoke cases' harness removes, made deterministic:
+    each async checkpoint flip is held until the case's first stats
+    scrape, then lets go.  Without `_flips_land_before_the_scrape` the
+    scrape returns first and the flip lands before the case's live reads,
+    which fails `snap["storage.fsyncs"] == ...stat_fsyncs` on either
+    package; with it the scrape waits for the flip and the case passes,
+    its checkpoints still flipped on the `ckpt` worker."""
+    replica_mod = importlib.import_module(f"{package}.vsr.replica")
+    scrape_mod = importlib.import_module(f"{package}.obs.scrape")
+    released = threading.Event()
+    flips = []
+    finalize = replica_mod.Replica._checkpoint_finalize
+
+    def held_finalize(self, *args, **kwargs):
+        if threading.current_thread().name == "ckpt":
+            released.wait(10)
+        flips.append(threading.current_thread().name)
+        return finalize(self, *args, **kwargs)
+
+    monkeypatch.setattr(replica_mod.Replica, "_checkpoint_finalize", held_finalize)
+    _flips_land_before_the_scrape("test_replicated_smoke.py", monkeypatch)
+    await_flips = _await_flips
+    scrape_stats = scrape_mod.scrape_stats
+
+    def releasing_await(servers):
+        released.set()
+        await_flips(servers)
+
+    def releasing_scrape(*args, **kwargs):
+        snap = scrape_stats(*args, **kwargs)
+        if not released.is_set():
+            released.set()
+            time.sleep(0.5)  # a held flip lands now
+        return snap
+
+    monkeypatch.setattr(sys.modules[__name__], "_await_flips", releasing_await)
+    monkeypatch.setattr(scrape_mod, "scrape_stats", releasing_scrape)
+    rp.run_case("test_replicated_smoke.py", "test_two_replica_group_commit_smoke", package,
+                "oracle", tmp_path, {"capsys": None})
+    assert "ckpt" in flips, flips
 
 
 def _serve(server):

@@ -117,6 +117,7 @@ class Recorder:
 
     def __init__(self) -> None:
         self.clusters: list = []
+        self.sharded: list = []
         self.replies: list[bytes] = []
 
     def observations(self) -> list:
@@ -139,7 +140,10 @@ class Recorder:
                 "replicas": replicas, "hash_logs": hash_logs, "images": images,
                 "client_replies": client_replies,
             })
-        return [{"replies": self.replies}, *out]
+        routed = [
+            [(cl.id, list(cl.replies)) for cl in sc.clients] for sc in self.sharded
+        ]
+        return [{"replies": self.replies, "routed_replies": routed}, *out]
 
 
 @contextlib.contextmanager
@@ -148,7 +152,6 @@ def recording(package: str, arm: str, monkeypatch):
     rec = Recorder()
     init = cl.Cluster.__init__
     run_request = cl.Cluster.run_request
-    request = cl.SimClient.request
 
     def recording_init(self, *args, **kwargs):
         config = kwargs.get("config", cl.cfg.TEST_MIN)
@@ -163,18 +166,39 @@ def recording(package: str, arm: str, monkeypatch):
         rec.replies.append(reply)
         return reply
 
-    def pinned_request(self, *args, **kwargs):
+    def pinned(request):
         # A request's trace_ts is the client's monotonic clock
         # (observability only); pinned to (client, request) here so the
         # two runs frame byte-equal prepares.
-        with monkeypatch.context() as m:
-            m.setattr(time, "perf_counter_ns", lambda: (self.id << 32) | (self.request_number + 1))
-            return request(self, *args, **kwargs)
+        def pinned_request(self, *args, **kwargs):
+            with monkeypatch.context() as m:
+                m.setattr(time, "perf_counter_ns",
+                          lambda: (self.id << 32) | (self.request_number + 1))
+                return request(self, *args, **kwargs)
+
+        return pinned_request
 
     with monkeypatch.context() as m:
         m.setattr(cl.Cluster, "__init__", recording_init)
         m.setattr(cl.Cluster, "run_request", recording_run_request)
-        m.setattr(cl.SimClient, "request", pinned_request)
+        for client in (cl.SimClient, cl.RoutedClient):
+            m.setattr(client, "request", pinned(client.request))
+        # The router's harness: its shards are Clusters (recorded
+        # above); its replies and routed clients are recorded here.
+        sharded_init = cl.ShardedCluster.__init__
+        sharded_run_request = cl.ShardedCluster.run_request
+
+        def recording_sharded_init(self, *args, **kwargs):
+            sharded_init(self, *args, **kwargs)
+            rec.sharded.append(self)
+
+        def recording_sharded_run_request(self, *args, **kwargs):
+            reply = sharded_run_request(self, *args, **kwargs)
+            rec.replies.append(reply)
+            return reply
+
+        m.setattr(cl.ShardedCluster, "__init__", recording_sharded_init)
+        m.setattr(cl.ShardedCluster, "run_request", recording_sharded_run_request)
         if package == PORT:
             chaos = importlib.import_module(f"{PORT}.testing.chaos")
             m.setattr(
@@ -238,6 +262,17 @@ def reference_native_loaded() -> None:
     raise RuntimeError("the reference's native libraries did not load")
 
 
+def first_engine_ordinal(package: str, monkeypatch) -> None:
+    """Count `package`'s device engines from 0 again.  Each engine seeds
+    its first scrub's offset with the process's engine ordinal
+    (device_engine._ENGINE_SEQ), so a package that built more engines
+    earlier in the same process (an xdist worker's earlier files) would
+    scrub at other fetches than the other package."""
+    engine = sys.modules.get(f"{package}.state_machine.device_engine")
+    if engine is not None:
+        monkeypatch.setattr(engine, "_ENGINE_SEQ", 0)
+
+
 def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=None,
              autouse=()):
     """One run of `case` in `package`; returns its recording.  `extra`:
@@ -247,6 +282,7 @@ def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=
         reference_native_loaded()
     mod = load(test_file, package)
     with pytest.MonkeyPatch.context() as mp:
+        first_engine_ordinal(package, mp)
         with recording(package, arm, mp) as rec:
             teardown: list = []
             fixtures = {"monkeypatch": mp, "tmp_path": tmp_path / package, **(extra or {})}
@@ -268,7 +304,8 @@ def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None, autouse=
     got = run_case(test_file, case, PORT, arm, tmp_path, extra, autouse)
     want = run_case(test_file, case, REF, arm, tmp_path, extra, autouse)
     assert len(got) == len(want), "the runs built different numbers of clusters"
-    assert got[0] == want[0], "client replies differ"
+    assert got[0]["replies"] == want[0]["replies"], "client replies differ"
+    assert got[0]["routed_replies"] == want[0]["routed_replies"], "routed client replies differ"
     for i, (g, w) in enumerate(zip(got[1:], want[1:])):
         for key in ("replicas", "hash_logs", "images", "client_replies"):
             assert g[key] == w[key], f"cluster {i}: {key} differ"

@@ -1,12 +1,13 @@
-"""CLI: version | format | start | repl | benchmark | bindings | trace-demo.
+"""CLI: version | format | start | router | repl | benchmark | bindings | trace-demo.
 
 The port's copy of ``tigerbeetle_tpu/cli.py``, with the commands whose
 modules the port has (reference: src/tigerbeetle/cli.zig:106-128).
 ``start`` and ``benchmark`` (its in-process replica) serve
 ``TorchStateMachine`` on the first CUDA card, or the port's CPU oracle
 under ``--cpu``; without a card and without ``--cpu`` they exit non-zero
-and say so.  ``router``, ``follower`` and ``lint`` come with the port's
-router, follower and tbcheck.
+and say so.  ``router`` runs no state machine and needs no card: the
+shards it fronts are ``start`` processes.  ``follower`` and ``lint``
+come with the port's follower and tbcheck.
 """
 # tbcheck: allow-file(no-print): the CLI's stdout IS its interface
 # (command results, usage, listen-port handshake).
@@ -35,6 +36,15 @@ commands:
              [--standby-count=<n>] [--cache-accounts=<n>]
              [--cache-transfers=<n>]
              <path>
+  router     --listen=<host:port> --shards=<addrs;addrs;...>
+             [--cluster=<int>] [--no-recover]
+             [--followers=<shard:host:port;...>]
+             (account-sharded multi-cluster front-end: each ';'-
+              separated entry is one shard's comma-joined replica
+              address list; on start the router recovers in-doubt
+              cross-shard transfers from shard state; --followers
+              names read-only followers reads steer to under
+              TB_READ_POLICY)
   version
   repl       --addresses=<host:port> [--cluster=<int>] [--command=<stmts>]
   benchmark  [--transfers=N] [--accounts=N] [--batch=N] [--addresses=...]
@@ -164,6 +174,47 @@ def cmd_start(args: list[str]) -> None:
         print("server closed", flush=True)
 
 
+def cmd_router(args: list[str]) -> None:
+    opts, paths = flags.parse(
+        args,
+        {"listen": "127.0.0.1:3000", "shards": None, "cluster": 0,
+         "no_recover": False, "followers": ""},
+    )
+    if paths:
+        flags.fatal("router takes no positional arguments")
+    if not opts["shards"]:
+        flags.fatal("router requires --shards=<addrs;addrs;...>")
+    from tigerbeetle_tpu_torch.runtime import affinity
+    from tigerbeetle_tpu_torch.runtime.router import RouterServer
+
+    pinned = affinity.apply(slot=0)
+    if pinned is not None:
+        print(f"pinned to cores {list(pinned)}", flush=True)
+    server = RouterServer(
+        opts["listen"], opts["shards"].split(";"),
+        cluster=opts["cluster"], recover=not opts["no_recover"],
+        follower_addresses=(
+            opts["followers"].split(";") if opts["followers"] else None
+        ),
+    )
+    print(
+        f"router listening on port {server.port} "
+        f"({server.n_shards} shards)", flush=True,
+    )
+    import signal
+
+    def _stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _stop)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+
+
 def cmd_repl(args: list[str]) -> None:
     opts, _ = flags.parse(
         args, {"addresses": None, "cluster": 0, "command": ""}
@@ -235,6 +286,8 @@ def main(argv: list[str] | None = None) -> None:
         cmd_format(rest)
     elif command == "start":
         cmd_start(rest)
+    elif command == "router":
+        cmd_router(rest)
     elif command == "repl":
         cmd_repl(rest)
     elif command == "benchmark":

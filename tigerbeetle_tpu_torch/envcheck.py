@@ -421,6 +421,33 @@ def root_ring() -> int:
     return env_int("TB_ROOT_RING", 4096, minimum=0, maximum=1 << 20)
 
 
+def read_policy() -> str:
+    """TB_READ_POLICY: where the router steers read operations
+    (lookup/filter queries):
+
+    - "primary" pins the legacy path end to end — every read rides
+      consensus exactly as before followers existed.
+    - "follower" prefers a configured follower whenever the read is
+      follower-servable (single-shard), falling back to the primary on
+      refusal/timeout.
+    - "auto" (default): like "follower" when followers are configured,
+      "primary" otherwise.
+    """
+    return env_choice(
+        "TB_READ_POLICY", "auto", ("auto", "primary", "follower")
+    )
+
+
+def read_fallback_ms() -> int:
+    """TB_READ_FALLBACK_MS: how long the router waits for a follower's
+    read reply before re-driving the read through the primary path.
+    Bounds the worst case a dead follower can add to one read; the
+    per-follower backoff (qos.backoff_delay) keeps later reads from
+    re-paying it every time."""
+    return env_int("TB_READ_FALLBACK_MS", 250, minimum=10,
+                   maximum=60_000)
+
+
 def busy_backoff_ms() -> float:
     """TB_BUSY_BACKOFF_MS: client-side base backoff after a typed
     client_busy — capped exponential (x2 per consecutive busy, 16x
@@ -500,3 +527,59 @@ def tenant_weights() -> dict:
         return qos.parse_weights(raw)
     except ValueError as exc:
         _fail("TB_TENANT_WEIGHTS", raw, str(exc))
+
+
+# ----------------------------------------------------------------------
+# Sharded multi-cluster (runtime/router.py).
+
+
+def router_queue() -> int:
+    """TB_ROUTER_QUEUE: bound on concurrently open client requests in
+    the router; fresh requests beyond it are shed with a typed
+    Command.client_busy (the same admission contract the replicas
+    use)."""
+    return env_int("TB_ROUTER_QUEUE", 256, minimum=1)
+
+
+def coord_retry_ms() -> int:
+    """TB_COORD_RETRY_MS: coordinator sub-operation retry cadence —
+    how long the router waits for a shard's reply to a 2PC leg before
+    re-issuing it (idempotent: derived ids dedupe re-drives)."""
+    return env_int("TB_COORD_RETRY_MS", 1000, minimum=10,
+                   maximum=60_000)
+
+
+def view_change_budget_s() -> float:
+    """Worst-case time for one shard to elect a new primary: the
+    backup's view-change timeout in wall-clock terms (vsr/multi.py
+    VIEW_CHANGE_TICKS at the shared TICK_NS cadence)."""
+    from tigerbeetle_tpu_torch.constants import TICK_NS
+    from tigerbeetle_tpu_torch.vsr.multi import VIEW_CHANGE_TICKS
+
+    return VIEW_CHANGE_TICKS * TICK_NS / 1e9
+
+
+def coord_timeout_s() -> int:
+    """TB_COORD_TIMEOUT_S: cross-shard hold timeout (seconds) — the
+    pending-transfer timeout stamped on both 2PC holds, bounding how
+    long an orphaned hold (coordinator lost before its decision) can
+    reserve balances before the shard's own expiry pulse voids it.
+
+    Named constraint: must EXCEED a shard's view-change budget.  The
+    commit decision is durable the moment the debit-side hold posts;
+    the credit-side post may then have to wait out a full primary
+    failover on the credit shard, and a hold that can expire inside
+    that window would turn a decided commit into a half-applied
+    transfer (the compensation path — flagged, never silent — exists
+    for exactly the case this constraint rules out)."""
+    value = env_int("TB_COORD_TIMEOUT_S", 30, minimum=1,
+                    maximum=24 * 3600)
+    budget = view_change_budget_s()
+    if value <= budget:
+        _fail(
+            "TB_COORD_TIMEOUT_S", str(value),
+            f"must exceed the view-change budget ({budget:g}s) — a "
+            "decided cross-shard commit must survive one primary "
+            "failover on the credit shard without its hold expiring",
+        )
+    return value

@@ -94,6 +94,29 @@ def root_bytes(digest) -> bytes:
     return np.asarray(digest, dtype="<u8").tobytes()
 
 
+def digest_of_root(root: bytes) -> np.ndarray:
+    assert len(root) == ROOT_BYTES, len(root)
+    return np.frombuffer(root, "<u8").copy()
+
+
+# ----------------------------------------------------------------------
+# Cluster commitment: fold per-shard roots into one deterministic
+# 16-byte value.  The shard INDEX is mixed into each shard's
+# contribution (shards own disjoint account ranges, so two shards
+# swapping state must move the cluster root), then lanes sum — the
+# same fold algebra as rows, one level up.
+
+
+def fold_cluster(roots: list[bytes]) -> bytes:
+    acc = np.zeros(2, np.uint64)
+    lane_c = np.array([C_LO, C_HI], np.uint64)
+    for index, root in enumerate(roots):
+        d = digest_of_root(root)
+        stream = np.uint64((((index + 1) * GAMMA) & _MASK64))
+        acc = acc + _mix64(d ^ stream ^ lane_c)
+    return root_bytes(acc)
+
+
 # ----------------------------------------------------------------------
 # Wire codec for the read-only `state_root` query (rides the
 # sessionless stats-op shape; obs/scrape.py is the client; the

@@ -9,12 +9,13 @@ packet_simulator.zig:10-40).  Same pattern here: a seeded
 runs — which is also how card-vs-CPU state parity is checked
 reproducibly.
 
-This package's own copy of the unsharded part of
-``tigerbeetle_tpu/testing/cluster.py`` (``PacketSimulator``, ``SimClient``,
-``SimAof``, ``Cluster``) and its trace tools (``merge_traces``,
+This package's own copy of ``tigerbeetle_tpu/testing/cluster.py``
+(``PacketSimulator``, ``SimClient``, ``SimAof``, ``Cluster``, the
+router's sharded harness ``SimRouter`` / ``RoutedClient`` /
+``ShardedCluster``, and the trace tools ``merge_traces`` and
 ``trace_demo``); the default state machine is the port's oracle
-``state_machine/cpu.py``.  The follower, router and sharded classes come
-with the port's router and follower.
+``state_machine/cpu.py``.  ``SimFollower`` comes with the port's
+follower.
 """
 
 from __future__ import annotations
@@ -681,6 +682,579 @@ class Cluster:
         self.run_until(converged, max_steps)
 
 
+# ----------------------------------------------------------------------
+# Account-sharded multi-cluster harness: N deterministic shard clusters
+# behind the sans-IO router core (runtime/router.py), with a
+# coordinator-kill nemesis surface and cross-shard money checkers.
+
+
+class _RouterEndpoint:
+    """One wire session (client id) into one shard cluster, driven by
+    the sim router transport: explicit request numbers, one op in
+    flight at a time (FIFO queue — keeps retransmissions matching the
+    shard's single stored reply per session), broadcast retransmission
+    on the SimClient cadence."""
+
+    RETRY_TICKS = 8
+
+    def __init__(self, cluster: Cluster, client_id: int) -> None:
+        self.cluster = cluster
+        self.id = client_id
+        self.registered = False
+        self.evicted = False
+        self._queue: list[dict] = []
+        self._current: dict | None = None
+        self._last_sent = -(10**9)
+        # Coordinator auto-numbering: resumed from the register reply's
+        # session-resume hint (+gap), so a new incarnation's numbers
+        # land above everything the dead one committed or had in
+        # flight.
+        self.next_request = 1
+        cluster.register_endpoint(client_id, self)
+        # Sessions must exist shard-side before any request; queue the
+        # (idempotent) register first thing.
+        self.send(0, VsrOperation.register, b"",
+                  lambda _body: setattr(self, "registered", True))
+
+    def detach(self) -> None:
+        self.cluster.remove_endpoint(self.id, self)
+
+    def send(self, request: int, operation, body: bytes, callback,
+             trace: tuple[int, int, int] = (0, 0, 0)) -> None:
+        self._queue.append({
+            "request": request, "operation": operation, "body": body,
+            "callback": callback, "trace": trace,
+        })
+        self._pump()
+
+    def _pump(self) -> None:
+        if self._current is not None or not self._queue:
+            return
+        self._current = self._queue.pop(0)
+        if self._current["request"] is None:
+            # Coordinator numbering assigned at DEQUEUE time, after
+            # the register reply's resume hint has been applied.
+            self._current["request"] = self.next_request
+            self.next_request += 1
+        self._send()
+
+    def _send(self) -> None:
+        op = self._current
+        self._last_sent = self.cluster.network.now
+        h = wire.make_header(
+            command=Command.request, operation=int(op["operation"]),
+            cluster=self.cluster.cluster_id, client=self.id,
+            request=op["request"], trace_id=op["trace"][0],
+            trace_ts=op["trace"][1], trace_flags=op["trace"][2],
+        )
+        wire.finalize_header(h, op["body"])
+        for r in range(self.cluster.replica_count):
+            self.cluster.network.submit(
+                self.id, self.cluster.process_of_slot(r), h, op["body"]
+            )
+
+    def on_message(self, header: np.ndarray, body: bytes) -> None:
+        if not wire.verify_header(header, body):
+            return
+        cmd = Command(int(header["command"]))
+        if cmd == Command.eviction:
+            self.evicted = True
+            return
+        if cmd != Command.reply or self._current is None:
+            return  # client_busy: the retransmit cadence retries
+        if int(header["request"]) != self._current["request"]:
+            return
+        if self._current["request"] == 0 and int(
+            self._current["operation"]
+        ) == int(VsrOperation.register):
+            from tigerbeetle_tpu_torch.runtime.router import COORD_RESUME_GAP
+
+            resume = wire.u128(header, "context")
+            if resume:
+                # Same fencing gap production uses — the sim must
+                # validate the real protocol parameter.
+                self.next_request = max(
+                    self.next_request, resume + COORD_RESUME_GAP
+                )
+        cb = self._current["callback"]
+        self._current = None
+        cb(bytes(body))
+        self._pump()
+
+    def tick(self) -> None:
+        if self._current is None:
+            return
+        if self.cluster.network.now - self._last_sent >= self.RETRY_TICKS:
+            self._send()
+
+
+class SimRouter:
+    """Deterministic transport for RouterCore over in-process shard
+    clusters.  Volatile by construction — kill_router() in the harness
+    models a coordinator crash; a new incarnation recovers in-doubt
+    transfers purely from shard state."""
+
+    COORD_BASE = 7_000_000
+
+    def __init__(self, sharded: "ShardedCluster", *, incarnation: int = 0,
+                 recover: bool = False) -> None:
+        from tigerbeetle_tpu_torch import obs
+        from tigerbeetle_tpu_torch.obs.flight import FlightRecorder
+        from tigerbeetle_tpu_torch.runtime.router import RouterCore
+
+        self.sharded = sharded
+        self.incarnation = incarnation
+        self.registry = obs.Registry()
+        self.core = RouterCore(
+            sharded.n_shards, coord_timeout_s=sharded.coord_timeout_s,
+            registry=self.registry,
+        )
+        self.flight = FlightRecorder(process_id=100 + incarnation)
+        self.core.flight = self.flight
+        self.endpoints: list[_RouterEndpoint] = []
+        self._coord: dict[int, _RouterEndpoint] = {}
+        self._fwd: dict[tuple[int, int], _RouterEndpoint] = {}
+        self._tasks: list[tuple[object, object]] = []
+        self._open: set[tuple[int, int]] = set()
+        self._register_watch: list[tuple[int, object]] = []
+        self.recovery_result: dict | None = None
+        self._recovery = None
+        if recover:
+            self._recovery = self.core.recover()
+            self._issue(self._recovery.subops)
+            self._tasks.append((self._recovery, None))
+
+    def _endpoint(self, cluster_index: int, client_id: int,
+                  cache: dict, key) -> _RouterEndpoint:
+        ep = cache.get(key)
+        if ep is None:
+            ep = _RouterEndpoint(self.sharded.shards[cluster_index],
+                                 client_id)
+            cache[key] = ep
+            self.endpoints.append(ep)
+        return ep
+
+    def _issue(self, subops) -> None:
+        for sub in subops:
+            if sub.kind == "root":
+                # Sessionless proof-of-state query: in production the
+                # shard's server loop answers it outside consensus
+                # (runtime/server.py _send_state_root_reply); the sim
+                # transport models that by reading the live state
+                # machine directly.
+                from tigerbeetle_tpu_torch.state_machine import commitment
+
+                shard = self.sharded.shards[sub.shard]
+                sm = self.sharded._live_sm(sub.shard)
+                root = (
+                    sm.state_root()
+                    if hasattr(sm, "state_root")
+                    else bytes(16)
+                )
+                commit_min = max(r.commit_min for r in shard.replicas)
+                sub.complete(commitment.root_body(root, commit_min))
+                continue
+            if sub.kind == "fwd":
+                ep = self._endpoint(sub.shard, sub.client, self._fwd,
+                                    (sub.client, sub.shard))
+                request = sub.request
+            else:
+                # One STABLE coordinator identity across incarnations
+                # (request numbers resume via the register reply's
+                # hint); request=None → assigned at dequeue.
+                ep = self._endpoint(sub.shard, self.COORD_BASE,
+                                    self._coord, sub.shard)
+                request = None
+            ep.send(request, sub.operation, sub.body,
+                    (lambda body, s=sub: s.complete(body)), sub.trace)
+
+    def register_client(self, client_id: int, callback) -> None:
+        """Ensure the client's impersonated session exists on every
+        shard, then call back (the router-side register handshake)."""
+        for shard in range(self.sharded.n_shards):
+            self._endpoint(shard, client_id, self._fwd,
+                           (client_id, shard))
+        self._register_watch.append((client_id, callback))
+
+    def submit(self, client_id: int, request: int, operation,
+               body: bytes, trace, on_reply) -> None:
+        if (client_id, request) in self._open:
+            return  # duplicate resubmission to the same incarnation
+        self._open.add((client_id, request))
+        task = self.core.open_request(client_id, request, operation,
+                                      body, trace)
+        self._issue(task.subops)
+        self._tasks.append((task, (client_id, request, on_reply)))
+
+    @property
+    def idle(self) -> bool:
+        return not self._tasks and not any(
+            ep._current or ep._queue for ep in self.endpoints
+        )
+
+    def query_cluster_root(self) -> bytes:
+        """The client-facing `state_root` query through the router
+        core: per-shard roots fetched via "root" subops (synchronous
+        in the sim transport) and folded deterministically.  Returns
+        the 24-byte root_body(folded_root, n_shards)."""
+        task = self.core.state_root()
+        self._issue(task.subops)
+        task.pump()
+        assert task.done, "sim root subops must complete synchronously"
+        return task.result
+
+    def pump(self) -> None:
+        done = []
+        for entry in self._tasks:
+            task, ctx = entry
+            issued = task.pump()
+            if issued:
+                self._issue(issued)
+            if task.done:
+                done.append(entry)
+        for entry in done:
+            self._tasks.remove(entry)
+            task, ctx = entry
+            if ctx is None:
+                self.recovery_result = task.result
+            else:
+                client_id, request, on_reply = ctx
+                self._open.discard((client_id, request))
+                on_reply(request, task.result)
+        if self._register_watch:
+            still = []
+            for client_id, callback in self._register_watch:
+                eps = [self._fwd[(client_id, s)]
+                       for s in range(self.sharded.n_shards)]
+                if all(ep.registered for ep in eps):
+                    callback()
+                else:
+                    still.append((client_id, callback))
+            self._register_watch = still
+
+    def detach(self) -> None:
+        for ep in self.endpoints:
+            ep.detach()
+
+
+class RoutedClient:
+    """SimClient-compatible facade over the sharded router.  Survives
+    coordinator kills: when the harness starts a new router
+    incarnation, the in-flight request is resubmitted to it — the
+    client-retransmission analog — and the shards' session dedupe plus
+    the 2PC's derived-id idempotency make the replay safe."""
+
+    def __init__(self, sharded: "ShardedCluster", client_id: int) -> None:
+        self.sharded = sharded
+        self.id = client_id
+        self.request_number = 0
+        self.registered = False
+        self.reply: bytes | None = None
+        self.replies: list[bytes] = []
+        self._register_wanted = False
+        self._inflight: tuple | None = None
+        sharded.clients.append(self)
+
+    def register(self) -> None:
+        self._register_wanted = True
+        self.attach()
+
+    def attach(self) -> None:
+        """(Re)connect to the current router incarnation."""
+        router = self.sharded.router
+        if router is None:
+            return
+        if self._register_wanted and not self.registered:
+            router.register_client(self.id, self._on_registered)
+        if self._inflight is not None:
+            request, operation, body, trace = self._inflight
+            router.submit(self.id, request, operation, body, trace,
+                          self._on_reply)
+
+    def _on_registered(self) -> None:
+        self.registered = True
+
+    def busy(self) -> bool:
+        return (self._register_wanted and not self.registered) or (
+            self._inflight is not None
+        )
+
+    def request(self, operation, body: bytes) -> None:
+        assert self.registered and self._inflight is None
+        import time as _time
+
+        self.request_number += 1
+        trace = (
+            ((self.id << 20) ^ self.request_number) & 0xFFFFFFFFFFFFFFFF,
+            _time.perf_counter_ns(),
+            wire.TRACE_SAMPLED,
+        )
+        self.reply = None
+        self._inflight = (self.request_number, operation, body, trace)
+        router = self.sharded.router
+        if router is not None:
+            router.submit(self.id, self.request_number, operation, body,
+                          trace, self._on_reply)
+
+    def _on_reply(self, request: int, body: bytes) -> None:
+        if self._inflight is not None and self._inflight[0] == request:
+            self._inflight = None
+            self.reply = body
+            self.replies.append(body)
+
+
+class ShardedCluster:
+    """N deterministic shard clusters + the router, stepped together.
+
+    Every per-shard nemesis of the single-cluster harness applies (via
+    `.shards[i]`), plus the coordinator-kill nemesis: kill_router()
+    forgets ALL router state mid-protocol; start_router() brings up a
+    fresh incarnation that must recover in-doubt cross-shard transfers
+    from shard state alone.
+    """
+
+    def __init__(self, n_shards: int = 2, *, replica_count: int = 2,
+                 seed: int = 0, config: cfg.Config | None = None,
+                 options: PacketOptions | None = None,
+                 state_machine_factories=None,
+                 coord_timeout_s: int = 8,
+                 tenant_qos: dict | None = None) -> None:
+        import dataclasses as _dc
+
+        self.n_shards = n_shards
+        # More session slots than TEST_MIN: each router incarnation
+        # registers a coordinator session per shard on top of the
+        # impersonated client sessions.
+        self.config = config or _dc.replace(cfg.TEST_MIN, clients_max=16)
+        self.coord_timeout_s = coord_timeout_s
+        self.shards = [
+            Cluster(
+                replica_count, seed=seed + 7919 * s, config=self.config,
+                options=options or PacketOptions(),
+                state_machine_factory=(
+                    state_machine_factories[s]
+                    if state_machine_factories else None
+                ),
+                tenant_qos=tenant_qos,
+            )
+            for s in range(n_shards)
+        ]
+        self.clients: list[RoutedClient] = []
+        self.router: SimRouter | None = None
+        self.router_kills = 0
+        self.start_router(recover=False)
+
+    # -- coordinator lifecycle (the kill nemesis) ----------------------
+
+    def start_router(self, recover: bool | None = None) -> SimRouter:
+        assert self.router is None
+        if recover is None:
+            recover = self.router_kills > 0
+        self.router = SimRouter(
+            self, incarnation=self.router_kills, recover=recover,
+        )
+        for c in self.clients:
+            c.attach()
+        return self.router
+
+    def kill_router(self) -> None:
+        """Coordinator crash: every endpoint detaches, all volatile
+        2PC state (open requests, stage progress, ensured-ledger cache)
+        is gone."""
+        assert self.router is not None
+        self.router.detach()
+        self.router = None
+        self.router_kills += 1
+
+    def client(self, client_id: int) -> RoutedClient:
+        return RoutedClient(self, client_id)
+
+    # -- stepping ------------------------------------------------------
+
+    def step(self) -> None:
+        for shard in self.shards:
+            shard.step()
+        if self.router is not None:
+            self.router.pump()
+
+    def run_until(self, cond, max_steps: int = 4000) -> None:
+        for _ in range(max_steps):
+            if cond():
+                return
+            self.step()
+        raise AssertionError(f"condition not reached in {max_steps} steps")
+
+    def run_request(self, client: RoutedClient, operation, body: bytes,
+                    max_steps: int = 4000) -> bytes:
+        client.request(operation, body)
+        self.run_until(lambda: not client.busy(), max_steps)
+        assert client.reply is not None or client.reply == b""
+        return client.reply
+
+    def settle(self, max_steps: int = 8000) -> None:
+        def quiet() -> bool:
+            if any(c.busy() for c in self.clients):
+                return False
+            if self.router is not None and not self.router.idle:
+                return False
+            return all(
+                len({r.commit_min for r in s.replicas}) == 1
+                and len({r.op for r in s.replicas}) == 1
+                and all(r.status == "normal" for r in s.replicas)
+                for s in self.shards
+            )
+
+        self.run_until(quiet, max_steps)
+
+    # -- checkers ------------------------------------------------------
+
+    def _live_sm(self, shard: int):
+        c = self.shards[shard]
+        for r in c.replicas:
+            if r.status == "normal":
+                return r.sm
+        return c.replicas[0].sm
+
+    def check_shards(self) -> None:
+        """Per-shard hash-log convergence + linearized commit history
+        (the single-cluster checkers, per consensus group)."""
+        for shard in self.shards:
+            shard.check_linearized()
+            shard.check_convergence()
+
+    def _balance_sums(self, sm) -> tuple[int, int, int, int]:
+        """(debits_pending, credits_pending, debits_posted,
+        credits_posted) summed over every account of a state machine
+        (CPU or TPU-backed)."""
+        from tigerbeetle_tpu_torch.state_machine import CpuStateMachine
+
+        if isinstance(sm, CpuStateMachine):
+            dp = sum(a.debits_pending for a in sm.accounts.values())
+            cp = sum(a.credits_pending for a in sm.accounts.values())
+            dpo = sum(a.debits_posted for a in sm.accounts.values())
+            cpo = sum(a.credits_posted for a in sm.accounts.values())
+            return dp, cp, dpo, cpo
+        n = sm._attrs.count
+        lo = sm._mirror.lo[:n].astype(object)
+        hi = sm._mirror.hi[:n].astype(object)
+        totals = [
+            int((lo[:, c] + (hi[:, c] * (1 << 64))).sum()) for c in range(4)
+        ]
+        return totals[0], totals[2], totals[1], totals[3]
+
+    def cluster_commitment(self) -> bytes:
+        """The folded cluster state commitment: per-shard 16-byte
+        roots combined with the router's deterministic fold
+        (commitment.fold_cluster) — shard index bound into each
+        contribution, so shards swapping state moves the root."""
+        from tigerbeetle_tpu_torch.state_machine import commitment
+
+        return commitment.fold_cluster(
+            [self._live_sm(s).state_root() for s in range(self.n_shards)]
+        )
+
+    def check_cluster_commitment(self) -> bytes:
+        """Audit point: every replica of every shard agrees on its
+        shard root, and the folded cluster commitment is well-defined
+        (returned so callers can compare it against the router's
+        query-path fold)."""
+        for s, shard in enumerate(self.shards):
+            roots = {
+                r.sm.state_root()
+                for r in shard.replicas
+                if hasattr(r.sm, "state_root")
+            }
+            assert len(roots) <= 1, (
+                f"shard {s} replicas disagree on state root: "
+                f"{sorted(x.hex() for x in roots)}"
+            )
+        return self.cluster_commitment()
+
+    def check_conservation(self) -> None:
+        """Double-entry conservation PER SHARD, at any audit point:
+        each shard's state machine is internally double-entry, holds
+        included, so total debits == total credits in both columns —
+        the 2PC never mints or destroys money inside a shard."""
+        for s in range(self.n_shards):
+            dp, cp, dpo, cpo = self._balance_sums(self._live_sm(s))
+            assert dp == cp, (s, dp, cp)
+            assert dpo == cpo, (s, dpo, cpo)
+
+    def cross_status(self, tid: int, dshard: int, cshard: int):
+        """(debit_hold_status, credit_hold_status, compensated) for one
+        cross-shard transfer, read from live shard state.  Status is a
+        TransferPendingStatus or None (hold never created)."""
+        ids = types.XShardIds(tid)
+        sm_d = self._live_sm(dshard)
+        sm_c = self._live_sm(cshard)
+        sd = sm_d.pending_status(ids.hold_debit)
+        sc = sm_c.pending_status(ids.hold_credit)
+        comp = sm_d.transfer_timestamp(ids.comp) is not None
+        return sd, sc, comp
+
+    def check_atomicity(self, xfers, final: bool = False,
+                        ledgers=(1,)) -> None:
+        """Cross-shard conservation of money over the attempted
+        cross-shard transfers `xfers` = [(tid, dshard, cshard), ...].
+
+        At EVERY audit point (terminal states are monotone, so this is
+        lag-safe even though the two shards are read at different
+        commit points): a posted side never coexists with a
+        voided/expired other side — no lost money, no double-post.
+        The transient posted/pending combination is legal only until
+        the coordinator (or its successor) finishes the credit side.
+
+        At quiescence (`final=True`): every transfer is terminal —
+        committed on both sides or aborted on both — and the
+        settlement accounts net to zero across the cluster."""
+        from tigerbeetle_tpu_torch.types import TransferPendingStatus as TPS
+
+        dead = (TPS.voided, TPS.expired)
+        for tid, dshard, cshard in xfers:
+            sd, sc, comp = self.cross_status(tid, dshard, cshard)
+            if comp:
+                # Compensated: decided-commit whose credit hold died
+                # under it (budget violation, loudly flagged) — money
+                # returned to the debitor.
+                assert sd == TPS.posted and sc != TPS.posted, (tid, sd, sc)
+                continue
+            # The credit side can never be posted against a dead
+            # debit-side decision: post_credit strictly follows a
+            # committed post_debit, and a voided/expired debit hold
+            # excludes one.  (Terminal-vs-terminal only — the two
+            # shards are read at different commit points, so a
+            # transiently lagging non-terminal read is not evidence.
+            # The opposite direction — debit posted, credit hold
+            # expired — is a legal transient awaiting compensation;
+            # `final` requires it resolved.)
+            assert not (sc == TPS.posted and sd in dead), (tid, sd, sc)
+            assert not (sd == TPS.posted and sc == TPS.voided and final), (
+                tid, sd, sc,
+            )
+            if final:
+                assert sd != TPS.pending and sc != TPS.pending, (
+                    tid, sd, sc,
+                )
+                committed = sd == TPS.posted
+                assert committed == (sc == TPS.posted), (tid, sd, sc)
+        if final:
+            # Settlement accounts net to ZERO across the cluster: every
+            # committed transfer credits the debit shard's settlement
+            # account and debits the credit shard's by the same amount;
+            # aborts touch only pending columns, and those are empty at
+            # quiescence.
+            imbalance = 0
+            coord_ids = [types.coord_account_id(lg) for lg in ledgers]
+            for s in range(self.n_shards):
+                sm = self._live_sm(s)
+                for aid in coord_ids:
+                    bal = sm.account_balances_raw(aid)
+                    if bal is None:
+                        continue  # shard never saw a cross-shard leg
+                    dp, dpo, cp, cpo = bal
+                    assert dp == 0 and cp == 0, (s, aid, dp, cp)
+                    imbalance += cpo - dpo
+            assert imbalance == 0, imbalance
 
 
 # ----------------------------------------------------------------------

@@ -17,10 +17,10 @@ and layers on:
   from a live replica's storage must reach the identical state).
 
 This package's own copy of ``tigerbeetle_tpu/testing/vopr.py`` up to
-``MultiTenantVopr``; the default state machine is the port's oracle
+``ShardedVopr``; the default state machine is the port's oracle
 ``state_machine/cpu.py``, and the device-loss nemesis builds
-``TorchStateMachine`` on the first CUDA card.  The sharded and follower
-VOPRs come with the port's router and follower.
+``TorchStateMachine`` on the first CUDA card.  ``FollowerVopr`` comes
+with the port's follower.
 """
 
 from __future__ import annotations
@@ -30,7 +30,11 @@ import numpy as np
 from tigerbeetle_tpu_torch import constants as cfg
 from tigerbeetle_tpu_torch import types
 from tigerbeetle_tpu_torch.state_machine import CpuStateMachine
-from tigerbeetle_tpu_torch.testing.cluster import Cluster, PacketOptions
+from tigerbeetle_tpu_torch.testing.cluster import (
+    Cluster,
+    PacketOptions,
+    ShardedCluster,
+)
 from tigerbeetle_tpu_torch.testing.harness import account, ids_bytes, pack, transfer
 from tigerbeetle_tpu_torch.vsr.multi import VsrReplica
 from tigerbeetle_tpu_torch.vsr.storage import FsyncCrash
@@ -802,3 +806,513 @@ class MultiTenantVopr:
         self.busy_backoffs = sum(
             cl.busy_backoffs for cl, _s, _p in self.streams
         )
+
+
+# ----------------------------------------------------------------------
+# Sharded VOPR: the multi-cluster router under the full nemesis mix.
+
+
+class ShardedWorkload:
+    """Seeded request mix over an account-sharded cluster: shard-local
+    transfers, CROSS-shard transfers (the 2PC path), local two-phase
+    pending/post/void, and lookups.
+
+    Every account is limit-free (no debits/credits_must_not_exceed
+    flags) and every transfer id unique, so each well-formed request
+    succeeds regardless of the interleaving the router's relaxed
+    intra-batch ordering produces — which makes the end state exactly
+    reproducible by a single-node oracle replay of the reported-ok
+    stream (`oracle_replay`).
+    """
+
+    def __init__(self, seed: int, n_shards: int,
+                 cross_ratio: float = 0.35, tenants: int = 1) -> None:
+        self.rng = np.random.default_rng(seed)
+        self.n_shards = n_shards
+        self.cross_ratio = cross_ratio
+        # Multi-tenant mode (round 16): accounts spread round-robin
+        # over `tenants` ledgers; transfer traffic is flood-biased
+        # toward ledger 1 (one tenant drives most of the load while
+        # the rest trickle).  tenants=1 consumes the RNG stream
+        # byte-identically to the frozen v1 profile — the pinned
+        # regression seeds (4242/2046/3013) must keep reproducing
+        # their original fault interleavings.
+        self.tenants = tenants
+        self.by_shard: dict[int, list[int]] = {s: [] for s in range(n_shards)}
+        self.pools: dict[tuple[int, int], list[int]] = {}  # (shard, ledger)
+        self.ledger_of: dict[int, int] = {}
+        self.account_ids: list[int] = []
+        # Local (same-shard) pending transfers awaiting post/void:
+        # (tid, shard, ledger).
+        self.pending_local: list[tuple[int, int, int]] = []
+        self.next_account = 1
+        self.next_transfer = 1_000_000
+        # Every attempted cross-shard transfer: (tid, dshard, cshard),
+        # with amount/debitor alongside (the oracle needs them to
+        # model compensations).
+        self.xfers: list[tuple[int, int, int]] = []
+        self.xfer_amount: dict[int, int] = {}
+        self.xfer_debitor: dict[int, int] = {}
+
+    def _pick_tenant(self) -> int:
+        """Flood-biased ledger choice: tenant 1 drives ~70% of the
+        traffic, the rest trickle.  No RNG draw in single-tenant mode
+        (the frozen stream)."""
+        if self.tenants == 1:
+            return 1
+        if self.rng.random() < 0.7:
+            return 1
+        return 2 + int(self.rng.integers(self.tenants - 1))
+
+    def _new_accounts(self, n: int):
+        rows = []
+        for _ in range(n):
+            aid = self.next_account
+            self.next_account += 1
+            # Round-robin ledger assignment (deterministic, no RNG):
+            # every tenant's pool fills on every shard.
+            ledger = 1 + (aid % self.tenants) if self.tenants > 1 else 1
+            rows.append(account(aid, ledger=ledger, code=1))
+            self.account_ids.append(aid)
+            self.ledger_of[aid] = ledger
+            shard = types.shard_of_account(aid, self.n_shards)
+            self.by_shard[shard].append(aid)
+            self.pools.setdefault((shard, ledger), []).append(aid)
+        return types.Operation.create_accounts, pack(rows), "accounts"
+
+    def _pick_local_pair(self, ledger: int = 0) -> tuple[int, int, int]:
+        """(debit, credit, shard) on one shard (needs >= 2 accounts
+        of `ledger`; 0 = any, the frozen single-tenant path)."""
+        if not ledger:
+            shards = [s for s, ids in self.by_shard.items() if len(ids) >= 2]
+            s = int(self.rng.choice(shards))
+            dr, cr = self.rng.choice(self.by_shard[s], size=2, replace=False)
+            return int(dr), int(cr), s
+        shards = [
+            s for s in range(self.n_shards)
+            if len(self.pools.get((s, ledger), ())) >= 2
+        ]
+        s = int(self.rng.choice(shards))
+        dr, cr = self.rng.choice(self.pools[(s, ledger)], size=2,
+                                 replace=False)
+        return int(dr), int(cr), s
+
+    def _pick_cross_pair(self, ledger: int = 0) -> tuple[int, int, int, int]:
+        if not ledger:
+            shards = [s for s, ids in self.by_shard.items() if ids]
+            a, b = self.rng.choice(shards, size=2, replace=False)
+            dr = int(self.rng.choice(self.by_shard[int(a)]))
+            cr = int(self.rng.choice(self.by_shard[int(b)]))
+            return dr, cr, int(a), int(b)
+        shards = [
+            s for s in range(self.n_shards)
+            if self.pools.get((s, ledger))
+        ]
+        a, b = self.rng.choice(shards, size=2, replace=False)
+        dr = int(self.rng.choice(self.pools[(int(a), ledger)]))
+        cr = int(self.rng.choice(self.pools[(int(b), ledger)]))
+        return dr, cr, int(a), int(b)
+
+    def _ready(self) -> bool:
+        if self.tenants == 1:
+            return (
+                sum(1 for ids in self.by_shard.values() if len(ids) >= 2)
+                >= self.n_shards
+            )
+        # Every tenant needs a local pair somewhere AND presence on
+        # two distinct shards (for the cross-shard leg).
+        for ledger in range(1, self.tenants + 1):
+            if not any(
+                len(self.pools.get((s, ledger), ())) >= 2
+                for s in range(self.n_shards)
+            ):
+                return False
+            if sum(
+                1 for s in range(self.n_shards)
+                if self.pools.get((s, ledger))
+            ) < 2:
+                return False
+        return True
+
+    def next_request(self):
+        """-> (operation, body, kind); kind in accounts/local/cross/
+        post_void/lookup."""
+        if not self._ready() or self.rng.random() < 0.06:
+            return self._new_accounts(int(self.rng.integers(2, 5)))
+        roll = self.rng.random()
+        # 0 = frozen single-tenant path (ledger defaults on the rows);
+        # >0 = the flood-biased tenant whose pools the pickers filter.
+        ledger = self._pick_tenant() if self.tenants > 1 else 0
+        if roll < self.cross_ratio:
+            dr, cr, ds, cs = self._pick_cross_pair(ledger)
+            rows = []
+            for _ in range(int(self.rng.integers(1, 4))):
+                tid = self.next_transfer
+                self.next_transfer += 1
+                self.xfers.append((tid, ds, cs))
+                amount = int(self.rng.integers(1, 100))
+                self.xfer_amount[tid] = amount
+                self.xfer_debitor[tid] = dr
+                rows.append(transfer(
+                    tid, debit_account_id=dr, credit_account_id=cr,
+                    amount=amount, ledger=ledger or 1,
+                ))
+            return types.Operation.create_transfers, pack(rows), "cross"
+        if roll < self.cross_ratio + 0.30:
+            dr, cr, _s = self._pick_local_pair(ledger)
+            rows = []
+            for _ in range(int(self.rng.integers(1, 5))):
+                tid = self.next_transfer
+                self.next_transfer += 1
+                rows.append(transfer(
+                    tid, debit_account_id=dr, credit_account_id=cr,
+                    amount=int(self.rng.integers(1, 100)),
+                    ledger=ledger or 1,
+                ))
+            return types.Operation.create_transfers, pack(rows), "local"
+        if roll < self.cross_ratio + 0.42:
+            dr, cr, s = self._pick_local_pair(ledger)
+            tid = self.next_transfer
+            self.next_transfer += 1
+            self.pending_local.append((tid, s, ledger or 1))
+            return (
+                types.Operation.create_transfers,
+                pack([transfer(tid, debit_account_id=dr,
+                               credit_account_id=cr,
+                               amount=int(self.rng.integers(1, 50)),
+                               ledger=ledger or 1,
+                               flags=types.TransferFlags.pending)]),
+                "local",
+            )
+        if roll < self.cross_ratio + 0.52 and self.pending_local:
+            pid, _s, pledger = self.pending_local.pop(
+                int(self.rng.integers(len(self.pending_local)))
+            )
+            tid = self.next_transfer
+            self.next_transfer += 1
+            void = self.rng.random() < 0.3
+            flags = (
+                types.TransferFlags.void_pending_transfer if void
+                else types.TransferFlags.post_pending_transfer
+            )
+            return (
+                types.Operation.create_transfers,
+                pack([transfer(tid, pending_id=pid, ledger=pledger,
+                               flags=flags)]),
+                "post_void",
+            )
+        ids = [
+            int(v) for v in self.rng.choice(
+                self.account_ids, size=min(4, len(self.account_ids))
+            )
+        ]
+        return types.Operation.lookup_accounts, ids_bytes(ids), "lookup"
+
+
+class ShardedVopr:
+    """Deterministic whole-system fuzz of the sharded router: per-shard
+    nemeses (replica crash losing unsynced sectors, crash INSIDE a
+    covering fsync, partitions, optional device loss) plus the
+    coordinator-kill nemesis, with conservation-of-money and 2PC
+    atomicity checked at every audit point and an oracle replay at the
+    end."""
+
+    AUDIT_EVERY = 41  # steps between mid-run invariant audits
+
+    @property
+    def _chaos_links(self) -> list:
+        """Flattened per-shard chaos links (factories append lazily)."""
+        return [lk for links in self._chaos_link_lists for lk in links]
+
+    def __init__(self, seed: int, *, n_shards: int = 2,
+                 replica_count: int = 2, requests: int = 30,
+                 packet_loss: float = 0.01,
+                 crash_probability: float = 0.004,
+                 fsync_crash_probability: float = 0.002,
+                 partition_probability: float = 0.004,
+                 coordinator_kill_probability: float = 0.004,
+                 device_loss_probability: float = 0.0,
+                 cross_ratio: float = 0.35,
+                 tenants: int = 1,
+                 tenant_qos: dict | None = None) -> None:
+        self.seed = seed
+        self.rng = np.random.default_rng(seed + 1)
+        factories = None
+        # Per-shard link lists, populated LAZILY by the factories as
+        # machines are built — flatten at use time, not here.
+        self._chaos_link_lists: list[list] = []
+        if device_loss_probability > 0.0:
+            from tigerbeetle_tpu_torch.testing.chaos import device_chaos_factory
+
+            factories = []
+            for s in range(n_shards):
+                factory, links = device_chaos_factory(seed + 40 + s)
+                factories.append(factory)
+                self._chaos_link_lists.append(links)
+        self.cluster = ShardedCluster(
+            n_shards, replica_count=replica_count, seed=seed,
+            options=PacketOptions(packet_loss_probability=packet_loss),
+            state_machine_factories=factories,
+            tenant_qos=tenant_qos,
+        )
+        self.workload = ShardedWorkload(seed + 2, n_shards,
+                                        cross_ratio=cross_ratio,
+                                        tenants=tenants)
+        self.requests = requests
+        self.crash_probability = crash_probability
+        self.fsync_crash_probability = fsync_crash_probability
+        self.partition_probability = partition_probability
+        self.coordinator_kill_probability = coordinator_kill_probability
+        self.device_loss_probability = device_loss_probability
+        self.crashed: set[tuple[int, int]] = set()  # (shard, replica)
+        # With no shard nemeses in the mix, a cross-shard abort needs a
+        # coordinator kill to be legal; under the full mix, a long
+        # stall can legitimately expire a hold.
+        self._strict_cross = (
+            crash_probability == 0 and fsync_crash_probability == 0
+            and partition_probability == 0 and packet_loss == 0
+            and device_loss_probability == 0
+        )
+        self._partitioned: dict[int, set[int]] = {}
+        self._fsync_armed: tuple[int, int] | None = None
+        self.coordinator_kills = 0
+        # Requests whose submit/reply window overlapped a coordinator
+        # kill may legally abort with pending_transfer_expired.
+        self._kill_epoch = 0
+        self.audits = 0
+        # The reported-ok logical stream, for the oracle replay:
+        # (operation, body, per-row ok mask).
+        self.ok_stream: list[tuple[types.Operation, bytes, list[bool]]] = []
+
+    # -- nemesis -------------------------------------------------------
+
+    def _nemesis(self) -> None:
+        c = self.cluster
+        # Coordinator kill/restart: the defining nemesis of this VOPR.
+        if c.router is None:
+            if self.rng.random() < 0.08:
+                c.start_router()  # recovery runs before/while serving
+        elif self.rng.random() < self.coordinator_kill_probability:
+            c.kill_router()
+            self.coordinator_kills += 1
+            self._kill_epoch += 1
+        for s, shard in enumerate(c.shards):
+            # Partition / heal, per shard.
+            parts = self._partitioned.setdefault(s, set())
+            if parts:
+                if self.rng.random() < 0.05:
+                    shard.network.heal(*parts)
+                    parts.clear()
+            elif self.rng.random() < self.partition_probability:
+                i = int(self.rng.integers(len(shard.replicas)))
+                if (s, i) not in self.crashed:
+                    shard.network.partition(i)
+                    parts.add(i)
+            # Crash (power loss: unsynced sectors gone) / restart.
+            down = [r for (sh, r) in self.crashed if sh == s]
+            if down:
+                if self.rng.random() < 0.06:
+                    i = down[0]
+                    shard.restart_replica(i)
+                    self.crashed.discard((s, i))
+            elif self.rng.random() < self.crash_probability:
+                i = int(self.rng.integers(len(shard.replicas)))
+                if i not in parts:
+                    shard.crash_replica(i)
+                    self.crashed.add((s, i))
+            # Crash INSIDE a covering fsync (storage fault point).
+            if self._fsync_armed is None and not down and (
+                self.rng.random() < self.fsync_crash_probability
+            ):
+                i = int(self.rng.integers(len(shard.replicas)))
+                if (s, i) not in self.crashed and i not in parts:
+                    shard.storages[i].crash_at_fsync = 1
+                    self._fsync_armed = (s, i)
+        if self.device_loss_probability and self._chaos_links:
+            downed = [lk for lk in self._chaos_links if lk.down]
+            if downed:
+                if self.rng.random() < 0.10:
+                    for lk in downed:
+                        lk.heal()
+            elif self.rng.random() < self.device_loss_probability:
+                pick = int(self.rng.integers(len(self._chaos_links)))
+                self._chaos_links[pick].kill()
+
+    def _step(self) -> None:
+        try:
+            self.cluster.step()
+        except FsyncCrash:
+            # The armed replica died inside its fsync: finish the crash
+            # (its unsynced sectors are gone with it).
+            assert self._fsync_armed is not None
+            s, i = self._fsync_armed
+            self._fsync_armed = None
+            self.cluster.shards[s].crash_replica(i)
+            self.crashed.add((s, i))
+
+    # -- audits --------------------------------------------------------
+
+    def _audit_point(self) -> None:
+        self.audits += 1
+        self.cluster.check_conservation()
+        self.cluster.check_atomicity(self.workload.xfers)
+
+    def _audit_reply(self, kind: str, body: bytes, reply: bytes,
+                     submitted_epoch: int) -> None:
+        if kind == "lookup":
+            return
+        results = np.frombuffer(reply, dtype=types.CREATE_RESULT_DTYPE)
+        for r in results:
+            code = int(r["result"])
+            idx = int(r["index"])
+            if kind == "cross" and code == int(
+                types.CreateTransferResult.pending_transfer_expired
+            ) and (not self._strict_cross
+                   or submitted_epoch != (self._kill_epoch, True)):
+                # Legal abort: the coordinator died between this
+                # transfer's holds and its decision, the request raced
+                # a restarted coordinator's still-running in-doubt
+                # recovery, or a nemesis stalled the 2PC past the hold
+                # timeout.  With every nemesis off (_strict_cross) an
+                # abort is only legal when a kill overlapped the
+                # request.
+                continue
+            raise AssertionError(
+                f"{kind} request row {idx} failed with "
+                f"{types.CreateTransferResult(code).name} "
+                f"(kills={self.coordinator_kills})"
+            )
+
+    # -- run -----------------------------------------------------------
+
+    def run(self) -> None:
+        c = self.cluster
+        client = c.client(9000 + self.seed % 100)
+        client.register()
+        c.run_until(lambda: client.registered, max_steps=6000)
+
+        sent = 0
+        guard = 0
+        pending_audit = None
+        while sent < self.requests or client.busy():
+            guard += 1
+            assert guard < 400_000, "sharded vopr stalled"
+            self._nemesis()
+            if not client.busy() and c.router is not None:
+                if pending_audit is not None:
+                    op, body, kind, epoch = pending_audit
+                    self._audit_reply(kind, body, client.reply, epoch)
+                    self._record_ok(op, body, kind, client.reply)
+                    pending_audit = None
+                if sent < self.requests:
+                    op, body, kind = self.workload.next_request()
+                    client.request(op, body)
+                    # Submit context for the audit: the kill epoch AND
+                    # whether recovery had already finished — an abort
+                    # is only a finding when neither a kill nor a live
+                    # recovery overlapped the request.
+                    settled = (
+                        c.router._recovery is None
+                        or c.router.recovery_result is not None
+                    )
+                    pending_audit = (
+                        op, body, kind, (self._kill_epoch, settled)
+                    )
+                    sent += 1
+            self._step()
+            if guard % self.AUDIT_EVERY == 0:
+                self._audit_point()
+        if pending_audit is not None:
+            op, body, kind, epoch = pending_audit
+            self._audit_reply(kind, body, client.reply, epoch)
+            self._record_ok(op, body, kind, client.reply)
+
+        # Heal everything, finish recovery, settle, final checks.
+        if self._fsync_armed is not None:
+            # Disarm an unfired fault: the quiesce phase below must
+            # not crash a replica outside the nemesis loop.
+            s, i = self._fsync_armed
+            c.shards[s].storages[i].crash_at_fsync = None
+            self._fsync_armed = None
+        for lk in self._chaos_links:
+            lk.heal()
+        for s, shard in enumerate(c.shards):
+            shard.network.heal()
+            self._partitioned.get(s, set()).clear()
+        for s, i in sorted(self.crashed):
+            c.shards[s].restart_replica(i)
+        self.crashed.clear()
+        if c.router is None:
+            c.start_router()
+        c.settle(max_steps=40_000)
+        self._audit_point()
+        c.check_shards()
+        c.check_atomicity(self.workload.xfers, final=True)
+        # Final proof-of-state audit: per-shard roots agree across
+        # replicas, the folded cluster commitment is well-defined, and
+        # the router's query path folds to the same value.
+        folded = c.check_cluster_commitment()
+        if c.router is not None:
+            from tigerbeetle_tpu_torch.state_machine import commitment as _cm
+
+            root, _n = _cm.parse_root_body(c.router.query_cluster_root())
+            assert root == folded, (root.hex(), folded.hex())
+        self.oracle_compare()
+
+    def _record_ok(self, op, body: bytes, kind: str, reply: bytes) -> None:
+        if kind not in ("accounts", "local", "cross", "post_void"):
+            return
+        dtype = (
+            types.ACCOUNT_DTYPE if kind == "accounts"
+            else types.TRANSFER_DTYPE
+        )
+        n = len(body) // dtype.itemsize
+        ok = [True] * n
+        for r in np.frombuffer(reply, dtype=types.CREATE_RESULT_DTYPE):
+            ok[int(r["index"])] = False
+        self.ok_stream.append((op, body, ok))
+
+    def oracle_compare(self) -> None:
+        """Replay the reported-ok stream through a single-node CPU
+        oracle and require every client account's balances to match the
+        sharded reality exactly — cross-shard transfers included."""
+        from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness
+
+        oracle = SingleNodeHarness(CpuStateMachine(self.cluster.config))
+        for op, body, ok in self.ok_stream:
+            dtype = (
+                types.ACCOUNT_DTYPE if op == types.Operation.create_accounts
+                else types.TRANSFER_DTYPE
+            )
+            rows = np.frombuffer(body, dtype=dtype)
+            keep = [rows[i] for i in range(len(rows)) if ok[i]]
+            if not keep:
+                continue
+            out = oracle.submit(op, pack(keep))
+            results = np.frombuffer(out, dtype=types.CREATE_RESULT_DTYPE)
+            assert len(results) == 0, (
+                "oracle rejected a reported-ok row", op, results[:4],
+            )
+        # A compensated cross-shard transfer (decided commit whose
+        # credit hold died — budget violation) is a reversing entry,
+        # not an erasure: the debitor shows the posted debit AND the
+        # refunding credit.  Fold those trail entries into the oracle's
+        # expectation.
+        adjust: dict[int, int] = {}
+        compensated = 0
+        for tid, ds, cs in self.workload.xfers:
+            _sd, _sc, comp = self.cluster.cross_status(tid, ds, cs)
+            if comp:
+                compensated += 1
+                debitor = self.workload.xfer_debitor[tid]
+                adjust[debitor] = (
+                    adjust.get(debitor, 0) + self.workload.xfer_amount[tid]
+                )
+        self.compensations = compensated
+        for aid in self.workload.account_ids:
+            shard = types.shard_of_account(aid, self.cluster.n_shards)
+            got = self.cluster._live_sm(shard).account_balances_raw(aid)
+            dp, dpo, cp, cpo = oracle.sm.account_balances_raw(aid)
+            extra = adjust.get(aid, 0)
+            want = (dp, dpo + extra, cp, cpo + extra)
+            assert got == want, (aid, shard, got, want)

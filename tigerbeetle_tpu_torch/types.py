@@ -10,6 +10,7 @@ JAX package.
 from __future__ import annotations
 
 import enum
+import hashlib
 
 import numpy as np
 
@@ -92,11 +93,33 @@ CREATE_RESULT_DTYPE = np.dtype([("index", "<u4"), ("result", "<u4")])
 # A bare u128 on the wire (lookup_accounts / lookup_transfers events).
 U128_PAIR_DTYPE = np.dtype([("lo", "<u8"), ("hi", "<u8")])
 
+# reference: src/state_machine.zig:259-269 (TransferPending, 16 bytes)
+TRANSFER_PENDING_DTYPE = np.dtype(
+    [("timestamp", "<u8"), ("status", "u1"), ("padding", "u1", (7,))]
+)
+
+# reference: src/state_machine.zig:296-315 (AccountBalancesGrooveValue, 256 bytes)
+ACCOUNT_BALANCES_GROOVE_DTYPE = np.dtype(
+    _u128("dr_account_id")
+    + _u128("dr_debits_pending")
+    + _u128("dr_debits_posted")
+    + _u128("dr_credits_pending")
+    + _u128("dr_credits_posted")
+    + _u128("cr_account_id")
+    + _u128("cr_debits_pending")
+    + _u128("cr_debits_posted")
+    + _u128("cr_credits_pending")
+    + _u128("cr_credits_posted")
+    + [("timestamp", "<u8"), ("reserved", "u1", (88,))]
+)
+
 assert ACCOUNT_DTYPE.itemsize == 128
 assert TRANSFER_DTYPE.itemsize == 128
 assert ACCOUNT_BALANCE_DTYPE.itemsize == 128
 assert ACCOUNT_FILTER_DTYPE.itemsize == 64
 assert CREATE_RESULT_DTYPE.itemsize == 8
+assert TRANSFER_PENDING_DTYPE.itemsize == 16
+assert ACCOUNT_BALANCES_GROOVE_DTYPE.itemsize == 256
 
 
 class AccountFlags(enum.IntFlag):
@@ -291,6 +314,120 @@ RESULT_DTYPE = {
     Operation.get_account_transfers: TRANSFER_DTYPE,
     Operation.get_account_balances: ACCOUNT_BALANCE_DTYPE,
 }
+
+
+
+# ----------------------------------------------------------------------
+# Account-range sharding (runtime/router.py).
+#
+# A multi-cluster deployment partitions the account space across N
+# independent consensus groups; every layer that routes by account
+# (router batch split, client hints, recovery scans, the VOPR's
+# checkers) must agree on ONE deterministic mapping, so it lives here
+# next to the wire types.
+
+# Odd golden-ratio multiplier: a multiplicative mix so sequential
+# account ids (the common allocation pattern) spread across shards
+# instead of striping modulo N.
+_SHARD_MIX = 0x9E3779B97F4A7C15
+
+
+def shard_of_account(account_id: int, n_shards: int) -> int:
+    """Deterministic account -> shard mapping.
+
+    Pure function of (id, n_shards): every router incarnation, client,
+    and checker derives the same placement with no directory service.
+    """
+    assert 0 <= account_id <= U128_MAX
+    if n_shards <= 1:
+        return 0
+    lo = account_id & U64_MAX
+    hi = account_id >> 64
+    mixed = ((lo ^ hi) * _SHARD_MIX) & U64_MAX
+    return int((mixed >> 32) % n_shards)
+
+
+# Coordinator-owned ledger accounts (cross-shard 2PC): each shard holds
+# one settlement account per ledger in a tagged id namespace that real
+# clients must not allocate from.  A cross-shard transfer becomes a
+# pending hold against the settlement account on each side; the
+# coordinator posts or voids both.
+COORD_ID_TAG = 0xC0 << 120
+# Ledger-registry bookkeeping rides its own ledger so client-visible
+# ledgers never see registry rows.
+COORD_REGISTRY_LEDGER = 0xC0C0
+# Registry accounts (per shard, fixed ids): a posted registry transfer
+# whose AMOUNT is the ledger number records "this shard has a
+# settlement account for ledger L" durably in the shard's own log —
+# a restarted coordinator enumerates ledgers by scanning the registry
+# account's transfers (get_account_transfers), with no local state.
+COORD_REGISTRY_ACCOUNT = COORD_ID_TAG | (0xEE << 64)
+COORD_REGISTRY_FUNDING = COORD_ID_TAG | (0xEF << 64)
+
+
+def coord_account_id(ledger: int) -> int:
+    """The settlement account id for `ledger` (same id on every shard;
+    each shard's account table is independent)."""
+    assert 0 < ledger <= 0xFFFFFFFF
+    return COORD_ID_TAG | ledger
+
+
+def is_coord_account(account_id: int) -> bool:
+    return (account_id >> 120) == 0xC0
+
+
+# Cross-shard 2PC leg tags, carried in the holds' user_data_64 so a
+# recovery scan can reconstruct (tid, leg, peer shard) from the rows
+# alone: (peer_shard << 8) | leg.
+XLEG_DEBIT = 1  # client debit account -> settlement (debit shard)
+XLEG_CREDIT = 2  # settlement -> client credit account (credit shard)
+
+
+def xleg_tag(leg: int, peer_shard: int) -> int:
+    assert leg in (XLEG_DEBIT, XLEG_CREDIT)
+    return (peer_shard << 8) | leg
+
+
+def xleg_untag(tag: int) -> tuple[int, int]:
+    """-> (leg, peer_shard)."""
+    return tag & 0xFF, tag >> 8
+
+
+class XShardIds:
+    """Deterministic derived transfer ids for one cross-shard transfer.
+
+    The client's transfer id `tid` is the idempotency key; every 2PC
+    artifact (the two holds, the post/void resolutions, the
+    budget-violation compensation) derives its id from (tid, role) by
+    hashing into the upper half of the u128 space.  Determinism is
+    what makes the protocol crash-safe: a restarted coordinator
+    re-derives the same ids, so re-driving any leg is deduplicated by
+    the state machine's id-uniqueness (`exists`) instead of by
+    coordinator-local state.
+    """
+
+    __slots__ = ("tid", "hold_debit", "hold_credit", "post_debit",
+                 "post_credit", "void_debit", "void_credit", "comp")
+
+    _ROLES = ("hold_debit", "hold_credit", "post_debit", "post_credit",
+              "void_debit", "void_credit", "comp")
+
+    def __init__(self, tid: int) -> None:
+        self.tid = tid
+        for role in self._ROLES:
+            setattr(self, role, self._derive(tid, role))
+
+    @staticmethod
+    def _derive(tid: int, role: str) -> int:
+        digest = hashlib.sha256(
+            b"tb-xshard-2pc:" + role.encode() + b":"
+            + tid.to_bytes(16, "little")
+        ).digest()
+        value = int.from_bytes(digest[:16], "little") | (1 << 127)
+        if value == U128_MAX:  # id_must_not_be_int_max
+            value -= 1
+        return value
+
 
 
 def u128_get(row: np.void, name: str) -> int:
