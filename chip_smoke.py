@@ -255,6 +255,36 @@ built beside the host library):
                lane's flush threshold, so its K4 count is recorded).
                Prints events/s, request p50 / p99, the router's 2PC
                counters and resident memory
+  follower     (a) testing/vopr.py's FollowerVopr, tests/test_follower.py's
+               pinned seeds 0 (an upstream crash tearing the AOF, a
+               corrupt byte behind the read head) and 2 (six follower
+               crashes), the upstream replicas on TorchStateMachine on
+               the card (each engine), the follower replaying on the
+               oracle: it never lied (check_never_lied), was never
+               poisoned, and what it served and refused, the coverage
+               counters, every replica's HashLog digests, roots and
+               commit points equal the oracle's under the same seed.
+               (b) two `start` replicas on the card's device engine
+               (replica 0 with --aof), a `follower` process on replica
+               0's AOF with --upstream replica 0, and a `router
+               --followers=0:<follower>` (TB_READ_POLICY auto), all
+               started at once; the replicated phase's stream (full
+               8190-event batches over 1,000 accounts) written through
+               the router, each batch followed by a lookup_accounts and
+               a get_account_transfers read through it; the follower
+               SIGKILLed after 3 batches and restarted on its port after
+               the last.  Every read answered, equal to the oracle's
+               reply at its commit point (replica 0's AOF replayed op by
+               op); follower replies name the follower, op > 0 and a
+               nonzero root equal to replica 0's root at that op (its
+               state_root at-op query, K2 on the card); no attestation
+               mismatch, never poisoned; while it is dead every read
+               rides the primary and the router's follower redirects
+               rise; restarted, it replays the AOF from offset 0, serves
+               again and ends at replica 0's root; K1 and K2 update in
+               each replica's scrape.  Prints the reads each tier served,
+               the first attested serve's delay, the replay rate and
+               each process's resident memory
   benchmark    the CLI's `benchmark --transfers=1000000` on each engine,
                in its own process and against one `start` process
 
@@ -322,7 +352,8 @@ from tigerbeetle_tpu_torch.testing import orderfree_cases as of_cases
 from tigerbeetle_tpu_torch.testing import (flush_cases, scan_cases, semantic_cases,
                                           shard_cases, wave_cases)
 from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, ids_bytes
-from tigerbeetle_tpu_torch.testing.seeded import (SHARDED_VOPR_CASES, pinned_trace_ts,
+from tigerbeetle_tpu_torch.testing.seeded import (FOLLOWER_VOPR_CASES, SHARDED_VOPR_CASES,
+                                                  follower_vopr_run, pinned_trace_ts,
                                                   sharded_vopr_run)
 from tigerbeetle_tpu_torch.tools import launch_split, serial_probes
 from tigerbeetle_tpu_torch.types import (ACCOUNT_FILTER_DTYPE, TRANSFER_DTYPE,
@@ -4807,14 +4838,34 @@ def run_router_deployment(tmp: str) -> collections.Counter:
                   f"lacks its hold")
         posted = present["post_debit"] & present["post_credit"]
         voided = present["void_debit"] & present["void_credit"]
-        check((posted | voided)[caught].all(), "router: a transfer caught in doubt is not "
-                                               "posted or voided on both shards")
-        check((present["post_debit"] == present["post_credit"]).all(),
-              f"router: {int((present['post_debit'] != present['post_credit']).sum())} "
-              f"cross-shard transfers posted on one shard only")
+        # A compensated transfer is the third terminal state that the
+        # reference's ShardedVopr audit accepts (cluster.check_atomicity,
+        # vopr.py's refund adjustment): the debit hold posted, the credit
+        # hold voided, and the comp row refunding the debitor.  The kill
+        # makes one here when a stopped router had sent a transfer's
+        # credit hold but not yet its debit hold: the recovery's probe
+        # finds no debit hold and voids the credit hold, and the client's
+        # retransmission then creates the debit hold afresh and posts it.
+        comp = present["comp"]
+        compensated = comp & present["post_debit"] & ~present["post_credit"] \
+            & present["void_credit"] & aborted[crossing]
+
+        def roles(which: np.ndarray) -> str:
+            return "; ".join(f"{xids[i].tid}: " + ",".join(r for r in present if present[r][i])
+                             for i in np.flatnonzero(which)[:5])
+
+        undone = np.zeros(len(xids), bool)
+        undone[caught] = ~(posted | voided | compensated)[caught]
+        check(not undone.any(), f"router: a transfer caught in doubt is not posted or voided "
+                                f"on both shards, nor compensated: {roles(undone)}")
+        check((comp == compensated).all() and np.isin(np.flatnonzero(comp), caught).all(),
+              f"router: a compensation that is not a refund of a posted debit hold whose "
+              f"credit hold was voided, of a transfer in doubt at the kill: {roles(comp)}")
+        one_sided = (present["post_debit"] != present["post_credit"]) & ~compensated
+        check(not one_sided.any(), f"router: {int(one_sided.sum())} cross-shard transfers "
+                                   f"posted on one shard only: {roles(one_sided)}")
         check((posted == ok[crossing]).all() and not (posted & aborted[crossing]).any(),
               "router: a cross-shard transfer's holds disagree with its reply")
-        check(not present["comp"].any(), f"router: {int(present['comp'].sum())} compensations")
         coord = [types.coord_account_id(1), types.COORD_REGISTRY_ACCOUNT,
                  types.COORD_REGISTRY_FUNDING]
         sums = np.zeros((ROUTER_SHARDS, 4), object)
@@ -4822,6 +4873,12 @@ def run_router_deployment(tmp: str) -> collections.Counter:
         cols = ("debits_pending", "credits_pending", "debits_posted", "credits_posted")
         want_dp = np.bincount(dr[ok], weights=amount[ok], minlength=ROUTER_ACCOUNTS + 1)
         want_cp = np.bincount(cr[ok], weights=amount[ok], minlength=ROUTER_ACCOUNTS + 1)
+        # A refund is a reversing entry, not an erasure: the debitor shows
+        # the posted debit and the refunding credit.
+        refunded = np.flatnonzero(crossing)[compensated]
+        refund = np.bincount(dr[refunded], weights=amount[refunded], minlength=ROUTER_ACCOUNTS + 1)
+        want_dp += refund
+        want_cp += refund
         for s in range(ROUTER_SHARDS):
             accts = lookup_rows(direct[s], Operation.lookup_accounts, by_shard[s] + coord)
             check(len(accts) == len(by_shard[s]) + len(coord),
@@ -4888,12 +4945,14 @@ def run_router_deployment(tmp: str) -> collections.Counter:
           f"request p50 {lat_ms[len(lat_ms) // 2]:.2f} / p100 {lat_ms[-1]:.2f} ms over "
           f"{len(lat_ms)} requests (with so few, no p99 is kept); {int(crossing.sum())} "
           f"cross-shard ({int(posted.sum())} posted on both shards, {int(voided.sum())} voided "
-          f"on both, aborted by the kill); the router was killed on stop {tries}, "
-          f"{ROUTER_RUN_S} s apart, with {len(caught)} transfers in doubt ({int(posted[caught].sum())} "
-          f"then posted, {int(voided[caught].sum())} voided); the recovering router re-drove "
+          f"on both, aborted by the kill, {int(compensated.sum())} compensated); the router was "
+          f"killed on stop {tries}, {ROUTER_RUN_S} s apart, with {len(caught)} transfers in "
+          f"doubt ({int(posted[caught].sum())} then posted, {int(voided[caught].sum())} voided, "
+          f"{int(compensated[caught].sum())} compensated); the recovering router re-drove "
           f"{recovered.get('router.indoubt_recovered')} in {recovery_s:.2f} s from the kill "
           f"(2pc_commits {recovered.get('router.2pc_commits')}, 2pc_aborts "
-          f"{recovered.get('router.2pc_aborts')}); the serving router's scrape: "
+          f"{recovered.get('router.2pc_aborts')}, 2pc_compensations "
+          f"{recovered.get('router.2pc_compensations')}); the serving router's scrape: "
           f"indoubt_recovered {snap.get('router.indoubt_recovered')}, 2pc_commits "
           f"{snap.get('router.2pc_commits')}, 2pc_aborts {snap.get('router.2pc_aborts')}, "
           f"cross_shard_transfers {snap.get('router.cross_shard_transfers')}, 2pc_compensations "
@@ -4901,7 +4960,12 @@ def run_router_deployment(tmp: str) -> collections.Counter:
           f"router resident memory {router_rss:.1f} MiB before the kill, "
           f"{router_rss_after:.1f} after the restart; shards started in {start_s:.1f} s; "
           f"{card_line()}", flush=True)
-    check(snap.get("router.2pc_compensations", 0) == 0, "router: a compensation ran")
+    # Every compensation is flagged by the router that decided it, and no
+    # router flags one that left no refund behind.
+    flagged = recovered.get("router.2pc_compensations", 0) + snap.get("router.2pc_compensations", 0)
+    check((flagged > 0) == bool(compensated.any()) and flagged >= compensated.sum(),
+          f"router: the routers flagged {flagged} compensations, the shards hold "
+          f"{int(compensated.sum())}")
     return launches
 
 
@@ -4924,6 +4988,392 @@ def run_router_phase():
           f"wall time {time.perf_counter() - t0:.1f} s; checks passed", flush=True)
     return {name: main[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
 
+
+# ----------------------------------------------------------------------
+# Phase follower: the root-attested follower (runtime/follower.py).  (a)
+# FollowerVopr's pinned seeds 0 and 2 with their upstream replicas on
+# the card; (b) two `start` replicas on the device engine, a `follower`
+# process tailing replica 0's AOF and a `router` steering reads to it,
+# the follower killed with SIGKILL mid-run and restarted.
+
+FOLLOWER_CLUSTER = 23
+FOLLOWER_BATCHES = 6        # replicated_stream's first full 8190-event batches
+FOLLOWER_KILL_AFTER = 3     # batches written before the follower's SIGKILL
+FOLLOWER_ID = 3
+FOLLOWER_LOOKUP = 64        # accounts a lookup_accounts read names
+FOLLOWER_FILTER_LIMIT = 64  # rows a get_account_transfers read asks for
+FOLLOWER_WAIT_S = 120       # for the follower's first serve, its catch-up
+
+
+def run_follower_vopr() -> collections.Counter:
+    """Part (a) of phase follower."""
+    main = collections.Counter()
+    for seed, expect in FOLLOWER_VOPR_CASES:
+        t0 = time.perf_counter()
+        _, want = follower_vopr_run(seed)
+        oracle_s = time.perf_counter() - t0
+        for key, value in expect.items():
+            check(want["counters"][key] == value,
+                  f"follower/vopr: seed {seed}: {key} {want['counters'][key]}, pinned {value}")
+        for engine in ("host", "device"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            v, got = follower_vopr_run(seed, lambda: TorchStateMachine(
+                cfg.TEST_MIN, engine=engine, device=CARD))
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.launches)
+            machines = [r.sm for r in v.cluster.replicas]
+            check(all(sm.device == CARD and sm.engine == engine for sm in machines),
+                  f"follower/vopr/{engine}: an upstream replica is not on the card's {engine} "
+                  f"engine")
+            if engine == "device":
+                check(all((sm._dev.stat_link_errors, sm._dev.stat_demotions) == (0, 0)
+                          for sm in machines),
+                      f"follower/vopr/{engine}: a device engine lost its link")
+            for key in want:
+                check(got[key] == want[key],
+                      f"follower/vopr/{engine}: seed {seed}: {key} differ from the oracle's")
+            core = v.follower.core
+            check(not core.poisoned and v.reads_served > 0 and not core.tail.corrupt,
+                  f"follower/vopr/{engine}: seed {seed}: poisoned {core.poisoned}, "
+                  f"{v.reads_served} reads served, tail corrupt {core.tail.corrupt}")
+            for name in ("apply_deltas",) if engine == "host" else ("orderfree", "commit_update"):
+                check(launches[name] > 0, f"follower/vopr/{engine}: seed {seed}: no {name} "
+                                          f"launch ({_launched(launches)})")
+            main.update(launches)
+            c = got["counters"]
+            print(f"  follower/vopr/{engine}: seed {seed}, {c['reads_attempted']} reads "
+                  f"({c['reads_served']} served by the follower, {c['reads_fallback']} "
+                  f"refused), {c['follower_crashes']} follower crashes, "
+                  f"{c['upstream_crashes']} upstream crashes, {c['corruptions']} corruptions, "
+                  f"{c['partitions']} partitions, {c['pauses']} pauses: never lied; served "
+                  f"roots, refusals, counters, HashLog digests, roots and commit points equal "
+                  f"the oracle's; {seconds:.1f} s (oracle {oracle_s:.1f} s); launches "
+                  f"{_launched(launches)}; {card_line()}", flush=True)
+    return main
+
+
+def read_once(session, op, body: bytes, timeout_s: float = 60.0) -> tuple:
+    """One read through an OpenLoopSession; -> its completion
+    (request, kind, latency, reply body, operation, tier)."""
+    req = session.submit(op, body)
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        session.poll(20)
+        done = [c for c in session.completed if c[0] == req]
+        if done:
+            session.completed.remove(done[0])
+            return done[0]
+    check(False, f"follower: a {Operation(op).name} read got no answer in {timeout_s} s")
+
+
+def follower_reads(batch: int) -> list[tuple[int, bytes]]:
+    """The reads after `batch` writes: lookup_accounts of 64 accounts and
+    get_account_transfers of one account, both ways."""
+    FF = AccountFilterFlags
+    first = (batch * FOLLOWER_LOOKUP) % REPL_ACCOUNTS
+    ids = [(first + i) % REPL_ACCOUNTS + 1 for i in range(FOLLOWER_LOOKUP)]
+    return [(Operation.lookup_accounts, ids_bytes(ids)),
+            (Operation.get_account_transfers,
+             durable_filter(batch % REPL_ACCOUNTS + 1, FF.debits | FF.credits,
+                            FOLLOWER_FILTER_LIMIT))]
+
+
+def check_reads_against_oracle(aof_path: str, reads: list[dict]) -> int:
+    """Replay replica 0's AOF through the port's oracle op by op: every
+    follower-served read equals the oracle's reply at its commit_min
+    (and the oracle's root there its attested root), every
+    primary-served read the oracle's reply after the writes acknowledged
+    before it.  -> the ops replayed."""
+    from tigerbeetle_tpu_torch.state_machine import demuxer
+    from tigerbeetle_tpu_torch.vsr import aof as aof_mod
+    from tigerbeetle_tpu_torch.vsr import wire
+    from tigerbeetle_tpu_torch.vsr.wire import Command
+
+    at_op = collections.defaultdict(list)
+    after_writes = collections.defaultdict(list)
+    for r in reads:
+        if r["tier"] == "follower":
+            at_op[r["commit_min"]].append(r)
+        else:
+            after_writes[r["writes"]].append(r)
+    oracle = CpuStateMachine(cfg.PRODUCTION)
+
+    def held(r, where):
+        want = oracle.execute_read(r["op"], r["body"])
+        check(r["reply"] == want, f"follower: a {r['tier']}-served {Operation(r['op']).name} "
+                                  f"read differs from the oracle's at {where}")
+        if r["tier"] == "follower":
+            check(r["root"] == oracle.state_root(),
+                  f"follower: the attested root at op {r['commit_min']} is not the oracle's")
+        r["held"] = True
+
+    last_op, writes = 0, 0
+    for r in after_writes.pop(0, []):
+        held(r, "no writes")
+    for header, body in aof_mod.iterate(aof_path):
+        if (int(header["command"]) != Command.prepare or int(header["op"]) <= last_op
+                or wire.u128(header, "cluster") != FOLLOWER_CLUSTER):
+            continue
+        last_op = int(header["op"])
+        operation = int(header["operation"])
+        if operation >= Operation.pulse:
+            timestamp = int(header["timestamp"])
+            oracle.prepare_timestamp = timestamp
+            sm_op = Operation(operation)
+            n_subs = wire.u128(header, "context")
+            if n_subs and demuxer.batch_logical_allowed(sm_op):
+                body, _subs = demuxer.decode_trailer(body, n_subs)
+            oracle.prefetch(sm_op, body, prefetch_timestamp=timestamp)
+            oracle.commit(0, last_op, timestamp, sm_op, body)
+            if sm_op in (Operation.create_accounts, Operation.create_transfers):
+                writes += 1
+                for r in after_writes.pop(writes, []):
+                    held(r, f"write {writes}")
+        for r in at_op.pop(last_op, []):
+            held(r, f"op {last_op}")
+    check(all(r.get("held") for r in reads),
+          f"follower: {sum(not r.get('held') for r in reads)} reads found no op to be held at")
+    return last_op
+
+
+def run_follower_deployment(tmp: str) -> collections.Counter:
+    """Part (b) of phase follower."""
+    import signal
+
+    from tigerbeetle_tpu_torch.client import Client, OpenLoopSession
+    from tigerbeetle_tpu_torch.obs.scrape import scrape_state_root, scrape_stats
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    env.pop("TB_FASTPATH_DISABLE", None)
+    p0, p1, fport = free_ports(3)
+    addrs = [f"127.0.0.1:{p0}", f"127.0.0.1:{p1}"]
+    f_addr = f"127.0.0.1:{fport}"
+    aof_path = os.path.join(tmp, "r0.aof")
+    paths = [os.path.join(tmp, f"0_{i}.tigerbeetle") for i in range(2)]
+    bodies = replicated_stream(FOLLOWER_BATCHES)
+    cache_transfers = FOLLOWER_BATCHES * workload.BATCH + 2 * workload.BATCH + 1024
+    logs = {name: os.path.join(tmp, f"{name}.log")
+            for name in ("replica0", "replica1", "follower", "router")}
+    formats = [subprocess.Popen(
+        [sys.executable, "-m", "tigerbeetle_tpu_torch", "format", f"--cluster={FOLLOWER_CLUSTER}",
+         f"--replica={i}", "--replica-count=2", path],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    ) for i, path in enumerate(paths)]
+    for i, proc in enumerate(formats):
+        out, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"follower: format of replica {i} failed: {out[-2000:]}")
+    procs, clients, reads = {}, [], []
+    follower_args = ["follower", f"--listen={f_addr}", f"--aof={aof_path}",
+                     f"--upstream={addrs[0]}", f"--cluster={FOLLOWER_CLUSTER}",
+                     f"--id={FOLLOWER_ID}"]
+    f_env = dict(env, TB_FLIGHT_PATH=os.path.join(tmp, "flight_f.json"))
+    try:
+        # Every process starts at once: the follower tails an AOF that
+        # may not exist yet, the router reaches its shard lazily.
+        t0 = time.perf_counter()
+        for i, path in enumerate(paths):
+            r_env = dict(env, TB_ENGINE="device",
+                         TB_FLIGHT_PATH=os.path.join(tmp, f"flight_r{i}.json"))
+            args = ["start", f"--addresses={','.join(addrs)}", f"--replica={i}",
+                    f"--cache-accounts={1 << 12}", f"--cache-transfers={cache_transfers}",
+                    *([f"--aof={aof_path}"] if i == 0 else []), path]
+            procs[f"replica{i}"] = spawn_cli(args, r_env, logs[f"replica{i}"],
+                                             "listening on port ")[0]
+        t_follower = time.perf_counter()
+        procs["follower"] = spawn_cli(follower_args, f_env, logs["follower"],
+                                      "follower listening on port ")[0]
+        procs["router"] = spawn_cli(
+            ["router", "--listen=127.0.0.1:0", f"--shards={','.join(addrs)}",
+             f"--cluster={FOLLOWER_CLUSTER}", "--no-recover", f"--followers=0:{f_addr}"],
+            dict(env, TB_FLIGHT_PATH=os.path.join(tmp, "flight_router.json")), logs["router"],
+            "router listening on port ")[0]
+        deadline = time.monotonic() + REPL_START_S
+        ready = {}
+        for name, line in (("replica0", "listening on port "), ("replica1", "listening on port "),
+                           ("follower", "follower listening on port "),
+                           ("router", "router listening on port ")):
+            ready[name] = await_ready(procs[name], logs[name], line, 0, deadline,
+                                      f"follower: {name}")
+        start_s = time.perf_counter() - t0
+        for i in range(2):
+            text = open(logs[f"replica{i}"]).read()
+            check("engine device, device cuda:0" in text,
+                  f"follower: replica {i} does not name the card's device engine:\n{text}")
+        r_addr = f"127.0.0.1:{ready['router']}"
+        writer = Client(f"{r_addr},{r_addr}", FOLLOWER_CLUSTER, client_id=0x2301_0000,
+                        timeout_ms=REPL_TIMEOUT_MS)
+        clients.append(writer)
+        session = OpenLoopSession(r_addr, FOLLOWER_CLUSTER, 0x2301_0001)
+        clients.append(session)
+        state = {"writes": 0}
+
+        def write(op, body):
+            reply = writer._native.request(op, body, REPL_TIMEOUT_MS)
+            check(reply == b"", f"follower: a {Operation(op).name} batch failed")
+            state["writes"] += 1
+
+        def read_all(batch, phase):
+            for op, body in follower_reads(batch):
+                comp = read_once(session, op, body)
+                check(comp[1] == "reply", f"follower: a read was not answered ({comp[1]})")
+                tier = comp[5][0] if comp[5] else "primary"
+                reads.append({"op": int(op), "body": body, "reply": comp[3], "tier": tier,
+                              "writes": state["writes"], "phase": phase,
+                              "server": comp[5][1] if tier == "follower" else None,
+                              "commit_min": comp[5][2] if tier == "follower" else None,
+                              "root": comp[5][3] if tier == "follower" else None,
+                              "at": time.perf_counter()})
+
+        t_w = time.perf_counter()
+        write(Operation.create_accounts,
+              workload.accounts_bytes(np.arange(1, REPL_ACCOUNTS + 1, dtype=np.uint64)))
+        read_all(0, "up")
+        for b in range(FOLLOWER_KILL_AFTER):
+            write(Operation.create_transfers, bodies[b])
+            read_all(b + 1, "up")
+        # The first attested serve: reads until the follower answers one.
+        deadline = time.monotonic() + FOLLOWER_WAIT_S
+        while not any(r["tier"] == "follower" for r in reads):
+            check(time.monotonic() < deadline,
+                  f"follower: no read served by the follower in {FOLLOWER_WAIT_S} s")
+            time.sleep(0.2)
+            read_all(FOLLOWER_KILL_AFTER, "up")
+        first = next(r for r in reads if r["tier"] == "follower")
+        first_serve_s = first["at"] - t_follower
+        f_stats = scrape_stats(f_addr, FOLLOWER_CLUSTER, timeout_ms=20_000)
+        f_rss = rss_mib(procs["follower"].pid)
+        r_before = scrape_stats(r_addr, FOLLOWER_CLUSTER, timeout_ms=20_000)
+        # SIGKILL mid-run: the reads go on, through the primary.
+        procs["follower"].kill()
+        procs["follower"].wait()
+        for b in range(FOLLOWER_KILL_AFTER, FOLLOWER_BATCHES):
+            write(Operation.create_transfers, bodies[b])
+            read_all(b + 1, "down")
+        down = [r for r in reads if r["phase"] == "down"]
+        check(all(r["tier"] == "primary" for r in down),
+              "follower: a read was served by the killed follower")
+        r_after = scrape_stats(r_addr, FOLLOWER_CLUSTER, timeout_ms=20_000)
+        fallbacks = [r_after.get(k, 0) - r_before.get(k, 0)
+                     for k in ("router.follower_redirects", "router.follower_timeouts")]
+        check(sum(fallbacks) > 0, f"follower: the router's follower_redirects and "
+                                  f"follower_timeouts did not rise over the kill: {fallbacks}")
+        # The restart on the same port: a replay of the AOF from offset 0.
+        target = scrape_state_root(addrs[0], FOLLOWER_CLUSTER, timeout_ms=20_000)[1]
+        t_restart = time.perf_counter()
+        procs["follower"], _ = launch_cli(follower_args, f_env, logs["follower"],
+                                          "follower listening on port ", "follower (restarted)")
+        t_listen = time.perf_counter()
+        deadline = time.monotonic() + FOLLOWER_WAIT_S
+        while scrape_state_root(f_addr, FOLLOWER_CLUSTER, timeout_ms=20_000)[1] < target:
+            check(time.monotonic() < deadline,
+                  f"follower: the restarted follower did not replay to op {target} in "
+                  f"{FOLLOWER_WAIT_S} s")
+            time.sleep(0.1)
+        replay_s = time.perf_counter() - t_listen
+        restart_s = time.perf_counter() - t_restart
+        deadline = time.monotonic() + FOLLOWER_WAIT_S
+        while not any(r["tier"] == "follower" for r in reads if r["phase"] == "again"):
+            check(time.monotonic() < deadline,
+                  f"follower: the restarted follower served no read in {FOLLOWER_WAIT_S} s")
+            read_all(FOLLOWER_BATCHES, "again")
+            time.sleep(0.2)
+        # The final root: the follower caught up with replica 0.
+        deadline = time.monotonic() + FOLLOWER_WAIT_S
+        while True:
+            f_root, f_op = scrape_state_root(f_addr, FOLLOWER_CLUSTER, timeout_ms=20_000)
+            r0_root, r0_op = scrape_state_root(addrs[0], FOLLOWER_CLUSTER, timeout_ms=20_000)
+            if f_op == r0_op:
+                break
+            check(time.monotonic() < deadline,
+                  f"follower: the follower stayed at op {f_op}, replica 0 at {r0_op}")
+            time.sleep(0.2)
+        check(f_root == r0_root, f"follower: the follower's root at op {f_op} is not replica "
+                                 f"0's")
+        # Each attested (root, commit_min) against replica 0's root ring.
+        served = [r for r in reads if r["tier"] == "follower"]
+        for op in sorted({r["commit_min"] for r in served}):
+            root, at = scrape_state_root(addrs[0], FOLLOWER_CLUSTER, timeout_ms=20_000,
+                                         at_op=op)
+            check(at == op, f"follower: replica 0 no longer holds the root at op {op}")
+            check(all(r["root"] == root for r in served if r["commit_min"] == op),
+                  f"follower: an attested root at op {op} is not replica 0's")
+        check(all(r["server"] == FOLLOWER_ID and r["commit_min"] > 0 and r["root"] != bytes(16)
+                  for r in served), "follower: a follower reply names another server, op 0 "
+                                    "or a zero root")
+        f_stats_end = scrape_stats(f_addr, FOLLOWER_CLUSTER, timeout_ms=20_000)
+        for st in (f_stats, f_stats_end):
+            check(st.get("follower.attest_mismatch") == 0 and st.get("follower.poisoned") == 0
+                  and st.get("follower.attest_ok", 0) > 0,
+                  f"follower: attest_ok {st.get('follower.attest_ok')}, attest_mismatch "
+                  f"{st.get('follower.attest_mismatch')}, poisoned {st.get('follower.poisoned')}")
+        stats = [scrape_stats(a, FOLLOWER_CLUSTER, timeout_ms=20_000) for a in addrs]
+        rss = {name: rss_mib(p.pid) for name, p in procs.items()}
+        rss["follower (first)"] = f_rss
+    finally:
+        for c in clients:
+            c.close()
+        names = list(procs)
+        codes = stop_processes(list(procs.values()))
+    check(all(c == 0 for n, c in zip(names, codes)),
+          f"follower: exit codes after SIGTERM {dict(zip(names, codes))}"
+          + "".join(f"\n{n}: " + open(logs[n]).read()[-3000:] for n in logs))
+    replayed = check_reads_against_oracle(aof_path, reads)
+    launches = collections.Counter()
+    for i, st in enumerate(stats):
+        got = collections.Counter({name[len("sm.launches."):]: int(v) for name, v in st.items()
+                                   if name.startswith("sm.launches.")})
+        check(st.get("sm.card.reserved_bytes", 0) > 0 and st.get("sm.dev.semantic_events", 0) > 0,
+              f"follower: replica {i} holds no card memory or ran no device-engine event")
+        for name in ("orderfree", "commit_update"):
+            check(got[name] > 0, f"follower: no {name} launch in replica {i} ({_launched(got)})")
+        launches.update(got)
+        print(f"  follower/replica{i} (device engine): launches {_launched(got)}; resident "
+              f"memory {rss[f'replica{i}']:.1f} MiB; {card_line()}", flush=True)
+    print(replay_aof("follower/replica0", aof_path, FOLLOWER_BATCHES, r0_op, r0_root,
+                     cluster=FOLLOWER_CLUSTER), flush=True)
+    tiers = collections.Counter(r["tier"] for r in reads)
+    print(f"  follower/deployment: {FOLLOWER_BATCHES} batches of {workload.BATCH} transfers "
+          f"over {REPL_ACCOUNTS} accounts through the router, {len(reads)} reads "
+          f"(lookup_accounts of {FOLLOWER_LOOKUP}, get_account_transfers limit "
+          f"{FOLLOWER_FILTER_LIMIT}): {tiers['follower']} served by the follower, "
+          f"{tiers['primary']} by the primary ({len(down)} while it was dead), every reply "
+          f"equal to the oracle's at its commit point ({replayed} ops of replica 0's AOF); "
+          f"attested roots at {len({r['commit_min'] for r in served})} ops equal replica 0's; "
+          f"four processes started in {start_s:.1f} s; first attested serve {first_serve_s:.1f} "
+          f"s after the follower's spawn; the router's follower redirects / timeouts over the "
+          f"kill {fallbacks[0]} / {fallbacks[1]}; the restarted follower listened after "
+          f"{t_listen - t_restart:.1f} s and replayed {target} ops in {replay_s:.2f} s "
+          f"({target / max(replay_s, 1e-9):.1f} ops/s; {restart_s:.1f} s from the restart), "
+          f"then served again, its final root at op {f_op} equal to replica 0's; attest_ok "
+          f"{f_stats.get('follower.attest_ok')} before the kill, "
+          f"{f_stats_end.get('follower.attest_ok')} after the restart; resident memory MiB "
+          f"{ {k: round(v or 0, 1) for k, v in rss.items()} }; writes "
+          f"{time.perf_counter() - t_w:.1f} s; {card_line()}", flush=True)
+    return launches
+
+
+def run_follower_phase():
+    """Phase follower: (a) then (b)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    main = run_follower_vopr()
+    tmp = tempfile.mkdtemp(prefix="tb_follower_")
+    try:
+        where = file_system(tmp)
+        main.update(run_follower_deployment(tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase follower (FollowerVopr seeds 0 and 2 with their replicas on the card on each "
+          f"engine, then two device-engine `start` replicas, a `follower` process on replica "
+          f"0's AOF and a `router` steering reads to it, data files on {where}; {card_line()}): "
+          f"equal to the oracle; never lied; attested roots equal replica 0's; the SIGKILL "
+          f"survived and the restarted follower served again; wall time "
+          f"{time.perf_counter() - t0:.1f} s; checks passed", flush=True)
+    return {name: main[name] for name in kernels.launches}, dict.fromkeys(kernels.launches, 0)
 
 # ----------------------------------------------------------------------
 # Phase benchmark: the CLI's load generator (benchmark.py) at the
@@ -5379,6 +5829,7 @@ def run_all(card, durable_oracle) -> int:
     phases["cluster"] = run_cluster_phase()
     phases["vopr"] = run_vopr_phase()
     phases["router"] = run_router_phase()
+    phases["follower"] = run_follower_phase()
     phases["benchmark"] = run_benchmark_phase()
     for name in MAIN_PATH:
         check(sum(p[0][name] for p in phases.values()) > 0,

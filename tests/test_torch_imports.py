@@ -305,3 +305,61 @@ def test_cli_usage_and_router_run_without_a_card():
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert bad.returncode != 0 and "--shards" in bad.stderr, bad.stderr
+
+
+# The modules of the follower and tbcheck slice.
+FOLLOWER_SLICE = (
+    "envcheck", "runtime.follower", "testing.cluster", "testing.vopr", "analysis",
+    "analysis.core", "analysis.imports", "analysis.layout", "analysis.rules", "cli",
+)
+
+
+def test_follower_and_tbcheck_slice_run_without_jax(tmp_path):
+    """A fresh interpreter imports the slice's modules, runs one pinned
+    FollowerVopr seed, serves one poll of a TCP FollowerServer over an
+    empty AOF, lints one module of the port, and checks the CLI's
+    `follower` and `lint` usage: neither JAX nor the JAX package is
+    loaded."""
+    code = (
+        "import importlib, io, sys, contextlib, time\n"
+        f"for m in {FOLLOWER_SLICE!r}: importlib.import_module('tigerbeetle_tpu_torch.' + m)\n"
+        "from tigerbeetle_tpu_torch import cli\n"
+        "from tigerbeetle_tpu_torch import constants as cfg\n"
+        "from tigerbeetle_tpu_torch.analysis import run_lint\n"
+        "from tigerbeetle_tpu_torch.runtime.follower import FollowerServer\n"
+        "from tigerbeetle_tpu_torch.state_machine import CpuStateMachine\n"
+        "from tigerbeetle_tpu_torch.testing.vopr import FollowerVopr\n"
+        "v = FollowerVopr(2)\n"
+        "v.run()\n"
+        "assert v.reads_served > 0 and not v.follower.core.poisoned\n"
+        f"aof = {str(tmp_path / 'r0.aof')!r}\n"
+        "open(aof, 'wb').close()\n"
+        "f = FollowerServer('127.0.0.1:0', aof_path=aof, upstream_address='127.0.0.1:1',\n"
+        "                   cluster=3, state_machine=CpuStateMachine(cfg.TEST_MIN),\n"
+        "                   clock_ns=time.monotonic_ns)\n"
+        "f.poll_once(1)\n"
+        "f.close()\n"
+        "r = run_lint(files=[sys.modules['tigerbeetle_tpu_torch.runtime.follower'].__file__])\n"
+        "assert r.findings == [] and r.checked_files == 1, r.findings\n"
+        "assert 'follower   --listen=' in cli.USAGE and 'lint       [--json]' in cli.USAGE\n"
+        "err = io.StringIO()\n"
+        "with contextlib.redirect_stderr(err):\n"
+        "    try:\n"
+        "        cli.main(['follower', '--listen=127.0.0.1:0'])\n"
+        "    except SystemExit as exc:\n"
+        "        assert exc.code != 0\n"
+        "assert '--aof' in err.getvalue(), err.getvalue()\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    env["TB_FLIGHT_PATH"] = str(tmp_path / "flight.json")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=180,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "CLEAN", out.stdout

@@ -9,7 +9,9 @@ CPU in its place).  `run_both` runs one case in each package under a
 recorder that keeps what the case's clusters did: every client reply
 the case asked for, every reply each of its clusters' clients received,
 each replica's ``HashLog`` digests op by op, its commit point and state
-root, and the bytes of every ``MemoryStorage``.
+root, the bytes of every ``MemoryStorage``, and what each of its
+``SimFollower``s served and refused (with each ``FollowerVopr``'s
+nemesis and read counters).
 The two recordings must be equal, and each run must pass the case's own
 assertions.
 
@@ -35,6 +37,8 @@ import types as pytypes
 from pathlib import Path
 
 import pytest
+
+from tigerbeetle_tpu_torch.testing.seeded import FOLLOWER_VOPR_COUNTERS
 
 TESTS = Path(__file__).resolve().parent
 PORT, REF = "tigerbeetle_tpu_torch", "tigerbeetle_tpu"
@@ -63,7 +67,23 @@ def _port_source(text: str) -> str:
         lambda m: m.group(0) if importlib.util.find_spec(m.group(1)) else "",
         text, flags=re.M,
     )
+    # Likewise a module-level parenthesized import naming something the
+    # port's module does not have (test_envcheck.py's device_engine
+    # helper lives in the port's envcheck.py).
+    text = re.sub(
+        rf"^from ({PORT}[\w.]*) import \(([^)]*)\)\n",
+        lambda m: m.group(0) if _has_names(m.group(1), m.group(2)) else "",
+        text, flags=re.M,
+    )
     return text
+
+
+def _has_names(module: str, names: str) -> bool:
+    if importlib.util.find_spec(module) is None:
+        return False
+    mod = importlib.import_module(module)
+    wanted = [n.split(" as ")[0].strip() for n in names.split(",")]
+    return all(hasattr(mod, n) for n in wanted if n)
 
 
 _LOADED: dict[tuple[str, str], pytypes.ModuleType] = {}
@@ -79,17 +99,23 @@ def load(test_file: str, package: str) -> pytypes.ModuleType:
     text = (TESTS / test_file).read_text()
     if package == PORT:
         text = _port_source(text)
-    text = re.sub(r"^@pytest\.fixture(\(.*\))?\n", "", text, flags=re.M)
     # Helpers imported from another reference test module come from
     # that module loaded for the same package.
     for dep in sorted(set(re.findall(r"^from (test_\w+) import", text, flags=re.M))):
         text = text.replace(f"from {dep} import", f"from {load(dep + '.py', package).__name__} import")
-    name = f"_repoint_{package}_{Path(test_file).stem}"
+    mod = exec_source(test_file, f"_repoint_{package}_{Path(test_file).stem}", text)
+    _LOADED[key] = mod
+    return mod
+
+
+def exec_source(test_file: str, name: str, text: str) -> pytypes.ModuleType:
+    """`text` (a test module's source, already re-pointed) run as module
+    `name`, its pytest fixtures unwrapped into plain functions."""
+    text = re.sub(r"^@pytest\.fixture(\(.*\))?\n", "", text, flags=re.M)
     mod = pytypes.ModuleType(name)
     mod.__file__ = str(TESTS / test_file)
     sys.modules[name] = mod
     exec(compile(text, str(TESTS / test_file), "exec"), mod.__dict__)
-    _LOADED[key] = mod
     return mod
 
 
@@ -118,6 +144,7 @@ class Recorder:
     def __init__(self) -> None:
         self.clusters: list = []
         self.sharded: list = []
+        self.follower_voprs: list = []
         self.replies: list[bytes] = []
 
     def observations(self) -> list:
@@ -136,14 +163,25 @@ class Recorder:
                 (cid, list(cl.replies)) for cid, cl in sorted(c.clients.items())
                 if hasattr(cl, "replies")
             ]
+            followers = [
+                (list(f.served), list(f.refusals), f.crashes, f.core.commit_min,
+                 f.core.attested_op, f.core.poisoned,
+                 sorted(f.core.registry.snapshot().items()))
+                for f in getattr(c, "followers", ())
+            ]
             out.append({
                 "replicas": replicas, "hash_logs": hash_logs, "images": images,
-                "client_replies": client_replies,
+                "client_replies": client_replies, "followers": followers,
             })
         routed = [
             [(cl.id, list(cl.replies)) for cl in sc.clients] for sc in self.sharded
         ]
-        return [{"replies": self.replies, "routed_replies": routed}, *out]
+        voprs = [
+            {k: getattr(v, k) for k in FOLLOWER_VOPR_COUNTERS} for v in self.follower_voprs
+        ]
+        return [{"replies": self.replies, "routed_replies": routed,
+                 "follower_voprs": voprs}, *out]
+
 
 
 @contextlib.contextmanager
@@ -199,6 +237,14 @@ def recording(package: str, arm: str, monkeypatch):
 
         m.setattr(cl.ShardedCluster, "__init__", recording_sharded_init)
         m.setattr(cl.ShardedCluster, "run_request", recording_sharded_run_request)
+        vopr = importlib.import_module(f"{package}.testing.vopr")
+        follower_vopr_init = vopr.FollowerVopr.__init__
+
+        def recording_follower_vopr_init(self, *args, **kwargs):
+            follower_vopr_init(self, *args, **kwargs)
+            rec.follower_voprs.append(self)
+
+        m.setattr(vopr.FollowerVopr, "__init__", recording_follower_vopr_init)
         if package == PORT:
             chaos = importlib.import_module(f"{PORT}.testing.chaos")
             m.setattr(
@@ -306,7 +352,8 @@ def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None, autouse=
     assert len(got) == len(want), "the runs built different numbers of clusters"
     assert got[0]["replies"] == want[0]["replies"], "client replies differ"
     assert got[0]["routed_replies"] == want[0]["routed_replies"], "routed client replies differ"
+    assert got[0]["follower_voprs"] == want[0]["follower_voprs"], "FollowerVopr counters differ"
     for i, (g, w) in enumerate(zip(got[1:], want[1:])):
-        for key in ("replicas", "hash_logs", "images", "client_replies"):
+        for key in ("replicas", "hash_logs", "images", "client_replies", "followers"):
             assert g[key] == w[key], f"cluster {i}: {key} differ"
     return got

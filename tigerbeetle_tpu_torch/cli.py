@@ -1,4 +1,5 @@
-"""CLI: version | format | start | router | repl | benchmark | bindings | trace-demo.
+"""CLI: version | format | start | router | follower | repl | benchmark | bindings |
+trace-demo | lint.
 
 The port's copy of ``tigerbeetle_tpu/cli.py``, with the commands whose
 modules the port has (reference: src/tigerbeetle/cli.zig:106-128).
@@ -6,8 +7,9 @@ modules the port has (reference: src/tigerbeetle/cli.zig:106-128).
 ``TorchStateMachine`` on the first CUDA card, or the port's CPU oracle
 under ``--cpu``; without a card and without ``--cpu`` they exit non-zero
 and say so.  ``router`` runs no state machine and needs no card: the
-shards it fronts are ``start`` processes.  ``follower`` and ``lint``
-come with the port's follower and tbcheck.
+shards it fronts are ``start`` processes.  ``follower`` replays on the
+port's CPU oracle, as the reference's does, and needs no card either.
+``lint`` runs tbcheck over the port's package.
 """
 # tbcheck: allow-file(no-print): the CLI's stdout IS its interface
 # (command results, usage, listen-port handshake).
@@ -16,6 +18,7 @@ from __future__ import annotations
 
 import json
 import sys
+import time
 
 from tigerbeetle_tpu_torch import flags
 from tigerbeetle_tpu_torch import constants as cfg
@@ -45,11 +48,24 @@ commands:
               cross-shard transfers from shard state; --followers
               names read-only followers reads steer to under
               TB_READ_POLICY)
+  follower   --listen=<host:port> --aof=<path> --upstream=<host:port>
+             --cluster=<int> [--id=<n>]
+             (read-only follower: tails the upstream replica's AOF,
+              replays it, serves lookup/filter reads at a stated
+              commit_min with every reply carrying the state root,
+              attested against the upstream's root ring — refuses
+              typed rather than serve unverifiable state)
   version
   repl       --addresses=<host:port> [--cluster=<int>] [--command=<stmts>]
   benchmark  [--transfers=N] [--accounts=N] [--batch=N] [--addresses=...]
              [--statsd-port=N] [--cpu]
   bindings   [--out=<dir>]   (generate C / TypeScript / Go type bindings)
+  trace-demo [--out=<path>] [--replicas=N] [--batches=N]
+             (drive a replicated drain with tracing on and write one
+              merged Perfetto-loadable timeline)
+  lint       [--json] [paths...]
+             (tbcheck: AST invariant lint over the package — exits
+              nonzero on any unsuppressed finding)
   trace-demo [--out=<path>] [--replicas=N] [--batches=N]
              (drive a replicated drain with tracing on and write one
               merged Perfetto-loadable timeline)
@@ -215,6 +231,50 @@ def cmd_router(args: list[str]) -> None:
         server.close()
 
 
+def cmd_follower(args: list[str]) -> None:
+    opts, paths = flags.parse(
+        args,
+        {"listen": "127.0.0.1:0", "aof": None, "upstream": None,
+         "cluster": 0, "id": 0},
+    )
+    if paths:
+        flags.fatal("follower takes no positional arguments")
+    if not opts["aof"] or not opts["upstream"]:
+        flags.fatal("follower requires --aof=<path> and "
+                    "--upstream=<host:port>")
+    from tigerbeetle_tpu_torch.runtime import affinity
+    from tigerbeetle_tpu_torch.runtime.follower import FollowerServer
+    from tigerbeetle_tpu_torch.state_machine import CpuStateMachine
+
+    pinned = affinity.apply(slot=opts["id"])
+    if pinned is not None:
+        print(f"pinned to cores {list(pinned)}", flush=True)
+
+    # Followers replay on the CPU state machine (deterministic host
+    # replay, no device needed; its state_root equals the card
+    # engine's for the same commit stream) — a device-engine follower
+    # is a deliberate scope cut for now.
+    server = FollowerServer(
+        opts["listen"], aof_path=opts["aof"],
+        upstream_address=opts["upstream"], cluster=opts["cluster"],
+        state_machine=CpuStateMachine(cfg.PRODUCTION),
+        clock_ns=time.monotonic_ns, follower_id=opts["id"],
+    )
+    print(f"follower listening on port {server.port}", flush=True)
+    import signal
+
+    def _stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _stop)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+
+
 def cmd_repl(args: list[str]) -> None:
     opts, _ = flags.parse(
         args, {"addresses": None, "cluster": 0, "command": ""}
@@ -274,6 +334,12 @@ def cmd_bindings(args: list[str]) -> None:
         print(f"wrote {path}")
 
 
+def cmd_lint(args: list[str]) -> None:
+    from tigerbeetle_tpu_torch import analysis
+
+    raise SystemExit(analysis.main(args))
+
+
 def main(argv: list[str] | None = None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -288,12 +354,16 @@ def main(argv: list[str] | None = None) -> None:
         cmd_start(rest)
     elif command == "router":
         cmd_router(rest)
+    elif command == "follower":
+        cmd_follower(rest)
     elif command == "repl":
         cmd_repl(rest)
     elif command == "benchmark":
         cmd_benchmark(rest)
     elif command == "bindings":
         cmd_bindings(rest)
+    elif command == "lint":
+        cmd_lint(rest)
     elif command == "trace-demo":
         cmd_trace_demo(rest)
     else:

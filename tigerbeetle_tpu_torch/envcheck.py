@@ -7,6 +7,7 @@ and the constraint — the same contract as the reference package's
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 
@@ -60,6 +61,23 @@ def env_is_set(name: str) -> bool:
     """True when the variable is present and non-empty (toggles whose
     value is not read)."""
     return bool(os.environ.get(name))
+
+
+@contextlib.contextmanager
+def env_pinned(name: str, value: str):
+    """Set the knob `name` to `value` for the body of a with-block,
+    then restore its earlier value, or its absence.  For a process-edge
+    entry point that runs one step under a setting (graft_entry.py's dry
+    run); the readers below still validate what that step reads."""
+    saved = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = saved
 
 
 def fastpath_disabled() -> bool:
@@ -436,6 +454,50 @@ def read_policy() -> str:
     return env_choice(
         "TB_READ_POLICY", "auto", ("auto", "primary", "follower")
     )
+
+
+def read_staleness_ops() -> int:
+    """TB_READ_STALENESS_OPS: bounded-staleness policy — the most ops
+    a serving follower may lag the primary's attested commit point
+    before it refuses reads with a typed `lagging` busy (clients /
+    the router then redirect to the primary).  0 = the follower only
+    serves when fully caught up to the last attestation."""
+    return env_int("TB_READ_STALENESS_OPS", 512, minimum=0,
+                   maximum=1 << 30)
+
+
+def follower_attest_ms() -> int:
+    """TB_FOLLOWER_ATTEST_MS: cadence of the follower's attestation
+    query (state_root at-op against the upstream replica).  Lower =
+    fresher lag estimate + tighter divergence detection window, more
+    query traffic."""
+    return env_int("TB_FOLLOWER_ATTEST_MS", 100, minimum=1,
+                   maximum=60_000)
+
+
+def follower_attest_max_ms() -> int:
+    """TB_FOLLOWER_ATTEST_MAX_MS: maximum age of the last successful
+    attestation before a follower refuses reads as `lagging`.  The
+    lag estimate (last_primary_op) is a high-water mark fed by
+    attestation replies — under a FULL partition (upstream AND log
+    unreachable) nothing moves it, so without an age bound a follower
+    that attested once would serve frozen state forever while
+    claiming lag 0.  Must exceed the attestation cadence
+    (TB_FOLLOWER_ATTEST_MS) with room for a few lost replies; the
+    default (2000 ms) is 20 cadences of the default 100 ms."""
+    return env_int("TB_FOLLOWER_ATTEST_MAX_MS", 2000, minimum=1,
+                   maximum=24 * 3600 * 1000)
+
+
+def follower_ring() -> int:
+    """TB_FOLLOWER_ROOT_RING: per-op state roots the FOLLOWER retains
+    while replaying, for verifying primary attestations that answer a
+    few ops behind its replay head.  Named constraint: must be >= 16 —
+    a ring smaller than one attestation round trip's worth of commits
+    discards the root every verification needs and the follower can
+    never attest under write load."""
+    return env_int("TB_FOLLOWER_ROOT_RING", 4096, minimum=16,
+                   maximum=1 << 20)
 
 
 def read_fallback_ms() -> int:

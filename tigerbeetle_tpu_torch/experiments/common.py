@@ -10,6 +10,8 @@ device engine's simple stream does.  Batch g of a stack or superbatch
 is drawn from seed + g, so a launch that read the wrong batch would
 not pass the final check.
 """
+# tbcheck: allow-file(no-print): main_of() is every probe's command-line
+# entry — the card line and the tape check print to stdout by design.
 
 from __future__ import annotations
 

@@ -9,6 +9,8 @@ two_phase_lo_staged, each on its kind's probe batches (chains of 4 for
 linked) in a G = 8 superbatch uploaded once; one warm-up call, then
 32 K timed calls on batches k % 8 and ring rows k % 256.
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

@@ -9,6 +9,8 @@ per batch): ``scan_of(kind, 1)`` on the kind's probe batch (chains of 4
 for the linked kinds), one warm-up call, then 32 K timed calls on ring
 rows k % 256.
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

@@ -8,6 +8,8 @@ two_phase_lo): for each kind, one warm-up launcher call, then K timed
 calls of 16 batches back to back from a resident (16, B, C) stack, with
 no host sync between them; ring rows (k * 16) % 128 onward.
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

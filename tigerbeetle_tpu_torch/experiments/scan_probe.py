@@ -10,6 +10,8 @@ k % 256; (b) ``scan_of("orderfree_lo", 8)`` on the superbatch viewed
 as a (G, B, C) stack (no copy), uploaded afresh before each call, ring
 rows (k * G) % 128.  Each arm ends by fetching the ring to the host.
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

@@ -10,6 +10,8 @@ batches back to back (ts_base = g * n), no host sync between them;
 then 64 K single-batch calls (``scan_of(kind, 1)``), each followed by a
 sync, over the G = 8 stack.
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

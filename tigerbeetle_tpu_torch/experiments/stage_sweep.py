@@ -8,6 +8,8 @@ in (8, 128), (16, 128), (32, 128), (64, 128), (32, 64), (64, 64), K R
 timed batches on ring rows 0..R-1 in turn, the ring fetched to the host
 after every R of them (and once at the end if a cycle is open).
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

@@ -7,6 +7,8 @@ Counterpart of the reference's experiments/staged_prod_probe.py: for
 (R, drain first) in (64, no), (64, yes), (128, yes), (32, yes), K R
 timed orderfree_lo_staged batches, as stage_sweep runs them.
 """
+# tbcheck: allow-file(no-print): a command-line probe — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

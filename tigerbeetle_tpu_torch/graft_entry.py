@@ -23,17 +23,18 @@ Devices: with no ``devices``, every CUDA card when there are
 ``n_devices`` of them, else ``[cuda:0] * n_devices`` (a mesh may repeat a
 device); ``["cpu"] * 8`` runs the plain versions on the CPU.
 """
+# tbcheck: allow-file(no-print): the module's command-line entry prints
+# its one-word verdict on stdout, as the repository's __graft_entry__.py does.
 
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 
 import numpy as np
 import torch
 
-from tigerbeetle_tpu_torch import types
+from tigerbeetle_tpu_torch import envcheck, types
 from tigerbeetle_tpu_torch.device import resolve_device
 from tigerbeetle_tpu_torch.parallel import sharded
 from tigerbeetle_tpu_torch.state_machine import kernel, waves
@@ -306,9 +307,7 @@ def _dryrun_sharded_waves(devices) -> None:
     drain — replies must match the CPU oracle byte for byte and no
     batch may decline."""
     TF = types.TransferFlags
-    saved = os.environ.get("TB_DEV_WAVES")
-    os.environ["TB_DEV_WAVES"] = "1"
-    try:
+    with envcheck.env_pinned("TB_DEV_WAVES", "1"):
         sm = TorchStateMachine(engine="device", account_capacity=1 << 12, devices=devices)
         _check(len(devices) < 2 or sm._dev.sharding is not None,
                "engine table must be mesh-sharded")
@@ -358,11 +357,6 @@ def _dryrun_sharded_waves(devices) -> None:
             _check(sm._dev.stat_wave_sharded == 3,
                    f"{sm._dev.stat_wave_sharded} sharded wave plans, want 3")
         sm.verify_device_mirror()
-    finally:
-        if saved is None:
-            os.environ.pop("TB_DEV_WAVES", None)
-        else:
-            os.environ["TB_DEV_WAVES"] = saved
 
 
 def main(argv=None) -> int:

@@ -1724,9 +1724,10 @@ class DeviceEngine:
         try:
             self.drain()
             self.flush()
-        except Exception as exc:  # noqa: BLE001
-            # Even the host replay failed: every stranded future still
-            # terminates, with a typed error.
+        # tbcheck: allow(broad-except): end-of-life barrier — when even
+        # the host replay fails, every stranded future must still be
+        # terminated with a typed DeviceLostError (never a hang).
+        except Exception as exc:
             for rec in self._recovering + self._launched + self._pending:
                 if rec.future is not None and not rec.future.done():
                     rec.future.fail(DeviceLostError("close", exc))
@@ -1786,9 +1787,10 @@ class DeviceEngine:
             else:
                 self.stat_degraded_events += rec.n
                 fut.resolve(rec.fallback())
-        except Exception as exc:  # noqa: BLE001
-            # The host replay itself failed: fail this future with the
-            # real error and keep terminating the rest of the stream.
+        # tbcheck: allow(broad-except): the host replay itself failed —
+        # fail THIS future with the real error and keep terminating the
+        # rest of the stream (one bad record must not strand the rest).
+        except Exception as exc:
             fut.fail(exc)
         finally:
             self._release_bound(rec)

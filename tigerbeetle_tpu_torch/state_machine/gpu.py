@@ -908,6 +908,27 @@ class TorchStateMachine:
             return ReplyFuture(value=self._get_account_balances(input_bytes))
         raise AssertionError(operation)
 
+    def execute_read(self, operation: Operation, input_bytes: bytes) -> bytes:
+        """Serve a read without committing it: the reply commit() would
+        give for the same operation at the current state, with no
+        state effects, as the oracle's execute_read
+        (state_machine/cpu.py).  The device engine's in-flight batches
+        land first, so the read sees every committed batch.  The
+        reference's TpuStateMachine has no such method; here the
+        follower harness (testing/vopr.py FollowerVopr) reads a card
+        replica through it."""
+        operation = Operation(operation)
+        assert operation in types.READ_OPERATIONS, operation
+        assert self.input_valid(operation, input_bytes)
+        self._engine_drain()
+        if operation == Operation.lookup_accounts:
+            return self._lookup_accounts(input_bytes)
+        if operation == Operation.lookup_transfers:
+            return self._lookup_transfers(input_bytes)
+        if operation == Operation.get_account_transfers:
+            return self._get_account_transfers(input_bytes)
+        return self._get_account_balances(input_bytes)
+
     # ------------------------------------------------------------------
     # Accounts (cold path: per-event, exact oracle semantics).
 

@@ -10,12 +10,11 @@ runs — which is also how card-vs-CPU state parity is checked
 reproducibly.
 
 This package's own copy of ``tigerbeetle_tpu/testing/cluster.py``
-(``PacketSimulator``, ``SimClient``, ``SimAof``, ``Cluster``, the
-router's sharded harness ``SimRouter`` / ``RoutedClient`` /
-``ShardedCluster``, and the trace tools ``merge_traces`` and
-``trace_demo``); the default state machine is the port's oracle
-``state_machine/cpu.py``.  ``SimFollower`` comes with the port's
-follower.
+(``PacketSimulator``, ``SimClient``, ``SimAof``, ``Cluster``,
+``SimFollower``, the router's sharded harness ``SimRouter`` /
+``RoutedClient`` / ``ShardedCluster``, and the trace tools
+``merge_traces`` and ``trace_demo``); the default state machine is the
+port's oracle ``state_machine/cpu.py``.
 """
 
 from __future__ import annotations
@@ -680,6 +679,141 @@ class Cluster:
             )
 
         self.run_until(converged, max_steps)
+
+
+class SimFollower:
+    """Deterministic follower harness: the EXACT FollowerCore the TCP
+    FollowerServer runs, driven tick-by-tick over a SimAof's buffer,
+    with attestation modeled as direct state_root at-op queries
+    against the cluster's replicas (the wire transport is covered by
+    the tier-1 TCP smoke; the sim covers the state machine).
+
+    Nemesis surface: `partitioned` stops attestations (the follower
+    cannot reach the upstream), `paused` stops replay (lag injection),
+    `crash_restart()` rebuilds the core from a fresh state machine and
+    offset 0 (crash mid-tail: everything re-derives from the log).
+    Every serve() goes through `read()`, which appends the attested
+    (root, commit_min) of successful replies to `served` — the
+    refuse-not-lie audit replays that list against
+    cluster.root_history.
+    """
+
+    def __init__(self, cluster: Cluster, upstream: int, *,
+                 follower_id: int = 1, staleness_ops: int = 64,
+                 attest_every: int = 4,
+                 state_machine_factory=None) -> None:
+        assert upstream in cluster.aofs, "upstream replica keeps no AOF"
+        assert cluster.root_ring_size, "attestation needs the root ring"
+        self.cluster = cluster
+        self.upstream = upstream
+        self.follower_id = follower_id
+        self.staleness_ops = staleness_ops
+        self.attest_every = attest_every
+        self._factory = (
+            state_machine_factory
+            or (lambda: CpuStateMachine(cluster.config))
+        )
+        self.partitioned = False
+        self.paused = False
+        self._ticks = 0
+        self._attest_current = False
+        self.served: list[tuple[bytes, int]] = []  # (root, commit_min)
+        self.refusals: list[int] = []              # FollowerRefuse codes
+        self.crashes = 0
+        self._new_core()
+        cluster.followers.append(self)
+
+    def _new_core(self) -> None:
+        from tigerbeetle_tpu_torch.runtime.follower import FollowerCore
+
+        self.core = FollowerCore(
+            self.cluster.aofs[self.upstream].source(),
+            cluster=self.cluster.cluster_id,
+            state_machine=self._factory(),
+            follower_id=self.follower_id,
+            staleness_ops=self.staleness_ops,
+        )
+
+    # -- nemesis --------------------------------------------------------
+
+    def crash_restart(self) -> None:
+        """kill -9 mid-tail: all volatile state (replayed state
+        machine, attestation progress, resume offset) dies; the
+        restarted follower re-derives everything from the log and must
+        refuse (unattested) until it re-verifies."""
+        self.crashes += 1
+        self._new_core()
+
+    # -- drive ----------------------------------------------------------
+
+    def tick(self) -> None:
+        if self.paused:
+            return
+        self._ticks += 1
+        self.core.pump()
+        if self._ticks % self.attest_every == 0:
+            self._attest()
+
+    def _attest(self) -> None:
+        """One sessionless state_root query against the upstream
+        replica, alternating at-op (verification) with current (lag
+        estimate) — the transport-free model of the FollowerServer
+        attestation loop."""
+        if self.partitioned:
+            return
+        r = self.cluster.replicas[self.upstream]
+        if r.status != "normal":
+            return
+        self._attest_current = not self._attest_current
+        core = self.core
+        now_ns = self.cluster.network.now * 10**6  # tick clock
+        if self._attest_current or core.commit_min == 0:
+            root = r.root_at(r.commit_min)
+            if root is None and hasattr(r.sm, "state_root"):
+                root = r.sm.state_root()
+            if root is not None:
+                core.on_attestation(root, r.commit_min, now_ns=now_ns)
+        else:
+            root = r.root_at(core.commit_min)
+            if root is not None:
+                core.on_attestation(root, core.commit_min, now_ns=now_ns)
+            # Ring miss (op no longer retained): the server answers
+            # current instead.
+            elif r.commit_min and r.root_at(r.commit_min) is not None:
+                core.on_attestation(r.root_at(r.commit_min),
+                                    r.commit_min, now_ns=now_ns)
+
+    def read(self, operation, body: bytes):
+        """One read attempt; successful replies record their attested
+        (root, commit_min) for the audit.  Returns FollowerReply or
+        FollowerRefusal."""
+        from tigerbeetle_tpu_torch.runtime.follower import FollowerReply
+
+        result = self.core.serve(
+            int(operation), body, now_ns=self.cluster.network.now * 10**6
+        )
+        if isinstance(result, FollowerReply):
+            self.served.append((result.root, result.commit_min))
+        else:
+            self.refusals.append(int(result.reason))
+        return result
+
+    # -- audit ----------------------------------------------------------
+
+    def check_never_lied(self) -> None:
+        """THE invariant: every (root, commit_min) a reply carried
+        matches the cluster's root history at that op — a follower
+        under any nemesis may refuse or lag, never attest a state no
+        replica committed."""
+        for root, op in self.served:
+            truth = self.cluster.root_history.get(op)
+            assert truth is not None, (
+                f"follower served op {op} the cluster never recorded"
+            )
+            assert truth == root, (
+                f"follower LIED at op {op}: served {root.hex()}, "
+                f"cluster committed {truth.hex()}"
+            )
 
 
 # ----------------------------------------------------------------------

@@ -11,6 +11,18 @@ from __future__ import annotations
 import contextlib
 import time
 
+# tests/test_follower.py's pinned FollowerVopr seeds that end serving,
+# with what each one must have run into.
+FOLLOWER_VOPR_CASES = (
+    (0, {"upstream_crashes": 1, "corruptions": 1}),
+    (2, {"follower_crashes": 6}),
+)
+# FollowerVopr's coverage and read counters.
+FOLLOWER_VOPR_COUNTERS = (
+    "follower_crashes", "upstream_crashes", "fsync_crashes", "corruptions", "partitions",
+    "pauses", "reads_attempted", "reads_served", "reads_fallback",
+)
+
 # tests/test_vopr_sharded.py's no-nemesis and coordinator-kill cases.
 SHARDED_VOPR_CASES = (
     (11, dict(requests=25, coordinator_kill_probability=0.0)),
@@ -79,4 +91,41 @@ def sharded_vopr_run(seed: int, params: dict, factory=None):
         "hash_logs": [[sorted(h._digests.items()) for h in s.hash_logs] for s in c.shards],
         "roots": [[r.sm.state_root() for r in s.replicas] for s in c.shards],
         "commit_min": [[r.commit_min for r in s.replicas] for s in c.shards],
+    }
+
+
+def follower_vopr_run(seed: int, factory=None):
+    """FollowerVopr(seed) at its defaults (a 2-replica cluster, replica
+    0's AOF tailed by a SimFollower that replays on the oracle), every
+    upstream replica built by `factory` (None: the oracle), under pinned
+    trace timestamps.  -> (the FollowerVopr, its observations: the
+    counters, what the follower served and refused, its commit point and
+    registry, and each replica's HashLog digests, root and commit
+    point)."""
+    from tigerbeetle_tpu_torch.testing import vopr
+
+    cluster = vopr.Cluster
+
+    def with_factory(**kwargs):
+        if factory is not None:
+            kwargs["state_machine_factory"] = factory
+        return cluster(**kwargs)
+
+    vopr.Cluster = with_factory
+    try:
+        with pinned_trace_ts():
+            v = vopr.FollowerVopr(seed)
+            v.run()
+    finally:
+        vopr.Cluster = cluster
+    c, f = v.cluster, v.follower
+    return v, {
+        "counters": {k: getattr(v, k) for k in FOLLOWER_VOPR_COUNTERS},
+        "served": list(f.served),
+        "refusals": list(f.refusals),
+        "follower": (f.core.commit_min, f.core.attested_op, f.core.poisoned,
+                     sorted(f.core.registry.snapshot().items())),
+        "hash_logs": [sorted(h._digests.items()) for h in c.hash_logs],
+        "roots": [r.sm.state_root() for r in c.replicas],
+        "commit_min": [r.commit_min for r in c.replicas],
     }

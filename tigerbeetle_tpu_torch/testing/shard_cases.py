@@ -120,7 +120,8 @@ def apply_events(seed, rows, n_events, near_ceiling=4, out_of_range=2):
     k = min(n_events, 4 * near_ceiling)
     dr[:k] = np.resize(hot, k)
     amount_lo = rng.integers(1, 1 << 41, n_events).astype(np.uint64)
-    amount_hi = np.where(rng.random(n_events) < 0.05, rng.integers(0, 3, n_events), 0)
+    wide = rng.random(n_events) < 0.05  # events whose amount has a high limb
+    amount_hi = np.where(wide, rng.integers(0, 3, n_events), 0)
     pending = rng.random(n_events) < 0.5
     bad = rng.choice(n_events, out_of_range, replace=False)
     dr[bad[: (out_of_range + 1) // 2]] = rows + 3

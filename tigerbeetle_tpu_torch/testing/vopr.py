@@ -16,11 +16,10 @@ and layers on:
   and pending), and restart-replay equivalence (a fresh replica opened
   from a live replica's storage must reach the identical state).
 
-This package's own copy of ``tigerbeetle_tpu/testing/vopr.py`` up to
-``ShardedVopr``; the default state machine is the port's oracle
-``state_machine/cpu.py``, and the device-loss nemesis builds
-``TorchStateMachine`` on the first CUDA card.  ``FollowerVopr`` comes
-with the port's follower.
+This package's own copy of ``tigerbeetle_tpu/testing/vopr.py``; the
+default state machine is the port's oracle ``state_machine/cpu.py``,
+and the device-loss nemesis builds ``TorchStateMachine`` on the first
+CUDA card.
 """
 
 from __future__ import annotations
@@ -1316,3 +1315,236 @@ class ShardedVopr:
             extra = adjust.get(aid, 0)
             want = (dp, dpo + extra, cp, cpo + extra)
             assert got == want, (aid, shard, got, want)
+
+
+# ----------------------------------------------------------------------
+# Follower nemesis VOPR: root-attested follower serving
+# under crash / torn tail / corruption / partition / lag.
+
+
+class FollowerVopr:
+    """Adversarial proof of the follower robustness contract.
+
+    A 2-replica cluster commits a seeded workload while replica 0's
+    SimAof feeds a SimFollower; reads are attempted against the
+    follower throughout.  Nemeses (all seeded):
+
+    - follower crash/restart mid-tail (volatile state re-derives from
+      the log, serving re-gated on fresh attestation),
+    - upstream replica crash — power loss AND crash-INSIDE-fsync
+      (storage.crash_at_fsync) — both tearing the AOF's unsynced
+      tail, healed by repair-on-open + recovery gap-fill,
+    - seeded corruption of a tailed-log byte (latent sector error),
+    - partition follower <-> upstream (attestations stop; staleness
+      refusals take over),
+    - lag injection (replay paused under continued commits).
+
+    THE invariant (check_never_lied): no served reply ever carries a
+    (root, commit_min) differing from the cluster's committed root at
+    that op — every nemesis may only produce refusals/redirects.
+    """
+
+    def __init__(self, seed: int, *, replica_count: int = 2,
+                 request_count: int = 120, staleness_ops: int = 24,
+                 corruption_probability: float = 0.0015,
+                 follower_crash_probability: float = 0.004,
+                 partition_probability: float = 0.008,
+                 pause_probability: float = 0.008,
+                 crash_probability: float = 0.002,
+                 fsync_crash_probability: float = 0.001) -> None:
+        from tigerbeetle_tpu_torch.testing.cluster import SimFollower
+
+        self.seed = seed
+        self.rng = np.random.default_rng(seed ^ 0xF0110)
+        self.cluster = Cluster(
+            replica_count=replica_count, seed=seed,
+            aof_replicas=(0,), root_ring=1 << 20,
+        )
+        self.follower = SimFollower(
+            self.cluster, 0, staleness_ops=staleness_ops,
+            attest_every=4,
+        )
+        self.workload = Workload(seed)
+        self.request_count = request_count
+        self.corruption_probability = corruption_probability
+        self.follower_crash_probability = follower_crash_probability
+        self.partition_probability = partition_probability
+        self.pause_probability = pause_probability
+        self.crash_probability = crash_probability
+        self.fsync_crash_probability = fsync_crash_probability
+        # Nemesis state/coverage.
+        self.crashed: set[int] = set()
+        self._fsync_armed: int | None = None
+        self.follower_crashes = 0
+        self.upstream_crashes = 0
+        self.fsync_crashes = 0
+        self.corruptions = 0
+        self.partitions = 0
+        self.pauses = 0
+        self.reads_attempted = 0
+        self.reads_served = 0
+        self.reads_fallback = 0  # refused -> redirected to primary
+
+    # -- nemesis --------------------------------------------------------
+
+    def _nemesis(self) -> None:
+        c = self.cluster
+        f = self.follower
+        rng = self.rng
+        # Follower crash/restart mid-tail.
+        if rng.random() < self.follower_crash_probability:
+            f.crash_restart()
+            self.follower_crashes += 1
+        # Partition follower <-> upstream.
+        if f.partitioned:
+            if rng.random() < 0.05:
+                f.partitioned = False
+        elif rng.random() < self.partition_probability:
+            f.partitioned = True
+            self.partitions += 1
+        # Lag injection: replay paused while commits continue.
+        if f.paused:
+            if rng.random() < 0.05:
+                f.paused = False
+        elif rng.random() < self.pause_probability:
+            f.paused = True
+            self.pauses += 1
+        # Seeded corruption of a tailed-log byte.
+        if rng.random() < self.corruption_probability:
+            if c.aofs[0].corrupt(rng) is not None:
+                self.corruptions += 1
+        # Upstream crash (power loss, torn AOF tail) / restart.
+        if self.crashed:
+            if rng.random() < 0.06:
+                i = self.crashed.pop()
+                c.restart_replica(i)
+            return
+        if rng.random() < self.crash_probability:
+            i = int(rng.integers(len(c.replicas)))
+            c.crash_replica(i)
+            self.upstream_crashes += i == 0
+            self.crashed.add(i)
+            return
+        # Crash INSIDE a covering fsync (storage fault point): the
+        # sharpest torn-tail producer — the process dies with the WAL
+        # sync half-applied AND the AOF suffix unsynced.
+        if self._fsync_armed is None and (
+            rng.random() < self.fsync_crash_probability
+        ):
+            i = int(rng.integers(len(c.replicas)))
+            c.storages[i].crash_at_fsync = 1
+            self._fsync_armed = i
+
+    def _step(self) -> None:
+        try:
+            self.cluster.step()
+        except FsyncCrash:
+            assert self._fsync_armed is not None
+            i = self._fsync_armed
+            self._fsync_armed = None
+            self.cluster.crash_replica(i)
+            self.upstream_crashes += i == 0
+            self.fsync_crashes += 1
+            self.crashed.add(i)
+
+    # -- reads ----------------------------------------------------------
+
+    def _try_read(self) -> None:
+        """One steered read: follower first; a refusal 'redirects' to
+        a live replica's state machine (the router fallback, modeled
+        transport-free)."""
+        from tigerbeetle_tpu_torch.runtime.follower import FollowerReply
+
+        w = self.workload
+        if not w.account_ids:
+            return
+        ids = [
+            int(v) for v in self.rng.choice(
+                w.account_ids, size=min(4, len(w.account_ids))
+            )
+        ]
+        body = ids_bytes(ids)
+        self.reads_attempted += 1
+        result = self.follower.read(types.Operation.lookup_accounts, body)
+        if isinstance(result, FollowerReply):
+            self.reads_served += 1
+        else:
+            self.reads_fallback += 1
+
+    # -- run -------------------------------------------------------------
+
+    def run(self) -> None:
+        c = self.cluster
+        client = c.client(0x9F01)
+        client.register()
+        c.run_until(lambda: not client.busy(), 4000)
+        sent = 0
+        steps = 0
+        while sent < self.request_count:
+            steps += 1
+            assert steps < 200_000, "follower VOPR stalled"
+            self._nemesis()
+            if not client.busy() and not client.evicted:
+                op, body, _must = self.workload.next_request()
+                client.request(op, body)
+                sent += 1
+            if steps % 7 == 0:
+                self._try_read()
+            self._step()
+        # Quiesce: heal everything, restart the dead, settle.
+        if self._fsync_armed is not None:
+            c.storages[self._fsync_armed].crash_at_fsync = None
+            self._fsync_armed = None
+        for i in sorted(self.crashed):
+            c.restart_replica(i)
+        self.crashed.clear()
+        self.follower.partitioned = False
+        self.follower.paused = False
+        c.network.heal()
+        for _ in range(600):
+            self._step()
+            if not client.busy():
+                break
+        c.settle(max_steps=8000)
+        # Let the follower catch up + re-attest at the quiesced head.
+        for _ in range(400):
+            self._step()
+            if self.follower.core.refuse_reason() is None and (
+                self.follower.core.commit_min
+                == c.replicas[0].commit_min
+            ):
+                break
+
+        # THE invariant, unconditionally: refusals allowed, lies never.
+        self.follower.check_never_lied()
+
+        core = self.follower.core
+        # A follower may end the run un-servable for honest reasons:
+        # latched corruption/gap, or a permanently torn tail (e.g.
+        # corruption at EOF, or a gap-fill cut short by the
+        # checkpoint floor leaves the stream short of its resume
+        # offset).  All of those REFUSE; none may lie.
+        damaged = core.tail.corrupt or core.gapped or core.poisoned
+        stalled = core.commit_min < c.replicas[0].commit_min
+        assert not core.poisoned, (
+            "deterministic replay of a checksummed log diverged: "
+            "poisoned follower without corruption"
+        )
+        if not damaged and not stalled:
+            # Liveness after heal: the follower must serve again, and
+            # serve bit-identically to the primary at the same op.
+            assert core.refuse_reason() is None, core.refuse_reason()
+            assert core.commit_min == c.replicas[0].commit_min
+            ids = [int(v) for v in self.workload.account_ids[:8]]
+            body = ids_bytes(ids)
+            from tigerbeetle_tpu_torch.runtime.follower import FollowerReply
+
+            got = self.follower.read(
+                types.Operation.lookup_accounts, body
+            )
+            assert isinstance(got, FollowerReply), got
+            want = c.replicas[0].sm.execute_read(
+                types.Operation.lookup_accounts, body
+            )
+            assert got.body == want, "follower read diverged from primary"
+            self.follower.check_never_lied()

@@ -94,7 +94,8 @@ def chain_case(seed, n_chains, B, A=None, rows=None, max_len=7, hubs=8):
     ev["flags"][:n] = flags
     ev["timeout"][:n] = np.where(pend, rng.integers(0, 4, n), 0).astype(np.uint64)
     amount = rng.integers(1, 2000, n).astype(np.uint64)
-    amount[bal & (rng.random(n) < 0.5)] = 0  # balancing: maxInt
+    unbounded = bal & (rng.random(n) < 0.5)
+    amount[unbounded] = 0  # balancing: maxInt
     ev["amount_lo"][:n] = amount
     ev["dr_slot"][:n] = dr_priv[chain]
     to_hub = rng.random(n) < 0.5

@@ -23,6 +23,8 @@ with k = 0 (the C function returns without launching: ctypes alone)
 and once with k rows (ctypes + the launch).  Prints one JSON object of
 microseconds per call; ``run(dev)`` returns it.  Needs a CUDA card.
 """
+# tbcheck: allow-file(no-print): a command-line tool — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

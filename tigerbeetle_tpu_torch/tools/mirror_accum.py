@@ -13,6 +13,8 @@ JSON line per table with the median milliseconds per batch of each arm
 and the ratio of dense keys to contributions, so the crossover can be
 read off.  numpy only; no card needed.
 """
+# tbcheck: allow-file(no-print): a command-line tool — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

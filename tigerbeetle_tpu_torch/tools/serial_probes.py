@@ -126,6 +126,8 @@ but the parent's, so they run on any tree with the wrappers, and
 constants);
 ``chip_smoke.py`` prints the barrier, k8, k3, k5, k7, k1 and k13 parts.
 """
+# tbcheck: allow-file(no-print): a command-line tool — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 

@@ -31,6 +31,8 @@ launches and flushes inside the profiler, the device events of
 against the window), and the raw kineto events by device type.  Needs a
 CUDA card.
 """
+# tbcheck: allow-file(no-print): a command-line tool — the lines it
+# prints on stdout are its output.
 
 from __future__ import annotations
 
