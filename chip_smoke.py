@@ -32,8 +32,35 @@ shards of a split table against the joined table's digest; the
 launchers scan_of, for every kind at G = 4, and staged, for the five
 *_staged names at g = 0, G - 1, G and -1, on full batches over a
 2^20-row table, against their plain loops and one launch per batch),
-measures one dependent L2 hit (K3's and K5's serial floors), then
-builds the host engine's native library (g++, csrc/host/; its path,
+measures one dependent L2 hit (K3's and K5's serial floors), then runs
+two phases of checks:
+
+  memsafe      tools/memsafe.py, in place of compute-sanitizer (which
+               does not run on the card's machine): for every row of the
+               kernels line (K1-K14 with their entry points, scan_of,
+               staged), the raw bindings in kernels/__init__.py launch on
+               views inside larger buffers with 4 KiB guard bands before
+               and after every buffer (tables, meta, events, rings,
+               slots, scratch, outputs), each band a seeded pattern; after
+               each launch and a sync every band must be unchanged; each
+               case runs again under a second pattern and through the
+               plain version on the CPU (all three outputs equal bit for
+               bit); the row's contention case (one row, gen_zipf's 100
+               accounts, K9 at the tag wrap, K2 update owning row A-1,
+               K14 at W = 1, 2, 8) repeats 20 times, bit-identical.
+               Small cases (a few hundred events, 2^12 rows), the
+               unaligned views of K4, K2 admit and K3 init, and each
+               kernel's 8190-event main-path batch once.  One line a row:
+               launches, guard bytes watched (the bands a store could
+               reach: each launch's, and the ring's), repeats, "clean";
+               any finding fails the script
+  link         the seventeen H100 link probes (experiments/: lat, xfer,
+               pipe, notify, steady, h2d, nodonate, variant, d2h, pull,
+               burst, kernprof, staged, ablate, xprof, tpu_compile_check,
+               kernel_smoke) at --quick, one line a probe with its
+               record (the card's name and power limit beside it)
+
+then builds the host engine's native library (g++, csrc/host/; its path,
 digest and build seconds on a line of their own), then drives the
 port's create_transfers loop through SingleNodeHarness on
 TorchStateMachine in fourteen phases, the two row-sharded entry points
@@ -3142,6 +3169,64 @@ def run_probes_phase(dev):
           f"table and ring equal a batch-by-batch run; checks passed")
     return launches, check_launches
 
+LINK_PROBES = ("lat_probe", "xfer_probe", "pipe_probe", "notify_probe", "steady_probe",
+               "h2d_probe", "nodonate_probe", "variant_probe", "d2h_probe", "pull_probe",
+               "burst_probe", "kernprof_probe", "staged_probe", "ablate_probe", "xprof_probe",
+               "tpu_compile_check", "kernel_smoke")
+
+
+def run_memsafe_phase(dev) -> dict:
+    """Phase memsafe: tools/memsafe.py over every row of the kernels
+    line (see the module's docstring), one line a row.  Any finding
+    fails the script.  Returns each row's record for the kernels line:
+    "clean", the launches, the guard bytes watched (those a kernel's
+    store could reach), the repeats."""
+    from tigerbeetle_tpu_torch.tools import memsafe
+
+    t0 = time.perf_counter()
+    results = memsafe.check_all(dev, echo=lambda line: print(line, flush=True))
+    torch.cuda.synchronize()
+    findings = [f for r in results for f in r.findings]
+    check(not findings, "memsafe: " + "; ".join(findings[:8]))
+    check({r.name for r in results} == set(kernels.launches),
+          "memsafe: the rows are not the kernels line's")
+    idle = [r.name for r in results if r.launches == 0]
+    check(not idle, f"memsafe: no guarded launch of {idle}")
+    print(f"phase memsafe ({len(results)} kernel rows, {card_line()}): "
+          f"{sum(r.launches for r in results)} guarded launches, "
+          f"{sum(r.watched for r in results)} guard bytes watched, "
+          f"{sum(r.repeats for r in results)} repeats, every row clean; "
+          f"{time.perf_counter() - t0:.1f} s; checks passed", flush=True)
+    return {r.name: r.record() for r in results}
+
+
+def run_link_phase(dev) -> dict:
+    """Phase link: every H100 link probe at --quick, one line each with
+    its record; kernel_smoke's hand-computed cases and ablate's stamped
+    K1 against its plain version must hold."""
+    t0 = time.perf_counter()
+    card = card_line()
+    records = {}
+    for name in LINK_PROBES:
+        mod = importlib.import_module(f"tigerbeetle_tpu_torch.experiments.{name}")
+        t1 = time.perf_counter()
+        rec = mod.run(dev, quick=True)
+        torch.cuda.synchronize()
+        missing = set(mod.KEYS) - rec.keys()
+        check(not missing, f"link {name}: the record lacks {sorted(missing)}")
+        print(f"link {name} ({time.perf_counter() - t1:.1f} s; {card}): {json.dumps(rec)}",
+              flush=True)
+        records[name] = rec
+        torch.cuda.empty_cache()
+    check(all(v == "ok" for v in records["kernel_smoke"]["cases"].values()),
+          "link: a kernel_smoke case failed")
+    check(all(c["plain_equal"] for c in records["ablate_probe"]["cases"].values()),
+          "link: the stamped K1 differs from its plain version")
+    print(f"phase link ({len(records)} probes, {card}): {time.perf_counter() - t0:.1f} s; "
+          f"checks passed", flush=True)
+    return records
+
+
 def batches_with(ops, flags) -> tuple[int, int]:
     """(create_transfers batches holding an event with any of `flags`,
     their events)."""
@@ -5622,6 +5707,8 @@ def run_all(card, durable_oracle) -> int:
     check_tier_kernels(dev, report)
     check_shard_kernels(dev, report)
     check_launchers(dev, report)
+    memsafe_rows = run_memsafe_phase(dev)
+    run_link_phase(dev)
 
     phases = {}
     # K7's lanes per wave on the main path: every K7 launch records its
@@ -5900,6 +5987,7 @@ def run_all(card, durable_oracle) -> int:
             "host_ms": r["host_ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"), "verified": True,
+            "memsafe": memsafe_rows[name],
         }
         for key in ("serial_floor_ms", "barrier_floor_ms", "barriers", "sweep",
                     "plain_on", "iters", "timed_case", "k128", "meta",

@@ -363,3 +363,39 @@ def test_follower_and_tbcheck_slice_run_without_jax(tmp_path):
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "CLEAN", out.stdout
+
+
+# The guard-band check and the H100 link probes.
+CHECK_SLICE = ("tools.memsafe",) + tuple(
+    f"experiments.{name}" for name in (
+        "common", "lat_probe", "xfer_probe", "pipe_probe", "notify_probe", "steady_probe",
+        "h2d_probe", "nodonate_probe", "variant_probe", "d2h_probe", "pull_probe",
+        "burst_probe", "kernprof_probe", "staged_probe", "ablate_probe", "xprof_probe",
+        "tpu_compile_check", "kernel_smoke"))
+
+
+def test_memsafe_and_link_probes_load_nothing_of_jax():
+    """A fresh interpreter imports tools/memsafe.py and every link probe,
+    runs memsafe's K4 row and kernel_smoke on the CPU: neither JAX nor
+    the JAX package is loaded."""
+    code = (
+        "import importlib, sys, torch\n"
+        f"for m in {CHECK_SLICE!r}: importlib.import_module('tigerbeetle_tpu_torch.' + m)\n"
+        "from tigerbeetle_tpu_torch.tools import memsafe\n"
+        "from tigerbeetle_tpu_torch.experiments import kernel_smoke\n"
+        "row = next(r for r in memsafe.rows() if r.name == 'apply_deltas')\n"
+        "assert memsafe.check_row(row, 'cpu', repeats=1, quick=True).findings == []\n"
+        "kernel_smoke.run(torch.device('cpu'))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "             or m.startswith(('jax.', 'jaxlib.', 'tigerbeetle_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -8,9 +8,10 @@ lines and its good twin is clean, the old tidy patterns and the hash
 knobs' aliases are caught, suppressions need a reason and a use, the
 import graph's name and relative-import resolution, the wire layout
 derived from vsr/wire.py, and the CLI's exit codes and JSON schema on
-findings.  The cases that lint the whole package are in
-test_torch_tbcheck_repo.py.  test_envvar_typo_fails_fast_through_tpu_fallback
-waits for the port's sanitizer builds.
+findings, and TB_NATIVE_SANITIZE=msan surfacing as its EnvVarError
+through the machine (in the port's run ``TorchStateMachine(cfg.TEST_MIN,
+device="cpu")`` in a subprocess).  The cases that lint the whole package
+are in test_torch_tbcheck_repo.py.
 """
 
 import pytest

@@ -11,9 +11,18 @@ the case asked for, every reply each of its clusters' clients received,
 each replica's ``HashLog`` digests op by op, its commit point and state
 root, the bytes of every ``MemoryStorage``, and what each of its
 ``SimFollower``s served and refused (with each ``FollowerVopr``'s
-nemesis and read counters).
+nemesis and read counters), and every op each ``SingleNodeHarness``
+submitted with its reply and its machine's final state root.
 The two recordings must be equal, and each run must pass the case's own
-assertions.
+assertions (or, for a case both packages are known to fail, fail the
+same assertion: ``fails=True``).  A case that imports ``jax.numpy as
+jnp`` gets numpy under that name in the port's run, so it hands the
+port numpy arrays.  Its calls of the reference's
+``waves._spec_conflicts`` (K9 over a dict of event columns) go through
+`spec_conflicts`, which records the flags of the lanes below `n`: in
+the reference's run to ``waves._spec_conflicts`` itself, in the port's
+to `port_spec_conflicts`, the port's plain K9 over the same columns
+packed.
 
 An `arm` picks the state machine every cluster of the case runs:
 "oracle" keeps the case's own (the CPU oracle, by default), "host" and
@@ -48,16 +57,36 @@ CAPACITY = (1 << 10) + 3
 
 
 def _port_source(text: str) -> str:
+    # Every rewrite keeps the source's line numbers (a failure's line is
+    # part of the recording).
     text = re.sub(r"\btigerbeetle_tpu\b", PORT, text)
     # At module level or inside a case (kept at the import's indent).
     text = re.sub(
         rf"^( *)from {PORT}\.state_machine\.tpu import TpuStateMachine$",
         lambda m: (
-            f"{m[1]}from {PORT}.state_machine.gpu import TorchStateMachine as _Torch\n"
-            f"{m[1]}def TpuStateMachine(*a, **kw):\n"
-            f"{m[1]}    return _Torch(*a, device='cpu', **kw)\n"
+            f"{m[1]}from {PORT}.state_machine.gpu import TorchStateMachine as _Torch; "
+            "TpuStateMachine = lambda *a, **kw: _Torch(*a, device='cpu', **kw)"
         ),
         text, flags=re.M,
+    )
+    # A subprocess's source in a string builds the port's machine on the
+    # CPU where the reference's builds TpuStateMachine.
+    text = text.replace(
+        f'"from {PORT}.state_machine.tpu import TpuStateMachine;"',
+        f'"from {PORT}.state_machine.gpu import TorchStateMachine;"'
+        '"TpuStateMachine = lambda *a, **kw: TorchStateMachine(*a, device=\'cpu\', **kw);"',
+    )
+    # The port takes numpy (and torch) arrays, never jax's.
+    text = re.sub(r"^import jax\.numpy as jnp$", "import numpy as jnp", text, flags=re.M)
+    text = _spec_calls(text, PORT)
+    # The port's engine keeps its speculation counters as ints (its
+    # registry pulls them); the reference's are registry handles.
+    text = text.replace(
+        "name: handle.value\n        for name, handle in sm._dev.spec_stats.items()\n"
+        "        if hasattr(handle, \"value\")",
+        "name: getattr(handle, \"value\", handle)\n"
+        "        for name, handle in sm._dev.spec_stats.items()\n"
+        "        if hasattr(handle, \"value\") or isinstance(handle, int)",
     )
     # A module-level import of a module the port does not have yet
     # (testing/vopr.py, ...) is dropped; the cases that use it are not
@@ -72,10 +101,58 @@ def _port_source(text: str) -> str:
     # helper lives in the port's envcheck.py).
     text = re.sub(
         rf"^from ({PORT}[\w.]*) import \(([^)]*)\)\n",
-        lambda m: m.group(0) if _has_names(m.group(1), m.group(2)) else "",
+        lambda m: m.group(0) if _has_names(m.group(1), m.group(2)) else "\n" * m[0].count("\n"),
         text, flags=re.M,
     )
     return text
+
+
+def _spec_calls(text: str, package: str) -> str:
+    """`text` with its calls of ``waves._spec_conflicts`` made through
+    `spec_conflicts` for `package`."""
+    if "waves._spec_conflicts(" not in text:
+        return text
+    text = text.replace("waves._spec_conflicts(", f"_torch_repoint.spec_conflicts({package!r}, ")
+    return text + "\nimport torch_repoint as _torch_repoint\n"
+
+
+# The recording's list of spec_conflicts flags while a case runs.
+_SPEC_FLAGS: list | None = None
+
+
+def spec_conflicts(package: str, ev: dict, serial, n, A: int, B: int):
+    """A re-pointed case's call of ``waves._spec_conflicts(ev, serial,
+    n, A, B)``: the reference's in its run, `port_spec_conflicts` in the
+    port's.  The flags of the lanes below `n` go into the recording."""
+    if package == PORT:
+        out = port_spec_conflicts(ev, serial, n, A, B)
+    else:
+        out = importlib.import_module(f"{REF}.state_machine.waves")._spec_conflicts(
+            ev, serial, n, A, B)
+    if _SPEC_FLAGS is not None:
+        import numpy as np
+
+        _SPEC_FLAGS.append(np.asarray(out).astype(bool)[:int(n)].tolist())
+    return out
+
+
+def port_spec_conflicts(ev: dict, serial, n, A: int, B: int):
+    """The reference's ``waves._spec_conflicts(ev, serial, n, A, B)``
+    computed by the port's plain K9: the (B,) event columns `ev` (the
+    ones K9 reads; every other column zero) packed as K3 packs them, all
+    B lanes, the (B,) bool force-conflict mask `serial`.  Returns (B,)
+    bool flags as a numpy array."""
+    import numpy as np
+    import torch
+
+    from tigerbeetle_tpu_torch.state_machine import kernel, waves
+
+    cols = {name: np.zeros(B, dtype) for name, dtype in kernel.EVENT_FIELDS}
+    cols.update({k: np.asarray(v) for k, v in ev.items()})
+    packed = torch.from_numpy(kernel.pack_events(cols).view(np.int64))
+    lanes = torch.arange(B, dtype=torch.int32)
+    mask = torch.from_numpy(np.asarray(serial, bool).astype(np.uint8))
+    return waves.spec_conflicts_plain(packed, lanes, mask, int(n), A).numpy()
 
 
 def _has_names(module: str, names: str) -> bool:
@@ -97,8 +174,7 @@ def load(test_file: str, package: str) -> pytypes.ModuleType:
     if mod is not None:
         return mod
     text = (TESTS / test_file).read_text()
-    if package == PORT:
-        text = _port_source(text)
+    text = _port_source(text) if package == PORT else _spec_calls(text, REF)
     # Helpers imported from another reference test module come from
     # that module loaded for the same package.
     for dep in sorted(set(re.findall(r"^from (test_\w+) import", text, flags=re.M))):
@@ -111,7 +187,7 @@ def load(test_file: str, package: str) -> pytypes.ModuleType:
 def exec_source(test_file: str, name: str, text: str) -> pytypes.ModuleType:
     """`text` (a test module's source, already re-pointed) run as module
     `name`, its pytest fixtures unwrapped into plain functions."""
-    text = re.sub(r"^@pytest\.fixture(\(.*\))?\n", "", text, flags=re.M)
+    text = re.sub(r"^@pytest\.fixture(\(.*\))?\n", "\n", text, flags=re.M)
     mod = pytypes.ModuleType(name)
     mod.__file__ = str(TESTS / test_file)
     sys.modules[name] = mod
@@ -138,6 +214,16 @@ def _machine_factory(package: str, arm: str, config):
     return lambda: TpuStateMachine(config, account_capacity=CAPACITY, engine=arm)
 
 
+def machine(package: str, arm: str):
+    """A fresh state machine of `package` on `arm`, for a case's ``sm``
+    fixture (tests/conftest.py's): "oracle" the package's CPU oracle,
+    "host" and "device" as `_machine_factory` builds them."""
+    if arm == "oracle":
+        return importlib.import_module(f"{package}.state_machine.cpu").CpuStateMachine()
+    config = importlib.import_module(f"{package}.constants").PRODUCTION
+    return _machine_factory(package, arm, config)()
+
+
 class Recorder:
     """What the clusters of one case did."""
 
@@ -146,6 +232,21 @@ class Recorder:
         self.sharded: list = []
         self.follower_voprs: list = []
         self.replies: list[bytes] = []
+        # Per SingleNodeHarness: its machine and [(op, body, reply future)].
+        self.harnesses: list[tuple[object, list]] = []
+        # Per spec_conflicts call: the flags of the lanes below n.
+        self.spec_flags: list[list[bool]] = []
+
+    def harness_observations(self) -> list:
+        out = []
+        for sm, ops in self.harnesses:
+            root = sm.state_root() if hasattr(sm, "state_root") else None
+            out.append((
+                [(int(op), body, fut.result() if fut.done() else None)
+                 for op, body, fut in ops],
+                root,
+            ))
+        return out
 
     def observations(self) -> list:
         out = []
@@ -180,7 +281,8 @@ class Recorder:
             {k: getattr(v, k) for k in FOLLOWER_VOPR_COUNTERS} for v in self.follower_voprs
         ]
         return [{"replies": self.replies, "routed_replies": routed,
-                 "follower_voprs": voprs}, *out]
+                 "follower_voprs": voprs, "harnesses": self.harness_observations(),
+                 "spec_flags": self.spec_flags}, *out]
 
 
 
@@ -245,6 +347,20 @@ def recording(package: str, arm: str, monkeypatch):
             rec.follower_voprs.append(self)
 
         m.setattr(vopr.FollowerVopr, "__init__", recording_follower_vopr_init)
+        harness = importlib.import_module(f"{package}.testing.harness")
+        dispatch = harness.SingleNodeHarness._dispatch
+
+        def recording_dispatch(self, operation, input_bytes):
+            fut = dispatch(self, operation, input_bytes)
+            ops = next((o for sm, o in rec.harnesses if sm is self.sm), None)
+            if ops is None:
+                ops = []
+                rec.harnesses.append((self.sm, ops))
+            ops.append((operation, bytes(input_bytes), fut))
+            return fut
+
+        m.setattr(harness.SingleNodeHarness, "_dispatch", recording_dispatch)
+        m.setattr(sys.modules[__name__], "_SPEC_FLAGS", rec.spec_flags)
         if package == PORT:
             chaos = importlib.import_module(f"{PORT}.testing.chaos")
             m.setattr(
@@ -319,11 +435,26 @@ def first_engine_ordinal(package: str, monkeypatch) -> None:
         monkeypatch.setattr(engine, "_ENGINE_SEQ", 0)
 
 
+def _failure(test_file: str, err: AssertionError) -> tuple[int, str]:
+    """Where in `test_file` the case's assertion `err` failed: the line
+    of its last frame in that file, and its message."""
+    line, tb = 0, err.__traceback__
+    while tb is not None:
+        if tb.tb_frame.f_code.co_filename == str(TESTS / test_file):
+            line = tb.tb_lineno
+        tb = tb.tb_next
+    return line, str(err)
+
+
 def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=None,
-             autouse=()):
+             autouse=(), per_package=None, fails=False):
     """One run of `case` in `package`; returns its recording.  `extra`:
     more fixtures by name (capsys, ...) or parameter values; `autouse`:
-    names of the module's autouse fixtures to run first."""
+    names of the module's autouse fixtures to run first; `per_package`:
+    fixtures by name whose value is made for the package (name ->
+    function of the package's name); `fails`: the case must fail one of
+    its own assertions, and the recording's "failure" says which (its
+    line and message; None when `fails` is false)."""
     if package == REF:
         reference_native_loaded()
     mod = load(test_file, package)
@@ -332,27 +463,48 @@ def run_case(test_file: str, case: str, package: str, arm: str, tmp_path, extra=
         with recording(package, arm, mp) as rec:
             teardown: list = []
             fixtures = {"monkeypatch": mp, "tmp_path": tmp_path / package, **(extra or {})}
+            for name, make in (per_package or {}).items():
+                fixtures[name] = make(package)
             fixtures["tmp_path"].mkdir()
+            failure = None
             try:
                 for name in autouse:
                     _fixture(mod, name, fixtures, teardown)
-                _call(mod, getattr(mod, case), fixtures, teardown)
+                try:
+                    _call(mod, getattr(mod, case), fixtures, teardown)
+                except AssertionError as err:
+                    if not fails:
+                        raise
+                    failure = _failure(test_file, err)
+                else:
+                    if fails:
+                        raise AssertionError(f"{case} passed in {package}; it should fail")
             finally:
                 for gen in reversed(teardown):
                     with contextlib.suppress(StopIteration):
                         next(gen)
-    return rec.observations()
+    obs = rec.observations()
+    obs[0]["failure"] = failure
+    return obs
 
 
-def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None, autouse=()) -> list:
-    """`case` on the port and on the reference: both pass, and their
-    recordings are equal.  Returns the port's."""
-    got = run_case(test_file, case, PORT, arm, tmp_path, extra, autouse)
-    want = run_case(test_file, case, REF, arm, tmp_path, extra, autouse)
+def run_both(test_file: str, case: str, arm: str, tmp_path, extra=None, autouse=(),
+             per_package=None, fails=False) -> list:
+    """`case` on the port and on the reference: both pass (with `fails`,
+    both fail the same assertion), and their recordings are equal.
+    Returns the port's."""
+    got = run_case(test_file, case, PORT, arm, tmp_path, extra, autouse, per_package, fails)
+    want = run_case(test_file, case, REF, arm, tmp_path, extra, autouse, per_package, fails)
+    assert got[0]["failure"] == want[0]["failure"], "the runs failed differently"
     assert len(got) == len(want), "the runs built different numbers of clusters"
     assert got[0]["replies"] == want[0]["replies"], "client replies differ"
     assert got[0]["routed_replies"] == want[0]["routed_replies"], "routed client replies differ"
     assert got[0]["follower_voprs"] == want[0]["follower_voprs"], "FollowerVopr counters differ"
+    assert got[0]["spec_flags"] == want[0]["spec_flags"], "spec_conflicts flags differ"
+    assert len(got[0]["harnesses"]) == len(want[0]["harnesses"]), "harness counts differ"
+    for i, (g, w) in enumerate(zip(got[0]["harnesses"], want[0]["harnesses"])):
+        assert g[0] == w[0], f"harness {i}: ops or replies differ"
+        assert g[1] == w[1], f"harness {i}: state roots differ"
     for i, (g, w) in enumerate(zip(got[1:], want[1:])):
         for key in ("replicas", "hash_logs", "images", "client_replies", "followers"):
             assert g[key] == w[key], f"cluster {i}: {key} differ"

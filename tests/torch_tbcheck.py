@@ -16,8 +16,7 @@ import shutil
 import torch_repoint as rp
 
 FILE = "test_tbcheck.py"
-# Waits for the port's sanitizer builds (TB_NATIVE_SANITIZE).
-NOT_PORTED = {"test_envvar_typo_fails_fast_through_tpu_fallback"}
+NOT_PORTED: set = set()
 # Cases that lint the whole package (several seconds each).
 WHOLE_PACKAGE = (
     "test_repo_is_clean", "test_repo_suppressions_all_carry_reasons",

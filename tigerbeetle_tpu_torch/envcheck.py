@@ -302,6 +302,18 @@ def group_commit_max_us() -> int:
     )
 
 
+def native_sanitize() -> str:
+    """TB_NATIVE_SANITIZE: native-library build flavor.  "" (default)
+    loads the plain optimized libraries; "asan" loads the
+    address+undefined-sanitized builds from build/native/asan/ (built by
+    kernels/host_build.py) — the slow-tier replay test drives the
+    fastpath fixture differential and torn-frame fuzz through them
+    with the asan runtime LD_PRELOADed.  The flavor is recorded in the
+    build-failure forensics (kernels/host_build.py), so a failing
+    sanitizer build is never mistaken for a failing release build."""
+    return env_choice("TB_NATIVE_SANITIZE", "", ("", "asan"))
+
+
 def fastpath_decode() -> int:
     """TB_FASTPATH_DECODE: 1 (default) drains the server bus through
     the columnar ingest fast path — one arena drain + one batch

@@ -16,6 +16,8 @@ not pass the final check.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import subprocess
 import time
 
@@ -222,3 +224,153 @@ def main_of(doc: str, reps: int, run):
         return 0
 
     return main
+
+
+# ---------------------------------------------------------------------------
+# The link probes (lat, xfer, pipe, notify, steady, h2d, nodonate,
+# variant, d2h, pull, burst, kernprof, staged, ablate, xprof,
+# tpu_compile_check, kernel_smoke): each asks one of the reference's
+# TPU-link questions of the card's copy engines, streams and events.  A
+# probe is run(dev, quick) -> one record (a dict of its figures), and
+# its main prints the card line and the record as one JSON line.  On
+# the CPU (tests) the same code runs with host clocks, pageable memory
+# and no second stream: its records say nothing of a card.
+
+KiB, MiB = 1 << 10, 1 << 20
+# The engine's window: batches per ring fetch (TB_DEV_WINDOW's default).
+ENGINE_R = 96
+
+
+def link_rows(dev: torch.device) -> int:
+    """The balance table of a link probe: the main path's 2^20 rows on
+    a card, a tiny one on the CPU."""
+    return ROWS if dev.type == "cuda" else 64
+
+
+def link_main(doc: str, run):
+    """A link probe's main(argv): --device (default cuda:0), --quick."""
+
+    def main(argv=None) -> int:
+        p = argparse.ArgumentParser(description=doc.splitlines()[0])
+        p.add_argument("--device", default="cuda:0", help="torch device ('cpu': no card)")
+        p.add_argument("--quick", action="store_true", help="the chip phase's short run")
+        args = p.parse_args(argv)
+        dev = resolve_device(args.device)
+        print(card_line(dev), flush=True)
+        print(json.dumps(run(dev, quick=args.quick)), flush=True)
+        return 0
+
+    return main
+
+
+def record(name: str, dev: torch.device, **figures) -> dict:
+    """A probe's record: its name, the device it ran on, its figures."""
+    kind = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    return {"probe": name, "device": kind, **figures}
+
+
+class Marker:
+    """A CUDA event on a card (timing on), a host clock stamp on the CPU
+    (where every operation has finished when it returns)."""
+
+    def __init__(self, dev: torch.device) -> None:
+        self.event = torch.cuda.Event(enable_timing=True) if dev.type == "cuda" else None
+        self.t = 0.0
+
+    def record(self, stream=None) -> "Marker":
+        if self.event is None:
+            self.t = time.perf_counter()
+        elif stream is None:
+            self.event.record()
+        else:
+            self.event.record(stream)
+        return self
+
+    def query(self) -> bool:
+        return True if self.event is None else self.event.query()
+
+    def synchronize(self) -> None:
+        if self.event is not None:
+            self.event.synchronize()
+
+    def ms_to(self, end: "Marker") -> float:
+        if self.event is None:
+            return (end.t - self.t) * 1e3
+        return self.event.elapsed_time(end.event)
+
+
+def device_ms(dev: torch.device, fn, reps: int, warm: int = 1) -> float:
+    """Milliseconds per call of `fn` between two markers on the current
+    stream around `reps` calls back to back (after `warm` calls)."""
+    for _ in range(warm):
+        fn()
+    sync(dev)
+    start = Marker(dev).record()
+    for _ in range(reps):
+        fn()
+    end = Marker(dev).record()
+    end.synchronize()
+    return start.ms_to(end) / reps
+
+
+def host_ms(dev: torch.device, fn, reps: int, warm: int = 1) -> float:
+    """Host milliseconds per call of `fn` over `reps` calls that end in
+    a synchronize (after `warm` calls)."""
+    for _ in range(warm):
+        fn()
+    with Clock(dev) as clock:
+        for _ in range(reps):
+            fn()
+    return clock.seconds * 1e3 / reps
+
+
+def host_buffer(nbytes: int, dev: torch.device, pinned: bool) -> torch.Tensor:
+    """A host byte buffer, page-locked when `pinned` and there is a
+    card (the CPU build of torch pins nothing)."""
+    pin = pinned and dev.type == "cuda"
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
+    buf.fill_(7)
+    return buf
+
+
+def side_stream(dev: torch.device):
+    """A second stream on the card (None on the CPU)."""
+    return torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+
+def on_stream(stream):
+    """The context that makes `stream` current (none on the CPU)."""
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+class K1Batch:
+    """The probes' kernel: K1 (order-free, tight format) on one table,
+    every batch of the probe's own stack, ring row k % RING_ROWS."""
+
+    kind = "orderfree_tight"
+
+    def __init__(self, dev: torch.device, G: int = 4, seed: int = 0) -> None:
+        self.dev = dev
+        self.rows = link_rows(dev)
+        self.host = probe_stack(self.kind, self.rows, G, seed)
+        self.stack = upload(self.host, dev)
+        self.table, self.meta, self.ring = tables(self.rows, dev)
+        self.scratch = scratch_for(self.kind, self.rows, dev)
+        self.k = 0
+
+    def __call__(self, pk=None) -> None:
+        """One launch on batch k % G (or on `pk`, an uploaded batch)."""
+        g = self.k % self.stack.shape[0]
+        dk.orderfree(self.table, self.meta, self.ring, self.k % RING_ROWS,
+                     self.stack[g] if pk is None else pk, N, 1 << 40, mode=dk.MODE_TIGHT,
+                     scratch=self.scratch)
+        self.k += 1
+
+    def ring_row(self, k: int) -> torch.Tensor:
+        return self.ring[k % RING_ROWS]
+
+
+def fit_line(xs, ys) -> tuple[float, float]:
+    """Least-squares (intercept, slope) of ys over xs."""
+    slope, intercept = np.polyfit(np.asarray(xs, float), np.asarray(ys, float), 1)
+    return float(intercept), float(slope)

@@ -1,7 +1,8 @@
 """One resident batch per launcher call for the non-staged kinds: µs
 per batch and events/s, the host synced only at the end.
 
-    python -m tigerbeetle_tpu_torch.experiments.kernel_time_probe2 [--device D] [--rows A] [--reps K]
+    python -m tigerbeetle_tpu_torch.experiments.kernel_time_probe2 \
+        [--device D] [--rows A] [--reps K]
 
 Counterpart of the reference's experiments/kernel_time_probe2.py
 (orderfree_lo, linked, linked_small and two_phase_lo, one jitted call

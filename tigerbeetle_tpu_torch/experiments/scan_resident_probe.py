@@ -1,7 +1,8 @@
 """scan_of at G = 8, 16, 32 from resident stacks, against one batch per
 call with a sync after each: µs per batch and events/s.
 
-    python -m tigerbeetle_tpu_torch.experiments.scan_resident_probe [--device D] [--rows A] [--reps K]
+    python -m tigerbeetle_tpu_torch.experiments.scan_resident_probe \
+        [--device D] [--rows A] [--reps K]
 
 Counterpart of the reference's experiments/scan_resident_probe.py (its
 inline ``lax.scan`` over ``_orderfree`` with lo_only): for each G, one

@@ -5,8 +5,9 @@ into a shared library with a plain C interface, loaded with ``ctypes``
 (no PyTorch headers: a build takes seconds, not minutes).  Libraries
 land in ``build/kernels/`` at the repository root, named by a hash of
 their source and of the shared headers (``csrc/*.cuh``), so an edited
-source or header is rebuilt and a stale library is never loaded.  All missing libraries are compiled in parallel, one
-``nvcc`` process per source, under a file lock in ``build/kernels/``:
+source or header is rebuilt and a stale library is never loaded.  All
+missing libraries are compiled in parallel, one ``nvcc`` process per
+source, under a file lock in ``build/kernels/``:
 processes that start together on a cold tree (the replicas of a
 cluster, pytest-xdist workers) build each library once, the later ones
 waiting for the first and finding its libraries.  Each ``nvcc`` writes

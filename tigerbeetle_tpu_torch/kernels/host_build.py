@@ -13,9 +13,13 @@ Two libraries come from ``csrc/host/``, each compiled by ``g++`` into
 
 The digest covers every file of ``csrc/host/``, the library's name and
 the flags: an edited source gets a library of its own and a stale one is
-never loaded.  The compiler writes a temporary file that is renamed into
-place under a file lock, so processes that race for a library (pytest-
-xdist workers, replicas started together) build it once.  The flags are
+never loaded.  The sanitizer flavour (``sanitize="asan"``, which the
+loaders take from TB_NATIVE_SANITIZE) adds the reference Makefile's
+``SANFLAGS`` and builds into ``build/native/asan/``, so a sanitized and
+a plain library never share a path; a failed build names the flavour.
+The compiler writes a temporary file that is renamed into place under a
+file lock, so processes that race for a library (pytest-xdist workers,
+replicas started together) build it once.  The flags are
 the reference Makefile's, warnings of shadowing and narrowing promoted
 to errors.
 """
@@ -47,6 +51,10 @@ CXX_FLAGS = (
     "-Werror=shadow", "-Werror=conversion",
 )
 LINK_FLAGS = ("-ldl",)
+# The reference Makefile's SANFLAGS: address + undefined behaviour,
+# frame pointers kept for readable reports, -g for symbolized stacks.
+SANFLAGS = ("-fsanitize=address,undefined", "-fno-omit-frame-pointer", "-g")
+FLAVOURS = ("", "asan")
 
 
 class NativeBuildError(RuntimeError):
@@ -57,17 +65,25 @@ def sources(src: Path = HOST_SRC) -> list[Path]:
     return sorted(p for p in src.iterdir() if p.suffix in (".cpp", ".inc", ".h"))
 
 
-def digest(src: Path = HOST_SRC, name: str = "fastpath") -> str:
+def flags(sanitize: str = "") -> tuple[str, ...]:
+    """The compile flags of flavour `sanitize` ("" or "asan")."""
+    if sanitize not in FLAVOURS:
+        raise ValueError(f"unknown sanitizer flavour {sanitize!r}")
+    return (*CXX_FLAGS, *SANFLAGS) if sanitize else CXX_FLAGS
+
+
+def digest(src: Path = HOST_SRC, name: str = "fastpath", sanitize: str = "") -> str:
     h = hashlib.sha256()
     for path in sources(src):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
-    h.update(" ".join((name, *CXX_FLAGS, *LINK_FLAGS)).encode())
+    h.update(" ".join((name, *flags(sanitize), *LINK_FLAGS)).encode())
     return h.hexdigest()[:12]
 
 
 def library_path(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR,
-                 name: str = "fastpath") -> Path:
-    return out_dir / f"libtb_{name}-{digest(src, name)}.so"
+                 name: str = "fastpath", sanitize: str = "") -> Path:
+    flavour_dir = out_dir / sanitize if sanitize else out_dir
+    return flavour_dir / f"libtb_{name}-{digest(src, name, sanitize)}.so"
 
 
 def compiler() -> str:
@@ -77,23 +93,26 @@ def compiler() -> str:
     return cxx
 
 
-def command(out: Path, src: Path = HOST_SRC, name: str = "fastpath") -> list[str]:
+def command(out: Path, src: Path = HOST_SRC, name: str = "fastpath",
+            sanitize: str = "") -> list[str]:
     """The compile command of library `name`: its translation units in
     `src` only (the includes are resolved beside them), into `out`."""
     units = [str(src / unit) for unit in LIBRARIES[name]]
-    return [compiler(), *CXX_FLAGS, "-o", str(out), *units, *LINK_FLAGS]
+    return [compiler(), *flags(sanitize), "-o", str(out), *units, *LINK_FLAGS]
 
 
 def build(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR,
-          name: str = "fastpath") -> tuple[Path, float]:
-    """Library `name` for the sources of `src`, compiled when missing.
-    Returns (path, seconds spent compiling: 0.0 when it was there);
-    raises NativeBuildError with the compiler's output when the build
-    fails."""
-    out = library_path(src, out_dir, name)
+          name: str = "fastpath", sanitize: str = "") -> tuple[Path, float]:
+    """Library `name` of flavour `sanitize` for the sources of `src`,
+    compiled when missing.  Returns (path, seconds spent compiling: 0.0
+    when it was there); raises NativeBuildError with the compiler's
+    output, naming the flavour, when the build fails."""
+    out = library_path(src, out_dir, name, sanitize)
     if out.is_file():
         return out, 0.0
+    out_dir = out.parent
     out_dir.mkdir(parents=True, exist_ok=True)
+    flavour = f"sanitizer={sanitize or 'none'}"
     with open(out_dir / ".lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.is_file():  # another process built it while we waited
@@ -101,16 +120,18 @@ def build(src: Path = HOST_SRC, out_dir: Path = BUILD_DIR,
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
         try:
-            proc = subprocess.run(command(tmp, src, name), capture_output=True, text=True)
+            proc = subprocess.run(command(tmp, src, name, sanitize), capture_output=True,
+                                  text=True)
         except OSError as exc:
-            raise NativeBuildError(f"cannot run the compiler: {exc}") from exc
+            raise NativeBuildError(f"cannot run the compiler ({flavour}): {exc}") from exc
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         (out_dir / f"{out.stem}.log").write_text(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise NativeBuildError(
-                f"g++ {' '.join(LIBRARIES[name])} in {src} (rc {proc.returncode}):\n{log}"
+                f"g++ {' '.join(LIBRARIES[name])} in {src} failed ({flavour}, "
+                f"rc {proc.returncode}):\n{log}"
             )
         os.replace(tmp, out)
     return out, seconds

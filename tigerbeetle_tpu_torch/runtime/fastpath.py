@@ -12,7 +12,9 @@ every host-side mutation is visible to the native admission checks and
 the other way round.
 
 No silent fallback: a failed build or load raises NativeFastpathError
-with the compiler's output.  TB_FASTPATH_DISABLE (any non-empty value)
+with the compiler's output.  TB_NATIVE_SANITIZE=asan loads the
+sanitized build (``build/native/asan/``), as ``runtime/native.py``
+does; a value it does not know raises its EnvVarError.  TB_FASTPATH_DISABLE (any non-empty value)
 is the one way to run without the library (``available()`` is then
 False and the machine takes its Python lanes).
 """
@@ -209,6 +211,7 @@ def load(src: Path | None = None, out_dir: Path | None = None) -> ctypes.CDLL:
     (default: the package's csrc/host/ into build/native/), built first
     when missing; raises NativeFastpathError when it cannot be built or
     loaded."""
+    sanitize = envcheck.native_sanitize()
     default = src is None and out_dir is None
     src = host_build.HOST_SRC if src is None else src
     out_dir = host_build.BUILD_DIR if out_dir is None else out_dir
@@ -218,7 +221,7 @@ def load(src: Path | None = None, out_dir: Path | None = None) -> ctypes.CDLL:
             return lib
     with _lock:
         try:
-            path, seconds = host_build.build(src, out_dir)
+            path, seconds = host_build.build(src, out_dir, sanitize=sanitize)
         except host_build.NativeBuildError as exc:
             raise NativeFastpathError(f"native fast path build failed: {exc}") from exc
         lib = _LOADED.get(path)
@@ -236,7 +239,8 @@ def load(src: Path | None = None, out_dir: Path | None = None) -> ctypes.CDLL:
         # the environment itself.
         lib.tb_hash_configure(envcheck.hash_threads(), 0)
         if default:
-            build_info.update(path=str(path), digest=host_build.digest(src), seconds=seconds)
+            build_info.update(path=str(path), digest=host_build.digest(src, sanitize=sanitize),
+                              seconds=seconds)
             _DEFAULT[(src, out_dir)] = lib
         return lib
 

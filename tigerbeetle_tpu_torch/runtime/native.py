@@ -7,7 +7,9 @@ tb_client components, reference: src/io/linux.zig, src/message_bus.zig,
 src/clients/c/tb_client.zig).  It is built from the package's own
 sources (``csrc/host/tb_runtime.cpp``, ``tb_async.cpp``) by
 ``kernels/host_build.py`` into ``build/native/libtb_runtime-<digest>.so``
-at first use.  No fallback: a failed build or load raises
+at first use (under TB_NATIVE_SANITIZE=asan, its sanitized build in
+``build/native/asan/``: one knob switches this library and the fast
+path's).  No fallback: a failed build or load raises
 NativeRuntimeError with the compiler's output.
 """
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+from tigerbeetle_tpu_torch import envcheck
 from tigerbeetle_tpu_torch.kernels import host_build
 
 _lib = None
@@ -48,8 +51,9 @@ def _load():
     with _lib_lock:
         if _lib is not None:
             return _lib
+        sanitize = envcheck.native_sanitize()
         try:
-            path, _seconds = host_build.build(name="runtime")
+            path, _seconds = host_build.build(name="runtime", sanitize=sanitize)
         except host_build.NativeBuildError as exc:
             raise NativeRuntimeError(f"native runtime build failed: {exc}") from exc
         try:

@@ -15,9 +15,10 @@ same construction bit for bit (the golden digest in
 Host side (numpy): ``rows_hash``, ``fold``, ``table_digest``,
 ``root_bytes``, ``HostCommitment`` (the twin on the BalanceMirror) and
 ``pad_slots``.  Device side: ``rebuild``, ``update``, ``admit`` (the
-tiered admission's hash swap) and ``probe`` — each a wrapper that launches kernel K2 (``csrc/commitment.cu``) on a
-CUDA tensor and runs its plain PyTorch version (``*_plain``) on a CPU
-tensor.  Tensors hold u64 lanes as int64 and u32 meta as int32.
+tiered admission's hash swap) and ``probe`` — each a wrapper that
+launches kernel K2 (``csrc/commitment.cu``) on a CUDA tensor and runs
+its plain PyTorch version (``*_plain``) on a CPU tensor.  Tensors hold
+u64 lanes as int64 and u32 meta as int32.
 """
 
 from __future__ import annotations

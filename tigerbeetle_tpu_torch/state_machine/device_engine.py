@@ -1222,9 +1222,13 @@ class DeviceEngine:
         on-device validation, the conflict flags fetched (the validation
         synchronisation: later records read the table, so the verdict
         cannot wait for rotation), then only on a miss plan_residue over
-        the conflicted events and the carry-threaded replay.  The whole
-        record is one crossing; only its first launch can be reissued
-        (_retry), since the step writes the table in place."""
+        the conflicted events and the carry-threaded replay.  The step
+        writes the table in place, so the step, the flags' fetch and the
+        finish are three crossings of their own (_retry reissues each
+        alone, a launch only before it launched): a fault on the fetch
+        or the finish must not run the step a second time.  The
+        reference retries the whole record from its table handle, which
+        its executor never donates."""
         if self.sharding is not None:
             raise RuntimeError("speculative records do not run on a sharded engine")
         packed_rec, pv_serial = rec.wave_args
@@ -1237,18 +1241,18 @@ class DeviceEngine:
         def run():
             scratch = self._wave_scratch_dev()
             t0 = _time.perf_counter()
-            carry, confl = self.link.dispatch(
+            carry, confl = self._run(
                 lambda: waves.run_speculative_engine(
                     self.balances, ev, dstat_init, spec_serial, n, rec.ts_base,
                     scratch=scratch, plain=self._plain,
                 ))
-            confl_np = self.link.fetch(confl).astype(bool)[:n]
+            confl_np = self._fetch(confl).astype(bool)[:n]
             val_s = _time.perf_counter() - t0
             residue = np.flatnonzero(confl_np)
             hist = np.zeros(B, bool)
             if len(residue) == 0:
                 hist[:n] = True
-                out = self.link.dispatch(
+                out = self._run(
                     lambda: waves.finalize_engine(self.balances, carry, hist, plain=self._plain))
                 return out, 0, 1, val_s, 0.0
             t1 = _time.perf_counter()
@@ -1260,7 +1264,7 @@ class DeviceEngine:
             # sequential ones.
             hist[:n] = ~confl_np
             hist[:n] |= plan.wave_mask
-            out = self.link.dispatch(lambda: waves.continue_plan_engine(
+            out = self._run(lambda: waves.continue_plan_engine(
                 self.balances, carry, ev, n, rec.ts_base, plan, hist,
                 scratch=scratch, plain=self._plain,
             ))
@@ -1268,7 +1272,7 @@ class DeviceEngine:
 
         st = self.spec_stats
         st["attempts"] += 1
-        rec.handle, residue_n, steps, val_s, plan_s = self._retry(run, "dispatch")
+        rec.handle, residue_n, steps, val_s, plan_s = run()
         if residue_n == 0:
             st["hits"] += 1
             st["plan_skipped"] += 1
@@ -1444,7 +1448,8 @@ class DeviceEngine:
         under tiering) and re-derive the device commitment from scratch
         (reads the current device meta, so a caller that re-uploads
         meta too does so first)."""
-        src = self._mirror_hot_table_np() if self.hot is not None else self.mirror.table8(self.capacity)
+        src = (self._mirror_hot_table_np() if self.hot is not None
+               else self.mirror.table8(self.capacity))
         self.balances = self._place(src)
         self._commit_rebuild()
 

@@ -1130,7 +1130,9 @@ def checksum(table, row0: int = 0):
     `row0`; C a power of two up to 32.  CUDA tensors launch K11 (raising
     on any CUDA error); CPU tensors run checksum_plain."""
     if table.dim() != 2 or table.dtype not in (torch.int64, torch.int32):
-        raise ValueError(f"table must be (R, C) int64 or int32, got {tuple(table.shape)} {table.dtype}")
+        raise ValueError(
+            f"table must be (R, C) int64 or int32, got {tuple(table.shape)} {table.dtype}"
+        )
     C = table.shape[1]
     if C < 1 or C > 32 or C & (C - 1):
         raise ValueError(f"checksum takes a power-of-two column count up to 32, got {C}")

@@ -131,7 +131,9 @@ CTR = CreateTransferResult
 _TIGHT_AMOUNT_LIMIT = 1 << 32
 # Account flags that keep a batch off the order-free and two-phase
 # kernels: the limits (the linked kernel takes them) and history.
-_LIMH = np.uint32(AF.debits_must_not_exceed_credits | AF.credits_must_not_exceed_debits | AF.history)
+_LIMH = np.uint32(
+    AF.debits_must_not_exceed_credits | AF.credits_must_not_exceed_debits | AF.history
+)
 
 # Spill beats (spill_beat, once per commit): at most SPILL_BEAT_ROWS of
 # the oldest store rows leave RAM per beat, and a beat keeps at least
@@ -1321,8 +1323,12 @@ class TorchStateMachine:
         dr_slot = np.where(dr_found, dr_slot_u.astype(np.int64), -1)
         cr_slot = np.where(cr_found, cr_slot_u.astype(np.int64), -1)
         attrs = self._attrs
-        dr_flags = np.where(dr_found, attrs["flags"][np.clip(dr_slot, 0, None)], 0).astype(np.uint32)
-        cr_flags = np.where(cr_found, attrs["flags"][np.clip(cr_slot, 0, None)], 0).astype(np.uint32)
+        dr_flags = np.where(
+            dr_found, attrs["flags"][np.clip(dr_slot, 0, None)], 0
+        ).astype(np.uint32)
+        cr_flags = np.where(
+            cr_found, attrs["flags"][np.clip(cr_slot, 0, None)], 0
+        ).astype(np.uint32)
         touch_limit_hist = bool(((dr_flags | cr_flags) & _LIMH).any())
         touch_hist = bool(((dr_flags | cr_flags) & np.uint32(AF.history)).any())
 
@@ -2852,7 +2858,9 @@ class TorchStateMachine:
             "ud64": np.where(is_pv & (ud64 == 0), r["p_ud64"], ud64),
             "ud32": np.where(is_pv & (ud32 == 0), r["p_ud32"], ud32),
             "timeout": np.zeros(n, np.uint64),
-            "ledger": np.where(is_pv, r["p_ledger"], np.asarray(events["ledger"])).astype(np.uint32),
+            "ledger": np.where(
+                is_pv, r["p_ledger"], np.asarray(events["ledger"])
+            ).astype(np.uint32),
             "code": np.where(is_pv, r["p_code"], code).astype(np.uint32),
         }
         inb_status = np.where(pend_ok, np.uint32(kernel.S_PENDING), np.uint32(0))

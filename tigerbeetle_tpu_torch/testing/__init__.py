@@ -1,0 +1,3 @@
+from tigerbeetle_tpu_torch.testing.harness import SingleNodeHarness, account, transfer
+
+__all__ = ["SingleNodeHarness", "account", "transfer"]

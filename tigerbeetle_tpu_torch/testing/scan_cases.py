@@ -127,7 +127,8 @@ def make_case(seed, B, cls, A=24, n=None, rows=None):
     ts_base = (M64 - (1 << 60)) if cls == "timeout_overflow" else 10_000_000_000
     # Durable pendings created 0..20 s before the batch: with timeouts
     # of 1-2 s many are overdue (the QUIRK path).
-    ev["p_timestamp"] = np.uint64(ts_base) - rng.integers(0, 20, B).astype(np.uint64) * np.uint64(10**9)
+    ev["p_timestamp"] = (np.uint64(ts_base)
+                         - rng.integers(0, 20, B).astype(np.uint64) * np.uint64(10**9))
     ev["p_tgt"] = np.where(ev["p_found"], rng.integers(0, max(2, B // 4), B), -1).astype(np.int32)
     dstat = rng.choice([0, 1, 1, 1, 2, 3, 4], size=B).astype(np.uint32)
     with np.errstate(over="ignore"):  # field + 1 may wrap on purpose
